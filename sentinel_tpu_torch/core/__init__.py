@@ -1,0 +1,1 @@
+"""core layer of sentinel_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""ops layer of sentinel_tpu_torch (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""runtime layer of sentinel_tpu_torch (see the package docstring)."""

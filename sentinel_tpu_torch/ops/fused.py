@@ -156,17 +156,18 @@ def _scatter_cuda(jobs: Sequence[Job]) -> List[torch.Tensor]:
     out = torch.empty((max(total, 1),), dtype=torch.int32, device=rows_all.device)
     desc = np.asarray(units, dtype=np.int32).reshape(-1)
     smem = 4 * max([u[0] * u[1] for u in units if u[5]] or [0])
-    err = lib.sentinel_scatter_many(
-        ctypes.c_void_p(rows_all.data_ptr()),
-        ctypes.c_void_p(vals_all.data_ptr()),
-        int(N),
-        desc.ctypes.data_as(ctypes.c_void_p),
-        len(units),
-        ctypes.c_void_p(out.data_ptr()),
-        int(out.numel()),
-        int(smem),
-        ctypes.c_void_p(torch.cuda.current_stream(rows_all.device).cuda_stream),
-    )
+    with torch.cuda.device(rows_all.device):  # the launch goes to the current device
+        err = lib.sentinel_scatter_many(
+            ctypes.c_void_p(rows_all.data_ptr()),
+            ctypes.c_void_p(vals_all.data_ptr()),
+            int(N),
+            desc.ctypes.data_as(ctypes.c_void_p),
+            len(units),
+            ctypes.c_void_p(out.data_ptr()),
+            int(out.numel()),
+            int(smem),
+            ctypes.c_void_p(torch.cuda.current_stream(rows_all.device).cuda_stream),
+        )
     if err != 0:
         raise RuntimeError(f"scatter_many kernel launch failed (CUDA error {err})")
     LAUNCHES["scatter_many"] += 1
@@ -183,9 +184,8 @@ def scatter_many(jobs: Sequence[Job]) -> List[torch.Tensor]:
     _check_jobs(jobs)
     if all(j.rows.device.type == "cpu" and j.values.device.type == "cpu" for j in jobs):
         return scatter_many_plain(jobs)
-    for j in jobs:
-        if j.rows.device.type != "cuda" or j.values.device.type != "cuda":
-            raise ValueError(f"scatter_many: job {j.name} mixes devices")
+    if len({t.device for j in jobs for t in (j.rows, j.values)}) != 1 or jobs[0].rows.device.type != "cuda":
+        raise ValueError("scatter_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
     return _scatter_cuda(jobs)
 
 
@@ -239,12 +239,13 @@ def _gather_cuda(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
         words[0] = n
         words[1] = P
         words[2 : 2 + P] = [_mask(d) for d in j.digits]
-    err = lib.sentinel_gather_many(
-        desc.ctypes.data_as(ctypes.c_void_p),
-        len(jobs),
-        int(N),
-        ctypes.c_void_p(torch.cuda.current_stream(outs[0].device).cuda_stream),
-    )
+    with torch.cuda.device(outs[0].device):
+        err = lib.sentinel_gather_many(
+            desc.ctypes.data_as(ctypes.c_void_p),
+            len(jobs),
+            int(N),
+            ctypes.c_void_p(torch.cuda.current_stream(outs[0].device).cuda_stream),
+        )
     if err != 0:
         raise RuntimeError(f"gather_many kernel launch failed (CUDA error {err})")
     LAUNCHES["gather_many"] += 1
@@ -257,7 +258,6 @@ def gather_many(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
     _check_gather(jobs)
     if all(j.ids.device.type == "cpu" and j.table.device.type == "cpu" for j in jobs):
         return gather_many_plain(jobs)
-    for j in jobs:
-        if j.ids.device.type != "cuda" or j.table.device.type != "cuda":
-            raise ValueError(f"gather_many: job {j.name} mixes devices")
+    if len({t.device for j in jobs for t in (j.ids, j.table)}) != 1 or jobs[0].ids.device.type != "cuda":
+        raise ValueError("gather_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
     return _gather_cuda(jobs)

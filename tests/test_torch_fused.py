@@ -90,6 +90,11 @@ def test_gather_many_plain_matches_pallas_and_numpy(N):
 
 def test_wrappers_reject_mixed_or_malformed_jobs():
     ids = torch.zeros(4, dtype=torch.int32)
+    meta = torch.zeros((4, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):  # not all on the CPU, not all on one CUDA device
+        FU.gather_many([FU.GatherJob("mixed", ids, meta, (1,))])
+    with pytest.raises(ValueError):
+        FU.scatter_many([FU.Job("mixed", 4, ids[None, :], meta.T, (1,))])
     with pytest.raises(ValueError):
         FU.scatter_many([FU.Job("bad", 4, ids[None, :], torch.zeros((2, 4), dtype=torch.int32), (1,))])
     with pytest.raises(ValueError):

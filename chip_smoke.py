@@ -10,9 +10,11 @@ Phases (the first failure stops the script with a nonzero exit):
 1. Build the CUDA kernels from ``sentinel_tpu_torch/csrc`` (nvcc, at first
    use) and print the build time and ptxas's register report.
 2. Hold each kernel against its plain PyTorch version on the card, on the
-   inputs one full-width tick gives it and on edge cases (ids -1 and 2**30,
-   values at and above 256**digits, an empty job, N not a multiple of the
-   block size); exact equality.  Time kernel, plain version and one
+   inputs a full-width tick gives it at both of the client's batch shapes
+   (2,048 rows, and the 256-row light tick that phase 3 serves) and on
+   edge cases (ids -1 and 2**30, values at and above 256**digits, an empty
+   job, N not a multiple of the block size, job lists longer than one
+   launch carries); exact equality.  Time kernel, plain version and one
    PyTorch library call on the same inputs, beside the least time the card
    could take (bytes over 3.35 TB/s).
 3. The main path: a threaded ``SentinelClient`` on ``cuda`` at the default
@@ -20,7 +22,9 @@ Phases (the first failure stops the script with a nonzero exit):
    window on, batch 2,048, 4 flow lanes a resource) with 4,000 flow rules,
    1,000 degrade rules, an authority black list and a system QPS rule
    answers >= 20,000 ``entry()`` calls from 8 request threads (Zipf(1.1)
-   over 100,000 resource names) with real exits.  Launch counts are reset
+   over 100,000 resource names) with real exits.  Each thread waits for
+   its verdict, so a tick carries at most 8 acquires and runs at the
+   client's 256-row light shape.  Launch counts are reset
    just before and read just after; both kernels must have launched, and
    flow rules must have blocked some entries.
 4. The tick against itself: one seeded B=2,048 batch stream from one
@@ -76,18 +80,22 @@ def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> tuple:
     passes over the window ring leave it cold too).  Each call is queued
     behind a ``torch.cuda._sleep`` longer than the host needs to enqueue
     it, so the events bracket device work only, not the host's Python
-    between launches.  Host ms: the wall time one call takes to enqueue."""
+    between launches.  Host ms: the median wall time one call takes to
+    enqueue, over 11 calls."""
     import torch
 
     scratch = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
     for _ in range(3):
         fn()
+    host = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t
-    torch.cuda.synchronize()
-    cycles = int(max(4.0 * host_s, 1e-4) * 2.0e9)  # ~2 GHz SM clock
+    host_s = sorted(host)[len(host) // 2]
+    cycles = int(max(4.0 * max(host), 1e-4) * 2.0e9)  # ~2 GHz SM clock
     evs = []
     for _ in range(reps):
         scratch.zero_()
@@ -167,7 +175,8 @@ def check_equal(kind, got, want):
 
 def edge_cases(FU, torch):
     """Edge inputs: ids -1 / 2**30 / n, values at and above 256**digits, an
-    empty job, N not a multiple of the 256-thread block."""
+    empty job, N not a multiple of the 256-thread block, and job lists
+    longer than one launch carries."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     N = 2048 + 37
 
@@ -182,12 +191,15 @@ def edge_cases(FU, torch):
         FU.Job("wide", 70_000, rows, vals, (1, 2, 3)),
         FU.Job("small", 900, ints(-3, 903, (4, N)), ints(0, 600, (4, 3, N)), (1, 1, 2)),
         FU.Job("empty", 0, ints(-1, 3, (1, N)), ints(0, 9, (1, N)), (1,)),
+        # more row-vectors than one launch carries: two launches, one output
+        FU.Job("many", 5000, ints(-1, 5001, (FU._MAX_UNITS + 5, N)), ints(0, 300, (2, N)), (1, 2)),
     ]
     err = check_equal("scatter_many edge cases", FU.scatter_many(jobs), FU.scatter_many_plain(jobs))
     table = ints(0, 2**31 - 1, (5000, 3))
     ids = ints(-3, 5003, (N,))
     ids[:3] = torch.tensor([-1, 2**30, 5000], dtype=torch.int32, device="cuda")
     gj = [FU.GatherJob("t", ids, table, (3, 2, 1)), FU.GatherJob("u", ids[:N], table[:17], (4, 3, 3))]
+    gj += [FU.GatherJob(f"x{i}", ids, table[: 100 * i + 1], (i % 4 + 1,) * 3) for i in range(FU._MAX_GATHER_JOBS)]
     err2 = check_equal("gather_many edge cases", FU.gather_many(gj), FU.gather_many_plain(gj))
     return max(err, err2)
 
@@ -293,22 +305,23 @@ def drive_main_path(st, np, FU, torch, cfg):
 # -- phase 4 --------------------------------------------------------------------------
 
 
-def batch_stream(E, torch, np, cfg, n_ticks, names_to_rows):
-    """A seeded stream of full B=2,048 acquire + completion batches."""
-    rng = np.random.default_rng(SEED)
-    B = cfg.batch_size
+def batch_stream(E, torch, np, cfg, n_ticks, names_to_rows, B=None, seed=SEED):
+    """A seeded stream of acquire + completion batches of B rows (default:
+    the full configured batch)."""
+    rng = np.random.default_rng(seed)
+    B = B or cfg.batch_size
     probs = zipf_probs(np, N_NAMES)
     out = []
     for _ in range(n_ticks):
         res = names_to_rows[rng.choice(N_NAMES, size=B, p=probs)]
-        acq = E.empty_acquire(cfg, "cuda")._replace(
+        acq = E.empty_acquire(cfg, "cuda", B)._replace(
             res=torch.as_tensor(res, dtype=torch.int32, device="cuda"),
             count=torch.ones(B, dtype=torch.uint8, device="cuda"),
             prio=torch.as_tensor((rng.random(B) < 0.05).astype(np.int8), device="cuda"),
             inbound=torch.as_tensor((rng.random(B) < 0.3).astype(np.int8), device="cuda"),
         )
         cres = names_to_rows[rng.choice(N_NAMES, size=B, p=probs)]
-        comp = E.empty_complete(cfg, "cuda")._replace(
+        comp = E.empty_complete(cfg, "cuda", B)._replace(
             res=torch.as_tensor(cres, dtype=torch.int32, device="cuda"),
             rt=torch.as_tensor((rng.integers(1, 80, B) / 8.0).astype(np.float32), device="cuda"),
             success=torch.ones(B, dtype=torch.uint8, device="cuda"),
@@ -386,32 +399,39 @@ def main() -> int:
     state0 = E.init_state(cfg, "cuda")
     report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(state0).values())
     stream = batch_stream(E, torch, np, cfg, 13, names_to_rows)
-    captured = {"scatter_many": [], "gather_many": []}
+    # the client runs two batch shapes: the full batch, and 256 rows for a
+    # light tick (every tick of the closed-loop phase 3 is light)
+    light = batch_stream(E, torch, np, cfg, 1, names_to_rows, B=256, seed=SEED + 1)[0]
     real_s, real_g = FU.scatter_many, FU.gather_many
 
-    def rec_s(jobs):
-        captured["scatter_many"].append([FU.Job(j.name, j.n, j.rows.clone(), j.values.clone(), j.digits) for j in jobs])
-        return real_s(jobs)
+    def capture_tick(state, acq, comp, now_ms):
+        """Run one tick; the kernels' inputs (cloned) at each of its calls."""
+        calls = {"scatter_many": [], "gather_many": []}
 
-    def rec_g(jobs):
-        captured["gather_many"].append([FU.GatherJob(j.name, j.ids.clone(), j.table.clone(), j.digits) for j in jobs])
-        return real_g(jobs)
+        def rec_s(jobs):
+            calls["scatter_many"].append([FU.Job(j.name, j.n, j.rows.clone(), j.values.clone(), j.digits) for j in jobs])
+            return real_s(jobs)
 
-    FU.scatter_many, FU.gather_many = rec_s, rec_g
-    try:
-        state0, _ = E.tick(state0, rules, *stream[0], 1_000, 0.3, 0.2, cfg, E.ALL_FEATURES)
-    finally:
-        FU.scatter_many, FU.gather_many = real_s, real_g
-    check(len(captured["scatter_many"]) == 2 and len(captured["gather_many"]) == 1, captured.keys())
+        def rec_g(jobs):
+            calls["gather_many"].append([FU.GatherJob(j.name, j.ids.clone(), j.table.clone(), j.digits) for j in jobs])
+            return real_g(jobs)
 
-    kern = {}
-    for name, calls, plain, lib_fn in (
-        ("scatter_many", captured["scatter_many"], FU.scatter_many_plain, scatter_library_call),
-        ("gather_many", captured["gather_many"], FU.gather_many_plain, None),
-    ):
-        run = FU.scatter_many if name == "scatter_many" else FU.gather_many
-        err = 0.0
-        ms = plain_ms = lib_ms = bnd = host_ms = 0.0
+        FU.scatter_many, FU.gather_many = rec_s, rec_g
+        try:
+            state, _ = E.tick(state, rules, acq, comp, now_ms, 0.3, 0.2, cfg, E.ALL_FEATURES)
+        finally:
+            FU.scatter_many, FU.gather_many = real_s, real_g
+        check(len(calls["scatter_many"]) == 2 and len(calls["gather_many"]) == 1, {k: len(v) for k, v in calls.items()})
+        return state, calls
+
+    state0, captured = capture_tick(state0, *stream[0], 1_000)
+    state0, captured_light = capture_tick(state0, *light, 1_100)
+
+    def measure(name, calls):
+        """Hold each call against the plain version; device ms per tick of
+        kernel, plain and library call, the bound, the wrapper's host ms."""
+        run, plain = (FU.scatter_many, FU.scatter_many_plain) if name == "scatter_many" else (FU.gather_many, FU.gather_many_plain)
+        err = ms = plain_ms = lib_ms = host_ms = 0.0
         nbytes_all = ops_all = 0
         for jobs in calls:
             err = max(err, check_equal(name, run(jobs), plain(jobs)))
@@ -421,7 +441,7 @@ def main() -> int:
             plain_ms += time_ms(lambda: plain(jobs), reps=10)[0]
             if name == "scatter_many":
                 nbytes, ops = scatter_work(jobs)
-                call = lib_fn(jobs)
+                call = scatter_library_call(jobs)
             else:
                 j = jobs[0]
                 n, P = j.table.shape
@@ -433,16 +453,23 @@ def main() -> int:
             nbytes_all += nbytes
             ops_all += ops
         bnd, by = bound_ms(nbytes_all, ops_all)
-        kern[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bnd, bound_by=by, calls_per_tick=len(calls), bytes=nbytes_all,
-                          wrapper_host_ms=host_ms)
-        log(f"[kernel] {name}: equal to plain (max |err| {err}); per tick ({len(calls)} call(s)), "
-            f"device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-            f"bound {bnd:.5f} ms ({by}, {nbytes_all} B); wrapper host enqueue {host_ms:.4f} ms")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                    bound_by=by, calls_per_tick=len(calls), bytes=nbytes_all, wrapper_host_ms=host_ms)
+
+    kern = {}
+    for shape, cap in ((f"B={cfg.batch_size}", captured), ("B=256", captured_light)):
+        for name in ("scatter_many", "gather_many"):
+            k = measure(name, cap[name])
+            kern.setdefault(name, {})[shape] = k
+            log(f"[kernel] {name} at {shape}: equal to plain (max |err| {k['max_abs_err']}); per tick "
+                f"({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms, plain "
+                f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+                f"({k['bound_by']}, {k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
     err_edge = edge_cases(FU, torch)
     log(f"[kernel] edge cases equal to plain (max |err| {err_edge})")
-    for k in kern.values():
-        k["max_abs_err"] = max(k["max_abs_err"], err_edge)
+    for per_shape in kern.values():
+        for k in per_shape.values():
+            k["max_abs_err"] = max(k["max_abs_err"], err_edge)
 
     # -- 3. the main path ---------------------------------------------------------
     counts, n_done, elapsed, launches = drive_main_path(st, np, FU, torch, cfg)
@@ -518,7 +545,8 @@ def main() -> int:
 
     kernels = []
     for name, src_line in (("scatter_many", 186), ("gather_many", 374)):
-        k = kern[name]
+        # the full batch's numbers; the 256-row shape's are in the report
+        k = kern[name][f"B={cfg.batch_size}"]
         kernels.append(dict(
             name=name, route="cuda", source="sentinel_tpu_torch/csrc/fused.cu",
             replaces=f"sentinel_tpu/ops/fused.py:{src_line}", launches=launches[name],

@@ -353,18 +353,17 @@ class EngineConfig:
 DEFAULT_ENGINE_CONFIG = EngineConfig()
 
 
-def platform_config(device=None, **kw) -> EngineConfig:
-    """EngineConfig for the device the port serves on.
+def platform_config(**kw) -> EngineConfig:
+    """The port's serving EngineConfig, the same on every device.
 
-    On CUDA (the default device, and the only one the port serves in
-    production) the engine runs the per-item fused path: ``fused_effects``
-    on, ``seg_effects`` off — the two hand-written kernels of
-    ``ops/fused.py`` carry every effect scatter and the flow check's
-    windowed read.  Device telemetry, the timeline rows and the explain
-    records are not carried yet, so they are switched off here; the engine
-    raises ``NotImplementedError`` for any of them rather than ignoring
-    them.  On the CPU (tests) the same flags apply: the kernels' plain
-    versions run there.
+    The engine runs the per-item fused path: ``fused_effects`` on,
+    ``seg_effects`` off — the two hand-written kernels of ``ops/fused.py``
+    carry every effect scatter and the flow check's windowed read.  Device
+    telemetry, the timeline rows and the explain records are not carried
+    yet, so they are switched off here; the engine raises
+    ``NotImplementedError`` for any of them rather than ignoring them.  On
+    the CPU (tests) the same flags apply: the kernels' plain versions run
+    there.
 
     ``use_mxu_tables`` is kept as a field so configs carry across from the
     JAX package, but it selects nothing here: the port has no one-hot

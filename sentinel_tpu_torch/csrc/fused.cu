@@ -23,8 +23,12 @@
 //   from serializing on one global address.  The int32 sums are converted
 //   to float32 in place at the end (the reference's output dtype).
 //   Launch shape: blockIdx.y = one row-vector ("unit") of one job;
-//   blockIdx.x strides over items.  The unit descriptors travel as a
-//   kernel parameter (constant bank): no descriptor upload, no host sync.
+//   blockIdx.x strides over items.  Each unit carries its own rows and
+//   values pointers, so the wrapper stacks nothing.  The unit descriptors
+//   travel as a kernel parameter (constant bank): no descriptor upload,
+//   no host sync.  A job list with more than MAX_UNITS units (the
+//   parameter bank's room) takes one launch per chunk of units, all
+//   summing into the same zeroed output before the one conversion pass.
 //
 // gather_many — per-item reads from small-P int tables.
 //   What bounds it: bytes (N x P reads of 4 B plus the ids).  One thread
@@ -41,24 +45,21 @@
 #define BLOCK 256
 
 struct Unit {
-  int n;        // logical table rows; ids outside [0, n) drop
-  int P;        // value planes
-  int row;      // row-vector index into rows[SR, N]
-  int vrow;     // first value-plane index into vals[SV, N]
-  int out_off;  // first output cell (int32 words) of this job's [n, P] table
-  int priv;     // 1: accumulate in a shared-memory copy of the table
+  const int* rows;     // [N] ids of this row-vector; ids outside [0, n) drop
+  const int* vals;     // [P, N] value planes, plane stride N
+  long long out_off;   // first output cell (int32 words) of this job's [n, P] table
+  int n;               // logical table rows
+  int P;               // value planes
+  int priv;            // 1: accumulate in a shared-memory copy of the table
   unsigned int mask[MAXP];  // 256**digits - 1 per plane (all ones for >= 4)
 };
 
 struct ScatterParams {
-  int n_units;
   int N;
   Unit u[MAX_UNITS];
 };
 
-__global__ void scatter_many_kernel(const int* __restrict__ rows,
-                                    const int* __restrict__ vals,
-                                    unsigned int* __restrict__ out,
+__global__ void scatter_many_kernel(unsigned int* __restrict__ out,
                                     const ScatterParams prm) {
   extern __shared__ unsigned int sh[];
   const Unit u = prm.u[blockIdx.y];
@@ -68,19 +69,17 @@ __global__ void scatter_many_kernel(const int* __restrict__ rows,
     for (int c = threadIdx.x; c < cells; c += blockDim.x) sh[c] = 0u;
     __syncthreads();
   }
-  const int* rrow = rows + (size_t)u.row * N;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < N;
        i += gridDim.x * blockDim.x) {
-    const int k = rrow[i];
+    const int k = u.rows[i];
     if (k < 0 || k >= u.n) continue;
     for (int p = 0; p < u.P; ++p) {
-      const unsigned int v =
-          (unsigned int)vals[(size_t)(u.vrow + p) * N + i] & u.mask[p];
+      const unsigned int v = (unsigned int)u.vals[(size_t)p * N + i] & u.mask[p];
       if (v == 0u) continue;
       if (u.priv) {
         atomicAdd(&sh[k * u.P + p], v);
       } else {
-        atomicAdd(&out[(size_t)u.out_off + (size_t)k * u.P + p], v);
+        atomicAdd(&out[u.out_off + (long long)k * u.P + p], v);
       }
     }
   }
@@ -88,7 +87,7 @@ __global__ void scatter_many_kernel(const int* __restrict__ rows,
     __syncthreads();
     for (int c = threadIdx.x; c < cells; c += blockDim.x) {
       const unsigned int s = sh[c];
-      if (s) atomicAdd(&out[(size_t)u.out_off + c], s);
+      if (s) atomicAdd(&out[u.out_off + c], s);
     }
   }
 }
@@ -112,7 +111,6 @@ struct GatherJob {
 };
 
 struct GatherParams {
-  int n_jobs;
   int N;
   GatherJob j[MAX_GATHER_JOBS];
 };
@@ -140,60 +138,72 @@ static int grid_for(long long work, int cap) {
   return (int)g;
 }
 
-// units: n_units x 10 ints, laid out as struct Unit (mask words as int).
+// Both entry points take descriptors of 7 eight-byte slots each: three
+// pointers (scatter: rows, values, output offset; gather: ids, table,
+// out), then 8 int32 words — (n, P, priv, unused, mask[MAXP]) for scatter,
+// (n, P, mask[MAXP], unused, unused) for gather.
+// Each returns the CUDA error code of its launches (0 = success).
+
 // out: out_len int32 words; zeroed here, summed, converted to float32.
-// Returns the CUDA error code of the launches (0 = success).
-extern "C" int sentinel_scatter_many(const int* rows, const int* vals, int N,
-                                     const int* units, int n_units,
+extern "C" int sentinel_scatter_many(const long long* units, int n_units, int N,
                                      unsigned int* out, long long out_len,
-                                     int smem_bytes, void* stream) {
-  if (n_units < 1 || n_units > MAX_UNITS) return (int)cudaErrorInvalidValue;
+                                     void* stream) {
+  if (n_units < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  ScatterParams prm;
-  prm.n_units = n_units;
-  prm.N = N;
-  for (int u = 0; u < n_units; ++u) {
-    const int* d = units + u * 10;
-    prm.u[u].n = d[0];
-    prm.u[u].P = d[1];
-    prm.u[u].row = d[2];
-    prm.u[u].vrow = d[3];
-    prm.u[u].out_off = d[4];
-    prm.u[u].priv = d[5];
-    for (int p = 0; p < MAXP; ++p) prm.u[u].mask[p] = (unsigned int)d[6 + p];
-  }
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)out_len * 4, s);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(grid_for(N, 64), n_units);
-  scatter_many_kernel<<<grid, BLOCK, smem_bytes, s>>>(rows, vals, out, prm);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  for (int base = 0; base < n_units; base += MAX_UNITS) {
+    const int m = n_units - base < MAX_UNITS ? n_units - base : MAX_UNITS;
+    ScatterParams prm;
+    prm.N = N;
+    int smem = 0;
+    for (int u = 0; u < m; ++u) {
+      const long long* d = units + (size_t)(base + u) * 7;
+      const int* w = (const int*)(d + 3);
+      Unit& x = prm.u[u];
+      x.rows = (const int*)d[0];
+      x.vals = (const int*)d[1];
+      x.out_off = d[2];
+      x.n = w[0];
+      x.P = w[1];
+      x.priv = w[2];
+      for (int p = 0; p < MAXP; ++p) x.mask[p] = (unsigned int)w[4 + p];
+      if (x.priv && 4 * x.n * x.P > smem) smem = 4 * x.n * x.P;
+    }
+    dim3 grid(grid_for(N, 64), m);
+    scatter_many_kernel<<<grid, BLOCK, smem, s>>>(out, prm);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   int_to_float_kernel<<<grid_for(out_len, 1024), BLOCK, 0, s>>>(out, out_len);
   return (int)cudaGetLastError();
 }
 
-// jobs: n_jobs x 8 slots of 8 bytes each: ids, table, out pointers, then
-// (n, P) and MAXP mask words packed as int32 pairs.
 extern "C" int sentinel_gather_many(const long long* jobs, int n_jobs, int N,
                                     void* stream) {
-  if (n_jobs < 1 || n_jobs > MAX_GATHER_JOBS) return (int)cudaErrorInvalidValue;
+  if (n_jobs < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  GatherParams prm;
-  prm.n_jobs = n_jobs;
-  prm.N = N;
-  int pmax = 1;
-  for (int j = 0; j < n_jobs; ++j) {
-    const long long* d = jobs + j * 8;
-    prm.j[j].ids = (const int*)d[0];
-    prm.j[j].table = (const int*)d[1];
-    prm.j[j].out = (float*)d[2];
-    const int* w = (const int*)(d + 3);  // 10 int32 words
-    prm.j[j].n = w[0];
-    prm.j[j].P = w[1];
-    for (int p = 0; p < MAXP; ++p) prm.j[j].mask[p] = (unsigned int)w[2 + p];
-    if (w[1] > pmax) pmax = w[1];
+  for (int base = 0; base < n_jobs; base += MAX_GATHER_JOBS) {
+    const int m = n_jobs - base < MAX_GATHER_JOBS ? n_jobs - base : MAX_GATHER_JOBS;
+    GatherParams prm;
+    prm.N = N;
+    int pmax = 1;
+    for (int j = 0; j < m; ++j) {
+      const long long* d = jobs + (size_t)(base + j) * 7;
+      const int* w = (const int*)(d + 3);
+      GatherJob& g = prm.j[j];
+      g.ids = (const int*)d[0];
+      g.table = (const int*)d[1];
+      g.out = (float*)d[2];
+      g.n = w[0];
+      g.P = w[1];
+      for (int p = 0; p < MAXP; ++p) g.mask[p] = (unsigned int)w[2 + p];
+      if (g.P > pmax) pmax = g.P;
+    }
+    dim3 grid(grid_for((long long)N * pmax, 1024), m);
+    gather_many_kernel<<<grid, BLOCK, 0, s>>>(prm);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(grid_for((long long)N * pmax, 1024), n_jobs);
-  gather_many_kernel<<<grid, BLOCK, 0, s>>>(prm);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

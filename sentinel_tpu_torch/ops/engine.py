@@ -11,7 +11,8 @@ as fixed-shape tensors and returns a verdict per attempt.  Checks run in
 the reference slot order (Authority → System → Flow → Degrade); the first
 failing check sets the verdict code.  Within-tick contention is resolved
 by grouped prefix sums (ops/rank.py).  Every effect scatter of a phase
-rides ONE launch of the scatter kernel (ops/fused.scatter_many), and the
+rides one call of the scatter kernel (ops/fused.scatter_many; one launch
+up to 48 row-vectors, which the default widths stay under), and the
 flow check's windowed (pass, concurrency, borrow) read rides the gather
 kernel (ops/fused.gather_many).
 

@@ -5,7 +5,7 @@ these as Pallas megakernels on the TPU; here they are CUDA C++ kernels for
 Hopper (``csrc/fused.cu``, built at first use by ``ops/_build.py``):
 
 - ``scatter_many`` (replaces ``sentinel_tpu/ops/fused.py:186``): several
-  scatter-add histograms in ONE launch over a shared item axis.  Each
+  scatter-add histograms in one launch over a shared item axis.  Each
   ``Job(n, rows[R, N], values[P, N] or [R, P, N], digits)`` sums into an
   ``[n, P]`` table; ids outside ``[0, n)`` drop; plane p counts each value
   modulo ``256**digits[p]`` (the TPU's digit truncation, kept so inputs
@@ -32,7 +32,8 @@ import torch
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"scatter_many": 0, "gather_many": 0}
 
-#: kernel limits (csrc/fused.cu)
+#: kernel limits (csrc/fused.cu): planes per job, and the units / gather
+#: jobs one launch carries (a longer list takes one launch per chunk)
 _MAXP = 4
 _MAX_UNITS = 48
 _MAX_GATHER_JOBS = 8
@@ -119,30 +120,39 @@ def scatter_many_plain(jobs: Sequence[Job]) -> List[torch.Tensor]:
     return out
 
 
+def _descriptors(n_desc: int):
+    """Descriptors of csrc/fused.cu, zeroed: int64 [n_desc, 7] — three
+    pointers per row — and the int32 [n_desc, 8] view of its last 4 slots."""
+    desc = np.zeros((n_desc, 7), dtype=np.int64)
+    return desc, desc[:, 3:].view(np.int32)
+
+
 def _scatter_plan(jobs: Sequence[Job]):
-    """(rows_all [SR, N], vals_all [SV, N], unit descriptors, per-job
-    output offsets, total cells) for one launch."""
-    row_stack, val_stack, units, offs = [], [], [], []
-    roff = voff = ooff = 0
+    """(int32 operands to keep alive, unit descriptors, per-job output
+    offsets, output cells) for one call.  A unit is one row-vector of one
+    job, with its own rows and values pointers."""
+    N = jobs[0].rows.shape[-1]
+    desc, words = _descriptors(sum(j.rows.shape[0] for j in jobs))
+    keep, offs = [], []
+    u = ooff = 0
     for j in jobs:
-        R = j.rows.shape[0]
-        P = j.values.shape[-2]
-        per_row = j.values.dim() == 3
-        cells = j.n * P
-        priv = 1 if 0 < cells <= _PRIV_CELLS else 0
-        masks = [_mask(d) for d in j.digits] + [0] * (_MAXP - P)
-        for r in range(R):
-            vrow = voff + (r * P if per_row else 0)
-            units.append([j.n, P, roff + r, vrow, ooff, priv] + masks)
-        row_stack.append(j.rows.to(torch.int32))
-        val_stack.append(j.values.to(torch.int32).reshape(-1, j.values.shape[-1]))
+        rows = j.rows.to(torch.int32).contiguous()
+        vals = j.values.to(torch.int32).contiguous()
+        keep += [rows, vals]
+        R, P = rows.shape[0], vals.shape[-2]
+        r = np.arange(R, dtype=np.int64)
+        sl = slice(u, u + R)
+        desc[sl, 0] = rows.data_ptr() + 4 * N * r
+        desc[sl, 1] = vals.data_ptr() + (4 * P * N * r if vals.dim() == 3 else 0)
+        desc[sl, 2] = ooff
+        words[sl, 0] = j.n
+        words[sl, 1] = P
+        words[sl, 2] = 1 if 0 < j.n * P <= _PRIV_CELLS else 0
+        words[sl, 4 : 4 + P] = [_mask(d) for d in j.digits]
         offs.append(ooff)
-        roff += R
-        voff += R * P if per_row else P
-        ooff += cells
-    rows_all = torch.cat(row_stack, dim=0).contiguous()
-    vals_all = torch.cat(val_stack, dim=0).contiguous()
-    return rows_all, vals_all, units, offs, ooff
+        u += R
+        ooff += j.n * P
+    return keep, desc, offs, ooff
 
 
 def _scatter_cuda(jobs: Sequence[Job]) -> List[torch.Tensor]:
@@ -150,27 +160,21 @@ def _scatter_cuda(jobs: Sequence[Job]) -> List[torch.Tensor]:
 
     lib = _build.load_library()
     N = jobs[0].rows.shape[-1]
-    rows_all, vals_all, units, offs, total = _scatter_plan(jobs)
-    if len(units) > _MAX_UNITS:
-        raise ValueError(f"scatter_many: {len(units)} row-vectors exceed one launch ({_MAX_UNITS})")
-    out = torch.empty((max(total, 1),), dtype=torch.int32, device=rows_all.device)
-    desc = np.asarray(units, dtype=np.int32).reshape(-1)
-    smem = 4 * max([u[0] * u[1] for u in units if u[5]] or [0])
-    with torch.cuda.device(rows_all.device):  # the launch goes to the current device
+    dev = jobs[0].rows.device
+    keep, desc, offs, total = _scatter_plan(jobs)
+    out = torch.empty((max(total, 1),), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.sentinel_scatter_many(
-            ctypes.c_void_p(rows_all.data_ptr()),
-            ctypes.c_void_p(vals_all.data_ptr()),
-            int(N),
             desc.ctypes.data_as(ctypes.c_void_p),
-            len(units),
+            len(desc),
+            int(N),
             ctypes.c_void_p(out.data_ptr()),
             int(out.numel()),
-            int(smem),
-            ctypes.c_void_p(torch.cuda.current_stream(rows_all.device).cuda_stream),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
     if err != 0:
         raise RuntimeError(f"scatter_many kernel launch failed (CUDA error {err})")
-    LAUNCHES["scatter_many"] += 1
+    LAUNCHES["scatter_many"] += -(-len(desc) // _MAX_UNITS)
     f = out.view(torch.float32)
     return [
         f[o : o + j.n * j.values.shape[-2]].view(j.n, j.values.shape[-2])
@@ -179,8 +183,9 @@ def _scatter_cuda(jobs: Sequence[Job]) -> List[torch.Tensor]:
 
 
 def scatter_many(jobs: Sequence[Job]) -> List[torch.Tensor]:
-    """Every job's scatter-add in ONE kernel launch; one float32 [n, P]
-    histogram per job.  CPU tensors take the plain version."""
+    """Every job's scatter-add in one kernel launch (one per chunk of
+    ``_MAX_UNITS`` row-vectors); one float32 [n, P] histogram per job.
+    CPU tensors take the plain version."""
     _check_jobs(jobs)
     if all(j.rows.device.type == "cpu" and j.values.device.type == "cpu" for j in jobs):
         return scatter_many_plain(jobs)
@@ -222,39 +227,36 @@ def _gather_cuda(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
     from sentinel_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    if len(jobs) > _MAX_GATHER_JOBS:
-        raise ValueError(f"gather_many: {len(jobs)} jobs exceed one launch ({_MAX_GATHER_JOBS})")
     N = jobs[0].ids.shape[0]
-    keep, outs = [], []
-    desc = np.zeros((len(jobs), 8), dtype=np.int64)
+    dev = jobs[0].ids.device
+    desc, words = _descriptors(len(jobs))
+    keep, outs = [], []  # keep: int32 copies alive through the launch
     for i, j in enumerate(jobs):
         ids = j.ids.to(torch.int32).contiguous()
         tab = j.table.to(torch.int32).contiguous()
         n, P = tab.shape
-        o = torch.empty((N, P), dtype=torch.float32, device=ids.device)
+        o = torch.empty((N, P), dtype=torch.float32, device=dev)
         keep += [ids, tab]
         outs.append(o)
-        desc[i, 0:3] = (ids.data_ptr(), tab.data_ptr(), o.data_ptr())
-        words = desc[i, 3:].view(np.int32)
-        words[0] = n
-        words[1] = P
-        words[2 : 2 + P] = [_mask(d) for d in j.digits]
-    with torch.cuda.device(outs[0].device):
+        desc[i, :3] = (ids.data_ptr(), tab.data_ptr(), o.data_ptr())
+        words[i, : 2 + P] = [n, P] + [_mask(d) for d in j.digits]
+    with torch.cuda.device(dev):
         err = lib.sentinel_gather_many(
             desc.ctypes.data_as(ctypes.c_void_p),
             len(jobs),
             int(N),
-            ctypes.c_void_p(torch.cuda.current_stream(outs[0].device).cuda_stream),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
     if err != 0:
         raise RuntimeError(f"gather_many kernel launch failed (CUDA error {err})")
-    LAUNCHES["gather_many"] += 1
+    LAUNCHES["gather_many"] += -(-len(jobs) // _MAX_GATHER_JOBS)
     return outs
 
 
 def gather_many(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
-    """Per-item gathers from several tables in ONE kernel launch; one
-    float32 [N, P] per job.  CPU tensors take the plain version."""
+    """Per-item gathers from several tables in one kernel launch (one per
+    chunk of ``_MAX_GATHER_JOBS`` jobs); one float32 [N, P] per job.  CPU
+    tensors take the plain version."""
     _check_gather(jobs)
     if all(j.ids.device.type == "cpu" and j.table.device.type == "cpu" for j in jobs):
         return gather_many_plain(jobs)

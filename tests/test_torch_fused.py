@@ -101,6 +101,28 @@ def test_wrappers_reject_mixed_or_malformed_jobs():
         FU.gather_many([FU.GatherJob("bad", ids, torch.zeros((4, 2), dtype=torch.int32), (1,))])
 
 
+def test_scatter_descriptors_point_each_unit_at_its_own_rows_and_values():
+    """The launch plan (built on the host, the same for any device): one
+    descriptor per row-vector with its own rows / values pointers, the
+    job's output offset, and (n, P, shared-memory flag, masks)."""
+    N = 8
+    shared = torch.zeros((2, N), dtype=torch.int32)
+    per_row = torch.zeros((3, 2, N), dtype=torch.int32)
+    rows_a = torch.zeros((1, N), dtype=torch.int32)
+    rows_b = torch.zeros((3, N), dtype=torch.int16)  # converted to int32 copies
+    jobs = [FU.Job("a", 100_000, rows_a, shared, (1, 4)), FU.Job("b", 10, rows_b, per_row, (2, 3))]
+    keep, desc, offs, total = FU._scatter_plan(jobs)
+    assert desc.shape == (4, 7) and offs == [0, 200_000] and total == 200_020
+    rb = keep[2]
+    assert rb.dtype == torch.int32
+    np.testing.assert_array_equal(desc[:, 0], [rows_a.data_ptr()] + [rb.data_ptr() + 4 * N * r for r in range(3)])
+    np.testing.assert_array_equal(desc[:, 1], [shared.data_ptr()] + [per_row.data_ptr() + 4 * 2 * N * r for r in range(3)])
+    np.testing.assert_array_equal(desc[:, 2], [0, 200_000, 200_000, 200_000])
+    words = desc[:, 3:].view(np.int32)
+    np.testing.assert_array_equal(words[0], [100_000, 2, 0, 0, 0xFF, -1, 0, 0])  # too big for shared memory
+    np.testing.assert_array_equal(words[1], [10, 2, 1, 0, 0xFFFF, 0xFFFFFF, 0, 0])
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     if not torch.cuda.is_available():
@@ -108,15 +130,23 @@ def test_kernels_match_plain_versions_on_the_card():
     rng = np.random.default_rng(3)
     N = 2048 + 37
     jobs = _jobs(rng, N)
+    # more row-vectors than one launch carries: the wrapper launches per chunk
+    many = rng.integers(-1, 5001, (FU._MAX_UNITS + 5, N)).astype(np.int32)
+    jobs.append(("many", 5000, many, rng.integers(0, 300, (2, N)).astype(np.int32), (1, 2)))
     cuda_jobs = [
         FU.Job(nm, n, torch.as_tensor(r).cuda(), torch.as_tensor(v).cuda(), d) for nm, n, r, v, d in jobs
     ]
+    FU.reset_launches()
     got = FU.scatter_many(cuda_jobs)
     want = FU.scatter_many_plain(cuda_jobs)
+    assert FU.LAUNCHES["scatter_many"] == 2
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     table = torch.as_tensor(rng.integers(0, 1 << 30, (5000, 3)).astype(np.int32)).cuda()
     ids = torch.as_tensor(rng.integers(-3, 5003, N).astype(np.int32)).cuda()
-    (g,) = FU.gather_many([FU.GatherJob("t", ids, table, (3, 3, 3))])
-    (w,) = FU.gather_many_plain([FU.GatherJob("t", ids, table, (3, 3, 3))])
-    assert torch.equal(g, w)
+    gjobs = [FU.GatherJob(f"t{i}", ids, table[: 500 * i + 1], (i % 4 + 1,) * 3) for i in range(FU._MAX_GATHER_JOBS + 1)]
+    got = FU.gather_many(gjobs)
+    want = FU.gather_many_plain(gjobs)
+    assert FU.LAUNCHES["gather_many"] == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -1,47 +1,69 @@
 #!/usr/bin/env python3
-"""Drive sentinel_tpu_torch's admission path on one NVIDIA GPU and check it.
+"""Drive sentinel_tpu_torch's admission paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
+Three configurations, all at the default ``EngineConfig`` widths (2^17
+resources, 2^18 node rows, the minute window on, batch 2,048):
+
+- ``fused``: ``platform_config(seg_effects=False)``, the per-item fused
+  path — kernels scatter_many (B1) and gather_many (B2);
+- ``seg4``: ``platform_config()``, the segment-compacted path at the
+  default 4 rule lanes — per-item checks (B2), segment effects (B1) and
+  the segment RT minimum seg_incl_min (B4);
+- ``seg1``: ``platform_config()`` with single-lane rules — the segment
+  check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4.
+
 Phases (the first failure stops the script with a nonzero exit):
 
-1. Build the CUDA kernels from ``sentinel_tpu_torch/csrc`` (nvcc, at first
-   use) and print the build time and ptxas's register report.
+1. Build the CUDA kernels from ``sentinel_tpu_torch/csrc`` (one nvcc per
+   source, all started together, at first use) and print the build time
+   and ptxas's register report.
 2. Hold each kernel against its plain PyTorch version on the card, on the
-   inputs a full-width tick gives it at both of the client's batch shapes
-   (2,048 rows, and the 256-row light tick that phase 3 serves) and on
-   edge cases (ids -1 and 2**30, values at and above 256**digits, an empty
-   job, N not a multiple of the block size, job lists longer than one
-   launch carries); exact equality.  Time kernel, plain version and one
-   PyTorch library call on the same inputs, beside the least time the card
-   could take (bytes over 3.35 TB/s).
-3. The main path: a threaded ``SentinelClient`` on ``cuda`` at the default
-   ``EngineConfig`` widths (2^17 resources, 2^18 node rows, the minute
-   window on, batch 2,048, 4 flow lanes a resource) with 4,000 flow rules,
-   1,000 degrade rules, an authority black list and a system QPS rule
-   answers >= 20,000 ``entry()`` calls from 8 request threads (Zipf(1.1)
-   over 100,000 resource names) with real exits.  Each thread waits for
-   its verdict, so a tick carries at most 8 acquires and runs at the
-   client's 256-row light shape.  Launch counts are reset
-   just before and read just after; both kernels must have launched, and
-   flow rules must have blocked some entries.
-4. The tick against itself: one seeded B=2,048 batch stream from one
-   state, once with the kernels and once with every kernel swapped for its
-   plain version (this phase only); verdicts, wire bytes and integer state
-   must be equal.  The kernel run forbids host syncs inside the tick
-   (``torch.cuda.set_sync_debug_mode("error")``; the readback is outside).
-   Prints ms per tick and decisions/s.
+   inputs full-width ticks of each configuration give it at both of the
+   client's batch shapes (2,048 rows and the 256-row light tick), and on
+   edge cases (B1/B2: ids -1 and 2**30, values at and above 256**digits,
+   an empty job, N not a multiple of the block size, job lists longer than
+   one launch carries; B3/B4: N = 1, 255, 2,049 and 131,072, heads all
+   true and only the first, B3 row totals just under 2^31, the wide form
+   with segment totals past 2^31, B4 with absent items); exact equality.
+   Time kernel, plain version and a PyTorch call on the same inputs
+   (B1 ``index_add_``, B2 ``index_select``; no PyTorch call computes a
+   segmented scan, so for B3/B4 ``torch.cumsum`` over the same values is
+   timed as an unsegmented-scan floor), beside the least time the card
+   could take (bytes over 3.35 TB/s, or operations over 67 T/s).
+3. The main paths: a threaded ``SentinelClient`` on ``cuda`` per
+   configuration, 4,000 flow rules (one per resource: 40 rate limiters,
+   40 warm-ups, the rest QPS; prioritized traffic borrows ahead), 1,000
+   degrade rules, an authority black list and a system QPS rule, 8
+   request threads, Zipf(1.1) over 100,000 names, real exits: 2,000
+   entries on ``fused``, 6,000 each on ``seg4`` and ``seg1``.  Launch
+   counts are reset just before each run and read just after; every
+   kernel of the path must have launched, flow rules must have blocked
+   some entries; on ``seg1`` the client must have turned
+   ``seg_static_ranks`` on, and no item may have failed closed for
+   segment capacity.
+4. The tick against itself, per configuration: one seeded, host-presorted
+   B = 2,048 stream (``seg_u`` sized from its exact segment count) from
+   one state, once with the kernels and once with every kernel swapped
+   for its plain version; wire bytes, wait_ms and integer state must be
+   equal, no tick may drop items, and the kernel run forbids host syncs
+   inside the tick (``torch.cuda.set_sync_debug_mode("error")``; the
+   readback is outside).  Prints ms per tick, decisions/s and, from a
+   profile of 4 ticks, the card's idle share.
 
 The last lines: the run's fuller numbers (``[report] {...}``), the
 kernels' JSON record, the card's name and power limit (nvidia-smi), and
-``{"ok": true, "device": {...}}``.  A profile of the tick (top device ops)
-is printed before them.
+``{"ok": true, "device": {...}}``.  With ``--out DIR`` the profile tables
+(``chip_smoke_profile.txt``) and the full report with every kernel shape
+(``chip_smoke_report.json``) are also written to DIR.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -55,7 +77,24 @@ FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 (data sheet)
 SEED = 20261016
 N_THREADS = 8
 N_NAMES = 100_000
-MIN_ENTRIES = 20_000
+#: entries per threaded main-path run
+ENTRIES = {"fused": 2_000, "seg4": 6_000, "seg1": 6_000}
+#: kernels each configuration's tick must launch
+PATH_KERNELS = {
+    "fused": ("scatter_many", "gather_many"),
+    "seg4": ("scatter_many", "gather_many", "seg_incl_min"),
+    "seg1": ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
+}
+#: (source, Pallas function it replaces) per kernel
+KERNEL_SRC = {
+    "scatter_many": ("sentinel_tpu_torch/csrc/fused.cu", "sentinel_tpu/ops/fused.py:186"),
+    "gather_many": ("sentinel_tpu_torch/csrc/fused.cu", "sentinel_tpu/ops/fused.py:374"),
+    "seg_excl_cumsum": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:81"),
+    "seg_incl_min": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:165"),
+}
+#: the configuration whose main-path run and B = 2,048 shapes each kernel's
+#: JSON record reports (the default platform_config() where it runs)
+RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": "seg1", "seg_incl_min": "seg4"}
 
 
 def log(*a):
@@ -116,7 +155,20 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-# -- phase 2 helpers ----------------------------------------------------------
+def check_equal(kind, got, want):
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            diff = (g.double() - w.double()).abs().max().item() if g.shape == w.shape else float("inf")
+            raise AssertionError(f"{kind}: kernel disagrees with its plain version (max |err| {diff})")
+        if g.numel():
+            err = max(err, (g.double() - w.double()).abs().max().item())
+    return err
+
+
+# -- phase 2: what each kernel moves, does, and is timed against -------------------
 
 
 def scatter_work(jobs):
@@ -160,23 +212,49 @@ def scatter_library_call(jobs):
     return lambda: buf.index_add_(0, idx, val)
 
 
-def check_equal(kind, got, want):
-    import torch
+def kernel_ops(FU, SC, torch):
+    """name -> (kernel call, plain call, work(args) -> (bytes, ops), PyTorch
+    call or None, unsegmented-scan floor call or None), each on one
+    captured argument tuple."""
 
-    err = 0.0
-    for g, w in zip(got, want):
-        if g.shape != w.shape or not torch.equal(g, w):
-            diff = (g.double() - w.double()).abs().max().item() if g.shape == w.shape else float("inf")
-            raise AssertionError(f"{kind}: kernel disagrees with its plain version (max |err| {diff})")
-        if g.numel():
-            err = max(err, (g.double() - w.double()).abs().max().item())
-    return err
+    def gather_work(jobs):
+        j = jobs[0]
+        n, P = j.table.shape
+        uniq = torch.unique(j.ids[(j.ids >= 0) & (j.ids < n)]).numel()
+        return 4 * j.ids.numel() + 4 * uniq * P + 4 * j.ids.numel() * P, j.ids.numel() * P
+
+    def gather_library(jobs):
+        j = jobs[0]
+        ids64 = torch.clamp(j.ids, 0, j.table.shape[0] - 1).to(torch.int64)
+        return lambda: torch.index_select(j.table, 0, ids64)
+
+    def scan_work(args):
+        head, v = args[0], args[1]
+        n = v.numel()
+        # head read once (1 B an item), values read once, the result written once;
+        # one combine per value
+        return head.numel() + 4 * n + 4 * n, n
+
+    def cumsum_floor(args):
+        v = args[1]
+        return lambda: torch.cumsum(v, dim=-1)
+
+    return {
+        "scatter_many": (lambda a: FU.scatter_many(a[0]), lambda a: FU.scatter_many_plain(a[0]),
+                         lambda a: scatter_work(a[0]), lambda a: scatter_library_call(a[0]), None),
+        "gather_many": (lambda a: FU.gather_many(a[0]), lambda a: FU.gather_many_plain(a[0]),
+                        lambda a: gather_work(a[0]), lambda a: gather_library(a[0]), None),
+        "seg_excl_cumsum": (lambda a: [SC.seg_excl_cumsum(*a)], lambda a: [SC.seg_excl_cumsum_plain(*a)],
+                            scan_work, None, cumsum_floor),
+        "seg_incl_min": (lambda a: [SC.seg_incl_min(*a)], lambda a: [SC.seg_incl_min_plain(*a)],
+                         scan_work, None, cumsum_floor),
+    }
 
 
 def edge_cases(FU, torch):
-    """Edge inputs: ids -1 / 2**30 / n, values at and above 256**digits, an
-    empty job, N not a multiple of the 256-thread block, and job lists
-    longer than one launch carries."""
+    """B1/B2 edge inputs: ids -1 / 2**30 / n, values at and above
+    256**digits, an empty job, N not a multiple of the 256-thread block,
+    and job lists longer than one launch carries."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     N = 2048 + 37
 
@@ -201,10 +279,41 @@ def edge_cases(FU, torch):
     gj = [FU.GatherJob("t", ids, table, (3, 2, 1)), FU.GatherJob("u", ids[:N], table[:17], (4, 3, 3))]
     gj += [FU.GatherJob(f"x{i}", ids, table[: 100 * i + 1], (i % 4 + 1,) * 3) for i in range(FU._MAX_GATHER_JOBS)]
     err2 = check_equal("gather_many edge cases", FU.gather_many(gj), FU.gather_many_plain(gj))
-    return max(err, err2)
+    return {"scatter_many": err, "gather_many": err2}
 
 
-# -- the main path ----------------------------------------------------------------
+def scan_edge_cases(SC, SG, np, torch):
+    """B3/B4 edge inputs: N of 1, 255, 2,049 (one past a tile: the carry
+    pass) and 131,072; dense, sparse, all-true and first-only heads; B3
+    row totals just under 2^31; the wide form with segment totals past
+    2^31; B4 with absent items at 3.0e38."""
+    rng = np.random.default_rng(SEED)
+    e3 = e4 = 0.0
+    for n in (1, 255, 2049, 131_072):
+        for kind in ("dense", "sparse", "all", "first"):
+            h = {"dense": rng.random(n) < 0.5, "sparse": rng.random(n) < 0.01,
+                 "all": np.ones(n, bool), "first": np.zeros(n, bool)}[kind]
+            h[0] = True
+            head = torch.as_tensor(h).cuda()
+            v = rng.integers(0, (2**31 - 1) // n + 1, (2, n)).astype(np.int32)
+            v[:, -1] = (2**31 - 1) // n  # row totals at the int32 edge
+            v = torch.as_tensor(v).cuda()
+            e3 = max(e3, check_equal(f"seg_excl_cumsum N={n} {kind}", [SC.seg_excl_cumsum(head, v)],
+                                     [SC.seg_excl_cumsum_plain(head, v)]))
+            w = torch.as_tensor(np.full(n, (1 << 24) - 1, np.int32)).cuda()
+            got = SC.seg_excl_cumsum_wide(head, w)
+            e3 = max(e3, check_equal(f"seg_excl_cumsum_wide N={n} {kind}", [got], [SG.seg_excl_cumsum_wide(head, w)]))
+            if n == 131_072 and kind == "first":
+                check(got.max().item() > 2**31, "the wide edge case did not pass 2^31")
+            f = (rng.integers(1, 4000, n) / 8.0).astype(np.float32)
+            f[rng.random(n) < 0.2] = 3.0e38
+            f = torch.as_tensor(f).cuda()
+            e4 = max(e4, check_equal(f"seg_incl_min N={n} {kind}", [SC.seg_incl_min(head, f)],
+                                     [SC.seg_incl_min_plain(head, f)]))
+    return {"seg_excl_cumsum": e3, "seg_incl_min": e4}
+
+
+# -- configurations, rules, traffic --------------------------------------------------
 
 
 def zipf_probs(np, n, s=1.1):
@@ -212,10 +321,20 @@ def zipf_probs(np, n, s=1.1):
     return w / w.sum()
 
 
+def configs(platform_config):
+    single = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
+    return {
+        "fused": platform_config(seg_effects=False, packed_wire=True),
+        "seg4": platform_config(packed_wire=True),
+        "seg1": platform_config(packed_wire=True, **single),
+    }
+
+
 def build_rules(st):
-    """4,000 flow rules (every 100th a rate limiter, every 100th + 50 a
-    warm-up), 1,000 degrade rules (error count and slow ratio), one
-    authority black list, one system QPS rule — on the hottest names."""
+    """4,000 flow rules, one per resource (every 100th a rate limiter,
+    every 100th + 50 a warm-up; all DIRECT with the default limitApp),
+    1,000 degrade rules (error count and slow ratio), one authority black
+    list, one system QPS rule — on the hottest names."""
     flow = []
     for i in range(4000):
         name = f"res-{i}"
@@ -237,7 +356,10 @@ def build_rules(st):
     return flow, degrade, authority, system
 
 
-def drive_main_path(st, np, FU, torch, cfg):
+# -- phase 3: the main paths ------------------------------------------------------------
+
+
+def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     client = st.init(cfg=cfg, device="cuda", mode="threaded", entry_timeout_s=30.0)
     flow, degrade, authority, system = build_rules(st)
     st.load_flow_rules(flow)
@@ -254,14 +376,14 @@ def drive_main_path(st, np, FU, torch, cfg):
     def worker(tid):
         rng = np.random.default_rng(SEED + tid)
         local = {}
-        picks = rng.choice(N_NAMES, size=MIN_ENTRIES // N_THREADS + 64, p=probs)
+        picks = rng.choice(N_NAMES, size=n_entries // N_THREADS + 64, p=probs)
         for k in picks:
             name = names[k]
             try:
                 if rng.random() < 0.05:
                     e = client.entry(name, origin="bad", inbound=bool(rng.random() < 0.5))
                 else:
-                    e = st.entry(name)
+                    e = st.entry(name, prioritized=bool(rng.random() < 0.05))
                 if rng.random() < 0.05:
                     e.trace(RuntimeError("business error"))
                 if rng.random() < 0.02:
@@ -280,6 +402,7 @@ def drive_main_path(st, np, FU, torch, cfg):
             done[0] += sum(local.values())
 
     FU.reset_launches()
+    SC.reset_launches()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(N_THREADS)]
     for t in threads:
@@ -295,44 +418,79 @@ def drive_main_path(st, np, FU, torch, cfg):
     client.tick_once()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(FU.LAUNCHES)
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    info = dict(seg_static_ranks=client.cfg.seg_static_ranks, seg_u=client.cfg.seg_u,
+                seg_dropped_total=client.seg_dropped_total)
     if errors:
         raise errors[0]
     st.reset()
-    return counts, done[0], elapsed, launches
+    return counts, done[0], elapsed, launches, info
 
 
-# -- phase 4 --------------------------------------------------------------------------
+# -- phase 4: the tick against itself ---------------------------------------------------
 
 
-def batch_stream(E, torch, np, cfg, n_ticks, names_to_rows, B=None, seed=SEED):
-    """A seeded stream of acquire + completion batches of B rows (default:
-    the full configured batch)."""
+def batch_columns(np, PS, n_ticks, names_to_rows, B, seed):
+    """Seeded numpy acquire + completion columns of B rows a tick, presorted
+    as the client presorts them (a stable sort: the fused path sees the
+    same items, in an order it does not depend on)."""
     rng = np.random.default_rng(seed)
-    B = B or cfg.batch_size
     probs = zipf_probs(np, N_NAMES)
     out = []
     for _ in range(n_ticks):
-        res = names_to_rows[rng.choice(N_NAMES, size=B, p=probs)]
-        acq = E.empty_acquire(cfg, "cuda", B)._replace(
-            res=torch.as_tensor(res, dtype=torch.int32, device="cuda"),
-            count=torch.ones(B, dtype=torch.uint8, device="cuda"),
-            prio=torch.as_tensor((rng.random(B) < 0.05).astype(np.int8), device="cuda"),
-            inbound=torch.as_tensor((rng.random(B) < 0.3).astype(np.int8), device="cuda"),
+        a = dict(
+            res=names_to_rows[rng.choice(N_NAMES, size=B, p=probs)],
+            prio=(rng.random(B) < 0.05).astype(np.int8),
+            inbound=(rng.random(B) < 0.3).astype(np.int8),
         )
-        cres = names_to_rows[rng.choice(N_NAMES, size=B, p=probs)]
+        order, _ = PS.batch_sort5(a["res"], np.zeros(B), np.zeros(B), np.zeros(B), np.zeros(B))
+        a = {k: v[order] for k, v in a.items()}
+        c = dict(
+            res=names_to_rows[rng.choice(N_NAMES, size=B, p=probs)],
+            rt=(rng.integers(1, 80, B) / 8.0).astype(np.float32),
+            error=(rng.random(B) < 0.05).astype(np.uint8),
+            inbound=(rng.random(B) < 0.3).astype(np.int8),
+        )
+        order, _ = PS.batch_sort3(c["res"], np.zeros(B), np.zeros(B))
+        c = {k: v[order] for k, v in c.items()}
+        out.append((a, c))
+    return out
+
+
+def stream_seg_u(np, PS, cols, cfg):
+    """seg_u from the stream's exact live-segment count, with headroom
+    (the sizing of the JAX package's benchmark): ceil((1.15 * peak + 128)
+    / 128) * 128.  Padding rows are trash rows: one more segment run."""
+    trash = cfg.trash_row
+    peak = 0
+    for a, c in cols:
+        for res in (a["res"], c["res"]):
+            peak = max(peak, PS.host_seg_count([res, np.full_like(res, trash)]))
+    return -(-(int(peak * 1.15) + 128) // 128) * 128, peak
+
+
+def to_batches(E, torch, cfg, cols):
+    out = []
+    for a, c in cols:
+        B = a["res"].shape[0]
+        acq = E.empty_acquire(cfg, "cuda", B)._replace(
+            res=torch.as_tensor(a["res"], dtype=torch.int32, device="cuda"),
+            count=torch.ones(B, dtype=torch.uint8, device="cuda"),
+            prio=torch.as_tensor(a["prio"], device="cuda"),
+            inbound=torch.as_tensor(a["inbound"], device="cuda"),
+        )
         comp = E.empty_complete(cfg, "cuda", B)._replace(
-            res=torch.as_tensor(cres, dtype=torch.int32, device="cuda"),
-            rt=torch.as_tensor((rng.integers(1, 80, B) / 8.0).astype(np.float32), device="cuda"),
+            res=torch.as_tensor(c["res"], dtype=torch.int32, device="cuda"),
+            rt=torch.as_tensor(c["rt"], device="cuda"),
             success=torch.ones(B, dtype=torch.uint8, device="cuda"),
-            error=torch.as_tensor((rng.random(B) < 0.05).astype(np.uint8), device="cuda"),
-            inbound=torch.as_tensor((rng.random(B) < 0.3).astype(np.int8), device="cuda"),
+            error=torch.as_tensor(c["error"], device="cuda"),
+            inbound=torch.as_tensor(c["inbound"], device="cuda"),
         )
         out.append((acq, comp))
     return out
 
 
-def run_stream(E, S, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False):
+def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False):
     """Run the stream; ``forbid_sync`` makes any host<->device sync inside
     the tick (everything but its one readback) raise."""
     wires, waits, tick_s = [], [], []
@@ -351,7 +509,32 @@ def run_stream(E, S, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False)
     return state, wires, waits, tick_s
 
 
-def main() -> int:
+def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
+    """(device busy us, wall us, device launches, table) of 4 ticks under
+    the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i, (acq, comp) in enumerate(stream[:4]):
+            state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
+            out.wire.cpu()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20, max_name_column_width=48)
+    # device work = the kernel / memcpy / memset events (the CPU-side aten
+    # rows repeat the same time as their "self CUDA" column)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sum(e.self_device_time_total for e in dev), wall_us, sum(e.count for e in dev), table
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive and check sentinel_tpu_torch on one CUDA card.")
+    ap.add_argument("--out", help="directory for the profile tables and the full report (none written without it)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -366,7 +549,10 @@ def main() -> int:
     from sentinel_tpu_torch.ops import _build
     from sentinel_tpu_torch.ops import engine as E
     from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segment as SG
+    from sentinel_tpu_torch.ops import segscan as SC
     from sentinel_tpu_torch.ops import wire as WIRE
+    from sentinel_tpu_torch.runtime import presort as PS
     from sentinel_tpu_torch.runtime.registry import Registry
 
     report = {"torch": torch.__version__, "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)}
@@ -375,185 +561,224 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     report["nvidia_smi"] = smi
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    prof_out = []
 
     # -- 1. build -----------------------------------------------------------
     t = time.perf_counter()
     _build.load_library()
-    log(f"[build] kernels ready in {time.perf_counter() - t:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+    log(f"[build] kernels ready in {time.perf_counter() - t:.2f} s (nvcc, all sources at once: {_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("[build]", line.strip())
 
-    cfg = platform_config(packed_wire=True)
-    log(f"[config] max_resources={cfg.max_resources} max_nodes={cfg.max_nodes} "
-        f"batch={cfg.batch_size} flow_lanes={cfg.flow_rules_per_resource} minute_window={cfg.enable_minute_window}")
+    cfgs = configs(platform_config)
+    c0 = cfgs["seg4"]
+    log(f"[config] max_resources={c0.max_resources} max_nodes={c0.max_nodes} batch={c0.batch_size} "
+        f"minute_window={c0.enable_minute_window}; fused: seg_effects=False, 4 lanes; seg4: seg_effects, "
+        f"seg_fallback=False, 4 lanes; seg1: seg_effects, single lanes")
 
     # -- 2. kernels against their plain versions ------------------------------
-    reg = Registry(cfg)
+    reg = Registry(c0)
     names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
     flow, degrade, authority, system = build_rules(st)
-    rules = E.compile_ruleset(
-        cfg, reg, flow_rules=flow, degrade_rules=degrade, authority_rules=authority,
-        system_rules=system, device="cuda",
-    )
-    state0 = E.init_state(cfg, "cuda")
-    report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(state0).values())
-    stream = batch_stream(E, torch, np, cfg, 13, names_to_rows)
-    # the client runs two batch shapes: the full batch, and 256 rows for a
-    # light tick (every tick of the closed-loop phase 3 is light)
-    light = batch_stream(E, torch, np, cfg, 1, names_to_rows, B=256, seed=SEED + 1)[0]
-    real_s, real_g = FU.scatter_many, FU.gather_many
+    cols = batch_columns(np, PS, 13, names_to_rows, c0.batch_size, SEED)
+    light_cols = batch_columns(np, PS, 1, names_to_rows, 256, SEED + 1)
+    seg_u, peak = stream_seg_u(np, PS, cols + light_cols, c0)
+    report["stream_segments"] = dict(peak=peak, seg_u=seg_u, batch=c0.batch_size,
+                                     compaction=c0.batch_size / peak)
+    log(f"[stream] peak {peak} live segments in a B={c0.batch_size} tick (compaction "
+        f"{c0.batch_size / peak:.2f}x); seg_u={seg_u}")
+    import dataclasses
 
-    def capture_tick(state, acq, comp, now_ms):
-        """Run one tick; the kernels' inputs (cloned) at each of its calls."""
-        calls = {"scatter_many": [], "gather_many": []}
+    cfgs["seg4"] = dataclasses.replace(cfgs["seg4"], seg_u=seg_u)
+    cfgs["seg1"] = dataclasses.replace(cfgs["seg1"], seg_u=seg_u, seg_static_ranks=True)
+    setups = {}
+    for name, cfg in cfgs.items():
+        rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade,
+                                  authority_rules=authority, system_rules=system, device="cuda")
+        setups[name] = (cfg, rules)
+    report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(E.init_state(c0, "meta")).values())
 
-        def rec_s(jobs):
-            calls["scatter_many"].append([FU.Job(j.name, j.n, j.rows.clone(), j.values.clone(), j.digits) for j in jobs])
-            return real_s(jobs)
+    real = {"scatter_many": FU.scatter_many, "gather_many": FU.gather_many,
+            "seg_excl_cumsum": SC.seg_excl_cumsum, "seg_incl_min": SC.seg_incl_min}
+    mods = {"scatter_many": FU, "gather_many": FU, "seg_excl_cumsum": SC, "seg_incl_min": SC}
 
-        def rec_g(jobs):
-            calls["gather_many"].append([FU.GatherJob(j.name, j.ids.clone(), j.table.clone(), j.digits) for j in jobs])
-            return real_g(jobs)
+    def install(fns):
+        for k, fn in fns.items():
+            setattr(mods[k], k, fn)
 
-        FU.scatter_many, FU.gather_many = rec_s, rec_g
+    def capture_tick(name, state, acq, comp, now_ms):
+        """Run one tick; the kernels' arguments (cloned) at each call."""
+        cfg, rules = setups[name]
+        calls = {k: [] for k in real}
+
+        def recorder(k):
+            def rec(*args):
+                if k in ("scatter_many", "gather_many"):
+                    calls[k].append(([j._replace(**{f: getattr(j, f).clone() for f in j._fields
+                                                     if isinstance(getattr(j, f), torch.Tensor)}) for j in args[0]],))
+                else:
+                    calls[k].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+                return real[k](*args)
+            return rec
+
+        install({k: recorder(k) for k in real})
         try:
             state, _ = E.tick(state, rules, acq, comp, now_ms, 0.3, 0.2, cfg, E.ALL_FEATURES)
         finally:
-            FU.scatter_many, FU.gather_many = real_s, real_g
-        check(len(calls["scatter_many"]) == 2 and len(calls["gather_many"]) == 1, {k: len(v) for k, v in calls.items()})
+            install(real)
+        got = {k for k, v in calls.items() if v}
+        check(got == set(PATH_KERNELS[name]), f"{name}: the tick called {sorted(got)}, expected {PATH_KERNELS[name]}")
         return state, calls
 
-    state0, captured = capture_tick(state0, *stream[0], 1_000)
-    state0, captured_light = capture_tick(state0, *light, 1_100)
+    ops = kernel_ops(FU, SC, torch)
 
-    def measure(name, calls):
+    def measure(kname, calls):
         """Hold each call against the plain version; device ms per tick of
-        kernel, plain and library call, the bound, the wrapper's host ms."""
-        run, plain = (FU.scatter_many, FU.scatter_many_plain) if name == "scatter_many" else (FU.gather_many, FU.gather_many_plain)
-        err = ms = plain_ms = lib_ms = host_ms = 0.0
+        kernel, plain and PyTorch call, the bound, the wrapper's host ms."""
+        run, plain, work, lib, floor = ops[kname]
+        err = ms = plain_ms = lib_ms = floor_ms = host_ms = 0.0
         nbytes_all = ops_all = 0
-        for jobs in calls:
-            err = max(err, check_equal(name, run(jobs), plain(jobs)))
-            d, h = time_ms(lambda: run(jobs))
+        for args in calls:
+            err = max(err, check_equal(kname, run(args), plain(args)))
+            d, h = time_ms(lambda: run(args))
             ms += d
             host_ms += h
-            plain_ms += time_ms(lambda: plain(jobs), reps=10)[0]
-            if name == "scatter_many":
-                nbytes, ops = scatter_work(jobs)
-                call = scatter_library_call(jobs)
-            else:
-                j = jobs[0]
-                n, P = j.table.shape
-                uniq = torch.unique(j.ids[(j.ids >= 0) & (j.ids < n)]).numel()
-                nbytes, ops = 4 * j.ids.numel() + 4 * uniq * P + 4 * j.ids.numel() * P, j.ids.numel() * P
-                ids64 = torch.clamp(j.ids, 0, n - 1).to(torch.int64)
-                call = lambda ids64=ids64, tab=j.table: torch.index_select(tab, 0, ids64)
-            lib_ms += time_ms(call)[0]
-            nbytes_all += nbytes
-            ops_all += ops
+            plain_ms += time_ms(lambda: plain(args), reps=10)[0]
+            if lib is not None:
+                lib_ms += time_ms(lib(args))[0]
+            if floor is not None:
+                floor_ms += time_ms(floor(args))[0]
+            nb, op = work(args)
+            nbytes_all += nb
+            ops_all += op
         bnd, by = bound_ms(nbytes_all, ops_all)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-                    bound_by=by, calls_per_tick=len(calls), bytes=nbytes_all, wrapper_host_ms=host_ms)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms if lib is not None else None,
+                    cumsum_floor_ms=floor_ms if floor is not None else None, bound_ms=bnd, bound_by=by,
+                    calls_per_tick=len(calls), bytes=nbytes_all, ops=ops_all, wrapper_host_ms=host_ms)
 
     kern = {}
-    for shape, cap in ((f"B={cfg.batch_size}", captured), ("B=256", captured_light)):
-        for name in ("scatter_many", "gather_many"):
-            k = measure(name, cap[name])
-            kern.setdefault(name, {})[shape] = k
-            log(f"[kernel] {name} at {shape}: equal to plain (max |err| {k['max_abs_err']}); per tick "
-                f"({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms, plain "
-                f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
-                f"({k['bound_by']}, {k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
-    err_edge = edge_cases(FU, torch)
-    log(f"[kernel] edge cases equal to plain (max |err| {err_edge})")
-    for per_shape in kern.values():
-        for k in per_shape.values():
-            k["max_abs_err"] = max(k["max_abs_err"], err_edge)
-
-    # -- 3. the main path ---------------------------------------------------------
-    counts, n_done, elapsed, launches = drive_main_path(st, np, FU, torch, cfg)
-    log(f"[main] {n_done} entries from {N_THREADS} threads in {elapsed:.2f} s "
-        f"({n_done / elapsed:.0f} entries/s); verdict mix {json.dumps(counts, sort_keys=True)}")
-    log(f"[main] kernel launches during the run: {json.dumps(launches)}")
-    check(n_done >= MIN_ENTRIES, n_done)
-    check(launches["scatter_many"] > 0 and launches["gather_many"] > 0, launches)
-    check(counts.get("FlowException", 0) > 0, counts)
-    report["main_path"] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches)
-
-    # -- 4. the tick against itself ----------------------------------------------
-    st_a = E.clone_state(state0)
-    st_b = E.clone_state(state0)
-    ticks = stream[1:]
-    st_a, wires_a, waits_a, tick_s = run_stream(E, S, torch, st_a, rules, cfg, ticks, 1_250, forbid_sync=True)
-    FU.scatter_many, FU.gather_many = FU.scatter_many_plain, FU.gather_many_plain
-    try:
-        st_b, wires_b, waits_b, _ = run_stream(E, S, torch, st_b, rules, cfg, ticks, 1_250)
-    finally:
-        FU.scatter_many, FU.gather_many = real_s, real_g
-    lo = WIRE.layout_for(cfg, cfg.batch_size)
-    mix = np.zeros(7, np.int64)
-    for i, (wa, wb) in enumerate(zip(wires_a, wires_b)):
-        check(wa == wb, f"tick {i}: wire bytes differ between kernels and plain versions")
-        check(np.array_equal(waits_a[i], waits_b[i]), f"tick {i}: wait_ms differ")
-        mix += np.bincount(WIRE.unpack(wa, lo).verdict, minlength=7)
-    float_diff = 0.0
-    la, lb = S.leaves(st_a), S.leaves(st_b)
-    for k in la:
-        if la[k].dtype.is_floating_point:
-            float_diff = max(float_diff, (la[k] - lb[k]).abs().max().item())
-        else:
-            check(torch.equal(la[k], lb[k]), f"integer state leaf {k} differs")
-    steady = sorted(tick_s[2:])
-    ms_tick = 1e3 * steady[len(steady) // 2]
-    log(f"[tick] no host sync inside {len(ticks)} ticks (torch.cuda sync debug mode 'error')")
-    log(f"[tick] {len(ticks)} ticks at B={cfg.batch_size}: kernels == plain versions (verdicts, "
-        f"wire bytes, integer state; float state max |diff| {float_diff}); verdict mix {mix.tolist()}")
-    log(f"[tick] median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s")
-    report["tick"] = dict(ms_median=ms_tick, decisions_per_s=cfg.batch_size / ms_tick * 1e3,
-                          ticks=len(ticks), float_state_max_diff=float_diff, verdict_mix=mix.tolist())
-
-    # where a tick's time goes (kept for PERF.md; not a pass/fail phase)
-    from torch.profiler import ProfilerActivity, profile
-
-    st_c = E.clone_state(st_a)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof = time.perf_counter()
-        for i, (acq, comp) in enumerate(ticks[:4]):
-            st_c, out = E.tick(st_c, rules, acq, comp, 9_000 + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
-            out.wire.cpu()
+    state0 = {}
+    stream = to_batches(E, torch, c0, cols)
+    light = to_batches(E, torch, c0, light_cols)[0]
+    torch.cuda.synchronize()  # set-up done: a fault below is the tick's
+    for name in cfgs:
+        s0 = E.init_state(cfgs[name], "cuda")
+        log(f"[capture] {name}")
+        s0, cap_full = capture_tick(name, s0, *stream[0], 1_000)
         torch.cuda.synchronize()
-        wall_prof_us = (time.perf_counter() - t_prof) * 1e6
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15, max_name_column_width=48)
-    for line in table.splitlines():
-        log("[profile]", line)
-    # device work = the kernel / memcpy / memset events (the CPU-side aten
-    # rows repeat the same time as their "self CUDA" column)
-    from torch.autograd import DeviceType
+        s0, cap_light = capture_tick(name, s0, *light, 1_100)
+        torch.cuda.synchronize()
+        state0[name] = s0
+        for shape, cap in ((f"B={c0.batch_size}", cap_full), ("B=256", cap_light)):
+            for kname in PATH_KERNELS[name]:
+                k = measure(kname, cap[kname])
+                kern.setdefault(kname, {})[f"{name} {shape}"] = k
+                extra = (f", library {k['library_ms']:.4f} ms" if k["library_ms"] is not None
+                         else f", torch.cumsum floor (unsegmented) {k['cumsum_floor_ms']:.4f} ms")
+                log(f"[kernel] {kname} on {name} at {shape}: equal to plain (max |err| {k['max_abs_err']}); "
+                    f"per tick ({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms, plain "
+                    f"{k['plain_ms']:.4f} ms{extra}, bound {k['bound_ms']:.6f} ms ({k['bound_by']}, "
+                    f"{k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
+    edge = edge_cases(FU, torch)
+    edge.update(scan_edge_cases(SC, SG, np, torch))
+    log(f"[kernel] edge cases equal to plain (max |err| {json.dumps(edge)})")
+    for kname, per_shape in kern.items():
+        for k in per_shape.values():
+            k["max_abs_err"] = max(k["max_abs_err"], edge[kname])
 
-    dev_events = [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-    ]
-    dev_us = sum(e.self_device_time_total for e in dev_events)
-    n_kernels = sum(e.count for e in dev_events)
-    report["profile"] = dict(ticks=4, device_us=dev_us, wall_us=wall_prof_us, device_launches=n_kernels)
-    log(f"[profile] 4 ticks under the profiler: device busy {dev_us / 1e3:.3f} ms of "
-        f"{wall_prof_us / 1e3:.3f} ms wall (idle share {1 - dev_us / wall_prof_us:.3f}), "
-        f"{n_kernels} device launches")
+    # -- 3. the main paths ---------------------------------------------------------
+    main_runs = {}
+    for name in ("fused", "seg4", "seg1"):
+        base = configs(platform_config)[name]  # the client sizes seg_u itself
+        counts, n_done, elapsed, launches, info = drive_main_path(st, np, FU, SC, torch, base, ENTRIES[name])
+        log(f"[main] {name}: {n_done} entries from {N_THREADS} threads in {elapsed:.2f} s "
+            f"({n_done / elapsed:.0f} entries/s); verdict mix {json.dumps(counts, sort_keys=True)}")
+        log(f"[main] {name}: kernel launches during the run: {json.dumps(launches)}; client {json.dumps(info)}")
+        check(n_done >= ENTRIES[name], (name, n_done))
+        for kname in PATH_KERNELS[name]:
+            check(launches[kname] > 0, (name, kname, launches))
+        check(counts.get("FlowException", 0) > 0, (name, counts))
+        if name == "seg1":
+            check(info["seg_static_ranks"], "seg1: the client did not turn seg_static_ranks on")
+        if name != "fused":
+            check(info["seg_dropped_total"] == 0, (name, info))
+        main_runs[name] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches, client=info)
+    report["main_path"] = main_runs
+
+    # -- 4. the tick against itself --------------------------------------------------
+    ticks = stream[1:]
+    lo = WIRE.layout_for(c0, c0.batch_size)
+    plain = {"scatter_many": FU.scatter_many_plain, "gather_many": FU.gather_many_plain,
+             "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_incl_min": SC.seg_incl_min_plain}
+    report["tick"] = {}
+    for name, (cfg, rules) in setups.items():
+        st_a = E.clone_state(state0[name])
+        st_b = E.clone_state(state0[name])
+        FU.reset_launches()
+        SC.reset_launches()
+        st_a, wires_a, waits_a, tick_s = run_stream(E, torch, st_a, rules, cfg, ticks, 1_250, forbid_sync=True)
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        for kname in PATH_KERNELS[name]:
+            check(launches[kname] > 0, (name, "tick", kname, launches))
+        install(plain)
+        try:
+            st_b, wires_b, waits_b, _ = run_stream(E, torch, st_b, rules, cfg, ticks, 1_250)
+        finally:
+            install(real)
+        mix = np.zeros(7, np.int64)
+        for i, (wa, wb) in enumerate(zip(wires_a, wires_b)):
+            check(wa == wb, f"{name} tick {i}: wire bytes differ between kernels and plain versions")
+            check(np.array_equal(waits_a[i], waits_b[i]), f"{name} tick {i}: wait_ms differ")
+            fr = WIRE.unpack(wa, lo)
+            check(fr.seg_dropped == 0, f"{name} tick {i}: {fr.seg_dropped} items dropped for segment capacity")
+            mix += np.bincount(fr.verdict, minlength=7)
+        float_diff = 0.0
+        la, lb = S.leaves(st_a), S.leaves(st_b)
+        for k in la:
+            if la[k].dtype.is_floating_point:
+                float_diff = max(float_diff, (la[k] - lb[k]).abs().max().item())
+            else:
+                check(torch.equal(la[k], lb[k]), f"{name}: integer state leaf {k} differs")
+        steady = sorted(tick_s[2:])
+        ms_tick = 1e3 * steady[len(steady) // 2]
+        dev_us, wall_us, n_launch, table = profile_ticks(E, torch, E.clone_state(st_a), rules, cfg, ticks, 9_000)
+        idle = 1 - dev_us / wall_us
+        prof_out.append(f"== {name}: 4 ticks at B={cfg.batch_size}\n{table}")
+        log(f"[tick] {name}: {len(ticks)} ticks at B={cfg.batch_size}, no host sync inside; kernels == plain "
+            f"versions (wire bytes, wait_ms, integer state; float state max |diff| {float_diff}); "
+            f"seg_dropped 0; verdict mix {mix.tolist()}; launches {json.dumps(launches)}")
+        log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s; "
+            f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+            f"(idle share {idle:.3f}), {n_launch} device launches")
+        report["tick"][name] = dict(ms_median=ms_tick, decisions_per_s=cfg.batch_size / ms_tick * 1e3,
+                                    tick_ms=[1e3 * s for s in tick_s], ticks=len(ticks), float_state_max_diff=float_diff,
+                                    verdict_mix=mix.tolist(), launches=launches, device_us=dev_us, wall_us=wall_us,
+                                    idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u)
+        del st_a, st_b
+
+    if args.out:
+        with open(os.path.join(args.out, "chip_smoke_profile.txt"), "w") as f:
+            f.write("\n\n".join(prof_out))
+    for line in prof_out[-1].splitlines()[:14]:
+        log("[profile]", line)
 
     kernels = []
-    for name, src_line in (("scatter_many", 186), ("gather_many", 374)):
-        # the full batch's numbers; the 256-row shape's are in the report
-        k = kern[name][f"B={cfg.batch_size}"]
+    for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
+        name = RECORD_CFG[kname]
+        k = kern[kname][f"{name} B={c0.batch_size}"]
+        src, replaces = KERNEL_SRC[kname]
         kernels.append(dict(
-            name=name, route="cuda", source="sentinel_tpu_torch/csrc/fused.cu",
-            replaces=f"sentinel_tpu/ops/fused.py:{src_line}", launches=launches[name],
-            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-            bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
+            name=kname, route="cuda", source=src, replaces=replaces,
+            launches=main_runs[name]["launches"][kname], max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
         ))
-    report["kernel_detail"] = kern
+    if args.out:
+        with open(os.path.join(args.out, "chip_smoke_report.json"), "w") as f:
+            json.dump(dict(report, kernel_detail=kern), f, sort_keys=True, indent=1)
+    # the per-shape kernel detail is in the [kernel] lines (and the --out file)
     log("[report]", json.dumps(report, sort_keys=True))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

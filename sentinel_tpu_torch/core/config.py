@@ -356,11 +356,18 @@ DEFAULT_ENGINE_CONFIG = EngineConfig()
 def platform_config(**kw) -> EngineConfig:
     """The port's serving EngineConfig, the same on every device.
 
-    The engine runs the per-item fused path: ``fused_effects`` on,
-    ``seg_effects`` off — the two hand-written kernels of ``ops/fused.py``
-    carry every effect scatter and the flow check's windowed read.  Device
-    telemetry, the timeline rows and the explain records are not carried
-    yet, so they are switched off here; the engine raises
+    The engine runs the segment-compacted path, as the JAX package does on
+    an accelerator: ``fused_effects`` and ``seg_effects`` on.  The client
+    presorts every batch on the host and sizes ``seg_u`` from the exact
+    segment count before it dispatches, so ``seg_fallback`` is off: the
+    tick runs the segment phases unconditionally (no device-side branch,
+    no host sync), and items past the capacity fail closed and are
+    counted.  ``seg_fallback=True`` is not ported (both of its branches
+    update the window rings in place).  With single-lane rules
+    (``*_rules_per_resource=1``) the check phase runs at the segment level
+    too.  ``platform_config(seg_effects=False)`` is the per-item fused
+    path.  Device telemetry, the timeline rows and the explain records are
+    not carried yet, so they are switched off here; the engine raises
     ``NotImplementedError`` for any of them rather than ignoring them.  On
     the CPU (tests) the same flags apply: the kernels' plain versions run
     there.
@@ -372,8 +379,8 @@ def platform_config(**kw) -> EngineConfig:
     base = dict(
         use_mxu_tables=True,
         fused_effects=True,
-        seg_effects=False,
-        seg_fallback=True,
+        seg_effects=True,
+        seg_fallback=False,
         device_telemetry=False,
         timeline_k=0,
         explain_k=0,

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels have a plain C interface: ``nvcc`` compiles them for Hopper
-(``sm_90a``) into one shared library, which is loaded with ``ctypes``.
-The build runs at first use, from the sources in the checkout, into
-``build/kernels/`` at the repository root (a directory git ignores); the
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the existing build.
+The kernels have a plain C interface: ``nvcc`` compiles each source for
+Hopper (``sm_90a``) into its own shared library, which is loaded with
+``ctypes``.  The build runs at first use, from the sources in the
+checkout, into ``build/kernels/`` at the repository root (a directory git
+ignores); a library's file name carries a hash of its source and the
+flags, so an edited source rebuilds and an unchanged one loads the
+existing build.  The first call builds every missing library at once, one
+``nvcc`` process per source, all started together.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
@@ -23,7 +25,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = [_PKG / "csrc" / "fused.cu"]
+SOURCES = {
+    "fused": _PKG / "csrc" / "fused.cu",
+    "segscan": _PKG / "csrc" / "segscan.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,9 +37,9 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 #: what the last build printed (ptxas register / shared-memory report) and
-#: how long it took; empty when the library was loaded from a previous build
+#: how long it took; empty when every library was loaded from a previous build
 build_log = ""
 build_seconds = 0.0
 
@@ -49,45 +54,69 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _target() -> Path:
+def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    h.update(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsentinel_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsentinel_{name}_{h.hexdigest()[:16]}.so"
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp]
-    lib.sentinel_scatter_many.restype = i32
-    lib.sentinel_gather_many.argtypes = [vp, i32, i32, vp]
-    lib.sentinel_gather_many.restype = i32
+    if name == "fused":
+        lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp]
+        lib.sentinel_scatter_many.restype = i32
+        lib.sentinel_gather_many.argtypes = [vp, i32, i32, vp]
+        lib.sentinel_gather_many.restype = i32
+    elif name == "segscan":
+        for fn in (lib.sentinel_seg_excl_cumsum, lib.sentinel_seg_incl_min):
+            fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
+            fn.restype = i32
+        lib.sentinel_seg_scan_tile.argtypes = []
+        lib.sentinel_seg_scan_tile.restype = i32
     return lib
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first call (thread-safe)."""
-    global _lib, build_log, build_seconds
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        so = _target()
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-                capture_output=True,
-                text=True,
-            )
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+def _build_missing() -> None:
+    """nvcc for every source without a current build, all in parallel."""
+    global build_log, build_seconds
+    todo = [(n, _target(n)) for n in SOURCES if not _target(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name, so in todo:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        p = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        procs.append((name, so, tmp, p))
+    logs, failed = [], []
+    for name, so, tmp, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {SOURCES[name].name}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"{SOURCES[name].name} ({p.returncode})")
+        else:
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-        _lib = _bind(ctypes.CDLL(str(so)))
-        return _lib
+    build_seconds = time.perf_counter() - t0
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+
+
+def load_library(name: str = "fused") -> ctypes.CDLL:
+    """The kernel library built from ``csrc/<name>.cu``; the first call
+    builds every missing library (thread-safe)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            _build_missing()
+            for n in SOURCES:
+                if n not in _libs:
+                    _libs[n] = _bind(n, ctypes.CDLL(str(_target(n))))
+        return _libs[name]

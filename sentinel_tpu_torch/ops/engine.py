@@ -1,8 +1,9 @@
-"""The decision engine: one tick per micro-batch, the fused path.
+"""The decision engine: one tick per micro-batch.
 
-PyTorch counterpart of ``sentinel_tpu/ops/engine.py`` under the
-configuration ``fused_effects=True, seg_effects=False`` — the per-item
-fused path.  A tick ingests
+PyTorch counterpart of ``sentinel_tpu/ops/engine.py`` under
+``fused_effects=True``: the per-item fused path (``seg_effects=False``)
+and the segment-compacted path (``seg_effects=True, seg_fallback=False``;
+ops/engine_seg.py).  A tick ingests
 
     AcquireBatch  — entry attempts   (SphU.entry side)
     CompleteBatch — exits            (Entry.exit + Tracer side)
@@ -27,10 +28,19 @@ State updates: the big window rings are updated IN PLACE (the counterpart
 of the JAX tick's donated state) — a tick consumes the state it is given;
 clone it first (``clone_state``) to keep the old one.
 
+The segment path builds each side's segment structure once, lands both
+effect phases per segment (ops/engine_seg.py), and — with single-lane
+rules (``*_rules_per_resource == 1``) — runs the segment check phase,
+whose ranks are segmented scans of the presorted batch.  Items past the
+compacted capacity ``seg_u`` fail closed and are counted in the wire's
+``seg_dropped``.  ``seg_fallback=True`` (pick the per-item path per tick
+when segments overflow) is not ported: it needs a device-side branch
+between two phases that both update the window rings in place.
+
 Features: {nodes, occupy, flow, degrade, authority, system, warmup}.  The
-``param`` and ``tail_flow`` stages, the segment-compacted path, the
-sketch tier, device telemetry, the timeline rows and the explain records
-are not ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+``param`` and ``tail_flow`` stages, ``seg_fallback``, the sketch tier,
+device telemetry, the timeline rows and the explain records are not
+ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from sentinel_tpu_torch.core.rules import (
     STRATEGY_RELATE,
 )
 from sentinel_tpu_torch.ops import degrade as D
+from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import fused as FU
 from sentinel_tpu_torch.ops import rowmin as RM
 from sentinel_tpu_torch.ops import rtq as RQ
@@ -157,6 +168,9 @@ class TickOutput(NamedTuple):
     verdict: Optional[torch.Tensor]  # int8 [B] (None under packed_wire)
     wait_ms: torch.Tensor  # int32 [B] pacing delay for PASS_WAIT
     wire: Optional[torch.Tensor] = None  # int32 [words]: the packed wire
+    # int32 scalar: items failed closed past the segment capacity (0 off the
+    # segment path)
+    seg_dropped: Optional[torch.Tensor] = None
 
 
 def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> None:
@@ -165,8 +179,12 @@ def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> No
     unported = []
     if not cfg.fused_effects:
         unported.append("fused_effects=False (the plain scatter path)")
-    if cfg.seg_effects:
-        unported.append("seg_effects (ROADMAP.md Queue A: the segment path)")
+    if cfg.seg_effects and cfg.seg_fallback:
+        unported.append(
+            "seg_effects with seg_fallback=True (both branches of its per-tick "
+            "choice update the window rings in place: a state copy or a host "
+            "sync every tick; ROADMAP.md Queue A: seg_fallback)"
+        )
     if cfg.sketch_stats:
         unported.append("sketch_stats (ROADMAP.md Queue A: the sketch tier)")
     if cfg.device_telemetry:
@@ -1153,8 +1171,21 @@ def tick(
     acq = WIRE.widen_acquire(acq)
     comp = WIRE.widen_complete(comp)
 
+    # segment-compacted effects: the key-run structure of each side, once
+    use_seg = cfg.seg_effects
+    seg_dropped = torch.zeros((), dtype=I32, device=acq.res.device)
+    if use_seg:
+        ctx_c, carry_c = ES.prepare_completions(cfg, comp, features)
+        ctx_a, carry_a = ES.prepare_acquire(cfg, acq)
+
     # 1. exits first: they release concurrency and update breakers
-    state = _process_completions_fused(cfg, state, rules, comp, now_ms, features)
+    if use_seg:
+        state = ES.process_completions_seg(
+            cfg, state, rules, comp, now_ms, features, ctx_c, carry_c
+        )
+        seg_dropped = seg_dropped + ES.dropped_items(ctx_c, comp.res != cfg.trash_row)
+    else:
+        state = _process_completions_fused(cfg, state, rules, comp, now_ms, features)
 
     # 2. warm-up token sync and the occupy fold
     if "warmup" in features:
@@ -1165,13 +1196,27 @@ def tick(
     valid = acq.res != cfg.trash_row
     forced = valid & (acq.pre_verdict > 0)
 
-    # 3. rule checks in reference slot order
+    # 3. rule checks in reference slot order; with the segment path and
+    #    single-lane rules, at the segment level (verdicts exact either way)
+    seg_checks = (
+        use_seg
+        and cfg.flow_rules_per_resource == 1
+        and cfg.degrade_rules_per_resource == 1
+        and cfg.param_rules_per_resource == 1
+    )
+    if seg_checks:
+        checks = ES.run_checks_seg(
+            cfg, state, rules, acq, now_ms, sys_load, sys_cpu, valid, forced,
+            ctx_a, carry_a, features,
+        )
+    else:
+        checks = _run_checks_plain(
+            cfg, state, rules, acq, now_ms, sys_load, sys_cpu, valid, forced, features
+        )
     (
         auth_block, sys_block, flow_block, wait_ms, occupying, occ_grant,
         fslots, rl_info, degrade_block, cb_state,
-    ) = _run_checks_plain(
-        cfg, state, rules, acq, now_ms, sys_load, sys_cpu, valid, forced, features
-    )
+    ) = checks
     state = state._replace(cb_state=cb_state)
 
     passed = valid & ~forced & ~(auth_block | sys_block | flow_block | degrade_block)
@@ -1188,17 +1233,25 @@ def tick(
     wait_ms = torch.where(passed, wait_ms, 0).to(I32)
 
     # 4. effects (StatisticSlot.java:54-123)
-    state = _acquire_effects_fused(
-        cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
-        fslots, occ_grant, rl_info,
-    )
+    if use_seg:
+        state = ES.acquire_effects_seg(
+            cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
+            fslots, occ_grant, rl_info, ctx_a, carry_a,
+        )
+        seg_dropped = seg_dropped + ES.dropped_items(ctx_a, valid)
+    else:
+        state = _acquire_effects_fused(
+            cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
+            fslots, occ_grant, rl_info,
+        )
     if cfg.packed_wire:
         return state, TickOutput(
             verdict=None,
             wait_ms=wait_ms,
-            wire=WIRE.pack_tick_output(cfg, verdict, wait_ms, 0),
+            wire=WIRE.pack_tick_output(cfg, verdict, wait_ms, seg_dropped),
+            seg_dropped=seg_dropped,
         )
-    return state, TickOutput(verdict=verdict, wait_ms=wait_ms)
+    return state, TickOutput(verdict=verdict, wait_ms=wait_ms, seg_dropped=seg_dropped)
 
 
 def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):

@@ -1,0 +1,907 @@
+"""Segment-compacted phases of the tick.
+
+PyTorch counterpart of ``sentinel_tpu/ops/engine_seg.py`` without the
+param, tail-flow and sketch branches (those stages raise in
+``engine.check_supported``).  The effects phases contract ONE entry per
+batch *segment* (a maximal run of items sharing every scatter-relevant
+key, capped at 256 items; ops/segment.py) instead of one per item, and
+the segment check phase reads every per-resource table once per segment
+and expands the values back to items through ONE shared gather.
+
+Dataflow per side:
+  1. prepare_*: everything known at batch arrival (stat digit cumsums,
+     row columns, the RT running minimum — kernel B4, ops/segscan.py) is
+     compacted at each segment's last item.
+  2. values that exist only after the checks (pass/block masks, breaker
+     event masks) pack into ONE [N, cols] matrix and take one row gather
+     at the segment ends.
+
+Both scatter phases land through one ``fused.scatter_many`` call each
+(kernel B1).  The single-lane check phase ranks with segmented scans
+(kernel B3).
+
+No host sync: the JAX phases decide the occupy rank, the probe election
+and the breaker flip with ``lax.cond`` on "any candidate" (zeros
+otherwise), and — with ``seg_static_ranks`` off — pick between scan ranks
+and sort ranks with ``lax.cond``.  Every branch is pure, so here both
+sides are computed and selected with ``torch.where``; with no candidate
+the computed branch gives zeros too, so the results are identical.
+
+Correctness does NOT require a sorted batch: an unsorted batch only has
+more segments.  Past the capacity ``seg_u`` the overflow segments'
+effects are dropped and their items fail closed (``dropped_items``
+counts them); the client sizes ``seg_u`` from the host-known segment
+count before dispatch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from sentinel_tpu_torch.core import rule_tensors as RT
+from sentinel_tpu_torch.core.config import EngineConfig
+from sentinel_tpu_torch.core.rules import (
+    CONTROL_DEFAULT,
+    CONTROL_RATE_LIMITER,
+    CONTROL_WARM_UP,
+    CONTROL_WARM_UP_RATE_LIMITER,
+    GRADE_QPS,
+    STRATEGY_DIRECT,
+    STRATEGY_RELATE,
+)
+from sentinel_tpu_torch.ops import degrade as D
+from sentinel_tpu_torch.ops import fused as FU
+from sentinel_tpu_torch.ops import rowmin as RM
+from sentinel_tpu_torch.ops import rtq as RQ
+from sentinel_tpu_torch.ops import segment as SG
+from sentinel_tpu_torch.ops import segscan as SC
+from sentinel_tpu_torch.ops import tables as T
+from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.ops.rank import grouped_exclusive_cumsum
+
+I32, F32 = torch.int32, torch.float32
+
+#: rowmin sentinel (> any valid rt; replaced by a drop row before scatter)
+_RT_ABSENT = 3.0e38
+
+
+def seg_capacity(cfg: EngineConfig, b: int) -> int:
+    """Static compacted-axis capacity: explicit cfg.seg_u, else sized for
+    Zipf-like traffic plus the 256-block split overhead."""
+    if cfg.seg_u:
+        return cfg.seg_u
+    return min(b, b // 8 + b // SG.BLOCK + 64)
+
+
+def dropped_items(ctx: SG.SegCtx, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Items whose effects an overflowing compacted pass dropped (int32
+    scalar on the device): everything past the last kept segment's end.
+    ``valid`` excludes trash-row padding from the count."""
+    n = ctx.head.shape[0]
+    kept = ctx.seg_end[-1] + 1
+    if valid is None:
+        late = n - kept
+    else:
+        iota = torch.arange(n, dtype=I32, device=valid.device)
+        late = torch.sum(valid & (iota >= kept), dtype=I32)
+    return torch.where(ctx.ok, 0, late).to(I32)
+
+
+class CompCarry(NamedTuple):
+    """Compacted payloads of one completion batch ([U] each)."""
+
+    ce: list  # cumsum-at-tail cols for (success, error, rt_q)
+    split: list
+    min_rt: torch.Tensor  # per-segment min rt (or _RT_ABSENT)
+    res: torch.Tensor
+    ctx_node: torch.Tensor
+    origin_node: torch.Tensor
+
+
+class AcqCarry(NamedTuple):
+    res: torch.Tensor  # [U]
+    ctx_node: torch.Tensor
+    origin_node: torch.Tensor
+    origin_id: torch.Tensor
+    ctx_name: torch.Tensor
+    res_sorted: torch.Tensor  # bool scalar — res nondecreasing over the batch
+
+
+def prepare_completions(cfg: EngineConfig, comp, features: frozenset):
+    """The completion-side SegCtx, with every batch-known payload compacted
+    at the segment ends."""
+    valid = comp.res != cfg.trash_row
+    succ_w = torch.where(valid, comp.success, 0)
+    err_w = torch.where(valid, comp.error, 0)
+    rt1 = torch.where(valid, comp.rt, 0.0)
+    rt_q = torch.round(torch.clamp_max(rt1, float(cfg.statistic_max_rt)) * 8.0).to(I32)
+    cm = cfg.max_batch_count
+    rtm = int(cfg.statistic_max_rt) * 8
+    C_rows, split = SG.cum_cols([succ_w, err_w, rt_q], [cm, cm, rtm])
+    head = SG.heads_from_keys(comp.res, comp.ctx_node, comp.origin_node)
+    inc_min = SC.seg_incl_min(head, torch.where(valid & (rt1 > 0), rt1, _RT_ABSENT))
+    U = seg_capacity(cfg, comp.res.shape[0])
+    ctx, carried = SG.build_from_head(
+        head, U, payloads=list(C_rows) + [inc_min, comp.res, comp.ctx_node, comp.origin_node]
+    )
+    nC = len(C_rows)
+    carry = CompCarry(
+        ce=carried[:nC],
+        split=split,
+        min_rt=torch.where(ctx.live, carried[nC], _RT_ABSENT),
+        res=carried[nC + 1],
+        ctx_node=carried[nC + 2],
+        origin_node=carried[nC + 3],
+    )
+    return ctx, carry
+
+
+def prepare_acquire(cfg: EngineConfig, acq):
+    """Acquire-side SegCtx; only row sources are batch-known (values come
+    after the checks via one packed gather)."""
+    U = seg_capacity(cfg, acq.res.shape[0])
+    keys = [acq.res, acq.ctx_node, acq.origin_node, acq.origin_id, acq.ctx_name]
+    ctx, carried = SG.build(keys, U, payloads=keys)
+    return ctx, AcqCarry(
+        res=carried[0],
+        ctx_node=carried[1],
+        origin_node=carried[2],
+        origin_id=carried[3],
+        ctx_name=carried[4],
+        res_sorted=torch.all(acq.res[1:] >= acq.res[:-1]),
+    )
+
+
+def _chunks_to_planes(chunk_lists):
+    """sums_from_ce output -> (vals [P2, U], digits tuple, spec per plane)."""
+    vals, digits, spec = [], [], []
+    for chunks in chunk_lists:
+        s = []
+        for arr, w, dig in chunks:
+            s.append((len(vals), w))
+            vals.append(arr)
+            digits.append(dig)
+        spec.append(s)
+    return torch.stack(vals), tuple(digits), spec
+
+
+def _recombine(out, spec):
+    """Scatter output [n, P2] -> one exact int32 [n] column per plane
+    (int32 arithmetic, wrapping as the reference's does)."""
+    o = torch.round(out).to(I32)
+    cols = []
+    for s in spec:
+        acc = None
+        for i, w in s:
+            term = o[:, i] * w if w != 1 else o[:, i]
+            acc = term if acc is None else acc + term
+        cols.append(acc.to(I32))
+    return cols
+
+
+def _packed_seg_values(ctx: SG.SegCtx, planes, maxes, extra_rows=()):
+    """Post-check compaction: ONE [N, cols] pack + ONE row gather at the
+    segment ends.  planes -> sums chunks (exact); extra_rows (segment-
+    constant int32 row ids) -> compacted [U] columns (-1 on dead slots)."""
+    C_rows, split = SG.cum_cols(planes, maxes)
+    cols = list(C_rows) + [r.to(I32) for r in extra_rows]
+    G = torch.stack(cols, dim=1)[ctx.seg_end.to(torch.int64)]  # [U, X]
+    nC = len(C_rows)
+    chunks = SG.sums_from_ce(ctx, [G[:, i] for i in range(nC)], split)
+    rows = [torch.where(ctx.live, G[:, nC + i], -1) for i in range(len(extra_rows))]
+    return chunks, rows
+
+
+def _clean_rows_u(cfg: EngineConfig, x, live):
+    """Dead slots, trash rows and negative rows -> 2^30, which every
+    scatter drops (dead slots hold junk: this is what keeps it out)."""
+    return torch.where(live & (x != cfg.trash_row) & (x >= 0), x, 2**30)
+
+
+def _stat_rows_u(cfg: EngineConfig, ctx, carry, with_nodes: bool):
+    res_u = _clean_rows_u(cfg, carry.res, ctx.live)
+    if not with_nodes:
+        return res_u[None, :]
+    c_u = _clean_rows_u(cfg, carry.ctx_node, ctx.live)
+    o_u = _clean_rows_u(cfg, carry.origin_node, ctx.live)
+    return torch.stack([res_u, c_u, o_u])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 with the same bits (a bitcast, not a conversion)."""
+    return x.to(F32).contiguous().view(I32)
+
+
+def _unbits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(F32)
+
+
+class _Expander:
+    """Collects per-segment int32 columns, then performs ONE [B]-row gather
+    by sid plus one transpose, so every per-item column reads as a
+    contiguous row.  Float columns ride as their int32 bits."""
+
+    def __init__(self, ctx: SG.SegCtx):
+        self.ctx = ctx
+        self.cols = []
+        self.R = None
+
+    def add(self, col) -> int:
+        assert self.R is None, "expander already ran"
+        self.cols.append(col.to(I32))
+        return len(self.cols) - 1
+
+    def add_f(self, col) -> int:
+        return self.add(_bits(col))
+
+    def run(self):
+        if not self.cols:
+            self.R = torch.zeros((0, self.ctx.sid.shape[0]), dtype=I32, device=self.ctx.sid.device)
+            return
+        G = SG.expand(self.ctx, torch.stack(self.cols, dim=1))  # [B, C]
+        self.R = G.T.contiguous()  # [C, B]
+
+    def get(self, i):
+        return self.R[i]
+
+    def get_f(self, i):
+        return _unbits(self.R[i])
+
+
+def _head_of_runs(key: torch.Tensor) -> torch.Tensor:
+    """Heads of the runs of equal keys (position 0 starts one)."""
+    return torch.cat([torch.ones((1,), dtype=torch.bool, device=key.device), key[1:] != key[:-1]])
+
+
+def run_checks_seg(
+    cfg: EngineConfig,
+    state,
+    rules,
+    acq,
+    now_ms: int,
+    sys_load: float,
+    sys_cpu: float,
+    valid,
+    forced,
+    ctx: SG.SegCtx,
+    carry: AcqCarry,
+    features: frozenset,
+):
+    """The whole acquire check phase with every per-item table read hoisted
+    to the segment level (AuthoritySlot -> SystemSlot -> FlowSlot ->
+    DegradeSlot, first-fail order).  Needs *_rules_per_resource == 1 (the
+    tick checks it).  Ranks are segmented scans of the sorted batch (B3);
+    with ``seg_static_ranks`` off, sort ranks are computed too and chosen
+    when the batch is unsorted or a flow rule is not DIRECT/ANY.
+
+    Comparisons use the margin form (rank + cnt > thr - wp), as the JAX
+    phase does; float operations keep its order.
+
+    Returns the tuple ``engine._run_checks_plain`` returns."""
+    from sentinel_tpu_torch.ops import engine as E
+
+    b = acq.res.shape[0]
+    dev = acq.res.device
+    now_f = float(now_ms)
+    cnt = acq.count.to(F32)
+    zero_block = torch.zeros((b,), dtype=torch.bool, device=dev)
+    live = ctx.live
+    res_u = torch.where(live & (carry.res >= 0), carry.res, cfg.max_resources)
+    res_l = torch.clamp_max(res_u, cfg.max_resources)
+    exp = _Expander(ctx)
+
+    # ================= segment-level phase =================
+    with_auth = "authority" in features
+    with_flow = "flow" in features
+    with_degrade = "degrade" in features
+
+    n_res1 = cfg.max_resources + 1
+    slot_tabs = []
+    if with_auth:
+        slot_tabs.append(("auth", rules.auth.mode))
+    if with_flow:
+        slot_tabs.append(("flow", rules.flow.res_rules[:, 0]))
+    if with_degrade:
+        slot_tabs.append(("degrade", rules.degrade.res_cbs[:, 0]))
+    slot_vals = {}
+    if slot_tabs:
+        got = T.lane_gather_multi([t for _n, t in slot_tabs], res_l, n_res1)
+        slot_vals = {name: g.to(I32) for (name, _t), g in zip(slot_tabs, got)}
+
+    if with_auth:
+        mode = slot_vals["auth"]
+        origins = T.big_gather(rules.auth.origins, res_l, n_res1)
+        listed = (
+            (origins == carry.origin_id[:, None]) & (origins != RT.AUTH_EMPTY)
+        ).any(dim=1)
+        auth_u = ((mode == 1) & ~listed) | ((mode == 2) & listed)
+
+    if with_flow:
+        f = rules.flow
+        slot_u = slot_vals["flow"]
+        fg = T.small_gather_fields(
+            T.pack_fields(
+                [
+                    f.enabled, f.limit_app, f.strategy, f.ref_node, f.ref_ctx,
+                    f.grade, f.count, f.behavior, f.max_queue_ms,
+                    f.warning_token, f.slope, state.warmup_tokens,
+                ]
+            ),
+            slot_u,
+        )
+        latest_u = T.small_gather_int(
+            torch.round(state.latest_passed_ms).to(I32), slot_u
+        ).to(F32)
+        enabled = fg[:, 0] > 0
+        la = fg[:, 1].to(I32)
+        named = (la >= 0) & (la == carry.origin_id)
+        match = (
+            (la == RT.LIMIT_ANY)
+            | ((la >= 0) & (la == carry.origin_id))
+            | ((la == RT.LIMIT_OTHER) & (carry.origin_id >= 0) & ~named)
+        )
+        applicable_u = enabled & match & live
+        strategy = fg[:, 2].to(I32)
+        ref_node = fg[:, 3].to(I32)
+        ref_ctx = fg[:, 4].to(I32)
+        direct_node = torch.where(la == RT.LIMIT_ANY, carry.res, carry.origin_node)
+        chain_ok = (ref_ctx >= 0) & (ref_ctx == carry.ctx_name)
+        node = torch.where(
+            strategy == STRATEGY_DIRECT,
+            direct_node,
+            torch.where(
+                strategy == STRATEGY_RELATE,
+                ref_node,
+                torch.where(chain_ok, carry.ctx_node, -1),
+            ),
+        )
+        node_ok = (node >= 0) & (node != cfg.trash_row)
+        applicable_u = applicable_u & node_ok
+        node_safe_u = torch.where(node_ok & (node < cfg.node_rows), node, cfg.trash_row)
+        grade = fg[:, 5].to(I32)
+        rcount = fg[:, 6]
+        behavior = torch.where(grade == GRADE_QPS, fg[:, 7].to(I32), CONTROL_DEFAULT)
+        rest = fg[:, 11]
+        warning = fg[:, 9]
+        above = torch.clamp_min(rest - warning, 0.0)
+        warm_qps = torch.floor(
+            1.0 / (above * fg[:, 10] + 1.0 / torch.clamp_min(rcount, 1e-9)) + 0.5
+        )
+        warm_qps = torch.where(rest >= warning, warm_qps, rcount)
+        is_warm = (behavior == CONTROL_WARM_UP) | (behavior == CONTROL_WARM_UP_RATE_LIMITER)
+        is_rl = (behavior == CONTROL_RATE_LIMITER) | (behavior == CONTROL_WARM_UP_RATE_LIMITER)
+        pace_qps = torch.where(
+            behavior == CONTROL_WARM_UP_RATE_LIMITER, warm_qps, torch.clamp_min(rcount, 1e-9)
+        )
+        thr_eff = torch.where(is_warm, warm_qps, rcount)
+        cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
+        pool_dense = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
+        # running sums are exact here: completions refreshed this now_ms
+        tab = torch.stack(
+            [
+                W.window_event_run(state.win_sec, W.EV_PASS),
+                state.concurrency,
+                torch.round(pool_dense).to(I32),
+            ],
+            dim=1,
+        )
+        g = tab[node_safe_u.to(torch.int64)]
+        wp = g[:, 0].to(F32)
+        conc = g[:, 1].to(F32)
+        pool = g[:, 2].to(F32)
+        i_fflags = exp.add(
+            applicable_u.to(I32)
+            | (is_rl.to(I32) << 1)
+            | ((behavior == CONTROL_WARM_UP_RATE_LIMITER).to(I32) << 2)
+            | ((grade == GRADE_QPS).to(I32) << 3)
+            | ((behavior == CONTROL_DEFAULT).to(I32) << 4)
+        )
+        i_node = exp.add(node_safe_u)
+        i_fslot = exp.add(torch.where(live, slot_u, cfg.max_flow_rules))
+        i_mq = exp.add_f(thr_eff - wp)
+        i_mt = exp.add_f(rcount - conc)
+        i_mrl = exp.add_f(latest_u - now_f)
+        i_maxq = exp.add_f(fg[:, 8])
+        i_pace = exp.add_f(pace_qps)
+        i_mo = exp.add_f(rcount - pool)
+
+    if with_degrade:
+        dslot_u = slot_vals["degrade"]
+        dgu = T.small_gather_fields(
+            T.pack_fields([rules.degrade.enabled, state.cb_state]), dslot_u
+        )
+        d_en = (dgu[:, 0] > 0) & live
+        st_u = dgu[:, 1].to(I32)
+        retry_due = now_ms >= T.small_gather_int(state.cb_retry_ms, dslot_u)
+        open_wait = (st_u == D.CB_OPEN) & ~retry_due
+        open_due = (st_u == D.CB_OPEN) & retry_due
+        half = st_u == D.CB_HALF_OPEN
+        i_dflags = exp.add(
+            d_en.to(I32)
+            | (open_wait.to(I32) << 1)
+            | (open_due.to(I32) << 2)
+            | (half.to(I32) << 3)
+        )
+        i_dslot = exp.add(
+            torch.clamp_max(
+                torch.where(live, dslot_u, cfg.max_degrade_rules), cfg.max_degrade_rules
+            )
+        )
+
+    if with_auth:
+        i_auth = exp.add(auth_u.to(I32))
+
+    exp.run()
+
+    # ================= item-level phase (slot order) =================
+    # items in segments past the capacity have no segment-level data (their
+    # expansions read slot U-1): they FAIL CLOSED as system rejections and
+    # are counted by dropped_items
+    overflow = valid & (ctx.sid >= ctx.U)
+
+    if with_auth:
+        auth_block = (exp.get(i_auth) > 0) & valid & ~forced & ~overflow
+    else:
+        auth_block = zero_block
+    eligible = valid & ~auth_block & ~forced & ~overflow
+
+    if "system" in features:
+        sys_block = E._check_system(
+            cfg, state, rules, acq, now_ms, sys_load, sys_cpu, eligible
+        ) | overflow
+    else:
+        sys_block = zero_block | overflow
+    eligible = eligible & ~sys_block
+
+    if with_flow:
+        fl = exp.get(i_fflags)
+        app_i = (fl & 1) > 0
+        rl_i = (fl & 2) > 0
+        wurl_i = (fl & 4) > 0
+        qps_i = (fl & 8) > 0
+        def_i = (fl & 16) > 0
+        node_i = exp.get(i_node)
+        slot_i = exp.get(i_fslot)
+        margin_q = exp.get_f(i_mq)
+        margin_t = exp.get_f(i_mt)
+        m_rl = exp.get_f(i_mrl)
+        mq_i = exp.get_f(i_maxq)
+        pace_i = exp.get_f(i_pace)
+        margin_o = exp.get_f(i_mo)
+        # the same pacing-cost clamp as the per-item flow check
+        cost = torch.where(
+            rl_i,
+            torch.clamp_max(torch.floor(1000.0 * cnt / pace_i + 0.5), float((1 << 24) - 1)),
+            0.0,
+        )
+        elig_f = eligible & app_i
+        rank_key = torch.where(rl_i, cfg.node_rows + slot_i, node_i).to(I32)
+        direct_any = ~torch.any(
+            f.enabled & ((f.strategy != STRATEGY_DIRECT) | (f.limit_app != RT.LIMIT_ANY))
+        )
+        seg_rank_ok = carry.res_sorted & direct_any
+
+        # ONE B3 launch for all three ranks: the token and thread ranks
+        # (V = 2) and the two 12-bit lanes of the wide pacing-cost rank
+        # share the run heads of rank_key, so they stack into V = 4; the
+        # bits equal seg_excl_cumsum + seg_excl_cumsum_wide
+        head_k = _head_of_runs(rank_key)
+        r = SC.seg_excl_cumsum(
+            head_k,
+            torch.cat(
+                [
+                    torch.stack([torch.where(elig_f, acq.count, 0), elig_f.to(I32)]),
+                    SC.wide_lanes(torch.where(elig_f, cost, 0.0).to(I32)),
+                ]
+            ),
+        )
+        rank_tok, rank_thr = r[0].to(F32), r[1].to(F32)
+        rank_cost = SC.wide_recombine(r[2], r[3])
+        if cfg.seg_static_ranks:
+            # scans only (contract: sorted + DIRECT/ANY rules); a broken
+            # contract makes the ranks garbage, so every applicable item
+            # fails closed below instead of being misranked silently
+            rank_guard = ~seg_rank_ok
+        else:
+            s_tok, s_thr, s_cost = grouped_exclusive_cumsum(
+                rank_key, [cnt, torch.ones_like(cnt), cost], elig_f
+            )
+            rank_tok = torch.where(seg_rank_ok, rank_tok, s_tok)
+            rank_thr = torch.where(seg_rank_ok, rank_thr, s_thr)
+            rank_cost = torch.where(seg_rank_ok, rank_cost, s_cost)
+            rank_guard = torch.zeros((), dtype=torch.bool, device=dev)
+        qps_block = rank_tok + cnt > margin_q
+        thread_block = rank_thr + cnt > margin_t
+        basic_block = torch.where(qps_i, qps_block, thread_block)
+        csum_incl = rank_cost + cost
+        rl_wait = torch.maximum(m_rl + csum_incl, csum_incl - cost)
+        rl_block = rl_wait > mq_i
+        entry_block = torch.where(rl_i, rl_block, basic_block) & app_i
+        entry_block = entry_block | (wurl_i & app_i & qps_block)
+        entry_block = entry_block | (rank_guard & app_i)
+        flow_block = entry_block & elig_f
+
+        occupying = zero_block
+        occ_wait = torch.zeros((b,), dtype=F32, device=dev)
+        occ_grant = None
+        if "occupy" in features:
+            cand = (acq.prio > 0) & def_i & qps_i & app_i & elig_f & qps_block
+            if cfg.seg_static_ranks:
+                # under a broken static-rank contract nothing may occupy ahead
+                cand = cand & ~rank_guard
+            # the JAX phase skips this rank when no item is a candidate;
+            # with no candidate every grant is False either way
+            (r_occ,) = SC.seg_excl_cumsum(
+                _head_of_runs(node_i), torch.where(cand, acq.count, 0)[None, :]
+            )
+            rank_occ = r_occ.to(F32)
+            if not cfg.seg_static_ranks:
+                (s_occ,) = grouped_exclusive_cumsum(node_i, [cnt], cand)
+                rank_occ = torch.where(seg_rank_ok, rank_occ, s_occ)
+            granted = cand & (rank_occ + cnt <= margin_o)
+            still_blocked = entry_block & ~granted & elig_f
+            occupying = granted & elig_f & ~still_blocked
+            flow_block = still_blocked
+            occ_wait_v = float(cfg.second_window_ms - (now_ms % cfg.second_window_ms))
+            occ_wait = torch.where(occupying, occ_wait_v, 0.0)
+            occ_grant = (granted & elig_f, node_i, cnt)
+
+        rl_ok = rl_i & app_i & ~entry_block & elig_f & ~flow_block
+        wait_ms_entry = torch.where(rl_ok, torch.clamp_min(rl_wait, 0.0), 0.0)
+        wait_ms = torch.maximum(wait_ms_entry, occ_wait).to(I32)
+        fslots = slot_i
+        rl_info = (rl_ok, cost)
+    else:
+        flow_block = zero_block
+        occupying = zero_block
+        occ_grant = fslots = rl_info = None
+        wait_ms = torch.zeros((b,), dtype=I32, device=dev)
+    eligible = eligible & ~flow_block
+
+    if with_degrade:
+        fl = exp.get(i_dflags)
+        en_i = (fl & 1) > 0
+        ow_i = (fl & 2) > 0
+        od_i = (fl & 4) > 0
+        hf_i = (fl & 8) > 0
+        dslot_i = exp.get(i_dslot)
+        probe_cand = od_i & en_i & eligible
+        # the JAX phase runs the election only when some item is a
+        # candidate; with none, every probe is False either way
+        (r_p,) = SC.seg_excl_cumsum(_head_of_runs(dslot_i), probe_cand.to(I32)[None, :])
+        p_rank = r_p.to(F32)
+        if cfg.seg_static_ranks:
+            # unsorted under the static contract: elect NO probes
+            probe = probe_cand & (p_rank < 0.5) & carry.res_sorted
+        else:
+            (s_p,) = grouped_exclusive_cumsum(
+                dslot_i, [torch.ones_like(dslot_i, dtype=F32)], probe_cand
+            )
+            p_rank = torch.where(carry.res_sorted, p_rank, s_p)
+            probe = probe_cand & (p_rank < 0.5)
+        entry_blk_d = en_i & (ow_i | (od_i & ~probe) | hf_i)
+        degrade_block = entry_blk_d & eligible
+        probe_ok = probe & ~degrade_block
+        Dn1 = cfg.max_degrade_rules + 1
+        flip = T.small_scatter_or(
+            torch.zeros((Dn1,), dtype=I32, device=dev), dslot_i, probe_ok
+        )
+        cb_state = torch.where(
+            (flip > 0) & (state.cb_state == D.CB_OPEN), D.CB_HALF_OPEN, state.cb_state
+        ).to(I32)
+    else:
+        degrade_block = zero_block
+        cb_state = state.cb_state
+
+    return (
+        auth_block, sys_block, flow_block, wait_ms, occupying, occ_grant,
+        fslots, rl_info, degrade_block, cb_state,
+    )
+
+
+def _window_land(cfg: EngineConfig, state, now_ms: int, hist, rt_hist, row_min, refreshed: bool):
+    sec_cfg = W.WindowConfig(cfg.second_sample_count, cfg.second_window_ms)
+    min_cfg = W.WindowConfig(cfg.minute_sample_count, cfg.minute_window_ms)
+    win_sec = W.add_dense(state.win_sec, now_ms, hist, rt_hist, sec_cfg, row_min=row_min, refreshed=refreshed)
+    win_min = state.win_min
+    if cfg.enable_minute_window:
+        win_min = W.add_dense(state.win_min, now_ms, hist, rt_hist, min_cfg, row_min=row_min, refreshed=refreshed)
+    return win_sec, win_min
+
+
+def process_completions_seg(
+    cfg: EngineConfig,
+    state,
+    rules,
+    comp,
+    now_ms: int,
+    features: frozenset,
+    ctx: SG.SegCtx,
+    carry: CompCarry,
+):
+    """``engine._process_completions_fused`` with segment-compacted
+    scatters: the same state updates (integer sums and float minima do
+    not depend on the order), one scatter_many call."""
+    from sentinel_tpu_torch.ops import engine as E
+
+    b = comp.res.shape[0]
+    U = ctx.U
+    dev = comp.res.device
+    valid = comp.res != cfg.trash_row
+    with_nodes = "nodes" in features
+    sec_cfg = W.WindowConfig(cfg.second_sample_count, cfg.second_window_ms)
+    erow = cfg.entry_node_row
+    inb, entry_deltas, entry_rt, entry_rt_min = E._completion_entry_stats(cfg, comp, valid)
+
+    vals3_u, digits3, spec3 = _chunks_to_planes(SG.sums_from_ce(ctx, carry.ce, carry.split))
+    stat_rows = _stat_rows_u(cfg, ctx, carry, with_nodes)
+    jobs = [FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3)]
+
+    # exact per-row windowed minRt over the compacted per-segment minima;
+    # jnp.tile is Tensor.repeat (row-vector after row-vector)
+    RMIN = stat_rows.shape[0]
+    seg_min = torch.where(carry.min_rt < 1.0e38, carry.min_rt, -1.0)
+    mh_rows, mh_vals = RM.min_heads(
+        torch.where(stat_rows < cfg.max_nodes, stat_rows, -1).reshape(-1),
+        seg_min.repeat(RMIN),
+        torch.ones((RMIN * U,), dtype=torch.bool, device=dev),
+        cfg.max_nodes,
+    )
+    jobs.append(
+        FU.Job(
+            "rowmin",
+            cfg.max_nodes,
+            mh_rows.reshape(RMIN, U),
+            mh_vals.T.reshape(3, RMIN, U).permute(1, 0, 2),
+            (2, 2, 1),
+        )
+    )
+
+    with_degrade = "degrade" in features
+    if with_degrade:
+        KD = cfg.degrade_rules_per_resource
+        slots_f, cb_counts, cb_epochs, active, is_err, is_slow, g_idx, half_open = (
+            E._degrade_completion_masks(cfg, state, rules, comp, valid, now_ms)
+        )
+        nbd = cfg.cb_sample_count
+        Dn = cfg.max_degrade_rules
+        probe_done = active & half_open
+        probe_fail = probe_done & (is_err | is_slow)
+        flat = torch.where(slots_f < Dn, slots_f * nbd + g_idx, -1)
+        pslot = torch.where(slots_f < Dn, slots_f, -1)
+        planes, rows_src = [], []
+        for d in range(KD):
+            sl = lambda x: x.reshape(b, KD)[:, d]
+            planes += [
+                sl(active.to(I32)),
+                sl(is_err.to(I32)),
+                sl(is_slow.to(I32)),
+                sl(probe_done.to(I32)),
+                sl(probe_fail.to(I32)),
+            ]
+            rows_src += [sl(flat), sl(pslot)]
+        # per-ITEM plane bound is 1 (event flags): one 2-digit chunk each
+        chunks, crows = _packed_seg_values(ctx, planes, [1] * len(planes), extra_rows=rows_src)
+        cbp_vals, cbp_digits, cbp_spec = _chunks_to_planes(
+            [chunks[5 * d + k] for d in range(KD) for k in range(3)]
+        )
+        prp_vals, prp_digits, prp_spec = _chunks_to_planes(
+            [chunks[5 * d + k] for d in range(KD) for k in range(3, 5)]
+        )
+        P2c = cbp_vals.shape[0] // KD
+        P2p = prp_vals.shape[0] // KD
+        jobs.append(
+            FU.Job(
+                "cb", Dn * nbd, torch.stack([crows[2 * d] for d in range(KD)]),
+                cbp_vals.reshape(KD, P2c, U), cbp_digits[:P2c],
+            )
+        )
+        jobs.append(
+            FU.Job(
+                "probe", Dn, torch.stack([crows[2 * d + 1] for d in range(KD)]),
+                prp_vals.reshape(KD, P2p, U), prp_digits[:P2p],
+            )
+        )
+
+    outs = FU.scatter_many(jobs)
+    stat_out, min_out = outs[0], outs[1]
+
+    # land (the same tail as the per-item fused path)
+    succ_h, err_h, rtq_h = _recombine(stat_out, spec3)
+    pad_tail = cfg.node_rows - cfg.max_nodes
+    hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=dev)
+    hist[: cfg.max_nodes, W.EV_SUCCESS] = succ_h
+    hist[: cfg.max_nodes, W.EV_EXCEPTION] = err_h
+    hist[erow] += entry_deltas
+    rt_hist = torch.cat([rtq_h.to(F32) / 8.0, torch.zeros((pad_tail,), dtype=F32, device=dev)])
+    rt_hist[erow] += entry_rt
+    mins_m, present_m = RM.combine(min_out)
+    row_min = (
+        torch.cat([mins_m, torch.full((pad_tail,), W.RT_MIN_INIT, dtype=F32, device=dev)]),
+        torch.cat([present_m, torch.zeros((pad_tail,), dtype=torch.bool, device=dev)]),
+    )
+    # the tick's ONE refresh per window
+    win_sec, win_min = _window_land(cfg, state, now_ms, hist, rt_hist, row_min, refreshed=False)
+    win_sec = W.min_into_row(win_sec, now_ms, erow, entry_rt_min, sec_cfg)
+    state = state._replace(win_sec=win_sec, win_min=win_min)
+    state = state._replace(
+        rtq=RQ.add(state.rtq, now_ms, comp.rt, inb & (comp.rt > 0), E.rtq_config(cfg))
+    )
+    concurrency = torch.clamp_min(state.concurrency - hist[:, W.EV_SUCCESS], 0)
+
+    if not with_degrade:
+        return state._replace(concurrency=concurrency)
+
+    cb_out, probe_out = outs[2], outs[3]
+    cb_upd = torch.stack(_recombine(cb_out, cbp_spec[:3]), dim=1).reshape(Dn, nbd, 3)
+    cb_counts[:Dn] += cb_upd  # refresh_columns returned a fresh tensor
+    sf = torch.cat(
+        [torch.stack(_recombine(probe_out, prp_spec[:2]), dim=1), torch.zeros((1, 2), dtype=I32, device=dev)]
+    )
+    cb_counts, cb_state, cb_retry = E._cb_transitions(
+        cfg, state, rules, cb_counts, cb_epochs, sf[:, 0], sf[:, 1], now_ms
+    )
+    return state._replace(
+        concurrency=concurrency,
+        cb_counts=cb_counts,
+        cb_epochs=cb_epochs,
+        cb_state=cb_state,
+        cb_retry_ms=cb_retry,
+    )
+
+
+def acquire_effects_seg(
+    cfg: EngineConfig,
+    state,
+    rules,
+    acq,
+    now_ms: int,
+    features: frozenset,
+    passed,
+    occupying,
+    valid,
+    fslots,
+    occ_grant,
+    rl_info,
+    ctx: SG.SegCtx,
+    carry: AcqCarry,
+):
+    """``engine._acquire_effects_fused`` with segment-compacted scatters:
+    every post-check value plane and per-lane row compacts through ONE
+    packed gather, then one scatter_many call."""
+    from sentinel_tpu_torch.ops import engine as E
+
+    b = acq.res.shape[0]
+    U = ctx.U
+    dev = acq.res.device
+    with_nodes = "nodes" in features
+    K = cfg.flow_rules_per_resource
+    CMAX = cfg.max_batch_count
+
+    pass_c, block_c, occ_c, entry_deltas = E._acquire_entry_stats(
+        cfg, acq, valid, passed, occupying
+    )
+
+    planes = [pass_c, block_c, occ_c]
+    maxes = [CMAX, CMAX, CMAX]
+    rows_src = []
+    slot_planes = []
+    if fslots is not None:
+        F = cfg.max_flow_rules
+        cnt_f = E._fan(acq.count, K)
+        w = c = n1 = None
+        if "warmup" in features:
+            w = torch.where(E._fan(passed, K), cnt_f, 0).reshape(b, K)
+            slot_planes.append("warm")
+        if rl_info is not None:
+            rl_ok, cost = rl_info
+            c = torch.where(rl_ok, torch.round(cost).to(I32), 0).reshape(b, K)
+            n1 = torch.where(rl_ok, 1, 0).to(I32).reshape(b, K)
+            slot_planes.append("latest")
+        # LANE-MAJOR: the chunk slicing below walks chunks per lane
+        for d in range(K):
+            if w is not None:
+                planes.append(w[:, d])
+                maxes.append(CMAX)
+            if c is not None:
+                planes += [c[:, d], n1[:, d]]
+                maxes += [(1 << 24) - 1, 255]
+        fs = torch.where(fslots < F, fslots, -1).reshape(b, K)
+        rows_src += [fs[:, d] for d in range(K)]
+    if occ_grant is not None:
+        grant_lane, onodes, ocnt = occ_grant
+        commit = grant_lane & E._fan(occupying, K)
+        cm = torch.where(commit, torch.round(ocnt).to(I32), 0).reshape(b, K)
+        on = torch.where(onodes < cfg.max_nodes, onodes, -1).reshape(b, K)
+        for d in range(K):
+            planes.append(cm[:, d])
+            maxes.append(CMAX)
+            rows_src.append(on[:, d])
+
+    chunks, crows = _packed_seg_values(ctx, planes, maxes, extra_rows=rows_src)
+    pi = ri = 0
+    vals3_u, digits3, spec3 = _chunks_to_planes(chunks[pi : pi + 3])
+    pi += 3
+    stat_rows = _stat_rows_u(cfg, ctx, carry, with_nodes)
+    jobs = [FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3)]
+
+    f_idx = occ_idx = None
+    if fslots is not None and slot_planes:
+        per_lane = (1 if "warm" in slot_planes else 0) + (2 if "latest" in slot_planes else 0)
+        lane_chunks = []
+        for d in range(K):
+            lane_chunks.extend(chunks[pi + d * per_lane : pi + (d + 1) * per_lane])
+        f_vals, f_digits, f_spec = _chunks_to_planes(lane_chunks)
+        pi += K * per_lane
+        P2f = f_vals.shape[0] // K
+        jobs.append(
+            FU.Job(
+                "fslots", cfg.max_flow_rules, torch.stack(crows[ri : ri + K]),
+                f_vals.reshape(K, P2f, U), f_digits[:P2f],
+            )
+        )
+        ri += K
+        f_idx = len(jobs) - 1
+    elif fslots is not None:
+        ri += K
+
+    if occ_grant is not None:
+        o_vals, o_digits, o_spec = _chunks_to_planes(chunks[pi : pi + K])
+        pi += K
+        P2o = o_vals.shape[0] // K
+        jobs.append(
+            FU.Job(
+                "occ", cfg.max_nodes, torch.stack(crows[ri : ri + K]),
+                o_vals.reshape(K, P2o, U), o_digits[:P2o],
+            )
+        )
+        ri += K
+        occ_idx = len(jobs) - 1
+
+    outs = FU.scatter_many(jobs)
+
+    pass_h, block_h, occ_h = _recombine(outs[0], spec3)
+    hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=dev)
+    hist[: cfg.max_nodes, W.EV_PASS] = pass_h
+    hist[: cfg.max_nodes, W.EV_BLOCK] = block_h
+    hist[: cfg.max_nodes, W.EV_OCCUPIED] = occ_h
+    hist[cfg.entry_node_row] += entry_deltas
+    # the completion phase refreshed both windows at this now_ms already
+    win_sec, win_min = _window_land(cfg, state, now_ms, hist, None, None, refreshed=True)
+    concurrency = state.concurrency + hist[:, W.EV_PASS] + hist[:, W.EV_OCCUPIED]
+    state = state._replace(win_sec=win_sec, win_min=win_min, concurrency=concurrency)
+
+    if f_idx is not None:
+        # lanes are row-vectors of one job, so the output is already summed
+        # over lanes; recombine with lane 0's spec (lanes share it)
+        cols = _recombine(outs[f_idx], f_spec[: len(f_spec) // K])
+        fi = 0
+        pad1 = torch.zeros((1,), dtype=F32, device=dev)
+        if "warm" in slot_planes:
+            state = state._replace(
+                warm_acc=state.warm_acc + torch.cat([cols[fi].to(F32), pad1])
+            )
+            fi += 1
+        if "latest" in slot_planes:
+            T_s = torch.cat([cols[fi].to(F32), pad1])
+            n_s = torch.cat([cols[fi + 1].to(F32), pad1])
+            state = state._replace(
+                latest_passed_ms=E._apply_latest(state.latest_passed_ms, T_s, n_s, now_ms)
+            )
+
+    if occ_idx is not None:
+        add = torch.cat(
+            [
+                _recombine(outs[occ_idx], o_spec[: len(o_spec) // K])[0].to(F32),
+                torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev),
+            ]
+        )
+        cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
+        pool_vec = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
+        state = state._replace(
+            occ_tokens=pool_vec + add,
+            occ_epoch=torch.where(add > 0, cur_wid + 1, state.occ_epoch).to(I32),
+        )
+    return state

@@ -21,6 +21,17 @@ def big_gather(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(ok.reshape(ok.shape + (1,) * (out.dim() - 1)), out, 0)
 
 
+def lane_gather_multi(
+    tables: Sequence[torch.Tensor], idx: torch.Tensor, n: int
+) -> list:
+    """Up to four 1-column tables read at the same index: float32
+    table[idx] per table, zeros for ids outside [0, n)."""
+    assert 1 <= len(tables) <= 4
+    ok = (idx >= 0) & (idx < n)
+    safe = torch.clamp(idx, 0, n - 1).to(torch.int64)
+    return [torch.where(ok, t[safe].to(torch.float32), 0.0) for t in tables]
+
+
 def pack_fields(fields: Sequence[torch.Tensor]) -> torch.Tensor:
     """[S, F] f32 matrix from per-slot field vectors (bool/int/float)."""
     return torch.stack([f.to(torch.float32) for f in fields], dim=1)

@@ -8,7 +8,8 @@ Readback — ONE flat buffer of uint32 words per tick::
 
     word 0            WIRE_MAGIC (layout/version tag)
     word 1            n_wait   — count of PASS_WAIT rows with wait > 0
-    word 2            seg_dropped — fail-closed seg-overflow item count
+    word 2            seg_dropped — items failed closed past the segment
+                      capacity (0 on the per-item path)
     word 3            checksum — uint32 sum of words {0,1,2} ∪ payload
     [bitmap]          ceil(B / 10) words; 10 verdicts per word, 3 bits each
     [sidecar]         EXC_K row indices then EXC_K wait values: the top-EXC_K
@@ -130,7 +131,10 @@ def pack_tick_output(cfg: EngineConfig, verdict, wait_ms, seg_dropped=0) -> torc
     # scalars are filled on the device: a host tensor here would be an
     # upload (and a stream sync) inside the tick
     magic = torch.full((), WIRE_MAGIC, dtype=torch.int64, device=dev)
-    dropped = torch.full((), int(seg_dropped), dtype=torch.int64, device=dev)
+    if isinstance(seg_dropped, torch.Tensor):  # the segment path's device count
+        dropped = seg_dropped.to(torch.int64).reshape(())
+    else:
+        dropped = torch.full((), int(seg_dropped), dtype=torch.int64, device=dev)
     cksum = (magic + n_wait + dropped + torch.sum(payload)) & _U32
     hdr = torch.stack([magic, n_wait, dropped & _U32, cksum])
     return _to_i32_bits(torch.cat([hdr, payload]))

@@ -13,6 +13,17 @@ next tick.  Counts, successes and errors are clamped to
 ``cfg.max_batch_count`` at batch build — the envelope the fused kernels
 carry exactly (core/config.py).
 
+On the segment path (``seg_effects``, the default ``platform_config()``)
+the client presorts each batch on the host by the engine's segment keys
+(runtime/presort.py) and maps the verdicts and waits back through the
+inverse permutation.  Knowing the exact live-segment count before it
+dispatches, it grows ``seg_u`` at the first tick that would overflow it
+(``_note_seg_count``), so no tick drops items for capacity; any item the
+engine still fails closed for capacity is counted in
+``seg_dropped_total``.  Every rule load sets ``seg_static_ranks`` when
+the rules allow the scan-only ranks (single lanes, DIRECT rules with the
+default limitApp).
+
 The client runs on the card unless it is asked for the CPU:
 ``SentinelClient(device=None)`` picks ``"cuda"`` and raises where no CUDA
 device exists.  Not ported yet (ROADMAP.md): param-flow rules (loading
@@ -35,8 +46,10 @@ from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
 from sentinel_tpu_torch.core.config import EngineConfig, app_name as cfg_app_name, platform_config
 from sentinel_tpu_torch.ops import engine as E
+from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.runtime import context as CTX
+from sentinel_tpu_torch.runtime import presort as PS
 from sentinel_tpu_torch.runtime.registry import Registry
 from sentinel_tpu_torch.utils.system_status import SystemStatusSampler
 from sentinel_tpu_torch.utils.time_source import TimeSource, VirtualTimeSource, mono_s
@@ -101,6 +114,11 @@ _COMP_COLS = (
     ("success", 0, np.int32),
     ("error", 0, np.int32),
 )
+#: the segment path's presort keys, most significant first: the segment
+#: keys of engine_seg.prepare_acquire / prepare_completions, res-major (the
+#: scan ranks also need res nondecreasing)
+_ACQ_SEG_KEYS = ("res", "ctx_node", "origin_node", "origin_id", "ctx_name")
+_COMP_SEG_KEYS = ("res", "ctx_node", "origin_node")
 
 
 class Entry:
@@ -239,6 +257,10 @@ class SentinelClient:
         self._wire_layouts: Dict[int, WIRE.WireLayout] = {}
         #: ticks whose wire failed validation (each failed CLOSED)
         self.wire_decode_failures = 0
+        #: items the engine failed closed past the segment capacity
+        self.seg_dropped_total = 0
+        #: largest live-segment count seen in one batch
+        self._seg_obs_peak = 0
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._started = False
@@ -300,11 +322,29 @@ class SentinelClient:
             device=self.device,
         )
         feats = self._select_features()
+        cfg = self.cfg
+        if cfg.seg_effects:
+            # every batch is presorted (_run_tick), so single-lane DIRECT /
+            # default-limitApp rules qualify for the scan-only ranks; the
+            # engine still checks the contract and fails closed if it breaks
+            want_static = (
+                cfg.flow_rules_per_resource == 1
+                and cfg.degrade_rules_per_resource == 1
+                and cfg.param_rules_per_resource == 1
+                and all(
+                    r.strategy == R.STRATEGY_DIRECT
+                    and (r.limit_app or "default") == "default"
+                    for r in flow
+                )
+            )
+            if want_static != cfg.seg_static_ranks:
+                cfg = dataclasses.replace(cfg, seg_static_ranks=want_static)
         with self._engine_lock:
             self._rules_dev = rules_dev
-            if feats != self._features:
+            if feats != self._features or cfg != self.cfg:
+                self.cfg = self.registry.cfg = cfg
                 self._features = feats
-                self._tick = E.make_tick(self.cfg, features=feats)
+                self._tick = E.make_tick(cfg, features=feats)
 
     # -- entry API ------------------------------------------------------------
 
@@ -446,6 +486,30 @@ class SentinelClient:
         bigger at the full configured batch."""
         return min(256, cap) if n <= 256 else cap
 
+    def _note_seg_count(self, segs: int, b: int) -> None:
+        """Track the live-segment count of the batch about to be dispatched;
+        when it exceeds the compacted capacity, grow ``seg_u`` to
+        ``ceil((1.25 * peak + 128) / 128) * 128`` (at most the batch size)
+        before the tick runs.  Eager PyTorch has nothing to compile, so the
+        new capacity serves this very tick.
+
+        Unlike the JAX client, a light tick that overflows its own automatic
+        capacity while the full shape's still covers the peak pins ``seg_u``
+        at the full shape's capacity: with ``seg_fallback`` off, returning
+        there would fail that tick's overflow items closed."""
+        self._seg_obs_peak = max(self._seg_obs_peak, segs)
+        if segs <= ES.seg_capacity(self.cfg, b):
+            return
+        b_full = self.cfg.batch_size
+        grown = min(b_full, -(-int(self._seg_obs_peak * 1.25 + 128) // 128) * 128)
+        new_u = max(grown, ES.seg_capacity(self.cfg, b_full))
+        if new_u == self.cfg.seg_u:
+            return  # already at the batch size: nothing larger to give
+        cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
+        with self._engine_lock:
+            self.cfg = self.registry.cfg = cfg
+            self._tick = E.make_tick(cfg, features=self._features)
+
     def _upload(self, x: np.ndarray, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(x)
         if dtype is not None:
@@ -453,45 +517,59 @@ class SentinelClient:
         return t.to(self.device)
 
     def _run_tick(self, acq: List[AcquireRequest], comp: List[Completion], now_ms):
-        """Build + upload the batch columns (the uploads finish before the
-        tick starts), run one tick; returns (TickOutput, wire layout)."""
+        """Build (and on the segment path presort) the batch columns, upload
+        them (the uploads finish before the tick starts), run one tick;
+        returns (TickOutput, wire layout, inverse permutation or None)."""
         cfg = self.cfg
         trash = cfg.trash_row
         cap = cfg.max_batch_count
         B = self._shape_for(len(acq), cfg.batch_size)
         B2 = self._shape_for(len(comp), cfg.complete_batch_size)
-        wd_a = WIRE.acquire_wire_dtypes(cfg)
-        wd_c = WIRE.complete_wire_dtypes(cfg)
 
-        cols = {}
+        acols = {}
         for f, fill, dt in _ACQ_COLS:
             col = np.full(B, trash if fill is None else fill, dt)
             if acq:
                 col[: len(acq)] = [getattr(r, f) for r in acq]
             if f == "count":
                 np.minimum(col, cap, out=col)  # the fused kernels' envelope
-            cols[f] = self._upload(col, wd_a.get(f))
-        a = E.AcquireBatch(
-            param_hash=torch.zeros((B, cfg.param_dims), dtype=torch.int32, device=self.device),
-            **cols,
-        )
-        cols = {}
+            acols[f] = col
+        ccols = {}
         for f, fill, dt in _COMP_COLS:
             col = np.full(B2, trash if fill is None else fill, dt)
             if comp:
                 col[: len(comp)] = [getattr(c, f) for c in comp]
             if f in ("success", "error"):
                 np.minimum(col, cap, out=col)
-            cols[f] = self._upload(col, wd_c.get(f))
+            ccols[f] = col
+        inv = None
+        if cfg.seg_effects:
+            # trash-row padding has the largest res, so it sorts last and
+            # stays inside the sort
+            order, inv = PS.batch_sort5(*(acols[k] for k in _ACQ_SEG_KEYS))
+            acols = {k: v[order] for k, v in acols.items()}
+            # completions carry no futures: sort, no unsort (their effects
+            # are order-independent sums and minima)
+            order_c, _ = PS.batch_sort3(*(ccols[k] for k in _COMP_SEG_KEYS))
+            ccols = {k: v[order_c] for k, v in ccols.items()}
+            self._note_seg_count(PS.host_seg_count([acols[k] for k in _ACQ_SEG_KEYS]), B)
+            self._note_seg_count(PS.host_seg_count([ccols[k] for k in _COMP_SEG_KEYS]), B2)
+            cfg = self.cfg
+        wd_a = WIRE.acquire_wire_dtypes(cfg)
+        wd_c = WIRE.complete_wire_dtypes(cfg)
+        a = E.AcquireBatch(
+            param_hash=torch.zeros((B, cfg.param_dims), dtype=torch.int32, device=self.device),
+            **{f: self._upload(v, wd_a.get(f)) for f, v in acols.items()},
+        )
         c = E.CompleteBatch(
             param_hash=torch.zeros((B2, cfg.param_dims), dtype=torch.int32, device=self.device),
-            **cols,
+            **{f: self._upload(v, wd_c.get(f)) for f, v in ccols.items()},
         )
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
         with self._engine_lock:
             self._state, out = self._tick(self._state, self._rules_dev, a, c, int(t), load, cpu)
-        return out, self._wire_layout(B)
+        return out, self._wire_layout(B), inv
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
         lo = self._wire_layouts.get(b)
@@ -503,10 +581,10 @@ class SentinelClient:
         """THE readback: one copy of the packed wire, validated; verdicts
         fan out to the futures.  A wire that fails validation fails every
         item of the tick CLOSED."""
-        out, lo = dispatched
+        out, lo, inv = dispatched
         try:
             frame = WIRE.unpack(out.wire.cpu().numpy().tobytes(), lo)
-            wait = frame.wait
+            verdict, wait = frame.verdict, frame.wait
             if wait is None:  # more PASS_WAIT rows than the sidecar holds
                 wait = out.wait_ms.cpu().numpy()
         except WIRE.WireDecodeError:
@@ -518,9 +596,15 @@ class SentinelClient:
             # the tick loop reports the error
             self._fail_closed(acq)
             raise
+        if frame.seg_dropped:
+            self.seg_dropped_total += frame.seg_dropped
+        if inv is not None:
+            # the wire's rows (bitmap and PASS_WAIT sidecar alike) are
+            # positions in the sorted batch: back to submission order
+            verdict, wait = verdict[inv], wait[inv]
         for i, r in enumerate(acq):
             if r.future is not None:
-                r.future.set_result((int(frame.verdict[i]), int(wait[i])))
+                r.future.set_result((int(verdict[i]), int(wait[i])))
 
     @staticmethod
     def _fail_closed(acq: List[AcquireRequest]) -> None:

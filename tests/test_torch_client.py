@@ -226,3 +226,186 @@ def test_a_tick_that_cannot_run_fails_its_entries_closed(monkeypatch):
         tc._tick = real
     tc.entry("anything").exit()
     tc.stop()
+
+
+# -- the segment path (presort, unsort, seg_u sizing, static ranks) ----------
+
+SEG = dict(fused_effects=True, seg_effects=True, seg_fallback=False, **NO_PLANES)
+SINGLE_LANE = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
+
+
+@pytest.mark.parametrize("lanes", ["four", "single"])
+def test_segment_client_matches_jax_client_verdict_for_verdict(lanes):
+    """The port's client on the segment path (4 lanes: per-item checks;
+    single lanes: the segment check phase) against the JAX client, entry
+    for entry, PASS_WAIT waits included."""
+    extra = SINGLE_LANE if lanes == "single" else {}
+    jc = JaxClient(cfg=jax_small_cfg(**NO_PLANES, **extra), time_source=JaxVT(1_000), mode="sync")
+    upload = jc._dev_col
+    jc._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
+    tc = SentinelClient(
+        cfg=small_engine_config(**SEG, **extra), time_source=VirtualTimeSource(1_000),
+        mode="sync", device="cpu",
+    )
+    jc.start()
+    tc.start()
+    try:
+        want = _drive(jc, jst, 5)
+        got = _drive(tc, tst, 5)
+    finally:
+        jc.stop()
+        tc.stop()
+    assert got == want
+    assert any(o[0] == "pass" and o[2] > 0 for o in got)  # paced (PASS_WAIT) entries
+    assert tc.seg_dropped_total == 0
+    # the rule set has an origin-limited rule: no scan-only ranks
+    assert not tc.cfg.seg_static_ranks
+
+
+def _queue(client, names, prio=()):
+    """Queue one acquire per name (no origin, default context) and decide
+    them all in ONE tick; returns (verdict, wait) per name."""
+    from concurrent.futures import Future
+
+    from sentinel_tpu_torch.runtime.client import AcquireRequest
+
+    trash = client.cfg.trash_row
+    reqs = [
+        AcquireRequest(
+            res=client.registry.resource_id(n), count=1, prio=1 if i in prio else 0,
+            origin_id=-1, origin_node=trash, ctx_node=trash, ctx_name=-1, inbound=0,
+            future=Future(),
+        )
+        for i, n in enumerate(names)
+    ]
+    client._acquires.extend(reqs)
+    client.tick_once()
+    return [r.future.result(timeout=5) for r in reqs]
+
+
+def test_segment_client_unsorts_multi_item_ticks():
+    """Ticks of many interleaved acquires: the segment client presorts them,
+    and its verdicts and waits (the sidecar's rows are sorted positions)
+    come back in submission order — equal to the per-item fused client's,
+    since a stable sort keeps arrival order inside each resource."""
+    rng = np.random.default_rng(9)
+    rules = [
+        tst.FlowRule(resource="a", count=3),
+        tst.FlowRule(resource="b", count=50, control_behavior=tst.CONTROL_RATE_LIMITER, max_queueing_time_ms=500),
+        tst.FlowRule(resource="c", count=2),
+    ]
+    outs = []
+    for cfg in (small_engine_config(**SEG, **SINGLE_LANE), small_engine_config(fused_effects=True, **NO_PLANES)):
+        c = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
+        c.start()
+        c.flow_rules.load(rules)
+        for n in ("a", "b", "c", "d", "e"):
+            c.registry.resource_id(n)
+        rng = np.random.default_rng(9)
+        got = []
+        for _ in range(4):
+            names = [str(x) for x in rng.choice(["a", "b", "c", "d", "e"], size=40)]
+            got.append(_queue(c, names, prio=set(rng.choice(40, size=5).tolist())))
+            c.time.advance(300)
+        c.stop()
+        outs.append((got, c))
+    (seg, sc), (fused, _fc) = outs
+    assert sc.cfg.seg_static_ranks  # DIRECT / default rules on single lanes
+    assert seg == fused
+    flat = [v for tick in seg for v in tick]
+    assert any(w > 0 for _v, w in flat) and any(v != 0 for v, _w in flat)
+
+
+def test_rule_loads_set_seg_static_ranks():
+    c = SentinelClient(cfg=small_engine_config(**SEG, **SINGLE_LANE), mode="sync", device="cpu")
+    c.flow_rules.load([tst.FlowRule(resource="a", count=3)])
+    assert c.cfg.seg_static_ranks
+    c.flow_rules.load([tst.FlowRule(resource="a", count=3, limit_app="bad")])
+    assert not c.cfg.seg_static_ranks
+    c.flow_rules.load([tst.FlowRule(resource="a", count=3, strategy=tst.STRATEGY_RELATE, ref_resource="b")])
+    assert not c.cfg.seg_static_ranks
+    c.flow_rules.load([])
+    assert c.cfg.seg_static_ranks
+    four = SentinelClient(cfg=small_engine_config(**SEG), mode="sync", device="cpu")
+    four.flow_rules.load([tst.FlowRule(resource="a", count=3)])
+    assert not four.cfg.seg_static_ranks  # 4 lanes: the per-item checks rank
+
+
+def _wide_client(batch=512, **extra):
+    cfg = small_engine_config(
+        **SEG, max_resources=512, max_nodes=1024, batch_size=batch, complete_batch_size=batch, **extra
+    )
+    c = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
+    c.start()
+    return c
+
+
+def test_seg_u_grows_before_an_overflowing_tick():
+    """200 distinct resources in a 256-row tick: more live segments than
+    the automatic capacity (97).  The client sees it on the host and grows
+    seg_u to ceil((1.25 * 200 + 128) / 128) * 128 = 384 before the tick
+    runs, so nothing fails closed."""
+    from sentinel_tpu_torch.ops import engine_seg as ES
+
+    c = _wide_client()
+    assert ES.seg_capacity(c.cfg, 256) == 97
+    out = _queue(c, [f"r{i}" for i in range(200)])
+    assert c.cfg.seg_u == 384
+    assert c.seg_dropped_total == 0 and all(v == 0 for v, _w in out)
+    c.stop()
+
+
+def test_a_light_tick_past_its_capacity_pins_seg_u_at_the_full_shape():
+    """Batch 2,048: a 256-row light tick of 100 resources (101 segments with
+    the trash padding) overflows the light shape's automatic capacity (97)
+    while the full shape's (328) covers the grown peak (256).  The client
+    pins seg_u at 328, so every shape holds the tick and nothing fails
+    closed."""
+    from sentinel_tpu_torch.ops import engine_seg as ES
+
+    c = _wide_client(batch=2048)
+    assert ES.seg_capacity(c.cfg, 256) == 97 and ES.seg_capacity(c.cfg, 2048) == 328
+    out = _queue(c, [f"r{i}" for i in range(100)])
+    assert c.cfg.seg_u == 328
+    assert c.seg_dropped_total == 0 and all(v == 0 for v, _w in out)
+    c.stop()
+
+
+def test_seg_dropped_total_counts_items_failed_closed(monkeypatch):
+    """Without the resize, the segment check phase (single lanes) fails the
+    overflow segments' items closed as system blocks, and the wire's count
+    lands in seg_dropped_total."""
+    c = _wide_client(**SINGLE_LANE)
+    monkeypatch.setattr(c, "_note_seg_count", lambda segs, b: None)
+    out = _queue(c, [f"r{i}" for i in range(200)])
+    from sentinel_tpu_torch.core.errors import BLOCK_SYSTEM
+
+    blocked = [i for i, (v, _w) in enumerate(out) if v == BLOCK_SYSTEM]
+    # one resource a segment: segments 97..199 lie past the capacity
+    assert c.seg_dropped_total == len(blocked) == 200 - 97
+    assert blocked == list(range(97, 200))
+    c.stop()
+
+
+def test_presort_copy_matches_lexsort_and_the_jax_package():
+    from sentinel_tpu.native import ring as RING
+    from sentinel_tpu.runtime.client import SentinelClient as JC
+
+    from sentinel_tpu_torch.runtime import presort as PS
+
+    rng = np.random.default_rng(4)
+    n = 3000
+    keys = [rng.integers(-1, k, n).astype(np.int32) for k in (50, 3, 4, 2, 5)]
+    order, inv = PS.batch_sort5(*keys)
+    np.testing.assert_array_equal(order, np.lexsort(tuple(reversed(keys))))
+    np.testing.assert_array_equal(inv[order], np.arange(n))
+    jorder, jinv = RING.batch_sort5(*keys)
+    np.testing.assert_array_equal(order, jorder)
+    np.testing.assert_array_equal(inv, jinv)
+    order3, inv3 = PS.batch_sort3(*keys[:3])
+    jorder3, jinv3 = RING.batch_sort3(*keys[:3], want_inv=True)
+    np.testing.assert_array_equal(order3, jorder3)
+    np.testing.assert_array_equal(inv3, jinv3)
+    cols = [k[order] for k in keys]
+    assert PS.host_seg_count(cols) == JC._host_seg_count(cols)
+    assert PS.host_seg_count([np.zeros(0, np.int32)]) == 0

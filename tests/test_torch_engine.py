@@ -149,7 +149,7 @@ def test_tick_continues_a_jax_run_state():
 @pytest.mark.parametrize(
     "flags",
     [
-        dict(seg_effects=True),
+        dict(seg_effects=True, seg_fallback=True),
         dict(sketch_stats=True),
         dict(device_telemetry=True),
         dict(timeline_k=4),
@@ -173,10 +173,15 @@ def test_unported_features_raise(feature):
 
 
 def test_platform_config_is_the_fused_path_and_carries_across():
+    """platform_config() is the segment path without the per-tick fallback;
+    seg_effects=False gives the per-item fused path; both are supported."""
     cfg = platform_config()
-    assert cfg.fused_effects and not cfg.seg_effects
+    assert cfg.fused_effects and cfg.seg_effects and not cfg.seg_fallback
     assert not cfg.device_telemetry and cfg.timeline_k == 0 and cfg.explain_k == 0
     E.check_supported(cfg)
+    fused = platform_config(seg_effects=False)
+    assert fused.fused_effects and not fused.seg_effects
+    E.check_supported(fused)
     # the port's EngineConfig has the JAX package's fields and defaults
     from sentinel_tpu.core.config import EngineConfig as JaxEngineConfig
 

@@ -24,9 +24,35 @@ FUSED_FLAGS = dict(
 )
 
 
-def make_rules(R):
+#: config flags of the segment path (the port's platform_config) on top of FUSED_FLAGS
+SEG_FLAGS = dict(seg_effects=True, seg_fallback=False)
+
+#: single-lane rule tables: the segment check phase runs (engine.py's gate)
+SINGLE_LANE = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
+
+
+def make_rules(R, direct_only: bool = False):
     """Rule kinds as in tests/test_engine_backends.py (no param rule),
-    built from the given rules module (either package's copy)."""
+    built from the given rules module (either package's copy).
+    ``direct_only`` leaves out the origin-limited and RELATE flow rules
+    (the contract of the scan-only ranks, ``seg_static_ranks``)."""
+    rules = _make_rules(R)
+    if direct_only:
+        rules["flow_rules"] = [r for r in rules["flow_rules"] if r.resource not in ("r9", "r10")]
+    return rules
+
+
+def presort(w: dict) -> dict:
+    """The client's host presort of one workload: acquires by (res,
+    ctx_node, origin_node, origin_id, ctx_name), completions by (res,
+    ctx_node, origin_node), both stable."""
+    a, c = w["acq"], w["comp"]
+    o = np.lexsort((a["ctx_name"], a["origin_id"], a["origin_node"], a["ctx_node"], a["res"]))
+    oc = np.lexsort((c["origin_node"], c["ctx_node"], c["res"]))
+    return dict(acq={k: v[o] for k, v in a.items()}, comp={k: v[oc] for k, v in c.items()})
+
+
+def _make_rules(R):
     return dict(
         flow_rules=[
             R.FlowRule(resource="r1", count=5),

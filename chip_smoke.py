@@ -38,32 +38,35 @@ Phases (the first failure stops the script with a nonzero exit):
    configuration, 4,000 flow rules (one per resource: 40 rate limiters,
    40 warm-ups, the rest QPS; prioritized traffic borrows ahead), 1,000
    degrade rules, an authority black list and a system QPS rule, 8
-   request threads, Zipf(1.1) over 100,000 names, real exits: 2,000
-   entries on ``fused``, 6,000 each on ``seg4`` and ``seg1``.  Launch
-   counts are reset just before each run and read just after; every
-   kernel of the path must have launched, flow rules must have blocked
-   some entries; on ``seg1`` the client must have turned
+   request threads, Zipf(1.1) over 100,000 names, real exits, 6,000
+   entries each.  Launch counts are reset just before each run and read
+   just after; every kernel of the path must have launched, flow rules
+   must have blocked some entries; on ``seg1`` the client must have turned
    ``seg_static_ranks`` on, and no item may have failed closed for
-   segment capacity.
+   segment capacity.  Each request thread waits for its verdict, so these
+   ticks carry a few acquires; then one open-loop burst per configuration
+   through a sync client: 2,048 acquires queued before one tick, their
+   exits in the next, a second burst in the third.  There the segment
+   client must grow ``seg_u`` from the burst's host segment count, drop
+   nothing, and give the fused client's verdicts and waits, item for item.
 4. The tick against itself, per configuration: one seeded, host-presorted
-   B = 2,048 stream (``seg_u`` sized from its exact segment count) from
-   one state, once with the kernels and once with every kernel swapped
-   for its plain version; wire bytes, wait_ms and integer state must be
-   equal, no tick may drop items, and the kernel run forbids host syncs
-   inside the tick (``torch.cuda.set_sync_debug_mode("error")``; the
-   readback is outside).  Prints ms per tick, decisions/s and, from a
-   profile of 4 ticks, the card's idle share.
+   B = 2,048 stream (``seg_u`` grown from its exact segment count by the
+   client's rule) from one state, once with the kernels and once with
+   every kernel swapped for its plain version; wire bytes, wait_ms and
+   integer state must be equal, no tick may drop items, and the kernel
+   run forbids host syncs inside the tick
+   (``torch.cuda.set_sync_debug_mode("error")``; the readback is
+   outside).  Prints ms per tick, decisions/s and, from a profile of 4
+   ticks, device busy time, wall time, host CPU time, device launches and
+   the card's idle share, with the profile's top rows.
 
-The last lines: the run's fuller numbers (``[report] {...}``), the
-kernels' JSON record, the card's name and power limit (nvidia-smi), and
-``{"ok": true, "device": {...}}``.  With ``--out DIR`` the profile tables
-(``chip_smoke_profile.txt``) and the full report with every kernel shape
-(``chip_smoke_report.json``) are also written to DIR.
+The last lines: the run's fuller numbers, every kernel shape included
+(``[report] {...}``), the kernels' JSON record, the card's name and power
+limit (nvidia-smi), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -78,7 +81,7 @@ SEED = 20261016
 N_THREADS = 8
 N_NAMES = 100_000
 #: entries per threaded main-path run
-ENTRIES = {"fused": 2_000, "seg4": 6_000, "seg1": 6_000}
+MAIN_ENTRIES = 6_000
 #: kernels each configuration's tick must launch
 PATH_KERNELS = {
     "fused": ("scatter_many", "gather_many"),
@@ -427,6 +430,70 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     return counts, done[0], elapsed, launches, info
 
 
+def drive_burst(st, np, FU, SC, cfg, rules):
+    """One open-loop burst through a sync client: a full batch of Zipf
+    acquires queued before ONE tick, the exits of those that passed (whole
+    ms RTs, 5 % business errors) in the next tick, a second burst in the
+    third.  Returns the (verdict, wait) of every acquire, the kernel
+    launches of the three ticks and the client's record: its segment
+    capacity and the wall ms of each ``tick_once`` (batch build, presort,
+    upload, tick, readback, unsort, futures)."""
+    from concurrent.futures import Future
+
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.runtime.client import AcquireRequest, Completion, SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    client = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cuda")
+    client.start()
+    flow, degrade, authority, system = rules
+    client.flow_rules.load(flow)
+    client.degrade_rules.load(degrade)
+    client.authority_rules.load(authority)
+    client.system_rules.load(system)
+    rng = np.random.default_rng(SEED + 100)
+    probs = zipf_probs(np, N_NAMES)
+    trash = client.cfg.trash_row
+    B = client.cfg.batch_size
+
+    tick_ms = []
+
+    def tick():
+        t = time.perf_counter()
+        client.tick_once()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+
+    def burst():
+        reqs = []
+        for k, p in zip(rng.choice(N_NAMES, size=B, p=probs), rng.random(B) < 0.05):
+            rid = client.registry.resource_id(f"res-{k}")
+            check(rid is not None, "burst: the registry ran out of resource rows")
+            reqs.append(AcquireRequest(res=rid, count=1, prio=int(p), origin_id=-1, origin_node=trash,
+                                       ctx_node=trash, ctx_name=-1, inbound=0, future=Future()))
+        with client._lock:
+            client._acquires.extend(reqs)
+        tick()
+        return reqs, [r.future.result(timeout=60) for r in reqs]
+
+    FU.reset_launches()
+    SC.reset_launches()
+    reqs, first = burst()
+    client.time.advance(40)
+    comps = [Completion(res=r.res, origin_node=trash, ctx_node=trash, inbound=0, rt=float(rng.integers(1, 80)),
+                        success=1, error=int(rng.random() < 0.05))
+             for r, (v, _w) in zip(reqs, first) if v in (ERR.PASS, ERR.PASS_WAIT)]
+    with client._lock:
+        client._completions.extend(comps)
+    tick()
+    client.time.advance(40)
+    _, second = burst()
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    info = dict(seg_u=client.cfg.seg_u, peak_segments=client._seg_obs_peak,
+                seg_dropped_total=client.seg_dropped_total, exits=len(comps), tick_ms=tick_ms)
+    client.stop()
+    return first + second, launches, info
+
+
 # -- phase 4: the tick against itself ---------------------------------------------------
 
 
@@ -457,16 +524,15 @@ def batch_columns(np, PS, n_ticks, names_to_rows, B, seed):
     return out
 
 
-def stream_seg_u(np, PS, cols, cfg):
-    """seg_u from the stream's exact live-segment count, with headroom
-    (the sizing of the JAX package's benchmark): ceil((1.15 * peak + 128)
-    / 128) * 128.  Padding rows are trash rows: one more segment run."""
+def stream_peak(np, PS, cols, cfg):
+    """The stream's largest exact live-segment count in one batch, counted
+    on the host as the client counts it."""
     trash = cfg.trash_row
     peak = 0
     for a, c in cols:
         for res in (a["res"], c["res"]):
             peak = max(peak, PS.host_seg_count([res, np.full_like(res, trash)]))
-    return -(-(int(peak * 1.15) + 128) // 128) * 128, peak
+    return peak
 
 
 def to_batches(E, torch, cfg, cols):
@@ -510,8 +576,8 @@ def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False):
 
 
 def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
-    """(device busy us, wall us, device launches, table) of 4 ticks under
-    the profiler."""
+    """(device busy us, wall us, host CPU us, device launches, table) of 4
+    ticks under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -526,15 +592,13 @@ def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20, max_name_column_width=48)
     # device work = the kernel / memcpy / memset events (the CPU-side aten
     # rows repeat the same time as their "self CUDA" column)
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return sum(e.self_device_time_total for e in dev), wall_us, sum(e.count for e in dev), table
+    evs = prof.key_averages()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    cpu_us = sum(e.self_cpu_time_total for e in evs if e.device_type == DeviceType.CPU)
+    return sum(e.self_device_time_total for e in dev), wall_us, cpu_us, sum(e.count for e in dev), table
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Drive and check sentinel_tpu_torch on one CUDA card.")
-    ap.add_argument("--out", help="directory for the profile tables and the full report (none written without it)")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -553,6 +617,7 @@ def main(argv=None) -> int:
     from sentinel_tpu_torch.ops import segscan as SC
     from sentinel_tpu_torch.ops import wire as WIRE
     from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import grown_seg_u
     from sentinel_tpu_torch.runtime.registry import Registry
 
     report = {"torch": torch.__version__, "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)}
@@ -561,14 +626,12 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     report["nvidia_smi"] = smi
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-    prof_out = []
 
     # -- 1. build -----------------------------------------------------------
     t = time.perf_counter()
     _build.load_library()
-    log(f"[build] kernels ready in {time.perf_counter() - t:.2f} s (nvcc, all sources at once: {_build.build_seconds:.2f} s)")
+    log(f"[build] kernels ready in {time.perf_counter() - t:.2f} s (nvcc, every source at once, then one link: "
+        f"{_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("[build]", line.strip())
@@ -585,7 +648,8 @@ def main(argv=None) -> int:
     flow, degrade, authority, system = build_rules(st)
     cols = batch_columns(np, PS, 13, names_to_rows, c0.batch_size, SEED)
     light_cols = batch_columns(np, PS, 1, names_to_rows, 256, SEED + 1)
-    seg_u, peak = stream_seg_u(np, PS, cols + light_cols, c0)
+    peak = stream_peak(np, PS, cols + light_cols, c0)
+    seg_u = grown_seg_u(c0, peak)  # the client's growth rule
     report["stream_segments"] = dict(peak=peak, seg_u=seg_u, batch=c0.batch_size,
                                      compaction=c0.batch_size / peak)
     log(f"[stream] peak {peak} live segments in a B={c0.batch_size} tick (compaction "
@@ -693,11 +757,11 @@ def main(argv=None) -> int:
     main_runs = {}
     for name in ("fused", "seg4", "seg1"):
         base = configs(platform_config)[name]  # the client sizes seg_u itself
-        counts, n_done, elapsed, launches, info = drive_main_path(st, np, FU, SC, torch, base, ENTRIES[name])
+        counts, n_done, elapsed, launches, info = drive_main_path(st, np, FU, SC, torch, base, MAIN_ENTRIES)
         log(f"[main] {name}: {n_done} entries from {N_THREADS} threads in {elapsed:.2f} s "
             f"({n_done / elapsed:.0f} entries/s); verdict mix {json.dumps(counts, sort_keys=True)}")
         log(f"[main] {name}: kernel launches during the run: {json.dumps(launches)}; client {json.dumps(info)}")
-        check(n_done >= ENTRIES[name], (name, n_done))
+        check(n_done >= MAIN_ENTRIES, (name, n_done))
         for kname in PATH_KERNELS[name]:
             check(launches[kname] > 0, (name, kname, launches))
         check(counts.get("FlowException", 0) > 0, (name, counts))
@@ -707,6 +771,30 @@ def main(argv=None) -> int:
             check(info["seg_dropped_total"] == 0, (name, info))
         main_runs[name] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches, client=info)
     report["main_path"] = main_runs
+
+    # open-loop bursts: full 2,048-acquire ticks through the client
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.ops import engine_seg as ES
+
+    bursts = {}
+    for name in ("fused", "seg4", "seg1"):
+        base = configs(platform_config)[name]
+        verdicts, launches, info = drive_burst(st, np, FU, SC, base, build_rules(st))
+        mix = np.bincount([v for v, _w in verdicts], minlength=7).tolist()
+        log(f"[burst] {name}: 2 bursts of {base.batch_size} acquires, one tick each, and {info['exits']} exits "
+            f"between; verdict mix {mix}; launches {json.dumps(launches)}; client {json.dumps(info)}")
+        for kname in PATH_KERNELS[name]:
+            check(launches[kname] > 0, (name, "burst", kname, launches))
+        check(mix[ERR.BLOCK_FLOW] > 0 and mix[ERR.PASS_WAIT] > 0 and mix[ERR.BLOCK_DEGRADE] > 0, (name, mix))
+        if name != "fused":
+            auto = ES.seg_capacity(base, base.batch_size)
+            check(info["peak_segments"] > auto and info["seg_u"] > auto,
+                  f"{name}: the burst did not grow seg_u past the automatic capacity {auto}: {info}")
+            check(info["seg_dropped_total"] == 0, (name, "burst", info))
+            check(verdicts == bursts["fused"]["verdicts"],
+                  f"{name}: burst verdicts or waits differ from the fused client's")
+        bursts[name] = dict(verdicts=verdicts, mix=mix, launches=launches, client=info)
+    report["burst"] = {k: {f: v for f, v in b.items() if f != "verdicts"} for k, b in bursts.items()}
 
     # -- 4. the tick against itself --------------------------------------------------
     ticks = stream[1:]
@@ -744,26 +832,22 @@ def main(argv=None) -> int:
                 check(torch.equal(la[k], lb[k]), f"{name}: integer state leaf {k} differs")
         steady = sorted(tick_s[2:])
         ms_tick = 1e3 * steady[len(steady) // 2]
-        dev_us, wall_us, n_launch, table = profile_ticks(E, torch, E.clone_state(st_a), rules, cfg, ticks, 9_000)
+        dev_us, wall_us, cpu_us, n_launch, table = profile_ticks(E, torch, E.clone_state(st_a), rules, cfg,
+                                                                 ticks, 9_000)
         idle = 1 - dev_us / wall_us
-        prof_out.append(f"== {name}: 4 ticks at B={cfg.batch_size}\n{table}")
         log(f"[tick] {name}: {len(ticks)} ticks at B={cfg.batch_size}, no host sync inside; kernels == plain "
             f"versions (wire bytes, wait_ms, integer state; float state max |diff| {float_diff}); "
             f"seg_dropped 0; verdict mix {mix.tolist()}; launches {json.dumps(launches)}")
         log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s; "
             f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-            f"(idle share {idle:.3f}), {n_launch} device launches")
+            f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches")
+        for line in table.splitlines()[:14]:
+            log(f"[profile] {name}", line)
         report["tick"][name] = dict(ms_median=ms_tick, decisions_per_s=cfg.batch_size / ms_tick * 1e3,
                                     tick_ms=[1e3 * s for s in tick_s], ticks=len(ticks), float_state_max_diff=float_diff,
                                     verdict_mix=mix.tolist(), launches=launches, device_us=dev_us, wall_us=wall_us,
-                                    idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u)
+                                    host_cpu_us=cpu_us, idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u)
         del st_a, st_b
-
-    if args.out:
-        with open(os.path.join(args.out, "chip_smoke_profile.txt"), "w") as f:
-            f.write("\n\n".join(prof_out))
-    for line in prof_out[-1].splitlines()[:14]:
-        log("[profile]", line)
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
@@ -775,10 +859,7 @@ def main(argv=None) -> int:
             launches=main_runs[name]["launches"][kname], max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
         ))
-    if args.out:
-        with open(os.path.join(args.out, "chip_smoke_report.json"), "w") as f:
-            json.dump(dict(report, kernel_detail=kern), f, sort_keys=True, indent=1)
-    # the per-shape kernel detail is in the [kernel] lines (and the --out file)
+    report["kernel_detail"] = kern
     log("[report]", json.dumps(report, sort_keys=True))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

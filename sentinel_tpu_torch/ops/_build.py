@@ -1,13 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels have a plain C interface: ``nvcc`` compiles each source for
-Hopper (``sm_90a``) into its own shared library, which is loaded with
-``ctypes``.  The build runs at first use, from the sources in the
-checkout, into ``build/kernels/`` at the repository root (a directory git
-ignores); a library's file name carries a hash of its source and the
-flags, so an edited source rebuilds and an unchanged one loads the
-existing build.  The first call builds every missing library at once, one
-``nvcc`` process per source, all started together.
+The kernels have a plain C interface: ``nvcc`` compiles them for Hopper
+(``sm_90a``) into one shared library, which is loaded with ``ctypes``.
+The build runs at first use, from the sources in the checkout, into
+``build/kernels/`` at the repository root (a directory git ignores); the
+library's file name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the existing build.  Each
+source compiles in its own ``nvcc`` process, all started together, and
+one more call links the objects.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
@@ -25,21 +25,15 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {
-    "fused": _PKG / "csrc" / "fused.cu",
-    "segscan": _PKG / "csrc" / "segscan.cu",
-}
+SOURCES = [_PKG / "csrc" / "fused.cu", _PKG / "csrc" / "segscan.cu"]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_libs: dict = {}
+_lib = None
 #: what the last build printed (ptxas register / shared-memory report) and
-#: how long it took; empty when every library was loaded from a previous build
+#: how long it took; empty when the library was loaded from a previous build
 build_log = ""
 build_seconds = 0.0
 
@@ -54,69 +48,72 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def _target(name: str) -> Path:
+def _target() -> Path:
     h = hashlib.sha256()
-    h.update(SOURCES[name].read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsentinel_{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsentinel_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "fused":
-        lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp]
-        lib.sentinel_scatter_many.restype = i32
-        lib.sentinel_gather_many.argtypes = [vp, i32, i32, vp]
-        lib.sentinel_gather_many.restype = i32
-    elif name == "segscan":
-        for fn in (lib.sentinel_seg_excl_cumsum, lib.sentinel_seg_incl_min):
-            fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
-            fn.restype = i32
-        lib.sentinel_seg_scan_tile.argtypes = []
-        lib.sentinel_seg_scan_tile.restype = i32
+    lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp]
+    lib.sentinel_scatter_many.restype = i32
+    lib.sentinel_gather_many.argtypes = [vp, i32, i32, vp]
+    lib.sentinel_gather_many.restype = i32
+    for fn in (lib.sentinel_seg_excl_cumsum, lib.sentinel_seg_incl_min):
+        fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
+        fn.restype = i32
+    lib.sentinel_seg_scan_tile.argtypes = []
+    lib.sentinel_seg_scan_tile.restype = i32
     return lib
 
 
-def _build_missing() -> None:
-    """nvcc for every source without a current build, all in parallel."""
+def _build(so: Path) -> None:
+    """One nvcc per source, all at once, then one link into ``so``."""
     global build_log, build_seconds
-    todo = [(n, _target(n)) for n in SOURCES if not _target(n).exists()]
-    if not todo:
-        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     procs = []
-    for name, so in todo:
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         p = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        procs.append((name, so, tmp, p))
-    logs, failed = [], []
-    for name, so, tmp, p in procs:
-        out, _ = p.communicate()
-        logs.append(f"== {SOURCES[name].name}\n{out}")
-        if p.returncode != 0:
-            failed.append(f"{SOURCES[name].name} ({p.returncode})")
+        procs.append((src, obj, p))
+    logs = [f"== {src.name}\n{p.communicate()[0]}" for src, _obj, p in procs]
+    failed = [f"{src.name} ({p.returncode})" for src, _obj, p in procs if p.returncode != 0]
+    if not failed:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [_nvcc(), *ARCH, "-shared", "-o", str(tmp), *(str(obj) for _s, obj, _p in procs)],
+            capture_output=True, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
         else:
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    for _src, obj, _p in procs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
 
 
-def load_library(name: str = "fused") -> ctypes.CDLL:
-    """The kernel library built from ``csrc/<name>.cu``; the first call
-    builds every missing library (thread-safe)."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first call (thread-safe)."""
+    global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
-        if name not in _libs:
-            _build_missing()
-            for n in SOURCES:
-                if n not in _libs:
-                    _libs[n] = _bind(n, ctypes.CDLL(str(_target(n))))
-        return _libs[name]
+        if _lib is None:
+            so = _target()
+            if not so.exists():
+                _build(so)
+            _lib = _bind(ctypes.CDLL(str(so)))
+        return _lib

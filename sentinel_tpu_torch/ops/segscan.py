@@ -65,7 +65,7 @@ def _check_head(name: str, head: torch.Tensor, n: int) -> None:
 def _launch(name: str, fn_name: str, head, v, out, V: int, N: int, scratch_dtype) -> None:
     from sentinel_tpu_torch.ops import _build
 
-    lib = _build.load_library("segscan")
+    lib = _build.load_library()
     dev = v.device
     # the carry pass's scratch holds one pair per tile of the kernel's size
     n_tiles = -(-N // lib.sentinel_seg_scan_tile())

@@ -68,6 +68,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def grown_seg_u(cfg: EngineConfig, peak: int) -> int:
+    """The segment capacity the client grows to for a live-segment peak:
+    ``ceil((1.25 * peak + 128) / 128) * 128``, at most the batch size and
+    never below the full shape's current capacity."""
+    b_full = cfg.batch_size
+    grown = min(b_full, -(-int(peak * 1.25 + 128) // 128) * 128)
+    return max(grown, ES.seg_capacity(cfg, b_full))
+
+
 @dataclass
 class AcquireRequest:
     res: int
@@ -489,8 +498,7 @@ class SentinelClient:
     def _note_seg_count(self, segs: int, b: int) -> None:
         """Track the live-segment count of the batch about to be dispatched;
         when it exceeds the compacted capacity, grow ``seg_u`` to
-        ``ceil((1.25 * peak + 128) / 128) * 128`` (at most the batch size)
-        before the tick runs.  Eager PyTorch has nothing to compile, so the
+        ``grown_seg_u(cfg, peak)`` before the tick runs.  Eager PyTorch has nothing to compile, so the
         new capacity serves this very tick.
 
         Unlike the JAX client, a light tick that overflows its own automatic
@@ -500,9 +508,7 @@ class SentinelClient:
         self._seg_obs_peak = max(self._seg_obs_peak, segs)
         if segs <= ES.seg_capacity(self.cfg, b):
             return
-        b_full = self.cfg.batch_size
-        grown = min(b_full, -(-int(self._seg_obs_peak * 1.25 + 128) // 128) * 128)
-        new_u = max(grown, ES.seg_capacity(self.cfg, b_full))
+        new_u = grown_seg_u(self.cfg, self._seg_obs_peak)
         if new_u == self.cfg.seg_u:
             return  # already at the batch size: nothing larger to give
         cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))

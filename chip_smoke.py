@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Three configurations, all at the default ``EngineConfig`` widths (2^17
-resources, 2^18 node rows, the minute window on, batch 2,048):
+resources, 2^18 node rows, the minute window on, batch 2,048; the
+hot-parameter store at depth 2 x 16,384 rows x 8 buckets of 500 ms):
 
 - ``fused``: ``platform_config(seg_effects=False)``, the per-item fused
   path — kernels scatter_many (B1) and gather_many (B2);
@@ -15,6 +16,15 @@ resources, 2^18 node rows, the minute window on, batch 2,048):
   the segment RT minimum seg_incl_min (B4);
 - ``seg1``: ``platform_config()`` with single-lane rules — the segment
   check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4.
+
+All three run the hot-parameter stage (ParamFlow): 32 param rules on the
+16 hottest resources (16 with single lanes, one a resource) — QPS grade
+over 1 s and 2 s (two window classes), some THREAD grade, one per-value
+exception item each — and every entry carries one argument drawn
+Zipf(1.1) from 10,000 values.  Param launches no kernel of its own: its
+scatters are ``param{d}`` / ``prel{d}`` jobs of scatter_many (B1), riding
+the two existing calls on the fused path and two more, on the item axis,
+on the segment paths.
 
 Phases (the first failure stops the script with a nonzero exit):
 
@@ -39,26 +49,44 @@ Phases (the first failure stops the script with a nonzero exit):
    40 warm-ups, the rest QPS; prioritized traffic borrows ahead), 1,000
    degrade rules, an authority black list and a system QPS rule, 8
    request threads, Zipf(1.1) over 100,000 names, real exits, 6,000
-   entries each.  Launch counts are reset just before each run and read
-   just after; every kernel of the path must have launched, flow rules
-   must have blocked some entries; on ``seg1`` the client must have turned
+   entries each.  Launch counts
+   are reset just before each run and read just after; every kernel of the
+   path must have launched, flow rules and param rules must have blocked
+   some entries, and once every exit has landed the THREAD-grade param
+   concurrency must be back at 0; on ``seg1`` the client must have turned
    ``seg_static_ranks`` on, and no item may have failed closed for
    segment capacity.  Each request thread waits for its verdict, so these
    ticks carry a few acquires; then one open-loop burst per configuration
    through a sync client: 2,048 acquires queued before one tick, their
    exits in the next, a second burst in the third.  There the segment
    client must grow ``seg_u`` from the burst's host segment count, drop
-   nothing, and give the fused client's verdicts and waits, item for item.
+   nothing, and give the fused client's verdicts and waits, item for item
+   (``seg1`` against a fused client with single lanes, which keeps the same
+   16 param rules); param rules must block some of every burst.
 4. The tick against itself, per configuration: one seeded, host-presorted
    B = 2,048 stream (``seg_u`` grown from its exact segment count by the
    client's rule) from one state, once with the kernels and once with
    every kernel swapped for its plain version; wire bytes, wait_ms and
-   integer state must be equal, no tick may drop items, and the kernel
-   run forbids host syncs inside the tick
+   integer state (the param store ``pcms``, ``pcms_epochs``, ``pconc``
+   included) must be equal, no tick may drop items, param rules must block
+   some, and the kernel run forbids host syncs inside the tick
    (``torch.cuda.set_sync_debug_mode("error")``; the readback is
    outside).  Prints ms per tick, decisions/s and, from a profile of 4
    ticks, device busy time, wall time, host CPU time, device launches and
-   the card's idle share, with the profile's top rows.
+   the card's idle share, with the profile's top rows, and B1's launches
+   a tick.
+5. The probes (``sentinel_tpu_torch/probes``): each of the four probe
+   kernels — probe_copy, probe_hist_count, probe_hist_planes,
+   probe_hist_stat5 (``csrc/probes.cu``) — against its plain version on
+   the card at the shapes the probes run them at and on edge cases (ids
+   -1, n and 2**30; N = 1 and N not a multiple of the block; every id
+   equal; ``n`` not a multiple of ``n_lo``), exact equality; timed like
+   the other kernels, beside ``index_add_`` / ``torch.add`` and the bound.
+   Then the probe run itself — ``probes.floor`` (what a launch costs,
+   eager against a CUDA graph) and ``probes.hist`` (the scatter floor at
+   the stat-landing shape, against ``index_add_`` and scatter_many) — with
+   the probe kernels' launch counts reset just before and read just
+   after, printed on ``[probe]`` lines.
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -82,11 +110,14 @@ N_THREADS = 8
 N_NAMES = 100_000
 #: entries per threaded main-path run
 MAIN_ENTRIES = 6_000
+#: distinct argument values of the hot-parameter traffic, Zipf(1.1)
+N_VALUES = 10_000
 #: kernels each configuration's tick must launch
 PATH_KERNELS = {
     "fused": ("scatter_many", "gather_many"),
     "seg4": ("scatter_many", "gather_many", "seg_incl_min"),
     "seg1": ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
+    "fused1": ("scatter_many", "gather_many"),
 }
 #: (source, Pallas function it replaces) per kernel
 KERNEL_SRC = {
@@ -94,7 +125,17 @@ KERNEL_SRC = {
     "gather_many": ("sentinel_tpu_torch/csrc/fused.cu", "sentinel_tpu/ops/fused.py:374"),
     "seg_excl_cumsum": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:81"),
     "seg_incl_min": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:165"),
+    "probe_copy": ("sentinel_tpu_torch/csrc/probes.cu",
+                   "benchmarks/probe_pallas_floor.py:49, benchmarks/probe_pallas_floor2.py:45"),
+    "probe_hist_count": ("sentinel_tpu_torch/csrc/probes.cu",
+                         "benchmarks/probe_pallas_floor.py:68, benchmarks/probe_pallas_floor.py:151"),
+    "probe_hist_planes": ("sentinel_tpu_torch/csrc/probes.cu",
+                          "benchmarks/pallas_histogram.py:44, benchmarks/probe_pallas_floor.py:106"),
+    "probe_hist_stat5": ("sentinel_tpu_torch/csrc/probes.cu",
+                         "benchmarks/probe_fused_hist.py:78, benchmarks/probe_fused_hist2.py:59"),
 }
+#: the kernels of the probe run (phase 5)
+PROBE_KERNELS = ("probe_copy", "probe_hist_count", "probe_hist_planes", "probe_hist_stat5")
 #: the configuration whose main-path run and B = 2,048 shapes each kernel's
 #: JSON record reports (the default platform_config() where it runs)
 RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": "seg1", "seg_incl_min": "seg4"}
@@ -330,6 +371,9 @@ def configs(platform_config):
         "fused": platform_config(seg_effects=False, packed_wire=True),
         "seg4": platform_config(packed_wire=True),
         "seg1": platform_config(packed_wire=True, **single),
+        # the per-item fused path at seg1's single lanes: what seg1's burst
+        # is compared with (the same 16 param rules survive the compile)
+        "fused1": platform_config(seg_effects=False, packed_wire=True, **single),
     }
 
 
@@ -337,7 +381,12 @@ def build_rules(st):
     """4,000 flow rules, one per resource (every 100th a rate limiter,
     every 100th + 50 a warm-up; all DIRECT with the default limitApp),
     1,000 degrade rules (error count and slow ratio), one authority black
-    list, one system QPS rule — on the hottest names."""
+    list, one system QPS rule, and 32 param rules, two on each of the 16
+    hottest resources, both reading the entry's one argument: QPS grade
+    over 1 s and over 2 s (two window classes), every fourth a THREAD-grade
+    rule, each with one exception item that gives the second-hottest value
+    a larger budget.  With single lanes the compile keeps the first rule of
+    each resource: 16."""
     flow = []
     for i in range(4000):
         name = f"res-{i}"
@@ -356,7 +405,20 @@ def build_rules(st):
             degrade.append(st.DegradeRule(resource=name, grade=st.CB_STRATEGY_ERROR_COUNT, count=3, min_request_amount=1, time_window=1))
     authority = [st.AuthorityRule(resource="res-3", limit_app="bad", strategy=st.AUTHORITY_BLACK)]
     system = [st.SystemRule(qps=50_000)]
-    return flow, degrade, authority, system
+    param = []
+    for i in range(16):
+        name = f"res-{i}"
+        vip = [st.ParamFlowItem(object=arg_value(1), count=5)]
+        thread = st.ParamFlowRule(resource=name, count=1, grade=st.GRADE_THREAD, param_flow_item_list=vip)
+        first = st.ParamFlowRule(resource=name, count=1, duration_in_sec=1 + i % 2, param_flow_item_list=vip)
+        second = st.ParamFlowRule(resource=name, count=2, duration_in_sec=2 - i % 2, param_flow_item_list=vip)
+        param += [thread, second] if i % 4 == 3 else [first, thread] if i % 4 == 1 else [first, second]
+    return flow, degrade, authority, system, param
+
+
+def arg_value(k) -> str:
+    """The k-th argument value (a user or product id as ``args[0]``)."""
+    return f"user-{int(k)}"
 
 
 # -- phase 3: the main paths ------------------------------------------------------------
@@ -364,12 +426,14 @@ def build_rules(st):
 
 def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     client = st.init(cfg=cfg, device="cuda", mode="threaded", entry_timeout_s=30.0)
-    flow, degrade, authority, system = build_rules(st)
+    flow, degrade, authority, system, param = build_rules(st)
     st.load_flow_rules(flow)
     st.load_degrade_rules(degrade)
     st.load_authority_rules(authority)
     st.load_system_rules(system)
+    st.load_param_flow_rules(param)
     probs = zipf_probs(np, N_NAMES)
+    vprobs = zipf_probs(np, N_VALUES)
     names = [f"res-{i}" for i in range(N_NAMES)]
     counts = {}
     lock = threading.Lock()
@@ -380,13 +444,15 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
         rng = np.random.default_rng(SEED + tid)
         local = {}
         picks = rng.choice(N_NAMES, size=n_entries // N_THREADS + 64, p=probs)
-        for k in picks:
+        values = rng.choice(N_VALUES, size=picks.size, p=vprobs)
+        for k, v in zip(picks, values):
             name = names[k]
+            args = [arg_value(v)]
             try:
                 if rng.random() < 0.05:
-                    e = client.entry(name, origin="bad", inbound=bool(rng.random() < 0.5))
+                    e = client.entry(name, origin="bad", inbound=bool(rng.random() < 0.5), args=args)
                 else:
-                    e = st.entry(name, prioritized=bool(rng.random() < 0.05))
+                    e = st.entry(name, prioritized=bool(rng.random() < 0.05), args=args)
                 if rng.random() < 0.05:
                     e.trace(RuntimeError("business error"))
                 if rng.random() < 0.02:
@@ -423,7 +489,10 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     elapsed = time.perf_counter() - t0
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
     info = dict(seg_static_ranks=client.cfg.seg_static_ranks, seg_u=client.cfg.seg_u,
-                seg_dropped_total=client.seg_dropped_total)
+                seg_dropped_total=client.seg_dropped_total, features=sorted(client._features),
+                param_rules=int(client._rules_dev.param.enabled.sum().item()),
+                pconc_after_exits=int(client._state.pconc.sum().item()),
+                pcms_total=int(client._state.pcms.sum().item()))
     if errors:
         raise errors[0]
     st.reset()
@@ -446,13 +515,15 @@ def drive_burst(st, np, FU, SC, cfg, rules):
 
     client = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cuda")
     client.start()
-    flow, degrade, authority, system = rules
+    flow, degrade, authority, system, param = rules
     client.flow_rules.load(flow)
     client.degrade_rules.load(degrade)
     client.authority_rules.load(authority)
     client.system_rules.load(system)
+    client.param_flow_rules.load(param)
     rng = np.random.default_rng(SEED + 100)
     probs = zipf_probs(np, N_NAMES)
+    vprobs = zipf_probs(np, N_VALUES)
     trash = client.cfg.trash_row
     B = client.cfg.batch_size
 
@@ -465,11 +536,13 @@ def drive_burst(st, np, FU, SC, cfg, rules):
 
     def burst():
         reqs = []
-        for k, p in zip(rng.choice(N_NAMES, size=B, p=probs), rng.random(B) < 0.05):
+        for k, p, v in zip(rng.choice(N_NAMES, size=B, p=probs), rng.random(B) < 0.05,
+                           rng.choice(N_VALUES, size=B, p=vprobs)):
             rid = client.registry.resource_id(f"res-{k}")
             check(rid is not None, "burst: the registry ran out of resource rows")
             reqs.append(AcquireRequest(res=rid, count=1, prio=int(p), origin_id=-1, origin_node=trash,
-                                       ctx_node=trash, ctx_name=-1, inbound=0, future=Future()))
+                                       ctx_node=trash, ctx_name=-1, inbound=0, future=Future(),
+                                       param_hash=client.param_hashes(f"res-{k}", [arg_value(v)])))
         with client._lock:
             client._acquires.extend(reqs)
         tick()
@@ -480,7 +553,7 @@ def drive_burst(st, np, FU, SC, cfg, rules):
     reqs, first = burst()
     client.time.advance(40)
     comps = [Completion(res=r.res, origin_node=trash, ctx_node=trash, inbound=0, rt=float(rng.integers(1, 80)),
-                        success=1, error=int(rng.random() < 0.05))
+                        success=1, error=int(rng.random() < 0.05), param_hash=r.param_hash)
              for r, (v, _w) in zip(reqs, first) if v in (ERR.PASS, ERR.PASS_WAIT)]
     with client._lock:
         client._completions.extend(comps)
@@ -489,7 +562,8 @@ def drive_burst(st, np, FU, SC, cfg, rules):
     _, second = burst()
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
     info = dict(seg_u=client.cfg.seg_u, peak_segments=client._seg_obs_peak,
-                seg_dropped_total=client.seg_dropped_total, exits=len(comps), tick_ms=tick_ms)
+                seg_dropped_total=client.seg_dropped_total, exits=len(comps), tick_ms=tick_ms,
+                param_rules=int(client._rules_dev.param.enabled.sum().item()))
     client.stop()
     return first + second, launches, info
 
@@ -497,18 +571,27 @@ def drive_burst(st, np, FU, SC, cfg, rules):
 # -- phase 4: the tick against itself ---------------------------------------------------
 
 
-def batch_columns(np, PS, n_ticks, names_to_rows, B, seed):
+def batch_columns(np, PS, n_ticks, names_to_rows, B, seed, value_hashes):
     """Seeded numpy acquire + completion columns of B rows a tick, presorted
     as the client presorts them (a stable sort: the fused path sees the
-    same items, in an order it does not depend on)."""
+    same items, in an order it does not depend on).  Every item carries one
+    hashed argument in lane 0 (``value_hashes[k]`` for the k-th value)."""
     rng = np.random.default_rng(seed)
     probs = zipf_probs(np, N_NAMES)
+    vprobs = zipf_probs(np, N_VALUES)
+
+    def hashes():
+        ph = np.zeros((B, 2), np.int32)
+        ph[:, 0] = value_hashes[rng.choice(N_VALUES, size=B, p=vprobs)]
+        return ph
+
     out = []
     for _ in range(n_ticks):
         a = dict(
             res=names_to_rows[rng.choice(N_NAMES, size=B, p=probs)],
             prio=(rng.random(B) < 0.05).astype(np.int8),
             inbound=(rng.random(B) < 0.3).astype(np.int8),
+            param_hash=hashes(),
         )
         order, _ = PS.batch_sort5(a["res"], np.zeros(B), np.zeros(B), np.zeros(B), np.zeros(B))
         a = {k: v[order] for k, v in a.items()}
@@ -517,6 +600,7 @@ def batch_columns(np, PS, n_ticks, names_to_rows, B, seed):
             rt=(rng.integers(1, 80, B) / 8.0).astype(np.float32),
             error=(rng.random(B) < 0.05).astype(np.uint8),
             inbound=(rng.random(B) < 0.3).astype(np.int8),
+            param_hash=hashes(),
         )
         order, _ = PS.batch_sort3(c["res"], np.zeros(B), np.zeros(B))
         c = {k: v[order] for k, v in c.items()}
@@ -544,6 +628,7 @@ def to_batches(E, torch, cfg, cols):
             count=torch.ones(B, dtype=torch.uint8, device="cuda"),
             prio=torch.as_tensor(a["prio"], device="cuda"),
             inbound=torch.as_tensor(a["inbound"], device="cuda"),
+            param_hash=torch.as_tensor(a["param_hash"], device="cuda"),
         )
         comp = E.empty_complete(cfg, "cuda", B)._replace(
             res=torch.as_tensor(c["res"], dtype=torch.int32, device="cuda"),
@@ -551,6 +636,7 @@ def to_batches(E, torch, cfg, cols):
             success=torch.ones(B, dtype=torch.uint8, device="cuda"),
             error=torch.as_tensor(c["error"], device="cuda"),
             inbound=torch.as_tensor(c["inbound"], device="cuda"),
+            param_hash=torch.as_tensor(c["param_hash"], device="cuda"),
         )
         out.append((acq, comp))
     return out
@@ -598,6 +684,161 @@ def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
     return sum(e.self_device_time_total for e in dev), wall_us, cpu_us, sum(e.count for e in dev), table
 
 
+# -- phase 5: the probes ----------------------------------------------------------------
+
+
+def probe_phase(np, torch, tick_report):
+    """Hold the four probe kernels against their plain versions (published
+    shapes and edge cases, exact equality), time them like the other
+    kernels, then run the probe tables with the launch counts reset just
+    before and read just after.  Returns (kernel records, probe report)."""
+    from sentinel_tpu_torch.probes import floor as FL
+    from sentinel_tpu_torch.probes import hist as HI
+    from sentinel_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(SEED + 5)
+
+    def cuda(x):
+        return torch.as_tensor(x).cuda()
+
+    def edge_ids(n, N):
+        ids = rng.integers(-2, n + 3, N).astype(np.int32)
+        ids[: min(N, 3)] = [-1, n, 2**30][: min(N, 3)]
+        return cuda(ids)
+
+    err = dict.fromkeys(PROBE_KERNELS, 0.0)
+
+    def hold(kname, got, want):
+        err[kname] = max(err[kname], check_equal(kname, [got], [want]))
+
+    # -- the shapes the probes run -----------------------------------------------
+    ids, vals5 = FL.data()
+    idx, valsf = HI.planes_data()
+    sids, cnts, rt = HI.stat_data()
+    x3 = ids.reshape(64, 1, 2048)
+    for blocks in (0, 1, 4, 64):
+        hold("probe_copy", PK.probe_copy(ids, blocks), PK.probe_copy_plain(ids))
+        hold("probe_copy", PK.probe_copy(x3, blocks), PK.probe_copy_plain(x3))
+    for n, n_lo in FL.COUNT_SHAPES:
+        for ipb in (256, 4096, 8192):
+            hold("probe_hist_count", PK.probe_hist_count(ids, n, n_lo, ipb), PK.probe_hist_count_plain(ids, n, n_lo))
+    hold("probe_hist_planes", PK.probe_hist_planes(ids, vals5, FL.PLANES_N, FL.PLANES_N_LO),
+         PK.probe_hist_planes_plain(ids, vals5, FL.PLANES_N, FL.PLANES_N_LO))
+    for n_lo in HI.N_LO:
+        for ipb in HI.ITEMS_PER_BLOCK:
+            hold("probe_hist_stat5", PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, n_lo, ipb),
+                 PK.probe_hist_stat5_plain(sids, cnts, rt, HI.N_ROWS, n_lo))
+    for ipb in HI.ITEMS_PER_BLOCK:
+        hold("probe_hist_planes", PK.probe_hist_planes(idx, valsf, HI.P1_N, None, ipb),
+             PK.probe_hist_planes_plain(idx, valsf, HI.P1_N))
+
+    # -- edge cases: ids -1 / n / 2**30, N = 1 and N off the block, one hot row,
+    # n off n_lo (16392 / 128, 32777 / 128) -----------------------------------------
+    for N in (1, 255, 2049, 131072 + 37):
+        x = cuda(rng.integers(-(2**31), 2**31 - 1, N).astype(np.int32))
+        x[0] = 2**31 - 1  # x + 1 wraps like int32 addition
+        for blocks in (0, 1, 4, 64):
+            hold("probe_copy", PK.probe_copy(x, blocks), PK.probe_copy_plain(x))
+        for n, n_lo in ((16392, 128), (32777, 128), (5, 8)):
+            e = edge_ids(n, N)
+            for ipb in (1, 100, 256) if N <= 2049 else (100, 256):
+                hold("probe_hist_count", PK.probe_hist_count(e, n, n_lo, ipb), PK.probe_hist_count_plain(e, n, n_lo))
+            vi = cuda(rng.integers(0, 200, (N, 5), dtype=np.int32))
+            vf = cuda(rng.integers(0, 100, (N, 3)).astype(np.float32))
+            hold("probe_hist_planes", PK.probe_hist_planes(e, vi, n, n_lo, 100), PK.probe_hist_planes_plain(e, vi, n, n_lo))
+            hold("probe_hist_planes", PK.probe_hist_planes(e, vf, n), PK.probe_hist_planes_plain(e, vf, n))
+            c = cuda(rng.integers(0, 2, (N, 3), dtype=np.int32))
+            r = cuda(rng.integers(0, 40000, N, dtype=np.int32))
+            hold("probe_hist_stat5", PK.probe_hist_stat5(e, c, r, n, n_lo, 100), PK.probe_hist_stat5_plain(e, c, r, n, n_lo))
+    # every id equal — the hottest possible row; 60,000 items keep the byte
+    # planes' sums (<= 255 an item) below 2^24
+    N = 60_000
+    hot = torch.full((N,), 7, dtype=torch.int32, device="cuda")
+    c = torch.ones((N, 3), dtype=torch.int32, device="cuda")
+    r = torch.full((N,), 0xFFFF, dtype=torch.int32, device="cuda")
+    hold("probe_hist_count", PK.probe_hist_count(hot, 16392, 128), PK.probe_hist_count_plain(hot, 16392, 128))
+    hold("probe_hist_planes", PK.probe_hist_planes(hot, vals5[:N].contiguous(), 16392, 128),
+         PK.probe_hist_planes_plain(hot, vals5[:N].contiguous(), 16392, 128))
+    got = PK.probe_hist_stat5(hot, c, r, 16640, 128)
+    hold("probe_hist_stat5", got, PK.probe_hist_stat5_plain(hot, c, r, 16640, 128))
+    check(got.reshape(5, -1)[:, 7].tolist() == [N, N, N, 255.0 * N, 255.0 * N], "hot row sums")
+    torch.cuda.synchronize()
+    log(f"[probe] kernels equal to plain at the probes' shapes and on edge cases (max |err| {json.dumps(err)})")
+
+    # -- times, like the other kernels (L2 flushed before every launch) -----------
+    def work(kname):
+        n_hi = lambda n, n_lo: -(-n // n_lo)
+        if kname == "probe_copy":
+            return 8 * ids.numel(), ids.numel()
+        if kname == "probe_hist_count":
+            n, n_lo = FL.PLANES_N, FL.PLANES_N_LO
+            return 4 * ids.numel() + 4 * n_hi(n, n_lo) * n_lo, int(((ids >= 0) & (ids < n)).sum().item())
+        if kname == "probe_hist_planes":
+            ok = int(((idx >= 0) & (idx < HI.P1_N)).sum().item())
+            return 4 * idx.numel() + 4 * valsf.numel() + 4 * HI.P1_N * HI.P1_P, ok * HI.P1_P
+        n_lo = HI.N_LO[0]
+        ok = int(((sids >= 0) & (sids < HI.N_ROWS)).sum().item())
+        return 4 * sids.numel() + 4 * cnts.numel() + 4 * rt.numel() + 4 * 5 * n_hi(HI.N_ROWS, n_lo) * n_lo, ok * 5
+
+    valss = torch.cat([cnts, (rt & 0xFF)[:, None], ((rt >> 8) & 0xFF)[:, None]], dim=1)
+    calls = {
+        "probe_copy": (lambda: PK.probe_copy(ids), lambda: PK.probe_copy_plain(ids), lambda: torch.add(ids, 1),
+                       f"int32 [{ids.numel()}], one thread an item"),
+        "probe_hist_count": (
+            lambda: PK.probe_hist_count(ids, FL.PLANES_N, FL.PLANES_N_LO),
+            lambda: PK.probe_hist_count_plain(ids, FL.PLANES_N, FL.PLANES_N_LO),
+            HI.index_add_call(ids, torch.ones((ids.numel(), 1), device="cuda"), FL.PLANES_N)[0],
+            f"{ids.numel()} ids into [{-(-FL.PLANES_N // FL.PLANES_N_LO)}, {FL.PLANES_N_LO}]"),
+        "probe_hist_planes": (
+            lambda: PK.probe_hist_planes(idx, valsf, HI.P1_N), lambda: PK.probe_hist_planes_plain(idx, valsf, HI.P1_N),
+            HI.index_add_call(idx, valsf, HI.P1_N)[0], f"{idx.numel()} x {HI.P1_P} float32 into [{HI.P1_N}, {HI.P1_P}]"),
+        "probe_hist_stat5": (
+            lambda: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, HI.N_LO[0]),
+            lambda: PK.probe_hist_stat5_plain(sids, cnts, rt, HI.N_ROWS, HI.N_LO[0]),
+            HI.index_add_call(sids, valss, HI.N_ROWS)[0],
+            f"{sids.numel()} items into [5, {-(-HI.N_ROWS // HI.N_LO[0])}, {HI.N_LO[0]}] (the stat-landing shape)"),
+    }
+    records = {}
+    for kname, (run, plain, lib, shape) in calls.items():
+        ms, host_ms = time_ms(run)
+        plain_ms = time_ms(plain, reps=10)[0]
+        lib_ms = time_ms(lib)[0]
+        nbytes, n_ops = work(kname)
+        bnd, by = bound_ms(nbytes, n_ops)
+        records[kname] = dict(max_abs_err=err[kname], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                              bound_by=by, bytes=nbytes, ops=n_ops, wrapper_host_ms=host_ms, shape=shape)
+        log(f"[probe] {kname} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"({'torch.add' if kname == 'probe_copy' else 'zero_ + index_add_'}) {lib_ms:.4f} ms, bound {bnd:.6f} ms "
+            f"({by}, {nbytes} B); wrapper host enqueue {host_ms:.4f} ms")
+
+    # -- the probe run: counts reset just before, read just after ------------------
+    PK.reset_launches()
+    floor_rows = FL.run()
+    hist_rows = HI.run()
+    torch.cuda.synchronize()
+    launches = dict(PK.LAUNCHES)
+    for kname in PROBE_KERNELS:
+        check(launches[kname] > 0, ("probe run", kname, launches))
+        records[kname]["launches"] = launches[kname]
+    log(f"[probe] floor (B = {FL.B}, K = {FL.K} steps a row, back to back, per step):")
+    for line in FL.format_rows(floor_rows):
+        log("[probe]", line)
+    log(f"[probe] hist (K = {HI.K} launches a row, back to back, per launch; all sums equal):")
+    for line in HI.format_rows(hist_rows):
+        log("[probe]", line)
+    log(f"[probe] kernel launches during the probe run: {json.dumps(launches)}")
+    # what the launch floor says about the tick: host time of its launches
+    by_name = {(r["name"], r["mode"]): r for r in floor_rows}
+    eager_us = by_name[("torch x + 1", "eager")]["host_us"]
+    graph_us = by_name[("torch x + 1", "graph")]["device_ms"] * 1e3
+    for name, t in tick_report.items():
+        n = t["device_launches"] / 4
+        log(f"[probe] {name}: {n:.0f} device launches a tick x {eager_us:.2f} us host a PyTorch launch = "
+            f"{n * eager_us / 1e3:.3f} ms of the {t['ms_median']:.3f} ms tick; the same launches inside one CUDA "
+            f"graph at {graph_us:.2f} us each = {n * graph_us / 1e3:.3f} ms")
+    return records, dict(floor=floor_rows, hist=hist_rows, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -610,6 +851,7 @@ def main() -> int:
     import sentinel_tpu_torch as st
     from sentinel_tpu_torch import state as S
     from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.core.rule_tensors import hash_param
     from sentinel_tpu_torch.ops import _build
     from sentinel_tpu_torch.ops import engine as E
     from sentinel_tpu_torch.ops import fused as FU
@@ -636,7 +878,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("[build]", line.strip())
 
-    cfgs = configs(platform_config)
+    cfgs = {k: v for k, v in configs(platform_config).items() if k != "fused1"}
     c0 = cfgs["seg4"]
     log(f"[config] max_resources={c0.max_resources} max_nodes={c0.max_nodes} batch={c0.batch_size} "
         f"minute_window={c0.enable_minute_window}; fused: seg_effects=False, 4 lanes; seg4: seg_effects, "
@@ -645,9 +887,10 @@ def main() -> int:
     # -- 2. kernels against their plain versions ------------------------------
     reg = Registry(c0)
     names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
-    flow, degrade, authority, system = build_rules(st)
-    cols = batch_columns(np, PS, 13, names_to_rows, c0.batch_size, SEED)
-    light_cols = batch_columns(np, PS, 1, names_to_rows, 256, SEED + 1)
+    flow, degrade, authority, system, param = build_rules(st)
+    value_hashes = np.array([hash_param(arg_value(k)) for k in range(N_VALUES)], dtype=np.int32)
+    cols = batch_columns(np, PS, 13, names_to_rows, c0.batch_size, SEED, value_hashes)
+    light_cols = batch_columns(np, PS, 1, names_to_rows, 256, SEED + 1, value_hashes)
     peak = stream_peak(np, PS, cols + light_cols, c0)
     seg_u = grown_seg_u(c0, peak)  # the client's growth rule
     report["stream_segments"] = dict(peak=peak, seg_u=seg_u, batch=c0.batch_size,
@@ -660,8 +903,10 @@ def main() -> int:
     cfgs["seg1"] = dataclasses.replace(cfgs["seg1"], seg_u=seg_u, seg_static_ranks=True)
     setups = {}
     for name, cfg in cfgs.items():
-        rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade,
+        rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
                                   authority_rules=authority, system_rules=system, device="cuda")
+        n_param = int(rules.param.enabled.sum().item())
+        check(n_param == (16 if name == "seg1" else 32), (name, "param rules", n_param))
         setups[name] = (cfg, rules)
     report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(E.init_state(c0, "meta")).values())
 
@@ -765,6 +1010,10 @@ def main() -> int:
         for kname in PATH_KERNELS[name]:
             check(launches[kname] > 0, (name, kname, launches))
         check(counts.get("FlowException", 0) > 0, (name, counts))
+        check(counts.get("ParamFlowException", 0) > 0, (name, "no entry was blocked by a param rule", counts))
+        check("param" in info["features"] and info["param_rules"] == (16 if name == "seg1" else 32), (name, info))
+        check(info["pconc_after_exits"] == 0 and info["pcms_total"] > 0,
+              f"{name}: THREAD-grade param concurrency did not return to 0 after the exits: {info}")
         if name == "seg1":
             check(info["seg_static_ranks"], "seg1: the client did not turn seg_static_ranks on")
         if name != "fused":
@@ -777,7 +1026,8 @@ def main() -> int:
     from sentinel_tpu_torch.ops import engine_seg as ES
 
     bursts = {}
-    for name in ("fused", "seg4", "seg1"):
+    burst_ref = {"seg4": "fused", "seg1": "fused1"}
+    for name in ("fused", "fused1", "seg4", "seg1"):
         base = configs(platform_config)[name]
         verdicts, launches, info = drive_burst(st, np, FU, SC, base, build_rules(st))
         mix = np.bincount([v for v, _w in verdicts], minlength=7).tolist()
@@ -786,13 +1036,15 @@ def main() -> int:
         for kname in PATH_KERNELS[name]:
             check(launches[kname] > 0, (name, "burst", kname, launches))
         check(mix[ERR.BLOCK_FLOW] > 0 and mix[ERR.PASS_WAIT] > 0 and mix[ERR.BLOCK_DEGRADE] > 0, (name, mix))
-        if name != "fused":
+        check(mix[ERR.BLOCK_PARAM] > 0, (name, "no burst item was blocked by a param rule", mix))
+        check(info["param_rules"] == (16 if name.endswith("1") else 32), (name, info))
+        if name in burst_ref:
             auto = ES.seg_capacity(base, base.batch_size)
             check(info["peak_segments"] > auto and info["seg_u"] > auto,
                   f"{name}: the burst did not grow seg_u past the automatic capacity {auto}: {info}")
             check(info["seg_dropped_total"] == 0, (name, "burst", info))
-            check(verdicts == bursts["fused"]["verdicts"],
-                  f"{name}: burst verdicts or waits differ from the fused client's")
+            check(verdicts == bursts[burst_ref[name]]["verdicts"],
+                  f"{name}: burst verdicts or waits differ from the {burst_ref[name]} client's")
         bursts[name] = dict(verdicts=verdicts, mix=mix, launches=launches, client=info)
     report["burst"] = {k: {f: v for f, v in b.items() if f != "verdicts"} for k, b in bursts.items()}
 
@@ -823,6 +1075,8 @@ def main() -> int:
             fr = WIRE.unpack(wa, lo)
             check(fr.seg_dropped == 0, f"{name} tick {i}: {fr.seg_dropped} items dropped for segment capacity")
             mix += np.bincount(fr.verdict, minlength=7)
+        check(mix[ERR.BLOCK_PARAM] > 0, (name, "no tick item was blocked by a param rule", mix.tolist()))
+        check(int(st_a.pcms.sum().item()) > 0, f"{name}: the param store stayed empty")
         float_diff = 0.0
         la, lb = S.leaves(st_a), S.leaves(st_b)
         for k in la:
@@ -840,14 +1094,19 @@ def main() -> int:
             f"seg_dropped 0; verdict mix {mix.tolist()}; launches {json.dumps(launches)}")
         log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s; "
             f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-            f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches")
+            f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches; "
+            f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}")
         for line in table.splitlines()[:14]:
             log(f"[profile] {name}", line)
         report["tick"][name] = dict(ms_median=ms_tick, decisions_per_s=cfg.batch_size / ms_tick * 1e3,
                                     tick_ms=[1e3 * s for s in tick_s], ticks=len(ticks), float_state_max_diff=float_diff,
                                     verdict_mix=mix.tolist(), launches=launches, device_us=dev_us, wall_us=wall_us,
-                                    host_cpu_us=cpu_us, idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u)
+                                    host_cpu_us=cpu_us, idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u,
+                                    scatter_many_launches_a_tick=launches["scatter_many"] / len(ticks))
         del st_a, st_b
+
+    # -- 5. the probes ---------------------------------------------------------------
+    probe_records, report["probes"] = probe_phase(np, torch, report["tick"])
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
@@ -859,6 +1118,15 @@ def main() -> int:
             launches=main_runs[name]["launches"][kname], max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
         ))
+    for kname in PROBE_KERNELS:
+        k = probe_records[kname]
+        src, replaces = KERNEL_SRC[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=src, replaces=replaces, launches=k["launches"],
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+        ))
+    kern.update({kname: {k["shape"]: k} for kname, k in probe_records.items()})
     report["kernel_detail"] = kern
     log("[report]", json.dumps(report, sort_keys=True))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,8 +26,10 @@ The facade mirrors the reference's (SphU / SphO / Tracer / ContextUtil):
         handle_rejection()
 
 Ported so far: the admission path with flow (default, rate limiter,
-warm-up, occupy-ahead), degrade, authority and system rules.  What is not
-ported raises ``NotImplementedError`` (see ROADMAP.md).
+warm-up, occupy-ahead), degrade, authority, system and hot-parameter
+(param-flow) rules, and the card's measurement probes
+(``sentinel_tpu_torch.probes``).  What is not ported raises
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from sentinel_tpu_torch.core.errors import (

@@ -92,12 +92,12 @@ def load_authority_rules(rules: Iterable[R.AuthorityRule]):
 
 
 def load_param_flow_rules(rules: Iterable[R.ParamFlowRule]):
-    """Raises NotImplementedError for a non-empty list: the param-flow
-    stage is not ported yet."""
+    """Hot-parameter rules; ``entry(resource, args=...)`` then limits per
+    argument value.  A cluster-mode rule raises NotImplementedError."""
     get_client().param_flow_rules.load(list(rules))
 
 
 def clear_rules():
     c = get_client()
-    for mgr in (c.flow_rules, c.degrade_rules, c.system_rules, c.authority_rules):
+    for mgr in (c.flow_rules, c.degrade_rules, c.system_rules, c.authority_rules, c.param_flow_rules):
         mgr.load([])

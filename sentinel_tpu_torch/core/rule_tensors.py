@@ -2,7 +2,8 @@
 
 The port's own copy of the numpy compilers of
 ``sentinel_tpu/core/rule_tensors.py`` for the rule kinds this package
-enforces — flow, degrade, authority and system — plus ``hash_param``.
+enforces — flow, degrade, param-flow, authority and system — plus
+``hash_param`` and ``param_lanes``.
 The analog of FlowRuleUtil.buildFlowRuleMap/generateRater
 (slots/block/flow/FlowRuleUtil.java:45-136): on a (re)load
 the whole rule set is recompiled into dense arrays indexed by *rule slot*,
@@ -16,6 +17,7 @@ produce numpy; ``to_device`` turns a compiled NamedTuple into tensors.
 
 from __future__ import annotations
 
+import logging
 from typing import List, NamedTuple
 
 import numpy as np
@@ -61,6 +63,23 @@ class DegradeRuleTensors(NamedTuple):
     min_request: np.ndarray  # int32
     window_ms: np.ndarray  # int32 per-rule bucket length (= statInterval / nb)
     res_cbs: np.ndarray  # int32 [max_resources + 1, KD]
+
+
+class ParamRuleTensors(NamedTuple):
+    enabled: np.ndarray  # bool [P+1]
+    res: np.ndarray  # int32
+    grade: np.ndarray  # int32 — GRADE_QPS (windowed budget) or GRADE_THREAD
+    threshold: np.ndarray  # float32 — count * duration + burst (window budget)
+    cls: np.ndarray  # int32 [P+1] duration-class index (ops/param.py)
+    lane: np.ndarray  # int32 [P+1] which param_hash lane the rule reads (-1 none)
+    item_hash: np.ndarray  # int32 [P+1, KI] per-value exceptions
+    item_threshold: np.ndarray  # float32 [P+1, KI]
+    res_params: np.ndarray  # int32 [max_resources + 1, KP]
+    class_k: np.ndarray  # int32 [param_classes] window length (buckets) per class
+
+
+#: per-value exception items a param rule carries
+_PARAM_ITEM_SLOTS = 8
 
 
 class AuthorityTensors(NamedTuple):
@@ -220,6 +239,118 @@ def hash_param(value) -> int:
             h = ((h ^ b) * 16777619) & 0xFFFFFFFF
         h &= 0x7FFFFFFF
     return h if h != 0 else 1  # 0 is reserved for "no parameter"
+
+
+def param_lanes(
+    rules: List[R.ParamFlowRule], max_dims: int, priority: List[R.ParamFlowRule] = ()
+) -> dict:
+    """resource -> ordered distinct param_idx list (length <= max_dims).
+
+    Each entry hashes its first ``max_dims`` *distinct rule indices* into
+    lanes; a rule reads the lane its param_idx was assigned.  ``priority``
+    rules claim lanes first.  The host client derives its per-entry hash
+    lanes from the SAME function so engine and host agree
+    (ParamFlowChecker.java:78 dispatches on paramIdx per rule)."""
+    lanes: dict = {}
+    for r in list(priority) + [r for r in rules if r not in priority]:
+        ls = lanes.setdefault(r.resource, [])
+        if r.param_idx not in ls and len(ls) < max_dims:
+            ls.append(r.param_idx)
+    return lanes
+
+
+def compile_param_rules(
+    rules: List[R.ParamFlowRule], cfg: EngineConfig, registry, lanes: dict = None
+) -> ParamRuleTensors:
+    P = cfg.max_param_rules
+    KP = cfg.param_rules_per_resource
+    KI = _PARAM_ITEM_SLOTS
+    nb = cfg.param_sample_count
+    C = cfg.param_classes
+    if lanes is None:
+        lanes = param_lanes(rules, cfg.param_dims)
+    t = ParamRuleTensors(
+        enabled=np.zeros(P + 1, dtype=bool),
+        res=np.zeros(P + 1, dtype=np.int32),
+        grade=np.full(P + 1, R.GRADE_QPS, dtype=np.int32),
+        threshold=np.zeros(P + 1, dtype=np.float32),
+        cls=np.zeros(P + 1, dtype=np.int32),
+        lane=np.full(P + 1, -1, dtype=np.int32),
+        item_hash=np.zeros((P + 1, KI), dtype=np.int32),
+        item_threshold=np.zeros((P + 1, KI), dtype=np.float32),
+        res_params=np.full((cfg.max_resources + 1, KP), P, dtype=np.int32),
+        class_k=np.ones(C, dtype=np.int32),
+    )
+    slot = 0
+    per_res_count: dict = {}
+    classes: list = []  # distinct window lengths (buckets), first-seen order
+    for rule in rules:
+        if not rule.is_valid() or slot >= P:
+            continue
+        rid = registry.resource_id(rule.resource)
+        if rid is None or rid > cfg.max_resources:
+            # no exact row (pass-through resource) -> the rule cannot be
+            # enforced
+            continue
+        k = per_res_count.get(rid, 0)
+        if k >= KP:
+            continue
+        dur = max(int(rule.duration_in_sec), 1)
+        # window length in global buckets; durations beyond the grid clamp
+        # to the full grid with the threshold scaled to preserve the RATE
+        # (a >grid-duration rule enforces count*duration*(grid/duration)
+        # per grid window instead of count*duration per duration window)
+        want_k = max((dur * 1000) // cfg.param_bucket_ms, 1)
+        k_buckets = min(want_k, nb)
+        scale = k_buckets / want_k
+        if k_buckets not in classes:
+            if len(classes) >= C:
+                # class table full: reuse the nearest class, scale threshold
+                k_buckets = min(classes, key=lambda c: abs(c - k_buckets))
+                scale = k_buckets / want_k
+            else:
+                classes.append(k_buckets)
+        cls_idx = classes.index(k_buckets)
+        per_res_count[rid] = k + 1
+        t.res_params[rid, k] = slot
+        t.enabled[slot] = True
+        t.res[slot] = rid
+        t.grade[slot] = rule.grade
+        if rule.grade == R.GRADE_THREAD:
+            # THREAD grade caps CONCURRENCY at plain `count` — duration and
+            # burst are QPS-budget concepts (ParamFlowChecker THREAD branch)
+            t.threshold[slot] = rule.count
+        else:
+            # windowed budget over the rule's duration (ParamFlowChecker
+            # token bucket capacity: count * duration + burst, :127-188)
+            t.threshold[slot] = (rule.count * dur + rule.burst_count) * scale
+        t.cls[slot] = cls_idx
+        lane_list = lanes.get(rule.resource, [])
+        t.lane[slot] = (
+            lane_list.index(rule.param_idx) if rule.param_idx in lane_list else -1
+        )
+        if t.lane[slot] < 0:
+            # the rule's param_idx lost the per-resource lane assignment —
+            # it cannot be enforced; surface it instead of silently no-oping
+            logging.getLogger(__name__).warning(
+                "param rule on %r with param_idx=%d exceeds the %d hash "
+                "lanes for this resource and will NOT be enforced "
+                "(raise EngineConfig.param_dims or consolidate rule indices)",
+                rule.resource,
+                rule.param_idx,
+                len(lane_list),
+            )
+        for i, item in enumerate(rule.param_flow_item_list[:KI]):
+            t.item_hash[slot, i] = hash_param(item.object)
+            t.item_threshold[slot, i] = (
+                item.count
+                if rule.grade == R.GRADE_THREAD
+                else item.count * dur * scale
+            )
+        slot += 1
+    for i, kb in enumerate(classes[:C]):
+        t.class_k[i] = kb
+    return t
 
 
 def compile_authority_rules(

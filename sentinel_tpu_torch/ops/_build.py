@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = [_PKG / "csrc" / "fused.cu", _PKG / "csrc" / "segscan.cu"]
+SOURCES = [_PKG / "csrc" / name for name in ("fused.cu", "segscan.cu", "probes.cu")]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -67,6 +67,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i32
     lib.sentinel_seg_scan_tile.argtypes = []
     lib.sentinel_seg_scan_tile.restype = i32
+    lib.sentinel_probe_copy.argtypes = [vp, vp, i64, i32, vp]
+    lib.sentinel_probe_hist_count.argtypes = [vp, i64, i32, vp, i64, i32, vp]
+    lib.sentinel_probe_hist_planes.argtypes = [vp, vp, i32, i64, i32, i32, vp, i64, i64, i32, vp]
+    lib.sentinel_probe_hist_stat5.argtypes = [vp, vp, vp, i64, i32, vp, i64, i32, vp]
+    for fn in (lib.sentinel_probe_copy, lib.sentinel_probe_hist_count,
+               lib.sentinel_probe_hist_planes, lib.sentinel_probe_hist_stat5):
+        fn.restype = i32
     return lib
 
 

@@ -9,7 +9,8 @@ ops/engine_seg.py).  A tick ingests
     CompleteBatch — exits            (Entry.exit + Tracer side)
 
 as fixed-shape tensors and returns a verdict per attempt.  Checks run in
-the reference slot order (Authority → System → Flow → Degrade); the first
+the reference slot order (Authority → System → ParamFlow → Flow →
+Degrade); the first
 failing check sets the verdict code.  Within-tick contention is resolved
 by grouped prefix sums (ops/rank.py).  Every effect scatter of a phase
 rides one call of the scatter kernel (ops/fused.scatter_many; one launch
@@ -37,8 +38,16 @@ compacted capacity ``seg_u`` fail closed and are counted in the wire's
 when segments overflow) is not ported: it needs a device-side branch
 between two phases that both update the window rings in place.
 
-Features: {nodes, occupy, flow, degrade, authority, system, warmup}.  The
-``param`` and ``tail_flow`` stages, ``seg_fallback``, the sketch tier,
+The hot-parameter stage (``param``; ops/param.py) limits per argument
+value over hashed (rule, value) rows: its reads are plain gathers, its
+writes are extra jobs of the scatter kernel — ``prel{d}`` (THREAD-grade
+release) among the completion scatters and ``param{d}`` (admitted counts
+and THREAD concurrency) among the acquire scatters; on the segment path
+they are separate scatter_many launches on the item axis, because
+(rule, value-hash) rows are not segment-constant.
+
+Features: {nodes, occupy, flow, degrade, authority, system, warmup,
+param}.  The ``tail_flow`` stage, ``seg_fallback``, the sketch tier,
 device telemetry, the timeline rows and the explain records are not
 ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
 """
@@ -55,6 +64,7 @@ from sentinel_tpu_torch.core.errors import (
     BLOCK_AUTHORITY,
     BLOCK_DEGRADE,
     BLOCK_FLOW,
+    BLOCK_PARAM,
     BLOCK_SYSTEM,
     PASS,
     PASS_WAIT,
@@ -65,12 +75,14 @@ from sentinel_tpu_torch.core.rules import (
     CONTROL_WARM_UP,
     CONTROL_WARM_UP_RATE_LIMITER,
     GRADE_QPS,
+    GRADE_THREAD,
     STRATEGY_DIRECT,
     STRATEGY_RELATE,
 )
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import fused as FU
+from sentinel_tpu_torch.ops import param as PM
 from sentinel_tpu_torch.ops import rowmin as RM
 from sentinel_tpu_torch.ops import rtq as RQ
 from sentinel_tpu_torch.ops import tables as T
@@ -85,11 +97,10 @@ SKETCH_PLANES = W.NUM_EVENTS + 1
 
 #: every tick stage this engine runs
 ALL_FEATURES = frozenset(
-    {"authority", "system", "flow", "degrade", "warmup", "nodes", "occupy"}
+    {"authority", "system", "param", "flow", "degrade", "warmup", "nodes", "occupy"}
 )
 #: stages of the JAX engine that are not ported yet
 _UNPORTED_FEATURES = {
-    "param": "the param-flow stage (ROADMAP.md Queue A: param)",
     "tail_flow": "the sketch-tail flow stage (ROADMAP.md Queue A: the sketch tier)",
 }
 
@@ -121,7 +132,7 @@ class EngineState(NamedTuple):
     cb_retry_ms: torch.Tensor  # int32 [D+1]
     cb_counts: torch.Tensor  # int32 [D+1, nbc, 3]
     cb_epochs: torch.Tensor  # int32 [D+1, nbc]
-    # param store leaves: carried unchanged (the param stage is not ported)
+    # hashed (rule, value) param store (ops/param.py)
     pcms: torch.Tensor  # int32 [depth, Q, nbp]
     pcms_epochs: torch.Tensor  # int32 [nbp]
     pconc: torch.Tensor  # int32 [depth, Q]
@@ -132,6 +143,7 @@ class EngineState(NamedTuple):
 class RuleSet(NamedTuple):
     flow: RT.FlowRuleTensors
     degrade: RT.DegradeRuleTensors
+    param: RT.ParamRuleTensors
     auth: RT.AuthorityTensors
     system: RT.SystemTensors
 
@@ -270,16 +282,22 @@ def compile_ruleset(
     authority_rules=(),
     system_rules=(),
     device="cuda",
+    param_lanes=None,
 ) -> RuleSet:
     """Host-side: compile rule objects into a RuleSet on ``device``.
 
+    ``param_lanes``: optional resource -> ordered param_idx list from
+    rule_tensors.param_lanes — pass the host client's map so the engine's
+    lanes and the client's hashed lanes agree.
+
     Flow rules whose resource has no exact row are dropped with a warning
-    (the sketch tail is not ported); param rules raise."""
+    (the sketch tail is not ported); cluster-mode param rules raise."""
     flow_rules = list(flow_rules)
-    if list(param_rules):
+    param_rules = list(param_rules)
+    if any(r.cluster_mode for r in param_rules):
         raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: param-flow rules "
-            "(ROADMAP.md Queue A: param)"
+            "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
+            "(ROADMAP.md Queue A item 6: the cluster token column)"
         )
     exact_flow = []
     for r in flow_rules:
@@ -298,6 +316,9 @@ def compile_ruleset(
         flow=RT.to_device(RT.compile_flow_rules(exact_flow, cfg, registry), device),
         degrade=RT.to_device(
             RT.compile_degrade_rules(list(degrade_rules), cfg, registry), device
+        ),
+        param=RT.to_device(
+            RT.compile_param_rules(param_rules, cfg, registry, lanes=param_lanes), device
         ),
         auth=RT.to_device(
             RT.compile_authority_rules(list(authority_rules), cfg, registry), device
@@ -415,6 +436,89 @@ def _completion_entry_stats(cfg: EngineConfig, comp: CompleteBatch, valid):
     return inb, entry_deltas, entry_rt, entry_rt_min
 
 
+def _lane_hash(param_hash: torch.Tensor, lane: torch.Tensor, dims: int) -> torch.Tensor:
+    """Each row's hash in the lane its rule reads (param_hash [N, dims],
+    lane [N]); 0 — "no argument" — where the rule has no lane."""
+    picked = torch.gather(param_hash, 1, torch.clamp(lane, 0, dims - 1).to(torch.int64)[:, None])[:, 0]
+    return torch.where(lane >= 0, picked, 0)
+
+
+def _param_release_ctx(cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, valid):
+    """(rel, prows_c, rel_cnt): which completion lanes release THREAD-grade
+    param concurrency, their hashed (rule, value) rows, and the release
+    counts (ParamFlowSlot.exit: decreaseThreadCount) — shared by both
+    completion paths."""
+    KPp = cfg.param_rules_per_resource
+    res_lp = torch.clamp_max(comp.res, cfg.max_resources)
+    pslots = T.big_gather(
+        rules.param.res_params, res_lp, cfg.max_resources + 1, max_int=cfg.max_param_rules
+    )
+    pslots_f = pslots.reshape(-1)
+    pgc = T.small_gather_fields(
+        T.pack_fields([rules.param.enabled, rules.param.grade, rules.param.lane]), pslots_f
+    )
+    lane_c = pgc[:, 2].to(I32)
+    ph_c = _lane_hash(_fan(comp.param_hash, KPp), lane_c, cfg.param_dims)
+    rel = (
+        (pgc[:, 0] > 0)
+        & (pgc[:, 1].to(I32) == GRADE_THREAD)
+        & (ph_c != 0)
+        & _fan(valid, KPp)
+    )
+    prows_c = PM.pair_rows(pslots_f, ph_c, cfg.param_depth, cfg.param_width)
+    return rel, prows_c, _fan(comp.success, KPp)
+
+
+def param_release_jobs(cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, valid) -> list:
+    """The THREAD-grade release as scatter jobs ``prel{d}``, one per depth
+    row: the KPp rule lanes ride as row-vectors with per-lane release
+    counts; lanes that release nothing drop via row -1."""
+    b = comp.res.shape[0]
+    KPp = cfg.param_rules_per_resource
+    rel, prows_c, rel_cnt_f = _param_release_ctx(cfg, rules, comp, valid)
+    pr = torch.where(rel[:, None], prows_c, -1).reshape(b, KPp, cfg.param_depth)
+    rel_cnt = rel_cnt_f.reshape(b, KPp).T[:, None, :]  # [KPp, 1, B]
+    return [
+        FU.Job(f"prel{d}", cfg.param_width, pr[:, :, d].T, rel_cnt, (cfg.count_digits,))
+        for d in range(cfg.param_depth)
+    ]
+
+
+def land_param_release(state: EngineState, outs) -> EngineState:
+    """pconc minus the ``prel{d}`` outputs, clamped at zero."""
+    dec = torch.round(torch.stack([o[:, 0] for o in outs])).to(I32)  # [depth, Q]
+    return state._replace(pconc=torch.clamp_min(state.pconc - dec, 0))
+
+
+def param_effect_jobs(cfg: EngineConfig, acq: AcquireBatch, passed, param_ctx) -> list:
+    """Admitted param counts and THREAD concurrency as scatter jobs
+    ``param{d}``, one per depth row, two planes each.  The VALUES are
+    masked, not the rows (pair_rows cells are always in range)."""
+    _pcms, _epochs, _idx, prows, q_add, thread_add = param_ctx
+    b = acq.res.shape[0]
+    KP = cfg.param_rules_per_resource
+    cd = cfg.count_digits
+    adm = _fan(passed, KP)
+    cnt_p = _fan(acq.count, KP)
+    p_vals = torch.stack(
+        [torch.where(q_add & adm, cnt_p, 0), torch.where(thread_add & adm, cnt_p, 0)]
+    )  # [2, B*KP]
+    p_vals_r = p_vals.reshape(2, b, KP).permute(2, 0, 1)  # [KP, 2, B]
+    return [
+        FU.Job(f"param{d}", cfg.param_width, prows[:, d].reshape(b, KP).T, p_vals_r, (cd, cd))
+        for d in range(cfg.param_depth)
+    ]
+
+
+def land_param_effects(state: EngineState, param_ctx, outs) -> EngineState:
+    """The ``param{d}`` outputs into the current pcms bucket and pconc."""
+    pcms, pcms_epochs, pcms_idx = param_ctx[:3]
+    upd = torch.round(torch.stack(list(outs))).to(I32)  # [depth, Q, 2]
+    pcms[:, :, pcms_idx] += upd[:, :, 0]  # refresh returned a fresh tensor
+    pconc = torch.clamp_min(state.pconc + upd[:, :, 1], 0)
+    return state._replace(pcms=pcms, pcms_epochs=pcms_epochs, pconc=pconc)
+
+
 def _degrade_completion_masks(
     cfg: EngineConfig, state: EngineState, rules: RuleSet, comp: CompleteBatch,
     valid, now_ms: int,
@@ -502,7 +606,8 @@ def _process_completions_fused(
     """Exit path: RT/success/exception recording + circuit-breaker
     feedback (StatisticSlot.exit:125-164, DegradeSlot.exit:60-75), every
     scatter in ONE scatter_many launch: stat fan, per-row RT minimum
-    heads, breaker columns and half-open probe flags."""
+    heads, THREAD-grade param release, breaker columns and half-open
+    probe flags."""
     b = comp.res.shape[0]
     dev = comp.res.device
     valid = comp.res != cfg.trash_row
@@ -539,6 +644,12 @@ def _process_completions_fused(
             (2, 2, 1),
         )
     ]
+
+    # THREAD-grade param release lanes (the gathers stay plain indexing;
+    # only the concurrency scatter rides the kernel)
+    with_param = "param" in features
+    if with_param:
+        jobs += param_release_jobs(cfg, rules, comp, valid)
 
     with_degrade = "degrade" in features
     if with_degrade:
@@ -580,6 +691,10 @@ def _process_completions_fused(
         with_nodes,
     )
     stat_out, min_out = outs[0], outs[1]
+    oi = 2
+    if with_param:
+        state = land_param_release(state, outs[oi : oi + cfg.param_depth])
+        oi += cfg.param_depth
 
     pad_tail = cfg.node_rows - cfg.max_nodes
     hist = _land_hist(cfg, stat_out, (W.EV_SUCCESS, W.EV_EXCEPTION), entry_deltas, dev)
@@ -606,7 +721,7 @@ def _process_completions_fused(
     if not with_degrade:
         return state._replace(concurrency=concurrency)
 
-    cb_out, probe_out = outs[2], outs[3]
+    cb_out, probe_out = outs[oi], outs[oi + 1]
     cb_upd = torch.round(cb_out).to(I32).reshape(Dn, nbd, 3)
     cb_counts[:Dn] += cb_upd  # refresh_columns returned a fresh tensor
     sf = torch.cat(
@@ -732,6 +847,97 @@ def _check_system(
     blk = blk | ((s.load >= 0) & (sys_load > s.load) & ~bbr_ok)
     blk = blk | ((s.cpu >= 0) & (sys_cpu > s.cpu))
     return blk & inbound
+
+
+def fold_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 keeping the low 32 bits (two's-complement wrap, as
+    the reference's int32 arithmetic wraps)."""
+    lo = x & 0xFFFFFFFF
+    return torch.where(lo >= (1 << 31), lo - (1 << 32), lo).to(I32)
+
+
+def param_verdicts(
+    cfg: EngineConfig, state: EngineState, rules: RuleSet, pcms, pcms_epochs,
+    now_ms: int, slots, ph, cls, is_thread, thr, item_hash, item_thr, cnt,
+    elig, key_mult: int,
+):
+    """The item-level half of the param check, shared by the per-item and
+    the segment phases: hashed rows, windowed / concurrency estimates,
+    per-value exception thresholds, the within-tick rank, and the
+    over-threshold mask.  Every argument is per (item, rule lane) [N];
+    ``item_hash`` / ``item_thr`` are [N, KI].  Returns (prows, over)."""
+    prows = PM.pair_rows(slots, ph, cfg.param_depth, cfg.param_width)  # [N, depth]
+    wtab = PM.class_tables(pcms, pcms_epochs, rules.param.class_k, now_ms, cfg)
+    est = PM.estimate_fused(cfg, wtab, prows, cls)
+    # the reference reads pconc only when a THREAD-grade rule exists
+    # (lax.cond); without one no lane is THREAD-grade, so the estimate is
+    # never selected below and reading it always is the same
+    conc_est = PM.conc_estimate(cfg, state.pconc, prows)
+    # per-value exception items: hashes are raw int32 bits compared for
+    # equality; hash 0 means "no item"
+    is_item = (item_hash == ph[:, None]) & (item_hash != 0)
+    thr = torch.where(
+        is_item.any(dim=1), torch.amax(torch.where(is_item, item_thr, 0.0), dim=1), thr
+    )
+    # within-tick rank keyed by the exact (value, rule) pair — the int32
+    # wrap of the mix only ever MERGES groups, which over-counts
+    # conservatively
+    key = fold_i32(ph.to(torch.int64) * key_mult + slots.to(torch.int64))
+    (rank,) = grouped_exclusive_cumsum(key, [cnt], elig)
+    over = torch.where(is_thread, conc_est, est) + rank + cnt > thr
+    return prows, over
+
+
+def _check_param(
+    cfg: EngineConfig, state: EngineState, rules: RuleSet, acq: AcquireBatch,
+    now_ms: int, eligible,
+):
+    """ParamFlowSlot: per-parameter-value limiting over hashed rows
+    (ParamFlowChecker.passLocalCheck:78-188 — QPS grade as a windowed
+    budget, THREAD grade as per-value concurrency; paramIdx dispatch via
+    per-resource hash lanes).
+
+    Returns (blocked[B], pcms, pcms_epochs, cur_idx, prows, qps_add_mask,
+    thread_add_mask)."""
+    KP = cfg.param_rules_per_resource
+    b = acq.res.shape[0]
+    res_l = torch.clamp_max(acq.res, cfg.max_resources)
+    slots = T.big_gather(
+        rules.param.res_params, res_l, cfg.max_resources + 1, max_int=cfg.max_param_rules
+    )
+    slots_f = slots.reshape(-1)
+
+    pcms, pcms_epochs, cur_idx = PM.refresh(state.pcms, state.pcms_epochs, now_ms, cfg)
+
+    pg = T.small_gather_fields(
+        T.pack_fields(
+            [
+                rules.param.enabled,
+                rules.param.threshold,
+                rules.param.grade,
+                rules.param.cls,
+                rules.param.lane,
+            ]
+        ),
+        slots_f,
+    )
+    enabled = pg[:, 0] > 0
+    grade = pg[:, 2].to(I32)
+    cls = pg[:, 3].to(I32)
+    lane = pg[:, 4].to(I32)
+    # the rule's param_idx was lane-assigned at compile; pick that hash
+    ph = _lane_hash(_fan(acq.param_hash, KP), lane, cfg.param_dims)
+    applicable = enabled & (ph != 0)
+    is_thread = grade == GRADE_THREAD
+    cnt = _fan(acq.count, KP).to(F32)
+    elig_f = _fan(eligible, KP) & applicable
+    prows, over = param_verdicts(
+        cfg, state, rules, pcms, pcms_epochs, now_ms, slots_f, ph, cls, is_thread,
+        pg[:, 1], T.small_gather_int(rules.param.item_hash, slots_f),
+        T.small_gather_fields(rules.param.item_threshold, slots_f), cnt, elig_f, KP + 1,
+    )
+    blocked = (applicable & over & elig_f).reshape(b, KP).any(dim=1)
+    return blocked, pcms, pcms_epochs, cur_idx, prows, applicable & ~is_thread, applicable & is_thread
 
 
 def _check_flow(
@@ -962,10 +1168,12 @@ def _run_checks_plain(
     cfg: EngineConfig, state: EngineState, rules: RuleSet, acq: AcquireBatch,
     now_ms: int, sys_load: float, sys_cpu: float, valid, forced, features: frozenset,
 ):
-    """The per-item check phase (Authority -> System -> Flow -> Degrade,
-    first-fail order).  Returns (auth_block, sys_block, flow_block,
-    wait_ms, occupying, occ_grant, fslots, rl_info, degrade_block,
-    cb_state), every *_block masked by its stage's eligibility."""
+    """The per-item check phase (Authority -> System -> ParamFlow -> Flow
+    -> Degrade, first-fail order).  Returns (auth_block, sys_block,
+    param_block, param_state, flow_block, wait_ms, occupying, occ_grant,
+    fslots, rl_info, degrade_block, cb_state), with param_state = (pcms,
+    pcms_epochs, pcms_idx, prows, qps_add, thread_add) or None, and every
+    *_block masked by its stage's eligibility."""
     b = acq.res.shape[0]
     zero_block = torch.zeros((b,), dtype=torch.bool, device=acq.res.device)
 
@@ -980,6 +1188,15 @@ def _run_checks_plain(
     else:
         sys_block = zero_block
     eligible = eligible & ~sys_block
+
+    if "param" in features:
+        param_block, *param_state = _check_param(cfg, state, rules, acq, now_ms, eligible)
+        param_block = param_block & eligible
+        param_state = tuple(param_state)
+    else:
+        param_block = zero_block
+        param_state = None
+    eligible = eligible & ~param_block
 
     if "flow" in features:
         flow_block, wait_ms, occupying, occ_grant, fslots, rl_info = _check_flow(
@@ -1001,8 +1218,8 @@ def _run_checks_plain(
         degrade_block = zero_block
         cb_state = state.cb_state
     return (
-        auth_block, sys_block, flow_block, wait_ms, occupying, occ_grant,
-        fslots, rl_info, degrade_block, cb_state,
+        auth_block, sys_block, param_block, param_state, flow_block, wait_ms,
+        occupying, occ_grant, fslots, rl_info, degrade_block, cb_state,
     )
 
 
@@ -1039,10 +1256,11 @@ def _acquire_effects_fused(
     fslots,  # [B*K] flow slots from _check_flow (None without "flow")
     occ_grant,  # (grant_lane, onodes, ocnt) or None
     rl_info,  # (rl_ok, cost) or None
+    param_ctx,  # (pcms, pcms_epochs, pcms_idx, prows, q_add, thread_add) or None
 ) -> EngineState:
     """Acquire-side effects in ONE scatter_many launch: the stat fan, the
-    warm-up drain accounting, the RateLimiter (cost, count) sums and the
-    occupy-ahead booking."""
+    warm-up drain accounting, the RateLimiter (cost, count) sums, the
+    occupy-ahead booking and the param-flow pass / concurrency counts."""
     b = acq.res.shape[0]
     dev = acq.res.device
     with_nodes = "nodes" in features
@@ -1098,6 +1316,9 @@ def _acquire_effects_fused(
         occ_idx = oi
         oi += 1
 
+    if param_ctx is not None:
+        jobs += param_effect_jobs(cfg, acq, passed, param_ctx)
+
     outs = _scatter_with_stat_fan(
         cfg, jobs, acq.res, acq.ctx_node, acq.origin_node, stat_vals,
         (cd, cd, cd), with_nodes,
@@ -1141,6 +1362,9 @@ def _acquire_effects_fused(
             occ_tokens=pool_vec + add,
             occ_epoch=torch.where(add > 0, cur_wid + 1, state.occ_epoch).to(I32),
         )
+
+    if param_ctx is not None:
+        state = land_param_effects(state, param_ctx, outs[oi : oi + cfg.param_depth])
     return state
 
 
@@ -1214,12 +1438,14 @@ def tick(
             cfg, state, rules, acq, now_ms, sys_load, sys_cpu, valid, forced, features
         )
     (
-        auth_block, sys_block, flow_block, wait_ms, occupying, occ_grant,
-        fslots, rl_info, degrade_block, cb_state,
+        auth_block, sys_block, param_block, param_ctx, flow_block, wait_ms,
+        occupying, occ_grant, fslots, rl_info, degrade_block, cb_state,
     ) = checks
     state = state._replace(cb_state=cb_state)
 
-    passed = valid & ~forced & ~(auth_block | sys_block | flow_block | degrade_block)
+    passed = valid & ~forced & ~(
+        auth_block | sys_block | param_block | flow_block | degrade_block
+    )
     # occupy grants only COMMIT for items that finally pass
     occupying = occupying & passed
 
@@ -1227,6 +1453,7 @@ def tick(
     verdict = torch.where(forced, acq.pre_verdict.to(torch.int8), verdict)
     verdict = torch.where(auth_block, BLOCK_AUTHORITY, verdict)
     verdict = torch.where(sys_block, BLOCK_SYSTEM, verdict)
+    verdict = torch.where(param_block, BLOCK_PARAM, verdict)
     verdict = torch.where(flow_block, BLOCK_FLOW, verdict)
     verdict = torch.where(degrade_block, BLOCK_DEGRADE, verdict)
     verdict = torch.where(passed & (wait_ms > 0), PASS_WAIT, verdict).to(torch.int8)
@@ -1236,13 +1463,13 @@ def tick(
     if use_seg:
         state = ES.acquire_effects_seg(
             cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
-            fslots, occ_grant, rl_info, ctx_a, carry_a,
+            fslots, occ_grant, rl_info, param_ctx, ctx_a, carry_a,
         )
         seg_dropped = seg_dropped + ES.dropped_items(ctx_a, valid)
     else:
         state = _acquire_effects_fused(
             cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
-            fslots, occ_grant, rl_info,
+            fslots, occ_grant, rl_info, param_ctx,
         )
     if cfg.packed_wire:
         return state, TickOutput(

@@ -1,7 +1,7 @@
 """Segment-compacted phases of the tick.
 
 PyTorch counterpart of ``sentinel_tpu/ops/engine_seg.py`` without the
-param, tail-flow and sketch branches (those stages raise in
+tail-flow and sketch branches (those stages raise in
 ``engine.check_supported``).  The effects phases contract ONE entry per
 batch *segment* (a maximal run of items sharing every scatter-relevant
 key, capped at 256 items; ops/segment.py) instead of one per item, and
@@ -18,7 +18,9 @@ Dataflow per side:
 
 Both scatter phases land through one ``fused.scatter_many`` call each
 (kernel B1).  The single-lane check phase ranks with segmented scans
-(kernel B3).
+(kernel B3).  Hot-parameter scatters key on (rule, value-hash) — not
+segment-constant — so with the ``param`` stage on each phase makes one
+more ``scatter_many`` call on the ITEM axis (``prel{d}``, ``param{d}``).
 
 No host sync: the JAX phases decide the occupy rank, the probe election
 and the breaker flip with ``lax.cond`` on "any candidate" (zeros
@@ -48,11 +50,13 @@ from sentinel_tpu_torch.core.rules import (
     CONTROL_WARM_UP,
     CONTROL_WARM_UP_RATE_LIMITER,
     GRADE_QPS,
+    GRADE_THREAD,
     STRATEGY_DIRECT,
     STRATEGY_RELATE,
 )
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import fused as FU
+from sentinel_tpu_torch.ops import param as PM
 from sentinel_tpu_torch.ops import rowmin as RM
 from sentinel_tpu_torch.ops import rtq as RQ
 from sentinel_tpu_torch.ops import segment as SG
@@ -270,8 +274,8 @@ def run_checks_seg(
     features: frozenset,
 ):
     """The whole acquire check phase with every per-item table read hoisted
-    to the segment level (AuthoritySlot -> SystemSlot -> FlowSlot ->
-    DegradeSlot, first-fail order).  Needs *_rules_per_resource == 1 (the
+    to the segment level (AuthoritySlot -> SystemSlot -> ParamFlowSlot ->
+    FlowSlot -> DegradeSlot, first-fail order).  Needs *_rules_per_resource == 1 (the
     tick checks it).  Ranks are segmented scans of the sorted batch (B3);
     with ``seg_static_ranks`` off, sort ranks are computed too and chosen
     when the batch is unsorted or a flow rule is not DIRECT/ANY.
@@ -294,6 +298,7 @@ def run_checks_seg(
 
     # ================= segment-level phase =================
     with_auth = "authority" in features
+    with_param = "param" in features
     with_flow = "flow" in features
     with_degrade = "degrade" in features
 
@@ -301,6 +306,8 @@ def run_checks_seg(
     slot_tabs = []
     if with_auth:
         slot_tabs.append(("auth", rules.auth.mode))
+    if with_param:
+        slot_tabs.append(("param", rules.param.res_params[:, 0]))
     if with_flow:
         slot_tabs.append(("flow", rules.flow.res_rules[:, 0]))
     if with_degrade:
@@ -317,6 +324,33 @@ def run_checks_seg(
             (origins == carry.origin_id[:, None]) & (origins != RT.AUTH_EMPTY)
         ).any(dim=1)
         auth_u = ((mode == 1) & ~listed) | ((mode == 2) & listed)
+
+    if with_param:
+        # KP == 1 (the tick's gate): the shared slot gather serves; dead
+        # segment slots read the pad resource (res_u), never junk
+        pslot_u = slot_vals["param"]
+        pcms, pcms_epochs, pcms_idx = PM.refresh(state.pcms, state.pcms_epochs, now_ms, cfg)
+        pgu = T.small_gather_fields(
+            T.pack_fields(
+                [
+                    rules.param.enabled, rules.param.threshold, rules.param.grade,
+                    rules.param.cls, rules.param.lane,
+                ]
+            ),
+            pslot_u,
+        )
+        ih_u = T.small_gather_int(rules.param.item_hash, pslot_u)  # [U, KI]
+        it_u = T.small_gather_fields(rules.param.item_threshold, pslot_u)
+        KI = ih_u.shape[1]
+        p_en_u = (pgu[:, 0] > 0) & live
+        p_thread_u = pgu[:, 2].to(I32) == GRADE_THREAD
+        i_pflags = exp.add(p_en_u.to(I32) | (p_thread_u.to(I32) << 1))
+        i_plane = exp.add(torch.clamp(pgu[:, 4].to(I32), -1, cfg.param_dims - 1))
+        i_pslot = exp.add(torch.where(live, pslot_u, cfg.max_param_rules))
+        i_pcls = exp.add(torch.clamp(pgu[:, 3].to(I32), 0, max(cfg.param_classes - 1, 0)))
+        i_pthr = exp.add_f(pgu[:, 1])
+        i_ih = [exp.add(ih_u[:, k]) for k in range(KI)]
+        i_it = [exp.add_f(it_u[:, k]) for k in range(KI)]
 
     if with_flow:
         f = rules.flow
@@ -454,6 +488,27 @@ def run_checks_seg(
     else:
         sys_block = zero_block | overflow
     eligible = eligible & ~sys_block
+
+    if with_param:
+        fl = exp.get(i_pflags)
+        p_thread_i = (fl & 2) > 0
+        pslot_i = exp.get(i_pslot)
+        ph = E._lane_hash(acq.param_hash, exp.get(i_plane), cfg.param_dims)
+        p_app = ((fl & 1) > 0) & (ph != 0)
+        elig_p = eligible & p_app
+        prows, over = E.param_verdicts(
+            cfg, state, rules, pcms, pcms_epochs, now_ms, pslot_i, ph, exp.get(i_pcls),
+            p_thread_i, exp.get_f(i_pthr),
+            torch.stack([exp.get(i) for i in i_ih], dim=1),
+            torch.stack([exp.get_f(i) for i in i_it], dim=1),
+            cnt, elig_p, 2,  # the rank key's multiplier is KP + 1, and KP == 1
+        )
+        param_block = p_app & over & elig_p & eligible
+        param_state = (pcms, pcms_epochs, pcms_idx, prows, p_app & ~p_thread_i, p_app & p_thread_i)
+    else:
+        param_block = zero_block
+        param_state = None
+    eligible = eligible & ~param_block
 
     if with_flow:
         fl = exp.get(i_fflags)
@@ -596,8 +651,8 @@ def run_checks_seg(
         cb_state = state.cb_state
 
     return (
-        auth_block, sys_block, flow_block, wait_ms, occupying, occ_grant,
-        fslots, rl_info, degrade_block, cb_state,
+        auth_block, sys_block, param_block, param_state, flow_block, wait_ms,
+        occupying, occ_grant, fslots, rl_info, degrade_block, cb_state,
     )
 
 
@@ -708,6 +763,14 @@ def process_completions_seg(
     outs = FU.scatter_many(jobs)
     stat_out, min_out = outs[0], outs[1]
 
+    # THREAD-grade param release: its own launch on the ITEM axis.  The
+    # reference skips it (lax.cond) when no lane releases; lanes that
+    # release nothing drop, so the always-run scatter adds zeros then
+    if "param" in features:
+        state = E.land_param_release(
+            state, FU.scatter_many(E.param_release_jobs(cfg, rules, comp, valid))
+        )
+
     # land (the same tail as the per-item fused path)
     succ_h, err_h, rtq_h = _recombine(stat_out, spec3)
     pad_tail = cfg.node_rows - cfg.max_nodes
@@ -765,12 +828,14 @@ def acquire_effects_seg(
     fslots,
     occ_grant,
     rl_info,
+    param_ctx,
     ctx: SG.SegCtx,
     carry: AcqCarry,
 ):
     """``engine._acquire_effects_fused`` with segment-compacted scatters:
     every post-check value plane and per-lane row compacts through ONE
-    packed gather, then one scatter_many call."""
+    packed gather, then one scatter_many call; the param-flow counts take
+    a second call on the item axis."""
     from sentinel_tpu_torch.ops import engine as E
 
     b = acq.res.shape[0]
@@ -861,6 +926,10 @@ def acquire_effects_seg(
         occ_idx = len(jobs) - 1
 
     outs = FU.scatter_many(jobs)
+    if param_ctx is not None:
+        state = E.land_param_effects(
+            state, param_ctx, FU.scatter_many(E.param_effect_jobs(cfg, acq, passed, param_ctx))
+        )
 
     pass_h, block_h, occ_h = _recombine(outs[0], spec3)
     hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=dev)

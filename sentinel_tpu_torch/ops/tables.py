@@ -8,17 +8,37 @@ scatters ride the scatter kernel (ops/fused.py).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 
-def big_gather(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """table[idx] with zeros for ids outside [0, n)."""
+def big_gather(
+    table: torch.Tensor, idx: torch.Tensor, n: int, max_int: Optional[int] = None
+) -> torch.Tensor:
+    """table[idx] with zeros for ids outside [0, n).
+
+    ``max_int``: for NONNEGATIVE int tables, the largest cell value the
+    caller vouches for.  The reference then reads base-256 digit planes, as
+    many as ``max_int`` needs, so a larger cell reads modulo 256**digits;
+    kept here so a caller that saturates first and one that does not both
+    get what the reference gives."""
     safe = torch.clamp(idx, 0, n - 1).to(torch.int64)
     out = table[safe]
+    if max_int is not None and not table.dtype.is_floating_point and table.dtype != torch.bool:
+        digits = max(1, (int(max_int).bit_length() + 7) // 8)
+        if digits < 4:
+            out = out & ((1 << (8 * digits)) - 1)
     ok = (idx >= 0) & (idx < n)
     return torch.where(ok.reshape(ok.shape + (1,) * (out.dim() - 1)), out, 0)
+
+
+def lane_gather_1col(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 table[idx] for a ONE-COLUMN table, zeros for ids outside
+    [0, n)."""
+    ok = (idx >= 0) & (idx < n)
+    safe = torch.clamp(idx, 0, n - 1).to(torch.int64)
+    return torch.where(ok, table[safe].to(torch.float32), 0.0)
 
 
 def lane_gather_multi(

@@ -26,9 +26,18 @@ default limitApp).
 
 The client runs on the card unless it is asked for the CPU:
 ``SentinelClient(device=None)`` picks ``"cuda"`` and raises where no CUDA
-device exists.  Not ported yet (ROADMAP.md): param-flow rules (loading
-them raises), cluster mode, the native completion ring, pipelined
-readback, adaptive protection, the obs planes.
+device exists.
+
+Hot-parameter rules: every rule load rebuilds the per-resource lane map
+(``rule_tensors.param_lanes``); ``entry(resource, args=...)`` hashes one
+argument per assigned lane into the acquire's ``param_hash`` columns and
+keeps the hashes on the entry handle, so ``exit()`` carries them as the
+THREAD-grade release lanes.  The ``param`` stage is on only while param
+rules are loaded.
+
+Not ported yet (ROADMAP.md): cluster mode (a cluster-mode param rule
+raises), the hot-parameter value counters (``top_params``), the native
+completion ring, pipelined readback, adaptive protection, the obs planes.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch
 from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
 from sentinel_tpu_torch.core.config import EngineConfig, app_name as cfg_app_name, platform_config
+from sentinel_tpu_torch.core.rule_tensors import hash_param, param_lanes
 from sentinel_tpu_torch.ops import engine as E
 from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import wire as WIRE
@@ -89,6 +99,7 @@ class AcquireRequest:
     inbound: int
     pre_verdict: int = 0
     future: Optional[Future] = None
+    param_hash: tuple = ()  # param_dims hashed hot-param lanes (0 = none)
 
 
 @dataclass
@@ -100,6 +111,7 @@ class Completion:
     rt: float
     success: int
     error: int
+    param_hash: tuple = ()  # THREAD-grade release lanes
 
 
 #: acquire columns: (field, fill, host dtype)
@@ -136,10 +148,11 @@ class Entry:
 
     __slots__ = (
         "client", "resource", "res", "origin_node", "ctx_node", "inbound",
-        "count", "create_ms", "wait_ms", "_errors", "_exited",
+        "count", "create_ms", "wait_ms", "param_hash", "_errors", "_exited",
     )
 
-    def __init__(self, client, resource, res, origin_node, ctx_node, inbound, count, create_ms, wait_ms=0):
+    def __init__(self, client, resource, res, origin_node, ctx_node, inbound, count, create_ms, wait_ms=0,
+                 param_hash=()):
         self.client = client
         self.resource = resource
         self.res = res
@@ -149,6 +162,7 @@ class Entry:
         self.count = count
         self.create_ms = create_ms
         self.wait_ms = wait_ms
+        self.param_hash = param_hash
         self._errors = 0
         self._exited = False
 
@@ -174,6 +188,7 @@ class Entry:
                 rt=float(max(now - self.create_ms, 0)),
                 success=count if count is not None else self.count,
                 error=self._errors,
+                param_hash=self.param_hash,
             )
         )
 
@@ -203,10 +218,10 @@ class RuleManager:
 
     def load(self, rules: Sequence) -> None:
         rules = list(rules) if rules else []
-        if self.kind == "param-flow" and rules:
+        if self.kind == "param-flow" and any(r.cluster_mode for r in rules):
             raise NotImplementedError(
-                "not ported to sentinel_tpu_torch yet: param-flow rules "
-                "(ROADMAP.md Queue A: param)"
+                "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
+                "(ROADMAP.md Queue A item 6: the cluster token column)"
             )
         self._rules = rules
         self._client._recompile_rules()
@@ -250,6 +265,8 @@ class SentinelClient:
         self.authority_rules = RuleManager(self, "authority")
         self.param_flow_rules = RuleManager(self, "param-flow")
         self._sys = SystemStatusSampler()
+        #: resource -> ordered param_idx list: which argument each hash lane carries
+        self._param_lanes_by_res: Dict[str, list] = {}
 
         self._features = self._select_features()
         self._tick = E.make_tick(self.cfg, features=self._features)
@@ -304,8 +321,11 @@ class SentinelClient:
 
     def _select_features(self) -> frozenset:
         """Engine stages the current rule set needs ('nodes' and 'occupy'
-        stay on; 'warmup' joins when a warm-up shaper exists)."""
+        stay on; 'warmup' joins when a warm-up shaper exists, 'param' while
+        param rules are loaded)."""
         feats = {"nodes", "occupy", "flow"}
+        if self.param_flow_rules.get():
+            feats.add("param")
         if self.degrade_rules.get():
             feats.add("degrade")
         if self.authority_rules.get():
@@ -321,11 +341,19 @@ class SentinelClient:
 
     def _recompile_rules(self) -> None:
         flow = [r for r in self.flow_rules.get() if not r.cluster_mode]
+        param = self.param_flow_rules.get()
+        # per-resource hash LANES: each entry hashes up to param_dims
+        # distinct argument indices; every rule reads the lane its param_idx
+        # was assigned (ParamFlowChecker.java:78 paramIdx dispatch)
+        lane_map = param_lanes(param, self.cfg.param_dims)
+        self._param_lanes_by_res = lane_map
         rules_dev = E.compile_ruleset(
             self.cfg,
             self.registry,
             flow_rules=flow,
             degrade_rules=self.degrade_rules.get(),
+            param_rules=param,
+            param_lanes=lane_map,
             authority_rules=self.authority_rules.get(),
             system_rules=self.system_rules.get(),
             device=self.device,
@@ -367,8 +395,8 @@ class SentinelClient:
         origin: Optional[str] = None,
     ) -> Entry:
         """Acquire; raises BlockException on rejection (SphU.entry).
-        ``args`` are accepted for signature parity; param-flow rules are
-        not ported, so no argument is hashed."""
+        ``args``: the call's arguments; the ones param-flow rules on this
+        resource index are hashed into the hot-parameter lanes."""
         ctx_name, ctx_origin = CTX.current()
         origin = origin if origin is not None else ctx_origin
         rid = self.registry.resource_id(resource)
@@ -386,6 +414,7 @@ class SentinelClient:
         else:
             ctx_node = self.cfg.trash_row
             ctx_id = -1
+        param_hashes = self.param_hashes(resource, args)
         req = AcquireRequest(
             res=rid,
             count=count,
@@ -396,6 +425,7 @@ class SentinelClient:
             ctx_name=ctx_id,
             inbound=1 if inbound else 0,
             future=Future(),
+            param_hash=param_hashes,
         )
         with self._lock:
             self._acquires.append(req)
@@ -408,10 +438,31 @@ class SentinelClient:
             self.time.sleep_ms(wait_ms)
         e = Entry(
             self, resource, rid, origin_node, ctx_node, 1 if inbound else 0,
-            count, self.time.now_ms(), wait_ms,
+            count, self.time.now_ms(), wait_ms, param_hashes,
         )
         CTX.push_entry(e)
         return e
+
+    def param_hashes(self, resource: str, args: Optional[Sequence]) -> tuple:
+        """``param_dims`` hashed lanes for an entry on ``resource``: one
+        argument per lane the rule compile assigned (lane 0 reads args[0]
+        where no param rule names the resource); 0 = no argument."""
+        M = self.cfg.param_dims
+        hashes = [0] * M
+        if args:
+            lanes = self._param_lanes_by_res.get(resource) or [0]
+            for li, idx in enumerate(lanes[:M]):
+                if 0 <= idx < len(args):
+                    hashes[li] = hash_param(args[idx])
+        return tuple(hashes)
+
+    def param_lane(self, resource: str, param_idx: int) -> Optional[int]:
+        """Hash lane the compile assigned to ``param_idx`` on ``resource``,
+        or None if that index holds no lane (the rule cannot be enforced)."""
+        lanes = self._param_lanes_by_res.get(resource)
+        if not lanes:
+            return 0 if param_idx == 0 else None
+        return lanes.index(param_idx) if param_idx in lanes else None
 
     def try_entry(self, resource: str, **kw) -> Optional[Entry]:
         """SphO-style boolean variant."""
@@ -516,6 +567,16 @@ class SentinelClient:
             self.cfg = self.registry.cfg = cfg
             self._tick = E.make_tick(cfg, features=self._features)
 
+    def _hash_col(self, items: Sequence, rows: int) -> np.ndarray:
+        """int32 [rows, param_dims]: each request's hashed lanes (0 = none;
+        padding rows and requests without arguments stay 0)."""
+        M = self.cfg.param_dims
+        col = np.zeros((rows, M), np.int32)
+        for i, r in enumerate(items):
+            if r.param_hash:
+                col[i, : len(r.param_hash[:M])] = r.param_hash[:M]
+        return col
+
     def _upload(self, x: np.ndarray, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(x)
         if dtype is not None:
@@ -540,6 +601,7 @@ class SentinelClient:
             if f == "count":
                 np.minimum(col, cap, out=col)  # the fused kernels' envelope
             acols[f] = col
+        acols["param_hash"] = self._hash_col(acq, B)
         ccols = {}
         for f, fill, dt in _COMP_COLS:
             col = np.full(B2, trash if fill is None else fill, dt)
@@ -548,6 +610,7 @@ class SentinelClient:
             if f in ("success", "error"):
                 np.minimum(col, cap, out=col)
             ccols[f] = col
+        ccols["param_hash"] = self._hash_col(comp, B2)
         inv = None
         if cfg.seg_effects:
             # trash-row padding has the largest res, so it sorts last and
@@ -563,14 +626,8 @@ class SentinelClient:
             cfg = self.cfg
         wd_a = WIRE.acquire_wire_dtypes(cfg)
         wd_c = WIRE.complete_wire_dtypes(cfg)
-        a = E.AcquireBatch(
-            param_hash=torch.zeros((B, cfg.param_dims), dtype=torch.int32, device=self.device),
-            **{f: self._upload(v, wd_a.get(f)) for f, v in acols.items()},
-        )
-        c = E.CompleteBatch(
-            param_hash=torch.zeros((B2, cfg.param_dims), dtype=torch.int32, device=self.device),
-            **{f: self._upload(v, wd_c.get(f)) for f, v in ccols.items()},
-        )
+        a = E.AcquireBatch(**{f: self._upload(v, wd_a.get(f)) for f, v in acols.items()})
+        c = E.CompleteBatch(**{f: self._upload(v, wd_c.get(f)) for f, v in ccols.items()})
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
         with self._engine_lock:

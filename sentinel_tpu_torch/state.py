@@ -47,6 +47,7 @@ _SUBTYPES = {
     (E.EngineState, "rtq"): RQ.RtqState,
     (E.RuleSet, "flow"): RT.FlowRuleTensors,
     (E.RuleSet, "degrade"): RT.DegradeRuleTensors,
+    (E.RuleSet, "param"): RT.ParamRuleTensors,
     (E.RuleSet, "auth"): RT.AuthorityTensors,
     (E.RuleSet, "system"): RT.SystemTensors,
 }
@@ -66,15 +67,9 @@ def state_from_numpy(cfg: EngineConfig, leaves, device) -> E.EngineState:
 
 
 def ruleset_from_numpy(cfg: EngineConfig, leaves, device) -> E.RuleSet:
-    """The port's RuleSet from the JAX package's (numpy leaves).  The JAX
-    ruleset's param and tail tables must be empty: those stages are not
-    ported."""
-    param = getattr(leaves, "param", None)
-    if param is not None and np.asarray(param.enabled).any():
-        raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: param-flow rules "
-            "(ROADMAP.md Queue A: param)"
-        )
+    """The port's RuleSet from the JAX package's (numpy leaves), param
+    rules included.  The JAX ruleset's tail table must be empty: that stage
+    is not ported."""
     tail = getattr(leaves, "tail", None)
     if tail is not None and (np.asarray(tail.thr) < RT_TAIL_UNRULED / 2).any():
         raise NotImplementedError(

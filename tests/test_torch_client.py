@@ -137,9 +137,16 @@ def test_client_fails_tick_closed_on_corrupt_wire(monkeypatch):
 
 
 def test_param_rules_raise_not_implemented():
+    """Param rules load; what still raises is a CLUSTER-MODE param rule
+    (naming its queue item) and a config with the unported planes on."""
     tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
+    tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
+    assert "param" in tc._features
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, cluster_mode=True)])
+    assert len(tc.param_flow_rules.get()) == 1  # the refused load changed nothing
+    tc.param_flow_rules.load([])
+    assert "param" not in tc._features  # the stage is on only while param rules are loaded
     with pytest.raises(NotImplementedError):
         SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu")
 
@@ -232,6 +239,108 @@ def test_a_tick_that_cannot_run_fails_its_entries_closed(monkeypatch):
 
 SEG = dict(fused_effects=True, seg_effects=True, seg_fallback=False, **NO_PLANES)
 SINGLE_LANE = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
+
+
+# -- hot-parameter rules through the client ------------------------------------
+
+
+def _param_rules(m, swapped=False):
+    """QPS and THREAD grade, two durations, an exception item; on "pa" one
+    rule an argument.  ``swapped`` lists pa's rules the other way round,
+    which swaps the lanes its two arguments hash into."""
+    pa = [
+        m.ParamFlowRule(resource="pa", count=2, duration_in_sec=1, param_idx=0),
+        m.ParamFlowRule(resource="pa", count=2, param_idx=1, grade=m.GRADE_THREAD),
+    ]
+    return (pa[::-1] if swapped else pa) + [
+        m.ParamFlowRule(resource="pb", count=1, duration_in_sec=2,
+                        param_flow_item_list=[m.ParamFlowItem(object="vip", count=3)]),
+        m.ParamFlowRule(resource="pc", count=1, grade=m.GRADE_THREAD),
+    ]
+
+
+def _drive_param(client, m, seed: int, n: int = 80):
+    """Scripted traffic with arguments; a rule reload at the half changes
+    the lane map.  Every entry exits at the end."""
+    client.flow_rules.load([m.FlowRule(resource="pa", count=6), m.FlowRule(resource="x", count=2)])
+    client.param_flow_rules.load(_param_rules(m))
+    rng = np.random.default_rng(seed)
+    held, out = [], []
+    for i in range(n):
+        if i == n // 2:
+            # a held entry's release lanes were hashed by the OLD map: exit
+            # them first, so that every THREAD acquire finds its row again
+            while held:
+                held.pop().exit()
+            client.param_flow_rules.load(_param_rules(m, swapped=True))
+        res = str(rng.choice(["pa", "pb", "pc", "x"]))
+        args = [str(rng.choice(["u1", "u2", "vip"])), int(rng.integers(0, 3))][: int(rng.integers(0, 3))]
+        try:
+            e = client.entry(res, args=args)
+            out.append(("pass", res, tuple(args)))
+            held.append(e)
+        except m.BlockException as exc:
+            out.append((type(exc).__name__, res, tuple(args)))
+        client.time.advance(int(rng.integers(0, 150)))
+        while held and rng.random() < 0.4:
+            held.pop(int(rng.integers(0, len(held)))).exit()
+    for e in held:
+        e.exit()
+    return out
+
+
+@pytest.mark.parametrize("path", ["fused", "seg-four", "seg-single"])
+def test_param_client_matches_jax_client_verdict_for_verdict(path):
+    """Param rules and ``args`` through both clients: hashed lanes by the
+    rule compile's lane map, THREAD-grade release on exit(), a reload that
+    changes the lane map — on the per-item fused path and on the segment
+    path (4 lanes and single lanes, where the hashes ride the presort)."""
+    extra = SINGLE_LANE if path == "seg-single" else {}
+    flags = dict(fused_effects=True, **NO_PLANES) if path == "fused" else SEG
+    jc = JaxClient(cfg=jax_small_cfg(**NO_PLANES, **extra), time_source=JaxVT(1_000), mode="sync")
+    upload = jc._dev_col
+    jc._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
+    tc = SentinelClient(
+        cfg=small_engine_config(**flags, **extra), time_source=VirtualTimeSource(1_000),
+        mode="sync", device="cpu",
+    )
+    jc.start()
+    tc.start()
+    try:
+        want = _drive_param(jc, jst, 3)
+        got = _drive_param(tc, tst, 3)
+        lanes = (tc.param_lane("pa", 0), tc.param_lane("pa", 1), jc.param_lane("pa", 0), jc.param_lane("pa", 1))
+        jstore = [np.asarray(x) for x in (jc._state.pcms, jc._state.pcms_epochs, jc._state.pconc)]
+    finally:
+        jc.stop()
+        tc.stop()
+    assert got == want
+    kinds = {(o[0], o[1]) for o in got}
+    assert ("ParamFlowException", "pb") in kinds and ("ParamFlowException", "pc") in kinds
+    assert ("FlowException", "x") in kinds and ("pass", "pa") in kinds
+    assert lanes == (1, 0, 1, 0)  # the reload swapped pa's lanes, in both clients
+    # every THREAD-grade acquire was released on exit()
+    assert int(tc._state.pconc.sum()) == 0 and int(tc._state.pcms.sum()) > 0
+    for mine, theirs in zip((tc._state.pcms, tc._state.pcms_epochs, tc._state.pconc), jstore):
+        np.testing.assert_array_equal(mine.numpy(), theirs)
+    assert tc.seg_dropped_total == 0
+
+
+def test_param_hashes_follow_the_lane_map():
+    from sentinel_tpu_torch.core.rule_tensors import hash_param
+
+    tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
+    assert tc.param_hashes("r", ["a", "b"]) == (hash_param("a"), 0)  # no rule: lane 0 reads args[0]
+    assert tc.param_hashes("r", None) == (0, 0)
+    tc.param_flow_rules.load([
+        tst.ParamFlowRule(resource="r", count=1, param_idx=2),
+        tst.ParamFlowRule(resource="r", count=1, param_idx=0),
+        tst.ParamFlowRule(resource="r", count=1, param_idx=1),  # a third index: no lane left
+    ])
+    assert tc.param_hashes("r", ["a", "b", 7]) == (hash_param(7), hash_param("a"))
+    assert tc.param_hashes("r", ["a"]) == (0, hash_param("a"))  # args[2] is absent
+    assert (tc.param_lane("r", 2), tc.param_lane("r", 0), tc.param_lane("r", 1)) == (0, 1, None)
+    assert tc.param_lane("other", 0) == 0 and tc.param_lane("other", 1) is None
 
 
 @pytest.mark.parametrize("lanes", ["four", "single"])

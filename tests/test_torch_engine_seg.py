@@ -19,14 +19,16 @@ import pytest
 import torch
 
 from tests import torch_harness as H
-from tests.test_torch_engine import NOWS, _assert_states_match, _assert_ticks_match, _jax_tick, _port_tick
+from tests.test_torch_engine import (
+    NOWS, PARAM_NOWS, _assert_states_match, _assert_ticks_match, _jax_tick, _port_tick, run_param_ticks,
+)
 from sentinel_tpu.core import rules as JR
 from sentinel_tpu.core.config import small_engine_config as jax_small_cfg
 from sentinel_tpu.ops import engine as JE
 from sentinel_tpu.runtime.registry import Registry as JaxRegistry
 from sentinel_tpu_torch import state as S
 from sentinel_tpu_torch.core import rules as TR
-from sentinel_tpu_torch.core.errors import BLOCK_FLOW, PASS, PASS_WAIT
+from sentinel_tpu_torch.core.errors import BLOCK_FLOW, BLOCK_PARAM, PASS, PASS_WAIT
 from sentinel_tpu_torch.core.config import small_engine_config
 from sentinel_tpu_torch.ops import engine as E
 from sentinel_tpu_torch.ops import segscan as SC
@@ -34,25 +36,25 @@ from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.runtime.registry import Registry
 
 
-def _setup(b, flags, direct_only=False, device="cpu"):
+def _setup(b, flags, direct_only=False, device="cpu", param=False):
     kw = dict(batch_size=b, complete_batch_size=b, **H.FUSED_FLAGS, **H.SEG_FLAGS, **flags)
     jcfg, tcfg = jax_small_cfg(**kw), small_engine_config(**kw)
     jreg, treg = JaxRegistry(jcfg), Registry(tcfg)
     H.intern(jreg)
     H.intern(treg)
-    rules_j = H.make_rules(JR, direct_only)
+    rules_j = H.make_rules(JR, direct_only, param)
     rules_j["system_rules"] = [JR.SystemRule(qps=40)]
-    rules_t = H.make_rules(TR, direct_only)
+    rules_t = H.make_rules(TR, direct_only, param)
     rules_t["system_rules"] = [TR.SystemRule(qps=40)]
     jrs = JE.compile_ruleset(jcfg, jreg, **rules_j)
     trs = E.compile_ruleset(tcfg, treg, device=device, **rules_t)
     return jcfg, tcfg, treg, jrs, trs
 
 
-def _stream(tcfg, treg, b, seed, sort, n):
+def _stream(tcfg, treg, b, seed, sort, n, param=False):
     out = []
     for step in range(n):
-        w = H.workload(tcfg, treg, seed=seed + step, b=b)
+        w = H.workload(tcfg, treg, seed=seed + step, b=b, param=param)
         out.append(H.presort(w) if sort else w)
     return out
 
@@ -137,6 +139,54 @@ def test_segment_tick_continues_a_jax_run_state():
         ts, twire, twait = _port_tick(tcfg, ts, trs, w, now)
         _assert_ticks_match((jwire, jwait), (twire, twait))
         _assert_states_match(tcfg, js, ts)
+
+
+@pytest.mark.parametrize(
+    "lanes,carry_after", [("single", None), ("single", 1), ("four", None), ("single-static", None)]
+)
+def test_param_segment_tick_matches_jax(lanes, carry_after):
+    """The param stage on the segment path: single lanes (the segment-level
+    slot gather through the expander, the segment check) and the default 4
+    lanes (per-item checks), both with the release and the pass scatters as
+    their own item-axis launches; fresh and carried across from a JAX run.
+    BLOCK_PARAM verdicts, wire bytes (``seg_dropped`` in them), wait_ms and
+    pcms / pcms_epochs / pconc equal, across a bucket's expiry."""
+    static = lanes == "single-static"
+    flags = {} if lanes == "four" else dict(H.SINGLE_LANE, seg_static_ranks=static)
+    b = 64
+    jcfg, tcfg, treg, jrs, trs = _setup(b, flags, direct_only=static, param=True)
+    stream = _stream(tcfg, treg, b, 500, True, len(PARAM_NOWS), param=True)
+    seen, ts = run_param_ticks(jcfg, tcfg, treg, jrs, trs, stream, PARAM_NOWS, carry_after=carry_after)
+    assert BLOCK_PARAM in seen and {PASS, BLOCK_FLOW} <= seen
+    assert int(ts.pcms.sum()) > 0 and int(ts.pconc.sum()) > 0
+    assert ts.pcms_epochs.tolist()[2] == 10
+
+
+def test_param_segment_tick_on_unsorted_batches_matches_jax():
+    """Unsorted batches with param on: dead segment slots and more
+    segments; the param rank is a sort rank either way."""
+    b = 64
+    jcfg, tcfg, treg, jrs, trs = _setup(b, dict(H.SINGLE_LANE), param=True)
+    stream = _stream(tcfg, treg, b, 900, False, 4, param=True)
+    seen, _ts = run_param_ticks(jcfg, tcfg, treg, jrs, trs, stream, PARAM_NOWS[:4])
+    assert BLOCK_PARAM in seen
+
+
+@pytest.mark.cuda
+def test_param_segment_tick_on_the_card_matches_jax():
+    """The single-lane segment tick with param on and the CUDA kernels
+    against the JAX reference: the item-axis param launches run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from sentinel_tpu_torch.ops import fused as FU
+
+    b = 64
+    jcfg, tcfg, treg, jrs, trs = _setup(b, dict(H.SINGLE_LANE), device="cuda", param=True)
+    stream = _stream(tcfg, treg, b, 500, True, 4, param=True)
+    FU.reset_launches()
+    seen, _ts = run_param_ticks(jcfg, tcfg, treg, jrs, trs, stream, PARAM_NOWS[:4], device="cuda")
+    assert BLOCK_PARAM in seen
+    assert FU.LAUNCHES["scatter_many"] == 4 * 4  # two segment + two item-axis launches a tick
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """sentinel_tpu_torch stands alone: it imports neither jax nor anything of
-the JAX package, and its entry points default to the card."""
+the JAX package (nor the TPU probes under ``benchmarks/``), and its entry
+points default to the card."""
 
 import ast
 import os
@@ -51,7 +52,7 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("top", ["jax", "jaxlib", "sentinel_tpu"])
+@pytest.mark.parametrize("top", ["jax", "jaxlib", "sentinel_tpu", "benchmarks"])
 def test_no_source_file_imports_the_reference(top):
     """Neither the package nor chip_smoke.py (the card's check) imports
     jax or the JAX package."""
@@ -63,3 +64,20 @@ def test_no_source_file_imports_the_reference(top):
         if mod == top or mod.startswith(top + ".")
     ]
     assert not offenders
+
+
+def test_the_scan_covers_the_probes_package_and_the_param_module():
+    """The checks above walk every module of the package: the probes
+    package and ops/param.py are among them, and import on the CPU."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"probes/__init__.py", "probes/kernels.py", "probes/floor.py", "probes/hist.py",
+            "probes/timing.py", "ops/param.py"} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in ("probes", "probes.kernels", "probes.floor", "probes.hist", "probes.timing", "ops.param"):
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        importlib.import_module(f"sentinel_tpu_torch.{mod}")

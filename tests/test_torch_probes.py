@@ -1,0 +1,244 @@
+"""The probe kernels' plain versions against their references.
+
+``probe_hist_planes`` is held against the JAX package's own Pallas kernel,
+``benchmarks/pallas_histogram.py`` ``pallas_histogram`` in interpret mode.
+The other Pallas probes define their kernels inside a ``main()`` that runs
+a TPU timing loop, so they cannot be called; their oracle is what those
+files themselves assert against — the numpy ``np.add.at`` reference of
+``benchmarks/probe_fused_hist.py`` / ``probe_fused_hist2.py`` (for the
+count and 5-plane probes of ``probe_pallas_floor.py``: the same reference
+with one count plane / five valued planes and that file's drop rule),
+transcribed here.
+
+Everything is held to EXACT equality: the sums are of integer-valued data
+below 2^24, where float32 addition is exact in any order.  On the CPU the
+wrappers run their plain versions; the CUDA kernels are held against the
+plain versions by the tests marked ``cuda`` (and by ``chip_smoke.py``).
+"""
+
+import importlib.util
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sentinel_tpu_torch.probes import kernels as PK
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _load_pallas_histogram():
+    spec = importlib.util.spec_from_file_location(
+        "_bench_pallas_histogram", ROOT / "benchmarks" / "pallas_histogram.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.pallas_histogram
+
+
+def _ref_planes(ids, vals, n, n_lo):
+    """[P, n_hi * n_lo] int64: np.add.at over the in-range ids, one plane a
+    column of vals (the reference of probe_fused_hist.py:141-151)."""
+    n_hi = -(-n // n_lo)
+    ref = np.zeros((vals.shape[1], n_hi * n_lo), np.int64)
+    ok = (ids >= 0) & (ids < n)
+    for p in range(vals.shape[1]):
+        np.add.at(ref[p], ids[ok], vals[ok, p])
+    return ref
+
+
+def _t(x):
+    return torch.as_tensor(x)
+
+
+def test_hist_planes_equals_the_pallas_histogram_in_interpret_mode():
+    pallas_histogram = _load_pallas_histogram()
+    rng = np.random.default_rng(11)
+    N, B, P = 256, 512, 4
+    idx = rng.integers(-3, N + 3, B).astype(np.int32)
+    vals = rng.integers(0, 100, (B, P)).astype(np.float32)
+    want = np.asarray(
+        pallas_histogram(jnp.asarray(idx), jnp.asarray(vals), N, n_tile=128, chunk=128, interpret=True)
+    )
+    got = PK.probe_hist_planes(_t(idx), _t(vals), N)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (N, P)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # and the interpret run drops the out-of-range ids
+    np.testing.assert_array_equal(want, _ref_planes(idx, vals.astype(np.int64), N, N).T[:N])
+
+
+@pytest.mark.parametrize("n,n_lo", [(16392, 512), (16392, 128), (16384, 128), (300, 128), (32777, 128), (5, 8)])
+def test_hist_count_equals_the_numpy_reference(n, n_lo):
+    rng = np.random.default_rng(n + n_lo)
+    ids = rng.integers(-2, n + 3, 4000).astype(np.int32)
+    ids[:4] = [-1, n, 2**30, n - 1]
+    got = PK.probe_hist_count(_t(ids), n, n_lo)
+    n_hi = -(-n // n_lo)
+    assert tuple(got.shape) == (n_hi, n_lo) and got.dtype == torch.float32
+    want = _ref_planes(ids, np.ones((ids.size, 1), np.int64), n, n_lo)[0]
+    np.testing.assert_array_equal(got.numpy().reshape(-1).astype(np.int64), want)
+    assert got.sum().item() == ((ids >= 0) & (ids < n)).sum()
+
+
+@pytest.mark.parametrize("n,n_lo,dtype", [(16392, 128, np.int32), (300, 128, np.int32), (1000, 256, np.float32)])
+def test_hist_planes_padded_layout_equals_the_numpy_reference(n, n_lo, dtype):
+    """The 5-plane probe's layout: planes-major [5, n_hi, n_lo]."""
+    rng = np.random.default_rng(n)
+    ids = rng.integers(-2, n + 3, 3000).astype(np.int32)
+    vals = rng.integers(0, 200, (3000, 5)).astype(dtype)
+    got = PK.probe_hist_planes(_t(ids), _t(vals), n, n_lo)
+    assert tuple(got.shape) == (5, -(-n // n_lo), n_lo)
+    want = _ref_planes(ids, vals.astype(np.int64), n, n_lo)
+    np.testing.assert_array_equal(got.numpy().reshape(5, -1).astype(np.int64), want)
+
+
+@pytest.mark.parametrize("n,n_lo", [(16640, 128), (16640, 256), (16640, 512), (333, 128)])
+def test_hist_stat5_equals_the_numpy_reference(n, n_lo):
+    """Three count planes, RT low byte, RT high byte; ids in [0, n + 200)
+    as the probe draws them, so some drop."""
+    rng = np.random.default_rng(n_lo)
+    N = 6000
+    ids = rng.integers(0, n + 200, N).astype(np.int32)
+    cnts = rng.integers(0, 2, (N, 3), dtype=np.int32)
+    rt = rng.integers(0, 40000, N, dtype=np.int32)
+    got = PK.probe_hist_stat5(_t(ids), _t(cnts), _t(rt), n, n_lo)
+    assert tuple(got.shape) == (5, -(-n // n_lo), n_lo)
+    vals = np.concatenate([cnts, (rt & 0xFF)[:, None], ((rt >> 8) & 0xFF)[:, None]], axis=1).astype(np.int64)
+    np.testing.assert_array_equal(got.numpy().reshape(5, -1).astype(np.int64), _ref_planes(ids, vals, n, n_lo))
+
+
+def test_copy_adds_one_in_any_shape():
+    x = np.random.default_rng(0).integers(0, 16384, (64, 1, 2048), dtype=np.int32)
+    for blocks in (0, 1, 4, 64):
+        np.testing.assert_array_equal(PK.probe_copy(_t(x), blocks).numpy(), x + 1)
+
+
+def test_edge_cases_of_the_plain_versions():
+    one = _t(np.array([7], np.int32))
+    assert PK.probe_hist_count(one, 8, 8).reshape(-1).tolist() == [0.0] * 7 + [1.0]
+    hot = _t(np.full(1000, 3, np.int32))  # every id equal: the hottest row
+    assert PK.probe_hist_count(hot, 4, 2).reshape(-1).tolist() == [0.0, 0.0, 0.0, 1000.0]
+    none = _t(np.array([-1, 9, 2**30], np.int32))
+    assert PK.probe_hist_count(none, 9, 4).sum().item() == 0
+    assert tuple(PK.probe_hist_planes(none, torch.ones((3, 2)), 9).shape) == (9, 2)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    ids = _t(np.zeros(4, np.int32))
+    with pytest.raises(ValueError):
+        PK.probe_hist_count(ids.to(torch.int64), 4, 2)
+    with pytest.raises(ValueError):
+        PK.probe_hist_planes(ids, torch.zeros((3, 2)), 4)
+    with pytest.raises(ValueError):
+        PK.probe_hist_planes(ids, torch.zeros((4, 2), dtype=torch.float64), 4)
+    with pytest.raises(ValueError):
+        PK.probe_hist_stat5(ids, torch.zeros((4, 2), dtype=torch.int32), ids, 4, 2)
+    with pytest.raises(ValueError):
+        PK.probe_copy(ids.to(torch.float32))
+    with pytest.raises(ValueError):
+        PK.probe_hist_count(ids, 4, 0)
+
+
+def test_the_probe_mains_raise_without_a_card():
+    from sentinel_tpu_torch.probes import floor, hist
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    for mod in (floor, hist):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main()
+
+
+def test_probe_data_is_the_reference_probes_data():
+    """The probes draw what the TPU probes drew: default_rng(0), the same
+    calls in the same order."""
+    from sentinel_tpu_torch.probes import floor, hist
+
+    ids, vals = floor.data("cpu")
+    rng = np.random.default_rng(0)
+    np.testing.assert_array_equal(ids.numpy(), rng.integers(0, 16384, 131072, dtype=np.int32))
+    np.testing.assert_array_equal(vals.numpy(), rng.integers(0, 200, (131072, 5), dtype=np.int32))
+    ids, cnts, rt = hist.stat_data("cpu")
+    rng = np.random.default_rng(0)
+    np.testing.assert_array_equal(ids.numpy(), rng.integers(0, 16640 + 200, 3 * 131072).astype(np.int32))
+    np.testing.assert_array_equal(cnts.numpy(), rng.integers(0, 2, (3 * 131072, 3), dtype=np.int32))
+    np.testing.assert_array_equal(rt.numpy(), rng.integers(0, 40000, 3 * 131072, dtype=np.int32))
+    assert int(ids.max()) >= 16640  # some ids drop
+    # the stat landing as scatter_many jobs gives the probe kernel's sums
+    sub = slice(0, 20000)
+    fused, split = hist.stat_jobs(ids[sub].contiguous(), cnts[sub].contiguous(), rt[sub].contiguous())
+    from sentinel_tpu_torch.ops import fused as FU
+
+    got = PK.probe_hist_stat5(ids[sub].contiguous(), cnts[sub].contiguous(), rt[sub].contiguous(), 16640, 128)
+    got = got.reshape(5, -1)[:, :16640]
+    (f4,) = FU.scatter_many(fused)
+    c3, r1 = FU.scatter_many(split)
+    assert torch.equal(f4[:, :3], got[:3].T) and torch.equal(c3, got[:3].T)
+    assert torch.equal(f4[:, 3], got[3] + 256.0 * got[4]) and torch.equal(r1[:, 0], f4[:, 3])
+
+
+# -- the kernels themselves: on the card only ---------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def _edge_ids(n, N, rng):
+    ids = rng.integers(-2, n + 3, N).astype(np.int32)
+    ids[: min(N, 3)] = [-1, n, 2**30][: min(N, 3)]
+    return ids
+
+
+@pytest.mark.cuda
+def test_probe_copy_kernel_equals_plain():
+    _card()
+    x = torch.as_tensor(np.random.default_rng(1).integers(-5, 2**31 - 1, 131072 + 37, dtype=np.int32)).cuda()
+    for blocks in (0, 1, 4, 64):
+        assert torch.equal(PK.probe_copy(x, blocks), PK.probe_copy_plain(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_probe_hist_count_kernel_equals_plain():
+    _card()
+    rng = np.random.default_rng(2)
+    for n, n_lo in [(16392, 128), (32777, 128), (16384, 512)]:
+        for N in (1, 2049, 131072):
+            ids = torch.as_tensor(_edge_ids(n, N, rng)).cuda()
+            for ipb in (1, 256, 4096):
+                assert torch.equal(PK.probe_hist_count(ids, n, n_lo, ipb), PK.probe_hist_count_plain(ids, n, n_lo))
+    hot = torch.full((131072,), 5, dtype=torch.int32, device="cuda")
+    assert torch.equal(PK.probe_hist_count(hot, 16392, 128), PK.probe_hist_count_plain(hot, 16392, 128))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_probe_hist_planes_kernel_equals_plain():
+    _card()
+    rng = np.random.default_rng(3)
+    for N in (1, 2049, 131072):
+        ids = torch.as_tensor(_edge_ids(8192, N, rng)).cuda()
+        vf = torch.as_tensor(rng.integers(0, 100, (N, 4)).astype(np.float32)).cuda()
+        vi = torch.as_tensor(rng.integers(0, 200, (N, 5), dtype=np.int32)).cuda()
+        assert torch.equal(PK.probe_hist_planes(ids, vf, 8192), PK.probe_hist_planes_plain(ids, vf, 8192))
+        assert torch.equal(PK.probe_hist_planes(ids, vi, 8000, 128, 1024), PK.probe_hist_planes_plain(ids, vi, 8000, 128))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_probe_hist_stat5_kernel_equals_plain():
+    _card()
+    rng = np.random.default_rng(4)
+    for N in (1, 2049, 393216):
+        ids = torch.as_tensor(rng.integers(0, 16840, N).astype(np.int32)).cuda()
+        cnts = torch.as_tensor(rng.integers(0, 2, (N, 3), dtype=np.int32)).cuda()
+        rt = torch.as_tensor(rng.integers(0, 40000, N, dtype=np.int32)).cuda()
+        for n_lo in (128, 256, 512):
+            assert torch.equal(
+                PK.probe_hist_stat5(ids, cnts, rt, 16640, n_lo), PK.probe_hist_stat5_plain(ids, cnts, rt, 16640, n_lo)
+            )
+    torch.cuda.synchronize()

@@ -8,10 +8,17 @@ from __future__ import annotations
 
 import numpy as np
 
-#: tick features both engines run (the JAX engine's minus param/tail_flow)
+#: tick features both engines run without param rules (the JAX engine's
+#: minus param / tail_flow)
 FEATURES = frozenset(
     {"authority", "system", "flow", "degrade", "warmup", "nodes", "occupy"}
 )
+#: ... and with the hot-parameter stage on
+PARAM_FEATURES = FEATURES | {"param"}
+
+#: argument values of the param workloads, hottest first; every rule's
+#: param_idx 0 reads lane 0 and param_idx 1 lane 1
+PARAM_VALUES = ["v0", "v1", "v2", "v3", "v4", "v5"]
 
 #: config flags of the port's engine: the per-item fused path, no telemetry planes
 FUSED_FLAGS = dict(
@@ -31,14 +38,28 @@ SEG_FLAGS = dict(seg_effects=True, seg_fallback=False)
 SINGLE_LANE = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
 
 
-def make_rules(R, direct_only: bool = False):
-    """Rule kinds as in tests/test_engine_backends.py (no param rule),
-    built from the given rules module (either package's copy).
-    ``direct_only`` leaves out the origin-limited and RELATE flow rules
-    (the contract of the scan-only ranks, ``seg_static_ranks``)."""
+def make_rules(R, direct_only: bool = False, param: bool = False):
+    """Rule kinds as in tests/test_engine_backends.py, built from the given
+    rules module (either package's copy).  ``direct_only`` leaves out the
+    origin-limited and RELATE flow rules (the contract of the scan-only
+    ranks, ``seg_static_ranks``).  ``param`` adds hot-parameter rules as
+    tests/test_param_system_auth.py builds them: QPS and THREAD grade, two
+    durations (two window classes), a burst, a per-value exception item,
+    and a second rule on one resource that reads another argument."""
     rules = _make_rules(R)
     if direct_only:
         rules["flow_rules"] = [r for r in rules["flow_rules"] if r.resource not in ("r9", "r10")]
+    if param:
+        rules["param_rules"] = [
+            R.ParamFlowRule(resource="r1", count=2, duration_in_sec=1),
+            R.ParamFlowRule(resource="r1", count=2, param_idx=1, grade=R.GRADE_THREAD),
+            R.ParamFlowRule(
+                resource="r5", count=1, duration_in_sec=2,
+                param_flow_item_list=[R.ParamFlowItem(object=PARAM_VALUES[0], count=3)],
+            ),
+            R.ParamFlowRule(resource="r7", count=2, grade=R.GRADE_THREAD),
+            R.ParamFlowRule(resource="r11", count=1, duration_in_sec=1, burst_count=1),
+        ]
     return rules
 
 
@@ -84,10 +105,21 @@ def intern(reg):
     reg.origin_id("good")
 
 
-def workload(cfg, reg, seed: int, b: int = None) -> dict:
+def _param_hashes(rng, n: int, dims: int, hash_param) -> np.ndarray:
+    """int32 [n, dims]: every lane's argument drawn Zipf-like from
+    PARAM_VALUES; about one in five has no argument (hash 0)."""
+    w = 1.0 / np.arange(1, len(PARAM_VALUES) + 1) ** 1.1
+    hashes = np.array([hash_param(v) for v in PARAM_VALUES], dtype=np.int32)
+    picks = hashes[rng.choice(len(PARAM_VALUES), size=(n, dims), p=w / w.sum())]
+    return np.where(rng.random((n, dims)) < 0.2, 0, picks).astype(np.int32)
+
+
+def workload(cfg, reg, seed: int, b: int = None, param: bool = False) -> dict:
     """Numpy columns of one acquire batch and one completion batch: resources
     r1..r11, some origins and context rows (so the stat fan is 3 wide),
-    prioritized items, inbound items, and RTs on the 1/8 ms grid."""
+    prioritized items, inbound items, and RTs on the 1/8 ms grid.  ``param``
+    fills ``param_hash`` on acquires and completions from PARAM_VALUES
+    (drawn after everything else, so the other columns do not depend on it)."""
     rng = np.random.default_rng(seed)
     b = b or cfg.batch_size
     trash = cfg.trash_row
@@ -135,4 +167,9 @@ def workload(cfg, reg, seed: int, b: int = None) -> dict:
     # a few completions carry origin / context rows too
     sel = (rng.random(b) < 0.3) & (comp_res != trash)
     comp["origin_node"][sel] = [reg.origin_node_row(f"r{r}", "good") for r in comp_res[sel]]
+    if param:
+        from sentinel_tpu_torch.core.rule_tensors import hash_param
+
+        acq["param_hash"] = _param_hashes(rng, b, cfg.param_dims, hash_param)
+        comp["param_hash"] = _param_hashes(rng, b, cfg.param_dims, hash_param)
     return dict(acq=acq, comp=comp)

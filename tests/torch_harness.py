@@ -45,7 +45,8 @@ def make_rules(R, direct_only: bool = False, param: bool = False):
     ranks, ``seg_static_ranks``).  ``param`` adds hot-parameter rules as
     tests/test_param_system_auth.py builds them: QPS and THREAD grade, two
     durations (two window classes), a burst, a per-value exception item,
-    and a second rule on one resource that reads another argument."""
+    a second rule on one resource that reads another argument, and a rule
+    whose param_idx lost its lane."""
     rules = _make_rules(R)
     if direct_only:
         rules["flow_rules"] = [r for r in rules["flow_rules"] if r.resource not in ("r9", "r10")]
@@ -59,6 +60,12 @@ def make_rules(R, direct_only: bool = False, param: bool = False):
             ),
             R.ParamFlowRule(resource="r7", count=2, grade=R.GRADE_THREAD),
             R.ParamFlowRule(resource="r11", count=1, duration_in_sec=1, burst_count=1),
+            # two invalid rules claim both of r3's lanes, so the valid one's
+            # param_idx gets lane -1: it must never apply (applied through a
+            # clamped lane, its zero budget would block every r3 item)
+            R.ParamFlowRule(resource="r3", count=-1, param_idx=5),
+            R.ParamFlowRule(resource="r3", count=-1, param_idx=6),
+            R.ParamFlowRule(resource="r3", count=0, param_idx=0),
         ]
     return rules
 

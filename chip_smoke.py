@@ -193,6 +193,62 @@ def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> tuple:
     return sum(a.elapsed_time(b) for a, b in evs) / reps, host_s * 1e3
 
 
+def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
+    """Device ms of each launch one call of ``fn`` makes, in launch order,
+    averaged over ``reps`` calls (each after an L2 flush, queued behind a
+    ``torch.cuda._sleep``), from ``torch.profiler``'s CUDA activity:
+    [(kernel or memset name, ms), ...]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            scratch.fill_(1)
+            torch.cuda._sleep(200_000)
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "fill" not in e.name.lower() and "spin" not in e.name.lower()),
+                 key=lambda e: e.time_range.start)
+    check(evs and len(evs) % reps == 0, f"launch breakdown: {len(evs)} device events over {reps} calls")
+    k = len(evs) // reps
+    return [(evs[i].name, sum(evs[r * k + i].time_range.elapsed_us() for r in range(reps)) / reps / 1e3)
+            for i in range(k)]
+
+
+def host_breakdown(fn, reps: int = 20, top: int = 8) -> tuple:
+    """(wall ms a call, [(function, own ms a call), ...]) of ``fn`` on the
+    host: the median wall time of ``reps`` plain calls, then cProfile's own
+    time per function (a ctypes call counts as its Python caller's own
+    time) over ``reps`` more, largest first."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        wall.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = sorted(((f"{os.path.basename(f)}:{fname}" if f != "~" else fname, tt / reps * 1e3)
+                   for (f, _line, fname), (_cc, _nc, tt, _ct, _callers) in pstats.Stats(prof).stats.items()),
+                  key=lambda r: -r[1])
+    return sorted(wall)[len(wall) // 2] * 1e3, rows[:top]
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = ops / FP32_OPS_PER_S * 1e3
@@ -969,6 +1025,7 @@ def main() -> int:
                     calls_per_tick=len(calls), bytes=nbytes_all, ops=ops_all, wrapper_host_ms=host_ms)
 
     kern = {}
+    b1_detail = []
     state0 = {}
     stream = to_batches(E, torch, c0, cols)
     light = to_batches(E, torch, c0, light_cols)[0]
@@ -991,6 +1048,20 @@ def main() -> int:
                     f"per tick ({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms, plain "
                     f"{k['plain_ms']:.4f} ms{extra}, bound {k['bound_ms']:.6f} ms ({k['bound_by']}, "
                     f"{k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
+            # B1's time, launch by launch and on the host, call by call
+            for i, args in enumerate(cap["scatter_many"]):
+                jobs = args[0]
+                per_launch = launch_breakdown(lambda: FU.scatter_many(jobs))
+                wall, host = host_breakdown(lambda: FU.scatter_many(jobs))
+                units = sum(j.rows.shape[0] for j in jobs)
+                cells = sum(j.n * j.values.shape[-2] for j in jobs)
+                b1_detail.append(dict(config=name, shape=shape, call=i, jobs=len(jobs), units=units, cells=cells,
+                                      launches=per_launch, host_ms=wall, host_split=host))
+                log(f"[b1] {name} {shape} call {i} ({len(jobs)} jobs, {units} row-vectors, {cells} cells): "
+                    f"device per launch " + ", ".join(f"{n} {ms:.4f}" for n, ms in per_launch)
+                    + f" ms; host {wall:.4f} ms a call, own time "
+                    + ", ".join(f"{n} {ms:.4f}" for n, ms in host) + " ms")
+    report["b1_breakdown"] = b1_detail
     edge = edge_cases(FU, torch)
     edge.update(scan_edge_cases(SC, SG, np, torch))
     log(f"[kernel] edge cases equal to plain (max |err| {json.dumps(edge)})")

@@ -35,10 +35,19 @@ Phases (the first failure stops the script with a nonzero exit):
    inputs full-width ticks of each configuration give it at both of the
    client's batch shapes (2,048 rows and the 256-row light tick), and on
    edge cases (B1/B2: ids -1 and 2**30, values at and above 256**digits,
-   an empty job, N not a multiple of the block size, job lists longer than
-   one launch carries; B3/B4: N = 1, 255, 2,049 and 131,072, heads all
-   true and only the first, B3 row totals just under 2^31, the wide form
-   with segment totals past 2^31, B4 with absent items); exact equality.
+   an empty job, N not a multiple of the block size, 200 row-vectors in
+   one job, every item on one row, digits-4 values of both signs whose
+   running sums return to 0, N = 1, 20 jobs, transposed / permuted /
+   uint8 / int64 / expanded operands, gather job lists longer than one
+   launch carries; B3/B4: N = 1, 255, 2,049 and 131,072, heads all true
+   and only the first, B3 row totals just under 2^31, the wide form with
+   segment totals past 2^31, narrow and wide rows in one launch with wide
+   values of both signs, B4 with absent items); exact equality.  B1's
+   calls launch twice each (three times for 20 jobs) and leave its
+   scratch at zero.  Each captured B1 call's device time launch by
+   launch (``torch.profiler``) and its host time function by function
+   (cProfile) are printed on ``[b1]`` lines; a call may make at most two
+   device launches.
    Time kernel, plain version and a PyTorch call on the same inputs
    (B1 ``index_add_``, B2 ``index_select``; no PyTorch call computes a
    segmented scan, so for B3/B4 ``torch.cumsum`` over the same values is
@@ -73,8 +82,8 @@ Phases (the first failure stops the script with a nonzero exit):
    (``torch.cuda.set_sync_debug_mode("error")``; the readback is
    outside).  Prints ms per tick, decisions/s and, from a profile of 4
    ticks, device busy time, wall time, host CPU time, device launches and
-   the card's idle share, with the profile's top rows, and B1's launches
-   a tick.
+   the card's idle share, with the profile's top rows, B1's launches
+   a tick, and the profile's launches of the port's kernels and memsets.
 5. The probes (``sentinel_tpu_torch/probes``): each of the four probe
    kernels — probe_copy, probe_hist_count, probe_hist_planes,
    probe_hist_stat5 (``csrc/probes.cu``) — against its plain version on
@@ -194,10 +203,10 @@ def time_ms(fn, reps: int = 50, flush_bytes: int = 64 << 20) -> tuple:
 
 
 def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
-    """Device ms of each launch one call of ``fn`` makes, in launch order,
-    averaged over ``reps`` calls (each after an L2 flush, queued behind a
-    ``torch.cuda._sleep``), from ``torch.profiler``'s CUDA activity:
-    [(kernel or memset name, ms), ...]."""
+    """Device time of each kernel (or memset) one call of ``fn`` launches,
+    from ``torch.profiler``'s CUDA activity over ``reps`` calls, each after
+    an L2 flush and queued behind a ``torch.cuda._sleep``: [(name, launches
+    a call, device ms a call), ...] in launch order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -214,10 +223,12 @@ def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and "fill" not in e.name.lower() and "spin" not in e.name.lower()),
                  key=lambda e: e.time_range.start)
-    check(evs and len(evs) % reps == 0, f"launch breakdown: {len(evs)} device events over {reps} calls")
-    k = len(evs) // reps
-    return [(evs[i].name, sum(evs[r * k + i].time_range.elapsed_us() for r in range(reps)) / reps / 1e3)
-            for i in range(k)]
+    check(evs, "launch breakdown: the profiler saw no device event")
+    out = {}
+    for e in evs:
+        n, us = out.get(e.name, (0, 0.0))
+        out[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return [(name, n / reps, us / reps / 1e3) for name, (n, us) in out.items()]
 
 
 def host_breakdown(fn, reps: int = 20, top: int = 8) -> tuple:
@@ -313,9 +324,9 @@ def scatter_library_call(jobs):
 
 
 def kernel_ops(FU, SC, torch):
-    """name -> (kernel call, plain call, work(args) -> (bytes, ops), PyTorch
-    call or None, unsegmented-scan floor call or None), each on one
-    captured argument tuple."""
+    """wrapper function -> (kernel call, plain call, work(args) -> (bytes,
+    ops), PyTorch call or None, unsegmented-scan floor call or None), each
+    on one captured argument tuple."""
 
     def gather_work(jobs):
         j = jobs[0]
@@ -328,16 +339,22 @@ def kernel_ops(FU, SC, torch):
         ids64 = torch.clamp(j.ids, 0, j.table.shape[0] - 1).to(torch.int64)
         return lambda: torch.index_select(j.table, 0, ids64)
 
+    def rows_of(args):
+        return [a for a in args[1:] if a is not None]
+
     def scan_work(args):
-        head, v = args[0], args[1]
-        n = v.numel()
+        head = args[0]
+        n = sum(v.numel() for v in rows_of(args))
         # head read once (1 B an item), values read once, the result written once;
         # one combine per value
         return head.numel() + 4 * n + 4 * n, n
 
     def cumsum_floor(args):
-        v = args[1]
+        v = torch.cat([r.reshape(-1, r.shape[-1]) for r in rows_of(args)])
         return lambda: torch.cumsum(v, dim=-1)
+
+    def listed(out):
+        return [t for t in (out if isinstance(out, tuple) else (out,)) if t is not None]
 
     return {
         "scatter_many": (lambda a: FU.scatter_many(a[0]), lambda a: FU.scatter_many_plain(a[0]),
@@ -346,16 +363,25 @@ def kernel_ops(FU, SC, torch):
                         lambda a: gather_work(a[0]), lambda a: gather_library(a[0]), None),
         "seg_excl_cumsum": (lambda a: [SC.seg_excl_cumsum(*a)], lambda a: [SC.seg_excl_cumsum_plain(*a)],
                             scan_work, None, cumsum_floor),
+        "seg_excl_cumsum_many": (lambda a: listed(SC.seg_excl_cumsum_many(*a)),
+                                 lambda a: listed(SC.seg_excl_cumsum_many_plain(*a)), scan_work, None, cumsum_floor),
         "seg_incl_min": (lambda a: [SC.seg_incl_min(*a)], lambda a: [SC.seg_incl_min_plain(*a)],
                          scan_work, None, cumsum_floor),
     }
 
 
-def edge_cases(FU, torch):
-    """B1/B2 edge inputs: ids -1 / 2**30 / n, values at and above
-    256**digits, an empty job, N not a multiple of the 256-thread block,
-    and job lists longer than one launch carries."""
+def scatter_edge_jobs(FU, np, torch):
+    """B1 edge inputs, name -> job list: ids -1 / 2**30 / n, values at and
+    above 256**digits, an empty job, N not a multiple of the 256-thread
+    block; 200 row-vectors in one job (more than the first version's 48 a
+    launch); every item on one row (warp aggregation, in global memory and
+    in a shared-memory table); digits 4 with values of both signs whose
+    running sums return to 0 (the double-convert trap); N = 1 with an empty
+    job; 20 jobs (past the 16 one launch carries); operands read
+    where they lie (transposed int64 rows, permuted uint8 values, an
+    expanded row)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 7)
     N = 2048 + 37
 
     def ints(lo, hi, shape):
@@ -365,14 +391,56 @@ def edge_cases(FU, torch):
     rows[:, :3] = torch.tensor([-1, 2**30, 70_000], dtype=torch.int32, device="cuda")
     vals = ints(0, 1 << 20, (3, N))
     vals[:, :4] = torch.tensor([255, 256, 65535, 65536], dtype=torch.int32, device="cuda")
-    jobs = [
-        FU.Job("wide", 70_000, rows, vals, (1, 2, 3)),
-        FU.Job("small", 900, ints(-3, 903, (4, N)), ints(0, 600, (4, 3, N)), (1, 1, 2)),
-        FU.Job("empty", 0, ints(-1, 3, (1, N)), ints(0, 9, (1, N)), (1,)),
-        # more row-vectors than one launch carries: two launches, one output
-        FU.Job("many", 5000, ints(-1, 5001, (FU._MAX_UNITS + 5, N)), ints(0, 300, (2, N)), (1, 2)),
-    ]
-    err = check_equal("scatter_many edge cases", FU.scatter_many(jobs), FU.scatter_many_plain(jobs))
+    one_row = torch.zeros((1, N), dtype=torch.int32, device="cuda")
+    signed = torch.as_tensor(np.tile([5, -5, 7, -7, 3], N // 5 + 1)[:N].astype(np.int32)).cuda()
+    back_to_zero = torch.as_tensor(np.tile([9, -9], N // 2 + 1)[:N].astype(np.int32)).cuda()
+    return {
+        "mixed": [
+            FU.Job("wide", 70_000, rows, vals, (1, 2, 3)),
+            FU.Job("small", 900, ints(-3, 903, (4, N)), ints(0, 600, (4, 3, N)), (1, 1, 2)),
+            FU.Job("empty", 0, ints(-1, 3, (1, N)), ints(0, 9, (1, N)), (1,)),
+        ],
+        "many units": [FU.Job("many", 5000, ints(-1, 5001, (200, N)), ints(0, 300, (2, N)), (1, 2))],
+        "one hot row": [FU.Job("hot", 100_000, one_row + 7, ints(0, 256, (2, N)), (1, 1)),
+                        FU.Job("hot_small", 40, one_row + 3, ints(0, 1 << 12, (3, N)), (3, 3, 3))],
+        "returns to zero": [FU.Job("ret", 100_000, one_row + 11, torch.stack([signed, back_to_zero]), (4, 4)),
+                            FU.Job("ret_small", 16, ints(0, 4, (1, N)), torch.stack([back_to_zero] * 2), (4, 4)),
+                            FU.Job("spread", 100_000, ints(0, 3, (2, N)), signed[None, :], (4,))],
+        "one item and an empty job": [FU.Job("one", 30, ints(0, 30, (2, 1)), ints(0, 9, (2, 1)), (1, 1)),
+                                      FU.Job("empty", 0, ints(-1, 3, (1, 1)), ints(0, 9, (1, 1)), (1,))],
+        "many jobs": [FU.Job(f"j{i}", 50 + i, ints(-1, 60, (1, 300)), ints(0, 200, (1, 300)), (1,))
+                      for i in range(20)],
+        "strided operands": [
+            FU.Job("t", 70_000, torch.as_tensor(rng.integers(-1, 70_001, (N, 3))).cuda().T,
+                   ints(0, 1 << 16, (N, 2)).T, (2, 1)),
+            FU.Job("u8", 900, ints(-1, 901, (4, N)),
+                   torch.as_tensor(rng.integers(0, 256, (3, 4, N)).astype(np.uint8)).cuda().permute(1, 0, 2),
+                   (1, 1, 1)),
+            FU.Job("bcast", 64, ints(0, 64, (1, 1)).expand(2, N), ints(0, 9, (1, N)), (1,)),
+        ],
+    }
+
+
+def edge_cases(FU, np, torch):
+    """B1 and B2 on their edge inputs; B1's calls must each launch twice
+    (three times for 20 jobs: a scatter a chunk of 16, one conversion) and
+    leave its scratch all
+    zero."""
+    err = 0.0
+    for case, jobs in scatter_edge_jobs(FU, np, torch).items():
+        FU.reset_launches()
+        got = FU.scatter_many(jobs)
+        check(FU.LAUNCHES["scatter_many"] == (3 if case == "many jobs" else 2),
+              f"scatter_many {case}: {FU.LAUNCHES['scatter_many']} launches")
+        err = max(err, check_equal(f"scatter_many edge case {case}", got, FU.scatter_many_plain(jobs)))
+    check(all(not a.any() and not t.any() for a, t in FU._SCRATCH.values()),
+          "scatter_many left its accumulator or bitmap nonzero")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    N = 2048 + 37
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+
     table = ints(0, 2**31 - 1, (5000, 3))
     ids = ints(-3, 5003, (N,))
     ids[:3] = torch.tensor([-1, 2**30, 5000], dtype=torch.int32, device="cuda")
@@ -405,6 +473,16 @@ def scan_edge_cases(SC, SG, np, torch):
             e3 = max(e3, check_equal(f"seg_excl_cumsum_wide N={n} {kind}", [got], [SG.seg_excl_cumsum_wide(head, w)]))
             if n == 131_072 and kind == "first":
                 check(got.max().item() > 2**31, "the wide edge case did not pass 2^31")
+            # narrow and wide rows in ONE launch; over one segment a wide row
+            # of int32 values of both signs, outside the contract, gives the
+            # plain version's bits too (the plain version's cumsum minus the
+            # running maximum of segment bases is a segmented sum only while
+            # its cumulative sums rise, or over one segment)
+            odd = rng.integers(-(2**31), 2**31 - 1, n) if kind == "first" else rng.integers(0, 1 << 24, n)
+            wide = torch.stack([w, torch.as_tensor(odd.astype(np.int32)).cuda()])
+            e3 = max(e3, check_equal(f"seg_excl_cumsum_many N={n} {kind}",
+                                     list(SC.seg_excl_cumsum_many(head, v, wide)),
+                                     list(SC.seg_excl_cumsum_many_plain(head, v, wide))))
             f = (rng.integers(1, 4000, n) / 8.0).astype(np.float32)
             f[rng.random(n) < 0.2] = 3.0e38
             f = torch.as_tensor(f).cuda()
@@ -718,8 +796,9 @@ def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False):
 
 
 def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
-    """(device busy us, wall us, host CPU us, device launches, table) of 4
-    ticks under the profiler."""
+    """(device busy us, wall us, host CPU us, device launches, the port's
+    kernels' and the memsets' launches by name, table) of 4 ticks under the
+    profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -737,7 +816,9 @@ def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
     evs = prof.key_averages()
     dev = [e for e in evs if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     cpu_us = sum(e.self_cpu_time_total for e in evs if e.device_type == DeviceType.CPU)
-    return sum(e.self_device_time_total for e in dev), wall_us, cpu_us, sum(e.count for e in dev), table
+    ours = {e.key: e.count for e in dev if any(k in e.key for k in (
+        "scatter_many", "seg_sum", "seg_min", "gather_many", "Memset"))}
+    return sum(e.self_device_time_total for e in dev), wall_us, cpu_us, sum(e.count for e in dev), ours, table
 
 
 # -- phase 5: the probes ----------------------------------------------------------------
@@ -966,9 +1047,14 @@ def main() -> int:
         setups[name] = (cfg, rules)
     report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(E.init_state(c0, "meta")).values())
 
+    # the kernels' wrapper functions (seg_excl_cumsum_many is B3's combined
+    # narrow + wide launch, the segment check's ranks)
     real = {"scatter_many": FU.scatter_many, "gather_many": FU.gather_many,
-            "seg_excl_cumsum": SC.seg_excl_cumsum, "seg_incl_min": SC.seg_incl_min}
-    mods = {"scatter_many": FU, "gather_many": FU, "seg_excl_cumsum": SC, "seg_incl_min": SC}
+            "seg_excl_cumsum": SC.seg_excl_cumsum, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many,
+            "seg_incl_min": SC.seg_incl_min}
+    mods = {"scatter_many": FU, "gather_many": FU, "seg_excl_cumsum": SC, "seg_excl_cumsum_many": SC,
+            "seg_incl_min": SC}
+    kernel_of = dict({k: k for k in real}, seg_excl_cumsum_many="seg_excl_cumsum")
 
     def install(fns):
         for k, fn in fns.items():
@@ -977,15 +1063,16 @@ def main() -> int:
     def capture_tick(name, state, acq, comp, now_ms):
         """Run one tick; the kernels' arguments (cloned) at each call."""
         cfg, rules = setups[name]
-        calls = {k: [] for k in real}
+        calls = {k: [] for k in PATH_KERNELS["seg1"] + PATH_KERNELS["seg4"]}
 
         def recorder(k):
             def rec(*args):
                 if k in ("scatter_many", "gather_many"):
-                    calls[k].append(([j._replace(**{f: getattr(j, f).clone() for f in j._fields
-                                                     if isinstance(getattr(j, f), torch.Tensor)}) for j in args[0]],))
+                    a = ([j._replace(**{f: getattr(j, f).clone() for f in j._fields
+                                        if isinstance(getattr(j, f), torch.Tensor)}) for j in args[0]],)
                 else:
-                    calls[k].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+                    a = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in args)
+                calls[kernel_of[k]].append((k, a))
                 return real[k](*args)
             return rec
 
@@ -1003,10 +1090,11 @@ def main() -> int:
     def measure(kname, calls):
         """Hold each call against the plain version; device ms per tick of
         kernel, plain and PyTorch call, the bound, the wrapper's host ms."""
-        run, plain, work, lib, floor = ops[kname]
         err = ms = plain_ms = lib_ms = floor_ms = host_ms = 0.0
         nbytes_all = ops_all = 0
-        for args in calls:
+        lib = floor = None
+        for fname, args in calls:
+            run, plain, work, lib, floor = ops[fname]
             err = max(err, check_equal(kname, run(args), plain(args)))
             d, h = time_ms(lambda: run(args))
             ms += d
@@ -1025,7 +1113,7 @@ def main() -> int:
                     calls_per_tick=len(calls), bytes=nbytes_all, ops=ops_all, wrapper_host_ms=host_ms)
 
     kern = {}
-    b1_detail = []
+    b1_detail, b3_detail = [], []
     state0 = {}
     stream = to_batches(E, torch, c0, cols)
     light = to_batches(E, torch, c0, light_cols)[0]
@@ -1049,8 +1137,11 @@ def main() -> int:
                     f"{k['plain_ms']:.4f} ms{extra}, bound {k['bound_ms']:.6f} ms ({k['bound_by']}, "
                     f"{k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
             # B1's time, launch by launch and on the host, call by call
-            for i, args in enumerate(cap["scatter_many"]):
+            for i, (_f, args) in enumerate(cap["scatter_many"]):
                 jobs = args[0]
+                FU.reset_launches()
+                FU.scatter_many(jobs)
+                check(FU.LAUNCHES["scatter_many"] <= 2, f"{name} {shape} B1 call {i}: {FU.LAUNCHES} launches")
                 per_launch = launch_breakdown(lambda: FU.scatter_many(jobs))
                 wall, host = host_breakdown(lambda: FU.scatter_many(jobs))
                 units = sum(j.rows.shape[0] for j in jobs)
@@ -1058,11 +1149,20 @@ def main() -> int:
                 b1_detail.append(dict(config=name, shape=shape, call=i, jobs=len(jobs), units=units, cells=cells,
                                       launches=per_launch, host_ms=wall, host_split=host))
                 log(f"[b1] {name} {shape} call {i} ({len(jobs)} jobs, {units} row-vectors, {cells} cells): "
-                    f"device per launch " + ", ".join(f"{n} {ms:.4f}" for n, ms in per_launch)
+                    "device ms a call by kernel " + ", ".join(f"{n.split('(')[0]} x{c:g} {ms:.4f}" for n, c, ms in per_launch)
                     + f" ms; host {wall:.4f} ms a call, own time "
                     + ", ".join(f"{n} {ms:.4f}" for n, ms in host) + " ms")
+            # B3's calls, launch by launch (a cast of a non-int32 row is the
+            # wrapper's, inside the call)
+            for i, (f, args) in enumerate(cap.get("seg_excl_cumsum", [])):
+                per_launch = launch_breakdown(lambda: ops[f][0](args))
+                b3_detail.append(dict(config=name, shape=shape, call=i, wrapper=f, launches=per_launch))
+                log(f"[b3] {name} {shape} call {i} ({f}, rows {[tuple(a.shape) for a in args[1:] if a is not None]}): "
+                    "device ms a call by kernel " + ", ".join(f"{n.split('(')[0]} x{c:g} {ms:.4f}" for n, c, ms in per_launch)
+                    + " ms")
     report["b1_breakdown"] = b1_detail
-    edge = edge_cases(FU, torch)
+    report["b3_breakdown"] = b3_detail
+    edge = edge_cases(FU, np, torch)
     edge.update(scan_edge_cases(SC, SG, np, torch))
     log(f"[kernel] edge cases equal to plain (max |err| {json.dumps(edge)})")
     for kname, per_shape in kern.items():
@@ -1123,7 +1223,8 @@ def main() -> int:
     ticks = stream[1:]
     lo = WIRE.layout_for(c0, c0.batch_size)
     plain = {"scatter_many": FU.scatter_many_plain, "gather_many": FU.gather_many_plain,
-             "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_incl_min": SC.seg_incl_min_plain}
+             "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many_plain,
+             "seg_incl_min": SC.seg_incl_min_plain}
     report["tick"] = {}
     for name, (cfg, rules) in setups.items():
         st_a = E.clone_state(state0[name])
@@ -1157,7 +1258,7 @@ def main() -> int:
                 check(torch.equal(la[k], lb[k]), f"{name}: integer state leaf {k} differs")
         steady = sorted(tick_s[2:])
         ms_tick = 1e3 * steady[len(steady) // 2]
-        dev_us, wall_us, cpu_us, n_launch, table = profile_ticks(E, torch, E.clone_state(st_a), rules, cfg,
+        dev_us, wall_us, cpu_us, n_launch, ours, table = profile_ticks(E, torch, E.clone_state(st_a), rules, cfg,
                                                                  ticks, 9_000)
         idle = 1 - dev_us / wall_us
         log(f"[tick] {name}: {len(ticks)} ticks at B={cfg.batch_size}, no host sync inside; kernels == plain "
@@ -1166,13 +1267,15 @@ def main() -> int:
         log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s; "
             f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
             f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches; "
-            f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}")
+            f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}; the profile's launches of "
+            f"the port's kernels and memsets, 4 ticks: {json.dumps(ours, sort_keys=True)}")
         for line in table.splitlines()[:14]:
             log(f"[profile] {name}", line)
         report["tick"][name] = dict(ms_median=ms_tick, decisions_per_s=cfg.batch_size / ms_tick * 1e3,
                                     tick_ms=[1e3 * s for s in tick_s], ticks=len(ticks), float_state_max_diff=float_diff,
                                     verdict_mix=mix.tolist(), launches=launches, device_us=dev_us, wall_us=wall_us,
                                     host_cpu_us=cpu_us, idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u,
+                                    profile_kernel_launches=ours,
                                     scatter_many_launches_a_tick=launches["scatter_many"] / len(ticks))
         del st_a, st_b
 

@@ -7,28 +7,68 @@
 // sentinel_tpu_torch/ops/fused.py; this file has a plain C interface and
 // is loaded with ctypes (no PyTorch headers, so it builds in seconds).
 //
-// scatter_many — many scatter-add histograms in one launch.
-//   What bounds it: bytes.  At the engine's shapes (N = 2,048 items, a
-//   262,144-row stat table, P = 3 planes) the work is ~30 K integer adds
-//   against ~7 MB of output tables that must be zeroed, written and
-//   converted: the output traffic, not arithmetic, sets the floor.  The
-//   TPU kernel built one-hot factors and bf16 digit-plane matmuls because
-//   the TPU has no fast random scatter; Hopper has native integer atomics
-//   in L2 and in shared memory, so each (item, row-vector, plane) is ONE
-//   atomicAdd of the digit-truncated value.  Integer atomics make the sums
-//   exact and independent of order (the TPU needed f32 digit planes for
-//   that).  Tables small enough for shared memory (circuit-breaker
-//   columns, probe flags, per-rule slots) are privatized per block and
-//   flushed with one atomic per nonzero cell, which keeps hot rule slots
-//   from serializing on one global address.  The int32 sums are converted
-//   to float32 in place at the end (the reference's output dtype).
-//   Launch shape: blockIdx.y = one row-vector ("unit") of one job;
-//   blockIdx.x strides over items.  Each unit carries its own rows and
-//   values pointers, so the wrapper stacks nothing.  The unit descriptors
-//   travel as a kernel parameter (constant bank): no descriptor upload,
-//   no host sync.  A job list with more than MAX_UNITS units (the
-//   parameter bank's room) takes one launch per chunk of units, all
-//   summing into the same zeroed output before the one conversion pass.
+// scatter_many — many scatter-add histograms in two launches.
+//   What bounds it: bytes and launches.  At the engine's shapes (N = 2,048
+//   or 256 items, a 262,144-row stat table, 2.9 M output cells, 11.5 MB, a
+//   call on the segment path) the work is ~30 K integer adds against an
+//   output that must be written once: 3.4 us of HBM time.  The TPU kernel
+//   built one-hot factors and bf16 digit-plane matmuls because the TPU has
+//   no fast random scatter; Hopper has native integer atomics in L2 and in
+//   shared memory, so each (item, row-vector, plane) is an atomicAdd of
+//   the digit-truncated value, exact and independent of order.
+//   The design, against what bounded the first version (a memset, a
+//   scatter and a conversion pass over every cell — three launches and
+//   three passes over the table — plus the wrapper's own int32 copies of
+//   transposed, permuted and uint8 operands, 17 more launches a tick on
+//   the per-item path):
+//   - One write pass over the output.  In launch 1 every block writes its
+//     share of the float32 output's zeros (float4 stores) and then sums
+//     into a separate int32 accumulator `acc` that the wrapper keeps
+//     all-zero between calls (one per device and stream).  Launch 2 converts only
+//     the touched cells into the output and zeroes them again in `acc`.
+//   - Which cells were touched: a bitmap, one bit a cell (1/32 of the
+//     table).  Every add sets its cell's bit with atomicOr.  The adds and
+//     the ORs are fire-and-forget reductions: no value comes back, so no
+//     thread waits on L2.  OWNERSHIP of a cell in launch 2 comes from its
+//     bitmap word, which exactly one thread reads
+//     and clears — never from "my atomicAdd returned 0", which is not
+//     unique once a sum of all-ones-masked (negative) values returns to 0.
+//     That thread converts the 4-cell groups with a bit set, 16 bytes at a
+//     time (an untouched cell's sum is 0, which converts to the 0.0f launch
+//     1 wrote), so launch 2 reads the bitmap and touches only the groups
+//     items touched; `acc` and the bitmap are zero again when the call
+//     ends, with no memset.  (Walking the items again and claiming cells
+//     with atomicAnd's returned value instead is a round trip to L2 per
+//     cell, and measured several times slower on the H100.)
+//   - No search for the job: launch 1's grid is 2-D, blockIdx.y the job
+//     and blockIdx.x its (row-vector, item block), so a block's first
+//     reads are its job's descriptor, straight from the parameter bank.
+//   - Two launches a call, the zeroing included.  The descriptors are per
+//     JOB (a job's row-vectors are its rows tensor at a stride), so any
+//     number of row-vectors rides one launch.  A launch carries 16 jobs
+//     (1.4 KB of parameters: the engine's calls have at most 6, and the
+//     host copies the whole parameter block at every launch); each further
+//     16 jobs take one more scatter launch.
+//   - Operands are read where they lie: int32, int64, uint8/bool, int8 or
+//     int16, at any element strides (transposed and permuted views,
+//     expanded rows), so the wrapper copies nothing.  Row ids compare in 64
+//     bits, values truncate to their low 32 bits, as `.to(torch.int32)`
+//     does.  A thread loads its row id and every plane's value at once.
+//   - Hot rows are aggregated inside the warp: lanes that add to the same
+//     cell find each other with __match_any_sync, sum with
+//     __reduce_add_sync, and one lane adds for the group — one atomic per
+//     distinct cell per warp instead of up to 32 (items of one context
+//     share its node row, and a Zipf(1.1) stream puts a tenth of the items
+//     on one resource; on the segment paths neighbouring items are sorted
+//     together).
+//   - Tables small enough for shared memory (at most 12,288 cells, the
+//     wrapper's flag) are privatized per block when the block adds to them
+//     at least as often as it would zero and flush them (n <= items a
+//     block), and flushed with one atomic per nonzero cell.
+//   Launch shapes: launch 1 is [max row-vectors x item blocks, jobs],
+//   `gx` item blocks a row-vector (at most 64), widened on the first chunk
+//   so that every block writes ~4 float4 zeros a thread; launch 2 has a
+//   thread a bitmap word.
 //
 // gather_many — per-item reads from small-P int tables.
 //   What bounds it: bytes (N x P reads of 4 B plus the ids).  One thread
@@ -40,64 +80,156 @@
 #include <stdint.h>
 
 #define MAXP 4
-#define MAX_UNITS 48
+#define MAX_JOBS 16
 #define MAX_GATHER_JOBS 8
 #define BLOCK 256
+#define DESC_SLOTS 11
 
-struct Unit {
-  const int* rows;     // [N] ids of this row-vector; ids outside [0, n) drop
-  const int* vals;     // [P, N] value planes, plane stride N
-  long long out_off;   // first output cell (int32 words) of this job's [n, P] table
-  int n;               // logical table rows
-  int P;               // value planes
-  int priv;            // 1: accumulate in a shared-memory copy of the table
+// operand element types (ops/fused.py _DTYPES)
+#define DT_I32 0
+#define DT_I64 1
+#define DT_U8 2
+#define DT_I8 3
+#define DT_I16 4
+
+struct JobDesc {
+  const void* rows;    // [R, N] row ids at (rs_r, rs_n) element strides
+  const void* vals;    // [P, N] (vs_r = 0) or [R, P, N] values
+  long long out_off;   // first output cell of this job's [n, P] table
+  int n, P, R, priv;   // table rows, planes, row-vectors, shared-memory copy
+  int rows_dt, vals_dt;
+  int rs_r, rs_n, vs_r, vs_p, vs_n;
   unsigned int mask[MAXP];  // 256**digits - 1 per plane (all ones for >= 4)
 };
 
 struct ScatterParams {
-  int N;
-  Unit u[MAX_UNITS];
+  float* out;
+  unsigned int* acc;      // int32 sums, all zero between calls
+  unsigned int* touched;  // one bit a cell, all zero between calls
+  long long out_len;
+  int N, gx, zero;         // items, blocks a row-vector, 1: this launch zeroes `out`
+  JobDesc j[MAX_JOBS];
 };
 
-__global__ void scatter_many_kernel(unsigned int* __restrict__ out,
-                                    const ScatterParams prm) {
+__device__ __forceinline__ long long load_elem(const void* base, long long idx, int dt) {
+  switch (dt) {
+    case DT_I32: return ((const int*)base)[idx];
+    case DT_I64: return ((const long long*)base)[idx];
+    case DT_U8: return ((const unsigned char*)base)[idx];
+    case DT_I8: return ((const signed char*)base)[idx];
+    default: return ((const short*)base)[idx];
+  }
+}
+
+// Launch 1: blockIdx.y is the job, blockIdx.x a (row-vector, item block)
+// pair of it, so a block reads its job's descriptor straight from the
+// parameter bank, with no search.  Every block first writes its share of
+// the output's zeros (posted stores; the grid is wide enough for ~4
+// float4s a thread); then a block whose row-vector exists walks its items,
+// adds each digit-masked value to its cell of `acc` and sets the cell's
+// bit in `touched` — both fire-and-forget reductions (no value returned,
+// so no thread waits on L2).
+__global__ void __launch_bounds__(BLOCK) scatter_many_kernel(const ScatterParams prm) {
   extern __shared__ unsigned int sh[];
-  const Unit u = prm.u[blockIdx.y];
+  const JobDesc J = prm.j[blockIdx.y];
+  if (prm.zero) {
+    const long long n4 = (prm.out_len + 3) >> 2;  // the wrapper pads the output to whole float4s
+    const long long step = (long long)gridDim.x * gridDim.y * BLOCK;
+    float4* o4 = reinterpret_cast<float4*>(prm.out);
+    for (long long c = ((long long)blockIdx.y * gridDim.x + blockIdx.x) * BLOCK + threadIdx.x; c < n4;
+         c += step)
+      o4[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int r = blockIdx.x / prm.gx;
+  if (r >= J.R) return;
+  const int bx = blockIdx.x - r * prm.gx;
   const int N = prm.N;
-  const int cells = u.n * u.P;
-  if (u.priv) {
-    for (int c = threadIdx.x; c < cells; c += blockDim.x) sh[c] = 0u;
+  const int P = J.P;
+  const int n = J.n;
+  const int lane = threadIdx.x & 31;
+  const long long rbase = (long long)r * J.rs_r;
+  const long long vbase = (long long)r * J.vs_r;
+  if (J.priv) {
+    for (int c = threadIdx.x; c < n * P; c += BLOCK) sh[c] = 0u;
     __syncthreads();
   }
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += gridDim.x * blockDim.x) {
-    const int k = u.rows[i];
-    if (k < 0 || k >= u.n) continue;
-    for (int p = 0; p < u.P; ++p) {
-      const unsigned int v = (unsigned int)u.vals[(size_t)p * N + i] & u.mask[p];
-      if (v == 0u) continue;
-      if (u.priv) {
-        atomicAdd(&sh[k * u.P + p], v);
+  // whole warps walk the items together, so a warp can aggregate its cells
+  for (int base = bx * BLOCK; base < N; base += prm.gx * BLOCK) {
+    const int i = base + threadIdx.x;
+    long long k = -1;
+    unsigned int v[MAXP] = {0u, 0u, 0u, 0u};
+    if (i < N) {  // the row id and every plane's value, loaded together
+      k = load_elem(J.rows, rbase + (long long)i * J.rs_n, J.rows_dt);
+#pragma unroll
+      for (int p = 0; p < MAXP; ++p)
+        if (p < P)
+          v[p] = (unsigned int)load_elem(J.vals, vbase + (long long)p * J.vs_p + (long long)i * J.vs_n,
+                                         J.vals_dt);
+    }
+    const bool ok = k >= 0 && k < n;
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) {
+      if (p >= P) break;
+      const unsigned int x = ok ? v[p] & J.mask[p] : 0u;
+      // the cell in the job's table (below 2^31), or a key of this lane's
+      // own when it adds nothing
+      const unsigned int key = x ? (unsigned int)(k * P + p) : 0xffffffffu - lane;
+      const unsigned int peers = __match_any_sync(0xffffffffu, key);
+      const unsigned int s = __reduce_add_sync(peers, x);
+      if (!s || lane != __ffs(peers) - 1) continue;
+      if (J.priv) {
+        atomicAdd(&sh[key], s);
       } else {
-        atomicAdd(&out[u.out_off + (long long)k * u.P + p], v);
+        const long long c = J.out_off + key;
+        atomicAdd(&prm.acc[c], s);
+        atomicOr(&prm.touched[c >> 5], 1u << (c & 31));
       }
     }
   }
-  if (u.priv) {
+  if (J.priv) {
     __syncthreads();
-    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-      const unsigned int s = sh[c];
-      if (s) atomicAdd(&out[u.out_off + c], s);
+    for (int c = threadIdx.x; c < n * P; c += BLOCK) {
+      const unsigned int x = sh[c];
+      if (x) {
+        const long long g = J.out_off + c;
+        atomicAdd(&prm.acc[g], x);
+        atomicOr(&prm.touched[g >> 5], 1u << (g & 31));
+      }
     }
   }
 }
 
-// int32 sums -> float32, in place (same 4-byte cells)
-__global__ void int_to_float_kernel(unsigned int* buf, long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int v = (int)buf[i];
-    reinterpret_cast<float*>(buf)[i] = __int2float_rn(v);
+// Launch 2: one thread a bitmap word (32 cells).  The word's owner — the
+// only thread that reads it — clears it, and for each group of 4 cells
+// with a bit set loads the 4 sums at once (16 bytes), writes them as
+// float32 (an untouched cell's sum is 0, and 0.0f is what launch 1 wrote
+// there) and zeroes them in `acc`.  Ownership is exact whatever the values
+// (never "my atomicAdd returned 0", which is not unique once a sum of
+// all-ones-masked, negative values returns to 0), and `acc` and the bitmap
+// are zero again when the launch ends.
+__global__ void __launch_bounds__(BLOCK) convert_touched_kernel(float* __restrict__ out,
+                                                                unsigned int* __restrict__ acc,
+                                                                unsigned int* __restrict__ touched,
+                                                                long long n_words) {
+  for (long long w = (long long)blockIdx.x * BLOCK + threadIdx.x; w < n_words;
+       w += (long long)gridDim.x * BLOCK) {
+    const unsigned int bits = touched[w];
+    if (!bits) continue;
+    touched[w] = 0u;
+    int4* a4 = reinterpret_cast<int4*>(acc) + w * 8;
+    float4* o4 = reinterpret_cast<float4*>(out) + w * 8;
+    int4 q[8];
+#pragma unroll
+    for (int g = 0; g < 8; ++g)  // the loads first, all in flight together
+      if ((bits >> (4 * g)) & 0xFu) q[g] = a4[g];
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      if ((bits >> (4 * g)) & 0xFu) {
+        o4[g] = make_float4(__int2float_rn(q[g].x), __int2float_rn(q[g].y), __int2float_rn(q[g].z),
+                            __int2float_rn(q[g].w));
+        a4[g] = make_int4(0, 0, 0, 0);
+      }
+    }
   }
 }
 
@@ -138,47 +270,91 @@ static int grid_for(long long work, int cap) {
   return (int)g;
 }
 
-// Both entry points take descriptors of 7 eight-byte slots each: three
-// pointers (scatter: rows, values, output offset; gather: ids, table,
-// out), then 8 int32 words — (n, P, priv, unused, mask[MAXP]) for scatter,
-// (n, P, mask[MAXP], unused, unused) for gather.
-// Each returns the CUDA error code of its launches (0 = success).
+// The launch goes to `device` (restored after), on `stream`.
+struct DeviceGuard {
+  int prev = -1;
+  explicit DeviceGuard(int device) {
+    if (cudaGetDevice(&prev) == cudaSuccess && prev != device) cudaSetDevice(device);
+    else prev = -1;
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
 
-// out: out_len int32 words; zeroed here, summed, converted to float32.
-extern "C" int sentinel_scatter_many(const long long* units, int n_units, int N,
-                                     unsigned int* out, long long out_len,
-                                     void* stream) {
-  if (n_units < 1) return (int)cudaErrorInvalidValue;
+// scatter descriptors: DESC_SLOTS eight-byte slots a job — rows pointer,
+// values pointer, output offset, then 16 int32 words: n, P, R, priv,
+// rows dtype, values dtype, rows strides (r, n), values strides (r, p, n),
+// unused, mask[MAXP].  out: out_len float32 cells, padded to a multiple of
+// 4; acc / touched: the all-zero scratch (out_len cells rounded up to a
+// multiple of 32, and one bit each).  Returns the CUDA error code of its
+// launches (0 = success): one scatter launch per MAX_JOBS jobs, then the
+// conversion.
+extern "C" int sentinel_scatter_many(const long long* desc, int n_jobs, int N, float* out,
+                                     long long out_len, unsigned int* acc, unsigned int* touched,
+                                     int device, void* stream) {
+  if (n_jobs < 1 || out_len < 1) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)out_len * 4, s);
-  if (e != cudaSuccess) return (int)e;
-  for (int base = 0; base < n_units; base += MAX_UNITS) {
-    const int m = n_units - base < MAX_UNITS ? n_units - base : MAX_UNITS;
+  const int gx = grid_for(N, 64);
+  const int items_per_block = (N + gx - 1) / gx;
+  for (int base = 0; base < n_jobs; base += MAX_JOBS) {
+    const int m = n_jobs - base < MAX_JOBS ? n_jobs - base : MAX_JOBS;
     ScatterParams prm;
+    prm.out = out;
+    prm.acc = acc;
+    prm.touched = touched;
+    prm.out_len = out_len;
     prm.N = N;
+    prm.gx = gx;
+    prm.zero = base == 0;
     int smem = 0;
-    for (int u = 0; u < m; ++u) {
-      const long long* d = units + (size_t)(base + u) * 7;
+    int max_r = 0;
+    for (int q = 0; q < m; ++q) {
+      const long long* d = desc + (size_t)(base + q) * DESC_SLOTS;
       const int* w = (const int*)(d + 3);
-      Unit& x = prm.u[u];
-      x.rows = (const int*)d[0];
-      x.vals = (const int*)d[1];
+      JobDesc& x = prm.j[q];
+      x.rows = (const void*)d[0];
+      x.vals = (const void*)d[1];
       x.out_off = d[2];
       x.n = w[0];
       x.P = w[1];
-      x.priv = w[2];
-      for (int p = 0; p < MAXP; ++p) x.mask[p] = (unsigned int)w[4 + p];
+      x.R = w[2];
+      // a shared-memory copy pays for itself only when the block adds to
+      // its table at least as often as it zeroes and flushes its cells
+      x.priv = w[3] && x.n <= items_per_block;
+      x.rows_dt = w[4];
+      x.vals_dt = w[5];
+      x.rs_r = w[6];
+      x.rs_n = w[7];
+      x.vs_r = w[8];
+      x.vs_p = w[9];
+      x.vs_n = w[10];
+      for (int p = 0; p < MAXP; ++p) x.mask[p] = (unsigned int)w[12 + p];
+      if (x.R > max_r) max_r = x.R;
       if (x.priv && 4 * x.n * x.P > smem) smem = 4 * x.n * x.P;
     }
-    dim3 grid(grid_for(N, 64), m);
-    scatter_many_kernel<<<grid, BLOCK, smem, s>>>(out, prm);
-    e = cudaGetLastError();
+    // a block per (row-vector, item block) of the longest job; the first
+    // chunk's grid is also wide enough to zero the output at ~4 float4
+    // stores a thread
+    long long gxs = (long long)max_r * gx;
+    if (prm.zero) {
+      const long long zero_blocks = ((out_len + 3) / 4 + 4 * BLOCK - 1) / (4 * BLOCK);
+      const long long per_row = (zero_blocks + m - 1) / m;
+      if (per_row > gxs) gxs = per_row;
+    }
+    if (gxs == 0) continue;
+    scatter_many_kernel<<<dim3((unsigned int)gxs, m), BLOCK, smem, s>>>(prm);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  int_to_float_kernel<<<grid_for(out_len, 1024), BLOCK, 0, s>>>(out, out_len);
+  const long long n_words = (out_len + 31) / 32;
+  convert_touched_kernel<<<grid_for(n_words, 1056), BLOCK, 0, s>>>(out, acc, touched, n_words);
   return (int)cudaGetLastError();
 }
 
+// gather descriptors: 7 eight-byte slots a job — ids, table, out
+// pointers, then 8 int32 words (n, P, mask[MAXP], unused, unused).
 extern "C" int sentinel_gather_many(const long long* jobs, int n_jobs, int N,
                                     void* stream) {
   if (n_jobs < 1) return (int)cudaErrorInvalidValue;

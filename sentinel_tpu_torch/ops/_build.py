@@ -58,15 +58,14 @@ def _target() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp]
-    lib.sentinel_scatter_many.restype = i32
+    lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp, vp, i32, vp]
     lib.sentinel_gather_many.argtypes = [vp, i32, i32, vp]
-    lib.sentinel_gather_many.restype = i32
-    for fn in (lib.sentinel_seg_excl_cumsum, lib.sentinel_seg_incl_min):
-        fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
-        fn.restype = i32
+    lib.sentinel_seg_excl_cumsum.argtypes = [vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp]
+    lib.sentinel_seg_incl_min.argtypes = [vp, vp, vp, vp, vp, i32, vp]
     lib.sentinel_seg_scan_tile.argtypes = []
-    lib.sentinel_seg_scan_tile.restype = i32
+    for fn in (lib.sentinel_scatter_many, lib.sentinel_gather_many, lib.sentinel_seg_excl_cumsum,
+               lib.sentinel_seg_incl_min, lib.sentinel_seg_scan_tile):
+        fn.restype = i32
     lib.sentinel_probe_copy.argtypes = [vp, vp, i64, i32, vp]
     lib.sentinel_probe_hist_count.argtypes = [vp, i64, i32, vp, i64, i32, vp]
     lib.sentinel_probe_hist_planes.argtypes = [vp, vp, i32, i64, i32, i32, vp, i64, i64, i32, vp]

@@ -538,22 +538,17 @@ def run_checks_seg(
         )
         seg_rank_ok = carry.res_sorted & direct_any
 
-        # ONE B3 launch for all three ranks: the token and thread ranks
-        # (V = 2) and the two 12-bit lanes of the wide pacing-cost rank
-        # share the run heads of rank_key, so they stack into V = 4; the
-        # bits equal seg_excl_cumsum + seg_excl_cumsum_wide
-        head_k = _head_of_runs(rank_key)
-        r = SC.seg_excl_cumsum(
-            head_k,
-            torch.cat(
-                [
-                    torch.stack([torch.where(elig_f, acq.count, 0), elig_f.to(I32)]),
-                    SC.wide_lanes(torch.where(elig_f, cost, 0.0).to(I32)),
-                ]
-            ),
+        # ONE B3 launch for all three ranks: they share the run heads of
+        # rank_key; the token and thread ranks are narrow rows, the pacing
+        # cost a wide row (its 12-bit lanes and their recombination happen
+        # inside the kernel, the bits of seg_excl_cumsum_wide)
+        r, r_cost = SC.seg_excl_cumsum_many(
+            _head_of_runs(rank_key),
+            torch.stack([torch.where(elig_f, acq.count, 0), elig_f.to(I32)]),
+            torch.where(elig_f, cost, 0.0).to(I32)[None, :],
         )
         rank_tok, rank_thr = r[0].to(F32), r[1].to(F32)
-        rank_cost = SC.wide_recombine(r[2], r[3])
+        rank_cost = r_cost[0]
         if cfg.seg_static_ranks:
             # scans only (contract: sorted + DIRECT/ANY rules); a broken
             # contract makes the ranks garbage, so every applicable item

@@ -5,12 +5,15 @@ these as Pallas megakernels on the TPU; here they are CUDA C++ kernels for
 Hopper (``csrc/fused.cu``, built at first use by ``ops/_build.py``):
 
 - ``scatter_many`` (replaces ``sentinel_tpu/ops/fused.py:186``): several
-  scatter-add histograms in one launch over a shared item axis.  Each
+  scatter-add histograms over a shared item axis in two launches (zero
+  the output while summing, then convert the touched cells).  Each
   ``Job(n, rows[R, N], values[P, N] or [R, P, N], digits)`` sums into an
   ``[n, P]`` table; ids outside ``[0, n)`` drop; plane p counts each value
   modulo ``256**digits[p]`` (the TPU's digit truncation, kept so inputs
   outside the contract still give what the TPU gives).  Output float32,
-  integer-exact while cell totals stay below 2^24.
+  integer-exact while cell totals stay below 2^24.  The host side is
+  planned: everything but the operands' addresses is computed once per
+  job signature (``ScatterPlan``).
 - ``gather_many`` (replaces ``sentinel_tpu/ops/fused.py:374``): per-item
   reads from nonnegative int tables; out-of-range ids read 0; a value reads
   modulo ``256**digits``.  Output float32 ``[N, P]`` per job.
@@ -24,6 +27,7 @@ kernel or raises — there is no fallback.  Each wrapper adds one to
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -32,14 +36,20 @@ import torch
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"scatter_many": 0, "gather_many": 0}
 
-#: kernel limits (csrc/fused.cu): planes per job, and the units / gather
-#: jobs one launch carries (a longer list takes one launch per chunk)
+#: kernel limits (csrc/fused.cu): planes per job, the jobs one scatter
+#: launch carries and the gather jobs one launch carries (a longer list
+#: takes one launch per chunk)
 _MAXP = 4
-_MAX_UNITS = 48
+_MAX_JOBS = 16
 _MAX_GATHER_JOBS = 8
 #: tables up to this many int32 cells accumulate in shared memory (48 KB,
 #: the dynamic shared-memory size a block may use without opting in)
 _PRIV_CELLS = 12288
+#: operand dtypes the scatter kernel reads where they lie (csrc/fused.cu
+#: DT_*); any other dtype is converted to an int32 copy first
+_DTYPES = {torch.int32: 0, torch.int64: 1, torch.uint8: 2, torch.bool: 2, torch.int8: 3, torch.int16: 4}
+#: eight-byte slots of one scatter job descriptor (csrc/fused.cu)
+_DESC_SLOTS = 11
 
 
 def reset_launches() -> None:
@@ -120,78 +130,160 @@ def scatter_many_plain(jobs: Sequence[Job]) -> List[torch.Tensor]:
     return out
 
 
-def _descriptors(n_desc: int):
-    """Descriptors of csrc/fused.cu, zeroed: int64 [n_desc, 7] — three
-    pointers per row — and the int32 [n_desc, 8] view of its last 4 slots."""
-    desc = np.zeros((n_desc, 7), dtype=np.int64)
+def _descriptors(n_desc: int, slots: int = 7):
+    """Descriptors of csrc/fused.cu, zeroed: int64 [n_desc, slots] — three
+    eight-byte slots (pointers, or the scatter's output offset) per row —
+    and the int32 view of the rest."""
+    desc = np.zeros((n_desc, slots), dtype=np.int64)
     return desc, desc[:, 3:].view(np.int32)
 
 
-def _scatter_plan(jobs: Sequence[Job]):
-    """(int32 operands to keep alive, unit descriptors, per-job output
-    offsets, output cells) for one call.  A unit is one row-vector of one
-    job, with its own rows and values pointers."""
-    N = jobs[0].rows.shape[-1]
-    desc, words = _descriptors(sum(j.rows.shape[0] for j in jobs))
-    keep, offs = [], []
-    u = ooff = 0
-    for j in jobs:
-        rows = j.rows.to(torch.int32).contiguous()
-        vals = j.values.to(torch.int32).contiguous()
-        keep += [rows, vals]
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """The tensor the kernel reads: ``t`` itself where its dtype is one the
+    kernel reads (any strides), else an int32 copy."""
+    return t if t.dtype in _DTYPES else t.to(torch.int32)
+
+
+def _signature(jobs: Sequence[Job]) -> tuple:
+    """What a plan depends on: every job's n, digits, and its operands'
+    shapes, strides, dtypes and devices — not their addresses."""
+    return tuple(
+        (j.n, j.digits, j.rows.shape, j.rows.stride(), j.rows.dtype, j.rows.device,
+         j.values.shape, j.values.stride(), j.values.dtype, j.values.device)
+        for j in jobs
+    )
+
+
+class ScatterPlan(NamedTuple):
+    """The static part of one scatter_many call, made once per signature.
+
+    desc:    int64 [jobs, 11] descriptors (csrc/fused.cu); a call writes
+             only slots 0 and 1, its operands' addresses; ``desc_ptr`` is
+             the array's address.
+    offsets: each job's first output cell; ``shapes`` its [n, P];
+             ``total`` the output's cells.
+    N:       items; ``launches`` a call's kernel launches.
+    """
+
+    desc: np.ndarray
+    desc_ptr: int
+    offsets: tuple
+    shapes: tuple
+    total: int
+    N: int
+    launches: int
+
+
+def _plan(jobs: Sequence[Job]) -> ScatterPlan:
+    """Check the jobs and lay out their descriptors and output: job j's
+    row-vector r reads rows at ``rows + r * rs_r`` and values at ``vals +
+    r * vs_r`` (``vs_r`` 0 for values shared by every row-vector), item i
+    at ``+ i * rs_n`` / plane p, item i at ``+ p * vs_p + i * vs_n``, in
+    elements; its table starts at output cell ``offsets[j]``."""
+    N = _check_jobs(jobs)
+    if len({t.device for j in jobs for t in (j.rows, j.values)}) != 1:
+        raise ValueError("scatter_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
+    desc, words = _descriptors(len(jobs), _DESC_SLOTS)
+    offsets, shapes = [], []
+    off = 0
+    for i, j in enumerate(jobs):
+        rows, vals = _operand(j.rows), _operand(j.values)
         R, P = rows.shape[0], vals.shape[-2]
-        r = np.arange(R, dtype=np.int64)
-        sl = slice(u, u + R)
-        desc[sl, 0] = rows.data_ptr() + 4 * N * r
-        desc[sl, 1] = vals.data_ptr() + (4 * P * N * r if vals.dim() == 3 else 0)
-        desc[sl, 2] = ooff
-        words[sl, 0] = j.n
-        words[sl, 1] = P
-        words[sl, 2] = 1 if 0 < j.n * P <= _PRIV_CELLS else 0
-        words[sl, 4 : 4 + P] = [_mask(d) for d in j.digits]
-        offs.append(ooff)
-        u += R
-        ooff += j.n * P
-    return keep, desc, offs, ooff
+        vs = vals.stride() if vals.dim() == 3 else (0, *vals.stride())
+        strides = (*rows.stride(), *vs)
+        if max(strides + (N, j.n * P), default=0) >= 2**31:
+            raise ValueError(f"job {j.name}: strides, items and cells must stay below 2^31")
+        desc[i, 2] = off
+        words[i, :11] = [j.n, P, R, 1 if 0 < j.n * P <= _PRIV_CELLS else 0,
+                         _DTYPES[rows.dtype], _DTYPES[vals.dtype], *strides]
+        words[i, 12 : 12 + P] = [_mask(d) for d in j.digits]
+        offsets.append(off)
+        shapes.append((j.n, P))
+        off += j.n * P
+    # a scatter launch per chunk of _MAX_JOBS jobs (the first one also
+    # zeroes the output; a chunk without row-vectors has none), then one
+    # conversion
+    launches = 0
+    if off:
+        launches = 1 + sum(1 for c in range(0, len(jobs), _MAX_JOBS)
+                           if c == 0 or any(j.rows.shape[0] for j in jobs[c : c + _MAX_JOBS]))
+    return ScatterPlan(desc, desc.ctypes.data, tuple(offsets), tuple(shapes), off, N, launches)
 
 
-def _scatter_cuda(jobs: Sequence[Job]) -> List[torch.Tensor]:
+def _bind(plan: ScatterPlan, jobs: Sequence[Job]) -> list:
+    """Point the plan's descriptors at this call's operands; returns the
+    operands (kept alive through the launch)."""
+    keep = [(_operand(j.rows), _operand(j.values)) for j in jobs]
+    plan.desc[:, :2] = [(r.data_ptr(), v.data_ptr()) for r, v in keep]
+    return keep
+
+
+#: plans by job signature; scratch by (device, stream)
+_PLANS: dict = {}
+_MAX_PLANS = 256
+_SCRATCH: dict = {}
+_lock = threading.Lock()
+
+
+def _scratch(dev: torch.device, stream: int, cells: int):
+    """(acc, touched): the int32 accumulator and its one-bit-a-cell bitmap
+    for launches on ``stream``, at least ``cells`` cells.  Both are all zero
+    between calls — the conversion launch zeroes what the scatter touched —
+    so they are zeroed only when made."""
+    s = _SCRATCH.get((dev, stream))
+    if s is None or s[0].numel() < cells:
+        n = -(-max(cells, 2 * s[0].numel() if s is not None else 0) // 32) * 32  # whole bitmap words
+        s = (torch.zeros(n, dtype=torch.int32, device=dev),
+             torch.zeros(n // 32, dtype=torch.int32, device=dev))
+        _SCRATCH[(dev, stream)] = s
+    return s
+
+
+def _plan_for(jobs: Sequence[Job]) -> ScatterPlan:
+    """The cached plan of the jobs' signature (made, and the jobs checked,
+    on its first call)."""
+    key = _signature(jobs)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _plan(jobs)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    return plan
+
+
+def _scatter_cuda(plan: ScatterPlan, jobs: Sequence[Job]) -> List[torch.Tensor]:
     from sentinel_tpu_torch.ops import _build
 
-    lib = _build.load_library()
-    N = jobs[0].rows.shape[-1]
     dev = jobs[0].rows.device
-    keep, desc, offs, total = _scatter_plan(jobs)
-    out = torch.empty((max(total, 1),), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = lib.sentinel_scatter_many(
-            desc.ctypes.data_as(ctypes.c_void_p),
-            len(desc),
-            int(N),
-            ctypes.c_void_p(out.data_ptr()),
-            int(out.numel()),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"scatter_many kernel launch failed (CUDA error {err})")
-    LAUNCHES["scatter_many"] += -(-len(desc) // _MAX_UNITS)
-    f = out.view(torch.float32)
-    return [
-        f[o : o + j.n * j.values.shape[-2]].view(j.n, j.values.shape[-2])
-        for j, o in zip(jobs, offs)
-    ]
+    # padded to whole float4s: the kernels write the output 16 bytes at a time
+    out = torch.empty((-(-plan.total // 4) * 4,), dtype=torch.float32, device=dev)
+    if plan.total:
+        lib = _build.load_library()
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)  # the handle, without a Stream object
+        acc, touched = _scratch(dev, stream, plan.total)
+        with _lock:  # the descriptors are the plan's: one call fills them at a time
+            keep = _bind(plan, jobs)
+            err = lib.sentinel_scatter_many(
+                plan.desc_ptr, len(jobs), plan.N, out.data_ptr(), plan.total,
+                acc.data_ptr(), touched.data_ptr(), dev.index, stream,
+            )
+        if err != 0:
+            _SCRATCH.pop((dev, stream), None)  # a failed launch may leave it dirty
+            raise RuntimeError(f"scatter_many kernel launch failed (CUDA error {err})")
+        LAUNCHES["scatter_many"] += plan.launches
+    return [out.as_strided(shape, (shape[1], 1), off) for shape, off in zip(plan.shapes, plan.offsets)]
 
 
 def scatter_many(jobs: Sequence[Job]) -> List[torch.Tensor]:
-    """Every job's scatter-add in one kernel launch (one per chunk of
-    ``_MAX_UNITS`` row-vectors); one float32 [n, P] histogram per job.
-    CPU tensors take the plain version."""
-    _check_jobs(jobs)
-    if all(j.rows.device.type == "cpu" and j.values.device.type == "cpu" for j in jobs):
+    """Every job's scatter-add, one float32 [n, P] histogram per job, in two
+    kernel launches (one more per ``_MAX_JOBS`` jobs past the first
+    ``_MAX_JOBS``).  CPU tensors take the plain version."""
+    if not jobs[0].rows.is_cuda:
+        if any(t.device.type != "cpu" for j in jobs for t in (j.rows, j.values)):
+            raise ValueError("scatter_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
         return scatter_many_plain(jobs)
-    if len({t.device for j in jobs for t in (j.rows, j.values)}) != 1 or jobs[0].rows.device.type != "cuda":
-        raise ValueError("scatter_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
-    return _scatter_cuda(jobs)
+    return _scatter_cuda(_plan_for(jobs), jobs)
 
 
 # -- gather_many --------------------------------------------------------------

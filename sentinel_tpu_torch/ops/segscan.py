@@ -11,9 +11,11 @@ Hopper (``csrc/segscan.cu``, built at first use by ``ops/_build.py``):
   segment check phase ranks flow quota, pacing cost, occupy and probe
   elections with it.
 - ``seg_excl_cumsum_wide`` (replaces ``seg_excl_cumsum_wide_pl``,
-  ``segscan.py:215``): values up to 2^24 whose totals may pass 2^31 — two
-  12-bit lanes through ``seg_excl_cumsum``, recombined as ``hi * 4096 +
-  lo`` in float32 (one rounding).
+  ``segscan.py:215``): values up to 2^24 whose totals may pass 2^31 — the
+  reference's two 12-bit lanes, scanned and recombined as ``hi * 4096 +
+  lo`` in float32 inside the same kernel (a wide row).
+- ``seg_excl_cumsum_many``: narrow and wide rows that share their heads,
+  in ONE launch (the segment check's ranks).
 - ``seg_incl_min`` (replaces ``seg_incl_min_pl``, ``segscan.py:165``):
   segmented INCLUSIVE running minimum of float32 ``[N]``; heads reset it;
   results never exceed the identity 3.0e38.  The completion phase's
@@ -62,21 +64,26 @@ def _check_head(name: str, head: torch.Tensor, n: int) -> None:
         raise ValueError(f"{name}: head must be bool [N] with N = {n}")
 
 
-def _launch(name: str, fn_name: str, head, v, out, V: int, N: int, scratch_dtype) -> None:
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _launch(name: str, fn_name: str, head, N: int, V: int, *args) -> None:
+    """One kernel call: ``fn(head, *args, agg, agg_flag, N, stream)``; the
+    carry pass's scratch (one pair per tile of the kernel's size) exists
+    only for rows longer than a tile."""
     from sentinel_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    dev = v.device
-    # the carry pass's scratch holds one pair per tile of the kernel's size
+    dev = head.device
     n_tiles = -(-N // lib.sentinel_seg_scan_tile())
     agg = flag = None
     if n_tiles > 1:
-        agg = torch.empty((V, n_tiles), dtype=scratch_dtype, device=dev)
+        agg = torch.empty((V, n_tiles), dtype=torch.int64, device=dev)
         flag = torch.empty((V, n_tiles), dtype=torch.int32, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = getattr(lib, fn_name)(
-            ptr(head), ptr(v), ptr(out), ptr(agg), ptr(flag), int(V), int(N),
+            _ptr(head), *args, _ptr(agg), _ptr(flag), int(N),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         )
     if err != 0:
@@ -85,6 +92,61 @@ def _launch(name: str, fn_name: str, head, v, out, V: int, N: int, scratch_dtype
 
 
 # -- B3: segmented exclusive prefix sum -----------------------------------------
+
+
+def _rows(name: str, values, N: int):
+    if values is None:
+        return None
+    if values.dim() != 2 or values.shape[1] != N:
+        raise ValueError(f"{name}: rows must be [V, N] with N = {N}")
+    return values
+
+
+def seg_excl_cumsum_many_plain(head, narrow=None, wide=None):
+    """The plain version of seg_excl_cumsum_many: ``segment.seg_excl_cumsum``
+    on the narrow rows, ``segment.seg_excl_cumsum_wide`` on each wide row."""
+    n_out = None if narrow is None else SG.seg_excl_cumsum(head, narrow)
+    w_out = None
+    if wide is not None:
+        w_out = torch.zeros(wide.shape, dtype=torch.float32, device=wide.device)
+        for r in range(wide.shape[0]):
+            w_out[r] = SG.seg_excl_cumsum_wide(head, wide[r])
+    return n_out, w_out
+
+
+def seg_excl_cumsum_many(head: torch.Tensor, narrow=None, wide=None):
+    """Segmented exclusive prefix sums of several rows that share one head
+    vector, in ONE kernel launch: (int32 [Vn, N] of the narrow int [Vn, N]
+    rows, whose row totals stay below 2^31; float32 [Vw, N] of the wide int
+    [Vw, N] rows, values up to 2^24 whose totals may pass 2^31 — the bits of
+    ``segment.seg_excl_cumsum_wide``).  Either may be None."""
+    if narrow is None and wide is None:
+        raise ValueError("seg_excl_cumsum_many: no rows")
+    N = head.shape[0] if head.dim() == 1 else -1
+    narrow = _rows("seg_excl_cumsum_many", narrow, N)
+    wide = _rows("seg_excl_cumsum_many", wide, N)
+    _check_head("seg_excl_cumsum_many", head, N)
+    given = [t for t in (narrow, wide) if t is not None]
+    if not _dispatch("seg_excl_cumsum", head, *given):
+        return seg_excl_cumsum_many_plain(head, narrow, wide)
+    return _excl_cuda(head, narrow, wide)
+
+
+def _excl_cuda(head, narrow, wide):
+    """seg_excl_cumsum_many's launch (checked arguments on one CUDA device)."""
+    N = head.shape[0]
+    dev = head.device
+    Vn = 0 if narrow is None else narrow.shape[0]
+    Vw = 0 if wide is None else wide.shape[0]
+    n_out = None if narrow is None else torch.empty((Vn, N), dtype=torch.int32, device=dev)
+    w_out = None if wide is None else torch.empty((Vw, N), dtype=torch.float32, device=dev)
+    if N == 0 or Vn + Vw == 0:
+        return (None if n_out is None else n_out.zero_()), (None if w_out is None else w_out.zero_())
+    narrow = None if not Vn else narrow.to(torch.int32).contiguous()
+    wide = None if not Vw else wide.to(torch.int32).contiguous()
+    _launch("seg_excl_cumsum", "sentinel_seg_excl_cumsum", head.contiguous(), N, Vn + Vw,
+            _ptr(narrow), _ptr(n_out if Vn else None), int(Vn), _ptr(wide), _ptr(w_out if Vw else None), int(Vw))
+    return n_out, w_out
 
 
 def seg_excl_cumsum_plain(head: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -96,39 +158,27 @@ def seg_excl_cumsum_plain(head: torch.Tensor, values: torch.Tensor) -> torch.Ten
 def seg_excl_cumsum(head: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """Segmented exclusive prefix sums: head bool [N], values int [V, N] or
     [N]; int32 out of the same shape.  One kernel launch for all rows."""
-    squeeze = values.dim() == 1
-    v = values[None, :] if squeeze else values
-    if v.dim() != 2:
+    if values.dim() not in (1, 2):
         raise ValueError("seg_excl_cumsum: values must be [N] or [V, N]")
-    V, N = v.shape
-    _check_head("seg_excl_cumsum", head, N)
+    v = values[None, :] if values.dim() == 1 else values
+    _check_head("seg_excl_cumsum", head, v.shape[1])
     if not _dispatch("seg_excl_cumsum", head, v):
         return seg_excl_cumsum_plain(head, values)
-    if V == 0 or N == 0:
-        return torch.zeros(values.shape, dtype=torch.int32, device=values.device)
-    v = v.to(torch.int32).contiguous()
-    out = torch.empty((V, N), dtype=torch.int32, device=v.device)
-    _launch("seg_excl_cumsum", "sentinel_seg_excl_cumsum", head.contiguous(), v, out, V, N, torch.int32)
-    return out[0] if squeeze else out
-
-
-def wide_lanes(values: torch.Tensor) -> torch.Tensor:
-    """[2, N] int32 (lo, hi) 12-bit lanes of values up to 2^24."""
-    v = values.to(torch.int32)
-    return torch.stack([v & 0xFFF, v >> 12])
-
-
-def wide_recombine(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """hi * 4096 + lo in float32: hi * 4096 is exact, so one rounding."""
-    return hi.to(torch.float32) * 4096.0 + lo.to(torch.float32)
+    out, _ = _excl_cuda(head, v, None)
+    return out.reshape(values.shape)
 
 
 def seg_excl_cumsum_wide(head: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """seg_excl_cumsum for values <= 2^24 whose totals may pass 2^31: the
-    split and the recombination are tensor ops around one B3 launch; the
-    bits equal ``segment.seg_excl_cumsum_wide``."""
-    r = seg_excl_cumsum(head, wide_lanes(values))
-    return wide_recombine(r[0], r[1])
+    """seg_excl_cumsum for values <= 2^24 whose totals may pass 2^31 (a
+    wide row of ``seg_excl_cumsum_many``); the bits equal
+    ``segment.seg_excl_cumsum_wide``.  Values [N], float32 [N] out."""
+    if values.dim() != 1:
+        raise ValueError("seg_excl_cumsum_wide: values must be [N]")
+    _check_head("seg_excl_cumsum_wide", head, values.shape[0])
+    if not _dispatch("seg_excl_cumsum", head, values):
+        return SG.seg_excl_cumsum_wide(head, values)
+    _, out = _excl_cuda(head, None, values[None, :])
+    return out[0]
 
 
 # -- B4: segmented inclusive running minimum ------------------------------------
@@ -155,5 +205,5 @@ def seg_incl_min(head: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         return torch.zeros((0,), dtype=torch.float32, device=values.device)
     v = values.to(torch.float32).contiguous()
     out = torch.empty((N,), dtype=torch.float32, device=v.device)
-    _launch("seg_incl_min", "sentinel_seg_incl_min", head.contiguous(), v, out, 1, N, torch.float32)
+    _launch("seg_incl_min", "sentinel_seg_incl_min", head.contiguous(), N, 1, _ptr(v), _ptr(out))
     return out

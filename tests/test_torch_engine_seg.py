@@ -186,7 +186,8 @@ def test_param_segment_tick_on_the_card_matches_jax():
     FU.reset_launches()
     seen, _ts = run_param_ticks(jcfg, tcfg, treg, jrs, trs, stream, PARAM_NOWS[:4], device="cuda")
     assert BLOCK_PARAM in seen
-    assert FU.LAUNCHES["scatter_many"] == 4 * 4  # two segment + two item-axis launches a tick
+    # two segment + two item-axis calls a tick, two launches each
+    assert FU.LAUNCHES["scatter_many"] == 2 * 4 * 4
 
 
 @pytest.mark.cuda

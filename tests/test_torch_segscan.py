@@ -123,6 +123,29 @@ def test_seg_incl_min_agrees_with_block_min_under_block_capped_heads(n):
         assert reset[SG.BLOCK] != 0.5
 
 
+@pytest.mark.parametrize("n", [255, 4096])
+def test_the_combined_launchs_wide_row_equals_seg_excl_cumsum_wide(n):
+    """seg_excl_cumsum_many, plain path: its narrow rows are
+    seg_excl_cumsum's and each wide row is seg_excl_cumsum_wide's, bit for
+    bit, and the JAX package's wide Pallas function's."""
+    rng = np.random.default_rng(40 + n)
+    head = _heads(rng, n, "sparse")
+    narrow = rng.integers(0, (2**31 - 1) // n + 1, (2, n)).astype(np.int32)
+    wide = np.full((2, n), (1 << 24) - 1, np.int32)
+    wide[1, ::3] = rng.integers(0, 1 << 24, wide[1, ::3].shape[0])
+    h = torch.as_tensor(head)
+    got_n, got_w = SC.seg_excl_cumsum_many(h, torch.as_tensor(narrow), torch.as_tensor(wide))
+    assert got_n.dtype == torch.int32 and got_w.dtype == torch.float32
+    np.testing.assert_array_equal(got_n.numpy(), SC.seg_excl_cumsum(h, torch.as_tensor(narrow)).numpy())
+    for r in range(2):
+        np.testing.assert_array_equal(got_w[r].numpy(), SC.seg_excl_cumsum_wide(h, torch.as_tensor(wide[r])).numpy())
+        np.testing.assert_array_equal(got_w[r].numpy(), _jax(JSC.seg_excl_cumsum_wide_pl, head, wide[r]))
+    if n == 4096:
+        assert got_w.max() > 2**31
+    only_wide = SC.seg_excl_cumsum_many(h, wide=torch.as_tensor(wide))
+    assert only_wide[0] is None and torch.equal(only_wide[1], got_w)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     SC.reset_launches()
     head = torch.tensor([True, False, True])
@@ -154,7 +177,17 @@ def test_seg_excl_cumsum_kernel_matches_plain_on_the_card():
             assert torch.equal(SC.seg_excl_cumsum(head, v), SC.seg_excl_cumsum_plain(head, v))
             w = torch.as_tensor(rng.integers(0, 1 << 24, n).astype(np.int32)).cuda()
             assert torch.equal(SC.seg_excl_cumsum_wide(head, w), SG.seg_excl_cumsum_wide(head, w))
-            calls += 2
+            # narrow and wide rows in one launch, segment totals past 2^31;
+            # on one segment also int32 values of both signs outside the
+            # contract (the plain version's cumsum minus the running maximum
+            # of segment bases is a segmented sum only while its cumulative
+            # sums rise, or over one segment)
+            odd = rng.integers(-(2**31), 2**31 - 1, n) if kind == "first" else rng.integers(0, 1 << 24, n)
+            wide = torch.stack([w, torch.full_like(w, (1 << 24) - 1), torch.as_tensor(odd.astype(np.int32)).cuda()])
+            got = SC.seg_excl_cumsum_many(head, v[:2], wide)
+            want = SC.seg_excl_cumsum_many_plain(head, v[:2], wide)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            calls += 3
     assert SC.LAUNCHES["seg_excl_cumsum"] == calls
 
 

@@ -54,13 +54,14 @@
 //     expanded rows), so the wrapper copies nothing.  Row ids compare in 64
 //     bits, values truncate to their low 32 bits, as `.to(torch.int32)`
 //     does.  A thread loads its row id and every plane's value at once.
-//   - Hot rows are aggregated inside the warp: lanes that add to the same
-//     cell find each other with __match_any_sync, sum with
-//     __reduce_add_sync, and one lane adds for the group — one atomic per
-//     distinct cell per warp instead of up to 32 (items of one context
-//     share its node row, and a Zipf(1.1) stream puts a tenth of the items
-//     on one resource; on the segment paths neighbouring items are sorted
-//     together).
+//   - Hot rows are aggregated inside the warp: a run of neighbouring lanes
+//     that add to one cell (items of one context share its node row; the
+//     segment paths sort items by resource) sums by shuffles into the run's
+//     first lane, which adds for the run — one atomic per run instead of
+//     one per lane.  Grouping ANY equal cells with __match_any_sync and
+//     __reduce_add_sync was measured on the H100 too and cost launch 1
+//     more than the atomics it saved; a hot cell scattered across an
+//     unsorted warp still costs one atomic a lane.
 //   - Tables small enough for shared memory (at most 12,288 cells, the
 //     wrapper's flag) are privatized per block when the block adds to them
 //     at least as often as it would zero and flush them (n <= items a
@@ -174,9 +175,18 @@ __global__ void __launch_bounds__(BLOCK) scatter_many_kernel(const ScatterParams
       // the cell in the job's table (below 2^31), or a key of this lane's
       // own when it adds nothing
       const unsigned int key = x ? (unsigned int)(k * P + p) : 0xffffffffu - lane;
-      const unsigned int peers = __match_any_sync(0xffffffffu, key);
-      const unsigned int s = __reduce_add_sync(peers, x);
-      if (!s || lane != __ffs(peers) - 1) continue;
+      // a run of neighbouring lanes with one cell sums into its first lane
+      const unsigned int left = __shfl_up_sync(0xffffffffu, key, 1);  // every lane shuffles
+      const bool head = lane == 0 || left != key;
+      const unsigned int later = __ballot_sync(0xffffffffu, head) & ~((2u << lane) - 1u);
+      const int run_end = later ? __ffs(later) - 2 : 31;  // this run's last lane
+      unsigned int s = x;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const unsigned int y = __shfl_down_sync(0xffffffffu, s, d);
+        if (lane + d <= run_end) s += y;
+      }
+      if (!s || !head) continue;
       if (J.priv) {
         atomicAdd(&sh[key], s);
       } else {

@@ -88,9 +88,15 @@ Phases (the first failure stops the script with a nonzero exit):
    kernels — probe_copy, probe_hist_count, probe_hist_planes,
    probe_hist_stat5 (``csrc/probes.cu``) — against its plain version on
    the card at the shapes the probes run them at and on edge cases (ids
-   -1, n and 2**30; N = 1 and N not a multiple of the block; every id
-   equal; ``n`` not a multiple of ``n_lo``), exact equality; timed like
-   the other kernels, beside ``index_add_`` / ``torch.add`` and the bound.
+   -1, n and 2**30; N = 0, N = 1 and N not a multiple of the block; every
+   id equal; ``n`` not a multiple of ``n_lo``; for the two valued
+   histograms' cluster plan also ids on every block's first and last row,
+   n = 1, a table past one cluster's shared memory, and an ``out=`` filled
+   with NaN), exact equality.  Each valued histogram's call at each of its
+   probe shapes, split into its device launches at the end of phase 2
+   (``[probe] split`` lines), must be exactly one launch, no memset.  Timed
+   like the other kernels, beside ``index_add_`` / ``torch.add``, the bound
+   and the time of the kernels' earlier design (commit 923866b).
    Then the probe run itself — ``probes.floor`` (what a launch costs,
    eager against a CUDA graph) and ``probes.hist`` (the scatter floor at
    the stat-landing shape, against ``index_add_`` and scatter_many) — with
@@ -145,6 +151,11 @@ KERNEL_SRC = {
 }
 #: the kernels of the probe run (phase 5)
 PROBE_KERNELS = ("probe_copy", "probe_hist_count", "probe_hist_planes", "probe_hist_stat5")
+#: each probe kernel's device ms at its phase-5 shape at commit 923866b, the
+#: valued histograms' earlier design (a memset, then float atomics in L2):
+#: this file's probe_calls timed against that commit's package on an NVIDIA
+#: H100 80GB HBM3 at 700 W, the mean of two runs; printed beside this run's time
+EARLIER_MS = {"probe_copy": 0.0069, "probe_hist_count": 0.0100, "probe_hist_planes": 0.0169, "probe_hist_stat5": 0.0277}
 #: the configuration whose main-path run and B = 2,048 shapes each kernel's
 #: JSON record reports (the default platform_config() where it runs)
 RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": "seg1", "seg_incl_min": "seg4"}
@@ -824,11 +835,91 @@ def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
-def probe_phase(np, torch, tick_report):
+def valued_hist_shapes(torch, PK, FL, HI):
+    """The two valued-histogram probes at the shapes the probes run them:
+    [(kernel, shape, kernel call, zero_ + index_add_ call)] — P1, P2's
+    ``sc5_call`` and the stat landing at each n_lo."""
+    ids, vals5 = FL.data()
+    idx, valsf = HI.planes_data()
+    sids, cnts, rt = HI.stat_data()
+    valss = torch.cat([cnts, (rt & 0xFF)[:, None], ((rt >> 8) & 0xFF)[:, None]], dim=1)
+    n_hi = -(-FL.PLANES_N // FL.PLANES_N_LO)
+    shapes = [
+        ("probe_hist_planes", f"{idx.numel()} x {HI.P1_P} float32 into [{HI.P1_N}, {HI.P1_P}]",
+         lambda: PK.probe_hist_planes(idx, valsf, HI.P1_N), HI.index_add_call(idx, valsf, HI.P1_N)[0]),
+        ("probe_hist_planes", f"{ids.numel()} x 5 int32 into [5, {n_hi}, {FL.PLANES_N_LO}] (sc5_call)",
+         lambda: PK.probe_hist_planes(ids, vals5, FL.PLANES_N, FL.PLANES_N_LO),
+         HI.index_add_call(ids, vals5, FL.PLANES_N)[0]),
+    ]
+    lib = HI.index_add_call(sids, valss, HI.N_ROWS)[0]
+    for n_lo in HI.N_LO:
+        shapes.append(("probe_hist_stat5", f"{sids.numel()} items into [5, {-(-HI.N_ROWS // n_lo)}, {n_lo}]",
+                       lambda n_lo=n_lo: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, n_lo), lib))
+    return shapes
+
+
+def probe_split(torch, PK, FL, HI) -> list:
+    """One call of each valued-histogram probe at each of its shapes, split
+    into its device launches (``launch_breakdown``: memsets and kernels, µs
+    a call) beside the call's bracketed time and ``zero_ + index_add_``'s
+    (``time_ms``), printed on ``[probe] split`` lines."""
+    rows = []
+    for kname, shape, run, lib in valued_hist_shapes(torch, PK, FL, HI):
+        per_launch = launch_breakdown(run)
+        ms = time_ms(run)[0]
+        lib_ms = time_ms(lib)[0]
+        rows.append(dict(kernel=kname, shape=shape, launches=per_launch, ms=ms, library_ms=lib_ms))
+        log(f"[probe] split {kname} at {shape}: device launches a call "
+            + ", ".join(f"{n.split('(')[0]} x{c:g} {ms_ * 1e3:.2f} us" for n, c, ms_ in per_launch)
+            + f"; bracketed {ms * 1e3:.2f} us a call; zero_ + index_add_ {lib_ms * 1e3:.2f} us")
+    return rows
+
+
+def probe_calls(torch, PK, FL, HI) -> dict:
+    """kernel -> dict(run, plain, lib, shape, bytes, ops): one call of each
+    probe kernel at the shape its row of the kernel table reports, its plain
+    version, the library call computing the same function, and the bytes it
+    must move (inputs read once, output written once) and the adds it must
+    do on these inputs."""
+    ids, _vals5 = FL.data()
+    idx, valsf = HI.planes_data()
+    sids, cnts, rt = HI.stat_data()
+    valss = torch.cat([cnts, (rt & 0xFF)[:, None], ((rt >> 8) & 0xFF)[:, None]], dim=1)
+    n, n_lo = FL.PLANES_N, FL.PLANES_N_LO
+    cells = -(-n // n_lo) * n_lo
+    stat_cells = -(-HI.N_ROWS // HI.N_LO[0]) * HI.N_LO[0]
+    ok = lambda x, n: int(((x >= 0) & (x < n)).sum().item())
+    return {
+        "probe_copy": dict(
+            run=lambda: PK.probe_copy(ids), plain=lambda: PK.probe_copy_plain(ids), lib=lambda: torch.add(ids, 1),
+            shape=f"int32 [{ids.numel()}], one thread an item", bytes=8 * ids.numel(), ops=ids.numel()),
+        "probe_hist_count": dict(
+            run=lambda: PK.probe_hist_count(ids, n, n_lo), plain=lambda: PK.probe_hist_count_plain(ids, n, n_lo),
+            lib=HI.index_add_call(ids, torch.ones((ids.numel(), 1), device="cuda"), n)[0],
+            shape=f"{ids.numel()} ids into [{cells // n_lo}, {n_lo}]", bytes=4 * ids.numel() + 4 * cells,
+            ops=ok(ids, n)),
+        "probe_hist_planes": dict(
+            run=lambda: PK.probe_hist_planes(idx, valsf, HI.P1_N),
+            plain=lambda: PK.probe_hist_planes_plain(idx, valsf, HI.P1_N), lib=HI.index_add_call(idx, valsf, HI.P1_N)[0],
+            shape=f"{idx.numel()} x {HI.P1_P} float32 into [{HI.P1_N}, {HI.P1_P}]",
+            bytes=4 * idx.numel() + 4 * valsf.numel() + 4 * HI.P1_N * HI.P1_P, ops=ok(idx, HI.P1_N) * HI.P1_P),
+        "probe_hist_stat5": dict(
+            run=lambda: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, HI.N_LO[0]),
+            plain=lambda: PK.probe_hist_stat5_plain(sids, cnts, rt, HI.N_ROWS, HI.N_LO[0]),
+            lib=HI.index_add_call(sids, valss, HI.N_ROWS)[0],
+            shape=f"{sids.numel()} items into [5, {stat_cells // HI.N_LO[0]}, {HI.N_LO[0]}] (the stat-landing shape)",
+            bytes=4 * sids.numel() + 4 * cnts.numel() + 4 * rt.numel() + 4 * 5 * stat_cells,
+            ops=ok(sids, HI.N_ROWS) * 5),
+    }
+
+
+def probe_phase(np, torch, tick_report, split):
     """Hold the four probe kernels against their plain versions (published
-    shapes and edge cases, exact equality), time them like the other
-    kernels, then run the probe tables with the launch counts reset just
-    before and read just after.  Returns (kernel records, probe report)."""
+    shapes and edge cases, exact equality), check that each valued
+    histogram's call in ``split`` (``probe_split``) is one device launch,
+    time the kernels like the others, then run the probe tables with the
+    launch counts reset just before and read just after.  Returns (kernel
+    records, probe report)."""
     from sentinel_tpu_torch.probes import floor as FL
     from sentinel_tpu_torch.probes import hist as HI
     from sentinel_tpu_torch.probes import kernels as PK
@@ -899,54 +990,59 @@ def probe_phase(np, torch, tick_report):
     got = PK.probe_hist_stat5(hot, c, r, 16640, 128)
     hold("probe_hist_stat5", got, PK.probe_hist_stat5_plain(hot, c, r, 16640, 128))
     check(got.reshape(5, -1)[:, 7].tolist() == [N, N, N, 255.0 * N, 255.0 * N], "hot row sums")
+    # the valued histograms' plan: ids on every block's first and last row, n = 1,
+    # a table past one cluster's shared memory (100,000 x 5), N = 0, and an out=
+    # filled with NaN (every cell, padding included, is written)
+    dev = torch.device("cuda")
+    for n, n_lo in ((1, 1), (5, 8), (16392, 128), (32777, 128), (100_000, 128)):
+        edges = [r for plan in (PK.card_plan(dev, n, 5, n_lo), PK.card_plan(dev, n, 3))
+                 for c in range(plan.clusters) for b in range(plan.cluster)
+                 for lo, hi in [plan.block_rows(c, b)] if hi > lo for r in (lo, hi - 1) if r < n]
+        for extra in (0, 2049):
+            e = cuda(np.concatenate([edges, rng.integers(-2, n + 3, extra)]).astype(np.int32))
+            N = e.numel()
+            vi = cuda(rng.integers(0, 200, (N, 5), dtype=np.int32))
+            vf = cuda(rng.integers(0, 100, (N, 3)).astype(np.float32))
+            c = cuda(rng.integers(0, 2, (N, 3), dtype=np.int32))
+            r = cuda(rng.integers(0, 40000, N, dtype=np.int32))
+            nan = lambda *shape: torch.full(shape, float("nan"), device="cuda")
+            shape5 = (5,) + PK.padded_shape(n, n_lo)
+            hold("probe_hist_planes", PK.probe_hist_planes(e, vi, n, n_lo, 256, out=nan(*shape5)),
+                 PK.probe_hist_planes_plain(e, vi, n, n_lo))
+            hold("probe_hist_planes", PK.probe_hist_planes(e, vf, n, None, 100, out=nan(n, 3)),
+                 PK.probe_hist_planes_plain(e, vf, n))
+            hold("probe_hist_stat5", PK.probe_hist_stat5(e, c, r, n, n_lo, 4096, out=nan(*shape5)),
+                 PK.probe_hist_stat5_plain(e, c, r, n, n_lo))
+    empty = cuda(np.zeros(0, np.int32))
+    for n_lo in HI.N_LO:
+        out = torch.full((5,) + PK.padded_shape(HI.N_ROWS, n_lo), float("nan"), device="cuda")
+        got = PK.probe_hist_stat5(empty, empty.reshape(0, 1).expand(0, 3).contiguous(), empty, HI.N_ROWS, n_lo, out=out)
+        hold("probe_hist_stat5", got, torch.zeros_like(got))
+    out = torch.full((HI.P1_N, HI.P1_P), float("nan"), device="cuda")
+    got = PK.probe_hist_planes(empty, torch.zeros((0, HI.P1_P), device="cuda"), HI.P1_N, out=out)
+    hold("probe_hist_planes", got, torch.zeros_like(got))
     torch.cuda.synchronize()
     log(f"[probe] kernels equal to plain at the probes' shapes and on edge cases (max |err| {json.dumps(err)})")
 
-    # -- times, like the other kernels (L2 flushed before every launch) -----------
-    def work(kname):
-        n_hi = lambda n, n_lo: -(-n // n_lo)
-        if kname == "probe_copy":
-            return 8 * ids.numel(), ids.numel()
-        if kname == "probe_hist_count":
-            n, n_lo = FL.PLANES_N, FL.PLANES_N_LO
-            return 4 * ids.numel() + 4 * n_hi(n, n_lo) * n_lo, int(((ids >= 0) & (ids < n)).sum().item())
-        if kname == "probe_hist_planes":
-            ok = int(((idx >= 0) & (idx < HI.P1_N)).sum().item())
-            return 4 * idx.numel() + 4 * valsf.numel() + 4 * HI.P1_N * HI.P1_P, ok * HI.P1_P
-        n_lo = HI.N_LO[0]
-        ok = int(((sids >= 0) & (sids < HI.N_ROWS)).sum().item())
-        return 4 * sids.numel() + 4 * cnts.numel() + 4 * rt.numel() + 4 * 5 * n_hi(HI.N_ROWS, n_lo) * n_lo, ok * 5
+    # -- each call of a valued histogram is ONE device launch (no memset) ---------
+    for row in split:
+        check(sum(c for _n, c, _ms in row["launches"]) == 1 and "memset" not in str(row["launches"]).lower(),
+              f"{row['kernel']} at {row['shape']}: {row['launches']} device launches a call")
 
-    valss = torch.cat([cnts, (rt & 0xFF)[:, None], ((rt >> 8) & 0xFF)[:, None]], dim=1)
-    calls = {
-        "probe_copy": (lambda: PK.probe_copy(ids), lambda: PK.probe_copy_plain(ids), lambda: torch.add(ids, 1),
-                       f"int32 [{ids.numel()}], one thread an item"),
-        "probe_hist_count": (
-            lambda: PK.probe_hist_count(ids, FL.PLANES_N, FL.PLANES_N_LO),
-            lambda: PK.probe_hist_count_plain(ids, FL.PLANES_N, FL.PLANES_N_LO),
-            HI.index_add_call(ids, torch.ones((ids.numel(), 1), device="cuda"), FL.PLANES_N)[0],
-            f"{ids.numel()} ids into [{-(-FL.PLANES_N // FL.PLANES_N_LO)}, {FL.PLANES_N_LO}]"),
-        "probe_hist_planes": (
-            lambda: PK.probe_hist_planes(idx, valsf, HI.P1_N), lambda: PK.probe_hist_planes_plain(idx, valsf, HI.P1_N),
-            HI.index_add_call(idx, valsf, HI.P1_N)[0], f"{idx.numel()} x {HI.P1_P} float32 into [{HI.P1_N}, {HI.P1_P}]"),
-        "probe_hist_stat5": (
-            lambda: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, HI.N_LO[0]),
-            lambda: PK.probe_hist_stat5_plain(sids, cnts, rt, HI.N_ROWS, HI.N_LO[0]),
-            HI.index_add_call(sids, valss, HI.N_ROWS)[0],
-            f"{sids.numel()} items into [5, {-(-HI.N_ROWS // HI.N_LO[0])}, {HI.N_LO[0]}] (the stat-landing shape)"),
-    }
+    # -- times, like the other kernels (L2 flushed before every launch) -----------
     records = {}
-    for kname, (run, plain, lib, shape) in calls.items():
-        ms, host_ms = time_ms(run)
-        plain_ms = time_ms(plain, reps=10)[0]
-        lib_ms = time_ms(lib)[0]
-        nbytes, n_ops = work(kname)
-        bnd, by = bound_ms(nbytes, n_ops)
+    for kname, c in probe_calls(torch, PK, FL, HI).items():
+        ms, host_ms = time_ms(c["run"])
+        plain_ms = time_ms(c["plain"], reps=10)[0]
+        lib_ms = time_ms(c["lib"])[0]
+        bnd, by = bound_ms(c["bytes"], c["ops"])
         records[kname] = dict(max_abs_err=err[kname], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-                              bound_by=by, bytes=nbytes, ops=n_ops, wrapper_host_ms=host_ms, shape=shape)
-        log(f"[probe] {kname} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"({'torch.add' if kname == 'probe_copy' else 'zero_ + index_add_'}) {lib_ms:.4f} ms, bound {bnd:.6f} ms "
-            f"({by}, {nbytes} B); wrapper host enqueue {host_ms:.4f} ms")
+                              bound_by=by, bytes=c["bytes"], ops=c["ops"], wrapper_host_ms=host_ms, shape=c["shape"])
+        log(f"[probe] {kname} at {c['shape']}: kernel {ms:.4f} ms (923866b: {EARLIER_MS[kname]:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library ({'torch.add' if kname == 'probe_copy' else 'zero_ + index_add_'}) "
+            f"{lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}, {c['bytes']} B); wrapper host enqueue {host_ms:.4f} ms")
+    records["probe_hist_planes"]["split"] = [r for r in split if r["kernel"] == "probe_hist_planes"]
+    records["probe_hist_stat5"]["split"] = [r for r in split if r["kernel"] == "probe_hist_stat5"]
 
     # -- the probe run: counts reset just before, read just after ------------------
     PK.reset_launches()
@@ -1162,6 +1258,14 @@ def main() -> int:
                     + " ms")
     report["b1_breakdown"] = b1_detail
     report["b3_breakdown"] = b3_detail
+    # the valued-histogram probes' calls, launch by launch, checked in phase 5
+    # (taken here: after phase 4's profiles of ticks, torch.profiler recorded
+    # no device activity in this process on the H100)
+    from sentinel_tpu_torch.probes import floor as FL
+    from sentinel_tpu_torch.probes import hist as HI
+    from sentinel_tpu_torch.probes import kernels as PK
+
+    probe_splits = probe_split(torch, PK, FL, HI)
     edge = edge_cases(FU, np, torch)
     edge.update(scan_edge_cases(SC, SG, np, torch))
     log(f"[kernel] edge cases equal to plain (max |err| {json.dumps(edge)})")
@@ -1280,7 +1384,7 @@ def main() -> int:
         del st_a, st_b
 
     # -- 5. the probes ---------------------------------------------------------------
-    probe_records, report["probes"] = probe_phase(np, torch, report["tick"])
+    probe_records, report["probes"] = probe_phase(np, torch, report["tick"], probe_splits)
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):

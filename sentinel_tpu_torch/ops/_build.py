@@ -68,10 +68,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i32
     lib.sentinel_probe_copy.argtypes = [vp, vp, i64, i32, vp]
     lib.sentinel_probe_hist_count.argtypes = [vp, i64, i32, vp, i64, i32, vp]
-    lib.sentinel_probe_hist_planes.argtypes = [vp, vp, i32, i64, i32, i32, vp, i64, i64, i32, vp]
-    lib.sentinel_probe_hist_stat5.argtypes = [vp, vp, vp, i64, i32, vp, i64, i32, vp]
-    for fn in (lib.sentinel_probe_copy, lib.sentinel_probe_hist_count,
-               lib.sentinel_probe_hist_planes, lib.sentinel_probe_hist_stat5):
+    plan = [i32] * 5  # cluster, clusters, rows_per_block, smem_bytes, threads
+    lib.sentinel_probe_hist_planes.argtypes = [vp, vp, i32, i64, i32, i32, vp, i64, i32, *plan, vp]
+    lib.sentinel_probe_hist_stat5.argtypes = [vp, vp, vp, i64, i32, vp, i64, i32, *plan, vp]
+    lib.sentinel_probe_hist_max_clusters.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.sentinel_probe_copy, lib.sentinel_probe_hist_count, lib.sentinel_probe_hist_planes,
+               lib.sentinel_probe_hist_stat5, lib.sentinel_probe_hist_max_clusters):
         fn.restype = i32
     return lib
 

@@ -1,4 +1,5 @@
-"""The four probe kernels: a copy and three atomics-based histograms.
+"""The four probe kernels: a copy, a count histogram and two valued
+histograms.
 
 PyTorch counterparts of the Pallas probe kernels the JAX package kept under
 ``benchmarks/`` to measure its launch floor and its scatter floor; here they
@@ -11,7 +12,8 @@ are CUDA C++ kernels for Hopper (``csrc/probes.cu``, built at first use by
   counterpart of the TPU grid's step count and its "parallel" flag.
 - ``probe_hist_count`` (replaces ``probe_pallas_floor.py:68`` ``sc_call``
   and ``:151`` ``sc_call2``): a count histogram of ids into the padded
-  shape ``[n_hi, n_lo]``, row ``k`` at ``[k // n_lo, k % n_lo]``.
+  shape ``[n_hi, n_lo]``, row ``k`` at ``[k // n_lo, k % n_lo]``.  Simple
+  on purpose: a memset, then one float ``atomicAdd`` an id.
 - ``probe_hist_planes`` (replaces ``benchmarks/pallas_histogram.py:44``
   ``pallas_histogram`` and ``probe_pallas_floor.py:106`` ``sc5_call``):
   ``hist[k, p] = sum of values[i, p] over items with ids[i] == k``, as an
@@ -21,6 +23,25 @@ are CUDA C++ kernels for Hopper (``csrc/probes.cu``, built at first use by
   ``make(TB, n_lo, mode).run``): five planes into ``[5, n_hi, n_lo]`` —
   three count planes, then the low and the high byte of ``rt``; the byte
   split happens in the kernel.
+
+The two valued histograms are bound by bytes (4 B an id and 4 B a value
+plane read, the table written once: 8.2 MB at the stat-landing shape) and
+were bound by atomics in their first version (a memset, then one float
+``atomicAdd`` into L2 per nonzero value).  They are now one template, the
+Hopper counterpart of the TPU kernels' output kept resident in VMEM and
+written once: ONE launch a call, no memset, no global atomic.  Each
+thread-block cluster owns a slice of the table's rows; every block of it
+keeps a copy of the slice in shared memory, reads its share of all the
+ids and adds the values of the items in the slice into its copy by
+shared-memory integer atomics; after a cluster barrier each block sums
+its rows over the cluster's copies (distributed shared memory) and
+writes them once (padding rows included, so ``out=`` may hold anything).
+An integer value below 2^24 adds to an int32 cell, any other value to a
+float32 cell beside it.  ``hist_plan`` cuts the table (pure Python; the
+tests hold it);
+``items_per_block`` sets how many ids a block takes at a time from its
+cluster's items (interleaved chunks, rounded up to a power of two times
+4), not the work a thread does.
 
 ids outside ``[0, n)`` drop.  Outputs are float32.  The sums are of
 integer-valued data and must stay below 2^24: float32 addition is then
@@ -37,6 +58,8 @@ caller that captures launches into a CUDA graph bring its own buffer.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -44,8 +67,25 @@ import torch
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"probe_copy": 0, "probe_hist_count": 0, "probe_hist_planes": 0, "probe_hist_stat5": 0}
 
-#: items a histogram block takes unless the caller sweeps it (one a thread)
+#: items a histogram block takes at a time unless the caller sweeps it
 ITEMS_PER_BLOCK = 256
+#: threads a block of the valued histograms
+HIST_THREADS = 1024
+#: blocks a cluster of the valued histograms (above 8 is Hopper's non-portable
+#: size; 16 measured faster than 8 at the stat landing on an H100)
+CLUSTER = 16
+#: the largest cluster the kernel takes (csrc/probes.cu HIST_MAX_CLUSTER)
+MAX_CLUSTER = 16
+#: dynamic shared memory a block of the valued histograms may take: Hopper's
+#: 227 KB a block less 256 B for its static shared variables
+MAX_SMEM_BYTES = 232_448 - 256
+#: shared memory a cell of the valued histograms takes: an int32 and a float32
+CELL_BYTES = 8
+#: shared memory a warp of the valued histograms keeps for its queue of
+#: matched items (256 (item, cell) pairs; csrc/probes.cu HIST_QUEUE)
+QUEUE_BYTES_A_WARP = 8 * 256
+#: SMs of an H100 SXM: the plan's default when no card is asked
+H100_SMS = 132
 
 
 def reset_launches() -> None:
@@ -58,6 +98,88 @@ def padded_shape(n: int, n_lo: int) -> tuple:
     if n < 0 or n_lo < 1:
         raise ValueError(f"need n >= 0 and n_lo >= 1, got n={n}, n_lo={n_lo}")
     return -(-n // n_lo), n_lo
+
+
+@dataclass(frozen=True)
+class HistPlan:
+    """One valued-histogram launch: ``clusters`` clusters of ``cluster``
+    blocks of ``threads`` threads.  Cluster ``c`` adds the items whose id
+    is one of its blocks' rows (below ``n``); block ``b`` of it writes the
+    rows ``block_rows(c, b)``, every plane.  ``smem_bytes``: a block's copy
+    of its cluster's rows (int and float cells) and its warps' queues.
+    ``rows`` is ``n`` for an ``[n, P]`` table and ``n_hi * n_lo`` (padding
+    included) for ``[P, n_hi, n_lo]``."""
+
+    rows: int
+    planes: int
+    cluster: int
+    clusters: int
+    rows_per_block: int
+    smem_bytes: int
+    threads: int
+
+    def block_rows(self, c: int, b: int) -> tuple:
+        """[lo, hi) of the rows block ``b`` of cluster ``c`` owns (empty
+        past the table's end)."""
+        lo = (c * self.cluster + b) * self.rows_per_block
+        return min(lo, self.rows), min(lo + self.rows_per_block, self.rows)
+
+
+@functools.lru_cache(maxsize=256)
+def hist_plan(n: int, planes: int, n_lo: Optional[int] = None, sms: int = H100_SMS,
+              max_clusters: Optional[int] = None) -> HistPlan:
+    """Cut a valued histogram's table for one launch of ``CLUSTER``-block
+    clusters: as many clusters as the card runs at once (``max_clusters``;
+    at most one block an SM of its ``sms``), more only when the table does
+    not fit their shared memory.  Each block owns a multiple of 4 rows
+    (16-byte stores), as many as its copy of the cluster's slice in
+    ``MAX_SMEM_BYTES`` beside its warps' queues allows.  No clusters for an
+    empty table."""
+    if n < 0 or planes < 1 or sms < 1 or (max_clusters is not None and max_clusters < 1):
+        raise ValueError(f"no plan for n={n}, planes={planes}, sms={sms}, max_clusters={max_clusters}")
+    cluster, threads = CLUSTER, HIST_THREADS
+    rows = n if n_lo is None else n_lo * padded_shape(n, n_lo)[0]
+    queue = threads // 32 * QUEUE_BYTES_A_WARP
+    cap = (MAX_SMEM_BYTES - queue) // (CELL_BYTES * cluster * planes) // 4 * 4
+    if cap < 4:
+        raise ValueError(f"{planes} planes do not fit 4 rows a block in shared memory")
+    if rows == 0:
+        return HistPlan(0, planes, cluster, 0, 4, 4 * CELL_BYTES * cluster * planes + queue, threads)
+    blocks = max(1, min(sms // cluster, max_clusters or sms)) * cluster
+    rpb = min(cap, 4 * _ceil(_ceil(rows, blocks), 4))
+    clusters = _ceil(rows, cluster * rpb)
+    return HistPlan(rows, planes, cluster, clusters, rpb, CELL_BYTES * cluster * rpb * planes + queue, threads)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+_CARD = {}
+
+
+def _sms(dev: torch.device) -> int:
+    if dev not in _CARD:
+        _CARD[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _CARD[dev]
+
+
+def _max_clusters(dev: torch.device, cluster: int, threads: int) -> int:
+    """The clusters of this shape the card runs at once (asked once)."""
+    key = (dev, cluster, threads)
+    if key not in _CARD:
+        got = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = _lib().sentinel_probe_hist_max_clusters(cluster, threads, ctypes.byref(got))
+        if err != 0 or got.value < 1:
+            raise RuntimeError(f"no {cluster}-block cluster of {threads} threads fits the card (CUDA error {err})")
+        _CARD[key] = got.value
+    return _CARD[key]
+
+
+def card_plan(dev: torch.device, n: int, planes: int, n_lo: Optional[int] = None) -> HistPlan:
+    """The plan the wrappers launch on the card ``dev``."""
+    return hist_plan(n, planes, n_lo, _sms(dev), _max_clusters(dev, CLUSTER, HIST_THREADS))
 
 
 def _on_cpu(*tensors) -> bool:
@@ -156,6 +278,18 @@ def probe_hist_count(
     return o
 
 
+# -- the valued histograms ----------------------------------------------------------
+
+
+def _hist_launch(name: str, fn, ids: torch.Tensor, plan: HistPlan, items_per_block: int, *args) -> None:
+    """One cluster launch of ``plan`` (none when the table is empty)."""
+    if items_per_block < 1:
+        raise ValueError(f"items_per_block must be >= 1, got {items_per_block}")
+    if plan.clusters:
+        _launch(name, fn, ids.device, *args, int(items_per_block), plan.cluster, plan.clusters,
+                plan.rows_per_block, plan.smem_bytes, plan.threads)
+
+
 # -- probe_hist_planes --------------------------------------------------------------
 
 
@@ -183,7 +317,8 @@ def probe_hist_planes(
     items_per_block: int = ITEMS_PER_BLOCK, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """float32 ``[n, P]`` (``n_lo=None``) or ``[P, n_hi, n_lo]``: the sum of
-    each value plane over the items of each id."""
+    each value plane over the items of each id.  One launch (none for an
+    empty table)."""
     _check_values(ids, values)
     P = values.shape[1]
     if n_lo is None:
@@ -194,9 +329,10 @@ def probe_hist_planes(
     if _on_cpu(ids, values):
         return probe_hist_planes_plain(ids, values, n, n_lo)
     o = _out(out, shape, torch.float32, ids)
-    _launch("probe_hist_planes", _lib().sentinel_probe_hist_planes, ids.device,
-            _ptr(ids), _ptr(values), int(values.dtype == torch.float32), ids.shape[0], P, int(n),
-            _ptr(o), o.numel(), stride, int(items_per_block))
+    plan = card_plan(ids.device, int(n), P, n_lo)
+    _hist_launch("probe_hist_planes", _lib().sentinel_probe_hist_planes, ids, plan, items_per_block,
+                 _ptr(ids), _ptr(values), int(values.dtype == torch.float32), ids.shape[0], P, int(n),
+                 _ptr(o), stride)
     return o
 
 
@@ -223,12 +359,14 @@ def probe_hist_stat5(
     items_per_block: int = ITEMS_PER_BLOCK, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """float32 ``[5, n_hi, n_lo]``: the three count planes of ``cnts``, then
-    ``rt & 0xFF`` and ``(rt >> 8) & 0xFF``, summed over the items of each id."""
+    ``rt & 0xFF`` and ``(rt >> 8) & 0xFF``, summed over the items of each id.
+    One launch (none for an empty table)."""
     _check_stat5(ids, cnts, rt)
     n_hi, n_lo = padded_shape(n, n_lo)
     if _on_cpu(ids, cnts, rt):
         return probe_hist_stat5_plain(ids, cnts, rt, n, n_lo)
     o = _out(out, (5, n_hi, n_lo), torch.float32, ids)
-    _launch("probe_hist_stat5", _lib().sentinel_probe_hist_stat5, ids.device,
-            _ptr(ids), _ptr(cnts), _ptr(rt), ids.shape[0], int(n), _ptr(o), n_hi * n_lo, int(items_per_block))
+    plan = card_plan(ids.device, int(n), 5, n_lo)
+    _hist_launch("probe_hist_stat5", _lib().sentinel_probe_hist_stat5, ids, plan, items_per_block,
+                 _ptr(ids), _ptr(cnts), _ptr(rt), ids.shape[0], int(n), _ptr(o), n_hi * n_lo)
     return o

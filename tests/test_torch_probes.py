@@ -242,3 +242,145 @@ def test_probe_hist_stat5_kernel_equals_plain():
                 PK.probe_hist_stat5(ids, cnts, rt, 16640, n_lo), PK.probe_hist_stat5_plain(ids, cnts, rt, 16640, n_lo)
             )
     torch.cuda.synchronize()
+
+
+# -- the valued histograms' launch plan (pure Python) -------------------------------
+
+#: (n, planes, n_lo): the probes' shapes, edge shapes, a table larger than one
+#: cluster's shared memory (100,000 x 5 planes: 2 MB) and one larger than all
+#: the clusters' that fill the card (2,000,000 x 4: 32 MB)
+PLAN_SHAPES = [
+    (8192, 4, None), (16392, 5, 128), (16640, 5, 128), (16640, 5, 256), (16640, 5, 512),
+    (1, 4, None), (1, 5, 1), (5, 5, 8), (16392, 5, 128), (32777, 5, 128), (8000, 5, 128), (9, 3, None),
+    (100_000, 5, 128), (2_000_000, 4, None),
+]
+
+
+@pytest.mark.parametrize("n,planes,n_lo", PLAN_SHAPES)
+@pytest.mark.parametrize("sms,max_clusters", [(132, 7), (132, None), (114, None), (132, 2), (1, None)])
+def test_hist_plan_owns_every_row_once_within_shared_memory(n, planes, n_lo, sms, max_clusters):
+    plan = PK.hist_plan(n, planes, n_lo, sms, max_clusters)
+    cluster = PK.CLUSTER
+    rows = n if n_lo is None else -(-n // n_lo) * n_lo
+    assert plan.rows == rows and plan.planes == planes
+    assert 1 <= plan.cluster <= PK.MAX_CLUSTER and plan.threads == PK.HIST_THREADS
+    assert plan.rows_per_block >= 4 and plan.rows_per_block % 4 == 0
+    queues = PK.HIST_THREADS // 32 * PK.QUEUE_BYTES_A_WARP
+    assert plan.smem_bytes == 8 * cluster * plan.rows_per_block * planes + queues <= 232_448
+    owned = np.zeros(rows, np.int64)
+    for c in range(plan.clusters):
+        lo_c = plan.block_rows(c, 0)[0]
+        assert lo_c < rows  # no cluster without a row
+        for b in range(plan.cluster):
+            lo, hi = plan.block_rows(c, b)
+            assert lo <= hi
+            owned[lo:hi] += 1
+    np.testing.assert_array_equal(owned, np.ones(rows, np.int64))
+    # as many clusters as fill the SMs, more only when a block's shared memory
+    # holds no more rows
+    assert plan.clusters == -(-rows // (cluster * plan.rows_per_block))
+    if plan.clusters > max(1, min(sms // cluster, max_clusters or sms)):
+        assert 8 * cluster * (plan.rows_per_block + 4) * planes + queues > PK.MAX_SMEM_BYTES
+    if 4 * rows * planes > 232_448:
+        assert plan.clusters > 1
+
+
+def test_hist_plan_of_an_empty_table_launches_nothing():
+    assert PK.hist_plan(0, 5, 128).clusters == 0
+    assert PK.hist_plan(0, 4).clusters == 0
+    with pytest.raises(ValueError):
+        PK.hist_plan(10, 2_000)  # rows of 2,000 planes: not 4 rows a block
+    with pytest.raises(ValueError):
+        PK.hist_plan(10, 4, None, 132, 0)
+
+
+def _plain_by_plan(ids, values, n, n_lo, plan):
+    """The plain version computed cluster slice by cluster slice and written
+    block by block, as the kernel cuts the table."""
+    P = values.shape[1]
+    flat = torch.full((P, plan.rows), float("nan"))
+    for c in range(plan.clusters):
+        lo = plan.block_rows(c, 0)[0]
+        hi = min(lo + plan.cluster * plan.rows_per_block, n)
+        span = max(hi - lo, 0)
+        local = torch.where((ids >= lo) & (ids < lo + span), ids - lo, -1).to(torch.int32)
+        part = PK.probe_hist_planes_plain(local, values, span)  # [span, P]
+        for b in range(plan.cluster):
+            r0, r1 = plan.block_rows(c, b)
+            flat[:, r0:r1] = 0.0
+            k1 = min(r1, lo + span)
+            if k1 > r0:
+                flat[:, r0:k1] = part[r0 - lo:k1 - lo].T
+    if n_lo is None:
+        return flat.T.contiguous()
+    return flat.view(P, -1, n_lo)
+
+
+@pytest.mark.parametrize("n,n_lo,planes,dtype", [
+    (8192, None, 4, np.float32), (16392, 128, 5, np.int32), (32777, 128, 5, np.int32), (5, 8, 5, np.int32),
+    (1, None, 3, np.float32), (100_000, 128, 5, np.int32),
+])
+def test_the_plain_version_cut_as_the_plan_cuts_it_is_the_plain_version(n, n_lo, planes, dtype):
+    rng = np.random.default_rng(n + planes)
+    N = 5000
+    ids = rng.integers(-2, n + 3, N).astype(np.int32)
+    plan = PK.hist_plan(n, planes, n_lo)
+    # ids on every block's first and last row
+    edges = [r for c in range(plan.clusters) for b in range(plan.cluster)
+             for lo, hi in [plan.block_rows(c, b)] if hi > lo for r in (lo, hi - 1) if r < n]
+    ids[: len(edges)] = np.array(edges[:N], np.int32)
+    vals = rng.integers(0, 200, (N, planes)).astype(dtype)
+    got = _plain_by_plan(_t(ids), _t(vals), n, n_lo, plan)
+    want = PK.probe_hist_planes_plain(_t(ids), _t(vals), n, n_lo)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_items_per_block_below_one_is_refused():
+    ids = _t(np.zeros(4, np.int32))
+    with pytest.raises(ValueError):
+        PK._hist_launch("probe_hist_planes", None, ids, PK.hist_plan(4, 2), 0)
+
+
+@pytest.mark.cuda
+def test_cluster_histograms_on_every_slice_boundary_equal_plain():
+    _card()
+    rng = np.random.default_rng(6)
+    for n, n_lo in [(16640, 128), (16392, 128), (32777, 128), (8192, None), (5, 8), (100_000, 128)]:
+        plan = PK.card_plan(torch.device("cuda"), n, 5, n_lo)
+        edges = np.array([r for c in range(plan.clusters) for b in range(plan.cluster)
+                          for lo, hi in [plan.block_rows(c, b)] if hi > lo for r in (lo, hi - 1) if r < n], np.int32)
+        ids = np.concatenate([edges, edges, rng.integers(-2, n + 3, 4099).astype(np.int32)])
+        N = ids.size
+        ids = torch.as_tensor(ids).cuda()
+        vals = torch.as_tensor(rng.integers(0, 200, (N, 5), dtype=np.int32)).cuda()
+        cnts = torch.as_tensor(rng.integers(0, 2, (N, 3), dtype=np.int32)).cuda()
+        rt = torch.as_tensor(rng.integers(0, 40000, N, dtype=np.int32)).cuda()
+        for ipb in (1, 256, 4096):
+            assert torch.equal(PK.probe_hist_planes(ids, vals, n, n_lo, ipb), PK.probe_hist_planes_plain(ids, vals, n, n_lo))
+            if n_lo is not None:
+                assert torch.equal(PK.probe_hist_stat5(ids, cnts, rt, n, n_lo, ipb),
+                                   PK.probe_hist_stat5_plain(ids, cnts, rt, n, n_lo))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cluster_histograms_overwrite_a_nan_filled_out_in_one_launch():
+    _card()
+    rng = np.random.default_rng(7)
+    for N in (0, 1, 131072 + 37):
+        ids = torch.as_tensor(rng.integers(0, 16840, N).astype(np.int32)).cuda()
+        cnts = torch.as_tensor(rng.integers(0, 2, (N, 3), dtype=np.int32)).cuda()
+        rt = torch.as_tensor(rng.integers(0, 40000, N, dtype=np.int32)).cuda()
+        vf = torch.as_tensor(rng.integers(0, 100, (N, 4)).astype(np.float32)).cuda()
+        for n_lo in (128, 512):
+            out = torch.full((5,) + PK.padded_shape(16640, n_lo), float("nan"), device="cuda")
+            PK.reset_launches()
+            got = PK.probe_hist_stat5(ids, cnts, rt, 16640, n_lo, out=out)
+            assert got.data_ptr() == out.data_ptr() and PK.LAUNCHES["probe_hist_stat5"] == 1
+            assert torch.equal(got, PK.probe_hist_stat5_plain(ids, cnts, rt, 16640, n_lo))
+        out = torch.full((8192, 4), float("nan"), device="cuda")
+        PK.reset_launches()
+        got = PK.probe_hist_planes(ids, vf, 8192, out=out)
+        assert PK.LAUNCHES["probe_hist_planes"] == 1
+        assert torch.equal(got, PK.probe_hist_planes_plain(ids, vf, 8192))
+    torch.cuda.synchronize()

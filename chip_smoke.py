@@ -39,7 +39,10 @@ Phases (the first failure stops the script with a nonzero exit):
    one job, every item on one row, digits-4 values of both signs whose
    running sums return to 0, N = 1, 20 jobs, transposed / permuted /
    uint8 / int64 / expanded operands, gather job lists longer than one
-   launch carries; B3/B4: N = 1, 255, 2,049 and 131,072, heads all true
+   launch carries; B2's column form with a strided column, a guard on and
+   off whose key is the int32 wrap of 2^31, .5 ties, values over the cap,
+   N off the 2 items a thread, N = 1 and 0 (no launch), misaligned ids;
+   B3/B4: N = 1, 255, 2,049 and 131,072, heads all true
    and only the first, B3 row totals just under 2^31, the wide form with
    segment totals past 2^31, narrow and wide rows in one launch with wide
    values of both signs, B4 with absent items); exact equality.  B1's
@@ -47,7 +50,10 @@ Phases (the first failure stops the script with a nonzero exit):
    scratch at zero.  Each captured B1 call's device time launch by
    launch (``torch.profiler``) and its host time function by function
    (cProfile) are printed on ``[b1]`` lines; a call may make at most two
-   device launches.
+   device launches.  B2 on fused and seg4 at 2,048 rows, beside the
+   six-launch dense [node_rows, 3] build + table-form gather it replaced,
+   on the same state and ids: device ms, device launches and host ms a
+   call (``[b2]`` lines).
    Time kernel, plain version and a PyTorch call on the same inputs
    (B1 ``index_add_``, B2 ``index_select``; no PyTorch call computes a
    segmented scan, so for B3/B4 ``torch.cumsum`` over the same values is
@@ -83,12 +89,15 @@ Phases (the first failure stops the script with a nonzero exit):
    outside).  Prints ms per tick, decisions/s and, from a profile of 4
    ticks, device busy time, wall time, host CPU time, device launches and
    the card's idle share, with the profile's top rows, B1's launches
-   a tick, and the profile's launches of the port's kernels and memsets.
+   a tick, the profile's launches of the port's kernels and memsets, and
+   the device launches a tick beside commit 71b3c5a's.
 5. The probes (``sentinel_tpu_torch/probes``): each of the four probe
    kernels — probe_copy, probe_hist_count, probe_hist_planes,
    probe_hist_stat5 (``csrc/probes.cu``) — against its plain version on
    the card at the shapes the probes run them at and on edge cases (ids
-   -1, n and 2**30; N = 0, N = 1 and N not a multiple of the block; every
+   -1, n and 2**30; N = 0, N = 1 and N not a multiple of the block; the
+   copy on views 4 and 12 bytes off a 16-byte boundary, into an ``out=``
+   aligned as the view or not; every
    id equal; ``n`` not a multiple of ``n_lo``; for the two valued
    histograms' cluster plan also ids on every block's first and last row,
    n = 1, a table past one cluster's shared memory, and an ``out=`` filled
@@ -96,12 +105,16 @@ Phases (the first failure stops the script with a nonzero exit):
    probe shapes, split into its device launches at the end of phase 2
    (``[probe] split`` lines), must be exactly one launch, no memset.  Timed
    like the other kernels, beside ``index_add_`` / ``torch.add``, the bound
-   and the time of the kernels' earlier design (commit 923866b).
+   and the time of the kernels' earlier design (``EARLIER_MS``).
    Then the probe run itself — ``probes.floor`` (what a launch costs,
    eager against a CUDA graph) and ``probes.hist`` (the scatter floor at
    the stat-landing shape, against ``index_add_`` and scatter_many) — with
    the probe kernels' launch counts reset just before and read just
    after, printed on ``[probe]`` lines.
+
+``python3 chip_smoke.py --b2`` runs only B2's and probe_copy's numbers
+against what they replaced (``b2_main``), with whatever package lies
+beside the script: copied into an older checkout it measures that one.
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -151,11 +164,22 @@ KERNEL_SRC = {
 }
 #: the kernels of the probe run (phase 5)
 PROBE_KERNELS = ("probe_copy", "probe_hist_count", "probe_hist_planes", "probe_hist_stat5")
-#: each probe kernel's device ms at its phase-5 shape at commit 923866b, the
-#: valued histograms' earlier design (a memset, then float atomics in L2):
-#: this file's probe_calls timed against that commit's package on an NVIDIA
-#: H100 80GB HBM3 at 700 W, the mean of two runs; printed beside this run's time
-EARLIER_MS = {"probe_copy": 0.0069, "probe_hist_count": 0.0100, "probe_hist_planes": 0.0169, "probe_hist_stat5": 0.0277}
+#: kernel -> (commit, device ms a call) of its design before the last
+#: redesign, at its phase-2 (seg4, B = 2,048) or phase-5 shape, printed
+#: beside this run's time.  The valued histograms at 923866b (a memset,
+#: then float atomics in L2): this file's probe_calls against that commit's
+#: package, the mean of two runs.  B2 (a dense [node_rows, 3] table built
+#: by the tick, one thread an (item, plane); its ``table alone`` call on
+#: seg4) and probe_copy (4-byte accesses) at 3441415: ``--b2`` from a copy
+#: of this file in that commit's checkout, two runs in one call (B2 0.0065
+#: and 0.0064; probe_copy 0.0062 in both turns of the first run).  All on
+#: an NVIDIA H100 80GB HBM3 at 700 W.
+EARLIER_MS = {"gather_many": ("3441415", 0.0065), "probe_copy": ("3441415", 0.0062),
+              "probe_hist_count": ("923866b", 0.0100), "probe_hist_planes": ("923866b", 0.0169),
+              "probe_hist_stat5": ("923866b", 0.0277)}
+#: device launches a B = 2,048 tick in phase 4's profile at commit 71b3c5a
+#: (NVIDIA H100 80GB HBM3, 700 W), before B2 read the state's columns
+EARLIER_LAUNCHES = {"fused": 1454, "seg4": 1706, "seg1": 1560.75}
 #: the configuration whose main-path run and B = 2,048 shapes each kernel's
 #: JSON record reports (the default platform_config() where it runs)
 RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": "seg1", "seg_incl_min": "seg4"}
@@ -334,21 +358,50 @@ def scatter_library_call(jobs):
     return lambda: buf.index_add_(0, idx, val)
 
 
+def strided_copy(torch, t):
+    """A copy of ``t`` with its size and strides (``clone`` of a column view
+    such as ``run[:, EV_PASS]`` would make it contiguous)."""
+    return None if t is None else torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                                                      device=t.device).copy_(t)
+
+
+def gather_job_copy(FU, torch, j):
+    """A gather job whose tensors are copies that keep every stride."""
+    table = (strided_copy(torch, j.table) if isinstance(j.table, torch.Tensor)
+             else tuple(c._replace(src=strided_copy(torch, c.src), guard=strided_copy(torch, c.guard))
+                        for c in j.table))
+    return j._replace(ids=strided_copy(torch, j.ids), table=table)
+
+
 def kernel_ops(FU, SC, torch):
     """wrapper function -> (kernel call, plain call, work(args) -> (bytes,
     ops), PyTorch call or None, unsegmented-scan floor call or None), each
     on one captured argument tuple."""
 
     def gather_work(jobs):
-        j = jobs[0]
-        n, P = j.table.shape
-        uniq = torch.unique(j.ids[(j.ids >= 0) & (j.ids < n)]).numel()
-        return 4 * j.ids.numel() + 4 * uniq * P + 4 * j.ids.numel() * P, j.ids.numel() * P
+        """4 B an id; for each unique live row, 4 B of each column read
+        (guards included); 4 B of output an (item, plane)."""
+        nbytes = ops = 0
+        for j in jobs:
+            n, cols = FU._columns(j)
+            reads = len(cols) + sum(c.guard is not None for c in cols)
+            uniq = torch.unique(j.ids[(j.ids >= 0) & (j.ids < n)]).numel()
+            nbytes += 4 * j.ids.numel() + 4 * uniq * reads + 4 * j.ids.numel() * len(cols)
+            ops += j.ids.numel() * len(cols)
+        return nbytes, ops
 
     def gather_library(jobs):
+        """``index_select`` of the ids' rows from the stacked [n, P] table
+        (the dense table the tick built before; its building is set-up)."""
+        def dense(c):
+            v = c.src if c.guard is None else torch.where(c.guard == c.key, c.src, 0)
+            return torch.clamp_max(v.round().to(torch.int32) if v.is_floating_point() else v, c.cap)
+
         j = jobs[0]
-        ids64 = torch.clamp(j.ids, 0, j.table.shape[0] - 1).to(torch.int64)
-        return lambda: torch.index_select(j.table, 0, ids64)
+        n, cols = FU._columns(j)
+        stacked = torch.stack([dense(c) for c in cols], dim=1)
+        ids64 = torch.clamp(j.ids, 0, n - 1).to(torch.int64)
+        return lambda: torch.index_select(stacked, 0, ids64)
 
     def rows_of(args):
         return [a for a in args[1:] if a is not None]
@@ -435,8 +488,8 @@ def scatter_edge_jobs(FU, np, torch):
 def edge_cases(FU, np, torch):
     """B1 and B2 on their edge inputs; B1's calls must each launch twice
     (three times for 20 jobs: a scatter a chunk of 16, one conversion) and
-    leave its scratch all
-    zero."""
+    leave its scratch all zero; B2's once a chunk of 8 jobs, never for N =
+    0."""
     err = 0.0
     for case, jobs in scatter_edge_jobs(FU, np, torch).items():
         FU.reset_launches()
@@ -457,7 +510,30 @@ def edge_cases(FU, np, torch):
     ids[:3] = torch.tensor([-1, 2**30, 5000], dtype=torch.int32, device="cuda")
     gj = [FU.GatherJob("t", ids, table, (3, 2, 1)), FU.GatherJob("u", ids[:N], table[:17], (4, 3, 3))]
     gj += [FU.GatherJob(f"x{i}", ids, table[: 100 * i + 1], (i % 4 + 1,) * 3) for i in range(FU._MAX_GATHER_JOBS)]
+    FU.reset_launches()
     err2 = check_equal("gather_many edge cases", FU.gather_many(gj), FU.gather_many_plain(gj))
+    check(FU.LAUNCHES["gather_many"] == 2, f"gather_many, {len(gj)} jobs: {FU.LAUNCHES['gather_many']} launches")
+    # the column form: the flow read's columns (run[:, 0] at stride 5, values
+    # over the cap, float tokens with .5 ties guarded by an epoch whose key is
+    # the int32 wrap of 2^31), unguarded columns, N off the 2 items a thread,
+    # N = 1 and 0, misaligned ids
+    cap, key, n = (1 << 24) - 1, -(2**31), 5000
+    run = ints(0, 1 << 26, (n, 5))
+    tokens = ints(0, 4000, (n,)).float() / 2
+    epoch = torch.where(ints(0, 2, (n,)) > 0, key, key + 1).to(torch.int32)
+    guarded = (FU.GatherColumn(run[:, 0], cap), FU.GatherColumn(ints(0, 1 << 26, (n,)), cap),
+               FU.GatherColumn(tokens, cap, epoch, key))
+    unguarded = (FU.GatherColumn(tokens, 1000), FU.GatherColumn(run[:, 3]))
+    for N in (8192, 2048 + 37, 133, 3, 1, 0):
+        ids = ints(-3, n + 3, (max(N, 3),))
+        ids[:3] = torch.tensor([-1, n, 2**30], dtype=torch.int32, device="cuda")
+        for name, i in (("", ids[:N]), (", misaligned ids", ints(0, n, (N + 1,))[1:])):
+            jobs = [FU.GatherJob("flow", i, guarded, (3, 3, 3)), FU.GatherJob("f", i, unguarded, (2, 4))]
+            FU.reset_launches()
+            err2 = max(err2, check_equal(f"gather_many columns N={N}{name}", FU.gather_many(jobs),
+                                         FU.gather_many_plain(jobs)))
+            check(FU.LAUNCHES["gather_many"] == (1 if N else 0),
+                  f"gather_many columns N={N}{name}: {FU.LAUNCHES['gather_many']} launches")
     return {"scatter_many": err, "gather_many": err2}
 
 
@@ -837,8 +913,10 @@ def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
 
 def valued_hist_shapes(torch, PK, FL, HI):
     """The two valued-histogram probes at the shapes the probes run them:
-    [(kernel, shape, kernel call, zero_ + index_add_ call)] — P1, P2's
-    ``sc5_call`` and the stat landing at each n_lo."""
+    [(kernel, shape, kernel call, zero_ + index_add_ call, bytes it must
+    move)] — P1, P2's ``sc5_call`` and the stat landing at each n_lo; the
+    bytes: ids and value planes read once (int32 or float32, 4 B each), the
+    padded float32 output written once."""
     ids, vals5 = FL.data()
     idx, valsf = HI.planes_data()
     sids, cnts, rt = HI.stat_data()
@@ -846,15 +924,18 @@ def valued_hist_shapes(torch, PK, FL, HI):
     n_hi = -(-FL.PLANES_N // FL.PLANES_N_LO)
     shapes = [
         ("probe_hist_planes", f"{idx.numel()} x {HI.P1_P} float32 into [{HI.P1_N}, {HI.P1_P}]",
-         lambda: PK.probe_hist_planes(idx, valsf, HI.P1_N), HI.index_add_call(idx, valsf, HI.P1_N)[0]),
+         lambda: PK.probe_hist_planes(idx, valsf, HI.P1_N), HI.index_add_call(idx, valsf, HI.P1_N)[0],
+         4 * (idx.numel() + valsf.numel() + HI.P1_N * HI.P1_P)),
         ("probe_hist_planes", f"{ids.numel()} x 5 int32 into [5, {n_hi}, {FL.PLANES_N_LO}] (sc5_call)",
          lambda: PK.probe_hist_planes(ids, vals5, FL.PLANES_N, FL.PLANES_N_LO),
-         HI.index_add_call(ids, vals5, FL.PLANES_N)[0]),
+         HI.index_add_call(ids, vals5, FL.PLANES_N)[0], 4 * (ids.numel() + vals5.numel() + 5 * n_hi * FL.PLANES_N_LO)),
     ]
     lib = HI.index_add_call(sids, valss, HI.N_ROWS)[0]
     for n_lo in HI.N_LO:
-        shapes.append(("probe_hist_stat5", f"{sids.numel()} items into [5, {-(-HI.N_ROWS // n_lo)}, {n_lo}]",
-                       lambda n_lo=n_lo: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, n_lo), lib))
+        n_hi = -(-HI.N_ROWS // n_lo)
+        shapes.append(("probe_hist_stat5", f"{sids.numel()} items into [5, {n_hi}, {n_lo}]",
+                       lambda n_lo=n_lo: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, n_lo), lib,
+                       4 * (sids.numel() + cnts.numel() + rt.numel() + 5 * n_hi * n_lo)))
     return shapes
 
 
@@ -864,14 +945,17 @@ def probe_split(torch, PK, FL, HI) -> list:
     a call) beside the call's bracketed time and ``zero_ + index_add_``'s
     (``time_ms``), printed on ``[probe] split`` lines."""
     rows = []
-    for kname, shape, run, lib in valued_hist_shapes(torch, PK, FL, HI):
+    for kname, shape, run, lib, nbytes in valued_hist_shapes(torch, PK, FL, HI):
         per_launch = launch_breakdown(run)
         ms = time_ms(run)[0]
         lib_ms = time_ms(lib)[0]
-        rows.append(dict(kernel=kname, shape=shape, launches=per_launch, ms=ms, library_ms=lib_ms))
+        bnd, by = bound_ms(nbytes, 0)
+        rows.append(dict(kernel=kname, shape=shape, launches=per_launch, ms=ms, library_ms=lib_ms, bound_ms=bnd,
+                         bound_by=by, bytes=nbytes))
         log(f"[probe] split {kname} at {shape}: device launches a call "
             + ", ".join(f"{n.split('(')[0]} x{c:g} {ms_ * 1e3:.2f} us" for n, c, ms_ in per_launch)
-            + f"; bracketed {ms * 1e3:.2f} us a call; zero_ + index_add_ {lib_ms * 1e3:.2f} us")
+            + f"; bracketed {ms * 1e3:.2f} us a call; zero_ + index_add_ {lib_ms * 1e3:.2f} us; bound "
+            f"{bnd:.6f} ms ({by}, {nbytes} B)")
     return rows
 
 
@@ -892,7 +976,7 @@ def probe_calls(torch, PK, FL, HI) -> dict:
     return {
         "probe_copy": dict(
             run=lambda: PK.probe_copy(ids), plain=lambda: PK.probe_copy_plain(ids), lib=lambda: torch.add(ids, 1),
-            shape=f"int32 [{ids.numel()}], one thread an item", bytes=8 * ids.numel(), ops=ids.numel()),
+            shape=f"int32 [{ids.numel()}], {PK.COPY_ITEMS} items a thread, 16-byte accesses", bytes=8 * ids.numel(), ops=ids.numel()),
         "probe_hist_count": dict(
             run=lambda: PK.probe_hist_count(ids, n, n_lo), plain=lambda: PK.probe_hist_count_plain(ids, n, n_lo),
             lib=HI.index_add_call(ids, torch.ones((ids.numel(), 1), device="cuda"), n)[0],
@@ -963,10 +1047,13 @@ def probe_phase(np, torch, tick_report, split):
     # -- edge cases: ids -1 / n / 2**30, N = 1 and N off the block, one hot row,
     # n off n_lo (16392 / 128, 32777 / 128) -----------------------------------------
     for N in (1, 255, 2049, 131072 + 37):
-        x = cuda(rng.integers(-(2**31), 2**31 - 1, N).astype(np.int32))
-        x[0] = 2**31 - 1  # x + 1 wraps like int32 addition
-        for blocks in (0, 1, 4, 64):
-            hold("probe_copy", PK.probe_copy(x, blocks), PK.probe_copy_plain(x))
+        x = cuda(rng.integers(-(2**31), 2**31 - 1, N + 3).astype(np.int32))
+        x[:4] = 2**31 - 1  # x + 1 wraps like int32 addition
+        out = torch.empty(N + 3, dtype=torch.int32, device="cuda")
+        for blocks in (0, 1, 4, 64, 512):  # 16-byte aligned, and views 4 / 12 bytes off it
+            for lo, o in ((0, None), (1, None), (3, None), (1, out[2:]), (2, out[2:])):
+                v = x[lo : lo + N]
+                hold("probe_copy", PK.probe_copy(v, blocks, out=None if o is None else o[:N]), PK.probe_copy_plain(v))
         for n, n_lo in ((16392, 128), (32777, 128), (5, 8)):
             e = edge_ids(n, N)
             for ipb in (1, 100, 256) if N <= 2049 else (100, 256):
@@ -1038,7 +1125,7 @@ def probe_phase(np, torch, tick_report, split):
         bnd, by = bound_ms(c["bytes"], c["ops"])
         records[kname] = dict(max_abs_err=err[kname], ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                               bound_by=by, bytes=c["bytes"], ops=c["ops"], wrapper_host_ms=host_ms, shape=c["shape"])
-        log(f"[probe] {kname} at {c['shape']}: kernel {ms:.4f} ms (923866b: {EARLIER_MS[kname]:.4f} ms), plain "
+        log(f"[probe] {kname} at {c['shape']}: kernel {ms:.4f} ms ({EARLIER_MS[kname][0]}: {EARLIER_MS[kname][1]:.4f} ms), plain "
             f"{plain_ms:.4f} ms, library ({'torch.add' if kname == 'probe_copy' else 'zero_ + index_add_'}) "
             f"{lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}, {c['bytes']} B); wrapper host enqueue {host_ms:.4f} ms")
     records["probe_hist_planes"]["split"] = [r for r in split if r["kernel"] == "probe_hist_planes"]
@@ -1072,6 +1159,202 @@ def probe_phase(np, torch, tick_report, split):
     return records, dict(floor=floor_rows, hist=hist_rows, launches=launches)
 
 
+# -- set-up shared by the full run and --b2 ----------------------------------------------
+
+
+def prepare(np, st, E):
+    """(c0, cfgs, setups, cols, light_cols, segments): the three
+    configurations (``c0`` is seg4's before its ``seg_u`` grows), each with
+    its rules compiled on the card (``setups``: name -> (cfg, rules)); the
+    seeded, presorted stream of 13 B = 2,048 ticks and one 256-row light
+    tick; its largest live-segment count, from which seg4's and seg1's
+    ``seg_u`` grow by the client's rule."""
+    import dataclasses
+
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.core.rule_tensors import hash_param
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import grown_seg_u
+    from sentinel_tpu_torch.runtime.registry import Registry
+
+    cfgs = {k: v for k, v in configs(platform_config).items() if k != "fused1"}
+    c0 = cfgs["seg4"]
+    log(f"[config] max_resources={c0.max_resources} max_nodes={c0.max_nodes} batch={c0.batch_size} "
+        f"minute_window={c0.enable_minute_window}; fused: seg_effects=False, 4 lanes; seg4: seg_effects, "
+        f"seg_fallback=False, 4 lanes; seg1: seg_effects, single lanes")
+    reg = Registry(c0)
+    names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
+    flow, degrade, authority, system, param = build_rules(st)
+    value_hashes = np.array([hash_param(arg_value(k)) for k in range(N_VALUES)], dtype=np.int32)
+    cols = batch_columns(np, PS, 13, names_to_rows, c0.batch_size, SEED, value_hashes)
+    light_cols = batch_columns(np, PS, 1, names_to_rows, 256, SEED + 1, value_hashes)
+    peak = stream_peak(np, PS, cols + light_cols, c0)
+    seg_u = grown_seg_u(c0, peak)  # the client's growth rule
+    log(f"[stream] peak {peak} live segments in a B={c0.batch_size} tick (compaction "
+        f"{c0.batch_size / peak:.2f}x); seg_u={seg_u}")
+    cfgs["seg4"] = dataclasses.replace(cfgs["seg4"], seg_u=seg_u)
+    cfgs["seg1"] = dataclasses.replace(cfgs["seg1"], seg_u=seg_u, seg_static_ranks=True)
+    setups = {}
+    for name, cfg in cfgs.items():
+        rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
+                                  authority_rules=authority, system_rules=system, device="cuda")
+        n_param = int(rules.param.enabled.sum().item())
+        check(n_param == (16 if name == "seg1" else 32), (name, "param rules", n_param))
+        setups[name] = (cfg, rules)
+    segments = dict(peak=peak, seg_u=seg_u, batch=c0.batch_size, compaction=c0.batch_size / peak)
+    return c0, cfgs, setups, cols, light_cols, segments
+
+
+# -- B2: the tick's flow read against the sequence it replaced ---------------------------
+
+
+def flow_read_calls(E, W, FU, torch, state, ids, now_ms, cfg):
+    """name -> call of the tick's per-item flow read (windowed pass,
+    concurrency and borrow pool at ``ids``, the tick's node rows) on
+    ``state``.  ``dense + table``: the six launches that build the dense
+    [node_rows, 3] table (compare, where, round, cast, a stack that reads
+    run[:, EV_PASS], clamp) and one gather_many of the table form, as the
+    tick read it up to commit 3441415; ``table alone``: that gather_many on
+    the table built beforehand; ``columns``: one gather_many that reads the
+    columns where they lie (``E.flow_read_job``), where the package has
+    it."""
+    cap = (1 << 24) - 1
+    cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
+
+    def table():
+        pool = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
+        tab = torch.stack([W.window_event_run(state.win_sec, W.EV_PASS), state.concurrency,
+                           torch.round(pool).to(torch.int32)], dim=1)
+        return torch.clamp_max(tab, cap)
+
+    def gather(tab):
+        return FU.gather_many([FU.GatherJob("wsum", ids, tab, (3, 3, 3))])
+
+    built = table()
+    calls = {"dense + table": lambda: gather(table()), "table alone": lambda: gather(built)}
+    if hasattr(E, "flow_read_job"):
+        calls["columns"] = lambda: FU.gather_many([E.flow_read_job(state, ids, cur_wid)])
+    return calls
+
+
+def flow_read_report(E, W, FU, torch, state, ids, now_ms, cfg, name) -> dict:
+    """Each of ``flow_read_calls``: equal to the others, then its device ms
+    a call (L2 flushed, ``time_ms``), its device launches a call
+    (``launch_breakdown``) and its host enqueue ms, on ``[b2]`` lines."""
+    calls = flow_read_calls(E, W, FU, torch, state, ids, now_ms, cfg)
+    outs = {k: c() for k, c in calls.items()}
+    for k, out in outs.items():
+        check_equal(f"{name} flow read, {k} against dense + table", out, outs["dense + table"])
+    rows = {}
+    for k, c in calls.items():
+        ms, host_ms = time_ms(c)
+        per_launch = launch_breakdown(c)
+        n = sum(c_ for _n, c_, _ms in per_launch)
+        rows[k] = dict(ms=ms, host_ms=host_ms, device_launches=n, launches=per_launch)
+        log(f"[b2] {name} flow read at {ids.numel()} items, {k}: device {ms:.4f} ms a call, {n:g} device "
+            f"launches (" + ", ".join(f"{n_.split('(')[0][:40]} x{c_:g} {ms_ * 1e3:.2f} us"
+                                      for n_, c_, ms_ in per_launch)
+            + f"), host enqueue {host_ms:.4f} ms")
+    return rows
+
+
+def tick_flow_ids(E, FU, torch, setup, state, acq, comp, now_ms):
+    """Run one tick; (state, a copy of the ids its gather_many call got,
+    or None where the tick makes none)."""
+    cfg, rules = setup
+    seen = []
+    real = FU.gather_many
+
+    def rec(jobs):
+        seen.append(jobs[0].ids.clone())
+        return real(jobs)
+
+    FU.gather_many = rec
+    try:
+        state, _ = E.tick(state, rules, acq, comp, now_ms, 0.3, 0.2, cfg, E.ALL_FEATURES)
+    finally:
+        FU.gather_many = real
+    return state, (seen[0] if seen else None)
+
+
+def copy_report(torch, PK, FL, TM) -> dict:
+    """probe_copy at the probes' int32 [131,072] against ``torch.add``
+    (device ms a call, L2 flushed, in turns: copy, add, add, copy), and its
+    P3 block series back to back as the floor probe runs it (1 / 4 / 64 /
+    512 blocks and the default grid), on ``[copy]`` lines."""
+    ids, _ = FL.data()
+    check_equal("probe_copy", [PK.probe_copy(ids)], [PK.probe_copy_plain(ids)])
+    turns = [("probe_copy", lambda: PK.probe_copy(ids)), ("torch.add", lambda: torch.add(ids, 1))]
+    got = {}
+    for k, fn in turns + turns[::-1]:
+        got.setdefault(k, []).append(time_ms(fn)[0])
+    series = {}
+    for blocks in (1, 4, 64, 512, 0):
+        step = FL._chain(lambda src, dst, b=blocks: PK.probe_copy(src, b, out=dst), ids)
+        series[blocks] = TM.eager(step, FL.K)["device_ms"]
+    log(f"[copy] int32 [{ids.numel()}], L2 flushed, ms a call: probe_copy "
+        + " / ".join(f"{t:.4f}" for t in got["probe_copy"]) + ", torch.add "
+        + " / ".join(f"{t:.4f}" for t in got["torch.add"]))
+    log("[copy] back to back, ms a launch, by blocks (0: the default grid): "
+        + ", ".join(f"{b}: {t:.5f}" for b, t in series.items()))
+    return dict(probe_copy_ms=got["probe_copy"], torch_add_ms=got["torch.add"], series_ms=series)
+
+
+def b2_main() -> int:
+    """``python3 chip_smoke.py --b2``: the numbers of B2 and probe_copy
+    against what they replaced, with whatever package lies beside this
+    file (so a copy of it in an older checkout measures that checkout).
+    For fused, seg4 and seg1 at B = 2,048: one captured tick, the flow
+    read's calls (``flow_read_report``) on its state and ids, then 4
+    ticks under the profiler (device launches a tick); then
+    ``copy_report``; last, each flow read's host time a call function by
+    function (``host_breakdown``; after every ``torch.profiler`` session,
+    which in one run on the H100 recorded no device activity after a
+    cProfile session in the same process).  No main path, no JSON
+    record."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import engine as E
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import window as W
+    from sentinel_tpu_torch.probes import floor as FL
+    from sentinel_tpu_torch.probes import kernels as PK
+    from sentinel_tpu_torch.probes import timing as TM
+
+    log(f"[b2] package {os.path.dirname(os.path.abspath(st.__file__))}; {TM.card_line()}")
+    _build.load_library()
+    c0, cfgs, setups, cols, _light, _seg = prepare(np, st, E)
+    stream = to_batches(E, torch, c0, cols)
+    reads = {}
+    for name in ("fused", "seg4", "seg1"):
+        cfg, rules = setups[name]
+        state, ids = tick_flow_ids(E, FU, torch, setups[name], E.init_state(cfg, "cuda"), *stream[0], 1_000)
+        torch.cuda.synchronize()
+        if ids is not None:
+            flow_read_report(E, W, FU, torch, state, ids, 1_000, cfg, name)
+            reads[name] = flow_read_calls(E, W, FU, torch, state, ids, 1_000, cfg)
+        dev_us, wall_us, cpu_us, n_launch, ours, _table = profile_ticks(E, torch, state, rules, cfg, stream[1:], 1_250)
+        log(f"[b2] {name}: profile of 4 ticks: {n_launch} device launches ({n_launch / 4:g} a tick), device busy "
+            f"{dev_us / 1e3:.3f} ms, wall {wall_us / 1e3:.3f} ms, host CPU {cpu_us / 1e3:.3f} ms; the port's kernels "
+            f"and memsets: {json.dumps(ours, sort_keys=True)}")
+    copy_report(torch, PK, FL, TM)
+    for name, calls in reads.items():
+        for k, c in calls.items():
+            wall, host = host_breakdown(c)
+            log(f"[b2] {name} flow read, {k}: host {wall:.4f} ms a call, own time "
+                + ", ".join(f"{f} {t:.4f}" for f, t in host[:6]) + " ms")
+    print(TM.card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1084,16 +1367,13 @@ def main() -> int:
     import sentinel_tpu_torch as st
     from sentinel_tpu_torch import state as S
     from sentinel_tpu_torch.core.config import platform_config
-    from sentinel_tpu_torch.core.rule_tensors import hash_param
     from sentinel_tpu_torch.ops import _build
     from sentinel_tpu_torch.ops import engine as E
     from sentinel_tpu_torch.ops import fused as FU
     from sentinel_tpu_torch.ops import segment as SG
     from sentinel_tpu_torch.ops import segscan as SC
+    from sentinel_tpu_torch.ops import window as W
     from sentinel_tpu_torch.ops import wire as WIRE
-    from sentinel_tpu_torch.runtime import presort as PS
-    from sentinel_tpu_torch.runtime.client import grown_seg_u
-    from sentinel_tpu_torch.runtime.registry import Registry
 
     report = {"torch": torch.__version__, "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)}
     smi = subprocess.run(
@@ -1111,36 +1391,8 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("[build]", line.strip())
 
-    cfgs = {k: v for k, v in configs(platform_config).items() if k != "fused1"}
-    c0 = cfgs["seg4"]
-    log(f"[config] max_resources={c0.max_resources} max_nodes={c0.max_nodes} batch={c0.batch_size} "
-        f"minute_window={c0.enable_minute_window}; fused: seg_effects=False, 4 lanes; seg4: seg_effects, "
-        f"seg_fallback=False, 4 lanes; seg1: seg_effects, single lanes")
-
     # -- 2. kernels against their plain versions ------------------------------
-    reg = Registry(c0)
-    names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
-    flow, degrade, authority, system, param = build_rules(st)
-    value_hashes = np.array([hash_param(arg_value(k)) for k in range(N_VALUES)], dtype=np.int32)
-    cols = batch_columns(np, PS, 13, names_to_rows, c0.batch_size, SEED, value_hashes)
-    light_cols = batch_columns(np, PS, 1, names_to_rows, 256, SEED + 1, value_hashes)
-    peak = stream_peak(np, PS, cols + light_cols, c0)
-    seg_u = grown_seg_u(c0, peak)  # the client's growth rule
-    report["stream_segments"] = dict(peak=peak, seg_u=seg_u, batch=c0.batch_size,
-                                     compaction=c0.batch_size / peak)
-    log(f"[stream] peak {peak} live segments in a B={c0.batch_size} tick (compaction "
-        f"{c0.batch_size / peak:.2f}x); seg_u={seg_u}")
-    import dataclasses
-
-    cfgs["seg4"] = dataclasses.replace(cfgs["seg4"], seg_u=seg_u)
-    cfgs["seg1"] = dataclasses.replace(cfgs["seg1"], seg_u=seg_u, seg_static_ranks=True)
-    setups = {}
-    for name, cfg in cfgs.items():
-        rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
-                                  authority_rules=authority, system_rules=system, device="cuda")
-        n_param = int(rules.param.enabled.sum().item())
-        check(n_param == (16 if name == "seg1" else 32), (name, "param rules", n_param))
-        setups[name] = (cfg, rules)
+    c0, cfgs, setups, cols, light_cols, report["stream_segments"] = prepare(np, st, E)
     report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(E.init_state(c0, "meta")).values())
 
     # the kernels' wrapper functions (seg_excl_cumsum_many is B3's combined
@@ -1163,9 +1415,11 @@ def main() -> int:
 
         def recorder(k):
             def rec(*args):
-                if k in ("scatter_many", "gather_many"):
+                if k == "scatter_many":
                     a = ([j._replace(**{f: getattr(j, f).clone() for f in j._fields
                                         if isinstance(getattr(j, f), torch.Tensor)}) for j in args[0]],)
+                elif k == "gather_many":
+                    a = ([gather_job_copy(FU, torch, j) for j in args[0]],)
                 else:
                     a = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in args)
                 calls[kernel_of[k]].append((k, a))
@@ -1210,6 +1464,7 @@ def main() -> int:
 
     kern = {}
     b1_detail, b3_detail = [], []
+    flow_reads = {}
     state0 = {}
     stream = to_batches(E, torch, c0, cols)
     light = to_batches(E, torch, c0, light_cols)[0]
@@ -1228,10 +1483,16 @@ def main() -> int:
                 kern.setdefault(kname, {})[f"{name} {shape}"] = k
                 extra = (f", library {k['library_ms']:.4f} ms" if k["library_ms"] is not None
                          else f", torch.cumsum floor (unsegmented) {k['cumsum_floor_ms']:.4f} ms")
+                was = (f" ({EARLIER_MS[kname][0]}: {EARLIER_MS[kname][1]:.4f} ms)"
+                       if kname in EARLIER_MS and name == RECORD_CFG[kname] and shape == f"B={c0.batch_size}" else "")
                 log(f"[kernel] {kname} on {name} at {shape}: equal to plain (max |err| {k['max_abs_err']}); "
-                    f"per tick ({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms, plain "
+                    f"per tick ({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms{was}, plain "
                     f"{k['plain_ms']:.4f} ms{extra}, bound {k['bound_ms']:.6f} ms ({k['bound_by']}, "
                     f"{k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
+            # B2 against the dense build it replaced, at the full batch
+            if shape == f"B={c0.batch_size}" and cap["gather_many"]:
+                ids = cap["gather_many"][0][1][0][0].ids
+                flow_reads[name] = flow_read_report(E, W, FU, torch, s0, ids, 1_100, cfgs[name], name)
             # B1's time, launch by launch and on the host, call by call
             for i, (_f, args) in enumerate(cap["scatter_many"]):
                 jobs = args[0]
@@ -1256,6 +1517,7 @@ def main() -> int:
                 log(f"[b3] {name} {shape} call {i} ({f}, rows {[tuple(a.shape) for a in args[1:] if a is not None]}): "
                     "device ms a call by kernel " + ", ".join(f"{n.split('(')[0]} x{c:g} {ms:.4f}" for n, c, ms in per_launch)
                     + " ms")
+    report["b2_flow_read"] = flow_reads
     report["b1_breakdown"] = b1_detail
     report["b3_breakdown"] = b3_detail
     # the valued-histogram probes' calls, launch by launch, checked in phase 5
@@ -1370,7 +1632,8 @@ def main() -> int:
             f"seg_dropped 0; verdict mix {mix.tolist()}; launches {json.dumps(launches)}")
         log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s; "
             f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-            f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches; "
+            f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches "
+            f"({n_launch / 4:g} a tick; 71b3c5a: {EARLIER_LAUNCHES[name]:g}); "
             f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}; the profile's launches of "
             f"the port's kernels and memsets, 4 ticks: {json.dumps(ours, sort_keys=True)}")
         for line in table.splitlines()[:14]:
@@ -1416,4 +1679,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(b2_main() if sys.argv[1:] == ["--b2"] else main())

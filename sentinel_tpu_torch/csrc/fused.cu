@@ -71,11 +71,32 @@
 //   so that every block writes ~4 float4 zeros a thread; launch 2 has a
 //   thread a bitmap word.
 //
-// gather_many — per-item reads from small-P int tables.
-//   What bounds it: bytes (N x P reads of 4 B plus the ids).  One thread
-//   per (item, plane): bounds check, read, digit mask, store float32.
-//   The TPU kernel contracted one-hot rows against bf16 digit planes of
-//   the whole table; here a gather reads only the rows the ids name.
+// gather_many — per-item reads of up to 4 planes, each from a column.
+//   Replaces the tick's old read: the Pallas kernel contracted one-hot rows
+//   against bf16 digit planes of a dense [n, P] table that XLA built and
+//   fused around it; eager PyTorch cannot fuse, so the port's first version
+//   built that [node_rows, 3] table in six launches over all 262,152 node
+//   rows (~20 MB of device traffic by the shapes, and over 0.1 ms of host
+//   time to enqueue on an H100's host) to read 8,192 of them, and then
+//   gathered with one thread an (item, plane).
+//   What bounds it: round trips, not bytes.  At the tick's shape (8,192
+//   items, 3 planes, one guard) it moves ~0.15 MB: the ids, 4 B of each
+//   column for each row the ids name, and the output; a call is an id load,
+//   then one dependent load of each column, then the store.
+//   The design: every plane is a COLUMN read where it lies — int32 or
+//   float32 at its own element stride (run[:, EV_PASS] at stride 5, no
+//   copy), capped (a signed minimum) before its digit mask; a float column
+//   rounds half to even into int32 (__float2int_rn, as torch.round then
+//   .to(int32)) and may carry a guard, an int32 column whose row must equal
+//   a key or the value reads 0.  A 2-D int32 table is P columns at stride
+//   P.  One thread takes GATHER_ITEMS = 2 items: one 8-byte load of their
+//   ids, then every (item, plane) load and guard load issued together —
+//   one round trip after the id — and P 8-byte stores of its 2 x P output
+//   floats, with scalar loads and stores at a ragged or misaligned end.
+//   Two items, not four: with four, the tick's 8,192 items sat on 16 SMs
+//   with 16 loads a thread in flight, and on an H100 the kernel was slower
+//   than with two items on 64 SMs (blocks of 64 threads) or one.
+//   blockIdx.y is the job; a launch carries MAX_GATHER_JOBS jobs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -243,13 +264,19 @@ __global__ void __launch_bounds__(BLOCK) convert_touched_kernel(float* __restric
   }
 }
 
+#define GATHER_ITEMS 2    // items a thread: one 8-byte id load
+#define GATHER_BLOCK 64   // the tick's 8,192 items spread over 64 SMs
+#define GATHER_FLOAT 1    // column flag: float32 source (else int32)
+
 struct GatherJob {
-  const int* ids;    // [N]
-  const int* table;  // [n, P] int32, row-major
-  float* out;        // [N, P]
-  int n;
-  int P;
-  unsigned int mask[MAXP];
+  const int* ids;            // [N], contiguous
+  float* out;                // [N, P] row-major, 16-byte aligned
+  const void* src[MAXP];     // column p: [n] at stride[p] elements
+  const int* guard[MAXP];    // [n] at gstride[p] elements, or null
+  int n, P;
+  int stride[MAXP], gstride[MAXP], flags[MAXP], cap[MAXP];
+  unsigned int mask[MAXP];   // 256**digits - 1 (all ones for >= 4)
+  int key[MAXP];
 };
 
 struct GatherParams {
@@ -257,19 +284,75 @@ struct GatherParams {
   GatherJob j[MAX_GATHER_JOBS];
 };
 
-__global__ void gather_many_kernel(const GatherParams prm) {
-  const GatherJob g = prm.j[blockIdx.y];
-  const int total = prm.N * g.P;
-  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += gridDim.x * blockDim.x) {
-    const int i = t / g.P;
-    const int p = t - i * g.P;
-    const int id = g.ids[i];
-    unsigned int v = 0u;
-    if (id >= 0 && id < g.n) {
-      v = (unsigned int)g.table[(size_t)id * g.P + p] & g.mask[p];
+// Items [GATHER_ITEMS * t, + GATHER_ITEMS) of job g.
+template <int P>
+__device__ __forceinline__ void gather_items(const GatherJob& g, int N, long long t) {
+  const long long i0 = t * GATHER_ITEMS;
+  const bool whole = i0 + GATHER_ITEMS <= N;
+  int id[GATHER_ITEMS];
+  if (whole && (reinterpret_cast<uintptr_t>(g.ids + i0) & 7) == 0) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(g.ids + i0));
+    id[0] = q.x;
+    id[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < GATHER_ITEMS; ++k) id[k] = i0 + k < N ? __ldg(g.ids + i0 + k) : -1;
+  }
+  // every column and guard load of the thread's items, in flight together
+  unsigned int raw[GATHER_ITEMS][P];
+  int gd[GATHER_ITEMS][P];
+#pragma unroll
+  for (int k = 0; k < GATHER_ITEMS; ++k) {
+    const bool ok = id[k] >= 0 && id[k] < g.n;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      raw[k][p] = ok ? __ldg(reinterpret_cast<const unsigned int*>(g.src[p]) + (long long)id[k] * g.stride[p]) : 0u;
+      gd[k][p] = ok && g.guard[p] ? __ldg(g.guard[p] + (long long)id[k] * g.gstride[p]) : g.key[p];
     }
-    g.out[t] = __int2float_rn((int)v);
+  }
+  float o[GATHER_ITEMS * P];
+#pragma unroll
+  for (int k = 0; k < GATHER_ITEMS; ++k) {
+    const bool ok = id[k] >= 0 && id[k] < g.n;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      int v = (g.flags[p] & GATHER_FLOAT) ? __float2int_rn(__uint_as_float(raw[k][p])) : (int)raw[k][p];
+      if (gd[k][p] != g.key[p]) v = 0;
+      v = min(v, g.cap[p]);
+      o[k * P + p] = ok ? __int2float_rn((int)((unsigned int)v & g.mask[p])) : 0.f;
+    }
+  }
+  // the thread's 2 x P floats are contiguous: P 8-byte stores
+  float* dst = g.out + i0 * P;
+  if (whole && (reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
+#pragma unroll
+    for (int q = 0; q < P; ++q) reinterpret_cast<float2*>(dst)[q] = make_float2(o[2 * q], o[2 * q + 1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < GATHER_ITEMS; ++k) {
+      if (i0 + k >= N) break;
+#pragma unroll
+      for (int p = 0; p < P; ++p) dst[k * P + p] = o[k * P + p];
+    }
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void gather_job(const GatherJob& g, int N) {
+  const long long groups = (N + GATHER_ITEMS - 1) / GATHER_ITEMS;
+  for (long long t = (long long)blockIdx.x * GATHER_BLOCK + threadIdx.x; t < groups;
+       t += (long long)gridDim.x * GATHER_BLOCK)
+    gather_items<P>(g, N, t);
+}
+
+__global__ void __launch_bounds__(GATHER_BLOCK) gather_many_kernel(const GatherParams prm) {
+  const GatherJob g = prm.j[blockIdx.y];
+  switch (g.P) {  // P is a template argument: the thread's values stay in registers
+    case 1: gather_job<1>(g, prm.N); break;
+    case 2: gather_job<2>(g, prm.N); break;
+    case 3: gather_job<3>(g, prm.N); break;
+    case 4: gather_job<4>(g, prm.N); break;
+    default: break;
   }
 }
 
@@ -363,32 +446,44 @@ extern "C" int sentinel_scatter_many(const long long* desc, int n_jobs, int N, f
   return (int)cudaGetLastError();
 }
 
-// gather descriptors: 7 eight-byte slots a job — ids, table, out
-// pointers, then 8 int32 words (n, P, mask[MAXP], unused, unused).
-extern "C" int sentinel_gather_many(const long long* jobs, int n_jobs, int N,
-                                    void* stream) {
-  if (n_jobs < 1) return (int)cudaErrorInvalidValue;
+// gather descriptors: GATHER_SLOTS eight-byte slots a job — ids, out,
+// src[MAXP], guard[MAXP] pointers, then 26 int32 words: n, P, stride[MAXP],
+// gstride[MAXP], flags[MAXP], cap[MAXP], mask[MAXP], key[MAXP].  N >= 1.
+// Returns the CUDA error code of its launches (0 = success): one per
+// MAX_GATHER_JOBS jobs.
+#define GATHER_SLOTS 23
+extern "C" int sentinel_gather_many(const long long* desc, int n_jobs, int N, int device, void* stream) {
+  if (n_jobs < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
   cudaStream_t s = (cudaStream_t)stream;
+  const long long groups = (N + GATHER_ITEMS - 1) / GATHER_ITEMS;
+  long long gx = (groups + GATHER_BLOCK - 1) / GATHER_BLOCK;
+  if (gx > 1024) gx = 1024;
   for (int base = 0; base < n_jobs; base += MAX_GATHER_JOBS) {
     const int m = n_jobs - base < MAX_GATHER_JOBS ? n_jobs - base : MAX_GATHER_JOBS;
     GatherParams prm;
     prm.N = N;
-    int pmax = 1;
-    for (int j = 0; j < m; ++j) {
-      const long long* d = jobs + (size_t)(base + j) * 7;
-      const int* w = (const int*)(d + 3);
-      GatherJob& g = prm.j[j];
+    for (int q = 0; q < m; ++q) {
+      const long long* d = desc + (size_t)(base + q) * GATHER_SLOTS;
+      const int* w = (const int*)(d + 2 + 2 * MAXP);
+      GatherJob& g = prm.j[q];
       g.ids = (const int*)d[0];
-      g.table = (const int*)d[1];
-      g.out = (float*)d[2];
+      g.out = (float*)d[1];
       g.n = w[0];
       g.P = w[1];
-      for (int p = 0; p < MAXP; ++p) g.mask[p] = (unsigned int)w[2 + p];
-      if (g.P > pmax) pmax = g.P;
+      for (int p = 0; p < MAXP; ++p) {
+        g.src[p] = (const void*)d[2 + p];
+        g.guard[p] = (const int*)d[2 + MAXP + p];
+        g.stride[p] = w[2 + p];
+        g.gstride[p] = w[2 + MAXP + p];
+        g.flags[p] = w[2 + 2 * MAXP + p];
+        g.cap[p] = w[2 + 3 * MAXP + p];
+        g.mask[p] = (unsigned int)w[2 + 4 * MAXP + p];
+        g.key[p] = w[2 + 5 * MAXP + p];
+      }
     }
-    dim3 grid(grid_for((long long)N * pmax, 1024), m);
-    gather_many_kernel<<<grid, BLOCK, 0, s>>>(prm);
-    cudaError_t e = cudaGetLastError();
+    gather_many_kernel<<<dim3((unsigned int)gx, m), GATHER_BLOCK, 0, s>>>(prm);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

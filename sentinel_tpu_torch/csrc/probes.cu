@@ -26,9 +26,19 @@
 // as the padded output shape [n_hi, n_lo], in which row k lies at flat cell
 // k; the grid step count becomes the number of blocks of probe_copy.
 //
-// probe_copy and probe_hist_count are simple on purpose: one thread an
-// element, and for the count one float atomicAdd an id into an output a
-// memset zeroes first (two launches a call).
+// probe_copy moves 16 bytes an access, as torch.add does: a thread takes
+// COPY_ITEMS = 8 items a grid-stride step, two uint4 loads in flight
+// before its two stores, the warp's accesses side by side.  With few
+// blocks (the P3 series' 1 and 4) a step's loads in flight set the time:
+// on an H100, 4 items a thread were slower than the 4-byte kernel there,
+// 8 faster at every grid; 16 were slower at 512 blocks.  A scalar head
+// brings y to a 16-byte boundary and a scalar tail takes the last n % 4
+// items; where x is not aligned as y is (x[1:] into a fresh y), x is read
+// by 4-byte loads and y still written 16 bytes at a time.  `blocks` is the
+// grid (a grid-stride over exactly that many blocks), 0 as many as one
+// step of every thread covers.  probe_hist_count is simple on purpose: one
+// float atomicAdd an id into an output a memset zeroes first (two launches
+// a call).
 //
 // probe_hist_planes and probe_hist_stat5 are one template, the Hopper
 // counterpart of the TPU kernels' resident output: ONE launch a call, no
@@ -74,11 +84,37 @@ namespace cg = cooperative_groups;
 
 #define BLOCK 256
 
-__global__ void probe_copy_kernel(const unsigned int* __restrict__ x,
-                                  unsigned int* __restrict__ y, long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
+#define COPY_ITEMS 8
+#define COPY_U (COPY_ITEMS / 4)  // uint4s a thread a step
+
+// y + head is 16-byte aligned, x + head is when x_vec.  Items [0, head)
+// and [head + 4 * groups, n) are scalar.
+__global__ void __launch_bounds__(BLOCK) probe_copy_kernel(const unsigned int* __restrict__ x,
+                                                           unsigned int* __restrict__ y, long long n,
+                                                           int head, long long groups, int x_vec) {
+  const long long tid = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  const long long tail = head + 4 * groups;
+  for (long long s = tid; s < head + (n - tail); s += (long long)gridDim.x * BLOCK) {
+    const long long i = s < head ? s : tail + (s - head);
     y[i] = x[i] + 1u;  // wraps like int32 addition
+  }
+  const unsigned int* xs = x + head;
+  const uint4* x4 = reinterpret_cast<const uint4*>(xs);
+  uint4* y4 = reinterpret_cast<uint4*>(y + head);
+  for (long long base = (long long)blockIdx.x * BLOCK * COPY_U; base < groups;
+       base += (long long)gridDim.x * BLOCK * COPY_U) {
+    uint4 q[COPY_U];
+#pragma unroll
+    for (int u = 0; u < COPY_U; ++u) {  // every load of the step first
+      const long long g = base + u * BLOCK + threadIdx.x;
+      if (g < groups)
+        q[u] = x_vec ? x4[g] : make_uint4(xs[4 * g], xs[4 * g + 1], xs[4 * g + 2], xs[4 * g + 3]);
+    }
+#pragma unroll
+    for (int u = 0; u < COPY_U; ++u) {
+      const long long g = base + u * BLOCK + threadIdx.x;
+      if (g < groups) y4[g] = make_uint4(q[u].x + 1u, q[u].y + 1u, q[u].z + 1u, q[u].w + 1u);
+    }
   }
 }
 
@@ -418,15 +454,22 @@ static int hist_launch(const HistGeom& g, const Values& v, int clusters, int sme
 
 // Each entry point returns the CUDA error code of its calls (0 = success).
 
-// blocks <= 0: one thread an item (as many blocks as that takes).
-extern "C" int sentinel_probe_copy(const void* x, void* y, long long n, int blocks,
-                                   void* stream) {
+// blocks <= 0: as many as one step of every thread covers.
+extern "C" int sentinel_probe_copy(const void* x, void* y, long long n, int blocks, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  long long g = blocks > 0 ? blocks : (n + BLOCK - 1) / BLOCK;
+  const uintptr_t xa = (uintptr_t)x, ya = (uintptr_t)y;
+  if ((xa | ya) & 3) return (int)cudaErrorInvalidValue;
+  long long head = (long long)(((16 - (ya & 15)) & 15) >> 2);
+  if (head > n) head = n;
+  const long long groups = (n - head) / 4;
+  const int x_vec = ((xa + 4 * head) & 15) == 0;
+  const long long per_block = (long long)BLOCK * COPY_U;
+  long long g = blocks > 0 ? blocks : (groups + per_block - 1) / per_block;
+  if (g < 1) g = 1;
   if (g > 2147483647LL) return (int)cudaErrorInvalidValue;
   probe_copy_kernel<<<(unsigned int)g, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const unsigned int*)x, (unsigned int*)y, n);
+      (const unsigned int*)x, (unsigned int*)y, n, (int)head, groups, x_vec);
   return (int)cudaGetLastError();
 }
 

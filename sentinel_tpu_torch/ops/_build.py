@@ -59,7 +59,7 @@ def _target() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sentinel_scatter_many.argtypes = [vp, i32, i32, vp, i64, vp, vp, i32, vp]
-    lib.sentinel_gather_many.argtypes = [vp, i32, i32, vp]
+    lib.sentinel_gather_many.argtypes = [vp, i32, i32, i32, vp]
     lib.sentinel_seg_excl_cumsum.argtypes = [vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp]
     lib.sentinel_seg_incl_min.argtypes = [vp, vp, vp, vp, vp, i32, vp]
     lib.sentinel_seg_scan_tile.argtypes = []

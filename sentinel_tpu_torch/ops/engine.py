@@ -16,7 +16,8 @@ by grouped prefix sums (ops/rank.py).  Every effect scatter of a phase
 rides one call of the scatter kernel (ops/fused.scatter_many; one launch
 up to 48 row-vectors, which the default widths stay under), and the
 flow check's windowed (pass, concurrency, borrow) read rides the gather
-kernel (ops/fused.gather_many).
+kernel (ops/fused.gather_many), which reads the three columns where they
+lie in the state (``flow_read_job``).
 
 No host sync inside the tick.  The JAX tick decides several things on the
 device with ``lax.cond``/``lax.switch`` (the stat fan width, the occupy
@@ -940,6 +941,21 @@ def _check_param(
     return blocked, pcms, pcms_epochs, cur_idx, prows, applicable & ~is_thread, applicable & is_thread
 
 
+def flow_read_job(state: EngineState, node_safe: torch.Tensor, cur_wid: int) -> FU.GatherJob:
+    """The per-item flow check's one gather at each item's node row: the
+    windowed pass total (``win_sec.run[:, EV_PASS]``, read at its stride),
+    the concurrency, and the occupy borrow pool booked against the NEXT
+    bucket (``occ_tokens`` rounded, counted only where ``occ_epoch`` is
+    ``cur_wid + 1`` as the reference's int32 arithmetic wraps it), each
+    capped at 2^24 - 1 and read as 3 digits.  No dense table is built."""
+    cap = (1 << 24) - 1
+    return FU.GatherJob("wsum", node_safe, (
+        FU.GatherColumn(W.window_event_run(state.win_sec, W.EV_PASS), cap),
+        FU.GatherColumn(state.concurrency, cap),
+        FU.GatherColumn(state.occ_tokens, cap, state.occ_epoch, W.i32(cur_wid + 1)),
+    ), (3, 3, 3))
+
+
 def _check_flow(
     cfg: EngineConfig, state: EngineState, rules: RuleSet, acq: AcquireBatch,
     now_ms: int, eligible, occupy: bool = True,
@@ -1039,22 +1055,9 @@ def _check_flow(
         key, [cnt, torch.ones_like(cnt), cost], elig_f
     )
 
-    # occupy borrow pool booked against the NEXT bucket, keyed by node row
+    # ONE gather kernel launch for (windowed pass, concurrency, borrow pool)
     cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
-    pool_dense = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
-    # per-row windowed pass totals straight off the running sums, then ONE
-    # gather kernel launch for (pass, concurrency, borrow pool)
-    tab = torch.stack(
-        [
-            W.window_event_run(state.win_sec, W.EV_PASS),
-            state.concurrency,
-            torch.round(pool_dense).to(I32),
-        ],
-        dim=1,
-    )
-    (both,) = FU.gather_many(
-        [FU.GatherJob("wsum", node_safe, torch.clamp_max(tab, (1 << 24) - 1), (3, 3, 3))]
-    )
+    (both,) = FU.gather_many([flow_read_job(state, node_safe, cur_wid)])
     wp = both[:, 0]
     conc = both[:, 1]
     pool = both[:, 2]
@@ -1356,11 +1359,11 @@ def _acquire_effects_fused(
                 torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev),
             ]
         )
-        cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
-        pool_vec = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
+        nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)  # wraps as the reference's int32
+        pool_vec = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
         state = state._replace(
             occ_tokens=pool_vec + add,
-            occ_epoch=torch.where(add > 0, cur_wid + 1, state.occ_epoch).to(I32),
+            occ_epoch=torch.where(add > 0, nxt, state.occ_epoch).to(I32),
         )
 
     if param_ctx is not None:

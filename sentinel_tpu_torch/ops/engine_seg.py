@@ -962,10 +962,10 @@ def acquire_effects_seg(
                 torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev),
             ]
         )
-        cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
-        pool_vec = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
+        nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)  # wraps as the reference's int32
+        pool_vec = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
         state = state._replace(
             occ_tokens=pool_vec + add,
-            occ_epoch=torch.where(add > 0, cur_wid + 1, state.occ_epoch).to(I32),
+            occ_epoch=torch.where(add > 0, nxt, state.occ_epoch).to(I32),
         )
     return state

@@ -15,8 +15,12 @@ Hopper (``csrc/fused.cu``, built at first use by ``ops/_build.py``):
   planned: everything but the operands' addresses is computed once per
   job signature (``ScatterPlan``).
 - ``gather_many`` (replaces ``sentinel_tpu/ops/fused.py:374``): per-item
-  reads from nonnegative int tables; out-of-range ids read 0; a value reads
-  modulo ``256**digits``.  Output float32 ``[N, P]`` per job.
+  reads of up to 4 planes, one launch a call; out-of-range ids read 0; a
+  value reads modulo ``256**digits``.  Each plane is a column read where it
+  lies (``GatherColumn``: int32 or float32 at any element stride, a cap, a
+  float column rounded half to even, an optional int32 guard that must
+  equal a key), or a column of a 2-D int32 table.  Output float32 ``[N, P]``
+  per job.  Its host side is planned like the scatter's (``GatherPlan``).
 
 Dispatch: a wrapper takes its plain PyTorch version ONLY when the tensors
 it was given lie on the CPU (the tests).  A CUDA tensor launches the
@@ -26,9 +30,8 @@ kernel or raises — there is no fallback.  Each wrapper adds one to
 
 from __future__ import annotations
 
-import ctypes
 import threading
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -73,12 +76,33 @@ class Job(NamedTuple):
     digits: tuple
 
 
+class GatherColumn(NamedTuple):
+    """One plane of a gather job, read where it lies.
+
+    src:   int32 or float32 [n] at any element stride (a column of a 2-D
+           state table reads in place).  A float value rounds half to even
+           into int32 (``torch.round`` then ``.to(torch.int32)``).
+    cap:   the value is capped at ``cap`` (a signed minimum) before the
+           digit mask.
+    guard: None, or int32 [n]: the value counts only where ``guard ==
+           key`` and reads 0 elsewhere.
+    key:   the int32 the guard is held to.
+    """
+
+    src: torch.Tensor
+    cap: int = 2**31 - 1
+    guard: Optional[torch.Tensor] = None
+    key: int = 0
+
+
 class GatherJob(NamedTuple):
-    """One gather source: ids int32 [N], table int32 [n, P], digits per plane."""
+    """One gather: ids int32 [N]; ``table`` either an int32 [n, P] table (P
+    columns at its row stride) or a sequence of P ``GatherColumn``s of n
+    rows; digits per plane."""
 
     name: str
     ids: torch.Tensor
-    table: torch.Tensor
+    table: Union[torch.Tensor, Sequence[GatherColumn]]
     digits: tuple
 
 
@@ -289,69 +313,205 @@ def scatter_many(jobs: Sequence[Job]) -> List[torch.Tensor]:
 # -- gather_many --------------------------------------------------------------
 
 
+def _columns(j: GatherJob) -> tuple:
+    """(n, columns) of a job: a table's columns are int32 views of it (a
+    table of another dtype becomes an int32 copy first)."""
+    if isinstance(j.table, torch.Tensor):
+        if j.table.dim() != 2:
+            raise ValueError(f"gather job {j.name}: a table must be [n, P]")
+        tab = j.table if j.table.dtype == torch.int32 else j.table.to(torch.int32)
+        return tab.shape[0], tuple(GatherColumn(tab[:, p]) for p in range(tab.shape[1]))
+    cols = tuple(j.table)
+    return (cols[0].src.shape[0] if cols else 0), cols
+
+
+def _gather_tensors(j: GatherJob) -> list:
+    _n, cols = _columns(j)
+    return [j.ids] + [c.src for c in cols] + [c.guard for c in cols if c.guard is not None]
+
+
 def _check_gather(jobs: Sequence[GatherJob]) -> int:
     N = jobs[0].ids.shape[0]
     for j in jobs:
         if j.ids.dim() != 1 or j.ids.shape[0] != N:
             raise ValueError(f"gather job {j.name}: ids must be [N] with one N")
-        if j.table.dim() != 2 or len(j.digits) != j.table.shape[1]:
-            raise ValueError(f"gather job {j.name}: table must be [n, P] with P digits")
-        if j.table.shape[1] > _MAXP:
-            raise ValueError(f"gather job {j.name}: at most {_MAXP} planes")
+        n, cols = _columns(j)
+        if len(j.digits) != len(cols) or len(cols) > _MAXP:
+            raise ValueError(f"gather job {j.name}: one digit count a plane, at most {_MAXP} planes")
+        for c in cols:
+            if c.src.dim() != 1 or c.src.shape[0] != n or c.src.dtype not in (torch.int32, torch.float32):
+                raise ValueError(f"gather job {j.name}: every column must be int32 or float32 [n] with one n")
+            if c.guard is not None and (c.guard.shape != c.src.shape or c.guard.dtype != torch.int32):
+                raise ValueError(f"gather job {j.name}: a guard must be int32 [n]")
+            if not (-(2**31) <= c.cap < 2**31 and -(2**31) <= c.key < 2**31):
+                raise ValueError(f"gather job {j.name}: cap and key must be int32")
     return N
 
 
+def _plane(c: GatherColumn, safe: torch.Tensor, ok: torch.Tensor, d: int) -> torch.Tensor:
+    v = c.src[safe]
+    if c.guard is not None:
+        v = torch.where(c.guard[safe] == c.key, v, 0)
+    if v.is_floating_point():
+        v = torch.round(v).to(torch.int32)
+    return torch.where(ok, _masked(torch.clamp_max(v, c.cap), d), 0)
+
+
 def gather_many_plain(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
-    """The plain PyTorch version of gather_many: clipped index, digit mask,
-    zero for out-of-range ids."""
-    _check_gather(jobs)
+    """The plain PyTorch version of gather_many: each plane gathered at the
+    clipped ids, guarded, rounded, capped and digit-masked, zero for
+    out-of-range ids."""
+    N = _check_gather(jobs)
     out = []
     for j in jobs:
-        n, P = j.table.shape
+        n, cols = _columns(j)
+        if n == 0 or not cols:
+            out.append(torch.zeros((N, len(cols)), dtype=torch.float32, device=j.ids.device))
+            continue
         ok = (j.ids >= 0) & (j.ids < n)
-        g = j.table.to(torch.int32)[torch.clamp(j.ids, 0, max(n - 1, 0)).to(torch.int64)]
-        g = torch.stack([_masked(g[:, p], j.digits[p]) for p in range(P)], dim=1)
-        out.append(torch.where(ok[:, None], g, 0).to(torch.float32))
+        safe = torch.clamp(j.ids, 0, n - 1).to(torch.int64)
+        out.append(torch.stack([_plane(c, safe, ok, d) for c, d in zip(cols, j.digits)], dim=1).to(torch.float32))
     return out
 
 
-def _gather_cuda(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
+#: eight-byte slots of one gather job descriptor (csrc/fused.cu
+#: GATHER_SLOTS): ids, out, src[4], guard[4] pointers, then 26 int32 words
+_GATHER_SLOTS = 23
+#: int32 word offsets in a gather descriptor: n, P, then four per field
+_GW_STRIDE, _GW_GSTRIDE, _GW_FLAGS, _GW_CAP, _GW_MASK, _GW_KEY = 2, 6, 10, 14, 18, 22
+
+
+class GatherPlan(NamedTuple):
+    """The static part of one gather_many call, made once per signature.
+
+    desc:    int64 [jobs, 23] descriptors (csrc/fused.cu); a call writes
+             only the pointers and the guards' keys; ``desc_ptr`` is its
+             address.
+    offsets: each job's first output float (a multiple of 4, so every
+             job's output is 16-byte aligned); ``shapes`` its [N, P];
+             ``total`` the output's floats.
+    N:       items; ``launches`` a call's kernel launches.
+    """
+
+    desc: np.ndarray
+    desc_ptr: int
+    offsets: tuple
+    shapes: tuple
+    total: int
+    N: int
+    launches: int
+
+
+def _gather_signature(jobs: Sequence[GatherJob]) -> tuple:
+    """What a gather plan depends on: shapes, strides, dtypes and devices
+    of every operand, caps and digits — not addresses or keys."""
+    def sig(t):
+        return None if t is None else (t.shape, t.stride(), t.dtype, t.device)
+
+    return tuple(
+        (sig(j.ids), j.digits, sig(j.table) if isinstance(j.table, torch.Tensor)
+         else tuple((sig(c.src), c.cap, sig(c.guard)) for c in j.table))
+        for j in jobs
+    )
+
+
+def _gather_plan(jobs: Sequence[GatherJob]) -> GatherPlan:
+    """Check the jobs and lay out their descriptors and output: job j's
+    plane p reads ``src[p] + id * stride[p]`` (and its guard at ``id *
+    gstride[p]``), in elements; its [N, P] output starts at float
+    ``offsets[j]``."""
+    N = _check_gather(jobs)
+    if len({t.device for j in jobs for t in _gather_tensors(j)}) != 1:
+        raise ValueError("gather_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
+    desc = np.zeros((len(jobs), _GATHER_SLOTS), dtype=np.int64)
+    words = desc[:, 2 + 2 * _MAXP :].view(np.int32)
+    offsets, shapes = [], []
+    off = 0
+    for i, j in enumerate(jobs):
+        n, cols = _columns(j)
+        P = len(cols)
+        strides = [c.src.stride(0) for c in cols] + [c.guard.stride(0) for c in cols if c.guard is not None]
+        if max(strides, default=0) >= 2**31:
+            raise ValueError(f"gather job {j.name}: strides must stay below 2^31")
+        words[i, :2] = [n, P]
+        for p, (c, d) in enumerate(zip(cols, j.digits)):
+            words[i, _GW_STRIDE + p] = c.src.stride(0)
+            words[i, _GW_GSTRIDE + p] = 0 if c.guard is None else c.guard.stride(0)
+            words[i, _GW_FLAGS + p] = 1 if c.src.dtype == torch.float32 else 0
+            words[i, _GW_CAP + p] = c.cap
+            words[i, _GW_MASK + p] = _mask(d)
+        offsets.append(off)
+        shapes.append((N, P))
+        off += -(-N * P // 4) * 4
+    launches = -(-len(jobs) // _MAX_GATHER_JOBS) if N and off else 0
+    return GatherPlan(desc, desc.ctypes.data, tuple(offsets), tuple(shapes), off, N, launches)
+
+
+def _gather_bind(plan: GatherPlan, jobs: Sequence[GatherJob], out: torch.Tensor) -> list:
+    """Point the plan's descriptors at this call's operands and ``out``
+    and write the guards' keys; returns the operands (kept alive through
+    the launch)."""
+    keep = []
+    desc = plan.desc
+    words = desc[:, 2 + 2 * _MAXP :].view(np.int32)
+    base = out.data_ptr()
+    for i, (j, off) in enumerate(zip(jobs, plan.offsets)):
+        ids = j.ids if j.ids.dtype == torch.int32 and j.ids.stride(0) == 1 else j.ids.to(torch.int32).contiguous()
+        desc[i, :2] = (ids.data_ptr(), base + 4 * off)
+        if isinstance(j.table, torch.Tensor):  # column p starts p elements into the row
+            tab = j.table if j.table.dtype == torch.int32 else j.table.to(torch.int32)
+            keep.append((ids, tab))
+            p0, step = tab.data_ptr(), 4 * tab.stride(1)
+            desc[i, 2 : 2 + tab.shape[1]] = [p0 + step * p for p in range(tab.shape[1])]
+            continue
+        keep.append((ids, j.table))
+        desc[i, 2 : 2 + len(j.table)] = [c.src.data_ptr() for c in j.table]
+        for p, c in enumerate(j.table):
+            if c.guard is not None:
+                desc[i, 2 + _MAXP + p] = c.guard.data_ptr()
+                words[i, _GW_KEY + p] = c.key
+    return keep
+
+
+_GATHER_PLANS: dict = {}
+
+
+def _gather_plan_for(jobs: Sequence[GatherJob]) -> GatherPlan:
+    """The cached plan of the jobs' signature (made, and the jobs checked,
+    on its first call)."""
+    key = _gather_signature(jobs)
+    plan = _GATHER_PLANS.get(key)
+    if plan is None:
+        plan = _gather_plan(jobs)
+        if len(_GATHER_PLANS) >= _MAX_PLANS:
+            _GATHER_PLANS.clear()
+        _GATHER_PLANS[key] = plan
+    return plan
+
+
+def _gather_cuda(plan: GatherPlan, jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
     from sentinel_tpu_torch.ops import _build
 
-    lib = _build.load_library()
-    N = jobs[0].ids.shape[0]
     dev = jobs[0].ids.device
-    desc, words = _descriptors(len(jobs))
-    keep, outs = [], []  # keep: int32 copies alive through the launch
-    for i, j in enumerate(jobs):
-        ids = j.ids.to(torch.int32).contiguous()
-        tab = j.table.to(torch.int32).contiguous()
-        n, P = tab.shape
-        o = torch.empty((N, P), dtype=torch.float32, device=dev)
-        keep += [ids, tab]
-        outs.append(o)
-        desc[i, :3] = (ids.data_ptr(), tab.data_ptr(), o.data_ptr())
-        words[i, : 2 + P] = [n, P] + [_mask(d) for d in j.digits]
-    with torch.cuda.device(dev):
-        err = lib.sentinel_gather_many(
-            desc.ctypes.data_as(ctypes.c_void_p),
-            len(jobs),
-            int(N),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"gather_many kernel launch failed (CUDA error {err})")
-    LAUNCHES["gather_many"] += -(-len(jobs) // _MAX_GATHER_JOBS)
-    return outs
+    out = torch.empty((plan.total,), dtype=torch.float32, device=dev)
+    if plan.launches:
+        lib = _build.load_library()
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)  # the handle, without a Stream object
+        with _lock:  # the descriptors are the plan's: one call fills them at a time
+            keep = _gather_bind(plan, jobs, out)
+            err = lib.sentinel_gather_many(plan.desc_ptr, len(jobs), plan.N, dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"gather_many kernel launch failed (CUDA error {err})")
+        LAUNCHES["gather_many"] += plan.launches
+    return [out.as_strided(shape, (shape[1], 1), off) for shape, off in zip(plan.shapes, plan.offsets)]
 
 
 def gather_many(jobs: Sequence[GatherJob]) -> List[torch.Tensor]:
-    """Per-item gathers from several tables in one kernel launch (one per
-    chunk of ``_MAX_GATHER_JOBS`` jobs); one float32 [N, P] per job.  CPU
-    tensors take the plain version."""
-    _check_gather(jobs)
-    if all(j.ids.device.type == "cpu" and j.table.device.type == "cpu" for j in jobs):
+    """Per-item gathers of every job in one kernel launch (one per chunk of
+    ``_MAX_GATHER_JOBS`` jobs; none for N = 0); one float32 [N, P] per
+    job.  CPU tensors take the plain version."""
+    if not jobs[0].ids.is_cuda:
+        if any(t.device.type != "cpu" for j in jobs for t in _gather_tensors(j)):
+            raise ValueError("gather_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
         return gather_many_plain(jobs)
-    if len({t.device for j in jobs for t in (j.ids, j.table)}) != 1 or jobs[0].ids.device.type != "cuda":
-        raise ValueError("gather_many: every job's tensors must lie on one CUDA device (or all on the CPU)")
-    return _gather_cuda(jobs)
+    return _gather_cuda(_gather_plan_for(jobs), jobs)

@@ -6,9 +6,10 @@ Counterpart of the JAX package's ``benchmarks/probe_pallas_floor.py`` and
 (``np.random.default_rng(0)``, B = 131,072 ids in [0, 16384), K = 96
 repetitions) and the same questions, asked of the card:
 
-(a) ``probe_copy`` (``x + 1``) shared by 1, 4 and 64 blocks and by one
-    thread an item — the counterpart of the TPU grid's 1 / 4 / 64 steps,
-    sequential or parallel;
+(a) ``probe_copy`` (``x + 1``) shared by 1, 4, 64 and 512 blocks and by
+    its default grid (``kernels.COPY_ITEMS`` items a thread) — the
+    counterpart of the TPU grid's 1 / 4 / 64 steps, sequential or
+    parallel;
 (b) K eager launches on one stream (the probes' "pipelined dispatches")
     against ONE CUDA graph that holds K launches (their "inside
     ``lax.scan``": no host work between launches), for the kernel and for
@@ -79,17 +80,18 @@ def run() -> list:
     def torch_add(src, dst):
         torch.add(src, 1, out=dst)
 
-    # (a) the copy shared by 1 / 4 / 64 blocks and by one thread an item
-    for blocks, label in ((1, "1 block"), (4, "4 blocks"), (64, "64 blocks"), (0, "one thread an item (512 blocks)")):
+    # (a) the copy shared by 1 / 4 / 64 / 512 blocks and by its default grid
+    default = f"default grid ({-(-B // (256 * PK.COPY_ITEMS))} blocks)"
+    for blocks, label in ((1, "1 block"), (4, "4 blocks"), (64, "64 blocks"), (512, "512 blocks"), (0, default)):
         row(f"probe_copy {label}", "eager", 1, TM.eager(_chain(copy(blocks), ids), K))
     # (b) K eager launches against one graph of K launches
-    row("probe_copy one thread an item", "graph", 1, TM.graphed(_chain(copy(0), ids), K))
+    row(f"probe_copy {default}", "graph", 1, TM.graphed(_chain(copy(0), ids), K))
     row("probe_copy 1 block", "graph", 1, TM.graphed(_chain(copy(1), ids), K))
     row("torch x + 1", "eager", 1, TM.eager(_chain(torch_add, ids), K))
     row("torch x + 1", "graph", 1, TM.graphed(_chain(torch_add, ids), K))
     # (c) two launches a step
-    row("2x probe_copy one thread an item", "eager", 2, TM.eager(_chain(copy(0), ids, 2), K))
-    row("2x probe_copy one thread an item", "graph", 2, TM.graphed(_chain(copy(0), ids, 2), K))
+    row(f"2x probe_copy {default}", "eager", 2, TM.eager(_chain(copy(0), ids, 2), K))
+    row(f"2x probe_copy {default}", "graph", 2, TM.graphed(_chain(copy(0), ids, 2), K))
     # (d) the histograms
     for n, n_lo in COUNT_SHAPES:
         out = torch.empty(PK.padded_shape(n, n_lo), dtype=torch.float32, device=ids.device)

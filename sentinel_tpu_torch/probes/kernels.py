@@ -8,8 +8,9 @@ are CUDA C++ kernels for Hopper (``csrc/probes.cu``, built at first use by
 
 - ``probe_copy`` (replaces ``benchmarks/probe_pallas_floor.py:49`` and
   ``benchmarks/probe_pallas_floor2.py:45`` ``copy_call``): ``x + 1`` on
-  int32, with the number of blocks the launch uses as a parameter — the
-  counterpart of the TPU grid's step count and its "parallel" flag.
+  int32 by 16-byte loads and stores, with the number of blocks the launch
+  uses as a parameter — the counterpart of the TPU grid's step count and
+  its "parallel" flag.
 - ``probe_hist_count`` (replaces ``probe_pallas_floor.py:68`` ``sc_call``
   and ``:151`` ``sc_call2``): a count histogram of ids into the padded
   shape ``[n_hi, n_lo]``, row ``k`` at ``[k // n_lo, k % n_lo]``.  Simple
@@ -67,6 +68,9 @@ import torch
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"probe_copy": 0, "probe_hist_count": 0, "probe_hist_planes": 0, "probe_hist_stat5": 0}
 
+#: items a thread of probe_copy takes a grid-stride step (csrc/probes.cu
+#: COPY_ITEMS: two 16-byte accesses)
+COPY_ITEMS = 8
 #: items a histogram block takes at a time unless the caller sweeps it
 ITEMS_PER_BLOCK = 256
 #: threads a block of the valued histograms
@@ -239,9 +243,11 @@ def probe_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def probe_copy(x: torch.Tensor, blocks: int = 0, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x + 1`` for an int32 tensor of any shape.  ``blocks``: how many
-    256-thread blocks share the items (grid-stride); 0 = one thread an
-    item, as many blocks as that takes."""
+    """``x + 1`` for an int32 tensor of any shape, 16 bytes an access
+    (a scalar head and tail where ``x`` or ``out`` is not 16-byte aligned
+    or the size is not a multiple of 4).  ``blocks``: how many 256-thread
+    blocks share the items (grid-stride); 0 = as many as one step of every
+    thread (``COPY_ITEMS`` items) covers."""
     if x.dtype != torch.int32 or not x.is_contiguous():
         raise ValueError("probe_copy takes a contiguous int32 tensor")
     if _on_cpu(x):

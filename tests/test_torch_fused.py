@@ -265,3 +265,202 @@ def test_scatter_many_edges_match_plain_on_the_card(case):
         assert torch.equal(g, w)
     for acc, touched in FU._SCRATCH.values():
         assert not acc.any() and not touched.any()
+
+
+# -- gather_many's column form -----------------------------------------------------
+
+CAP = (1 << 24) - 1
+
+
+def _flow_state(rng, n, key):
+    """The flow read's three sources as the tick's state holds them: the
+    window's [n, 5] run table (pass in column 0), concurrency, and the
+    occupy pool's tokens (.5 ties, values over the cap) with their epochs,
+    half of them at ``key``."""
+    run = rng.integers(0, 1 << 20, (n, 5)).astype(np.int32)
+    run[:4, 0] = [CAP, CAP + 1, 1 << 30, 2**31 - 1]  # at and over the cap
+    conc = rng.integers(0, 1 << 16, n).astype(np.int32)
+    conc[4:6] = [CAP + 7, 1 << 28]
+    tokens = (rng.integers(0, 2000, n) / 2.0).astype(np.float32)  # every other value a .5 tie
+    tokens[6:12] = [0.5, 1.5, 2.5, 3.5, float(1 << 25), float(CAP + 1)]
+    epoch = np.where(rng.random(n) < 0.5, key, key - 1).astype(np.int32)
+    epoch[6:12] = key  # the ties and the values over the cap count
+    return run, conc, tokens, epoch
+
+
+def _flow_ids(rng, n, N):
+    ids = rng.integers(-2, n + 2, N).astype(np.int32)
+    ids[:3] = [-1, n, 2**30]
+    ids[3:15] = np.arange(12)  # the rows with the edge values
+    return ids
+
+
+@pytest.mark.parametrize("cur_wid", [2**31 - 1, 4_321])
+@pytest.mark.parametrize("N", [96, 131])
+def test_gather_columns_plain_matches_pallas_on_the_reference_table(N, cur_wid):
+    """The column form (a strided run[:, 0] view, concurrency, guarded
+    float tokens) against the JAX gather_many on the table the reference
+    builds: stack(run pass, concurrency, round(where(epoch == cur_wid + 1,
+    tokens, 0))) clamped to 2^24 - 1, where cur_wid + 1 wraps in int32."""
+    rng = np.random.default_rng(N + cur_wid % 97)
+    n = 300
+    key = int(np.array([cur_wid], np.int32).astype(np.int64)[0] + 1)
+    key = key - 2**32 if key >= 2**31 else key  # int32 wrap, as the port passes it
+    run, conc, tokens, epoch = _flow_state(rng, n, key)
+    ids = _flow_ids(rng, n, N)
+    with jax.disable_jit():
+        nxt = jnp.int32(cur_wid) + 1  # wraps in int32
+        pool = jnp.where(jnp.asarray(epoch) == nxt, jnp.asarray(tokens), 0.0)
+        tab = jnp.stack([jnp.asarray(run)[:, 0], jnp.asarray(conc), jnp.round(pool).astype(jnp.int32)], axis=1)
+        (ref,) = JFU.gather_many([JFU.GatherJob("wsum", jnp.asarray(ids), jnp.minimum(tab, CAP), (3, 3, 3))])
+    t_run = torch.as_tensor(run)
+    cols = (FU.GatherColumn(t_run[:, 0], CAP), FU.GatherColumn(torch.as_tensor(conc), CAP),
+            FU.GatherColumn(torch.as_tensor(tokens), CAP, torch.as_tensor(epoch), key))
+    assert cols[0].src.stride() == (5,)  # read where it lies, no copy
+    (got,) = FU.gather_many([FU.GatherJob("wsum", torch.as_tensor(ids), cols, (3, 3, 3))])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # the guard went both ways, and the ties rounded half to even
+    ok = (ids >= 0) & (ids < n)
+    assert (ok & (epoch[np.clip(ids, 0, n - 1)] == key)).any() and (ok & (epoch[np.clip(ids, 0, n - 1)] != key)).any()
+    np.testing.assert_array_equal(got.numpy()[9:15, 2], [0.0, 2.0, 2.0, 4.0, CAP, CAP])  # ids 3.. read rows 0..
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_gather_columns_of_a_table_equal_the_table_form(P):
+    rng = np.random.default_rng(P)
+    buf = torch.as_tensor(rng.integers(0, 1 << 30, (500, P + 2)).astype(np.int32))
+    ids = torch.as_tensor(_flow_ids(rng, 500, 257))
+    digits = tuple(range(1, P + 1))
+    for table in (buf[:, :P].contiguous(), buf[:, 1 : P + 1]):  # contiguous, and a view at row stride P + 2
+        cols = tuple(FU.GatherColumn(table[:, p]) for p in range(P))
+        (want,) = FU.gather_many([FU.GatherJob("t", ids, table, digits)])
+        (got,) = FU.gather_many([FU.GatherJob("c", ids, cols, digits)])
+        assert torch.equal(got, want)
+
+
+def test_gather_columns_refuse_what_the_kernel_does_not_take():
+    ids = torch.zeros(4, dtype=torch.int32)
+    i32, f32 = torch.zeros(8, dtype=torch.int32), torch.zeros(8)
+    bad = {
+        "int64 column": (FU.GatherColumn(i32.to(torch.int64)),),
+        "2-D column": (FU.GatherColumn(i32.reshape(4, 2)),),
+        "rows differ": (FU.GatherColumn(i32), FU.GatherColumn(f32[:7])),
+        "float guard": (FU.GatherColumn(f32, CAP, f32, 0),),
+        "guard rows": (FU.GatherColumn(f32, CAP, i32[:5], 0),),
+        "cap past int32": (FU.GatherColumn(i32, 2**31),),
+        "key past int32": (FU.GatherColumn(f32, CAP, i32, 2**31),),
+        "five planes": tuple(FU.GatherColumn(i32) for _ in range(5)),
+    }
+    for name, cols in bad.items():
+        with pytest.raises(ValueError):
+            FU.gather_many([FU.GatherJob(name, ids, cols, (1,) * len(cols))])
+
+
+def test_gather_descriptors_point_each_plane_at_its_column():
+    """The gather plan (built on the host, the same for any device): per job
+    the ids and output pointers, each plane's source and guard pointers,
+    element strides, flags (float), cap, digit mask; the call binds
+    the pointers and the guard's key (a plane without a guard has a null
+    guard pointer).  Outputs start on 16-byte
+    boundaries."""
+    n, N = 40, 10
+    run = torch.zeros((n, 5), dtype=torch.int32)
+    conc = torch.zeros(n, dtype=torch.int32)
+    tokens, epoch = torch.zeros(n), torch.zeros(n, dtype=torch.int32)
+    table = torch.zeros((n, 2), dtype=torch.int32)
+    ids = torch.zeros(N, dtype=torch.int32)
+    jobs = [FU.GatherJob("cols", ids, (FU.GatherColumn(run[:, 2], CAP), FU.GatherColumn(conc),
+                                       FU.GatherColumn(tokens, 77, epoch, -(2**31))), (3, 2, 4)),
+            FU.GatherJob("table", ids, table, (1, 1))]
+    plan = FU._gather_plan(jobs)
+    out = torch.empty(plan.total)
+    keep = FU._gather_bind(plan, jobs, out)
+    assert plan.offsets == (0, 32) and plan.shapes == ((N, 3), (N, 2)) and plan.total == 52 and plan.launches == 1
+    d = plan.desc
+    assert d.shape == (2, FU._GATHER_SLOTS)
+    np.testing.assert_array_equal(d[0, :6], [ids.data_ptr(), out.data_ptr(), run[:, 2].data_ptr(),
+                                             conc.data_ptr(), tokens.data_ptr(), 0])
+    np.testing.assert_array_equal(d[0, 6:10], [0, 0, epoch.data_ptr(), 0])
+    np.testing.assert_array_equal(d[1, 1:4], [out.data_ptr() + 4 * 32, table.data_ptr(), table.data_ptr() + 4])
+    w = d[:, 10:].view(np.int32)
+    # n, P, strides, guard strides, flags, caps, masks, keys
+    np.testing.assert_array_equal(w[0], [n, 3, 5, 1, 1, 0, 0, 0, 1, 0, 0, 0, 1, 0,
+                                         CAP, 2**31 - 1, 77, 0, 0xFFFFFF, 0xFFFF, -1, 0, 0, 0, -(2**31), 0])
+    np.testing.assert_array_equal(w[1, :8], [n, 2, 2, 2, 0, 0, 0, 0])
+    assert keep[0][0] is ids
+
+
+def test_a_new_key_binds_into_the_same_gather_plan():
+    """The key changes every window: the plan is cached per signature
+    (shapes, strides, dtypes, caps, digits) and the call writes the key."""
+    n = 16
+    tokens, epoch, ids = torch.zeros(n), torch.zeros(n, dtype=torch.int32), torch.zeros(4, dtype=torch.int32)
+
+    def jobs(key, cap=CAP):
+        return [FU.GatherJob("p", ids, (FU.GatherColumn(tokens, cap, epoch, key),), (3,))]
+
+    plan = FU._gather_plan_for(jobs(5))
+    assert FU._gather_plan_for(jobs(6)) is plan
+    FU._gather_bind(plan, jobs(6), torch.empty(plan.total))
+    assert plan.desc[0, 10:].view(np.int32)[FU._GW_KEY] == 6
+    assert FU._gather_plan_for(jobs(6, cap=9)) is not plan
+
+
+def test_gather_of_no_items_and_an_empty_table():
+    ids = torch.zeros(0, dtype=torch.int32)
+    (a,) = FU.gather_many([FU.GatherJob("none", ids, torch.zeros((5, 3), dtype=torch.int32), (1, 1, 1))])
+    assert a.shape == (0, 3)
+    (b,) = FU.gather_many([FU.GatherJob("empty", torch.tensor([-1, 0, 3], dtype=torch.int32),
+                                        (FU.GatherColumn(torch.zeros(0)),), (2,))])
+    np.testing.assert_array_equal(b.numpy(), [[0.0], [0.0], [0.0]])
+    assert FU._gather_plan([FU.GatherJob("none", ids, torch.zeros((5, 3), dtype=torch.int32), (1, 1, 1))]).launches == 0
+
+
+def _gather_cases(rng):
+    """name -> gather job list on the card: the flow read's columns (a
+    strided view, a guard with its key at the int32 wrap, .5 ties, values
+    over the cap), unguarded float columns, N off the 4 items a thread,
+    N = 1, misaligned ids."""
+    n = 5000
+    key = -(2**31)
+    run, conc, tokens, epoch = (torch.as_tensor(a).cuda() for a in _flow_state(rng, n, key))
+    cols = (FU.GatherColumn(run[:, 0], CAP), FU.GatherColumn(conc, CAP), FU.GatherColumn(tokens, CAP, epoch, key))
+    plain_float = (FU.GatherColumn(tokens, 1000), FU.GatherColumn(run[:, 3]))
+    cases = {}
+    for N in (8192, 2048 + 37, 4 * 33 + 1, 3, 1):
+        ids = torch.as_tensor(_flow_ids(rng, n, max(N, 15))[:N]).cuda()
+        cases[f"N={N}"] = [FU.GatherJob("flow", ids, cols, (3, 3, 3)), FU.GatherJob("f", ids, plain_float, (2, 4))]
+    ids = torch.as_tensor(_flow_ids(rng, n, 2050)).cuda()
+    cases["misaligned ids"] = [FU.GatherJob("flow", ids[1:], cols, (3, 3, 3))]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["N=8192", "N=2085", "N=133", "N=3", "N=1", "misaligned ids"])
+def test_gather_columns_match_plain_on_the_card(case):
+    _card()
+    jobs = _gather_cases(np.random.default_rng(5))[case]
+    FU.reset_launches()
+    got = FU.gather_many(jobs)
+    want = FU.gather_many_plain(jobs)
+    assert FU.LAUNCHES["gather_many"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_gather_of_no_items_and_many_jobs_on_the_card():
+    """N = 0 launches nothing; more jobs than one launch carries take one
+    launch a chunk."""
+    _card()
+    rng = np.random.default_rng(6)
+    FU.reset_launches()
+    (none,) = FU.gather_many([FU.GatherJob("none", torch.zeros(0, dtype=torch.int32, device="cuda"),
+                                           torch.zeros((5, 3), dtype=torch.int32, device="cuda"), (1, 1, 1))])
+    assert none.shape == (0, 3) and FU.LAUNCHES["gather_many"] == 0
+    jobs = _gather_cases(rng)["N=2085"][:1] * (2 * FU._MAX_GATHER_JOBS + 1)
+    got = FU.gather_many(jobs)
+    assert FU.LAUNCHES["gather_many"] == 3
+    for g, w in zip(got, FU.gather_many_plain(jobs)):
+        assert torch.equal(g, w)

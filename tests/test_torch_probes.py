@@ -202,6 +202,50 @@ def test_probe_copy_kernel_equals_plain():
     torch.cuda.synchronize()
 
 
+def _copy_cases(device="cpu"):
+    """name -> (x, out), sliced on ``device``: a 4-byte-misaligned view,
+    sizes off a multiple of 4 and below 4, an ``out`` not aligned as ``x``
+    is, int32 wrap."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.integers(-(2**31), 2**31 - 1, 131072 + 11, dtype=np.int32)).to(device)
+    x[1] = 2**31 - 1
+    buf = torch.zeros(131072 + 16, dtype=torch.int32, device=device)
+    return {
+        "x[1:]": (x[1:], None),
+        "x[3:131074]": (x[3:131074], None),
+        "n % 4 = 3": (x[: 4 * 1000 + 3], None),
+        "n = 3": (x[:3], None),
+        "n = 1": (x[1:2], None),
+        "n = 0": (x[:0], None),
+        "out misaligned": (x[: 131072 + 5], buf[2 : 131072 + 7]),
+        "x and out misaligned alike": (x[1:131074], buf[1:131074]),
+    }
+
+
+COPY_CASES = list(_copy_cases())
+
+
+@pytest.mark.parametrize("case", COPY_CASES)
+def test_copy_adds_one_on_views_and_ragged_sizes(case):
+    x, out = _copy_cases()[case]
+    want = x.numpy().astype(np.int64) + 1
+    want = np.where(want > 2**31 - 1, want - 2**32, want)  # int32 wrap
+    np.testing.assert_array_equal(PK.probe_copy(x, 4, out=out).numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COPY_CASES)
+def test_probe_copy_kernel_on_views_and_ragged_sizes(case):
+    """16-byte accesses with a scalar head and tail: exact for every grid
+    of the P3 series, on views that keep their offsets on the card."""
+    _card()
+    x, out = _copy_cases("cuda")[case]
+    for blocks in (0, 1, 4, 64, 512):
+        got = PK.probe_copy(x, blocks, out=None if out is None else out.fill_(7))
+        assert torch.equal(got, PK.probe_copy_plain(x)), blocks
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_probe_hist_count_kernel_equals_plain():
     _card()

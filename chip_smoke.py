@@ -17,6 +17,11 @@ hot-parameter store at depth 2 x 16,384 rows x 8 buckets of 500 ms):
 - ``seg1``: ``platform_config()`` with single-lane rules — the segment
   check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4.
 
+All three run with the observability planes the reference's serving
+config turns on (``platform_config()``'s defaults): the device telemetry
+row, the top-128 per-resource timeline rows and up to 32 explain records
+a tick, packed into the one readback.  They add no kernel.
+
 All three run the hot-parameter stage (ParamFlow): 32 param rules on the
 16 hottest resources (16 with single lanes, one a resource) — QPS grade
 over 1 s and 2 s (two window classes), some THREAD grade, one per-value
@@ -58,7 +63,11 @@ Phases (the first failure stops the script with a nonzero exit):
    (B1 ``index_add_``, B2 ``index_select``; no PyTorch call computes a
    segmented scan, so for B3/B4 ``torch.cumsum`` over the same values is
    timed as an unsegmented-scan floor), beside the least time the card
-   could take (bytes over 3.35 TB/s, or operations over 67 T/s).
+   could take (bytes over 3.35 TB/s, or operations over 67 T/s).  The
+   tick's three plane functions alone (``_device_stats``,
+   ``_device_res_stats``, ``_device_explain``), called again on the
+   arguments one tick gave them: device launches, device ms and host
+   enqueue ms a call (``[planes]`` lines).
 3. The main paths: a threaded ``SentinelClient`` on ``cuda`` per
    configuration, 4,000 flow rules (one per resource: 40 rate limiters,
    40 warm-ups, the rest QPS; prioritized traffic borrows ahead), 1,000
@@ -77,7 +86,11 @@ Phases (the first failure stops the script with a nonzero exit):
    client must grow ``seg_u`` from the burst's host segment count, drop
    nothing, and give the fused client's verdicts and waits, item for item
    (``seg1`` against a fused client with single lanes, which keeps the same
-   16 param rules); param rules must block some of every burst.
+   16 param rules); param rules must block some of every burst.  The
+   planes on the threaded run: the verdict counters the client folded from
+   the telemetry rows (the port's ``obs.registry``) must equal the
+   verdicts the futures returned, kind for kind; ``explain_coverage()``
+   must count every blocked entry; the timeline must hold rows.
 4. The tick against itself, per configuration: one seeded, host-presorted
    B = 2,048 stream (``seg_u`` grown from its exact segment count by the
    client's rule) from one state, once with the kernels and once with
@@ -86,11 +99,20 @@ Phases (the first failure stops the script with a nonzero exit):
    included) must be equal, no tick may drop items, param rules must block
    some, and the kernel run forbids host syncs inside the tick
    (``torch.cuda.set_sync_debug_mode("error")``; the readback is
-   outside).  Prints ms per tick, decisions/s and, from a profile of 4
-   ticks, device busy time, wall time, host CPU time, device launches and
-   the card's idle share, with the profile's top rows, B1's launches
-   a tick, the profile's launches of the port's kernels and memsets, and
-   the device launches a tick beside commit 71b3c5a's.
+   outside).  The planes are checked where the JAX reference cannot run:
+   the stats row's valid count and verdict mix equal the decoded bitmap's,
+   ``n_blocked`` its blocked rows, the explain section's own checksum
+   validates, and the timeline rows are a host sort of the readback of
+   the windowed pass + block (descending, lower row first on a tie).  The
+   same stream with the planes off must give the same verdicts, waits and
+   state.  Prints ms per tick and decisions/s with the planes on and off
+   (two runs of each from one state, in turns: off, on, on, off), the
+   wire's length in words at 2,048 and 256 rows, and, from one profile
+   of 4 ticks with the planes off then 4 with them on, device busy time,
+   wall time, host CPU time, device launches and the card's idle share —
+   and what the planes add to each — with the profile's top rows, B1's
+   launches a tick, the profile's launches of the port's kernels and
+   memsets, and the device launches a tick beside commit 71b3c5a's.
 5. The probes (``sentinel_tpu_torch/probes``): each of the four probe
    kernels — probe_copy, probe_hist_count, probe_hist_planes,
    probe_hist_stat5 (``csrc/probes.cu``) — against its plain version on
@@ -644,6 +666,24 @@ def arg_value(k) -> str:
 
 # -- phase 3: the main paths ------------------------------------------------------------
 
+#: the device telemetry row's verdict counters (the port's registry) by the
+#: outcome name phase 3's request threads record
+FOLDED = {"pass": "pass", "pass_wait": "pass_wait", "AuthorityException": "block_authority",
+          "SystemBlockException": "block_system", "ParamFlowException": "block_param",
+          "FlowException": "block_flow", "DegradeException": "block_degrade"}
+
+
+def folded_verdicts() -> dict:
+    """outcome name -> the value of its sentinel_device_verdicts_total series"""
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    out = {}
+    for kind, label in FOLDED.items():
+        m = REGISTRY.get("sentinel_device_verdicts_total", {"verdict": label})
+        out[kind] = 0 if m is None else m.value
+    return out
+
+
 
 def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     client = st.init(cfg=cfg, device="cuda", mode="threaded", entry_timeout_s=30.0)
@@ -691,6 +731,7 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
                 counts[k] = counts.get(k, 0) + v
             done[0] += sum(local.values())
 
+    folded0 = folded_verdicts()
     FU.reset_launches()
     SC.reset_launches()
     t0 = time.perf_counter()
@@ -709,11 +750,16 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    folded = {k: v - folded0[k] for k, v in folded_verdicts().items()}
+    cov = client.explain_coverage()
     info = dict(seg_static_ranks=client.cfg.seg_static_ranks, seg_u=client.cfg.seg_u,
                 seg_dropped_total=client.seg_dropped_total, features=sorted(client._features),
                 param_rules=int(client._rules_dev.param.enabled.sum().item()),
                 pconc_after_exits=int(client._state.pconc.sum().item()),
-                pcms_total=int(client._state.pcms.sum().item()))
+                pcms_total=int(client._state.pcms.sum().item()),
+                wire_decode_failures=client.wire_decode_failures, folded_verdicts=folded,
+                explain_coverage=cov, explain_top_causes=client.explain_top_causes(3),
+                timeline_rows=len(client.timeline.find(None, 0, 2**62)))
     if errors:
         raise errors[0]
     st.reset()
@@ -863,9 +909,11 @@ def to_batches(E, torch, cfg, cols):
     return out
 
 
-def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False):
+def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False, scores=None):
     """Run the stream; ``forbid_sync`` makes any host<->device sync inside
-    the tick (everything but its one readback) raise."""
+    the tick (everything but its one readback) raise.  ``scores``: a list
+    that gets, after each tick (outside it), the readback of the timeline's
+    ranking score, windowed pass + block of rows [1, max_resources)."""
     wires, waits, tick_s = [], [], []
     for i, (acq, comp) in enumerate(stream):
         torch.cuda.synchronize()
@@ -879,33 +927,116 @@ def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False):
         wires.append(out.wire.cpu().numpy().tobytes())  # the one readback
         tick_s.append(time.perf_counter() - t)
         waits.append(out.wait_ms.cpu().numpy())
+        if scores is not None:
+            run = state.win_sec.run[1 : cfg.max_resources]
+            scores.append((run[:, 0] + run[:, 1]).cpu().numpy())
     return state, wires, waits, tick_s
 
 
-def profile_ticks(E, torch, state, rules, cfg, stream, t0_ms):
-    """(device busy us, wall us, host CPU us, device launches, the port's
-    kernels' and the memsets' launches by name, table) of 4 ticks under the
-    profiler."""
+def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
+    """One profiler session over 4 ticks of each variant ``(label, state,
+    rules, cfg)`` in turn; per label: (device busy us, wall us, host CPU
+    us, device launches, the port's kernels' and the memsets' launches by
+    name, top device rows).  Each variant's ticks run inside a
+    ``record_function`` range that ends after a synchronize, so an event
+    belongs to the variant whose range holds its start."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    walls = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for i, (acq, comp) in enumerate(stream[:4]):
-            state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
-            out.wire.cpu()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20, max_name_column_width=48)
-    # device work = the kernel / memcpy / memset events (the CPU-side aten
-    # rows repeat the same time as their "self CUDA" column)
-    evs = prof.key_averages()
-    dev = [e for e in evs if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    cpu_us = sum(e.self_cpu_time_total for e in evs if e.device_type == DeviceType.CPU)
-    ours = {e.key: e.count for e in dev if any(k in e.key for k in (
-        "scatter_many", "seg_sum", "seg_min", "gather_many", "Memset"))}
-    return sum(e.self_device_time_total for e in dev), wall_us, cpu_us, sum(e.count for e in dev), ours, table
+        for label, state, rules, cfg in variants:
+            with record_function(f"variant:{label}"):
+                t = time.perf_counter()
+                for i, (acq, comp) in enumerate(stream[:4]):
+                    state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
+                    out.wire.cpu()
+                torch.cuda.synchronize()
+                walls[label] = (time.perf_counter() - t) * 1e6
+    evs = prof.events()
+    spans = {e.name.split(":", 1)[1]: (e.time_range.start, e.time_range.end) for e in evs
+             if e.name.startswith("variant:") and e.device_type == DeviceType.CPU}
+    out = {}
+    for label, (lo, hi) in spans.items():
+        mine = [e for e in evs if lo <= e.time_range.start <= hi and not e.name.startswith("variant:")]
+        dev = [e for e in mine if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        cpu_us = sum(e.self_cpu_time_total for e in mine if e.device_type == DeviceType.CPU)
+        by_name = {}
+        for e in dev:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        ours = {k: n for k, (n, _us) in by_name.items() if any(x in k for x in (
+            "scatter_many", "seg_sum", "seg_min", "gather_many", "Memset"))}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        out[label] = (sum(e.time_range.elapsed_us() for e in dev), walls[label], cpu_us, len(dev), ours, top)
+    return out
+
+
+def planes_off(cfg):
+    """The configuration with the three observability planes switched off."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, device_telemetry=False, timeline_k=0, explain_k=0)
+
+
+#: the tick's observability-plane functions (ops/engine.py)
+PLANE_FNS = ("_device_stats", "_device_res_stats", "_device_explain")
+
+
+def plane_report(E, torch, state, rules, cfg, acq, comp, now_ms) -> dict:
+    """Each plane function of one tick (on a copy of ``state``), called
+    again on the arguments the tick gave it: device ms a call (L2 flushed),
+    host enqueue ms and device launches a call."""
+    got = {}
+    real = {k: getattr(E, k) for k in PLANE_FNS}
+
+    def recorder(k):
+        def rec(*args):
+            got[k] = args  # the tick reads these and writes none of them afterwards
+            return real[k](*args)
+        return rec
+
+    for k in PLANE_FNS:
+        setattr(E, k, recorder(k))
+    try:
+        E.tick(E.clone_state(state), rules, acq, comp, now_ms, 0.3, 0.2, cfg, E.ALL_FEATURES)
+    finally:
+        for k in PLANE_FNS:
+            setattr(E, k, real[k])
+    check(set(got) == set(PLANE_FNS), f"the tick called the planes {sorted(got)}")
+    out = {}
+    for k, args in got.items():
+        d, h = time_ms(lambda: real[k](*args), reps=20)
+        per_launch = launch_breakdown(lambda: real[k](*args))
+        out[k] = dict(ms=d, host_ms=h, launches=sum(n for _name, n, _ms in per_launch))
+    return out
+
+
+def check_planes(np, E, WIRE, TX, cfg, wires, scores) -> dict:
+    """Card-side checks of the planes, where the JAX reference cannot run:
+    the stats row's valid count and verdict mix against the decoded bitmap,
+    ``n_blocked`` against its blocked rows, the explain section's own
+    checksum, and the timeline rows against a host sort of the readback of
+    the windowed pass + block (descending score, ascending row on a tie)."""
+    lo = WIRE.layout_for(cfg, cfg.batch_size)
+    K = E.timeline_k(cfg)
+    ties = 0
+    for i, (w, score) in enumerate(zip(wires, scores)):
+        fr = WIRE.unpack(w, lo)
+        mix = np.bincount(fr.verdict, minlength=7)
+        check(fr.stats[E.STAT_VALID] == cfg.batch_size, (i, "STAT_VALID", fr.stats[E.STAT_VALID]))
+        for slot, code in zip(range(E.STAT_PASS, E.STAT_BLOCK_DEGRADE + 1), E._STAT_VERDICTS):
+            check(fr.stats[slot] == mix[code], (i, "stats slot", slot, fr.stats[slot], mix.tolist()))
+        n_blocked, recs = TX.decode_section(fr.expl)  # raises on a bad sec_sum
+        check(n_blocked == int(mix[1:6].sum()), (i, "n_blocked", n_blocked, mix.tolist()))
+        check(int((recs[:, 0] > 0).sum()) == min(n_blocked, lo.expl_k), (i, "explain records", n_blocked))
+        s64 = score.astype(np.int64)
+        want = np.lexsort((np.arange(s64.size), -s64))[:K] + 1
+        got = fr.res_stats[:, E.TL_RID].astype(np.int64)
+        check(np.array_equal(got, want), (i, "timeline rows", got[:8].tolist(), want[:8].tolist()))
+        ties += int(np.sum(np.diff(s64[want - 1]) == 0))
+    return dict(ticks=len(wires), timeline_k=K, explain_k=lo.expl_k, tied_neighbours_in_top_k=ties)
 
 
 # -- phase 5: the probes ----------------------------------------------------------------
@@ -1341,7 +1472,8 @@ def b2_main() -> int:
         if ids is not None:
             flow_read_report(E, W, FU, torch, state, ids, 1_000, cfg, name)
             reads[name] = flow_read_calls(E, W, FU, torch, state, ids, 1_000, cfg)
-        dev_us, wall_us, cpu_us, n_launch, ours, _table = profile_ticks(E, torch, state, rules, cfg, stream[1:], 1_250)
+        prof = profile_ticks(E, torch, [(name, state, rules, cfg)], stream[1:], 1_250)
+        dev_us, wall_us, cpu_us, n_launch, ours, _top = prof[name]
         log(f"[b2] {name}: profile of 4 ticks: {n_launch} device launches ({n_launch / 4:g} a tick), device busy "
             f"{dev_us / 1e3:.3f} ms, wall {wall_us / 1e3:.3f} ms, host CPU {cpu_us / 1e3:.3f} ms; the port's kernels "
             f"and memsets: {json.dumps(ours, sort_keys=True)}")
@@ -1463,6 +1595,7 @@ def main() -> int:
                     calls_per_tick=len(calls), bytes=nbytes_all, ops=ops_all, wrapper_host_ms=host_ms)
 
     kern = {}
+    plane_reports = {}
     b1_detail, b3_detail = [], []
     flow_reads = {}
     state0 = {}
@@ -1477,6 +1610,11 @@ def main() -> int:
         s0, cap_light = capture_tick(name, s0, *light, 1_100)
         torch.cuda.synchronize()
         state0[name] = s0
+        plane_reports[name] = plane_report(E, torch, s0, setups[name][1], cfgs[name], *stream[1], 1_150)
+        torch.cuda.synchronize()
+        log(f"[planes] {name}: the tick's plane functions alone, a call at B={c0.batch_size}: " + "; ".join(
+            f"{k} {v['launches']:g} device launches, device {v['ms']:.4f} ms, host enqueue {v['host_ms']:.4f} ms"
+            for k, v in plane_reports[name].items()))
         for shape, cap in ((f"B={c0.batch_size}", cap_full), ("B=256", cap_light)):
             for kname in PATH_KERNELS[name]:
                 k = measure(kname, cap[kname])
@@ -1555,6 +1693,16 @@ def main() -> int:
             check(info["seg_static_ranks"], "seg1: the client did not turn seg_static_ranks on")
         if name != "fused":
             check(info["seg_dropped_total"] == 0, (name, info))
+        # the planes on the main path: the telemetry row's folded verdict
+        # mix is what the futures returned, every blocked entry is explained
+        # or counted past explain_k, and the timeline recorded rows
+        check(info["wire_decode_failures"] == 0, (name, info))
+        check(all(info["folded_verdicts"][k] == counts.get(k, 0) for k in FOLDED),
+              f"{name}: folded device verdicts {info['folded_verdicts']} != the futures' {counts}")
+        n_blocked = sum(v for k, v in counts.items() if k not in ("pass", "pass_wait"))
+        check(info["explain_coverage"]["blocked"] == n_blocked and info["explain_coverage"]["explained"] > 0,
+              (name, "explain coverage", info["explain_coverage"], n_blocked))
+        check(info["timeline_rows"] > 0, (name, "the timeline recorded no rows"))
         main_runs[name] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches, client=info)
     report["main_path"] = main_runs
 
@@ -1586,18 +1734,22 @@ def main() -> int:
     report["burst"] = {k: {f: v for f, v in b.items() if f != "verdicts"} for k, b in bursts.items()}
 
     # -- 4. the tick against itself --------------------------------------------------
+    from sentinel_tpu_torch.obs import explain as TX
+
     ticks = stream[1:]
-    lo = WIRE.layout_for(c0, c0.batch_size)
     plain = {"scatter_many": FU.scatter_many_plain, "gather_many": FU.gather_many_plain,
              "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many_plain,
              "seg_incl_min": SC.seg_incl_min_plain}
     report["tick"] = {}
     for name, (cfg, rules) in setups.items():
+        lo = WIRE.layout_for(cfg, cfg.batch_size)
         st_a = E.clone_state(state0[name])
         st_b = E.clone_state(state0[name])
         FU.reset_launches()
         SC.reset_launches()
-        st_a, wires_a, waits_a, tick_s = run_stream(E, torch, st_a, rules, cfg, ticks, 1_250, forbid_sync=True)
+        scores = []
+        st_a, wires_a, waits_a, tick_s = run_stream(E, torch, st_a, rules, cfg, ticks, 1_250, forbid_sync=True,
+                                                    scores=scores)
         launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
         for kname in PATH_KERNELS[name]:
             check(launches[kname] > 0, (name, "tick", kname, launches))
@@ -1622,29 +1774,72 @@ def main() -> int:
                 float_diff = max(float_diff, (la[k] - lb[k]).abs().max().item())
             else:
                 check(torch.equal(la[k], lb[k]), f"{name}: integer state leaf {k} differs")
-        steady = sorted(tick_s[2:])
-        ms_tick = 1e3 * steady[len(steady) // 2]
-        dev_us, wall_us, cpu_us, n_launch, ours, table = profile_ticks(E, torch, E.clone_state(st_a), rules, cfg,
-                                                                 ticks, 9_000)
+        del st_b, la, lb
+        planes = check_planes(np, E, WIRE, TX, cfg, wires_a, scores)
+        # the same stream with the planes off: the same verdicts, waits and state
+        cfg_off = planes_off(cfg)
+        lo_off = WIRE.layout_for(cfg_off, cfg.batch_size)
+        st_c, wires_c, waits_c, _ = run_stream(E, torch, E.clone_state(state0[name]), rules, cfg_off, ticks,
+                                               1_250, forbid_sync=True)
+        for i, (wa, wc) in enumerate(zip(wires_a, wires_c)):
+            fa, fc = WIRE.unpack(wa, lo), WIRE.unpack(wc, lo_off)
+            check(np.array_equal(fa.verdict, fc.verdict) and np.array_equal(waits_a[i], waits_c[i]),
+                  f"{name} tick {i}: the planes changed a verdict or a wait")
+        la, lc = S.leaves(st_a), S.leaves(st_c)
+        check(all(torch.equal(la[k], lc[k]) for k in la), f"{name}: the planes changed the state")
+        del st_c, la, lc
+        # tick time with the planes off and on, in turns (off, on, on, off)
+        # from the same state, so that host drift weighs on both alike
+        turns = {"off": [], "on": []}
+        for label in ("off", "on", "on", "off"):
+            c_turn = cfg if label == "on" else cfg_off
+            _s, _w, _wt, ts_turn = run_stream(E, torch, E.clone_state(state0[name]), rules, c_turn, ticks, 1_250,
+                                              forbid_sync=True)
+            turns[label] += ts_turn[2:]
+            del _s
+        ms_tick = 1e3 * sorted(turns["on"])[len(turns["on"]) // 2]
+        ms_off = 1e3 * sorted(turns["off"])[len(turns["off"]) // 2]
+        prof = profile_ticks(E, torch, [("off", E.clone_state(st_a), rules, cfg_off),
+                                        ("on", E.clone_state(st_a), rules, cfg)], ticks, 9_000)
+        dev_us, wall_us, cpu_us, n_launch, ours, top = prof["on"]
+        dev_off, wall_off, cpu_off, n_off, _ours_off, _top_off = prof["off"]
         idle = 1 - dev_us / wall_us
         log(f"[tick] {name}: {len(ticks)} ticks at B={cfg.batch_size}, no host sync inside; kernels == plain "
             f"versions (wire bytes, wait_ms, integer state; float state max |diff| {float_diff}); "
             f"seg_dropped 0; verdict mix {mix.tolist()}; launches {json.dumps(launches)}")
-        log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s; "
+        log(f"[tick] {name}: planes checked on the card ({json.dumps(planes)}): stats row == bitmap, n_blocked, "
+            f"explain sec_sum, timeline rows == host sort of the run readback; planes off: same verdicts, waits, "
+            f"state; wire {lo.total} words at B={cfg.batch_size} and {WIRE.layout_for(cfg, 256).total} at 256 "
+            f"(planes off {lo_off.total} and {WIRE.layout_for(cfg_off, 256).total})")
+        log(f"[tick] {name}: median {ms_tick:.3f} ms per tick -> {cfg.batch_size / ms_tick * 1e3:.0f} decisions/s "
+            f"(planes off {ms_off:.3f} ms -> {cfg.batch_size / ms_off * 1e3:.0f}; two runs of each in turns, "
+            f"off / on / on / off, {len(turns['on'])} steady ticks each); "
             f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
             f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches "
             f"({n_launch / 4:g} a tick; 71b3c5a: {EARLIER_LAUNCHES[name]:g}); "
             f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}; the profile's launches of "
             f"the port's kernels and memsets, 4 ticks: {json.dumps(ours, sort_keys=True)}")
-        for line in table.splitlines()[:14]:
-            log(f"[profile] {name}", line)
+        log(f"[tick] {name}: the planes add, a tick: {(n_launch - n_off) / 4:g} device launches "
+            f"({n_off / 4:g} -> {n_launch / 4:g}), {(dev_us - dev_off) / 4e3:.4f} ms device busy "
+            f"({dev_off / 4e3:.4f} -> {dev_us / 4e3:.4f}), {(cpu_us - cpu_off) / 4e3:.4f} ms host CPU under the "
+            f"profiler ({cpu_off / 4e3:.4f} -> {cpu_us / 4e3:.4f}), {(wall_us - wall_off) / 4e3:.4f} ms wall "
+            f"({wall_off / 4e3:.4f} -> {wall_us / 4e3:.4f}); median tick {ms_tick - ms_off:.3f} ms")
+        for row_name, (n, us) in top:
+            log(f"[profile] {name}: {row_name[:60]:60s} x{n:5d} {us / 1e3:9.3f} ms (4 ticks)")
         report["tick"][name] = dict(ms_median=ms_tick, decisions_per_s=cfg.batch_size / ms_tick * 1e3,
-                                    tick_ms=[1e3 * s for s in tick_s], ticks=len(ticks), float_state_max_diff=float_diff,
+                                    tick_ms=[1e3 * s for s in turns["on"]], ticks=len(ticks),
+                                    float_state_max_diff=float_diff,
                                     verdict_mix=mix.tolist(), launches=launches, device_us=dev_us, wall_us=wall_us,
                                     host_cpu_us=cpu_us, idle_share=idle, device_launches=n_launch, seg_u=cfg.seg_u,
                                     profile_kernel_launches=ours,
-                                    scatter_many_launches_a_tick=launches["scatter_many"] / len(ticks))
-        del st_a, st_b
+                                    scatter_many_launches_a_tick=launches["scatter_many"] / len(ticks),
+                                    planes_checked=planes, wire_words={"on": [lo.total, WIRE.layout_for(cfg, 256).total],
+                                                                       "off": [lo_off.total, WIRE.layout_for(cfg_off, 256).total]},
+                                    planes_off=dict(ms_median=ms_off, tick_ms=[1e3 * s for s in turns["off"]],
+                                                    device_us=dev_off, wall_us=wall_off, host_cpu_us=cpu_off,
+                                                    device_launches=n_off),
+                                    plane_fns=plane_reports[name])
+        del st_a
 
     # -- 5. the probes ---------------------------------------------------------------
     probe_records, report["probes"] = probe_phase(np, torch, report["tick"], probe_splits)

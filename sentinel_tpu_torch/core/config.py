@@ -366,10 +366,12 @@ def platform_config(**kw) -> EngineConfig:
     update the window rings in place).  With single-lane rules
     (``*_rules_per_resource=1``) the check phase runs at the segment level
     too.  ``platform_config(seg_effects=False)`` is the per-item fused
-    path.  Device telemetry, the timeline rows and the explain records are
-    not carried yet, so they are switched off here; the engine raises
-    ``NotImplementedError`` for any of them rather than ignoring them.  On
-    the CPU (tests) the same flags apply: the kernels' plain versions run
+    path.  The observability planes keep the reference's defaults: the
+    device telemetry row (``device_telemetry=True``), the top-128
+    per-resource timeline rows (``timeline_k=128``) and up to 32 explain
+    records a tick (``explain_k=32``, on the packed wire the client
+    reads), so the port serves what the reference's clients read.  On the
+    CPU (tests) the same flags apply: the kernels' plain versions run
     there.
 
     ``use_mxu_tables`` is kept as a field so configs carry across from the
@@ -381,9 +383,6 @@ def platform_config(**kw) -> EngineConfig:
         fused_effects=True,
         seg_effects=True,
         seg_fallback=False,
-        device_telemetry=False,
-        timeline_k=0,
-        explain_k=0,
     )
     base.update(kw)
     return EngineConfig(**base)

@@ -47,10 +47,19 @@ and THREAD concurrency) among the acquire scatters; on the segment path
 they are separate scatter_many launches on the item axis, because
 (rule, value-hash) rows are not segment-constant.
 
+At the tick's tail, after the effects, come the three observability
+planes the reference's serving config turns on: the device telemetry row
+(``device_telemetry``: ``_device_stats``, float32 [N_STATS]), the top-K
+per-resource timeline rows (``timeline_k``: ``_device_res_stats``,
+float32 [K, TL_COLS]) and the explain records of up to ``explain_k``
+blocked rows (``_device_explain``, 4 uint32 words each, packed wire only).
+All three are plain PyTorch over tensors the tick already holds — the
+reference computes them with XLA ops outside any Pallas kernel — and none
+of them reads anything back to the host.
+
 Features: {nodes, occupy, flow, degrade, authority, system, warmup,
-param}.  The ``tail_flow`` stage, ``seg_fallback``, the sketch tier,
-device telemetry, the timeline rows and the explain records are not
-ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+param}.  The ``tail_flow`` stage, ``seg_fallback`` and the sketch tier
+are not ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -80,6 +89,9 @@ from sentinel_tpu_torch.core.rules import (
     STRATEGY_DIRECT,
     STRATEGY_RELATE,
 )
+from sentinel_tpu_torch.obs.explain import FX as EXPLAIN_FX
+from sentinel_tpu_torch.obs.explain import FX_MAX as _EXPLAIN_FX_MAX
+from sentinel_tpu_torch.obs.explain import FX_UNKNOWN as EXPLAIN_UNKNOWN
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import fused as FU
@@ -184,6 +196,301 @@ class TickOutput(NamedTuple):
     # int32 scalar: items failed closed past the segment capacity (0 off the
     # segment path)
     seg_dropped: Optional[torch.Tensor] = None
+    # the device telemetry row (cfg.device_telemetry): float32 [N_STATS]
+    # (see _device_stats); None when off or when it rides the packed wire
+    stats: Optional[torch.Tensor] = None
+    # the per-resource timeline rows (timeline_k(cfg) > 0): float32
+    # [K, TL_COLS] (see _device_res_stats); None when off or packed
+    res_stats: Optional[torch.Tensor] = None
+
+
+# -- device-resident telemetry (TickOutput.stats) ---------------------------
+#
+# One float32 row per tick: the verdict mix by block reason, admitted and
+# blocked token sums, segment occupancy, the system ceiling's use, and the
+# global ENTRY node's sliding-window sums — read from the O(1) running sums
+# the windows keep, so the row costs a handful of small reductions.  The
+# slots are the reference's (sentinel_tpu/ops/engine.py:228-251).
+
+STAT_VALID = 0  # non-padding items in the acquire batch
+STAT_PASS = 1  # verdict mix over valid items (first-fail slot order)
+STAT_PASS_WAIT = 2
+STAT_BLOCK_AUTHORITY = 3
+STAT_BLOCK_SYSTEM = 4
+STAT_BLOCK_PARAM = 5
+STAT_BLOCK_FLOW = 6
+STAT_BLOCK_DEGRADE = 7
+STAT_FORCED = 8  # host-injected pre_verdicts (cluster token denials)
+STAT_PASS_TOKENS = 9  # admitted token sum (count column)
+STAT_BLOCK_TOKENS = 10
+STAT_SEG_DROPPED = 11  # fail-closed seg-overflow items (0 off the seg path)
+STAT_SEG_LIVE = 12  # live compacted segments this tick (0 off the seg path)
+STAT_WIN_PASS = 13  # ENTRY-node sliding-window sums (post-tick)
+STAT_WIN_BLOCK = 14
+STAT_WIN_SUCCESS = 15
+STAT_WIN_EXCEPTION = 16
+STAT_WIN_RT_SUM = 17
+STAT_WIN_RT_MIN = 18  # W.RT_MIN_INIT when no completions in window
+STAT_ENTRY_CONC = 19  # global inbound concurrency
+STAT_CEIL_QPS = 20  # active SystemTensors qps ceiling (-1 = unset)
+STAT_CEIL_THREAD = 21  # active SystemTensors max_thread ceiling
+STAT_CEIL_UTIL = 22  # windowed ENTRY pass / qps ceiling (0 when unset)
+N_STATS = 24  # slot 23 reserved; 96 bytes per tick
+
+#: verdict codes in the row's order (slots STAT_PASS .. STAT_BLOCK_DEGRADE)
+_STAT_VERDICTS = (
+    PASS, PASS_WAIT, BLOCK_AUTHORITY, BLOCK_SYSTEM, BLOCK_PARAM, BLOCK_FLOW, BLOCK_DEGRADE,
+)
+
+
+def _device_stats(
+    cfg: EngineConfig, state, rules, acq, verdict, valid, forced, seg_dropped, seg_live,
+) -> torch.Tensor:
+    """The TickOutput.stats row (the STAT_* slots), float32 [N_STATS].
+
+    Runs AFTER the acquire effects landed, so the window sums include this
+    tick.  Integer slots are int32 sums cast to float32, as the reference's
+    are; the qps and max_thread ceilings stay 0-d device tensors."""
+    dev = verdict.device
+    erow = cfg.entry_node_row
+    win = state.win_sec
+    # one compare of every valid verdict against the codes 0..6
+    codes = torch.arange(PASS_WAIT + 1, dtype=I32, device=dev)
+    onehot = torch.where(valid, verdict.to(I32), -1)[None, :] == codes[:, None]
+    n_code = onehot.sum(dim=1, dtype=I32)
+    admitted = onehot[PASS] | onehot[PASS_WAIT]
+    cnt = acq.count
+    sums = torch.stack(
+        [
+            valid.to(I32),
+            forced.to(I32),
+            torch.where(admitted, cnt, 0),
+            torch.where(valid & ~admitted, cnt, 0),
+        ]
+    ).sum(dim=1, dtype=I32)
+    run = win.run[erow]
+    ints = torch.cat(
+        [sums[0:1]]
+        + [n_code[c : c + 1] for c in _STAT_VERDICTS]
+        + [
+            sums[1:4],
+            seg_dropped.reshape(1).to(I32),
+            seg_live.reshape(1).to(I32),
+            run[W.EV_PASS : W.EV_PASS + 1],
+            run[W.EV_BLOCK : W.EV_BLOCK + 1],
+            run[W.EV_SUCCESS : W.EV_SUCCESS + 1],
+            run[W.EV_EXCEPTION : W.EV_EXCEPTION + 1],
+            state.concurrency[erow : erow + 1],
+        ]
+    ).to(F32)
+    win_pass = ints[STAT_WIN_PASS : STAT_WIN_PASS + 1]
+    qps = rules.system.qps.to(F32).reshape(1)
+    util = torch.where(qps > 0, win_pass / torch.clamp_min(qps, 1.0), 0.0)
+    return torch.cat(
+        [
+            ints[:STAT_WIN_RT_SUM],
+            win.run_rt[erow : erow + 1],
+            win.run_rt_min[erow : erow + 1],
+            ints[STAT_WIN_RT_SUM:],  # STAT_ENTRY_CONC
+            qps,
+            rules.system.max_thread.to(F32).reshape(1),
+            util,
+            torch.zeros((1,), dtype=F32, device=dev),
+        ]
+    )
+
+
+# -- per-resource timeline rows (TickOutput.res_stats) ----------------------
+#
+# The top-K resource rows by windowed pass+block, with their CURRENT
+# second-window bucket's cumulative stats; the host's write-behind fold
+# (obs/timeline.py) keeps the last read per (row, bucket) and lands exact
+# per-second records once the engine clock leaves the second.
+
+TL_RID = 0  # resource row id (registry maps it back to the name)
+TL_PASS = 1  # current-bucket cumulative counts (token-weighted)
+TL_BLOCK = 2
+TL_SUCCESS = 3
+TL_EXCEPTION = 4
+TL_RT_SUM = 5  # current-bucket RT sum (ms)
+TL_RT_MIN = 6  # current-bucket RT min (W.RT_MIN_INIT = none)
+TL_CONC = 7  # live concurrency (gauge, not bucketed)
+TL_COLS = 8
+
+
+def timeline_k(cfg: EngineConfig) -> int:
+    """Effective top-K row count (0 = res_stats emission off), clamped to
+    the resource-row space [1, max_resources)."""
+    if not cfg.device_telemetry or cfg.timeline_k <= 0:
+        return 0
+    return min(int(cfg.timeline_k), cfg.max_resources - 1)
+
+
+def _device_res_stats(cfg: EngineConfig, state, now_ms: int) -> torch.Tensor:
+    """The TickOutput.res_stats matrix (the TL_* columns), float32
+    [K, TL_COLS].
+
+    Rows [1, max_resources) are ranked by windowed pass+block (row 0, the
+    ENTRY node, is the stats row's).  ``lax.top_k`` puts the lower row
+    first on a tie and ``torch.topk`` promises no order among ties; a
+    stable descending sort keeps the reference's order.  Stale buckets (no
+    write since the window wrapped) read 0, and RT_MIN_INIT for the
+    minimum — LeapArray's isWindowDeprecated, batched."""
+    K = timeline_k(cfg)
+    win = state.win_sec
+    wid = W.wid_of(now_ms, cfg.second_window_ms)
+    bidx = W.current_index(now_ms, _sec_cfg(cfg))
+    r = win.run[1 : cfg.max_resources]
+    score = r[:, W.EV_PASS] + r[:, W.EV_BLOCK]
+    rows = torch.sort(score, descending=True, stable=True).indices[:K] + 1
+    fresh = win.epochs[bidx] == wid
+    c = torch.where(fresh, win.counts[:, bidx].index_select(0, rows), 0)  # [K, NE]
+    rt_sum = torch.where(fresh, win.rt_sum[:, bidx].index_select(0, rows), 0.0)
+    rt_min = torch.where(fresh, win.rt_min[:, bidx].index_select(0, rows), W.RT_MIN_INIT)
+    ints = torch.cat(
+        [
+            rows.to(I32)[:, None],
+            c[:, W.EV_PASS : W.EV_BLOCK + 1],
+            c[:, W.EV_SUCCESS : W.EV_SUCCESS + 1],
+            c[:, W.EV_EXCEPTION : W.EV_EXCEPTION + 1],
+            state.concurrency.index_select(0, rows)[:, None],
+        ],
+        dim=1,
+    ).to(F32)
+    return torch.cat([ints[:, :TL_RT_SUM], rt_sum[:, None], rt_min[:, None], ints[:, TL_RT_SUM:]], dim=1)
+
+
+def hotset_k(cfg: EngineConfig) -> int:
+    """Effective hot-candidate row count (0 = the wire's hot block off).
+    Nonzero only with the sketch tier, which this engine does not carry
+    yet (ROADMAP.md, Queue A item 5); kept so the wire layout mirrors the
+    reference's for every config."""
+    if not cfg.sketch_stats or cfg.hotset_k <= 0:
+        return 0
+    return int(cfg.hotset_k)
+
+
+# -- explain records (the wire's explain section) ---------------------------
+
+
+def explain_k(cfg: EngineConfig) -> int:
+    """Effective explain-record row count (0 = the wire's explain block
+    off).  Provenance rides ONLY the packed wire."""
+    if not cfg.packed_wire or cfg.explain_k <= 0:
+        return 0
+    return int(cfg.explain_k)
+
+
+def _explain_fx(x: torch.Tensor, known: torch.Tensor) -> torch.Tensor:
+    """float32 -> x256 fixed-point uint32 word (int64 in [0, 2^32));
+    EXPLAIN_UNKNOWN where not known.  FX_MAX is exact in float32, so the
+    truncation to int64 is the reference's cast to uint32."""
+    v = torch.clamp(x * EXPLAIN_FX, 0.0, _EXPLAIN_FX_MAX)
+    return torch.where(known, v.to(torch.int64), EXPLAIN_UNKNOWN)
+
+
+def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced, fslots):
+    """Provenance records for up to explain_k BLOCKED rows of this tick:
+    (n_blocked int64 scalar, records int64 [K, 4] of uint32 words).
+
+    Per record (obs/explain.py owns the host decode):
+      w0  resource id
+      w1  verdict kind (bits 0..2) | sketch-tier flag (bit 3) | forced
+          flag (bit 4) | blamed rule slot + 1 in bits 16..31 (0 = n/a)
+      w2  observed value, x256 fixed point (EXPLAIN_UNKNOWN = n/a)
+      w3  threshold, same encoding
+    The records are the first K blocked rows in batch order: the rank key
+    ``b - row`` is unique wherever it is positive, and every record past
+    the blocked rows is zeroed, so ``torch.topk``'s order among the zero
+    keys never shows.  The blamed slot is the resource's FIRST rule lane.
+
+    The reference attributes kind by kind (flow, degrade, param, system,
+    authority), each a chain of selects; here every kind's (slot, observed,
+    threshold) is read for every record at once — K-row gathers of state
+    the tick already holds — and one gather by the record's kind picks its
+    own, which keeps the launches few.  A forced row (a host pre_verdict)
+    blames no rule."""
+    b = acq.res.shape[0]
+    dev = acq.res.device
+    i64 = torch.int64
+    K = min(explain_k(cfg), b)
+    Fn, Dn, Pn = cfg.max_flow_rules, cfg.max_degrade_rules, cfg.max_param_rules
+    is_blocked = valid & (verdict >= BLOCK_FLOW) & (verdict <= BLOCK_AUTHORITY)
+    n_blocked = is_blocked.sum()
+    score = torch.where(is_blocked, torch.arange(b, 0, -1, dtype=I32, device=dev), 0)
+    score_v, rows = torch.topk(score, K)
+    live = score_v > 0
+
+    # the per-item columns a record reads, gathered once: resource, verdict,
+    # forced flag, and the flow check's first slot lane (exact tier only:
+    # the sketch tier's attribution comes with the sketch tier, ROADMAP.md
+    # Queue A item 5)
+    if fslots is not None:
+        slot_col = fslots.view(b, cfg.flow_rules_per_resource)[:, 0]
+    else:
+        slot_col = torch.full((b,), Fn, dtype=I32, device=dev)
+    res, kind, frc, slot_f = torch.stack(
+        [acq.res, verdict.to(I32), forced.to(I32), slot_col]
+    ).index_select(1, rows)
+    # the record's kind: 0 for a dead record, else its block code, which
+    # indexes the per-kind rows below (BLOCK_FLOW = 1 .. BLOCK_AUTHORITY = 5)
+    kind = torch.where(live, kind, 0).to(i64)
+    att = frc == 0
+    exact = res < cfg.node_rows
+    res_r = torch.clamp_max(res, cfg.max_resources)
+    slot_d = rules.degrade.res_cbs[:, 0].index_select(0, res_r)
+    slot_p = rules.param.res_params[:, 0].index_select(0, res_r)
+    slot_dc = torch.clamp_max(slot_d, Dn)
+    run_pass = W.window_event_run(state.win_sec, W.EV_PASS)
+    qps = rules.system.qps.to(F32)
+    zero = torch.zeros((K,), dtype=I32, device=dev)
+    # per kind (none, flow, degrade, param, system, authority): the blamed
+    # slot and the observed value, as the reference reads them — flow: the
+    # node's windowed pass run; degrade: the breaker's state (0 closed /
+    # 1 open / 2 half-open); param: unknown (the offending hashed value is
+    # not recoverable); system: the ENTRY node's windowed pass run;
+    # authority: the rule mode (1 white / 2 black) ...
+    slot_obs = torch.stack(
+        [
+            zero, zero,
+            slot_f, run_pass.index_select(0, torch.clamp_max(res, cfg.node_rows - 1)),
+            slot_d, state.cb_state.index_select(0, slot_dc),
+            slot_p, zero,
+            zero, run_pass[cfg.entry_node_row].expand(K),
+            zero, rules.auth.mode.index_select(0, res_r),
+        ]
+    ).view(6, 2, K)
+    # ... and the threshold: the flow rule's count, the degrade rule's
+    # count, the param rule's window budget, the qps ceiling
+    zero_f = zero.to(F32)
+    thr_k = torch.stack(
+        [
+            zero_f,
+            rules.flow.count.index_select(0, torch.clamp_max(slot_f, Fn)),
+            rules.degrade.count.index_select(0, slot_dc),
+            rules.param.threshold.index_select(0, torch.clamp_max(slot_p, Pn)),
+            qps.expand(K),
+            zero_f,
+        ]
+    )
+    slot, obs = torch.gather(slot_obs, 0, kind.view(1, 1, K).expand(1, 2, K))[0]
+    thr = torch.gather(thr_k, 0, kind[None])[0]
+    # whether the kind's slot / observed / threshold apply to the record
+    f_ok = (slot_f < Fn) & exact
+    base = torch.stack([f_ok, f_ok, slot_d < Dn, slot_p < Pn, att, att])
+    ok = torch.gather(base, 0, kind[None])[0] & att
+    low = kind <= BLOCK_PARAM
+    slot_ok = ok & low
+    obs_ok = ok & (kind != BLOCK_PARAM)
+    thr_ok = ok & (low | ((kind == BLOCK_SYSTEM) & (qps >= 0)))
+
+    slot_w = torch.clamp_max(torch.where(slot_ok, slot + 1, 0), 0xFFFF).to(i64)
+    w1 = kind | (((kind == BLOCK_FLOW) & ~exact).to(i64) << 3) | (frc.to(i64) << 4) | (slot_w << 16)
+    fx = _explain_fx(
+        torch.stack([obs.to(F32), thr], dim=1), torch.stack([obs_ok, thr_ok], dim=1)
+    )  # [K, 2]
+    words = torch.cat([res.to(i64)[:, None], w1[:, None], fx], dim=1)
+    return n_blocked, torch.where(live[:, None], words, 0)
 
 
 def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> None:
@@ -200,12 +507,6 @@ def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> No
         )
     if cfg.sketch_stats:
         unported.append("sketch_stats (ROADMAP.md Queue A: the sketch tier)")
-    if cfg.device_telemetry:
-        unported.append("device_telemetry (ROADMAP.md Queue A: telemetry, timeline, explain)")
-    if cfg.timeline_k > 0:
-        unported.append("timeline_k > 0 (ROADMAP.md Queue A: telemetry, timeline, explain)")
-    if cfg.explain_k > 0:
-        unported.append("explain_k > 0 (ROADMAP.md Queue A: telemetry, timeline, explain)")
     for f in sorted(set(features) & set(_UNPORTED_FEATURES)):
         unported.append(_UNPORTED_FEATURES[f])
     extra = set(features) - ALL_FEATURES - set(_UNPORTED_FEATURES)
@@ -993,7 +1294,7 @@ def _check_flow(
     )
     # latestPassedTime is absolute engine-ms: gathered as an exact int
     latest_g = T.small_gather_int(
-        torch.round(state.latest_passed_ms).to(I32), slots_f
+        W.f32_to_i32(torch.round(state.latest_passed_ms)), slots_f
     ).to(F32)
     enabled = fg[:, 0] > 0
     la = fg[:, 1].to(I32)
@@ -1474,14 +1775,32 @@ def tick(
             cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
             fslots, occ_grant, rl_info, param_ctx,
         )
+
+    # 5. the observability planes, after the effects (the window sums
+    #    include this tick)
+    stats = res_stats = expl = None
+    if cfg.device_telemetry:
+        seg_live = ctx_a.n_seg if use_seg else torch.zeros((), dtype=I32, device=acq.res.device)
+        stats = _device_stats(
+            cfg, state, rules, acq, verdict, valid, forced, seg_dropped, seg_live
+        )
+        if timeline_k(cfg) > 0:
+            res_stats = _device_res_stats(cfg, state, now_ms)
+    if explain_k(cfg) > 0:
+        expl = _device_explain(cfg, state, rules, acq, verdict, valid, forced, fslots)
     if cfg.packed_wire:
         return state, TickOutput(
             verdict=None,
             wait_ms=wait_ms,
-            wire=WIRE.pack_tick_output(cfg, verdict, wait_ms, seg_dropped),
+            wire=WIRE.pack_tick_output(
+                cfg, verdict, wait_ms, seg_dropped, stats, res_stats, expl
+            ),
             seg_dropped=seg_dropped,
         )
-    return state, TickOutput(verdict=verdict, wait_ms=wait_ms, seg_dropped=seg_dropped)
+    return state, TickOutput(
+        verdict=verdict, wait_ms=wait_ms, seg_dropped=seg_dropped, stats=stats,
+        res_stats=res_stats,
+    )
 
 
 def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):

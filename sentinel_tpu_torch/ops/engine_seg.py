@@ -366,7 +366,7 @@ def run_checks_seg(
             slot_u,
         )
         latest_u = T.small_gather_int(
-            torch.round(state.latest_passed_ms).to(I32), slot_u
+            W.f32_to_i32(torch.round(state.latest_passed_ms)), slot_u
         ).to(F32)
         enabled = fg[:, 0] > 0
         la = fg[:, 1].to(I32)
@@ -410,8 +410,10 @@ def run_checks_seg(
             behavior == CONTROL_WARM_UP_RATE_LIMITER, warm_qps, torch.clamp_min(rcount, 1e-9)
         )
         thr_eff = torch.where(is_warm, warm_qps, rcount)
-        cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
-        pool_dense = torch.where(state.occ_epoch == cur_wid + 1, state.occ_tokens, 0.0)
+        # the next window's key as the reference's int32 computes it (it
+        # wraps at 2^31), as flow_read_job keys the fused path's read
+        nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)
+        pool_dense = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
         # running sums are exact here: completions refreshed this now_ms
         tab = torch.stack(
             [

@@ -55,6 +55,16 @@ def i32(x: int) -> int:
     return x - (1 << 32) if x >= (1 << 31) else x
 
 
+def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA converts: out-of-range values saturate and
+    NaN reads 0.  (torch's cast is the C++ one: the card's conversion
+    instruction saturates, the CPU's gives -2^31 — so a value past
+    2^31 - 1, such as latestPassedTime at the int32 clock wrap, would read
+    differently on the two devices.)"""
+    inside = torch.nan_to_num(x, nan=0.0).clamp_min(-float(2**31)).to(torch.int32)
+    return torch.where(x >= float(2**31), 2**31 - 1, inside)
+
+
 class WindowConfig(NamedTuple):
     sample_count: int  # number of logical buckets (nb)
     window_ms: int  # bucket length

@@ -14,17 +14,30 @@ Readback — ONE flat buffer of uint32 words per tick::
     [bitmap]          ceil(B / 10) words; 10 verdicts per word, 3 bits each
     [sidecar]         EXC_K row indices then EXC_K wait values: the top-EXC_K
                       rows of wait_ms (ties: lower row first)
-    [stats] [timeline] [hot] [explain]
-                      optional blocks — none of them is emitted by this
-                      engine yet (device telemetry, timeline, sketch and
-                      explain records are not ported), so ``layout_for``
-                      gives them zero words
+    [stats]           N_STATS words — the float32 telemetry row, as bits
+    [timeline]        timeline_k * TL_COLS words — float32, as bits
+    [hot]             hotset_k * 2 words — the sketch tier's hot block
+                      (never emitted here: the sketch tier is not ported)
+    [explain]         2 + explain_k * EXPLAIN_WORDS words — provenance
+                      records for up to explain_k BLOCKED rows
+                      (obs/explain.py owns the record encoding):
+                      ``[n_blocked, sec_sum, records...]`` with its OWN
+                      additive checksum ``sec_sum`` seeded with
+                      EXPLAIN_MAGIC.  The section sits OUTSIDE the main
+                      checksum: a corrupt explain section drops the tick's
+                      explanations only (fail-OPEN), while main-section
+                      corruption still fails every verdict CLOSED.
+
+Optional blocks appear iff the config emits them (``layout_for`` mirrors
+the reference's conditions), so the layout is a pure function of
+(EngineConfig, batch shape).
 
 torch has no full uint32 arithmetic, so the device side packs in int64
 and masks to 32 bits; the buffer travels as an int32 tensor holding the
 same bits.  ``unpack`` (host numpy) validates the magic, the length and
-the checksum and raises :class:`WireDecodeError`; the client then fails the
-tick CLOSED.
+the main checksum and raises :class:`WireDecodeError`; the client then
+fails the tick CLOSED.  It hands the explain words back raw: their
+checksum is checked by ``obs/explain.decode_section``.
 
 Upload — batch columns with a static value range travel narrow and widen
 at tick entry: prio/inbound are 0/1 flags, pre_verdict a verdict code, and
@@ -49,8 +62,11 @@ _VMASK = (1 << VERDICT_BITS) - 1
 HDR_WORDS = 4
 #: PASS_WAIT sidecar capacity
 EXC_K = 64
-#: columns of a timeline row (the optional block this engine never emits)
-TL_COLS = 8
+#: seed of the explain section's own checksum — distinct from the main
+#: checksum so a flip in either section is attributed to that section
+EXPLAIN_MAGIC = 0x0B_5E_CF_A1
+#: uint32 words per explain record (obs/explain.py packs/unpacks them)
+EXPLAIN_WORDS = 4
 
 _U32 = 0xFFFFFFFF
 
@@ -81,21 +97,25 @@ class WireLayout(NamedTuple):
 
 
 def layout_for(cfg: EngineConfig, b: int) -> WireLayout:
-    """The wire layout this config emits at batch shape ``b``.  The port's
-    engine emits none of the optional blocks (it raises for the flags that
-    would), so they take zero words."""
-    n_stats = tl_rows = hot_rows = expl_k = 0
+    """The wire layout this config emits at batch shape ``b`` — the
+    reference's conditions exactly (ops/engine.tick's emission)."""
+    from sentinel_tpu_torch.ops import engine as E
+
+    n_stats = E.N_STATS if cfg.device_telemetry else 0
+    tl_rows = E.timeline_k(cfg) if cfg.device_telemetry else 0
+    hot_rows = min(E.hotset_k(cfg), b)
+    expl_k = min(E.explain_k(cfg), b)
     exc_k = min(EXC_K, b)
     n_bitmap = -(-b // VERDICTS_PER_WORD)
     off_bitmap = HDR_WORDS
     off_exc = off_bitmap + n_bitmap
     off_stats = off_exc + 2 * exc_k
     off_tl = off_stats + n_stats
-    off_hot = off_tl + tl_rows * TL_COLS
+    off_hot = off_tl + tl_rows * E.TL_COLS
     off_expl = off_hot + hot_rows * 2
-    total = off_expl
+    total = off_expl + (2 + expl_k * EXPLAIN_WORDS if expl_k else 0)
     return WireLayout(
-        b=b, exc_k=exc_k, n_stats=n_stats, tl_rows=tl_rows, tl_cols=TL_COLS,
+        b=b, exc_k=exc_k, n_stats=n_stats, tl_rows=tl_rows, tl_cols=E.TL_COLS,
         hot_rows=hot_rows, expl_k=expl_k, off_bitmap=off_bitmap,
         n_bitmap=n_bitmap, off_exc=off_exc, off_stats=off_stats,
         off_tl=off_tl, off_hot=off_hot, off_expl=off_expl, total=total,
@@ -108,12 +128,29 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def pack_tick_output(cfg: EngineConfig, verdict, wait_ms, seg_dropped=0) -> torch.Tensor:
-    """Pack one tick's verdicts and pacing sidecar into the wire buffer
-    (an int32 tensor of uint32 bit patterns), on the verdicts' device."""
+def _f32_words(x: torch.Tensor) -> torch.Tensor:
+    """float32 values -> their bit patterns as int64 words (sign-extended:
+    the checksum is a sum mod 2^32 and ``_to_i32_bits`` masks, so the high
+    bits never show)."""
+    return x.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+
+
+def pack_tick_output(
+    cfg: EngineConfig,
+    verdict,
+    wait_ms,
+    seg_dropped=0,
+    stats=None,  # float32 [N_STATS] or None
+    res_stats=None,  # float32 [K, TL_COLS] or None
+    expl=None,  # (n_blocked scalar, records int64 [K, 4] of uint32 words) or None
+) -> torch.Tensor:
+    """Pack one tick's outputs into the wire buffer (an int32 tensor of
+    uint32 bit patterns), on the verdicts' device."""
     b = verdict.shape[0]
     dev = verdict.device
     lo = layout_for(cfg, b)
+    if lo.hot_rows:
+        raise NotImplementedError("the hot block rides the sketch tier, which is not ported")
     v = torch.zeros((lo.n_bitmap * VERDICTS_PER_WORD,), dtype=torch.int64, device=dev)
     v[:b] = verdict.to(torch.int64) & _VMASK
     shifts = torch.arange(VERDICTS_PER_WORD, dtype=torch.int64, device=dev) * VERDICT_BITS
@@ -127,7 +164,12 @@ def pack_tick_output(cfg: EngineConfig, verdict, wait_ms, seg_dropped=0) -> torc
     order = torch.sort(((-w64) << 32) | rows).values & _U32
     wi = order[: lo.exc_k]
     wv = w64[wi]
-    payload = torch.cat([bitmap, wi, wv & _U32])
+    parts = [bitmap, wi, wv & _U32]
+    if lo.n_stats:
+        parts.append(_f32_words(stats))
+    if lo.tl_rows:
+        parts.append(_f32_words(res_stats))
+    payload = torch.cat(parts)
     # scalars are filled on the device: a host tensor here would be an
     # upload (and a stream sync) inside the tick
     magic = torch.full((), WIRE_MAGIC, dtype=torch.int64, device=dev)
@@ -135,9 +177,17 @@ def pack_tick_output(cfg: EngineConfig, verdict, wait_ms, seg_dropped=0) -> torc
         dropped = seg_dropped.to(torch.int64).reshape(())
     else:
         dropped = torch.full((), int(seg_dropped), dtype=torch.int64, device=dev)
+    # the MAIN checksum stops at off_expl: the explain section carries its
+    # own sec_sum, so its corruption fails OPEN without touching verdicts
     cksum = (magic + n_wait + dropped + torch.sum(payload)) & _U32
-    hdr = torch.stack([magic, n_wait, dropped & _U32, cksum])
-    return _to_i32_bits(torch.cat([hdr, payload]))
+    out = [torch.stack([magic, n_wait, dropped & _U32, cksum]), payload]
+    if lo.expl_k:
+        n_blocked, records = expl  # records: uint32 words held in int64
+        n_blocked = n_blocked.to(torch.int64).reshape(())
+        flat = records.reshape(-1)
+        sec_sum = (EXPLAIN_MAGIC + n_blocked + torch.sum(flat)) & _U32
+        out += [torch.stack([n_blocked, sec_sum]), flat]
+    return _to_i32_bits(torch.cat(out))
 
 
 # -- host side ----------------------------------------------------------------
@@ -150,11 +200,17 @@ class WireFrame(NamedTuple):
     wait: Optional[np.ndarray]  # int32 [B]; None = sidecar overflowed
     n_wait: int
     seg_dropped: int
+    stats: Optional[np.ndarray] = None  # float32 [N_STATS]
+    res_stats: Optional[np.ndarray] = None  # float32 [K, TL_COLS]
+    hot: Optional[np.ndarray] = None  # float32 [K, 2]
+    expl: Optional[np.ndarray] = None  # RAW uint32 explain words (unvalidated)
 
 
 def unpack(data: bytes, lo: WireLayout) -> WireFrame:
     """Validate and unpack one readback.  Raises :class:`WireDecodeError`
-    on any integrity failure (length, magic, checksum)."""
+    on any integrity failure (length, magic, main checksum); the explain
+    section is not checked here — it fails open on its own sec_sum
+    (obs/explain.decode_section), never the tick."""
     if len(data) != lo.total * 4:
         raise WireDecodeError(f"wire length {len(data)} B != layout {lo.total * 4} B")
     buf = np.frombuffer(data, dtype=np.uint32)
@@ -185,7 +241,18 @@ def unpack(data: bytes, lo: WireLayout) -> WireFrame:
         wait[idx[live]] = vals[live]
     else:
         wait = None  # overflow: caller reads the full wait_ms column
-    return WireFrame(verdict=verdict, wait=wait, n_wait=n_wait, seg_dropped=int(buf[2]))
+    stats = res_stats = hot = None
+    if lo.n_stats:
+        stats = buf[lo.off_stats : lo.off_tl].view(np.float32)
+    if lo.tl_rows:
+        res_stats = buf[lo.off_tl : lo.off_hot].view(np.float32).reshape(lo.tl_rows, lo.tl_cols)
+    if lo.hot_rows:
+        hot = buf[lo.off_hot : lo.off_expl].view(np.float32).reshape(lo.hot_rows, 2)
+    expl = buf[lo.off_expl : lo.total].copy() if lo.expl_k else None
+    return WireFrame(
+        verdict=verdict, wait=wait, n_wait=n_wait, seg_dropped=int(buf[2]), stats=stats,
+        res_stats=res_stats, hot=hot, expl=expl,
+    )
 
 
 # -- narrow upload dtypes ------------------------------------------------------

@@ -35,9 +35,22 @@ keeps the hashes on the entry handle, so ``exit()`` carries them as the
 THREAD-grade release lanes.  The ``param`` stage is on only while param
 rules are loaded.
 
+The readback also carries the tick's observability planes, under the
+reference's defaults: the device telemetry row, folded into the port's
+metrics registry (``obs/registry.REGISTRY``: the verdict-mix and token
+counters, the ENTRY-window and ceiling gauges); the top-K per-resource
+timeline rows, folded into ``self.timeline`` (``obs/timeline.py``, built
+in ``start()``: ``timeline.find(resource, start_ms, end_ms)``); and the
+explain section, whose records fill ``self.explain_plane``
+(``obs/explain.py``) before the verdicts fan out — ``explain(resource)``,
+``explain_top_causes()`` and ``explain_coverage()`` read it.  A corrupt
+main section fails the tick CLOSED; a corrupt explain section drops only
+the tick's explanations.
+
 Not ported yet (ROADMAP.md): cluster mode (a cluster-mode param rule
 raises), the hot-parameter value counters (``top_params``), the native
-completion ring, pipelined readback, adaptive protection, the obs planes.
+completion ring, pipelined readback, adaptive protection, the flight
+recorder and the block log.
 """
 
 from __future__ import annotations
@@ -51,18 +64,101 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from sentinel_tpu_torch.chaos import failpoints as FP
 from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
 from sentinel_tpu_torch.core.config import EngineConfig, app_name as cfg_app_name, platform_config
 from sentinel_tpu_torch.core.rule_tensors import hash_param, param_lanes
+from sentinel_tpu_torch.obs import timeline as TLM
+from sentinel_tpu_torch.obs.explain import ExplainPlane
+from sentinel_tpu_torch.obs.registry import REGISTRY as OBS
 from sentinel_tpu_torch.ops import engine as E
 from sentinel_tpu_torch.ops import engine_seg as ES
+from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.runtime import context as CTX
 from sentinel_tpu_torch.runtime import presort as PS
 from sentinel_tpu_torch.runtime.registry import Registry
 from sentinel_tpu_torch.utils.system_status import SystemStatusSampler
 from sentinel_tpu_torch.utils.time_source import TimeSource, VirtualTimeSource, mono_s
+
+
+# -- device-resident telemetry (cfg.device_telemetry): the engine emits a
+# stats row per tick (ops/engine.STAT_*) and the readback folds it here,
+# under the reference's metric names
+_DEV_VERDICTS_HELP = (
+    "per-tick verdict mix reported by the device telemetry row, by verdict"
+)
+_C_DEV_VERDICTS: Dict[str, object] = {
+    v: OBS.counter(
+        "sentinel_device_verdicts_total", _DEV_VERDICTS_HELP, labels={"verdict": v}
+    )
+    for v in (
+        "pass",
+        "pass_wait",
+        "block_authority",
+        "block_system",
+        "block_param",
+        "block_flow",
+        "block_degrade",
+    )
+}
+_C_DEV_TOKENS = {
+    r: OBS.counter(
+        "sentinel_device_tokens_total",
+        "admitted/blocked token sums from the device telemetry row",
+        labels={"result": r},
+    )
+    for r in ("pass", "block")
+}
+_C_DEV_FORCED = OBS.counter(
+    "sentinel_device_forced_verdicts_total",
+    "host-injected pre-verdicts (cluster token denials) the device recorded",
+)
+_G_DEV_WIN_PASS = OBS.gauge(
+    "sentinel_device_entry_pass_window",
+    "ENTRY-node sliding-window pass sum as computed on-device",
+)
+_G_DEV_MIN_RT = OBS.gauge(
+    "sentinel_device_entry_min_rt_ms",
+    "ENTRY-node windowed RT floor as computed on-device (0 = no completions)",
+)
+_G_DEV_CONC = OBS.gauge(
+    "sentinel_device_entry_concurrency",
+    "global inbound concurrency as computed on-device",
+)
+_G_DEV_CEIL_UTIL = OBS.gauge(
+    "sentinel_device_ceiling_utilization",
+    "windowed ENTRY pass over the active system qps ceiling (0 = no ceiling)",
+)
+_G_DEV_SEG_LIVE = OBS.gauge(
+    "sentinel_device_seg_live",
+    "live compacted segments in the last tick (seg path only)",
+)
+# the readback's bytes (the timeline rows are counted under their own path,
+# obs/timeline.py); uploads are not counted yet
+_C_WIRE_RX = OBS.counter(
+    "sentinel_wire_bytes_total",
+    "bytes moved, by path (device|cluster) and direction (tx|rx)",
+    labels={"path": "device", "direction": "rx"},
+)
+_C_PACKED_DECODE = OBS.counter(
+    "sentinel_packed_decode_failures_total",
+    "fused wire readbacks rejected by the packed decoder (tick fails CLOSED)",
+)
+#: chaos site on the readback's main section (mangled bytes fail the tick
+#: CLOSED); the explain section has its own site, obs.explain.decode
+_FP_PACKED_DECODE = FP.register(
+    "transport.packed.decode",
+    "fused packed-wire readback bytes (mangled bytes fail the tick CLOSED)",
+    FP.PIPE_ACTIONS,
+)
+
+
+def _mask_min_rt(v: float) -> float:
+    """RT_MIN_INIT (5000) is the 'no completions in window' sentinel:
+    report 0.0 instead of a phantom 5-second minimum."""
+    return 0.0 if v >= W.RT_MIN_INIT else v
 
 
 def resolve_device(device=None) -> torch.device:
@@ -240,6 +336,8 @@ class SentinelClient:
         tick_interval_ms: float = 1.0,
         entry_timeout_s: float = 5.0,
         device=None,
+        timeline_log=False,  # bool | obs.timeline.MetricLog
+        timeline_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.app_name = app_name or cfg_app_name()
@@ -291,6 +389,19 @@ class SentinelClient:
         self._stop_evt = threading.Event()
         self._started = False
 
+        # per-resource timeline (obs/timeline.py): built in start() when the
+        # engine emits timeline rows; an on-disk MetricLog is attached only
+        # when asked for (timeline_log=True, a prebuilt MetricLog, or
+        # timeline_dir) — the in-memory ring serves find() regardless
+        self._timeline_log_opt = timeline_log
+        self._timeline_dir = timeline_dir
+        self.timeline: Optional[TLM.TimelineRecorder] = None
+        # verdict provenance plane (obs/explain.py): the readback's explain
+        # section decoded into per-resource "why blocked" rings
+        self.explain_plane: Optional[ExplainPlane] = None
+        if E.explain_k(self.cfg) > 0:
+            self.explain_plane = ExplainPlane(name_source=self.registry.resource_name)
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
@@ -298,6 +409,30 @@ class SentinelClient:
             return
         self._started = True
         self._stop_evt = threading.Event()
+        if self.timeline is None and E.timeline_k(self.cfg) > 0:
+            log = None
+            if isinstance(self._timeline_log_opt, TLM.MetricLog):
+                log = self._timeline_log_opt
+            elif self._timeline_log_opt or self._timeline_dir:
+                import os
+
+                from sentinel_tpu_torch.utils.record_log import log_dir
+
+                # pid-suffixed: two processes of one app sharing a log dir
+                # never append to (or truncate) each other's live segments
+                log = TLM.MetricLog(
+                    os.path.join(
+                        self._timeline_dir or log_dir(),
+                        f"{self.app_name}-timeline.pid{os.getpid()}",
+                    )
+                )
+            self.timeline = TLM.TimelineRecorder(
+                self.registry.resource_name,
+                self.cfg.second_window_ms,
+                self.cfg.second_sample_count,
+                log=log,
+                name=self.app_name,
+            )
         if self.mode == "threaded":
             # first ticks build the CUDA kernels (nvcc, seconds): run them
             # before serving so early entries don't time out
@@ -315,6 +450,11 @@ class SentinelClient:
             self._thread = None
         # decide whatever is still queued so no caller is left waiting
         self.tick_once()
+        if self.timeline is not None:
+            # flush the still-open second, release the log handles (start()
+            # builds a new recorder)
+            self.timeline.close()
+            self.timeline = None
         self._started = False
 
     # -- rule compilation ---------------------------------------------------
@@ -464,6 +604,33 @@ class SentinelClient:
             return 0 if param_idx == 0 else None
         return lanes.index(param_idx) if param_idx in lanes else None
 
+    def explain(self, resource, limit: int = 0) -> list:
+        """Why was ``resource`` blocked?  Newest-first provenance records
+        (obs/explain.ExplainRecord) from the readback's explain section.
+        Empty when the plane is off (``explain_k == 0``) or nothing was
+        blocked.  Accepts a resource name or a raw device id."""
+        if self.explain_plane is None:
+            return []
+        if isinstance(resource, int):
+            rid: Optional[int] = resource
+        else:
+            rid = self.registry.peek_resource_id(resource)
+        if rid is None:
+            return []
+        return self.explain_plane.explain(rid, limit=limit)
+
+    def explain_top_causes(self, n: int = 10) -> list:
+        """Most frequent (resource, kind, rule, origin) block causes."""
+        if self.explain_plane is None:
+            return []
+        return self.explain_plane.top_causes(n)
+
+    def explain_coverage(self) -> dict:
+        """Blocked-decision explainability: {blocked, explained, frac}."""
+        if self.explain_plane is None:
+            return {"blocked": 0, "explained": 0, "frac": 1.0}
+        return self.explain_plane.coverage()
+
     def try_entry(self, resource: str, **kw) -> Optional[Entry]:
         """SphO-style boolean variant."""
         try:
@@ -586,7 +753,8 @@ class SentinelClient:
     def _run_tick(self, acq: List[AcquireRequest], comp: List[Completion], now_ms):
         """Build (and on the segment path presort) the batch columns, upload
         them (the uploads finish before the tick starts), run one tick;
-        returns (TickOutput, wire layout, inverse permutation or None)."""
+        returns (TickOutput, wire layout, inverse permutation or None, the
+        tick's engine ms)."""
         cfg = self.cfg
         trash = cfg.trash_row
         cap = cfg.max_batch_count
@@ -632,7 +800,7 @@ class SentinelClient:
         t = now_ms if now_ms is not None else self.time.now_ms()
         with self._engine_lock:
             self._state, out = self._tick(self._state, self._rules_dev, a, c, int(t), load, cpu)
-        return out, self._wire_layout(B), inv
+        return out, self._wire_layout(B), inv, int(t)
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
         lo = self._wire_layouts.get(b)
@@ -641,16 +809,32 @@ class SentinelClient:
         return lo
 
     def _resolve(self, acq: List[AcquireRequest], dispatched) -> None:
-        """THE readback: one copy of the packed wire, validated; verdicts
-        fan out to the futures.  A wire that fails validation fails every
-        item of the tick CLOSED."""
-        out, lo, inv = dispatched
+        """THE readback: one copy of the packed wire, validated; the
+        telemetry row, timeline rows and explain records are folded, then
+        the verdicts fan out to the futures.  A main section that fails
+        validation fails every item of the tick CLOSED; the explain section
+        fails OPEN on its own checksum (obs/explain.py)."""
+        out, lo, inv, now_ms = dispatched
         try:
-            frame = WIRE.unpack(out.wire.cpu().numpy().tobytes(), lo)
+            raw = out.wire.cpu().numpy()
+            tl_bytes = lo.tl_rows * lo.tl_cols * 4
+            _C_WIRE_RX.inc(raw.nbytes - tl_bytes)
+            if tl_bytes:
+                TLM._C_WIRE["rx"].inc(tl_bytes)
+            # the chaos pipe covers only the fail-CLOSED main section; the
+            # explain section behind it has its own site
+            buf = raw.tobytes()
+            split = lo.off_expl * 4
+            if lo.expl_k and len(buf) > split:
+                data = FP.pipe(_FP_PACKED_DECODE, buf[:split]) + buf[split:]
+            else:
+                data = FP.pipe(_FP_PACKED_DECODE, buf)
+            frame = WIRE.unpack(data, lo)
             verdict, wait = frame.verdict, frame.wait
             if wait is None:  # more PASS_WAIT rows than the sidecar holds
                 wait = out.wait_ms.cpu().numpy()
         except WIRE.WireDecodeError:
+            _C_PACKED_DECODE.inc()
             self.wire_decode_failures += 1
             self._fail_closed(acq)
             return
@@ -659,6 +843,14 @@ class SentinelClient:
             # the tick loop reports the error
             self._fail_closed(acq)
             raise
+        if frame.stats is not None:
+            self._fold_device_stats(frame.stats)
+        if frame.res_stats is not None and self.timeline is not None:
+            self.timeline.note_tick(frame.res_stats, now_ms, self.time.wall_ms(now_ms) - now_ms)
+        if frame.expl is not None and self.explain_plane is not None:
+            # BEFORE the verdict fan-out, so an entry() that raises a
+            # BlockException can already look itself up in explain()
+            self.explain_plane.ingest_section(frame.expl, ts_ms=now_ms)
         if frame.seg_dropped:
             self.seg_dropped_total += frame.seg_dropped
         if inv is not None:
@@ -668,6 +860,42 @@ class SentinelClient:
         for i, r in enumerate(acq):
             if r.future is not None:
                 r.future.set_result((int(verdict[i]), int(wait[i])))
+
+    @staticmethod
+    def _fold_device_stats(s) -> None:
+        """Land one telemetry row (ops/engine.STAT_* float32 vector, host
+        numpy) in the registry: verdict-mix counters plus the window and
+        ceiling gauges."""
+        n_pass = int(s[E.STAT_PASS])
+        n_wait = int(s[E.STAT_PASS_WAIT])
+        if n_pass:
+            _C_DEV_VERDICTS["pass"].inc(n_pass)
+        if n_wait:
+            _C_DEV_VERDICTS["pass_wait"].inc(n_wait)
+        for key, idx in (
+            ("block_authority", E.STAT_BLOCK_AUTHORITY),
+            ("block_system", E.STAT_BLOCK_SYSTEM),
+            ("block_param", E.STAT_BLOCK_PARAM),
+            ("block_flow", E.STAT_BLOCK_FLOW),
+            ("block_degrade", E.STAT_BLOCK_DEGRADE),
+        ):
+            n = int(s[idx])
+            if n:
+                _C_DEV_VERDICTS[key].inc(n)
+        n = int(s[E.STAT_FORCED])
+        if n:
+            _C_DEV_FORCED.inc(n)
+        n = int(s[E.STAT_PASS_TOKENS])
+        if n:
+            _C_DEV_TOKENS["pass"].inc(n)
+        n = int(s[E.STAT_BLOCK_TOKENS])
+        if n:
+            _C_DEV_TOKENS["block"].inc(n)
+        _G_DEV_WIN_PASS.set(float(s[E.STAT_WIN_PASS]))
+        _G_DEV_MIN_RT.set(_mask_min_rt(float(s[E.STAT_WIN_RT_MIN])))
+        _G_DEV_CONC.set(float(s[E.STAT_ENTRY_CONC]))
+        _G_DEV_CEIL_UTIL.set(float(s[E.STAT_CEIL_UTIL]))
+        _G_DEV_SEG_LIVE.set(float(s[E.STAT_SEG_LIVE]))
 
     @staticmethod
     def _fail_closed(acq: List[AcquireRequest]) -> None:

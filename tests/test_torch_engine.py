@@ -157,9 +157,6 @@ def test_tick_continues_a_jax_run_state():
     [
         dict(seg_effects=True, seg_fallback=True),
         dict(sketch_stats=True),
-        dict(device_telemetry=True),
-        dict(timeline_k=4),
-        dict(explain_k=4),
         dict(fused_effects=False),
     ],
 )
@@ -244,11 +241,13 @@ def test_param_tick_matches_jax_fused_tick(carry_after):
 
 
 def test_platform_config_is_the_fused_path_and_carries_across():
-    """platform_config() is the segment path without the per-tick fallback;
-    seg_effects=False gives the per-item fused path; both are supported."""
+    """platform_config() is the segment path without the per-tick fallback,
+    with the reference's observability defaults (telemetry row, 128
+    timeline rows, 32 explain records); seg_effects=False gives the
+    per-item fused path; both are supported."""
     cfg = platform_config()
     assert cfg.fused_effects and cfg.seg_effects and not cfg.seg_fallback
-    assert not cfg.device_telemetry and cfg.timeline_k == 0 and cfg.explain_k == 0
+    assert cfg.device_telemetry and cfg.timeline_k == 128 and cfg.explain_k == 32
     E.check_supported(cfg)
     fused = platform_config(seg_effects=False)
     assert fused.fused_effects and not fused.seg_effects

@@ -81,3 +81,33 @@ def test_the_scan_covers_the_probes_package_and_the_param_module():
     for mod in ("probes", "probes.kernels", "probes.floor", "probes.hist", "probes.timing", "ops.param"):
         assert f"sentinel_tpu_torch.{mod}" in walked
         importlib.import_module(f"sentinel_tpu_torch.{mod}")
+
+
+def test_the_scan_covers_the_obs_and_chaos_packages():
+    """The host planes the readback feeds are the port's own copies: obs/
+    (registry, timeline, explain), chaos/ (failpoints, plans) and
+    utils/record_log.py are walked by the checks above and import on the
+    CPU without the JAX package."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import sentinel_tpu_torch as st
+
+    mods = ("obs", "obs.registry", "obs.timeline", "obs.explain", "chaos", "chaos.failpoints",
+            "chaos.plans", "utils.record_log")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    # the port's failpoints and metrics are its own objects, never the
+    # reference's (which this test process may also have loaded)
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.obs import registry as REG
+
+    for name in ("sentinel_tpu.chaos.failpoints", "sentinel_tpu.obs.registry"):
+        ref = sys.modules.get(name)
+        assert ref is None or ref not in (FP, REG)

@@ -5,9 +5,10 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Three configurations, all at the default ``EngineConfig`` widths (2^17
+Three configurations at the default ``EngineConfig`` widths (2^17
 resources, 2^18 node rows, the minute window on, batch 2,048; the
-hot-parameter store at depth 2 x 16,384 rows x 8 buckets of 500 ms):
+hot-parameter store at depth 2 x 16,384 rows x 8 buckets of 500 ms), and
+bench.py's 1M-resource configuration:
 
 - ``fused``: ``platform_config(seg_effects=False)``, the per-item fused
   path — kernels scatter_many (B1) and gather_many (B2);
@@ -15,14 +16,25 @@ hot-parameter store at depth 2 x 16,384 rows x 8 buckets of 500 ms):
   default 4 rule lanes — per-item checks (B2), segment effects (B1) and
   the segment RT minimum seg_incl_min (B4);
 - ``seg1``: ``platform_config()`` with single-lane rules — the segment
-  check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4.
+  check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4;
+- ``sketch``: bench.py's ``build`` (bench.py:140-170) through
+  ``platform_config``: 16,368 resources, 16,376 nodes, single lanes, the
+  minute window, the sketch tier at its defaults (SALSA, depth 2 x width
+  16,384, capacity 2^22, hot block 32), the segment path with
+  ``seg_static_ranks``, ``param_est_digits=2``; bench.py's rules (10,000
+  flow rules at 1,000 QPS, 10,000 slow-RT breakers, 128 param rules, 16
+  authority black lists, a system QPS rule at 1e9, 2,048 QPS rules at 20
+  on sketch ids past the exact space) and traffic (Zipf(1.3) over 2^20
+  names, 1/8 with an origin, 1/2 inbound, RT |N(3, 1)|).  The sketch
+  lands as ``sketch{d}`` jobs of B1 in both phases, the tail stage ranks
+  with one more B3 call, and each tick emits the hot-set candidates.
 
 All three run with the observability planes the reference's serving
 config turns on (``platform_config()``'s defaults): the device telemetry
 row, the top-128 per-resource timeline rows and up to 32 explain records
 a tick, packed into the one readback.  They add no kernel.
 
-All three run the hot-parameter stage (ParamFlow): 32 param rules on the
+The first three run the hot-parameter stage (ParamFlow): 32 param rules on the
 16 hottest resources (16 with single lanes, one a resource) — QPS grade
 over 1 s and 2 s (two window classes), some THREAD grade, one per-value
 exception item each — and every entry carries one argument drawn
@@ -67,7 +79,10 @@ Phases (the first failure stops the script with a nonzero exit):
    tick's three plane functions alone (``_device_stats``,
    ``_device_res_stats``, ``_device_explain``), called again on the
    arguments one tick gave them: device launches, device ms and host
-   enqueue ms a call (``[planes]`` lines).
+   enqueue ms a call (``[planes]`` lines).  The ``sketch`` configuration's
+   B1 calls (its ``sketch{d}`` jobs among them) and B3 calls (the tail
+   rank among them) are captured and held the same way at 2,048 and 256
+   rows.
 3. The main paths: a threaded ``SentinelClient`` on ``cuda`` per
    configuration, 4,000 flow rules (one per resource: 40 rate limiters,
    40 warm-ups, the rest QPS; prioritized traffic borrows ahead), 1,000
@@ -91,6 +106,17 @@ Phases (the first failure stops the script with a nonzero exit):
    the telemetry rows (the port's ``obs.registry``) must equal the
    verdicts the futures returned, kind for kind; ``explain_coverage()``
    must count every blocked entry; the timeline must hold rows.
+   The ``sketch`` configuration through a threaded client: bench.py's
+   names through the registry (res-1 .. res-10000 on exact rows, the
+   organic rest burnt, tail-0 .. tail-2047 sketch ids), its rules through
+   the managers (the loads promote ruled sketch ids into the reserve rows
+   until it is spent), 6,000 entries of its traffic by name from 8
+   threads and 64 acquires from 4 more on a tail-ruled name left on its
+   sketch id; the tail rule must block some of those, the client must
+   have folded hot rows carrying sketch ids, and the promotions and
+   demotions are printed.  Its bursts (with 64 acquires on that name
+   each) through the segment client must equal, item for item, those of
+   a per-item fused client on the same configuration.
 4. The tick against itself, per configuration: one seeded, host-presorted
    B = 2,048 stream (``seg_u`` grown from its exact segment count by the
    client's rule) from one state, once with the kernels and once with
@@ -113,6 +139,15 @@ Phases (the first failure stops the script with a nonzero exit):
    and what the planes add to each — with the profile's top rows, B1's
    launches a tick, the profile's launches of the port's kernels and
    memsets, and the device launches a tick beside commit 71b3c5a's.
+   The ``sketch`` configuration (``sketch_tick_phase``): at B = 2,048 the
+   same equality (the sketch's state leaves included), the planes checked,
+   hot rows with sketch ids counted; tick time with the sketch tier on and
+   off in turns, a profile of each, and the sketch's functions alone
+   (SALSA's refresh and ``_land_words``, the estimate, the tail
+   thresholds, the hot candidates: ``[sketch]`` lines); at bench.py's
+   batch, B = 131,072, a warm-up tick then 7 ticks with the kernels
+   against the plain versions, their times and a profile of 2; the tail
+   rules must block some items there.
 5. The probes (``sentinel_tpu_torch/probes``): each of the four probe
    kernels — probe_copy, probe_hist_count, probe_hist_planes,
    probe_hist_stat5 (``csrc/probes.cu``) — against its plain version on
@@ -137,6 +172,9 @@ Phases (the first failure stops the script with a nonzero exit):
 ``python3 chip_smoke.py --b2`` runs only B2's and probe_copy's numbers
 against what they replaced (``b2_main``), with whatever package lies
 beside the script: copied into an older checkout it measures that one.
+``python3 chip_smoke.py --ops`` needs no card: it counts, on the CPU, the
+PyTorch operations of one ``sketch`` tick with the sketch tier on and off
+(``ops_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -168,6 +206,9 @@ PATH_KERNELS = {
     "seg4": ("scatter_many", "gather_many", "seg_incl_min"),
     "seg1": ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
     "fused1": ("scatter_many", "gather_many"),
+    # bench.py's build: the segment check phase and the sketch tier (B1's
+    # sketch{d} jobs, B3's tail rank), single lanes
+    "sketch": ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
 }
 #: (source, Pallas function it replaces) per kernel
 KERNEL_SRC = {
@@ -271,16 +312,22 @@ def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
     scratch = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            scratch.fill_(1)
-            torch.cuda._sleep(200_000)
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and "fill" not in e.name.lower() and "spin" not in e.name.lower()),
-                 key=lambda e: e.time_range.start)
-    check(evs, "launch breakdown: the profiler saw no device event")
+    # a session now and then records no device activity on the card (seen
+    # once in many sessions of one process): such a session is taken again
+    evs = []
+    for _session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scratch.fill_(1)
+                torch.cuda._sleep(200_000)
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and "fill" not in e.name.lower() and "spin" not in e.name.lower()),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            break
+    check(evs, "launch breakdown: the profiler saw no device event in 3 sessions")
     out = {}
     for e in evs:
         n, us = out.get(e.name, (0, 0.0))
@@ -835,6 +882,195 @@ def drive_burst(st, np, FU, SC, cfg, rules):
     return first + second, launches, info
 
 
+def sketch_counters() -> dict:
+    """The hot-set manager's promotion / demotion counters (the port's
+    registry)."""
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    out = {}
+    for k in ("promotions", "promotion_failures", "demotions"):
+        m = REGISTRY.get(f"sentinel_sketch_{k}_total")
+        out[k] = 0 if m is None else m.value
+    return out
+
+
+def load_sketch_rules(client, st):
+    """bench.py's names through the registry and its rules through the
+    client's managers, as client_bench does (bench.py:360-400): the rule
+    loads promote ruled sketch-id resources into the reserve rows until it
+    is spent.  Returns the tail-ruled names left on sketch ids."""
+    intern_bench_names(client.registry)
+    flow, degrade, authority, system, param = sketch_rules(st)
+    client.flow_rules.load(flow)
+    client.degrade_rules.load(degrade)
+    client.param_flow_rules.load(param)
+    client.authority_rules.load(authority)
+    client.system_rules.load(system)
+    reg = client.registry
+    return [f"tail-{r}" for r in range(N_TAIL_RULED) if reg.is_sketch_id(reg.peek_resource_id(f"tail-{r}"))]
+
+
+def drive_sketch_main(st, np, FU, SC, torch, cfg, n_entries):
+    """The sketch configuration through a threaded client: bench.py's
+    names and rules through the registry and the managers, 8 request
+    threads drawing bench.py's Zipf(1.3) over 2^20 names (1/8 with the
+    peer-app origin, 1/2 inbound, an argument on res-1 .. res-128), and
+    HAMMER_THREADS more putting HAMMER back-to-back acquires in all on a
+    tail-ruled name still on its sketch id (each thread waits for its
+    verdicts, so together they outrun the rule's 20 a second)."""
+    client = st.init(cfg=cfg, device="cuda", mode="threaded", entry_timeout_s=30.0)
+    sk0 = sketch_counters()
+    tail_left = load_sketch_rules(client, st)
+    check(tail_left, "every tail-ruled name was promoted: nothing is left for the tail tables")
+    target = tail_left[-1]
+    counts, lock, done, errors = {}, threading.Lock(), [0], []
+
+    def record(local, hammered=False):
+        with lock:
+            for k, v in local.items():
+                counts[k] = counts.get(k, 0) + v
+                if hammered:
+                    counts[f"hammer {k}"] = counts.get(f"hammer {k}", 0) + v
+            if not hammered:
+                done[0] += sum(local.values())
+
+    def worker(tid):
+        rng = np.random.default_rng(SEED + 200 + tid)
+        local = {}
+        raws = (rng.zipf(1.3, size=n_entries // N_THREADS + 64) - 1) % (N_TOTAL - 1) + 1
+        for raw in raws:
+            try:
+                e = client.entry(bench_name(int(raw)), origin="peer-app" if rng.random() < 0.125 else None,
+                                 inbound=bool(rng.random() < 0.5),
+                                 args=[int(rng.integers(1, 1 << 20))] if raw <= 128 else None)
+                e.exit()
+                kind = "pass" if not e.wait_ms else "pass_wait"
+            except st.BlockException as exc:
+                kind = type(exc).__name__
+            except Exception as exc:  # recorded and re-raised after join
+                errors.append(exc)
+                return
+            local[kind] = local.get(kind, 0) + 1
+        record(local)
+
+    def hammer():
+        local = {}
+        for _ in range(HAMMER // HAMMER_THREADS):
+            try:
+                e = client.entry(target)
+                e.exit()
+                kind = "pass" if not e.wait_ms else "pass_wait"
+            except st.BlockException as exc:
+                kind = type(exc).__name__
+            except Exception as exc:
+                errors.append(exc)
+                return
+            local[kind] = local.get(kind, 0) + 1
+        record(local, hammered=True)
+
+    folded0 = folded_verdicts()
+    FU.reset_launches()
+    SC.reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(N_THREADS)]
+    threads += [threading.Thread(target=hammer) for _ in range(HAMMER_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "request threads still running after 600 s")
+    deadline = time.perf_counter() + 30
+    while (client._completions or client._acquires) and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    client.tick_once()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    folded = {k: v - folded0[k] for k, v in folded_verdicts().items()}
+    sk = {k: v - sk0[k] for k, v in sketch_counters().items()}
+    reg = client.registry
+    info = dict(seg_static_ranks=client.cfg.seg_static_ranks, seg_u=client.cfg.seg_u,
+                seg_dropped_total=client.seg_dropped_total, features=sorted(client._features),
+                tail_names_left_on_sketch_ids=len(tail_left), hammered=target,
+                hot_candidates=len(client.hotset._cand), hot_candidate_ids_sketch=all(
+                    reg.is_sketch_id(r) for r in client.hotset._cand),
+                sketch_ids_interned=reg._next_sketch - client.cfg.node_rows,
+                promotions=sk["promotions"], promotion_failures=sk["promotion_failures"],
+                demotions=sk["demotions"], manager_promoted=len(client.hotset.promoted),
+                wire_decode_failures=client.wire_decode_failures, folded_verdicts=folded,
+                explain_coverage=client.explain_coverage())
+    st.reset()
+    return counts, done[0], elapsed, launches, info
+
+
+def drive_sketch_burst(st, np, FU, SC, cfg):
+    """Two open-loop bursts of a full batch through a sync client on the
+    sketch configuration, as drive_burst: bench.py's names (Zipf(1.3) over
+    2^20, half inbound, an argument on res-1 .. res-128) plus HAMMER
+    acquires on a tail-ruled name left on its sketch id, the exits of
+    those that passed in the tick between.  No origins: the segment
+    client presorts by origin within a resource, so with them the two
+    clients would rank a resource's items in different orders."""
+    from concurrent.futures import Future
+
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.runtime.client import AcquireRequest, Completion, SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    client = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cuda")
+    client.start()
+    tail_left = load_sketch_rules(client, st)
+    target = tail_left[-1]
+    reg = client.registry
+    rng = np.random.default_rng(SEED + 300)
+    trash = client.cfg.trash_row
+    B = client.cfg.batch_size
+    tick_ms = []
+
+    def tick():
+        t = time.perf_counter()
+        client.tick_once()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+
+    def burst():
+        raws = (rng.zipf(1.3, size=B - HAMMER) - 1) % (N_TOTAL - 1) + 1
+        names = [bench_name(int(r)) for r in raws] + [target] * HAMMER
+        reqs = []
+        for name, inb, v in zip(names, rng.random(B) < 0.5, rng.integers(1, 1 << 20, B)):
+            rid = reg.resource_id(name)
+            reqs.append(AcquireRequest(
+                res=rid, count=1, prio=0, origin_id=-1, origin_node=trash, ctx_node=trash, ctx_name=-1,
+                inbound=int(inb), future=Future(),
+                param_hash=client.param_hashes(name, [int(v)]) if rid <= 128 else ()))
+        with client._lock:
+            client._acquires.extend(reqs)
+        tick()
+        return reqs, [r.future.result(timeout=60) for r in reqs]
+
+    FU.reset_launches()
+    SC.reset_launches()
+    reqs, first = burst()
+    client.time.advance(40)
+    comps = [Completion(res=r.res, origin_node=trash, ctx_node=trash, inbound=r.inbound,
+                        rt=float(rng.integers(1, 8)), success=1, error=0, param_hash=r.param_hash)
+             for r, (v, _w) in zip(reqs, first) if v in (ERR.PASS, ERR.PASS_WAIT)]
+    with client._lock:
+        client._completions.extend(comps)
+    tick()
+    client.time.advance(40)
+    _, second = burst()
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    hammered = [v for (v, _w) in first[B - HAMMER:] + second[B - HAMMER:]]
+    info = dict(seg_u=client.cfg.seg_u, peak_segments=client._seg_obs_peak, seg_static_ranks=client.cfg.seg_static_ranks,
+                seg_dropped_total=client.seg_dropped_total, exits=len(comps), tick_ms=tick_ms, hammered=target,
+                hammer_blocked=sum(v == ERR.BLOCK_FLOW for v in hammered), features=sorted(client._features),
+                hot_candidates=len(client.hotset._cand))
+    client.stop()
+    return first + second, launches, info
+
+
 # -- phase 4: the tick against itself ---------------------------------------------------
 
 
@@ -935,7 +1171,7 @@ def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False, sc
 
 def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
     """One profiler session over 4 ticks of each variant ``(label, state,
-    rules, cfg)`` in turn; per label: (device busy us, wall us, host CPU
+    rules, cfg)`` in turn, each from a copy of its state; per label: (device busy us, wall us, host CPU
     us, device launches, the port's kernels' and the memsets' launches by
     name, top device rows).  Each variant's ticks run inside a
     ``record_function`` range that ends after a synchronize, so an event
@@ -945,16 +1181,25 @@ def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
 
     walls = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for label, state, rules, cfg in variants:
-            with record_function(f"variant:{label}"):
-                t = time.perf_counter()
-                for i, (acq, comp) in enumerate(stream[:4]):
-                    state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
-                    out.wire.cpu()
+    # a session that records no device activity (see launch_breakdown) is
+    # taken again, from copies of the same states
+    for _session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for label, state, rules, cfg in variants:
+                state = E.clone_state(state)
                 torch.cuda.synchronize()
-                walls[label] = (time.perf_counter() - t) * 1e6
-    evs = prof.events()
+                with record_function(f"variant:{label}"):
+                    t = time.perf_counter()
+                    for i, (acq, comp) in enumerate(stream[:4]):
+                        state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
+                        out.wire.cpu()
+                    torch.cuda.synchronize()
+                    walls[label] = (time.perf_counter() - t) * 1e6
+                del state
+        evs = prof.events()
+        if any(e.device_type == DeviceType.CUDA for e in evs):
+            break
+    check(any(e.device_type == DeviceType.CUDA for e in evs), "profile: no device event in 3 sessions")
     spans = {e.name.split(":", 1)[1]: (e.time_range.start, e.time_range.end) for e in evs
              if e.name.startswith("variant:") and e.device_type == DeviceType.CPU}
     out = {}
@@ -1037,6 +1282,367 @@ def check_planes(np, E, WIRE, TX, cfg, wires, scores) -> dict:
         check(np.array_equal(got, want), (i, "timeline rows", got[:8].tolist(), want[:8].tolist()))
         ties += int(np.sum(np.diff(s64[want - 1]) == 0))
     return dict(ticks=len(wires), timeline_k=K, explain_k=lo.expl_k, tied_neighbours_in_top_k=ties)
+
+
+# -- the sketch configuration: bench.py's 1M-resource build ------------------------------
+
+#: bench.py: exact ruled resources, sketch-tail ruled ids, the name space
+N_RULED = 10_000
+N_TAIL_RULED = 2_048
+N_TOTAL = 1 << 20
+#: bench.py's batch, timed for a few ticks in phase 4
+BIG_B = 131_072
+#: acquires a client run or a burst puts on one tail-ruled name (its rule
+#: admits 20 a second)
+HAMMER = 64
+#: request threads of the client run's hammer
+HAMMER_THREADS = 4
+
+
+def sketch_cfg(platform_config, B=2048, **kw):
+    """bench.py's ``build`` configuration (bench.py:140-170) through the
+    port's platform_config: 16,368 resources, 16,376 nodes, single rule
+    lanes, the minute window, the sketch tier at its defaults (SALSA, depth
+    2 x width 16,384, capacity 2^22, hot block 32), the segment path with
+    seg_fallback off, param_est_digits 2, the packed wire."""
+    return platform_config(
+        max_resources=16368, max_nodes=16376, max_flow_rules=16368, max_degrade_rules=16368,
+        max_param_rules=256, param_classes=1, flow_rules_per_resource=1, degrade_rules_per_resource=1,
+        param_rules_per_resource=1, batch_size=B, complete_batch_size=B, enable_minute_window=True,
+        sketch_stats=True, param_est_digits=2, packed_wire=True, **kw)
+
+
+def sketch_rules(st, with_tail_names: bool = True):
+    """bench.py's rules (bench.py:181-205) by name: 10,000 flow rules at
+    1,000 QPS and 10,000 slow-RT breakers (200 ms over 10 s) on res-1 ..
+    res-10000, 128 param rules at 500 on argument 0, 16 authority black
+    lists, a system QPS rule at 1e9, and (``with_tail_names``) 2,048 QPS
+    rules at 20 on tail-0 .. tail-2047, as client_bench loads them."""
+    flow = [st.FlowRule(resource=f"res-{i + 1}", count=1000.0) for i in range(N_RULED)]
+    if with_tail_names:
+        flow += [st.FlowRule(resource=f"tail-{r}", count=20.0) for r in range(N_TAIL_RULED)]
+    degrade = [st.DegradeRule(resource=f"res-{i + 1}", grade=0, count=200.0, time_window=10) for i in range(N_RULED)]
+    param = [st.ParamFlowRule(resource=f"res-{i + 1}", param_idx=0, count=500.0) for i in range(128)]
+    authority = [st.AuthorityRule(resource=f"res-{i + 1}", limit_app="banned", strategy=st.AUTHORITY_BLACK)
+                 for i in range(16)]
+    return flow, degrade, authority, [st.SystemRule(qps=1e9)], param
+
+
+def intern_bench_names(reg):
+    """client_bench's interning (bench.py:362-367): res-1 .. res-10000 on
+    rows 1 .. 10,000, burner names until the organic exact space is spent,
+    then tail-0 .. tail-2047 as sequential sketch ids."""
+    for i in range(N_RULED):
+        check(reg.resource_id(f"res-{i + 1}") == i + 1, "res-* must take rows 1 .. 10,000")
+    k = 0
+    while not reg.is_sketch_id(reg.resource_id(f"burn-{k}")):
+        k += 1
+    for r in range(N_TAIL_RULED):
+        check(reg.is_sketch_id(reg.resource_id(f"tail-{r}")), "tail names must intern as sketch ids")
+
+
+def bench_name(raw: int) -> str:
+    """A raw Zipf draw of bench.py's traffic as a name: res-{raw} in the
+    ruled exact space, tail-{k} for the 2,048 tail-ruled draws, n-{raw}
+    for the rest of the 2^20 names (sketch ids on first use)."""
+    if raw <= N_RULED:
+        return f"res-{raw}"
+    k = raw - N_RULED - 1
+    return f"tail-{k}" if k < N_TAIL_RULED else f"n-{raw}"
+
+
+def sketch_columns(np, PS, n_ticks, B, seed, node_rows, trash, origin_row, origin_id):
+    """bench.py's traffic (bench.py:100-134, 212-239): Zipf(1.3) over 2^20
+    names, ids past 10,000 are sketch ids node_rows + raw; 1/8 with the
+    peer-app origin, argument hashes on ids <= 128, 1/2 inbound on each
+    side, RT |N(3, 1)| ms; every batch presorted by the client's keys.
+    Returns [(acquire columns, completion columns)] and the largest exact
+    live-segment count."""
+    rng = np.random.default_rng(seed)
+    out, peak = [], 0
+    full = np.full(B, trash, np.int32)
+    none = np.full(B, -1, np.int32)
+    for _ in range(n_ticks):
+        z = rng.zipf(1.3, size=B).astype(np.int64)
+        raw = (z - 1) % (N_TOTAL - 1) + 1
+        ids = np.where(raw <= N_RULED, raw, node_rows + raw).astype(np.int32)
+        with_origin = rng.random(B) < 0.125
+        ph0 = np.where(ids <= 128, rng.integers(1, 1 << 20, B), 0).astype(np.int32)
+        inb_a = (rng.random(B) < 0.5).astype(np.int8)
+        inb_c = (rng.random(B) < 0.5).astype(np.int8)
+        rt = np.abs(rng.normal(3.0, 1.0, B)).astype(np.float32)
+        onode = np.where(with_origin, origin_row, trash).astype(np.int32)
+        oid = np.where(with_origin, origin_id, -1).astype(np.int32)
+        order, _ = PS.batch_sort5(ids, full, onode, oid, none)
+        ph = np.stack([ph0, np.zeros(B, np.int32)], axis=1)[order]
+        a = dict(res=ids[order], origin_node=onode[order], origin_id=oid[order], inbound=inb_a[order], param_hash=ph)
+        c = dict(res=ids[order], rt=rt[order], inbound=inb_c[order], param_hash=ph)
+        peak = max(peak, PS.host_seg_count([a["res"], full, a["origin_node"], a["origin_id"], none]),
+                   PS.host_seg_count([c["res"], full, full]))
+        out.append((a, c))
+    return out, peak
+
+
+def sketch_batches(E, torch, cfg, cols, device="cuda"):
+    out = []
+    for a, c in cols:
+        B = a["res"].shape[0]
+
+        def dev(x):
+            return torch.as_tensor(x, device=device)
+
+        acq = E.empty_acquire(cfg, device, B)._replace(
+            res=dev(a["res"]), count=torch.ones(B, dtype=torch.uint8, device=device),
+            origin_id=dev(a["origin_id"]), origin_node=dev(a["origin_node"]), inbound=dev(a["inbound"]),
+            param_hash=dev(a["param_hash"]))
+        comp = E.empty_complete(cfg, device, B)._replace(
+            res=dev(c["res"]), rt=dev(c["rt"]), success=torch.ones(B, dtype=torch.uint8, device=device),
+            inbound=dev(c["inbound"]), param_hash=dev(c["param_hash"]))
+        out.append((acq, comp))
+    return out
+
+
+def prepare_sketch(np, st, E, torch, device="cuda") -> dict:
+    """bench.py's build on the card: the rules compiled as bench.py
+    compiles them (the exact rules through a registry holding res-1 ..
+    res-10000, the tail table from (node_rows + r, 20) for the 2,048 ruled
+    ids), 13 ticks at B = 2,048, one 256-row light tick and 4 ticks at B =
+    131,072, with seg_u grown from each stream's exact segment count and
+    seg_static_ranks on (the batches are presorted, the rules DIRECT)."""
+    import dataclasses
+
+    from sentinel_tpu_torch.core import rule_tensors as RT
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import grown_seg_u
+    from sentinel_tpu_torch.runtime.registry import Registry
+
+    base = sketch_cfg(platform_config)
+    reg = Registry(base)
+    for i in range(N_RULED):
+        reg.resource_id(f"res-{i + 1}")
+    origin = (reg.origin_node_row("res-1", "peer-app"), reg.origin_id("peer-app"))
+    nr, trash = base.node_rows, base.trash_row
+    cols, peak = sketch_columns(np, PS, 13, 2048, SEED + 9, nr, trash, *origin)
+    light_cols, peak_l = sketch_columns(np, PS, 1, 256, SEED + 10, nr, trash, *origin)
+    big_cols, peak_b = sketch_columns(np, PS, 8, BIG_B, SEED + 11, nr, trash, *origin)
+    cfg = dataclasses.replace(base, seg_u=grown_seg_u(base, max(peak, peak_l)), seg_static_ranks=True)
+    big = sketch_cfg(platform_config, B=BIG_B)
+    cfg_big = dataclasses.replace(big, seg_u=grown_seg_u(big, peak_b), seg_static_ranks=True)
+    flow, degrade, authority, system, param = sketch_rules(st, with_tail_names=False)
+    rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
+                              authority_rules=authority, system_rules=system, device=device)
+    tail = [(nr + r, 20.0) for r in range(N_RULED + 1, N_RULED + 1 + N_TAIL_RULED)]
+    rules = rules._replace(tail=RT.to_device(RT.compile_tail_flow_rules(tail, cfg), device))
+    log(f"[config] sketch: bench.py's build — max_resources={cfg.max_resources} max_nodes={cfg.max_nodes} "
+        f"minute_window={cfg.enable_minute_window} sketch {cfg.sketch_depth} x {cfg.sketch_width} (salsa="
+        f"{cfg.sketch_salsa}, capacity {cfg.sketch_capacity}, hotset_k {cfg.hotset_k}); seg_u {cfg.seg_u} at "
+        f"B=2048 (peak {max(peak, peak_l)} live segments), {cfg_big.seg_u} at B={BIG_B} (peak {peak_b}); "
+        f"{N_TAIL_RULED} tail rules at 20 QPS, {int((rules.tail.thr < RT.TAIL_UNRULED / 2).sum().item())} "
+        f"ruled cells")
+    return dict(cfg=cfg, cfg_big=cfg_big, rules=rules, stream=sketch_batches(E, torch, cfg, cols, device),
+                light=sketch_batches(E, torch, cfg, light_cols, device)[0],
+                big=sketch_batches(E, torch, cfg_big, big_cols, device),
+                ruled=list(range(nr + N_RULED + 1, nr + N_RULED + 1 + N_TAIL_RULED)),
+                segments=dict(peak=max(peak, peak_l), peak_big=peak_b, seg_u=cfg.seg_u, seg_u_big=cfg_big.seg_u))
+
+
+def sketch_outcome(np, E, WIRE, TX, cfg, wires, acqs, ruled) -> dict:
+    """From the readbacks of a run of ticks: items blocked on a tail rule
+    (BLOCK_FLOW on a ruled sketch id), hot rows carrying sketch ids, and
+    explain records with the sketch flag."""
+    from sentinel_tpu_torch.core import errors as ERR
+
+    lo = WIRE.layout_for(cfg, acqs[0].res.shape[0])
+    tail_blocked = hot_ids = flagged = 0
+    ruled = np.asarray(ruled)
+    for w, acq in zip(wires, acqs):
+        fr = WIRE.unpack(w, lo)
+        res = acq.res.cpu().numpy()
+        tail_blocked += int(np.sum((fr.verdict == ERR.BLOCK_FLOW) & np.isin(res, ruled)))
+        hot_ids += int(np.sum(fr.hot[:, 0] >= cfg.node_rows))
+        _n, recs = TX.decode_section(fr.expl)
+        flagged += sum(1 for row in recs if (rec := TX.decode_record(row)) is not None and rec.sketch_tier)
+    return dict(tail_blocked=tail_blocked, hot_rows_with_sketch_ids=hot_ids, explain_sketch_records=flagged)
+
+
+#: the sketch tier's functions timed alone (module, name)
+SKETCH_FNS = (("SA", "refresh"), ("SA", "_land_words"), ("SA", "estimate_plane_mxu"),
+              ("E", "tail_thresholds"), ("E", "_device_hot_candidates"))
+
+
+def sketch_fn_report(E, SA, torch, state, rules, cfg, acq, comp, now_ms) -> dict:
+    """Each of the sketch tier's functions in one tick (on a copy of
+    ``state``), called again on the arguments the tick gave it: calls a
+    tick, device ms a call (L2 flushed), host enqueue ms and device
+    launches a call.  SALSA's ``refresh`` (its expiry and its landing,
+    both computed and selected) includes ``_land_words``."""
+    mods = {"SA": SA, "E": E}
+    got, calls = {}, {}
+    real = {(m, k): getattr(mods[m], k) for m, k in SKETCH_FNS}
+
+    def recorder(m, k):
+        def rec(*args, **kw):
+            calls[k] = calls.get(k, 0) + 1
+            got.setdefault(k, (args, kw))
+            return real[(m, k)](*args, **kw)
+        return rec
+
+    for m, k in SKETCH_FNS:
+        setattr(mods[m], k, recorder(m, k))
+    try:
+        E.tick(E.clone_state(state), rules, acq, comp, now_ms, 0.3, 0.2, cfg, E.ALL_FEATURES)
+    finally:
+        for (m, k), fn in real.items():
+            setattr(mods[m], k, fn)
+    check(set(got) == {k for _m, k in SKETCH_FNS}, f"the sketch tick called {sorted(got)}")
+    out = {}
+    for m, k in SKETCH_FNS:
+        args, kw = got[k]
+        fn = real[(m, k)]
+        d, h = time_ms(lambda: fn(*args, **kw), reps=20)
+        per_launch = launch_breakdown(lambda: fn(*args, **kw))
+        out[k] = dict(calls_a_tick=calls[k], ms=d, host_ms=h, launches=sum(n for _name, n, _ms in per_launch))
+    return out
+
+
+def sketch_off(E, torch, cfg, state):
+    """The configuration and a copy of ``state`` with the sketch tier off
+    (its placeholder leaf): the same tick without the sketch's work."""
+    import dataclasses
+
+    from sentinel_tpu_torch.ops import gsketch as GS
+
+    off = dataclasses.replace(cfg, sketch_stats=False)
+    dev = state.concurrency.device
+    gs = GS.SketchState(counts=torch.zeros((1, 1, 1, GS.PLANES), dtype=torch.int32, device=dev),
+                        epochs=torch.full((1,), -2, dtype=torch.int32, device=dev))
+    return off, E.clone_state(state)._replace(gs=gs)
+
+
+def sketch_tick_phase(np, E, WIRE, TX, S, FU, SC, SA, torch, install, real, plain, sk) -> dict:
+    """Phase 4 on the sketch configuration.  At B = 2,048: the stream with
+    the kernels (no host sync inside) against the plain versions — wire
+    bytes, wait_ms and every integer state leaf, the sketch's included —,
+    the planes checked on the card, tail blocks and hot rows counted; tick
+    time with the sketch tier on and off in turns (off, on, on, off), one
+    profile of 4 ticks of each, and the sketch's functions alone.  At B =
+    131,072 (bench.py's batch): a warm-up tick, then 3 ticks with the
+    kernels against the plain versions, their times and a profile of 2."""
+    cfg, rules = sk["cfg"], sk["rules"]
+    ticks = sk["stream"][1:]
+    out = {}
+    st_a, st_b = E.clone_state(sk["state0"]), E.clone_state(sk["state0"])
+    FU.reset_launches()
+    SC.reset_launches()
+    scores = []
+    st_a, wires_a, waits_a, _ = run_stream(E, torch, st_a, rules, cfg, ticks, 1_250, forbid_sync=True, scores=scores)
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    for kname in PATH_KERNELS["sketch"]:
+        check(launches[kname] > 0, ("sketch", "tick", kname, launches))
+    install(plain)
+    try:
+        st_b, wires_b, waits_b, _ = run_stream(E, torch, st_b, rules, cfg, ticks, 1_250)
+    finally:
+        install(real)
+    for i, (wa, wb) in enumerate(zip(wires_a, wires_b)):
+        check(wa == wb, f"sketch tick {i}: wire bytes differ between kernels and plain versions")
+        check(np.array_equal(waits_a[i], waits_b[i]), f"sketch tick {i}: wait_ms differ")
+        check(WIRE.unpack(wa, WIRE.layout_for(cfg, cfg.batch_size)).seg_dropped == 0, f"sketch tick {i}: dropped")
+    la, lb = S.leaves(st_a), S.leaves(st_b)
+    for k in la:
+        if not la[k].dtype.is_floating_point:
+            check(torch.equal(la[k], lb[k]), f"sketch: integer state leaf {k} differs")
+    del st_b, la, lb
+    planes = check_planes(np, E, WIRE, TX, cfg, wires_a, scores)
+    seen = sketch_outcome(np, E, WIRE, TX, cfg, wires_a, [a for a, _c in ticks], sk["ruled"])
+    check(seen["hot_rows_with_sketch_ids"] > 0, ("sketch: no hot row carried a sketch id", seen))
+    out["b2048"] = dict(launches=launches, planes_checked=planes, **seen)
+    # the sketch tier on against off, in turns, from the same state
+    cfg_off, st_off = sketch_off(E, torch, cfg, sk["state0"])
+    turns = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        c, s = (cfg, E.clone_state(sk["state0"])) if label == "on" else (cfg_off, E.clone_state(st_off))
+        _s, _w, _wt, ts_turn = run_stream(E, torch, s, rules, c, ticks, 1_250, forbid_sync=True)
+        turns[label] += ts_turn[2:]
+        del _s
+    prof = profile_ticks(E, torch, [("off", st_off, rules, cfg_off), ("on", st_a, rules, cfg)], ticks, 9_000)
+    med = {k: 1e3 * sorted(v)[len(v) // 2] for k, v in turns.items()}
+    for label in ("on", "off"):
+        dev_us, wall_us, cpu_us, n_launch, ours, top = prof[label]
+        out["b2048"][label] = dict(ms_median=med[label], decisions_per_s=cfg.batch_size / med[label] * 1e3,
+                                   tick_ms=[1e3 * s for s in turns[label]], device_us=dev_us, wall_us=wall_us,
+                                   host_cpu_us=cpu_us, idle_share=1 - dev_us / wall_us, device_launches=n_launch,
+                                   profile_kernel_launches=ours, top=top)
+    on, off = out["b2048"]["on"], out["b2048"]["off"]
+    log(f"[tick] sketch: {len(ticks)} ticks at B={cfg.batch_size}, no host sync inside; kernels == plain versions "
+        f"(wire bytes, wait_ms, integer state, the sketch's leaves included); launches {json.dumps(launches)}; "
+        f"tail rules blocked {seen['tail_blocked']} items, hot rows with sketch ids {seen['hot_rows_with_sketch_ids']}, "
+        f"explain records with the sketch flag {seen['explain_sketch_records']}; planes {json.dumps(planes)}")
+    log(f"[tick] sketch: median {on['ms_median']:.3f} ms per tick -> {on['decisions_per_s']:.0f} decisions/s "
+        f"(sketch tier off {off['ms_median']:.3f} ms -> {off['decisions_per_s']:.0f}; off / on / on / off); "
+        f"profile of 4 ticks: device busy {on['device_us'] / 1e3:.3f} ms of {on['wall_us'] / 1e3:.3f} ms wall "
+        f"(idle share {on['idle_share']:.3f}), host CPU {on['host_cpu_us'] / 1e3:.3f} ms, "
+        f"{on['device_launches']} device launches ({on['device_launches'] / 4:g} a tick); the sketch tier adds "
+        f"{(on['device_launches'] - off['device_launches']) / 4:g} device launches, "
+        f"{(on['device_us'] - off['device_us']) / 4e3:.4f} ms device busy, "
+        f"{(on['host_cpu_us'] - off['host_cpu_us']) / 4e3:.4f} ms host CPU and "
+        f"{on['ms_median'] - off['ms_median']:.3f} ms median tick a tick; scatter_many launches a tick "
+        f"{launches['scatter_many'] / len(ticks):g}, seg_excl_cumsum {launches['seg_excl_cumsum'] / len(ticks):g}")
+    for row_name, (n, us) in on["top"]:
+        log(f"[profile] sketch: {row_name[:60]:60s} x{n:5d} {us / 1e3:9.3f} ms (4 ticks)")
+    fns = sketch_fn_report(E, SA, torch, sk["state0"], rules, cfg, *sk["stream"][1], 1_150)
+    out["b2048"]["sketch_fns"] = fns
+    log("[sketch] the sketch tier's functions alone, a call at B=2048: " + "; ".join(
+        f"{k} ({v['calls_a_tick']} a tick) {v['launches']:g} device launches, device {v['ms']:.4f} ms, host "
+        f"enqueue {v['host_ms']:.4f} ms" for k, v in fns.items()))
+    del st_a
+
+    # bench.py's batch, B = 131,072
+    cfg_b = sk["cfg_big"]
+    s0 = E.init_state(cfg_b, "cuda")
+    s0, _ = E.tick(s0, rules, *sk["big"][0], 1_000, 0.3, 0.2, cfg_b, E.ALL_FEATURES)
+    torch.cuda.synchronize()
+    FU.reset_launches()
+    SC.reset_launches()
+    st_a, wires_a, waits_a, ts_a = run_stream(E, torch, E.clone_state(s0), rules, cfg_b, sk["big"][1:], 1_250,
+                                              forbid_sync=True)
+    big_launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    install(plain)
+    try:
+        st_b, wires_b, waits_b, _ = run_stream(E, torch, E.clone_state(s0), rules, cfg_b, sk["big"][1:], 1_250)
+    finally:
+        install(real)
+    for i, (wa, wb) in enumerate(zip(wires_a, wires_b)):
+        check(wa == wb, f"sketch B={BIG_B} tick {i}: wire bytes differ between kernels and plain versions")
+        check(np.array_equal(waits_a[i], waits_b[i]), f"sketch B={BIG_B} tick {i}: wait_ms differ")
+        check(WIRE.unpack(wa, WIRE.layout_for(cfg_b, BIG_B)).seg_dropped == 0, f"sketch B={BIG_B}: dropped")
+    la, lb = S.leaves(st_a), S.leaves(st_b)
+    for k in la:
+        if not la[k].dtype.is_floating_point:
+            check(torch.equal(la[k], lb[k]), f"sketch B={BIG_B}: integer state leaf {k} differs")
+    del st_a, st_b, la, lb
+    seen_b = sketch_outcome(np, E, WIRE, TX, cfg_b, wires_a, [a for a, _c in sk["big"][1:]], sk["ruled"])
+    check(seen_b["tail_blocked"] > 0, ("sketch: no item was blocked on a tail rule at B=131072", seen_b))
+    _s, _w, _wt, ts_b = run_stream(E, torch, E.clone_state(s0), rules, cfg_b, sk["big"][1:], 1_250, forbid_sync=True)
+    del _s
+    prof_b = profile_ticks(E, torch, [("on", s0, rules, cfg_b)], sk["big"][1:3], 9_000)
+    dev_us, wall_us, cpu_us, n_launch, ours, top = prof_b["on"]
+    times = sorted(1e3 * s for s in ts_a + ts_b)
+    ms_b = times[len(times) // 2]
+    out[f"b{BIG_B}"] = dict(ms_median=ms_b, decisions_per_s=BIG_B / ms_b * 1e3, tick_ms=times, launches=big_launches,
+                            device_us=dev_us / 2, wall_us=wall_us / 2, host_cpu_us=cpu_us / 2,
+                            idle_share=1 - dev_us / wall_us, device_launches=n_launch / 2,
+                            profile_kernel_launches=ours, top=top, **seen_b)
+    log(f"[tick] sketch: {len(sk['big']) - 1} ticks at B={BIG_B} (bench.py's batch), no host sync inside; kernels == "
+        f"plain versions; tail rules blocked {seen_b['tail_blocked']} items, hot rows with sketch ids "
+        f"{seen_b['hot_rows_with_sketch_ids']}; median {ms_b:.3f} ms per tick -> {BIG_B / ms_b * 1e3:.0f} "
+        f"decisions/s (ticks {', '.join(f'{t:.3f}' for t in times)} ms); profile of 2 ticks: device busy "
+        f"{dev_us / 2e3:.3f} ms a tick of {wall_us / 2e3:.3f} ms wall (idle share {1 - dev_us / wall_us:.3f}), "
+        f"{n_launch / 2:g} device launches a tick; launches {json.dumps(big_launches)}")
+    for row_name, (n, us) in top:
+        log(f"[profile] sketch B={BIG_B}: {row_name[:60]:60s} x{n:5d} {us / 1e3:9.3f} ms (2 ticks)")
+    return out
 
 
 # -- phase 5: the probes ----------------------------------------------------------------
@@ -1526,6 +2132,12 @@ def main() -> int:
     # -- 2. kernels against their plain versions ------------------------------
     c0, cfgs, setups, cols, light_cols, report["stream_segments"] = prepare(np, st, E)
     report["state_bytes"] = sum(v.numel() * v.element_size() for v in S.leaves(E.init_state(c0, "meta")).values())
+    sk = prepare_sketch(np, st, E, torch)
+    cfgs["sketch"] = sk["cfg"]
+    setups["sketch"] = (sk["cfg"], sk["rules"])
+    report["sketch_segments"] = sk["segments"]
+    report["sketch_state_bytes"] = sum(v.numel() * v.element_size()
+                                       for v in S.leaves(E.init_state(sk["cfg"], "meta")).values())
 
     # the kernels' wrapper functions (seg_excl_cumsum_many is B3's combined
     # narrow + wide launch, the segment check's ranks)
@@ -1601,16 +2213,19 @@ def main() -> int:
     state0 = {}
     stream = to_batches(E, torch, c0, cols)
     light = to_batches(E, torch, c0, light_cols)[0]
+    streams = {name: (stream, light) for name in cfgs}
+    streams["sketch"] = (sk["stream"], sk["light"])
     torch.cuda.synchronize()  # set-up done: a fault below is the tick's
     for name in cfgs:
         s0 = E.init_state(cfgs[name], "cuda")
         log(f"[capture] {name}")
-        s0, cap_full = capture_tick(name, s0, *stream[0], 1_000)
+        stream_n, light_n = streams[name]
+        s0, cap_full = capture_tick(name, s0, *stream_n[0], 1_000)
         torch.cuda.synchronize()
-        s0, cap_light = capture_tick(name, s0, *light, 1_100)
+        s0, cap_light = capture_tick(name, s0, *light_n, 1_100)
         torch.cuda.synchronize()
         state0[name] = s0
-        plane_reports[name] = plane_report(E, torch, s0, setups[name][1], cfgs[name], *stream[1], 1_150)
+        plane_reports[name] = plane_report(E, torch, s0, setups[name][1], cfgs[name], *stream_n[1], 1_150)
         torch.cuda.synchronize()
         log(f"[planes] {name}: the tick's plane functions alone, a call at B={c0.batch_size}: " + "; ".join(
             f"{k} {v['launches']:g} device launches, device {v['ms']:.4f} ms, host enqueue {v['host_ms']:.4f} ms"
@@ -1704,6 +2319,28 @@ def main() -> int:
               (name, "explain coverage", info["explain_coverage"], n_blocked))
         check(info["timeline_rows"] > 0, (name, "the timeline recorded no rows"))
         main_runs[name] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches, client=info)
+    # the sketch configuration through the client: bench.py's names through
+    # the registry (the exact space fills, the tail interns as sketch ids)
+    sk_client = sketch_cfg(platform_config)  # the client sizes seg_u and seg_static_ranks itself
+    counts, n_done, elapsed, launches, info = drive_sketch_main(st, np, FU, SC, torch, sk_client, MAIN_ENTRIES)
+    log(f"[main] sketch: {n_done} entries from {N_THREADS} threads (+{HAMMER} on {info['hammered']}) in "
+        f"{elapsed:.2f} s ({n_done / elapsed:.0f} entries/s); verdict mix {json.dumps(counts, sort_keys=True)}")
+    log(f"[main] sketch: kernel launches during the run: {json.dumps(launches)}; client {json.dumps(info)}")
+    log(f"[main] sketch: the hot-set loop in phase 3: {info['promotions']} promotions (rule loads and manager), "
+        f"{info['promotion_failures']} failed, {info['demotions']} demotions; {info['manager_promoted']} promoted by "
+        f"the manager; {info['hot_candidates']} hot candidates folded, all sketch ids: "
+        f"{info['hot_candidate_ids_sketch']}; {info['tail_names_left_on_sketch_ids']} tail-ruled names on sketch ids")
+    check(n_done >= MAIN_ENTRIES, ("sketch", n_done))
+    for kname in PATH_KERNELS["sketch"]:
+        check(launches[kname] > 0, ("sketch", kname, launches))
+    check(counts.get("hammer FlowException", 0) > 0, ("sketch: the tail rule blocked none of the hammer", counts))
+    check(info["hot_candidates"] > 0 and info["hot_candidate_ids_sketch"], ("sketch: hot rows", info))
+    check("tail_flow" in info["features"] and info["seg_static_ranks"] and info["seg_dropped_total"] == 0, info)
+    check(info["wire_decode_failures"] == 0 and info["promotions"] > 0, info)
+    plain_counts = {k: v for k, v in counts.items() if not k.startswith("hammer ")}
+    check(all(info["folded_verdicts"][k] == plain_counts.get(k, 0) for k in FOLDED),
+          f"sketch: folded device verdicts {info['folded_verdicts']} != the futures' {plain_counts}")
+    main_runs["sketch"] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches, client=info)
     report["main_path"] = main_runs
 
     # open-loop bursts: full 2,048-acquire ticks through the client
@@ -1731,6 +2368,22 @@ def main() -> int:
             check(verdicts == bursts[burst_ref[name]]["verdicts"],
                   f"{name}: burst verdicts or waits differ from the {burst_ref[name]} client's")
         bursts[name] = dict(verdicts=verdicts, mix=mix, launches=launches, client=info)
+    # the sketch configuration's bursts: the segment client against the
+    # per-item fused client on the same configuration, item for item
+    for name, kw in (("sketch fused", dict(seg_effects=False)), ("sketch", {})):
+        verdicts, launches, info = drive_sketch_burst(st, np, FU, SC, sketch_cfg(platform_config, **kw))
+        mix = np.bincount([v for v, _w in verdicts], minlength=7).tolist()
+        log(f"[burst] {name}: 2 bursts of 2048 acquires ({HAMMER} on {info['hammered']} each), one tick each, and "
+            f"{info['exits']} exits between; verdict mix {mix}; launches {json.dumps(launches)}; client "
+            f"{json.dumps(info)}")
+        for kname in PATH_KERNELS["sketch" if name == "sketch" else "fused"]:
+            check(launches[kname] > 0, (name, "burst", kname, launches))
+        check(info["hammer_blocked"] > 0 and info["seg_dropped_total"] == 0, (name, info))
+        if name == "sketch":
+            check(info["seg_static_ranks"], ("sketch burst", info))
+            check(verdicts == bursts["sketch fused"]["verdicts"],
+                  "sketch: burst verdicts or waits differ from the fused sketch client's")
+        bursts[name] = dict(verdicts=verdicts, mix=mix, launches=launches, client=info)
     report["burst"] = {k: {f: v for f, v in b.items() if f != "verdicts"} for k, b in bursts.items()}
 
     # -- 4. the tick against itself --------------------------------------------------
@@ -1742,6 +2395,8 @@ def main() -> int:
              "seg_incl_min": SC.seg_incl_min_plain}
     report["tick"] = {}
     for name, (cfg, rules) in setups.items():
+        if name == "sketch":
+            continue  # its own phase below
         lo = WIRE.layout_for(cfg, cfg.batch_size)
         st_a = E.clone_state(state0[name])
         st_b = E.clone_state(state0[name])
@@ -1799,8 +2454,7 @@ def main() -> int:
             del _s
         ms_tick = 1e3 * sorted(turns["on"])[len(turns["on"]) // 2]
         ms_off = 1e3 * sorted(turns["off"])[len(turns["off"]) // 2]
-        prof = profile_ticks(E, torch, [("off", E.clone_state(st_a), rules, cfg_off),
-                                        ("on", E.clone_state(st_a), rules, cfg)], ticks, 9_000)
+        prof = profile_ticks(E, torch, [("off", st_a, rules, cfg_off), ("on", st_a, rules, cfg)], ticks, 9_000)
         dev_us, wall_us, cpu_us, n_launch, ours, top = prof["on"]
         dev_off, wall_off, cpu_off, n_off, _ours_off, _top_off = prof["off"]
         idle = 1 - dev_us / wall_us
@@ -1841,8 +2495,15 @@ def main() -> int:
                                     plane_fns=plane_reports[name])
         del st_a
 
+    from sentinel_tpu_torch.sketch import salsa as SA
+
+    sk["state0"] = state0["sketch"]
+    report["tick"]["sketch"] = sketch_tick_phase(np, E, WIRE, TX, S, FU, SC, SA, torch, install, real, plain, sk)
+    del sk["state0"]
+
     # -- 5. the probes ---------------------------------------------------------------
-    probe_records, report["probes"] = probe_phase(np, torch, report["tick"], probe_splits)
+    flat = {k: (v["b2048"]["on"] if k == "sketch" else v) for k, v in report["tick"].items()}
+    probe_records, report["probes"] = probe_phase(np, torch, flat, probe_splits)
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
@@ -1873,5 +2534,45 @@ def main() -> int:
     return 0
 
 
+#: aten operations that make no device launch of their own (views, shape
+#: and dtype queries, allocation): left out of the operation count
+VIEW_OPS = frozenset(
+    "aten::" + n for n in (
+        "view alias as_strided reshape _reshape_alias _unsafe_view view_as select slice narrow expand "
+        "unsqueeze squeeze t transpose permute numpy_T split unbind chunk detach lift_fresh contiguous "
+        "empty empty_strided resolve_conj resolve_neg result_type item _local_scalar_dense is_nonzero"
+    ).split()
+)
+
+
+def ops_main() -> int:
+    """``python3 chip_smoke.py --ops``: on the CPU, the PyTorch operations
+    one B = 2,048 tick of the ``sketch`` configuration runs, with the
+    sketch tier on and off (top-level, non-view aten operations of a
+    ``torch.profiler`` CPU trace of the second tick): the count a
+    prediction of the tier's device launches starts from.  Needs no card."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, ROOT)
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.ops import engine as E
+
+    sk = prepare_sketch(np, st, E, torch, device="cpu")
+    cfg, rules = sk["cfg"], sk["rules"]
+    cfg_off, _ = sketch_off(E, torch, cfg, E.init_state(cfg, "cpu"))
+    for label, c in (("off", cfg_off), ("on", cfg)):
+        state = E.init_state(c, "cpu")
+        state, _ = E.tick(state, rules, *sk["stream"][0], 1_000, 0.3, 0.2, c, E.ALL_FEATURES)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            E.tick(state, rules, *sk["stream"][1], 1_137, 0.3, 0.2, c, E.ALL_FEATURES)
+        n = sum(1 for e in prof.events() if e.name.startswith("aten::") and e.name not in VIEW_OPS
+                and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+        log(f"[ops] sketch tier {label}: {n} top-level non-view aten operations in one B={cfg.batch_size} tick")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(b2_main() if sys.argv[1:] == ["--b2"] else main())
+    mode = sys.argv[1:]
+    sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"] else main())

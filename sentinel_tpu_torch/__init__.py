@@ -27,7 +27,9 @@ The facade mirrors the reference's (SphU / SphO / Tracer / ContextUtil):
 
 Ported so far: the admission path with flow (default, rate limiter,
 warm-up, occupy-ahead), degrade, authority, system and hot-parameter
-(param-flow) rules, and the card's measurement probes
+(param-flow) rules, the observability planes, the sketch tier for
+resources past the exact row space (``sentinel_tpu_torch.sketch``: tail
+flow rules, hot-set promotion), and the card's measurement probes
 (``sentinel_tpu_torch.probes``).  What is not ported raises
 ``NotImplementedError`` (see ROADMAP.md).
 """

@@ -2,8 +2,8 @@
 
 The port's own copy of the numpy compilers of
 ``sentinel_tpu/core/rule_tensors.py`` for the rule kinds this package
-enforces — flow, degrade, param-flow, authority and system — plus
-``hash_param`` and ``param_lanes``.
+enforces — flow, degrade, param-flow, authority, system and the
+sketch-tail flow thresholds — plus ``hash_param`` and ``param_lanes``.
 The analog of FlowRuleUtil.buildFlowRuleMap/generateRater
 (slots/block/flow/FlowRuleUtil.java:45-136): on a (re)load
 the whole rule set is recompiled into dense arrays indexed by *rule slot*,
@@ -80,6 +80,51 @@ class ParamRuleTensors(NamedTuple):
 
 #: per-value exception items a param rule carries
 _PARAM_ITEM_SLOTS = 8
+
+
+class TailFlowTensors(NamedTuple):
+    """Approximate QPS thresholds for SKETCH-TAIL resources (ids beyond the
+    exact row space).  Thresholds live in depth hashed cells (the sketch's
+    hashes, ops/param.cms_cell); a lookup takes the max over depth, so a
+    collision in one depth row cannot tighten an unruled resource's
+    budget — only a resource colliding with a ruled cell in EVERY depth
+    can be falsely limited:
+
+        P(false limit) <= (n_tail_rules / width) ** depth        (delta)
+
+    and enforcement reads the sketch's windowed pass estimate, whose
+    overestimate over-blocks by at most eps = e/width of window volume —
+    both errors in the conservative direction."""
+
+    thr: np.ndarray  # float32 [sketch_depth, sketch_width]; >= TAIL_UNRULED = unruled
+
+
+#: finite "unruled" sentinel, the reference's (+inf would turn its one-hot
+#: contraction into 0*inf = NaN); no real threshold approaches it
+TAIL_UNRULED = 2.0e38
+
+
+def compile_tail_flow_rules(tail_rules: List[tuple], cfg: EngineConfig) -> TailFlowTensors:
+    """tail_rules: [(sketch_resource_id, count), ...] — QPS grade only.
+
+    ``count`` is a QPS; the cell threshold is count times the sketch tier's
+    window interval in seconds (enforcement compares it with the WINDOWED
+    pass sum), clamped just below the read's 2^24 - 1 cap so a rule past
+    it still enforces at the cap.  Colliding rules take the MIN threshold
+    per cell (conservative).  Vectorized over rules."""
+    from sentinel_tpu_torch.ops.param import cms_cell
+
+    thr = np.full((cfg.sketch_depth, cfg.sketch_width), TAIL_UNRULED, dtype=np.float32)
+    if tail_rules:
+        nb, wms = cfg.sketch_shape
+        scale = (nb * wms) / 1000.0
+        ids = np.asarray([rid for rid, _ in tail_rules], dtype=np.int32)
+        counts = np.asarray([c for _rid, c in tail_rules], dtype=np.float32) * np.float32(scale)
+        counts = np.minimum(counts, np.float32((1 << 24) - 2))
+        cols = cms_cell(torch.from_numpy(ids), cfg.sketch_depth, cfg.sketch_width).numpy()
+        for d in range(cfg.sketch_depth):
+            np.minimum.at(thr[d], cols[:, d], counts)
+    return TailFlowTensors(thr=thr)
 
 
 class AuthorityTensors(NamedTuple):

@@ -57,9 +57,22 @@ All three are plain PyTorch over tensors the tick already holds — the
 reference computes them with XLA ops outside any Pallas kernel — and none
 of them reads anything back to the host.
 
-Features: {nodes, occupy, flow, degrade, authority, system, warmup,
-param}.  The ``tail_flow`` stage, ``seg_fallback`` and the sketch tier
-are not ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+The sketch tier (``sketch_stats``): resources past the exact row space
+(sketch ids, ``>= node_rows``) are counted in a windowed count-min sketch,
+``state.gs`` — SALSA's self-adjusting counters by default
+(sketch/salsa.py), the seed count-min tier with ``sketch_salsa=False``
+(ops/gsketch.py).  Both phases land the sketch as ``sketch{d}`` jobs of the
+scatter kernel, one per depth row, beside the stat job; the ``tail_flow``
+stage enforces approximate QPS rules on sketch ids from the sketch's
+windowed pass estimate against depth-hashed thresholds (``rules.tail``);
+and the tick's tail emits the hot-set candidates, the batch's top-K
+sketched ids by estimate (``TickOutput.hot``, the wire's hot block), for
+the client's promotion loop (sketch/hotset.py).  The sketch's reads are
+indexed gathers, never the reference's one-hot contractions.
+
+Features: {nodes, occupy, flow, tail_flow, degrade, authority, system,
+warmup, param}.  ``seg_fallback=True`` and ``fused_effects=False`` are not
+ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -95,6 +108,7 @@ from sentinel_tpu_torch.obs.explain import FX_UNKNOWN as EXPLAIN_UNKNOWN
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import fused as FU
+from sentinel_tpu_torch.ops import gsketch as GS
 from sentinel_tpu_torch.ops import param as PM
 from sentinel_tpu_torch.ops import rowmin as RM
 from sentinel_tpu_torch.ops import rtq as RQ
@@ -102,33 +116,19 @@ from sentinel_tpu_torch.ops import tables as T
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.ops.rank import grouped_exclusive_cumsum
+from sentinel_tpu_torch.sketch import impl_for as _sketch
 
 I32, F32 = torch.int32, torch.float32
 
-#: sketch planes of the (dummy) global sketch leaf: NUM_EVENTS + quantized RT
-SKETCH_PLANES = W.NUM_EVENTS + 1
-
 #: every tick stage this engine runs
 ALL_FEATURES = frozenset(
-    {"authority", "system", "param", "flow", "degrade", "warmup", "nodes", "occupy"}
+    {"authority", "system", "param", "flow", "degrade", "warmup", "nodes", "occupy", "tail_flow"}
 )
-#: stages of the JAX engine that are not ported yet
-_UNPORTED_FEATURES = {
-    "tail_flow": "the sketch-tail flow stage (ROADMAP.md Queue A: the sketch tier)",
-}
 
 
 def _fan(x: torch.Tensor, K: int) -> torch.Tensor:
     """Per-item -> per-(item, rule-lane) fan-out (repeat each item K times)."""
     return x if K == 1 else torch.repeat_interleave(x, K, dim=0)
-
-
-class SketchState(NamedTuple):
-    """The global sketch leaf; a [1, 1, 1, PLANES] placeholder while the
-    sketch tier is off (the only configuration this engine runs)."""
-
-    counts: torch.Tensor  # int32 [1, 1, 1, SKETCH_PLANES]
-    epochs: torch.Tensor  # int32 [1]
 
 
 class EngineState(NamedTuple):
@@ -149,7 +149,10 @@ class EngineState(NamedTuple):
     pcms: torch.Tensor  # int32 [depth, Q, nbp]
     pcms_epochs: torch.Tensor  # int32 [nbp]
     pconc: torch.Tensor  # int32 [depth, Q]
-    gs: SketchState
+    # the global sketch (sketch/salsa.SalsaState, or ops/gsketch.SketchState
+    # with sketch_salsa=False); a [1, 1, 1, PLANES] gsketch placeholder
+    # while sketch_stats is off
+    gs: object
     rtq: RQ.RtqState  # ENTRY-node RT quantile histogram
 
 
@@ -159,6 +162,7 @@ class RuleSet(NamedTuple):
     param: RT.ParamRuleTensors
     auth: RT.AuthorityTensors
     system: RT.SystemTensors
+    tail: RT.TailFlowTensors  # sketch-tail QPS thresholds
 
 
 class AcquireBatch(NamedTuple):
@@ -202,6 +206,10 @@ class TickOutput(NamedTuple):
     # the per-resource timeline rows (timeline_k(cfg) > 0): float32
     # [K, TL_COLS] (see _device_res_stats); None when off or packed
     res_stats: Optional[torch.Tensor] = None
+    # the hot-set candidates (hotset_k(cfg) > 0): float32 [K, 2] (sketch id,
+    # windowed pass estimate; see _device_hot_candidates); None when off or
+    # packed
+    hot: Optional[torch.Tensor] = None
 
 
 # -- device-resident telemetry (TickOutput.stats) ---------------------------
@@ -360,14 +368,40 @@ def _device_res_stats(cfg: EngineConfig, state, now_ms: int) -> torch.Tensor:
     return torch.cat([ints[:, :TL_RT_SUM], rt_sum[:, None], rt_min[:, None], ints[:, TL_RT_SUM:]], dim=1)
 
 
+def sketch_config(cfg: EngineConfig) -> GS.SketchConfig:
+    """The sketch tier's bucket grid and shape (cfg.sketch_shape)."""
+    nb, wms = cfg.sketch_shape
+    return GS.SketchConfig(
+        sample_count=nb,
+        window_ms=wms,
+        depth=cfg.sketch_depth,
+        width=cfg.sketch_width,
+        slack_frac=cfg.sketch_slack_frac,
+    )
+
+
 def hotset_k(cfg: EngineConfig) -> int:
-    """Effective hot-candidate row count (0 = the wire's hot block off).
-    Nonzero only with the sketch tier, which this engine does not carry
-    yet (ROADMAP.md, Queue A item 5); kept so the wire layout mirrors the
-    reference's for every config."""
+    """Effective hot-candidate row count (0 = TickOutput.hot off)."""
     if not cfg.sketch_stats or cfg.hotset_k <= 0:
         return 0
     return int(cfg.hotset_k)
+
+
+def _device_hot_candidates(cfg: EngineConfig, state, acq, valid, now_ms: int) -> torch.Tensor:
+    """TickOutput.hot: float32 [K, 2] (sketch id, windowed pass estimate)
+    of the batch's top-K sketched items.
+
+    Runs after the acquire effects, so the estimate includes this tick.
+    Only ids the batch carried can surface (a sketch cannot be inverted
+    back to ids); the host manager folds successive ticks.  Items that are
+    padding or exact rows score -1.  ``lax.top_k`` puts the lower row first
+    on a tie; a stable descending sort keeps that order.  Ids stay exact in
+    float32 (node_rows + sketch_capacity < 2^24, checked by the config)."""
+    K = min(hotset_k(cfg), acq.res.shape[0])
+    est = _sketch(cfg).estimate_plane_mxu(state.gs, now_ms, acq.res, W.EV_PASS, sketch_config(cfg))
+    score = torch.where(valid & (acq.res >= cfg.node_rows), est, -1.0)
+    v, i = torch.sort(score, descending=True, stable=True)
+    return torch.stack([acq.res.index_select(0, i[:K]).to(F32), v[:K]], dim=1)
 
 
 # -- explain records (the wire's explain section) ---------------------------
@@ -389,7 +423,7 @@ def _explain_fx(x: torch.Tensor, known: torch.Tensor) -> torch.Tensor:
     return torch.where(known, v.to(torch.int64), EXPLAIN_UNKNOWN)
 
 
-def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced, fslots):
+def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced, fslots, now_ms: int):
     """Provenance records for up to explain_k BLOCKED rows of this tick:
     (n_blocked int64 scalar, records int64 [K, 4] of uint32 words).
 
@@ -409,7 +443,10 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     threshold) is read for every record at once — K-row gathers of state
     the tick already holds — and one gather by the record's kind picks its
     own, which keeps the launches few.  A forced row (a host pre_verdict)
-    blames no rule."""
+    blames no rule.  A flow block on a sketch id (the sketch tier) blames
+    no slot: its threshold is the max over depth of its hashed tail cells
+    (unknown where none is ruled), its observed value the sketch's
+    windowed pass estimate."""
     b = acq.res.shape[0]
     dev = acq.res.device
     i64 = torch.int64
@@ -422,9 +459,7 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     live = score_v > 0
 
     # the per-item columns a record reads, gathered once: resource, verdict,
-    # forced flag, and the flow check's first slot lane (exact tier only:
-    # the sketch tier's attribution comes with the sketch tier, ROADMAP.md
-    # Queue A item 5)
+    # forced flag, and the flow check's first slot lane (exact tier)
     if fslots is not None:
         slot_col = fslots.view(b, cfg.flow_rules_per_resource)[:, 0]
     else:
@@ -444,6 +479,22 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     run_pass = W.window_event_run(state.win_sec, W.EV_PASS)
     qps = rules.system.qps.to(F32)
     zero = torch.zeros((K,), dtype=I32, device=dev)
+    flow_obs = run_pass.index_select(0, torch.clamp_max(res, cfg.node_rows - 1))
+    flow_thr = rules.flow.count.index_select(0, torch.clamp_max(slot_f, Fn))
+    tail_ok = tail_thr_ok = torch.zeros((K,), dtype=torch.bool, device=dev)
+    if cfg.sketch_stats:
+        # the sketch tier: the threshold from the depth-hashed cells, the
+        # observed value from the windowed pass estimate (both K-row reads;
+        # the estimate is an integer below 2^24, exact as int32)
+        t_cols = PM.cms_cell(res, cfg.sketch_depth, cfg.sketch_width)
+        thr_t = tail_thresholds(cfg, rules, t_cols, ~exact)
+        obs_t = _sketch(cfg).estimate_plane_mxu(
+            state.gs, now_ms, res, W.EV_PASS, sketch_config(cfg), cols=t_cols
+        )
+        flow_obs = torch.where(exact, flow_obs, obs_t.to(I32))
+        flow_thr = torch.where(exact, flow_thr, thr_t)
+        tail_ok = (kind == BLOCK_FLOW) & ~exact & att
+        tail_thr_ok = tail_ok & (thr_t < RT.TAIL_UNRULED / 2)
     # per kind (none, flow, degrade, param, system, authority): the blamed
     # slot and the observed value, as the reference reads them — flow: the
     # node's windowed pass run; degrade: the breaker's state (0 closed /
@@ -453,7 +504,7 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     slot_obs = torch.stack(
         [
             zero, zero,
-            slot_f, run_pass.index_select(0, torch.clamp_max(res, cfg.node_rows - 1)),
+            slot_f, flow_obs,
             slot_d, state.cb_state.index_select(0, slot_dc),
             slot_p, zero,
             zero, run_pass[cfg.entry_node_row].expand(K),
@@ -466,7 +517,7 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     thr_k = torch.stack(
         [
             zero_f,
-            rules.flow.count.index_select(0, torch.clamp_max(slot_f, Fn)),
+            flow_thr,
             rules.degrade.count.index_select(0, slot_dc),
             rules.param.threshold.index_select(0, torch.clamp_max(slot_p, Pn)),
             qps.expand(K),
@@ -481,8 +532,8 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     ok = torch.gather(base, 0, kind[None])[0] & att
     low = kind <= BLOCK_PARAM
     slot_ok = ok & low
-    obs_ok = ok & (kind != BLOCK_PARAM)
-    thr_ok = ok & (low | ((kind == BLOCK_SYSTEM) & (qps >= 0)))
+    obs_ok = (ok & (kind != BLOCK_PARAM)) | tail_ok
+    thr_ok = (ok & (low | ((kind == BLOCK_SYSTEM) & (qps >= 0)))) | tail_thr_ok
 
     slot_w = torch.clamp_max(torch.where(slot_ok, slot + 1, 0), 0xFFFF).to(i64)
     w1 = kind | (((kind == BLOCK_FLOW) & ~exact).to(i64) << 3) | (frc.to(i64) << 4) | (slot_w << 16)
@@ -505,11 +556,7 @@ def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> No
             "choice update the window rings in place: a state copy or a host "
             "sync every tick; ROADMAP.md Queue A: seg_fallback)"
         )
-    if cfg.sketch_stats:
-        unported.append("sketch_stats (ROADMAP.md Queue A: the sketch tier)")
-    for f in sorted(set(features) & set(_UNPORTED_FEATURES)):
-        unported.append(_UNPORTED_FEATURES[f])
-    extra = set(features) - ALL_FEATURES - set(_UNPORTED_FEATURES)
+    extra = set(features) - ALL_FEATURES
     if extra:
         raise ValueError(f"unknown tick features {sorted(extra)}")
     if unported:
@@ -560,10 +607,9 @@ def init_state(cfg: EngineConfig, device) -> EngineState:
         pcms=full((cfg.param_depth, cfg.param_width, cfg.param_sample_count), 0, I32),
         pcms_epochs=full((cfg.param_sample_count,), -(cfg.param_sample_count + 1), I32),
         pconc=full((cfg.param_depth, cfg.param_width), 0, I32),
-        gs=SketchState(
-            counts=full((1, 1, 1, SKETCH_PLANES), 0, I32),
-            epochs=full((1,), -2, I32),
-        ),
+        gs=_sketch(cfg).init_sketch(sketch_config(cfg), device)
+        if cfg.sketch_stats
+        else GS.SketchState(counts=full((1, 1, 1, GS.PLANES), 0, I32), epochs=full((1,), -2, I32)),
         rtq=RQ.init_rtq(rtq_config(cfg), device),
     )
 
@@ -592,8 +638,11 @@ def compile_ruleset(
     rule_tensors.param_lanes — pass the host client's map so the engine's
     lanes and the client's hashed lanes agree.
 
-    Flow rules whose resource has no exact row are dropped with a warning
-    (the sketch tail is not ported); cluster-mode param rules raise."""
+    QPS flow rules whose resource resolves to a SKETCH id (the exact row
+    space exhausted, promotion failed) compile into the tail threshold
+    tables; other grades, behaviours, strategies or an origin-scoped
+    limitApp on a sketch id cannot be enforced there and are dropped with a
+    warning.  Cluster-mode param rules raise."""
     flow_rules = list(flow_rules)
     param_rules = list(param_rules)
     if any(r.cluster_mode for r in param_rules):
@@ -601,17 +650,31 @@ def compile_ruleset(
             "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
             "(ROADMAP.md Queue A item 6: the cluster token column)"
         )
+    tail = []
     exact_flow = []
     for r in flow_rules:
         rid = registry.resource_id(r.resource) if r.resource else None
         if rid is not None and rid >= cfg.node_rows:
-            import logging
+            if (
+                r.grade == GRADE_QPS
+                and r.control_behavior == CONTROL_DEFAULT
+                and r.strategy == STRATEGY_DIRECT
+                # the tail table has no origin dimension: an origin-scoped
+                # rule compiled there would throttle EVERY origin
+                and (r.limit_app or "default") == "default"
+                and cfg.sketch_stats
+            ):
+                tail.append((rid, float(r.count)))
+            else:
+                import logging
 
-            logging.getLogger(__name__).warning(
-                "flow rule on tail resource %r needs exact windows and will "
-                "NOT be enforced; free exact rows or simplify it",
-                r.resource,
-            )
+                logging.getLogger(__name__).warning(
+                    "flow rule on tail resource %r needs exact windows "
+                    "(grade/behavior/strategy/limitApp unsupported in the "
+                    "tail) and will NOT be enforced; free exact rows or "
+                    "simplify it",
+                    r.resource,
+                )
         else:
             exact_flow.append(r)
     return RuleSet(
@@ -626,6 +689,7 @@ def compile_ruleset(
             RT.compile_authority_rules(list(authority_rules), cfg, registry), device
         ),
         system=RT.to_device(RT.compile_system_rules(list(system_rules), cfg), device),
+        tail=RT.to_device(RT.compile_tail_flow_rules(tail, cfg), device),
     )
 
 
@@ -769,6 +833,28 @@ def _param_release_ctx(cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, v
     )
     prows_c = PM.pair_rows(pslots_f, ph_c, cfg.param_depth, cfg.param_width)
     return rel, prows_c, _fan(comp.success, KPp)
+
+
+def sketch_jobs(cfg: EngineConfig, res, valid, vals, digits) -> list:
+    """The sketch landing as scatter jobs ``sketch{d}``, one per depth row:
+    each valid item's value planes at its hashed column of that row
+    (ops/param.cms_cell); invalid items drop via row -1."""
+    cols = PM.cms_cell(res, cfg.sketch_depth, cfg.sketch_width)
+    return [
+        FU.Job(f"sketch{d}", cfg.sketch_width, torch.where(valid, cols[:, d], -1)[None, :], vals, digits)
+        for d in range(cfg.sketch_depth)
+    ]
+
+
+def land_sketch(cfg: EngineConfig, state: EngineState, now_ms: int, upd, planes, pre_refreshed=False):
+    """An int32 [depth, width, len(planes)] sketch delta into the current
+    bucket (the completion phase refreshes; the acquire phase, at the same
+    ``now_ms``, passes ``pre_refreshed=True``)."""
+    return state._replace(
+        gs=_sketch(cfg).add_dense(
+            state.gs, now_ms, upd, planes, sketch_config(cfg), pre_refreshed=pre_refreshed
+        )
+    )
 
 
 def param_release_jobs(cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, valid) -> list:
@@ -946,6 +1032,8 @@ def _process_completions_fused(
             (2, 2, 1),
         )
     ]
+    if cfg.sketch_stats:
+        jobs += sketch_jobs(cfg, comp.res, valid, vals3, digits3)
 
     # THREAD-grade param release lanes (the gathers stay plain indexing;
     # only the concurrency scatter rides the kernel)
@@ -994,6 +1082,10 @@ def _process_completions_fused(
     )
     stat_out, min_out = outs[0], outs[1]
     oi = 2
+    sk_out = None
+    if cfg.sketch_stats:
+        sk_out = outs[oi : oi + cfg.sketch_depth]
+        oi += cfg.sketch_depth
     if with_param:
         state = land_param_release(state, outs[oi : oi + cfg.param_depth])
         oi += cfg.param_depth
@@ -1018,6 +1110,9 @@ def _process_completions_fused(
     state = state._replace(
         rtq=RQ.add(state.rtq, now_ms, comp.rt, inb & (comp.rt > 0), rtq_config(cfg))
     )
+    if sk_out is not None:
+        upd = torch.round(torch.stack(sk_out)).to(I32)  # [depth, width, 3]
+        state = land_sketch(cfg, state, now_ms, upd, (W.EV_SUCCESS, W.EV_EXCEPTION, GS.RT_PLANE))
     concurrency = torch.clamp_min(state.concurrency - hist[:, W.EV_SUCCESS], 0)
 
     if not with_degrade:
@@ -1423,6 +1518,40 @@ def _apply_latest(latest_passed_ms, T_s, n_s, now_ms: int):
     return torch.where(n_s > 0, cand, latest_passed_ms)
 
 
+def tail_thresholds(cfg: EngineConfig, rules: RuleSet, cols, tail):
+    """float32 [N]: each item's tail-rule threshold, the max over depth of
+    its hashed cells (``rules.tail.thr`` at ``cols``, the items' int32
+    [N, depth] hashed columns); TAIL_UNRULED where ``tail`` is False.  One
+    gather across all depths (tables.depth_gather_1col)."""
+    t = T.depth_gather_1col(rules.tail.thr, cols, cfg.sketch_width)
+    return torch.amax(torch.where(tail[None, :], t, RT.TAIL_UNRULED), dim=0)
+
+
+def _check_tail_flow(
+    cfg: EngineConfig, state: EngineState, rules: RuleSet, acq: AcquireBatch,
+    now_ms: int, eligible,
+):
+    """Approximate QPS enforcement for SKETCH-TAIL resources (ids past the
+    exact row space): the sketch's windowed pass estimate plus the
+    within-tick rank against the depth-hashed thresholds
+    (rule_tensors.TailFlowTensors; FlowRuleChecker.java:85 with bounded
+    approximation).  The reference skips the stage with ``lax.cond`` when
+    no tail rule exists or no item is eligible; then no item is ruled, so
+    the always-run computation gives all-False too."""
+    elig = eligible & (acq.res >= cfg.node_rows)
+    cols = PM.cms_cell(acq.res, cfg.sketch_depth, cfg.sketch_width)
+    thr = tail_thresholds(cfg, rules, cols, elig)
+    ruled = elig & (thr < RT.TAIL_UNRULED / 2)
+    est = _sketch(cfg).estimate_plane_mxu(
+        state.gs, now_ms, acq.res, W.EV_PASS, sketch_config(cfg), cols=cols
+    )
+    cnt = acq.count.to(F32)
+    # within-tick arrival rank keyed by the exact tail id (sort-based: the
+    # id space is the sketch capacity)
+    (rank,) = grouped_exclusive_cumsum(acq.res, [cnt], ruled)
+    return ruled & (est + rank + cnt > thr)
+
+
 def _check_degrade(
     cfg: EngineConfig, state: EngineState, rules: RuleSet, acq: AcquireBatch,
     now_ms: int, eligible,
@@ -1473,7 +1602,7 @@ def _run_checks_plain(
     now_ms: int, sys_load: float, sys_cpu: float, valid, forced, features: frozenset,
 ):
     """The per-item check phase (Authority -> System -> ParamFlow -> Flow
-    -> Degrade, first-fail order).  Returns (auth_block, sys_block,
+    (+tail) -> Degrade, first-fail order).  Returns (auth_block, sys_block,
     param_block, param_state, flow_block, wait_ms, occupying, occ_grant,
     fslots, rl_info, degrade_block, cb_state), with param_state = (pcms,
     pcms_epochs, pcms_idx, prows, qps_add, thread_add) or None, and every
@@ -1513,6 +1642,9 @@ def _run_checks_plain(
         occupying = zero_block
         occ_grant = fslots = rl_info = None
         wait_ms = torch.zeros((b,), dtype=I32, device=acq.res.device)
+    if "tail_flow" in features and cfg.sketch_stats:
+        tail_block = _check_tail_flow(cfg, state, rules, acq, now_ms, eligible)
+        flow_block = flow_block | (tail_block & eligible)
     eligible = eligible & ~flow_block
 
     if "degrade" in features:
@@ -1575,9 +1707,12 @@ def _acquire_effects_fused(
     )
     jobs = []
     stat_vals = torch.stack([pass_c, block_c, occ_c])
+    if cfg.sketch_stats:
+        sk_vals = torch.stack([torch.where(passed, acq.count, 0), block_c])
+        jobs += sketch_jobs(cfg, acq.res, valid, sk_vals, (cd, cd))
 
     slot_planes = []
-    oi = 1
+    oi = 1 + len(jobs)
     f_idx = occ_idx = None
     if fslots is not None:
         K = cfg.flow_rules_per_resource
@@ -1636,6 +1771,9 @@ def _acquire_effects_fused(
         win_min = W.add_dense(state.win_min, now_ms, hist, None, _min_cfg(cfg), refreshed=True)
     concurrency = state.concurrency + hist[:, W.EV_PASS] + hist[:, W.EV_OCCUPIED]
     state = state._replace(win_sec=win_sec, win_min=win_min, concurrency=concurrency)
+    if cfg.sketch_stats:
+        upd = torch.round(torch.stack(outs[1 : 1 + cfg.sketch_depth])).to(I32)
+        state = land_sketch(cfg, state, now_ms, upd, (W.EV_PASS, W.EV_BLOCK), pre_refreshed=True)
 
     if f_idx is not None:
         f_out = outs[f_idx]
@@ -1776,9 +1914,9 @@ def tick(
             fslots, occ_grant, rl_info, param_ctx,
         )
 
-    # 5. the observability planes, after the effects (the window sums
-    #    include this tick)
-    stats = res_stats = expl = None
+    # 5. the observability planes and the hot-set candidates, after the
+    #    effects (the window sums and the sketch include this tick)
+    stats = res_stats = hot = expl = None
     if cfg.device_telemetry:
         seg_live = ctx_a.n_seg if use_seg else torch.zeros((), dtype=I32, device=acq.res.device)
         stats = _device_stats(
@@ -1786,20 +1924,22 @@ def tick(
         )
         if timeline_k(cfg) > 0:
             res_stats = _device_res_stats(cfg, state, now_ms)
+    if hotset_k(cfg) > 0:
+        hot = _device_hot_candidates(cfg, state, acq, valid, now_ms)
     if explain_k(cfg) > 0:
-        expl = _device_explain(cfg, state, rules, acq, verdict, valid, forced, fslots)
+        expl = _device_explain(cfg, state, rules, acq, verdict, valid, forced, fslots, now_ms)
     if cfg.packed_wire:
         return state, TickOutput(
             verdict=None,
             wait_ms=wait_ms,
             wire=WIRE.pack_tick_output(
-                cfg, verdict, wait_ms, seg_dropped, stats, res_stats, expl
+                cfg, verdict, wait_ms, seg_dropped, stats, res_stats, expl, hot=hot
             ),
             seg_dropped=seg_dropped,
         )
     return state, TickOutput(
         verdict=verdict, wait_ms=wait_ms, seg_dropped=seg_dropped, stats=stats,
-        res_stats=res_stats,
+        res_stats=res_stats, hot=hot,
     )
 
 

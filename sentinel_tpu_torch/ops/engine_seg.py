@@ -1,12 +1,11 @@
 """Segment-compacted phases of the tick.
 
-PyTorch counterpart of ``sentinel_tpu/ops/engine_seg.py`` without the
-tail-flow and sketch branches (those stages raise in
-``engine.check_supported``).  The effects phases contract ONE entry per
-batch *segment* (a maximal run of items sharing every scatter-relevant
-key, capped at 256 items; ops/segment.py) instead of one per item, and
-the segment check phase reads every per-resource table once per segment
-and expands the values back to items through ONE shared gather.
+PyTorch counterpart of ``sentinel_tpu/ops/engine_seg.py``.  The effects
+phases contract ONE entry per batch *segment* (a maximal run of items
+sharing every scatter-relevant key, capped at 256 items; ops/segment.py)
+instead of one per item, and the segment check phase reads every
+per-resource table once per segment and expands the values back to items
+through ONE shared gather.
 
 Dataflow per side:
   1. prepare_*: everything known at batch arrival (stat digit cumsums,
@@ -17,10 +16,14 @@ Dataflow per side:
      at the segment ends.
 
 Both scatter phases land through one ``fused.scatter_many`` call each
-(kernel B1).  The single-lane check phase ranks with segmented scans
-(kernel B3).  Hot-parameter scatters key on (rule, value-hash) — not
-segment-constant — so with the ``param`` stage on each phase makes one
-more ``scatter_many`` call on the ITEM axis (``prel{d}``, ``param{d}``).
+(kernel B1); with the sketch tier on, the sketch rides them as
+``sketch{d}`` jobs on the segment axis.  The single-lane check phase ranks
+with segmented scans (kernel B3); the sketch-tail stage (``tail_flow``)
+reads its thresholds and estimates once per segment and ranks its items
+with one more B3 call over the runs of equal resources.  Hot-parameter
+scatters key on (rule, value-hash) — not segment-constant — so with the
+``param`` stage on each phase makes one more ``scatter_many`` call on the
+ITEM axis (``prel{d}``, ``param{d}``).
 
 No host sync: the JAX phases decide the occupy rank, the probe election
 and the breaker flip with ``lax.cond`` on "any candidate" (zeros
@@ -56,6 +59,7 @@ from sentinel_tpu_torch.core.rules import (
 )
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import fused as FU
+from sentinel_tpu_torch.ops import gsketch as GS
 from sentinel_tpu_torch.ops import param as PM
 from sentinel_tpu_torch.ops import rowmin as RM
 from sentinel_tpu_torch.ops import rtq as RQ
@@ -204,6 +208,12 @@ def _clean_rows_u(cfg: EngineConfig, x, live):
     return torch.where(live & (x != cfg.trash_row) & (x >= 0), x, 2**30)
 
 
+def _live_res(cfg: EngineConfig, ctx, carry):
+    """Which compacted slots carry a real resource (live, not trash, not
+    negative): the sketch jobs' valid mask on the segment axis."""
+    return ctx.live & (carry.res != cfg.trash_row) & (carry.res >= 0)
+
+
 def _stat_rows_u(cfg: EngineConfig, ctx, carry, with_nodes: bool):
     res_u = _clean_rows_u(cfg, carry.res, ctx.live)
     if not with_nodes:
@@ -275,7 +285,7 @@ def run_checks_seg(
 ):
     """The whole acquire check phase with every per-item table read hoisted
     to the segment level (AuthoritySlot -> SystemSlot -> ParamFlowSlot ->
-    FlowSlot -> DegradeSlot, first-fail order).  Needs *_rules_per_resource == 1 (the
+    FlowSlot (+tail) -> DegradeSlot, first-fail order).  Needs *_rules_per_resource == 1 (the
     tick checks it).  Ranks are segmented scans of the sorted batch (B3);
     with ``seg_static_ranks`` off, sort ranks are computed too and chosen
     when the batch is unsorted or a flow rule is not DIRECT/ANY.
@@ -442,6 +452,19 @@ def run_checks_seg(
         i_maxq = exp.add_f(fg[:, 8])
         i_pace = exp.add_f(pace_qps)
         i_mo = exp.add_f(rcount - pool)
+
+    with_tail = "tail_flow" in features and cfg.sketch_stats
+    if with_tail:
+        # unconditional under the feature, as the reference's: with no tail
+        # rule loaded the thresholds read UNRULED and nothing blocks
+        tres_u = torch.where(live, carry.res, -1)
+        tcols = PM.cms_cell(tres_u, cfg.sketch_depth, cfg.sketch_width)
+        thr_u = E.tail_thresholds(cfg, rules, tcols, live & (tres_u >= cfg.node_rows))
+        est_u = E._sketch(cfg).estimate_plane_mxu(
+            state.gs, now_ms, tres_u, W.EV_PASS, E.sketch_config(cfg), cols=tcols
+        )
+        i_tthr = exp.add_f(thr_u)
+        i_test = exp.add_f(est_u)
 
     if with_degrade:
         dslot_u = slot_vals["degrade"]
@@ -610,6 +633,22 @@ def run_checks_seg(
         occupying = zero_block
         occ_grant = fslots = rl_info = None
         wait_ms = torch.zeros((b,), dtype=I32, device=dev)
+    if with_tail:
+        thr = torch.where(eligible & (acq.res >= cfg.node_rows), exp.get_f(i_tthr), RT.TAIL_UNRULED)
+        est_t = exp.get_f(i_test)
+        ruled = thr < RT.TAIL_UNRULED / 2
+        # the within-tick rank: B3 over the runs of equal resources
+        (r_t,) = SC.seg_excl_cumsum(_head_of_runs(acq.res), torch.where(ruled, acq.count, 0)[None, :])
+        t_rank = r_t.to(F32)
+        if cfg.seg_static_ranks:
+            # an unsorted batch under the static contract: ruled tail items
+            # block outright (fail closed) — the scan rank would be garbage
+            tail_block = ruled & ((est_t + t_rank + cnt > thr) | ~carry.res_sorted)
+        else:
+            (s_t,) = grouped_exclusive_cumsum(acq.res, [cnt], ruled)
+            t_rank = torch.where(carry.res_sorted, t_rank, s_t)
+            tail_block = ruled & (est_t + t_rank + cnt > thr)
+        flow_block = flow_block | (tail_block & eligible)
     eligible = eligible & ~flow_block
 
     if with_degrade:
@@ -710,6 +749,9 @@ def process_completions_seg(
             (2, 2, 1),
         )
     )
+    if cfg.sketch_stats:
+        jobs += E.sketch_jobs(cfg, carry.res, _live_res(cfg, ctx, carry), vals3_u, digits3)
+    n_pre = len(jobs)
 
     with_degrade = "degrade" in features
     if with_degrade:
@@ -789,12 +831,17 @@ def process_completions_seg(
     state = state._replace(
         rtq=RQ.add(state.rtq, now_ms, comp.rt, inb & (comp.rt > 0), E.rtq_config(cfg))
     )
+    if cfg.sketch_stats:
+        upd = torch.stack(
+            [torch.stack(_recombine(o, spec3), dim=1) for o in outs[2:n_pre]]
+        )  # [depth, width, 3]
+        state = E.land_sketch(cfg, state, now_ms, upd, (W.EV_SUCCESS, W.EV_EXCEPTION, GS.RT_PLANE))
     concurrency = torch.clamp_min(state.concurrency - hist[:, W.EV_SUCCESS], 0)
 
     if not with_degrade:
         return state._replace(concurrency=concurrency)
 
-    cb_out, probe_out = outs[2], outs[3]
+    cb_out, probe_out = outs[n_pre], outs[n_pre + 1]
     cb_upd = torch.stack(_recombine(cb_out, cbp_spec[:3]), dim=1).reshape(Dn, nbd, 3)
     cb_counts[:Dn] += cb_upd  # refresh_columns returned a fresh tensor
     sf = torch.cat(
@@ -848,6 +895,9 @@ def acquire_effects_seg(
 
     planes = [pass_c, block_c, occ_c]
     maxes = [CMAX, CMAX, CMAX]
+    if cfg.sketch_stats:
+        planes.append(torch.where(passed, acq.count, 0))  # the sketch's admitted count
+        maxes.append(CMAX)
     rows_src = []
     slot_planes = []
     if fslots is not None:
@@ -888,6 +938,11 @@ def acquire_effects_seg(
     pi += 3
     stat_rows = _stat_rows_u(cfg, ctx, carry, with_nodes)
     jobs = [FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3)]
+    if cfg.sketch_stats:
+        # (admitted count, block) per segment
+        sk_vals, sk_digits, sk_spec = _chunks_to_planes([chunks[pi], chunks[1]])
+        pi += 1
+        jobs += E.sketch_jobs(cfg, carry.res, _live_res(cfg, ctx, carry), sk_vals, sk_digits)
 
     f_idx = occ_idx = None
     if fslots is not None and slot_planes:
@@ -938,6 +993,12 @@ def acquire_effects_seg(
     win_sec, win_min = _window_land(cfg, state, now_ms, hist, None, None, refreshed=True)
     concurrency = state.concurrency + hist[:, W.EV_PASS] + hist[:, W.EV_OCCUPIED]
     state = state._replace(win_sec=win_sec, win_min=win_min, concurrency=concurrency)
+    if cfg.sketch_stats:
+        upd = torch.stack(
+            [torch.stack(_recombine(o, sk_spec), dim=1) for o in outs[1 : 1 + cfg.sketch_depth]]
+        )
+        # the completion phase refreshed the sketch at this now_ms already
+        state = E.land_sketch(cfg, state, now_ms, upd, (W.EV_PASS, W.EV_BLOCK), pre_refreshed=True)
 
     if f_idx is not None:
         # lanes are row-vectors of one job, so the output is already summed

@@ -44,16 +44,17 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def cms_cell(h: torch.Tensor, depth: int, width: int) -> torch.Tensor:
-    """int32 [N, depth] — column index per depth row for hashes h [N]."""
+    """int32 [N, depth] — column index per depth row for hashes h [N].
+    Only the first multiply-add differs between depth rows; the rest of
+    the mix runs once over all of them (uint32 arithmetic in masked int64)."""
     hu = _u32(h)
-    cols = []
-    for d in range(depth):
-        x = (hu * _MULTS[d % len(_MULTS)] + ((d * 0x7F4A7C15) & _M32)) & _M32
-        x = x ^ (x >> 15)
-        x = (x * 0x2C1B3C6D) & _M32
-        x = x ^ (x >> 12)
-        cols.append((x % width).to(I32))
-    return torch.stack(cols, dim=-1)
+    x = torch.stack(
+        [hu * _MULTS[d % len(_MULTS)] + ((d * 0x7F4A7C15) & _M32) for d in range(depth)], dim=-1
+    ) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    x = x ^ (x >> 12)
+    return (x % width).to(I32)
 
 
 def pair_rows(slots: torch.Tensor, hashes: torch.Tensor, depth: int, width: int) -> torch.Tensor:

@@ -33,6 +33,31 @@ def big_gather(
     return torch.where(ok.reshape(ok.shape + (1,) * (out.dim() - 1)), out, 0)
 
 
+def depth_gather_1col(
+    tab: torch.Tensor,  # [depth, width] — one table column per depth
+    cols: torch.Tensor,  # int32 [N, depth]
+    width: int,
+    max_int: Optional[int] = None,
+) -> torch.Tensor:
+    """float32 [depth, N] = tab[d, cols[:, d]] for every depth at once,
+    zeros for columns outside [0, width): ONE gather on the flat
+    [depth * width] id space (column + d * width).  The sketch tier's read
+    (the reference's ``depth_gather_1col``; its MXU branch is a one-hot
+    contraction, this is the indexed gather).  ``max_int`` as in
+    ``big_gather``: an int cell reads modulo the digit planes it needs."""
+    depth = tab.shape[0]
+    n = cols.shape[0]
+    ok = (cols >= 0) & (cols < width)
+    off = torch.arange(depth, dtype=torch.int64, device=cols.device)[None, :] * width
+    flat_idx = (torch.where(ok, cols, 0).to(torch.int64) + off).T.reshape(-1)
+    g = tab.reshape(depth * width)[flat_idx]
+    if max_int is not None and not tab.dtype.is_floating_point:
+        digits = max(1, (int(max_int).bit_length() + 7) // 8)
+        if digits < 4:
+            g = g & ((1 << (8 * digits)) - 1)
+    return torch.where(ok.T.reshape(-1), g.to(torch.float32), 0.0).reshape(depth, n)
+
+
 def lane_gather_1col(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """float32 table[idx] for a ONE-COLUMN table, zeros for ids outside
     [0, n)."""

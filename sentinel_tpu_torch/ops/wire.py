@@ -16,8 +16,9 @@ Readback — ONE flat buffer of uint32 words per tick::
                       rows of wait_ms (ties: lower row first)
     [stats]           N_STATS words — the float32 telemetry row, as bits
     [timeline]        timeline_k * TL_COLS words — float32, as bits
-    [hot]             hotset_k * 2 words — the sketch tier's hot block
-                      (never emitted here: the sketch tier is not ported)
+    [hot]             hotset_k * 2 words — the sketch tier's hot-set
+                      candidates, float32 (sketch id, windowed pass
+                      estimate) as bits
     [explain]         2 + explain_k * EXPLAIN_WORDS words — provenance
                       records for up to explain_k BLOCKED rows
                       (obs/explain.py owns the record encoding):
@@ -143,14 +144,14 @@ def pack_tick_output(
     stats=None,  # float32 [N_STATS] or None
     res_stats=None,  # float32 [K, TL_COLS] or None
     expl=None,  # (n_blocked scalar, records int64 [K, 4] of uint32 words) or None
+    hot=None,  # float32 [K, 2] or None
 ) -> torch.Tensor:
     """Pack one tick's outputs into the wire buffer (an int32 tensor of
-    uint32 bit patterns), on the verdicts' device."""
+    uint32 bit patterns), on the verdicts' device.  The blocks go in the
+    layout's order: stats, timeline, hot, then the explain section."""
     b = verdict.shape[0]
     dev = verdict.device
     lo = layout_for(cfg, b)
-    if lo.hot_rows:
-        raise NotImplementedError("the hot block rides the sketch tier, which is not ported")
     v = torch.zeros((lo.n_bitmap * VERDICTS_PER_WORD,), dtype=torch.int64, device=dev)
     v[:b] = verdict.to(torch.int64) & _VMASK
     shifts = torch.arange(VERDICTS_PER_WORD, dtype=torch.int64, device=dev) * VERDICT_BITS
@@ -169,6 +170,8 @@ def pack_tick_output(
         parts.append(_f32_words(stats))
     if lo.tl_rows:
         parts.append(_f32_words(res_stats))
+    if lo.hot_rows:
+        parts.append(_f32_words(hot))
     payload = torch.cat(parts)
     # scalars are filled on the device: a host tensor here would be an
     # upload (and a stream sync) inside the tick

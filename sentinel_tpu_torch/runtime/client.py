@@ -47,10 +47,22 @@ explain section, whose records fill ``self.explain_plane``
 main section fails the tick CLOSED; a corrupt explain section drops only
 the tick's explanations.
 
+The sketch tier (``sketch_stats``): names interned past the exact row
+space get sketch ids (runtime/registry.py).  Every rule load first tries
+to PROMOTE a sketch-id resource that carries a flow or degrade rule into
+the exact rows (``sketch/hotset.guarded_promote``; rules the tail tables
+cannot serve go first); what stays in the tail compiles into the tail
+threshold tables and turns the ``tail_flow`` stage on.  With
+``hotset_k > 0`` the readback's hot block feeds ``self.hotset``
+(sketch/hotset.HotSetManager), whose promote / demote pass runs after a
+tick iteration on its own cadence (``hotset_eval_s``).  ``stats.resource``
+reads an exact row's windowed stats (what demotion grades).
+
 Not ported yet (ROADMAP.md): cluster mode (a cluster-mode param rule
 raises), the hot-parameter value counters (``top_params``), the native
 completion ring, pipelined readback, adaptive protection, the flight
-recorder and the block log.
+recorder and the block log, the sketch-accuracy audit and the sketch
+ids' windowed stats (``stats.resource`` on a sketch id).
 """
 
 from __future__ import annotations
@@ -79,6 +91,7 @@ from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.runtime import context as CTX
 from sentinel_tpu_torch.runtime import presort as PS
 from sentinel_tpu_torch.runtime.registry import Registry
+from sentinel_tpu_torch.sketch.hotset import HotSetManager, guarded_promote
 from sentinel_tpu_torch.utils.system_status import SystemStatusSampler
 from sentinel_tpu_torch.utils.time_source import TimeSource, VirtualTimeSource, mono_s
 
@@ -388,6 +401,14 @@ class SentinelClient:
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._started = False
+        self.stats = ClientStats(self)
+
+        # hot-set manager (sketch/hotset.py): folds the readback's hot block
+        # and promotes / demotes between the exact tier and the sketch tail
+        # on its own cadence
+        self.hotset: Optional[HotSetManager] = None
+        if self.cfg.sketch_stats and E.hotset_k(self.cfg) > 0:
+            self.hotset = HotSetManager(self)
 
         # per-resource timeline (obs/timeline.py): built in start() when the
         # engine emits timeline rows; an on-disk MetricLog is attached only
@@ -462,7 +483,8 @@ class SentinelClient:
     def _select_features(self) -> frozenset:
         """Engine stages the current rule set needs ('nodes' and 'occupy'
         stay on; 'warmup' joins when a warm-up shaper exists, 'param' while
-        param rules are loaded)."""
+        param rules are loaded, 'tail_flow' while a flow rule's resource
+        has a sketch id)."""
         feats = {"nodes", "occupy", "flow"}
         if self.param_flow_rules.get():
             feats.add("param")
@@ -477,10 +499,44 @@ class SentinelClient:
             for r in self.flow_rules.get()
         ):
             feats.add("warmup")
+        if self.cfg.sketch_stats and any(
+            (rid := self.registry.peek_resource_id(r.resource)) is not None
+            and self.registry.is_sketch_id(rid)
+            for r in self.flow_rules.get()
+            if not r.cluster_mode
+        ):
+            feats.add("tail_flow")
         return frozenset(feats)
+
+    def _promote_ruled_tail(self, flow: list) -> None:
+        """Rules binding to sketch-tail resources first try PROMOTION into
+        the exact rows, so they get real windows; whatever stays in the tail
+        enforces approximately.  When the reserve is short, rules the tail
+        CANNOT serve go first (the tail tables take only QPS / DEFAULT /
+        DIRECT default-limitApp flow rules, ``engine.compile_ruleset``): a
+        rate limiter, a THREAD-grade, origin-scoped or RELATE rule, or a
+        breaker, on a tail id is unenforceable unless it wins an exact row.
+        A failed promotion leaves the rule on its sketch id, where the tail
+        tables still enforce it conservatively."""
+
+        def _tail_can_serve(r) -> bool:
+            return (
+                isinstance(r, R.FlowRule)
+                and r.grade == R.GRADE_QPS
+                and r.control_behavior == R.CONTROL_DEFAULT
+                and r.strategy == R.STRATEGY_DIRECT
+                and (r.limit_app or "default") == "default"
+            )
+
+        for r in sorted(flow + self.degrade_rules.get(), key=_tail_can_serve):
+            rid = self.registry.peek_resource_id(r.resource)
+            if rid is not None and self.registry.is_sketch_id(rid):
+                guarded_promote(self.registry, r.resource)
 
     def _recompile_rules(self) -> None:
         flow = [r for r in self.flow_rules.get() if not r.cluster_mode]
+        if self.cfg.sketch_stats:
+            self._promote_ruled_tail(flow)
         param = self.param_flow_rules.get()
         # per-resource hash LANES: each entry hashes up to param_dims
         # distinct argument indices; every rule reads the lane its param_idx
@@ -672,28 +728,36 @@ class SentinelClient:
                 stop_evt.wait(interval - dt)
 
     def tick_once(self, now_ms: Optional[int] = None) -> None:
-        """Drain the queues and run engine ticks until both are empty."""
+        """Drain the queues and run engine ticks until both are empty; then
+        one cadence check of the hot-set manager, outside the tick mutex (a
+        promotion's rule recompile must not hold up the serving path)."""
         with self._tick_mutex:
-            while True:
-                with self._lock:
-                    acq = self._acquires[: self.cfg.batch_size]
-                    self._acquires = self._acquires[self.cfg.batch_size :]
-                    comp = self._completions[: self.cfg.complete_batch_size]
-                    self._completions = self._completions[self.cfg.complete_batch_size :]
-                if not acq and not comp and now_ms is None:
+            self._tick_once_locked(now_ms)
+        hs = self.hotset
+        if hs is not None:
+            hs.maybe_evaluate()
+
+    def _tick_once_locked(self, now_ms: Optional[int]) -> None:
+        while True:
+            with self._lock:
+                acq = self._acquires[: self.cfg.batch_size]
+                self._acquires = self._acquires[self.cfg.batch_size :]
+                comp = self._completions[: self.cfg.complete_batch_size]
+                self._completions = self._completions[self.cfg.complete_batch_size :]
+            if not acq and not comp and now_ms is None:
+                return
+            try:
+                dispatched = self._run_tick(acq, comp, now_ms)
+            except Exception:
+                # a tick that cannot run decides nothing: its callers
+                # get a fail-closed verdict, not an entry timeout
+                self._fail_closed(acq)
+                raise
+            self._resolve(acq, dispatched)
+            now_ms = None
+            with self._lock:
+                if not self._acquires and not self._completions:
                     return
-                try:
-                    dispatched = self._run_tick(acq, comp, now_ms)
-                except Exception:
-                    # a tick that cannot run decides nothing: its callers
-                    # get a fail-closed verdict, not an entry timeout
-                    self._fail_closed(acq)
-                    raise
-                self._resolve(acq, dispatched)
-                now_ms = None
-                with self._lock:
-                    if not self._acquires and not self._completions:
-                        return
 
     def _warm_shapes(self) -> None:
         """Run both batch shapes once with no-op batches (builds the
@@ -847,6 +911,8 @@ class SentinelClient:
             self._fold_device_stats(frame.stats)
         if frame.res_stats is not None and self.timeline is not None:
             self.timeline.note_tick(frame.res_stats, now_ms, self.time.wall_ms(now_ms) - now_ms)
+        if frame.hot is not None and self.hotset is not None:
+            self.hotset.fold(frame.hot)
         if frame.expl is not None and self.explain_plane is not None:
             # BEFORE the verdict fan-out, so an entry() that raises a
             # BlockException can already look itself up in explain()
@@ -903,3 +969,49 @@ class SentinelClient:
         for r in acq:
             if r.future is not None and not r.future.done():
                 r.future.set_result((int(ERR.BLOCK_SYSTEM), 0))
+
+
+class ClientStats:
+    """Windowed statistics of a resource as the client's state holds them
+    (the reference's ``ClientStats``, reduced to the exact rows' read the
+    hot-set manager's demotion grades).  The sketch ids' estimates
+    (``_sketch_stats``) are ROADMAP.md Queue A item 4."""
+
+    def __init__(self, client: SentinelClient):
+        self._c = client
+
+    def _row_stats(self, row: int) -> Dict[str, float]:
+        c = self._c
+        sec_cfg = W.WindowConfig(c.cfg.second_sample_count, c.cfg.second_window_ms)
+        now = c.time.now_ms()
+        with c._engine_lock:
+            win = c._state.win_sec
+            mask = W.valid_mask(win, now, sec_cfg)
+            counts = torch.sum(win.counts[row] * mask.to(torch.int32)[:, None], dim=0).tolist()
+            rt_tot = float(torch.sum(win.rt_sum[row] * mask.to(torch.float32)))
+            rt_min = float(torch.amin(torch.where(mask, win.rt_min[row], W.RT_MIN_INIT)))
+            conc = int(c._state.concurrency[row])
+        interval_s = sec_cfg.interval_ms / 1000.0
+        succ = float(counts[W.EV_SUCCESS])
+        return {
+            "passQps": float(counts[W.EV_PASS]) / interval_s,
+            "blockQps": float(counts[W.EV_BLOCK]) / interval_s,
+            "successQps": succ / interval_s,
+            "exceptionQps": float(counts[W.EV_EXCEPTION]) / interval_s,
+            "occupiedPassQps": float(counts[W.EV_OCCUPIED]) / interval_s,
+            "avgRt": rt_tot / succ if succ > 0 else 0.0,
+            "minRt": _mask_min_rt(rt_min),
+            "curThreadNum": conc,
+        }
+
+    def resource(self, name: str) -> Optional[Dict[str, float]]:
+        """The resource's windowed stats (None when it was never seen)."""
+        rid = self._c.registry.peek_resource_id(name)
+        if rid is None:
+            return None
+        if self._c.registry.is_sketch_id(rid):
+            raise NotImplementedError(
+                "not ported to sentinel_tpu_torch yet: windowed stats of a sketch-id "
+                "resource (ROADMAP.md Queue A item 4)"
+            )
+        return self._row_stats(rid)

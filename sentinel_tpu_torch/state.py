@@ -19,22 +19,21 @@ import torch
 from sentinel_tpu_torch.core import rule_tensors as RT
 from sentinel_tpu_torch.core.config import EngineConfig
 from sentinel_tpu_torch.ops import engine as E
+from sentinel_tpu_torch.ops import gsketch as GS
 from sentinel_tpu_torch.ops import rtq as RQ
 from sentinel_tpu_torch.ops import window as W
-
-#: the JAX package's "no tail rule" threshold sentinel
-RT_TAIL_UNRULED = 2.0e38
+from sentinel_tpu_torch.sketch import salsa as SA
 
 
-def _convert(kind, src, device):
+def _convert(kind, src, device, subtypes):
     """Build ``kind`` (a NamedTuple class, possibly nested) from ``src``
     field by field; leaves become tensors on ``device``."""
     fields = {}
     for name in kind._fields:
         leaf = getattr(src, name)
-        sub = _SUBTYPES.get((kind, name))
+        sub = subtypes.get((kind, name))
         if sub is not None:
-            fields[name] = _convert(sub, leaf, device)
+            fields[name] = _convert(sub, leaf, device, subtypes)
         else:
             fields[name] = torch.as_tensor(np.array(leaf, copy=True)).to(device)
     return kind(**fields)
@@ -43,19 +42,29 @@ def _convert(kind, src, device):
 _SUBTYPES = {
     (E.EngineState, "win_sec"): W.WindowState,
     (E.EngineState, "win_min"): W.WindowState,
-    (E.EngineState, "gs"): E.SketchState,
     (E.EngineState, "rtq"): RQ.RtqState,
     (E.RuleSet, "flow"): RT.FlowRuleTensors,
     (E.RuleSet, "degrade"): RT.DegradeRuleTensors,
     (E.RuleSet, "param"): RT.ParamRuleTensors,
     (E.RuleSet, "auth"): RT.AuthorityTensors,
     (E.RuleSet, "system"): RT.SystemTensors,
+    (E.RuleSet, "tail"): RT.TailFlowTensors,
 }
 
 
+def _sketch_type(cfg: EngineConfig):
+    """The sketch leaf's type under ``cfg``: SALSA's state, or the count-min
+    seed's (whose [1, 1, 1, PLANES] form is also the placeholder while the
+    sketch tier is off)."""
+    return SA.SalsaState if cfg.sketch_stats and cfg.sketch_salsa else GS.SketchState
+
+
 def state_from_numpy(cfg: EngineConfig, leaves, device) -> E.EngineState:
-    """The port's EngineState from the JAX package's (numpy leaves)."""
-    state = _convert(E.EngineState, leaves, device)
+    """The port's EngineState from the JAX package's (numpy leaves), the
+    sketch's (SALSA or count-min) included."""
+    subtypes = dict(_SUBTYPES)
+    subtypes[(E.EngineState, "gs")] = _sketch_type(cfg)
+    state = _convert(E.EngineState, leaves, device, subtypes)
     ref = E.init_state(cfg, "meta")
     for (path, got), want in zip(_walk(state), _walk(ref)):
         if tuple(got.shape) != tuple(want[1].shape) or got.dtype != want[1].dtype:
@@ -68,15 +77,8 @@ def state_from_numpy(cfg: EngineConfig, leaves, device) -> E.EngineState:
 
 def ruleset_from_numpy(cfg: EngineConfig, leaves, device) -> E.RuleSet:
     """The port's RuleSet from the JAX package's (numpy leaves), param
-    rules included.  The JAX ruleset's tail table must be empty: that stage
-    is not ported."""
-    tail = getattr(leaves, "tail", None)
-    if tail is not None and (np.asarray(tail.thr) < RT_TAIL_UNRULED / 2).any():
-        raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: sketch-tail flow rules "
-            "(ROADMAP.md Queue A: the sketch tier)"
-        )
-    return _convert(E.RuleSet, leaves, device)
+    rules and the sketch-tail thresholds included."""
+    return _convert(E.RuleSet, leaves, device, _SUBTYPES)
 
 
 def _walk(x, path=""):

@@ -156,7 +156,6 @@ def test_tick_continues_a_jax_run_state():
     "flags",
     [
         dict(seg_effects=True, seg_fallback=True),
-        dict(sketch_stats=True),
         dict(fused_effects=False),
     ],
 )
@@ -166,13 +165,6 @@ def test_unported_flags_raise(flags):
     cfg = small_engine_config(**base)
     with pytest.raises(NotImplementedError):
         E.check_supported(cfg)
-
-
-@pytest.mark.parametrize("feature", ["tail_flow"])
-def test_unported_features_raise(feature):
-    cfg = small_engine_config(**H.FUSED_FLAGS)
-    with pytest.raises(NotImplementedError):
-        E.make_tick(cfg, features=H.FEATURES | {feature})
 
 
 def test_the_param_feature_is_ported_and_unknown_features_are_refused():

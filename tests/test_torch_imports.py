@@ -111,3 +111,26 @@ def test_the_scan_covers_the_obs_and_chaos_packages():
     for name in ("sentinel_tpu.chaos.failpoints", "sentinel_tpu.obs.registry"):
         ref = sys.modules.get(name)
         assert ref is None or ref not in (FP, REG)
+
+
+def test_the_scan_covers_the_sketch_tier():
+    """The sketch tier is the port's own: ops/gsketch.py, sketch/ (salsa,
+    hotset) and adaptive/degrade.py (the hot-set manager's hysteresis) are
+    walked by the checks above and import on the CPU without the JAX
+    package."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    mods = ("ops.gsketch", "sketch", "sketch.salsa", "sketch.hotset", "adaptive", "adaptive.degrade")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    from sentinel_tpu_torch.sketch import hotset
+
+    assert hotset.Hysteresis.__module__ == "sentinel_tpu_torch.adaptive.degrade"

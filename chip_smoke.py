@@ -169,6 +169,39 @@ Phases (the first failure stops the script with a nonzero exit):
    the probe kernels' launch counts reset just before and read just
    after, printed on ``[probe]`` lines.
 
+6. ``seg_fallback=True`` (platform_config()'s default), the tick's two
+   routes: seg4, seg1 and ``sketch`` at full width, with ``seg_u`` grown
+   from the exact peak of Zipf ticks, over 12 B = 2,048 ticks of which
+   every third acquire side and every fourth completion side is uniform
+   over all names (~2,000 live segments, past ``seg_u``): every
+   combination of fitting and overflowing sides.  Route A (no host hint:
+   both branches of each phase, selected on the card) with the kernels,
+   under ``set_sync_debug_mode("error")``, equals route A with the plain
+   versions (wire bytes, wait_ms, integer state) and route B (the host's
+   exact ``seg_fits``: one branch a side; every state leaf); the verdicts
+   and waits equal the per-item fused path's on the same stream; nothing
+   is dropped; the card's segment count agrees with the host's; each side
+   takes each branch at least once (``[fallback]`` lines: the branch
+   counts, ms a tick for each route in turns A, B, B, A, kernel launches
+   a tick, and device launches, busy time and idle share from a profile
+   of 4 ticks of each).
+7. bench.py's ``client_bench`` (bench.py:311-520) through the port's
+   client, at B = 131,072 and 2,048: ``platform_config`` at bench.py's
+   shape (so ``seg_fallback=True``), its names and rules through the
+   public surface, ``pipeline_depth=4``, ``seg_u`` with bench.py's
+   headroom.  First the same blocks through two clients on a virtual
+   clock, at depth 4 and 0: equal verdicts and waits.  Then 32 blocks
+   with depth + 4 in flight, fed closed-loop from the resolver's
+   callbacks while this thread drives ``tick_once``; kernel launch counts
+   reset just before and read just after.  ``[client_bench]`` lines:
+   ``dps``, ``effective_tick_ms``, ``req_p50_ms``, ``req_p99_ms`` (submit
+   to resolve), the verdict mix, the ticks that took the per-item branch,
+   beside the card's name and power limit.
+
+Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
+measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
+turns the fallback off).
+
 ``python3 chip_smoke.py --b2`` runs only B2's and probe_copy's numbers
 against what they replaced (``b2_main``), with whatever package lies
 beside the script: copied into an older checkout it measures that one.
@@ -655,12 +688,16 @@ def zipf_probs(np, n, s=1.1):
     return w / w.sum()
 
 
-def configs(platform_config):
+def configs(platform_config, seg_fallback=False):
+    """Phases 2-4's configurations: the segment paths without the per-tick
+    fallback (``seg_fallback=False``), as PRs 1-9 measured them; the
+    fallback phase passes ``seg_fallback=True``, platform_config()'s own."""
     single = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
+    seg = dict(packed_wire=True, seg_fallback=seg_fallback)
     return {
         "fused": platform_config(seg_effects=False, packed_wire=True),
-        "seg4": platform_config(packed_wire=True),
-        "seg1": platform_config(packed_wire=True, **single),
+        "seg4": platform_config(**seg),
+        "seg1": platform_config(**seg, **single),
         # the per-item fused path at seg1's single lanes: what seg1's burst
         # is compared with (the same 16 param rules survive the compile)
         "fused1": platform_config(seg_effects=False, packed_wire=True, **single),
@@ -1074,13 +1111,14 @@ def drive_sketch_burst(st, np, FU, SC, cfg):
 # -- phase 4: the tick against itself ---------------------------------------------------
 
 
-def batch_columns(np, PS, n_ticks, names_to_rows, B, seed, value_hashes):
+def batch_columns(np, PS, n_ticks, names_to_rows, B, seed, value_hashes, uniform=False):
     """Seeded numpy acquire + completion columns of B rows a tick, presorted
     as the client presorts them (a stable sort: the fused path sees the
     same items, in an order it does not depend on).  Every item carries one
-    hashed argument in lane 0 (``value_hashes[k]`` for the k-th value)."""
+    hashed argument in lane 0 (``value_hashes[k]`` for the k-th value).
+    Names are drawn Zipf(1.1), or ``uniform`` over all of them."""
     rng = np.random.default_rng(seed)
-    probs = zipf_probs(np, N_NAMES)
+    probs = None if uniform else zipf_probs(np, N_NAMES)
     vprobs = zipf_probs(np, N_VALUES)
 
     def hashes():
@@ -1145,11 +1183,12 @@ def to_batches(E, torch, cfg, cols):
     return out
 
 
-def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False, scores=None):
+def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False, scores=None, fits=None):
     """Run the stream; ``forbid_sync`` makes any host<->device sync inside
     the tick (everything but its one readback) raise.  ``scores``: a list
     that gets, after each tick (outside it), the readback of the timeline's
-    ranking score, windowed pass + block of rows [1, max_resources)."""
+    ranking score, windowed pass + block of rows [1, max_resources).
+    ``fits``: each tick's ``seg_fits`` (the fallback's route B), or None."""
     wires, waits, tick_s = [], [], []
     for i, (acq, comp) in enumerate(stream):
         torch.cuda.synchronize()
@@ -1157,7 +1196,8 @@ def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False, sc
         if forbid_sync:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
+            state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES,
+                                seg_fits=None if fits is None else fits[i])
         finally:
             torch.cuda.set_sync_debug_mode("default")
         wires.append(out.wire.cpu().numpy().tobytes())  # the one readback
@@ -1171,7 +1211,8 @@ def run_stream(E, torch, state, rules, cfg, stream, t0_ms, forbid_sync=False, sc
 
 def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
     """One profiler session over 4 ticks of each variant ``(label, state,
-    rules, cfg)`` in turn, each from a copy of its state; per label: (device busy us, wall us, host CPU
+    rules, cfg[, fits])`` in turn (``fits``: each tick's ``seg_fits``), each
+    from a copy of its state; per label: (device busy us, wall us, host CPU
     us, device launches, the port's kernels' and the memsets' launches by
     name, top device rows).  Each variant's ticks run inside a
     ``record_function`` range that ends after a synchronize, so an event
@@ -1185,13 +1226,15 @@ def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
     # taken again, from copies of the same states
     for _session in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for label, state, rules, cfg in variants:
+            for label, state, rules, cfg, *fits in variants:
+                fits = fits[0] if fits else None
                 state = E.clone_state(state)
                 torch.cuda.synchronize()
                 with record_function(f"variant:{label}"):
                     t = time.perf_counter()
                     for i, (acq, comp) in enumerate(stream[:4]):
-                        state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES)
+                        state, out = E.tick(state, rules, acq, comp, t0_ms + 137 * i, 0.3, 0.2, cfg, E.ALL_FEATURES,
+                                            seg_fits=None if fits is None else fits[i])
                         out.wire.cpu()
                     torch.cuda.synchronize()
                     walls[label] = (time.perf_counter() - t) * 1e6
@@ -1304,12 +1347,15 @@ def sketch_cfg(platform_config, B=2048, **kw):
     port's platform_config: 16,368 resources, 16,376 nodes, single rule
     lanes, the minute window, the sketch tier at its defaults (SALSA, depth
     2 x width 16,384, capacity 2^22, hot block 32), the segment path with
-    seg_fallback off, param_est_digits 2, the packed wire."""
-    return platform_config(
+    seg_fallback off (as bench.py's ``build`` sets it; ``seg_fallback=True``
+    is client_bench's), param_est_digits 2, the packed wire."""
+    base = dict(
         max_resources=16368, max_nodes=16376, max_flow_rules=16368, max_degrade_rules=16368,
         max_param_rules=256, param_classes=1, flow_rules_per_resource=1, degrade_rules_per_resource=1,
         param_rules_per_resource=1, batch_size=B, complete_batch_size=B, enable_minute_window=True,
-        sketch_stats=True, param_est_digits=2, packed_wire=True, **kw)
+        sketch_stats=True, param_est_digits=2, packed_wire=True, seg_fallback=False)
+    base.update(kw)
+    return platform_config(**base)
 
 
 def sketch_rules(st, with_tail_names: bool = True):
@@ -1351,20 +1397,23 @@ def bench_name(raw: int) -> str:
     return f"tail-{k}" if k < N_TAIL_RULED else f"n-{raw}"
 
 
-def sketch_columns(np, PS, n_ticks, B, seed, node_rows, trash, origin_row, origin_id):
+def sketch_columns(np, PS, n_ticks, B, seed, node_rows, trash, origin_row, origin_id, uniform=False):
     """bench.py's traffic (bench.py:100-134, 212-239): Zipf(1.3) over 2^20
-    names, ids past 10,000 are sketch ids node_rows + raw; 1/8 with the
-    peer-app origin, argument hashes on ids <= 128, 1/2 inbound on each
-    side, RT |N(3, 1)| ms; every batch presorted by the client's keys.
-    Returns [(acquire columns, completion columns)] and the largest exact
-    live-segment count."""
+    names (``uniform``: every name alike), ids past 10,000 are sketch ids
+    node_rows + raw; 1/8 with the peer-app origin, argument hashes on ids
+    <= 128, 1/2 inbound on each side, RT |N(3, 1)| ms; every batch
+    presorted by the client's keys.  Returns [(acquire columns, completion
+    columns)] and the largest exact live-segment count."""
     rng = np.random.default_rng(seed)
     out, peak = [], 0
     full = np.full(B, trash, np.int32)
     none = np.full(B, -1, np.int32)
     for _ in range(n_ticks):
-        z = rng.zipf(1.3, size=B).astype(np.int64)
-        raw = (z - 1) % (N_TOTAL - 1) + 1
+        if uniform:
+            raw = rng.integers(1, N_TOTAL, B).astype(np.int64)
+        else:
+            z = rng.zipf(1.3, size=B).astype(np.int64)
+            raw = (z - 1) % (N_TOTAL - 1) + 1
         ids = np.where(raw <= N_RULED, raw, node_rows + raw).astype(np.int32)
         with_origin = rng.random(B) < 0.125
         ph0 = np.where(ids <= 128, rng.integers(1, 1 << 20, B), 0).astype(np.int32)
@@ -1440,7 +1489,7 @@ def prepare_sketch(np, st, E, torch, device="cuda") -> dict:
         f"B=2048 (peak {max(peak, peak_l)} live segments), {cfg_big.seg_u} at B={BIG_B} (peak {peak_b}); "
         f"{N_TAIL_RULED} tail rules at 20 QPS, {int((rules.tail.thr < RT.TAIL_UNRULED / 2).sum().item())} "
         f"ruled cells")
-    return dict(cfg=cfg, cfg_big=cfg_big, rules=rules, stream=sketch_batches(E, torch, cfg, cols, device),
+    return dict(cfg=cfg, cfg_big=cfg_big, rules=rules, origin=origin, stream=sketch_batches(E, torch, cfg, cols, device),
                 light=sketch_batches(E, torch, cfg, light_cols, device)[0],
                 big=sketch_batches(E, torch, cfg_big, big_cols, device),
                 ruled=list(range(nr + N_RULED + 1, nr + N_RULED + 1 + N_TAIL_RULED)),
@@ -1642,6 +1691,349 @@ def sketch_tick_phase(np, E, WIRE, TX, S, FU, SC, SA, torch, install, real, plai
         f"{n_launch / 2:g} device launches a tick; launches {json.dumps(big_launches)}")
     for row_name, (n, us) in top:
         log(f"[profile] sketch B={BIG_B}: {row_name[:60]:60s} x{n:5d} {us / 1e3:9.3f} ms (2 ticks)")
+    return out
+
+
+# -- phase 6: seg_fallback=True, the tick's two routes ---------------------------------
+
+#: ticks of the fallback phase's stream: every third acquire side and every
+#: fourth completion side uniform over all names (past seg_u), the rest Zipf
+FALLBACK_TICKS = 12
+
+
+def mixed_stream(np, zipf, unif):
+    """Tick i takes its acquire side from ``unif`` when i % 3 == 2 and its
+    completion side when i % 4 == 3, else from ``zipf``: every combination
+    of fitting and overflowing sides occurs."""
+    return [(unif[i][0] if i % 3 == 2 else zipf[i][0], unif[i][1] if i % 4 == 3 else zipf[i][1])
+            for i in range(len(zipf))]
+
+
+def host_fits(np, PS, cols, U, acq_keys, comp_keys):
+    """Each tick's ``seg_fits`` as the client computes it: the exact live
+    segments of each side on the engine's keys against the capacity."""
+    out = []
+    for a, c in cols:
+        segs_a = PS.host_seg_count([a[k] for k in acq_keys])
+        segs_c = PS.host_seg_count([c[k] for k in comp_keys])
+        out.append((segs_c <= U, segs_a <= U))
+    return out
+
+
+def fallback_run(np, E, WIRE, S, FU, SC, torch, install, real, plain, name, cfg, ref_cfg, rules, stream, fits,
+                 kernels) -> dict:
+    """One configuration with seg_fallback=True over a stream of fitting and
+    overflowing ticks: route A (both branches, selected on the card) with
+    the kernels, under set_sync_debug_mode("error"), against route A with
+    the plain versions (wire bytes, wait_ms, integer state) and against
+    route B (the host's seg_fits: one branch a side; every state leaf);
+    verdicts and waits against the per-item fused path's (``ref_cfg``);
+    both branches taken on each side; ms a tick (routes in turns A, B, B,
+    A), kernel launches a tick and a profile of 4 ticks of each route."""
+    from sentinel_tpu_torch.core import errors as ERR
+
+    n = len(stream)
+    state0 = E.init_state(cfg, "cuda")
+    state0, _ = E.tick(state0, rules, *stream[0], 900, 0.3, 0.2, cfg, E.ALL_FEATURES)  # a warm-up tick
+    lo = WIRE.layout_for(cfg, cfg.batch_size)
+    out = {}
+    launches = {}
+    for route, f in (("A", None), ("B", fits)):
+        FU.reset_launches()
+        SC.reset_launches()
+        st_k, wires, waits, _ = run_stream(E, torch, E.clone_state(state0), rules, cfg, stream, 1_250,
+                                           forbid_sync=True, fits=f)
+        launches[route] = {k: v / n for k, v in dict(FU.LAUNCHES, **SC.LAUNCHES).items()}
+        out[route] = (st_k, wires, waits)
+    st_a, wires_a, waits_a = out["A"]
+    for kname in kernels:
+        check(launches["A"][kname] > 0, (name, "fallback route A", kname, launches["A"]))
+    install(plain)
+    try:
+        st_p, wires_p, waits_p, _ = run_stream(E, torch, E.clone_state(state0), rules, cfg, stream, 1_250)
+    finally:
+        install(real)
+    st_b, wires_b, waits_b = out["B"]
+    la, lp, lb = S.leaves(st_a), S.leaves(st_p), S.leaves(st_b)
+    float_diff = 0.0
+    for i in range(n):
+        check(wires_a[i] == wires_p[i], f"fallback {name} tick {i}: wire bytes differ between kernels and plain")
+        check(np.array_equal(waits_a[i], waits_p[i]), f"fallback {name} tick {i}: wait_ms differ (plain)")
+        check(wires_a[i] == wires_b[i], f"fallback {name} tick {i}: route A and route B wires differ")
+        check(np.array_equal(waits_a[i], waits_b[i]), f"fallback {name} tick {i}: wait_ms differ (route B)")
+    for k in la:
+        check(torch.equal(la[k], lb[k]), f"fallback {name}: route A and route B differ in state leaf {k}")
+        if la[k].dtype.is_floating_point:
+            float_diff = max(float_diff, (la[k] - lp[k]).abs().max().item())
+        else:
+            check(torch.equal(la[k], lp[k]), f"fallback {name}: integer state leaf {k} differs (plain)")
+    del st_p, st_b, lp, lb, out
+    # the per-item fused path on the same stream: the same verdicts and waits
+    st_r, wires_r, waits_r, _ = run_stream(E, torch, E.init_state(ref_cfg, "cuda"), rules, ref_cfg,
+                                           stream[:1], 900)
+    st_r, wires_r, waits_r, _ = run_stream(E, torch, st_r, rules, ref_cfg, stream, 1_250)
+    lo_r = WIRE.layout_for(ref_cfg, ref_cfg.batch_size)
+    mix = np.zeros(7, np.int64)
+    acq_over = comp_over = 0
+    for i in range(n):
+        fa, fr = WIRE.unpack(wires_a[i], lo), WIRE.unpack(wires_r[i], lo_r)
+        check(np.array_equal(fa.verdict, fr.verdict) and np.array_equal(waits_a[i], waits_r[i]),
+              f"fallback {name} tick {i}: verdicts or waits differ from the per-item fused path's")
+        check(fa.seg_dropped == 0, f"fallback {name} tick {i}: {fa.seg_dropped} items dropped")
+        over = int(fa.stats[E.STAT_SEG_LIVE]) > cfg.seg_u
+        check(over == (not fits[i][1]), f"fallback {name} tick {i}: the card's segment count disagrees with the host's")
+        acq_over += over
+        comp_over += not fits[i][0]
+        mix += np.bincount(fa.verdict, minlength=7)
+    del st_r
+    branches = dict(acquire=dict(segment=n - acq_over, per_item=acq_over),
+                    completion=dict(segment=n - comp_over, per_item=comp_over))
+    check(min(min(v.values()) for v in branches.values()) > 0, (name, "a branch was never taken", branches))
+    check(mix[ERR.BLOCK_FLOW] > 0 and mix[ERR.PASS] > 0, (name, mix.tolist()))
+    # ms a tick, the routes in turns from the same state
+    turns = {"A": [], "B": []}
+    for route in ("A", "B", "B", "A"):
+        _s, _w, _wt, ts_turn = run_stream(E, torch, E.clone_state(state0), rules, cfg, stream, 1_250,
+                                          forbid_sync=True, fits=fits if route == "B" else None)
+        turns[route] += ts_turn[2:]
+        del _s
+    prof = profile_ticks(E, torch, [("A", state0, rules, cfg), ("B", state0, rules, cfg, fits)], stream, 9_000)
+    res = dict(ticks=n, seg_u=cfg.seg_u, branches=branches, verdict_mix=mix.tolist(), float_state_max_diff=float_diff)
+    for route in ("A", "B"):
+        dev_us, wall_us, cpu_us, n_launch, ours, _top = prof[route]
+        ms = 1e3 * sorted(turns[route])[len(turns[route]) // 2]
+        res[route] = dict(ms_median=ms, tick_ms=[1e3 * x for x in turns[route]], kernel_launches_a_tick=launches[route],
+                          device_us_4=dev_us, wall_us_4=wall_us, host_cpu_us_4=cpu_us, device_launches_4=n_launch,
+                          idle_share=1 - dev_us / wall_us, profile_kernel_launches=ours)
+    log(f"[fallback] {name}: {n} ticks at B={cfg.batch_size}, seg_u {cfg.seg_u}; branches taken "
+        f"{json.dumps(branches)}; no host sync inside; route A kernels == plain (wire bytes, wait_ms, integer "
+        f"state; float max |diff| {float_diff}) == route B (wire bytes, every state leaf); verdicts and waits == "
+        f"the per-item fused path's; seg_dropped 0; verdict mix {mix.tolist()}")
+    for route in ("A", "B"):
+        r = res[route]
+        log(f"[fallback] {name} route {route}: median {r['ms_median']:.3f} ms a tick (in turns A, B, B, A); kernel "
+            f"launches a tick {json.dumps(r['kernel_launches_a_tick'])}; profile of 4 ticks: "
+            f"{r['device_launches_4'] / 4:g} device launches a tick, device busy {r['device_us_4'] / 4e3:.4f} ms a "
+            f"tick, wall {r['wall_us_4'] / 4e3:.4f} ms, idle share {r['idle_share']:.3f}")
+    return res
+
+
+def fallback_phase(np, st, E, WIRE, S, FU, SC, torch, install, real, plain, setups, sk) -> dict:
+    """seg4, seg1 and sketch with seg_fallback=True (platform_config()'s
+    default): seg_u grown from the Zipf ticks' exact peak, so that they fit
+    and the uniform ticks (~2,000 live segments) overflow."""
+    import dataclasses
+
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.core.rule_tensors import hash_param
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import grown_seg_u
+    from sentinel_tpu_torch.runtime.registry import Registry
+
+    cf = configs(platform_config, seg_fallback=True)
+    reg = Registry(cf["seg4"])
+    names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
+    value_hashes = np.array([hash_param(arg_value(k)) for k in range(N_VALUES)], dtype=np.int32)
+    B = cf["seg4"].batch_size
+    zipf = batch_columns(np, PS, FALLBACK_TICKS, names_to_rows, B, SEED + 20, value_hashes)
+    unif = batch_columns(np, PS, FALLBACK_TICKS, names_to_rows, B, SEED + 21, value_hashes, uniform=True)
+    cols = mixed_stream(np, zipf, unif)
+    seg_u = grown_seg_u(cf["seg4"], stream_peak(np, PS, zipf, cf["seg4"]))
+    fits = host_fits(np, PS, cols, seg_u, ("res",), ("res",))  # the other keys are constant here
+    out = {}
+    for name, ref in (("seg4", "fused"), ("seg1", "fused1")):
+        cfg = dataclasses.replace(cf[name], seg_u=seg_u, seg_static_ranks=name == "seg1")
+        stream = to_batches(E, torch, cfg, cols)
+        kernels = ("scatter_many", "gather_many", "seg_incl_min") + (("seg_excl_cumsum",) if name == "seg1" else ())
+        out[name] = fallback_run(np, E, WIRE, S, FU, SC, torch, install, real, plain, name, cfg, cf[ref],
+                                 setups[name][1], stream, fits, kernels)
+        del stream
+        torch.cuda.empty_cache()
+    # bench.py's build with the fallback on; the uniform ticks spread over
+    # the 2^20 names
+    base = sk["cfg"]
+    nr, trash = base.node_rows, base.trash_row
+    zipf, _p = sketch_columns(np, PS, FALLBACK_TICKS, B, SEED + 22, nr, trash, *sk["origin"])
+    unif, _p = sketch_columns(np, PS, FALLBACK_TICKS, B, SEED + 23, nr, trash, *sk["origin"], uniform=True)
+    cols = mixed_stream(np, zipf, unif)
+    fits = host_fits(np, PS, cols, base.seg_u, ("res", "origin_node", "origin_id"), ("res",))
+    cfg = dataclasses.replace(base, seg_fallback=True)
+    from sentinel_tpu_torch.core.config import platform_config as pc
+
+    out["sketch"] = fallback_run(np, E, WIRE, S, FU, SC, torch, install, real, plain, "sketch", cfg,
+                                 sketch_cfg(pc, seg_effects=False), sk["rules"], sketch_batches(E, torch, cfg, cols),
+                                 fits, ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"))
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 7: bench.py's client_bench through the port's client ---------------------------
+
+#: client_bench's blocks a batch shape and pipeline depth (bench.py:311, :359)
+CB_BLOCKS = 32
+CB_DEPTH = 4
+
+
+def bench_traffic(np, PS, c, B, tail_ids):
+    """client_bench's 6 seeded batches (bench.py:406-439): Zipf(1.3) over
+    2^20 names, the tail-ruled draws on their CURRENT registry ids (some
+    promoted at rule load), the rest of the tail as raw sketch ids; 1/8
+    from peer-app, argument hashes on ids <= 128, 1/2 inbound, RT |N(3, 1)|.
+    Returns the batches and their largest exact live-segment count."""
+    cfg = c.cfg
+    rng = np.random.default_rng(1)
+    origin_row = c.registry.origin_node_row("res-1", "peer-app")
+    origin_id = c.registry.origin_id("peer-app")
+    traffic, max_segs = [], 0
+    for _ in range(6):
+        z = rng.zipf(1.3, size=B).astype(np.int64)
+        raw = (z - 1) % (N_TOTAL - 1) + 1
+        tail_k = raw - N_RULED - 1
+        ids = np.where(raw <= N_RULED, raw, np.where(
+            tail_k < N_TAIL_RULED, tail_ids[np.clip(tail_k, 0, N_TAIL_RULED - 1)], cfg.node_rows + tail_k,
+        )).astype(np.int32)
+        with_origin = rng.random(B) < 0.125
+        onode = np.where(with_origin, origin_row, cfg.trash_row).astype(np.int32)
+        oid = np.where(with_origin, origin_id, -1).astype(np.int32)
+        ph = np.zeros((B, cfg.param_dims), np.int32)
+        ph[:, 0] = np.where(ids <= 128, rng.integers(1, 1 << 20, B), 0)
+        inb = (rng.random(B) < 0.5).astype(np.int32)
+        rt = np.abs(rng.normal(3.0, 1.0, B)).astype(np.float32)
+        traffic.append((ids, onode, oid, ph, inb, rt))
+        order = np.lexsort((oid, onode, ids))
+        max_segs = max(max_segs, PS.host_seg_count([ids[order], onode[order], oid[order]]))
+    return traffic, max_segs
+
+
+def bench_client(st, SentinelClient, cfg, depth, time_source=None):
+    """client_bench's client (bench.py:359-398): names interned and rules
+    loaded through the public surface; the client turns seg_static_ranks
+    on itself."""
+    c = SentinelClient(cfg=cfg, mode="threaded", pipeline_depth=depth, time_source=time_source)
+    intern_bench_names(c.registry)
+    flow, degrade, authority, system, param = sketch_rules(st)
+    c.flow_rules.load(flow)
+    c.degrade_rules.load(degrade)
+    c.param_flow_rules.load(param)
+    c.authority_rules.load(authority)
+    c.system_rules.load(system)
+    check(c.cfg.seg_static_ranks, "client_bench: the client did not turn seg_static_ranks on")
+    return c
+
+
+def client_bench_phase(np, st, FU, SC, torch, B, smi) -> dict:
+    """bench.py's client_bench (bench.py:311-520) through the port's client
+    at batch B: platform_config (seg_fallback=True) at bench.py's shape,
+    pipeline_depth 4, seg_u with bench.py's headroom (:443-448).  First the
+    same blocks (two batches each, with their completion blocks) through
+    two clients on a virtual clock, at depth 4 and at 0: equal verdicts.
+    Then 32 blocks of B with depth + 4 in flight, a closed-loop feed from
+    the resolver's callbacks and the caller's thread driving tick_once
+    (bench.py:472-516): dps, effective_tick_ms, the p50 / p99 of submit ->
+    resolve, the verdict mix, the ticks that took the per-item branch."""
+    import dataclasses
+
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.ops import engine_seg as ES
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    cfg = sketch_cfg(platform_config, B=B, seg_fallback=True)
+    c = bench_client(st, SentinelClient, cfg, CB_DEPTH)
+    tail_ids = np.array([c.registry.peek_resource_id(f"tail-{r}") for r in range(N_TAIL_RULED)], np.int64)
+    promoted = int((tail_ids < cfg.node_rows).sum())
+    traffic, max_segs = bench_traffic(np, PS, c, B, tail_ids)
+    want_u = min(B, -(-int(max_segs * 1.3 + 256) // 128) * 128)
+    if want_u > ES.seg_capacity(c.cfg, B):
+        c._resize_seg_u(want_u)
+    seg_u = c.cfg.seg_u
+
+    # depth 4 against depth 0 on a virtual clock (the hot-set manager's real
+    # clock cadence held off, so both see the same rule set throughout)
+    verdicts = {}
+    for depth in (CB_DEPTH, 0):
+        vc = bench_client(st, SentinelClient, dataclasses.replace(c.cfg, hotset_eval_s=1e9), depth,
+                          VirtualTimeSource(1_000_000))
+        got = []
+        for k in range(4):
+            parts = [traffic[(2 * k) % 6], traffic[(2 * k + 1) % 6]]
+            ids, onode, oid, ph, inb, rt = (np.concatenate(x) for x in zip(*parts))
+            fut = vc.submit_block(ids, origin_node=onode, origin_id=oid, param_hash=ph, inbound=inb)
+            vc.submit_completion_block(ids, rt, inbound=inb, param_hash=ph)
+            got.append(fut.result(timeout=60))
+            vc.time.advance(250)
+        verdicts[depth] = got
+        check(vc.seg_dropped_total == 0 and vc.wire_decode_failures == 0, ("client_bench virtual", depth))
+        vc.stop()
+        del vc
+    for (va, wa), (vb, wb) in zip(verdicts[CB_DEPTH], verdicts[0]):
+        check(np.array_equal(va, vb) and np.array_equal(wa, wb),
+              f"client_bench B={B}: verdicts at pipeline_depth {CB_DEPTH} differ from depth 0 (virtual clock)")
+    virtual_mix = np.bincount(np.concatenate([v for v, _w in verdicts[0]]), minlength=7).tolist()
+    del verdicts
+    torch.cuda.empty_cache()
+
+    c._warm_shapes()
+    c.seg_fallback_ticks = 0
+    feed_lock = threading.Lock()
+    progress = {"done": 0, "next": 0}
+    lat, results, t_submit = [], [], {}
+
+    def feed():
+        with feed_lock:
+            k = progress["next"]
+            if k >= CB_BLOCKS:
+                return
+            progress["next"] = k + 1
+        ids, onode, oid, ph, inb, rt = traffic[k % 6]
+        t_submit[k] = time.perf_counter()
+        fut = c.submit_block(ids, origin_node=onode, origin_id=oid, param_hash=ph, inbound=inb)
+        c.submit_completion_block(ids, rt, inbound=inb, param_hash=ph)
+
+        def on_done(f, k=k):
+            # runs on the resolver thread: everything shared is locked
+            with feed_lock:
+                lat.append(time.perf_counter() - t_submit[k])
+                progress["done"] += 1
+                results.append(f.result()[0])
+            feed()
+
+        fut.add_done_callback(on_done)
+
+    inflight = CB_DEPTH + 4
+    torch.cuda.synchronize()
+    FU.reset_launches()
+    SC.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(min(inflight, CB_BLOCKS)):
+        feed()
+    while progress["done"] < CB_BLOCKS:
+        c.tick_once()
+    wall = time.perf_counter() - t0
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    info = dict(seg_dropped_total=c.seg_dropped_total, wire_decode_failures=c.wire_decode_failures,
+                fallback_ticks=c.seg_fallback_ticks, readback_buffers=c._readback.allocated)
+    c.stop()
+    del c
+    torch.cuda.empty_cache()
+    lat_ms = np.sort(np.array(lat[inflight:] or lat)) * 1000.0
+    mix = np.bincount(np.concatenate(results), minlength=7).tolist()
+    out = dict(batch=B, blocks=CB_BLOCKS, pipeline_depth=CB_DEPTH, inflight=inflight, seg_u=seg_u,
+               max_segments=max_segs, promoted_tail=promoted, dps=CB_BLOCKS * B / wall,
+               effective_tick_ms=wall / CB_BLOCKS * 1000.0, req_p50_ms=float(lat_ms[len(lat_ms) // 2]),
+               req_p99_ms=float(lat_ms[int(len(lat_ms) * 0.99)]), verdict_mix=mix, launches=launches,
+               virtual_clock_mix=virtual_mix, **info)
+    for kname in ("scatter_many", "seg_excl_cumsum", "seg_incl_min"):
+        check(launches[kname] > 0, ("client_bench", B, kname, launches))
+    check(info["seg_dropped_total"] == 0 and info["wire_decode_failures"] == 0, ("client_bench", B, info))
+    check(mix[0] > 0 and sum(mix[1:6]) > 0, ("client_bench", B, mix))
+    log(f"[client_bench] B={B}: dps {out['dps']:.0f}, effective_tick_ms {out['effective_tick_ms']:.3f}, "
+        f"req_p50_ms {out['req_p50_ms']:.3f}, req_p99_ms {out['req_p99_ms']:.3f} ({CB_BLOCKS} blocks, "
+        f"pipeline_depth {CB_DEPTH}, {inflight} in flight; {smi}); verdict mix {mix}; ticks that took the "
+        f"per-item branch {info['fallback_ticks']}; seg_u {seg_u} (peak {max_segs}); {promoted} tail names "
+        f"promoted; kernel launches {json.dumps(launches)}; depth {CB_DEPTH} == depth 0 on a virtual clock "
+        f"(8 ticks, verdict mix {virtual_mix})")
     return out
 
 
@@ -2504,6 +2896,14 @@ def main() -> int:
     # -- 5. the probes ---------------------------------------------------------------
     flat = {k: (v["b2048"]["on"] if k == "sketch" else v) for k, v in report["tick"].items()}
     probe_records, report["probes"] = probe_phase(np, torch, flat, probe_splits)
+
+    # -- 6. seg_fallback=True: the tick's two routes ------------------------------------
+    report["fallback"] = fallback_phase(np, st, E, WIRE, S, FU, SC, torch, install, real, plain, setups, sk)
+    del sk
+    torch.cuda.empty_cache()
+
+    # -- 7. bench.py's client_bench through the port's client ---------------------------
+    report["client_bench"] = {str(B): client_bench_phase(np, st, FU, SC, torch, B, smi) for B in (BIG_B, 2048)}
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):

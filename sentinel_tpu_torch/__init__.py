@@ -69,6 +69,7 @@ from sentinel_tpu_torch.core.api import (
     clear_rules,
     context,
     entry,
+    entry_async,
     get_client,
     init,
     load_authority_rules,
@@ -76,6 +77,7 @@ from sentinel_tpu_torch.core.api import (
     load_flow_rules,
     load_param_flow_rules,
     load_system_rules,
+    register_init_func,
     reset,
     trace,
     try_entry,

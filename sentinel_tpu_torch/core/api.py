@@ -15,12 +15,27 @@ from sentinel_tpu_torch.core import rules as R
 
 _client = None
 _client_lock = threading.Lock()
+_init_funcs: list = []
+# a lock of its own for the registration list: init() runs the init funcs
+# while holding _client_lock, and an init func may register more
+_init_funcs_lock = threading.Lock()
+
+
+def register_init_func(fn, order: int = 0):
+    """Register a one-time init callback run when the process-wide client
+    first starts, in ascending ``order`` (registration order breaks ties)
+    — the InitFunc SPI + @InitOrder analog (InitExecutor.java:41-64).
+    Receives the SentinelClient."""
+    with _init_funcs_lock:
+        _init_funcs.append((order, len(_init_funcs), fn))
 
 
 def init(**kwargs):
-    """Create (or return) the process-wide SentinelClient and start it.
-    Keyword arguments go to ``SentinelClient``; with no ``device`` it runs
-    on ``cuda`` and raises where there is no CUDA device."""
+    """Create (or return) the process-wide SentinelClient and start it, then
+    run the registered init funcs once.  Keyword arguments go to
+    ``SentinelClient``; with no ``device`` it runs on ``cuda`` and raises
+    where there is no CUDA device.  A failing init func stops the client
+    and re-raises, leaving no half-initialized singleton."""
     global _client
     with _client_lock:
         if _client is None:
@@ -28,6 +43,15 @@ def init(**kwargs):
 
             c = SentinelClient(**kwargs)
             c.start()
+            try:
+                with _init_funcs_lock:
+                    funcs = sorted(_init_funcs, key=lambda t: t[:2])
+                # funcs registered DURING init take effect on a later init()
+                for _, _, fn in funcs:
+                    fn(c)
+            except Exception:
+                c.stop()
+                raise
             _client = c
         return _client
 
@@ -52,6 +76,12 @@ def entry(resource: str, count: int = 1, prioritized: bool = False, args=None):
             ...
     """
     return get_client().entry(resource, count=count, prioritized=prioritized, args=args)
+
+
+def entry_async(resource: str, count: int = 1, prioritized: bool = False, args=None):
+    """Awaitable entry (AsyncEntry analog): ``e = await st.entry_async(r)``;
+    exit with ``e.exit()``."""
+    return get_client().entry_async(resource, count=count, prioritized=prioritized, args=args)
 
 
 def try_entry(resource: str, count: int = 1, args=None):

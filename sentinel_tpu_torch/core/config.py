@@ -356,23 +356,24 @@ DEFAULT_ENGINE_CONFIG = EngineConfig()
 def platform_config(**kw) -> EngineConfig:
     """The port's serving EngineConfig, the same on every device.
 
-    The engine runs the segment-compacted path, as the JAX package does on
-    an accelerator: ``fused_effects`` and ``seg_effects`` on.  The client
-    presorts every batch on the host and sizes ``seg_u`` from the exact
-    segment count before it dispatches, so ``seg_fallback`` is off: the
-    tick runs the segment phases unconditionally (no device-side branch,
-    no host sync), and items past the capacity fail closed and are
-    counted.  ``seg_fallback=True`` is not ported (both of its branches
-    update the window rings in place).  With single-lane rules
-    (``*_rules_per_resource=1``) the check phase runs at the segment level
-    too.  ``platform_config(seg_effects=False)`` is the per-item fused
-    path.  The observability planes keep the reference's defaults: the
-    device telemetry row (``device_telemetry=True``), the top-128
-    per-resource timeline rows (``timeline_k=128``) and up to 32 explain
-    records a tick (``explain_k=32``, on the packed wire the client
-    reads), so the port serves what the reference's clients read.  On the
-    CPU (tests) the same flags apply: the kernels' plain versions run
-    there.
+    The engine runs what the JAX package's ``platform_engine_config()``
+    turns on for an accelerator: ``fused_effects`` and ``seg_effects`` on,
+    with the always-exact capacity fallback ``seg_fallback=True`` — each
+    phase of a tick whose live segments exceed ``seg_u`` takes the
+    per-item branch instead of failing items closed.  The client presorts
+    every batch on the host and counts its live segments exactly, so it
+    tells the tick which branch each side needs (``engine.tick``'s
+    ``seg_fits``); a direct ``tick`` caller that passes nothing gets both
+    branches computed and selected on the device (no host sync either
+    way).  With single-lane rules (``*_rules_per_resource=1``) the check
+    phase runs at the segment level too.  ``platform_config(seg_effects=
+    False)`` is the per-item fused path; ``seg_fallback=False`` fails
+    overflow items closed and counts them (``seg_dropped``).  The
+    observability planes keep the reference's defaults: the device
+    telemetry row (``device_telemetry=True``), the top-128 per-resource
+    timeline rows (``timeline_k=128``) and up to 32 explain records a tick
+    (``explain_k=32``, on the packed wire the client reads).  On the CPU
+    (tests) the same flags apply: the kernels' plain versions run there.
 
     ``use_mxu_tables`` is kept as a field so configs carry across from the
     JAX package, but it selects nothing here: the port has no one-hot
@@ -382,7 +383,7 @@ def platform_config(**kw) -> EngineConfig:
         use_mxu_tables=True,
         fused_effects=True,
         seg_effects=True,
-        seg_fallback=False,
+        seg_fallback=True,
     )
     base.update(kw)
     return EngineConfig(**base)

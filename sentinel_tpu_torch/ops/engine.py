@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``sentinel_tpu/ops/engine.py`` under
 ``fused_effects=True``: the per-item fused path (``seg_effects=False``)
-and the segment-compacted path (``seg_effects=True, seg_fallback=False``;
-ops/engine_seg.py).  A tick ingests
+and the segment-compacted path (``seg_effects=True``; ops/engine_seg.py),
+with or without its per-tick fallback to the per-item path
+(``seg_fallback``).  A tick ingests
 
     AcquireBatch  — entry attempts   (SphU.entry side)
     CompleteBatch — exits            (Entry.exit + Tracer side)
@@ -33,11 +34,19 @@ clone it first (``clone_state``) to keep the old one.
 The segment path builds each side's segment structure once, lands both
 effect phases per segment (ops/engine_seg.py), and — with single-lane
 rules (``*_rules_per_resource == 1``) — runs the segment check phase,
-whose ranks are segmented scans of the presorted batch.  Items past the
-compacted capacity ``seg_u`` fail closed and are counted in the wire's
-``seg_dropped``.  ``seg_fallback=True`` (pick the per-item path per tick
-when segments overflow) is not ported: it needs a device-side branch
-between two phases that both update the window rings in place.
+whose ranks are segmented scans of the presorted batch.  With
+``seg_fallback=False`` items past the compacted capacity ``seg_u`` fail
+closed and are counted in the wire's ``seg_dropped``.  With
+``seg_fallback=True`` (the reference's accelerator default) each of the
+three phases — completions, the single-lane check phase, acquire effects
+— takes the per-item branch when its side's live segments exceed
+``seg_u``, so every tick is exact and nothing is dropped.  Each effects
+phase is split into its scatters, which give small deltas
+(``CompletionDeltas``, ``AcquireDeltas``), and ONE landing into the
+state, so the choice never copies or rewrites the state: the caller may
+pass the host's exact answer (``seg_fits``) and run one branch a side,
+or pass nothing and run both, selected with ``torch.where`` on the
+device's ``ctx.ok`` (no host sync either way).
 
 The hot-parameter stage (``param``; ops/param.py) limits per argument
 value over hashed (rule, value) rows: its reads are plain gathers, its
@@ -71,8 +80,8 @@ the client's promotion loop (sketch/hotset.py).  The sketch's reads are
 indexed gathers, never the reference's one-hot contractions.
 
 Features: {nodes, occupy, flow, tail_flow, degrade, authority, system,
-warmup, param}.  ``seg_fallback=True`` and ``fused_effects=False`` are not
-ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue A).
+warmup, param}.  ``fused_effects=False`` is not ported yet and raises
+``NotImplementedError`` (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -550,12 +559,6 @@ def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> No
     unported = []
     if not cfg.fused_effects:
         unported.append("fused_effects=False (the plain scatter path)")
-    if cfg.seg_effects and cfg.seg_fallback:
-        unported.append(
-            "seg_effects with seg_fallback=True (both branches of its per-tick "
-            "choice update the window rings in place: a state copy or a host "
-            "sync every tick; ROADMAP.md Queue A: seg_fallback)"
-        )
     extra = set(features) - ALL_FEATURES
     if extra:
         raise ValueError(f"unknown tick features {sorted(extra)}")
@@ -872,10 +875,10 @@ def param_release_jobs(cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, v
     ]
 
 
-def land_param_release(state: EngineState, outs) -> EngineState:
-    """pconc minus the ``prel{d}`` outputs, clamped at zero."""
-    dec = torch.round(torch.stack([o[:, 0] for o in outs])).to(I32)  # [depth, Q]
-    return state._replace(pconc=torch.clamp_min(state.pconc - dec, 0))
+def param_release_deltas(outs) -> torch.Tensor:
+    """The ``prel{d}`` outputs as the int32 [depth, Q] decrement of pconc
+    (the landing clamps the difference at zero)."""
+    return torch.round(torch.stack([o[:, 0] for o in outs])).to(I32)
 
 
 def param_effect_jobs(cfg: EngineConfig, acq: AcquireBatch, passed, param_ctx) -> list:
@@ -898,10 +901,15 @@ def param_effect_jobs(cfg: EngineConfig, acq: AcquireBatch, passed, param_ctx) -
     ]
 
 
-def land_param_effects(state: EngineState, param_ctx, outs) -> EngineState:
-    """The ``param{d}`` outputs into the current pcms bucket and pconc."""
+def param_effect_deltas(outs) -> torch.Tensor:
+    """The ``param{d}`` outputs as int32 [depth, Q, 2] (admitted counts,
+    THREAD concurrency)."""
+    return torch.round(torch.stack(list(outs))).to(I32)
+
+
+def land_param_effects(state: EngineState, param_ctx, upd) -> EngineState:
+    """``param_effect_deltas`` into the current pcms bucket and pconc."""
     pcms, pcms_epochs, pcms_idx = param_ctx[:3]
-    upd = torch.round(torch.stack(list(outs))).to(I32)  # [depth, Q, 2]
     pcms[:, :, pcms_idx] += upd[:, :, 0]  # refresh returned a fresh tensor
     pconc = torch.clamp_min(state.pconc + upd[:, :, 1], 0)
     return state._replace(pcms=pcms, pcms_epochs=pcms_epochs, pconc=pconc)
@@ -973,42 +981,49 @@ def _cb_transitions(
     return cb_counts, cb_state, cb_retry
 
 
-def _land_hist(cfg: EngineConfig, stat_out, planes, entry_deltas, device):
-    """[node_rows, NUM_EVENTS] int32 histogram from the stat job's float
-    output (planes -> event columns) plus the ENTRY-row reduction."""
+def _node_hist(cfg: EngineConfig, cols: dict, entry_deltas, device):
+    """[node_rows, NUM_EVENTS] int32 histogram: int32 [max_nodes] columns
+    by event, plus the ENTRY-row reduction."""
     hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=device)
-    for p, ev in enumerate(planes):
-        hist[: cfg.max_nodes, ev] = torch.round(stat_out[:, p]).to(I32)
+    for ev, col in cols.items():
+        hist[: cfg.max_nodes, ev] = col
     hist[cfg.entry_node_row] += entry_deltas
     return hist
 
 
-def _process_completions_fused(
-    cfg: EngineConfig,
-    state: EngineState,
-    rules: RuleSet,
-    comp: CompleteBatch,
-    now_ms: int,
-    features: frozenset,
-) -> EngineState:
-    """Exit path: RT/success/exception recording + circuit-breaker
-    feedback (StatisticSlot.exit:125-164, DegradeSlot.exit:60-75), every
-    scatter in ONE scatter_many launch: stat fan, per-row RT minimum
-    heads, THREAD-grade param release, breaker columns and half-open
-    probe flags."""
+class CompletionDeltas(NamedTuple):
+    """What a completion phase's scatters hand the landing, in one form for
+    both branches (per item, ``_completion_scatters_fused``; per segment,
+    ``engine_seg.completion_scatters_seg``), so that ``seg_fallback`` can
+    select between two of them on the device and land once."""
+
+    succ: torch.Tensor  # int32 [max_nodes] successes per node row
+    err: torch.Tensor  # int32 [max_nodes] exceptions per node row
+    rt: torch.Tensor  # float32 [max_nodes] RT sums (ms)
+    row_min: tuple  # (float32 [max_nodes] RT minima, bool [max_nodes] present)
+    sketch: Optional[torch.Tensor]  # int32 [depth, width, 3] (sketch_stats)
+    prel: Optional[torch.Tensor]  # int32 [depth, Q] THREAD-grade release ("param")
+    cb: Optional[torch.Tensor]  # int32 [Dn, nbd, 3] breaker columns ("degrade")
+    probe: Optional[torch.Tensor]  # int32 [Dn, 2] half-open probes seen / failed
+
+
+def _completion_scatters_fused(
+    cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, features: frozenset, dg,
+) -> CompletionDeltas:
+    """The exit path's scatters (StatisticSlot.exit:125-164,
+    DegradeSlot.exit:60-75) per item, in ONE scatter_many launch: stat fan,
+    per-row RT minimum heads, the sketch, THREAD-grade param release,
+    breaker columns and half-open probe flags.  ``dg``: the breaker masks
+    (``_degrade_completion_masks``) or None without "degrade"."""
     b = comp.res.shape[0]
-    dev = comp.res.device
     valid = comp.res != cfg.trash_row
     with_nodes = "nodes" in features
-    sec_cfg, min_cfg = _sec_cfg(cfg), _min_cfg(cfg)
-    erow = cfg.entry_node_row
 
     succ_w = torch.where(valid, comp.success, 0)
     err_w = torch.where(valid, comp.error, 0)
     rt1 = torch.where(valid, comp.rt, 0.0)
     # RT quantized to 1/8 ms (round half to even, as the reference)
     rt_q = torch.round(torch.clamp_max(rt1, float(cfg.statistic_max_rt)) * 8.0).to(I32)
-    inb, entry_deltas, entry_rt, entry_rt_min = _completion_entry_stats(cfg, comp, valid)
 
     vals3 = torch.stack([succ_w, err_w, rt_q])
     cd = cfg.count_digits
@@ -1041,12 +1056,9 @@ def _process_completions_fused(
     if with_param:
         jobs += param_release_jobs(cfg, rules, comp, valid)
 
-    with_degrade = "degrade" in features
-    if with_degrade:
+    if dg is not None:
         KD = cfg.degrade_rules_per_resource
-        slots_f, cb_counts, cb_epochs, active, is_err, is_slow, g_idx, half_open = (
-            _degrade_completion_masks(cfg, state, rules, comp, valid, now_ms)
-        )
+        slots_f, _cb_counts, _cb_epochs, active, is_err, is_slow, g_idx, half_open = dg
         nbd = cfg.cb_sample_count
         Dn = cfg.max_degrade_rules
         # pad slots (slot == Dn) drop via row -1
@@ -1082,19 +1094,54 @@ def _process_completions_fused(
     )
     stat_out, min_out = outs[0], outs[1]
     oi = 2
-    sk_out = None
+    sketch = prel = cb = probe = None
     if cfg.sketch_stats:
-        sk_out = outs[oi : oi + cfg.sketch_depth]
+        sketch = torch.round(torch.stack(outs[oi : oi + cfg.sketch_depth])).to(I32)  # [depth, width, 3]
         oi += cfg.sketch_depth
     if with_param:
-        state = land_param_release(state, outs[oi : oi + cfg.param_depth])
+        prel = param_release_deltas(outs[oi : oi + cfg.param_depth])
         oi += cfg.param_depth
+    if dg is not None:
+        cb = torch.round(outs[oi]).to(I32).reshape(cfg.max_degrade_rules, cfg.cb_sample_count, 3)
+        probe = torch.round(outs[oi + 1]).to(I32)
+    return CompletionDeltas(
+        succ=torch.round(stat_out[:, 0]).to(I32),
+        err=torch.round(stat_out[:, 1]).to(I32),
+        rt=stat_out[:, 2] / 8.0,
+        row_min=RM.combine(min_out),
+        sketch=sketch,
+        prel=prel,
+        cb=cb,
+        probe=probe,
+    )
 
+
+def _land_completions(
+    cfg: EngineConfig,
+    state: EngineState,
+    rules: RuleSet,
+    comp: CompleteBatch,
+    now_ms: int,
+    d: CompletionDeltas,
+    dg,
+) -> EngineState:
+    """Land one completion phase's deltas: the windows (the tick's ONE
+    refresh per window), the ENTRY row's reductions, the RT quantiles, the
+    sketch, concurrency, the param release and the breakers (refreshed
+    columns from ``dg``, then the transitions)."""
+    dev = comp.res.device
+    valid = comp.res != cfg.trash_row
+    sec_cfg, min_cfg = _sec_cfg(cfg), _min_cfg(cfg)
+    erow = cfg.entry_node_row
     pad_tail = cfg.node_rows - cfg.max_nodes
-    hist = _land_hist(cfg, stat_out, (W.EV_SUCCESS, W.EV_EXCEPTION), entry_deltas, dev)
-    rt_hist = torch.cat([stat_out[:, 2] / 8.0, torch.zeros((pad_tail,), dtype=F32, device=dev)])
+    inb, entry_deltas, entry_rt, entry_rt_min = _completion_entry_stats(cfg, comp, valid)
+    if d.prel is not None:
+        state = state._replace(pconc=torch.clamp_min(state.pconc - d.prel, 0))
+
+    hist = _node_hist(cfg, {W.EV_SUCCESS: d.succ, W.EV_EXCEPTION: d.err}, entry_deltas, dev)
+    rt_hist = torch.cat([d.rt, torch.zeros((pad_tail,), dtype=F32, device=dev)])
     rt_hist[erow] += entry_rt
-    mins_m, present_m = RM.combine(min_out)
+    mins_m, present_m = d.row_min
     row_min = (
         torch.cat([mins_m, torch.full((pad_tail,), W.RT_MIN_INIT, dtype=F32, device=dev)]),
         torch.cat([present_m, torch.zeros((pad_tail,), dtype=torch.bool, device=dev)]),
@@ -1110,20 +1157,16 @@ def _process_completions_fused(
     state = state._replace(
         rtq=RQ.add(state.rtq, now_ms, comp.rt, inb & (comp.rt > 0), rtq_config(cfg))
     )
-    if sk_out is not None:
-        upd = torch.round(torch.stack(sk_out)).to(I32)  # [depth, width, 3]
-        state = land_sketch(cfg, state, now_ms, upd, (W.EV_SUCCESS, W.EV_EXCEPTION, GS.RT_PLANE))
+    if d.sketch is not None:
+        state = land_sketch(cfg, state, now_ms, d.sketch, (W.EV_SUCCESS, W.EV_EXCEPTION, GS.RT_PLANE))
     concurrency = torch.clamp_min(state.concurrency - hist[:, W.EV_SUCCESS], 0)
 
-    if not with_degrade:
+    if dg is None:
         return state._replace(concurrency=concurrency)
 
-    cb_out, probe_out = outs[oi], outs[oi + 1]
-    cb_upd = torch.round(cb_out).to(I32).reshape(Dn, nbd, 3)
-    cb_counts[:Dn] += cb_upd  # refresh_columns returned a fresh tensor
-    sf = torch.cat(
-        [torch.round(probe_out).to(I32), torch.zeros((1, 2), dtype=I32, device=dev)]
-    )  # pad row back to Dn + 1
+    _slots_f, cb_counts, cb_epochs = dg[:3]
+    cb_counts[: cfg.max_degrade_rules] += d.cb  # refresh_columns returned a fresh tensor
+    sf = torch.cat([d.probe, torch.zeros((1, 2), dtype=I32, device=dev)])  # pad row back to Dn + 1
     cb_counts, cb_state, cb_retry = _cb_transitions(
         cfg, state, rules, cb_counts, cb_epochs, sf[:, 0], sf[:, 1], now_ms
     )
@@ -1679,12 +1722,24 @@ def _acquire_entry_stats(cfg: EngineConfig, acq: AcquireBatch, valid, passed, oc
     return pass_c, block_c, occ_c, torch.stack(deltas)
 
 
-def _acquire_effects_fused(
+class AcquireDeltas(NamedTuple):
+    """What an acquire effects phase's scatters hand the landing, in one
+    form for both branches (per item, ``_acquire_scatters_fused``; per
+    segment, ``engine_seg.acquire_scatters_seg``)."""
+
+    pas: torch.Tensor  # int32 [max_nodes] admitted (not occupying) counts
+    blk: torch.Tensor  # int32 [max_nodes] blocked counts
+    occ: torch.Tensor  # int32 [max_nodes] occupy-ahead counts
+    sketch: Optional[torch.Tensor]  # int32 [depth, width, 2] (sketch_stats)
+    warm: Optional[torch.Tensor]  # float32 [F] warm-up drain ("warmup")
+    latest: Optional[tuple]  # (float32 [F] cost sums, float32 [F] counts): RateLimiter
+    occ_add: Optional[torch.Tensor]  # float32 [max_nodes] borrowed-ahead tokens
+    param: Optional[torch.Tensor]  # int32 [depth, Q, 2] (param_effect_deltas)
+
+
+def _acquire_scatters_fused(
     cfg: EngineConfig,
-    state: EngineState,
-    rules: RuleSet,
     acq: AcquireBatch,
-    now_ms: int,
     features: frozenset,
     passed,
     occupying,
@@ -1693,16 +1748,16 @@ def _acquire_effects_fused(
     occ_grant,  # (grant_lane, onodes, ocnt) or None
     rl_info,  # (rl_ok, cost) or None
     param_ctx,  # (pcms, pcms_epochs, pcms_idx, prows, q_add, thread_add) or None
-) -> EngineState:
-    """Acquire-side effects in ONE scatter_many launch: the stat fan, the
-    warm-up drain accounting, the RateLimiter (cost, count) sums, the
-    occupy-ahead booking and the param-flow pass / concurrency counts."""
+) -> AcquireDeltas:
+    """Acquire-side scatters per item, in ONE scatter_many launch: the stat
+    fan, the sketch, the warm-up drain accounting, the RateLimiter (cost,
+    count) sums, the occupy-ahead booking and the param-flow pass /
+    concurrency counts."""
     b = acq.res.shape[0]
-    dev = acq.res.device
     with_nodes = "nodes" in features
     cd = cfg.count_digits
 
-    pass_c, block_c, occ_c, entry_deltas = _acquire_entry_stats(
+    pass_c, block_c, occ_c, _entry_deltas = _acquire_entry_stats(
         cfg, acq, valid, passed, occupying
     )
     jobs = []
@@ -1762,41 +1817,67 @@ def _acquire_effects_fused(
         cfg, jobs, acq.res, acq.ctx_node, acq.origin_node, stat_vals,
         (cd, cd, cd), with_nodes,
     )
-    hist = _land_hist(
-        cfg, outs[0], (W.EV_PASS, W.EV_BLOCK, W.EV_OCCUPIED), entry_deltas, dev
+    stat = torch.round(outs[0]).to(I32)
+    sketch = warm = latest = occ_add = param = None
+    if cfg.sketch_stats:
+        sketch = torch.round(torch.stack(outs[1 : 1 + cfg.sketch_depth])).to(I32)
+    if f_idx is not None:
+        f_out = outs[f_idx]
+        pi = 0
+        if "warm" in slot_planes:
+            warm = f_out[:, pi]
+            pi += 1
+        if "latest" in slot_planes:
+            latest = (f_out[:, pi], f_out[:, pi + 1])
+    if occ_idx is not None:
+        occ_add = outs[occ_idx][:, 0]
+    if param_ctx is not None:
+        param = param_effect_deltas(outs[oi : oi + cfg.param_depth])
+    return AcquireDeltas(
+        pas=stat[:, 0], blk=stat[:, 1], occ=stat[:, 2], sketch=sketch, warm=warm,
+        latest=latest, occ_add=occ_add, param=param,
     )
+
+
+def _land_acquire(
+    cfg: EngineConfig,
+    state: EngineState,
+    acq: AcquireBatch,
+    now_ms: int,
+    d: AcquireDeltas,
+    passed,
+    occupying,
+    valid,
+    param_ctx,
+) -> EngineState:
+    """Land one acquire effects phase's deltas (StatisticSlot.java:54-123):
+    the windows (refreshed by the completion phase at this ``now_ms``),
+    concurrency, the sketch, the warm-up drain, latestPassedTime, the
+    occupy-ahead pool and the param store."""
+    dev = acq.res.device
+    _p, _b, _o, entry_deltas = _acquire_entry_stats(cfg, acq, valid, passed, occupying)
+    hist = _node_hist(cfg, {W.EV_PASS: d.pas, W.EV_BLOCK: d.blk, W.EV_OCCUPIED: d.occ}, entry_deltas, dev)
     win_sec = W.add_dense(state.win_sec, now_ms, hist, None, _sec_cfg(cfg), refreshed=True)
     win_min = state.win_min
     if cfg.enable_minute_window:
         win_min = W.add_dense(state.win_min, now_ms, hist, None, _min_cfg(cfg), refreshed=True)
     concurrency = state.concurrency + hist[:, W.EV_PASS] + hist[:, W.EV_OCCUPIED]
     state = state._replace(win_sec=win_sec, win_min=win_min, concurrency=concurrency)
-    if cfg.sketch_stats:
-        upd = torch.round(torch.stack(outs[1 : 1 + cfg.sketch_depth])).to(I32)
-        state = land_sketch(cfg, state, now_ms, upd, (W.EV_PASS, W.EV_BLOCK), pre_refreshed=True)
+    if d.sketch is not None:
+        state = land_sketch(cfg, state, now_ms, d.sketch, (W.EV_PASS, W.EV_BLOCK), pre_refreshed=True)
 
-    if f_idx is not None:
-        f_out = outs[f_idx]
-        pi = 0
-        pad1 = torch.zeros((1,), dtype=F32, device=dev)
-        if "warm" in slot_planes:
-            state = state._replace(
-                warm_acc=state.warm_acc + torch.cat([f_out[:, pi], pad1])
-            )
-            pi += 1
-        if "latest" in slot_planes:
-            T_s = torch.cat([f_out[:, pi], pad1])
-            n_s = torch.cat([f_out[:, pi + 1], pad1])
-            state = state._replace(
-                latest_passed_ms=_apply_latest(state.latest_passed_ms, T_s, n_s, now_ms)
-            )
-
-    if occ_idx is not None:
+    pad1 = torch.zeros((1,), dtype=F32, device=dev)
+    if d.warm is not None:
+        state = state._replace(warm_acc=state.warm_acc + torch.cat([d.warm, pad1]))
+    if d.latest is not None:
+        T_s = torch.cat([d.latest[0], pad1])
+        n_s = torch.cat([d.latest[1], pad1])
+        state = state._replace(
+            latest_passed_ms=_apply_latest(state.latest_passed_ms, T_s, n_s, now_ms)
+        )
+    if d.occ_add is not None:
         add = torch.cat(
-            [
-                outs[occ_idx][:, 0],
-                torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev),
-            ]
+            [d.occ_add, torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev)]
         )
         nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)  # wraps as the reference's int32
         pool_vec = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
@@ -1804,10 +1885,34 @@ def _acquire_effects_fused(
             occ_tokens=pool_vec + add,
             occ_epoch=torch.where(add > 0, nxt, state.occ_epoch).to(I32),
         )
-
-    if param_ctx is not None:
-        state = land_param_effects(state, param_ctx, outs[oi : oi + cfg.param_depth])
+    if d.param is not None:
+        state = land_param_effects(state, param_ctx, d.param)
     return state
+
+
+def _branch(run: str, ctx, seg_fn, item_fn):
+    """One phase of a segment-path tick: the segment branch (``run ==
+    "seg"``), the per-item branch ("item"), or both, selected on the
+    device's ``ctx.ok`` ("both": ``seg_fallback`` without a host hint)."""
+    if run == "seg":
+        return seg_fn()
+    if run == "item":
+        return item_fn()
+    return _pick(ctx.ok, seg_fn(), item_fn())
+
+
+def _pick(ok: torch.Tensor, a, b):
+    """``seg_fallback``'s device-side select: ``a`` where the 0-d bool
+    ``ok`` is True, else ``b``, leaf by leaf through (named) tuples; None
+    and host scalars must agree on both sides."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(ok, a, b)
+    if isinstance(a, tuple):
+        return type(a)(*[_pick(ok, x, y) for x, y in zip(a, b)]) if hasattr(a, "_fields") else tuple(
+            _pick(ok, x, y) for x, y in zip(a, b)
+        )
+    assert a == b, (a, b)
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -1825,11 +1930,20 @@ def tick(
     sys_cpu: float,  # host-sampled CPU usage [0, 1]
     cfg: EngineConfig,
     features: frozenset = ALL_FEATURES,
+    seg_fits: Optional[Tuple[bool, bool]] = None,
 ) -> Tuple[EngineState, TickOutput]:
     """One engine tick: completions, then batched decisions, then effects.
-    Consumes ``state`` (its window rings are updated in place)."""
+    Consumes ``state`` (its window rings are updated in place).
+
+    ``seg_fits`` (``seg_fallback=True`` only): the host's verdict on
+    whether the completion and the acquire batch fit the segment capacity
+    (``(completions_fit, acquires_fit)``, from an exact host count of the
+    live segments on the engine's keys, ``runtime/presort.host_seg_count``).
+    Given, the tick runs only the branch each side needs; None, it runs
+    both branches of each side and selects on the device."""
     check_supported(cfg, features)
     b = acq.res.shape[0]
+    dev = acq.res.device
     now_ms = W.i32(int(now_ms))
     sys_load, sys_cpu = float(sys_load), float(sys_cpu)
     # narrow uploads (ops/wire.py) widen before anything reads the batch;
@@ -1837,21 +1951,43 @@ def tick(
     acq = WIRE.widen_acquire(acq)
     comp = WIRE.widen_complete(comp)
 
-    # segment-compacted effects: the key-run structure of each side, once
+    # segment-compacted effects: the key-run structure of each side, once.
+    # With seg_fallback each phase picks the segment branch when its side's
+    # live segments fit seg_u and the per-item branch otherwise, as the JAX
+    # tick's lax.cond on ctx.ok does: either the host says which
+    # (seg_fits), or both branches compute their deltas and torch.where
+    # selects on ctx.ok — the small per-branch outputs, never the state —
+    # before ONE landing.  No host sync either way.
     use_seg = cfg.seg_effects
-    seg_dropped = torch.zeros((), dtype=I32, device=acq.res.device)
+    fallback = use_seg and cfg.seg_fallback
+    seg_dropped = torch.zeros((), dtype=I32, device=dev)
+    ctx_c = carry_c = ctx_a = carry_a = None
     if use_seg:
         ctx_c, carry_c = ES.prepare_completions(cfg, comp, features)
         ctx_a, carry_a = ES.prepare_acquire(cfg, acq)
+    # which branches run, per side: "seg", "item" or "both"
+    if not use_seg:
+        run_c = run_a = "item"
+    elif not fallback:
+        run_c = run_a = "seg"
+    elif seg_fits is None:
+        run_c = run_a = "both"
+    else:
+        run_c, run_a = ("seg" if fits else "item" for fits in seg_fits)
 
     # 1. exits first: they release concurrency and update breakers
-    if use_seg:
-        state = ES.process_completions_seg(
-            cfg, state, rules, comp, now_ms, features, ctx_c, carry_c
-        )
-        seg_dropped = seg_dropped + ES.dropped_items(ctx_c, comp.res != cfg.trash_row)
-    else:
-        state = _process_completions_fused(cfg, state, rules, comp, now_ms, features)
+    comp_valid = comp.res != cfg.trash_row
+    dg = None
+    if "degrade" in features:
+        dg = _degrade_completion_masks(cfg, state, rules, comp, comp_valid, now_ms)
+    d_comp = _branch(
+        run_c, ctx_c,
+        lambda: ES.completion_scatters_seg(cfg, rules, comp, features, ctx_c, carry_c, dg),
+        lambda: _completion_scatters_fused(cfg, rules, comp, features, dg),
+    )
+    state = _land_completions(cfg, state, rules, comp, now_ms, d_comp, dg)
+    if run_c == "seg":
+        seg_dropped = seg_dropped + ES.dropped_items(ctx_c, comp_valid)
 
     # 2. warm-up token sync and the occupy fold
     if "warmup" in features:
@@ -1870,15 +2006,16 @@ def tick(
         and cfg.degrade_rules_per_resource == 1
         and cfg.param_rules_per_resource == 1
     )
-    if seg_checks:
-        checks = ES.run_checks_seg(
+    checks = _branch(
+        run_a if seg_checks else "item", ctx_a,
+        lambda: ES.run_checks_seg(
             cfg, state, rules, acq, now_ms, sys_load, sys_cpu, valid, forced,
             ctx_a, carry_a, features,
-        )
-    else:
-        checks = _run_checks_plain(
+        ),
+        lambda: _run_checks_plain(
             cfg, state, rules, acq, now_ms, sys_load, sys_cpu, valid, forced, features
-        )
+        ),
+    )
     (
         auth_block, sys_block, param_block, param_ctx, flow_block, wait_ms,
         occupying, occ_grant, fslots, rl_info, degrade_block, cb_state,
@@ -1891,7 +2028,7 @@ def tick(
     # occupy grants only COMMIT for items that finally pass
     occupying = occupying & passed
 
-    verdict = torch.full((b,), PASS, dtype=torch.int8, device=acq.res.device)
+    verdict = torch.full((b,), PASS, dtype=torch.int8, device=dev)
     verdict = torch.where(forced, acq.pre_verdict.to(torch.int8), verdict)
     verdict = torch.where(auth_block, BLOCK_AUTHORITY, verdict)
     verdict = torch.where(sys_block, BLOCK_SYSTEM, verdict)
@@ -1902,23 +2039,21 @@ def tick(
     wait_ms = torch.where(passed, wait_ms, 0).to(I32)
 
     # 4. effects (StatisticSlot.java:54-123)
-    if use_seg:
-        state = ES.acquire_effects_seg(
-            cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
-            fslots, occ_grant, rl_info, param_ctx, ctx_a, carry_a,
-        )
+    eff = (passed, occupying, valid, fslots, occ_grant, rl_info, param_ctx)
+    d_acq = _branch(
+        run_a, ctx_a,
+        lambda: ES.acquire_scatters_seg(cfg, acq, features, *eff, ctx_a, carry_a),
+        lambda: _acquire_scatters_fused(cfg, acq, features, *eff),
+    )
+    state = _land_acquire(cfg, state, acq, now_ms, d_acq, passed, occupying, valid, param_ctx)
+    if run_a == "seg":
         seg_dropped = seg_dropped + ES.dropped_items(ctx_a, valid)
-    else:
-        state = _acquire_effects_fused(
-            cfg, state, rules, acq, now_ms, features, passed, occupying, valid,
-            fslots, occ_grant, rl_info, param_ctx,
-        )
 
     # 5. the observability planes and the hot-set candidates, after the
     #    effects (the window sums and the sketch include this tick)
     stats = res_stats = hot = expl = None
     if cfg.device_telemetry:
-        seg_live = ctx_a.n_seg if use_seg else torch.zeros((), dtype=I32, device=acq.res.device)
+        seg_live = ctx_a.n_seg if use_seg else torch.zeros((), dtype=I32, device=dev)
         stats = _device_stats(
             cfg, state, rules, acq, verdict, valid, forced, seg_dropped, seg_live
         )
@@ -1948,7 +2083,7 @@ def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):
     compiled-tick factory; PyTorch runs eagerly, so this only binds)."""
     check_supported(cfg, features)
 
-    def _tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu):
-        return tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features)
+    def _tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, seg_fits=None):
+        return tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits)
 
     return _tick

@@ -15,7 +15,7 @@ Dataflow per side:
      event masks) pack into ONE [N, cols] matrix and take one row gather
      at the segment ends.
 
-Both scatter phases land through one ``fused.scatter_many`` call each
+Both scatter phases run through one ``fused.scatter_many`` call each
 (kernel B1); with the sketch tier on, the sketch rides them as
 ``sketch{d}`` jobs on the segment axis.  The single-lane check phase ranks
 with segmented scans (kernel B3); the sketch-tail stage (``tail_flow``)
@@ -35,8 +35,10 @@ the computed branch gives zeros too, so the results are identical.
 Correctness does NOT require a sorted batch: an unsorted batch only has
 more segments.  Past the capacity ``seg_u`` the overflow segments'
 effects are dropped and their items fail closed (``dropped_items``
-counts them); the client sizes ``seg_u`` from the host-known segment
-count before dispatch.
+counts them) — unless ``seg_fallback`` is on, when the tick takes the
+per-item branch for that side instead (ops/engine.py).  The effects
+phases here stop at their deltas (``engine.CompletionDeltas``,
+``engine.AcquireDeltas``): the tick lands whichever branch it picked.
 """
 
 from __future__ import annotations
@@ -59,10 +61,8 @@ from sentinel_tpu_torch.core.rules import (
 )
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import fused as FU
-from sentinel_tpu_torch.ops import gsketch as GS
 from sentinel_tpu_torch.ops import param as PM
 from sentinel_tpu_torch.ops import rowmin as RM
-from sentinel_tpu_torch.ops import rtq as RQ
 from sentinel_tpu_torch.ops import segment as SG
 from sentinel_tpu_torch.ops import segscan as SC
 from sentinel_tpu_torch.ops import tables as T
@@ -497,7 +497,8 @@ def run_checks_seg(
     # ================= item-level phase (slot order) =================
     # items in segments past the capacity have no segment-level data (their
     # expansions read slot U-1): they FAIL CLOSED as system rejections and
-    # are counted by dropped_items
+    # are counted by dropped_items.  Empty whenever ctx.ok, so this is a
+    # no-op on the branch seg_fallback selects
     overflow = valid & (ctx.sid >= ctx.U)
 
     if with_auth:
@@ -692,29 +693,21 @@ def run_checks_seg(
     )
 
 
-def _window_land(cfg: EngineConfig, state, now_ms: int, hist, rt_hist, row_min, refreshed: bool):
-    sec_cfg = W.WindowConfig(cfg.second_sample_count, cfg.second_window_ms)
-    min_cfg = W.WindowConfig(cfg.minute_sample_count, cfg.minute_window_ms)
-    win_sec = W.add_dense(state.win_sec, now_ms, hist, rt_hist, sec_cfg, row_min=row_min, refreshed=refreshed)
-    win_min = state.win_min
-    if cfg.enable_minute_window:
-        win_min = W.add_dense(state.win_min, now_ms, hist, rt_hist, min_cfg, row_min=row_min, refreshed=refreshed)
-    return win_sec, win_min
-
-
-def process_completions_seg(
+def completion_scatters_seg(
     cfg: EngineConfig,
-    state,
     rules,
     comp,
-    now_ms: int,
     features: frozenset,
     ctx: SG.SegCtx,
     carry: CompCarry,
+    dg,
 ):
-    """``engine._process_completions_fused`` with segment-compacted
-    scatters: the same state updates (integer sums and float minima do
-    not depend on the order), one scatter_many call."""
+    """``engine._completion_scatters_fused`` with segment-compacted
+    scatters (the reference's ``process_completions_seg`` up to its
+    landing): the same deltas (integer sums and float minima do not depend
+    on the order), one scatter_many call on the segment axis and, with the
+    ``param`` stage, one on the item axis.  ``dg``: the breaker masks or
+    None.  Returns ``engine.CompletionDeltas``."""
     from sentinel_tpu_torch.ops import engine as E
 
     b = comp.res.shape[0]
@@ -722,9 +715,6 @@ def process_completions_seg(
     dev = comp.res.device
     valid = comp.res != cfg.trash_row
     with_nodes = "nodes" in features
-    sec_cfg = W.WindowConfig(cfg.second_sample_count, cfg.second_window_ms)
-    erow = cfg.entry_node_row
-    inb, entry_deltas, entry_rt, entry_rt_min = E._completion_entry_stats(cfg, comp, valid)
 
     vals3_u, digits3, spec3 = _chunks_to_planes(SG.sums_from_ce(ctx, carry.ce, carry.split))
     stat_rows = _stat_rows_u(cfg, ctx, carry, with_nodes)
@@ -753,12 +743,9 @@ def process_completions_seg(
         jobs += E.sketch_jobs(cfg, carry.res, _live_res(cfg, ctx, carry), vals3_u, digits3)
     n_pre = len(jobs)
 
-    with_degrade = "degrade" in features
-    if with_degrade:
+    if dg is not None:
         KD = cfg.degrade_rules_per_resource
-        slots_f, cb_counts, cb_epochs, active, is_err, is_slow, g_idx, half_open = (
-            E._degrade_completion_masks(cfg, state, rules, comp, valid, now_ms)
-        )
+        slots_f, _cb_counts, _cb_epochs, active, is_err, is_slow, g_idx, half_open = dg
         nbd = cfg.cb_sample_count
         Dn = cfg.max_degrade_rules
         probe_done = active & half_open
@@ -805,66 +792,28 @@ def process_completions_seg(
     # THREAD-grade param release: its own launch on the ITEM axis.  The
     # reference skips it (lax.cond) when no lane releases; lanes that
     # release nothing drop, so the always-run scatter adds zeros then
+    prel = None
     if "param" in features:
-        state = E.land_param_release(
-            state, FU.scatter_many(E.param_release_jobs(cfg, rules, comp, valid))
-        )
+        prel = E.param_release_deltas(FU.scatter_many(E.param_release_jobs(cfg, rules, comp, valid)))
 
-    # land (the same tail as the per-item fused path)
     succ_h, err_h, rtq_h = _recombine(stat_out, spec3)
-    pad_tail = cfg.node_rows - cfg.max_nodes
-    hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=dev)
-    hist[: cfg.max_nodes, W.EV_SUCCESS] = succ_h
-    hist[: cfg.max_nodes, W.EV_EXCEPTION] = err_h
-    hist[erow] += entry_deltas
-    rt_hist = torch.cat([rtq_h.to(F32) / 8.0, torch.zeros((pad_tail,), dtype=F32, device=dev)])
-    rt_hist[erow] += entry_rt
-    mins_m, present_m = RM.combine(min_out)
-    row_min = (
-        torch.cat([mins_m, torch.full((pad_tail,), W.RT_MIN_INIT, dtype=F32, device=dev)]),
-        torch.cat([present_m, torch.zeros((pad_tail,), dtype=torch.bool, device=dev)]),
-    )
-    # the tick's ONE refresh per window
-    win_sec, win_min = _window_land(cfg, state, now_ms, hist, rt_hist, row_min, refreshed=False)
-    win_sec = W.min_into_row(win_sec, now_ms, erow, entry_rt_min, sec_cfg)
-    state = state._replace(win_sec=win_sec, win_min=win_min)
-    state = state._replace(
-        rtq=RQ.add(state.rtq, now_ms, comp.rt, inb & (comp.rt > 0), E.rtq_config(cfg))
-    )
+    sketch = cb = probe = None
     if cfg.sketch_stats:
-        upd = torch.stack(
+        sketch = torch.stack(
             [torch.stack(_recombine(o, spec3), dim=1) for o in outs[2:n_pre]]
         )  # [depth, width, 3]
-        state = E.land_sketch(cfg, state, now_ms, upd, (W.EV_SUCCESS, W.EV_EXCEPTION, GS.RT_PLANE))
-    concurrency = torch.clamp_min(state.concurrency - hist[:, W.EV_SUCCESS], 0)
-
-    if not with_degrade:
-        return state._replace(concurrency=concurrency)
-
-    cb_out, probe_out = outs[n_pre], outs[n_pre + 1]
-    cb_upd = torch.stack(_recombine(cb_out, cbp_spec[:3]), dim=1).reshape(Dn, nbd, 3)
-    cb_counts[:Dn] += cb_upd  # refresh_columns returned a fresh tensor
-    sf = torch.cat(
-        [torch.stack(_recombine(probe_out, prp_spec[:2]), dim=1), torch.zeros((1, 2), dtype=I32, device=dev)]
-    )
-    cb_counts, cb_state, cb_retry = E._cb_transitions(
-        cfg, state, rules, cb_counts, cb_epochs, sf[:, 0], sf[:, 1], now_ms
-    )
-    return state._replace(
-        concurrency=concurrency,
-        cb_counts=cb_counts,
-        cb_epochs=cb_epochs,
-        cb_state=cb_state,
-        cb_retry_ms=cb_retry,
+    if dg is not None:
+        cb = torch.stack(_recombine(outs[n_pre], cbp_spec[:3]), dim=1).reshape(Dn, nbd, 3)
+        probe = torch.stack(_recombine(outs[n_pre + 1], prp_spec[:2]), dim=1)
+    return E.CompletionDeltas(
+        succ=succ_h, err=err_h, rt=rtq_h.to(F32) / 8.0, row_min=RM.combine(min_out),
+        sketch=sketch, prel=prel, cb=cb, probe=probe,
     )
 
 
-def acquire_effects_seg(
+def acquire_scatters_seg(
     cfg: EngineConfig,
-    state,
-    rules,
     acq,
-    now_ms: int,
     features: frozenset,
     passed,
     occupying,
@@ -876,20 +825,20 @@ def acquire_effects_seg(
     ctx: SG.SegCtx,
     carry: AcqCarry,
 ):
-    """``engine._acquire_effects_fused`` with segment-compacted scatters:
-    every post-check value plane and per-lane row compacts through ONE
-    packed gather, then one scatter_many call; the param-flow counts take
-    a second call on the item axis."""
+    """``engine._acquire_scatters_fused`` with segment-compacted scatters
+    (the reference's ``acquire_effects_seg`` up to its landing): every
+    post-check value plane and per-lane row compacts through ONE packed
+    gather, then one scatter_many call; the param-flow counts take a
+    second call on the item axis.  Returns ``engine.AcquireDeltas``."""
     from sentinel_tpu_torch.ops import engine as E
 
     b = acq.res.shape[0]
     U = ctx.U
-    dev = acq.res.device
     with_nodes = "nodes" in features
     K = cfg.flow_rules_per_resource
     CMAX = cfg.max_batch_count
 
-    pass_c, block_c, occ_c, entry_deltas = E._acquire_entry_stats(
+    pass_c, block_c, occ_c, _entry_deltas = E._acquire_entry_stats(
         cfg, acq, valid, passed, occupying
     )
 
@@ -978,57 +927,29 @@ def acquire_effects_seg(
         occ_idx = len(jobs) - 1
 
     outs = FU.scatter_many(jobs)
+    param = None
     if param_ctx is not None:
-        state = E.land_param_effects(
-            state, param_ctx, FU.scatter_many(E.param_effect_jobs(cfg, acq, passed, param_ctx))
-        )
+        param = E.param_effect_deltas(FU.scatter_many(E.param_effect_jobs(cfg, acq, passed, param_ctx)))
 
     pass_h, block_h, occ_h = _recombine(outs[0], spec3)
-    hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=dev)
-    hist[: cfg.max_nodes, W.EV_PASS] = pass_h
-    hist[: cfg.max_nodes, W.EV_BLOCK] = block_h
-    hist[: cfg.max_nodes, W.EV_OCCUPIED] = occ_h
-    hist[cfg.entry_node_row] += entry_deltas
-    # the completion phase refreshed both windows at this now_ms already
-    win_sec, win_min = _window_land(cfg, state, now_ms, hist, None, None, refreshed=True)
-    concurrency = state.concurrency + hist[:, W.EV_PASS] + hist[:, W.EV_OCCUPIED]
-    state = state._replace(win_sec=win_sec, win_min=win_min, concurrency=concurrency)
+    sketch = warm = latest = occ_add = None
     if cfg.sketch_stats:
-        upd = torch.stack(
+        sketch = torch.stack(
             [torch.stack(_recombine(o, sk_spec), dim=1) for o in outs[1 : 1 + cfg.sketch_depth]]
         )
-        # the completion phase refreshed the sketch at this now_ms already
-        state = E.land_sketch(cfg, state, now_ms, upd, (W.EV_PASS, W.EV_BLOCK), pre_refreshed=True)
-
     if f_idx is not None:
         # lanes are row-vectors of one job, so the output is already summed
         # over lanes; recombine with lane 0's spec (lanes share it)
         cols = _recombine(outs[f_idx], f_spec[: len(f_spec) // K])
         fi = 0
-        pad1 = torch.zeros((1,), dtype=F32, device=dev)
         if "warm" in slot_planes:
-            state = state._replace(
-                warm_acc=state.warm_acc + torch.cat([cols[fi].to(F32), pad1])
-            )
+            warm = cols[fi].to(F32)
             fi += 1
         if "latest" in slot_planes:
-            T_s = torch.cat([cols[fi].to(F32), pad1])
-            n_s = torch.cat([cols[fi + 1].to(F32), pad1])
-            state = state._replace(
-                latest_passed_ms=E._apply_latest(state.latest_passed_ms, T_s, n_s, now_ms)
-            )
-
+            latest = (cols[fi].to(F32), cols[fi + 1].to(F32))
     if occ_idx is not None:
-        add = torch.cat(
-            [
-                _recombine(outs[occ_idx], o_spec[: len(o_spec) // K])[0].to(F32),
-                torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev),
-            ]
-        )
-        nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)  # wraps as the reference's int32
-        pool_vec = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
-        state = state._replace(
-            occ_tokens=pool_vec + add,
-            occ_epoch=torch.where(add > 0, nxt, state.occ_epoch).to(I32),
-        )
-    return state
+        occ_add = _recombine(outs[occ_idx], o_spec[: len(o_spec) // K])[0].to(F32)
+    return E.AcquireDeltas(
+        pas=pass_h, blk=block_h, occ=occ_h, sketch=sketch, warm=warm, latest=latest,
+        occ_add=occ_add, param=param,
+    )

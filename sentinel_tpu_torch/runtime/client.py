@@ -16,13 +16,30 @@ carry exactly (core/config.py).
 On the segment path (``seg_effects``, the default ``platform_config()``)
 the client presorts each batch on the host by the engine's segment keys
 (runtime/presort.py) and maps the verdicts and waits back through the
-inverse permutation.  Knowing the exact live-segment count before it
-dispatches, it grows ``seg_u`` at the first tick that would overflow it
-(``_note_seg_count``), so no tick drops items for capacity; any item the
-engine still fails closed for capacity is counted in
-``seg_dropped_total``.  Every rule load sets ``seg_static_ranks`` when
+inverse permutation.  It counts each side's live segments exactly before
+it dispatches.  Under ``seg_fallback=True`` (the default) it hands the
+tick that count's verdict (``engine.tick``'s ``seg_fits``), so a side that
+overflows ``seg_u`` runs the per-item branch alone — exact, only slower —
+and grows ``seg_u`` once four ticks have overflowed (``_note_seg_count``,
+the reference's rule); ``seg_fallback_ticks`` counts those ticks.  Under
+``seg_fallback=False`` it grows ``seg_u`` at the first tick that would
+overflow it, so no tick drops items for capacity; any item the engine
+still fails closed for capacity is counted in ``seg_dropped_total``
+(``_record_seg_dropped``).  Every rule load sets ``seg_static_ranks`` when
 the rules allow the scan-only ranks (single lanes, DIRECT rules with the
 default limitApp).
+
+The bulk API takes column arrays of resource ids, no per-item Python:
+``submit_block`` / ``check_batch_ids`` (acquires; ``ArrayBlock``),
+``submit_completion_block`` (exits), ``submit_acquire`` and
+``check_batch`` (named requests).  A tick fills its batch with object
+requests first, then blocks; a block larger than the batch spans ticks
+and resolves once, when all of its items have.  With ``pipeline_depth >
+0`` the tick loop runs up to that many ticks ahead of their readback:
+each tick's wire is copied into a pinned host buffer behind a CUDA event
+as soon as it is dispatched, and one resolver thread waits on the event,
+decodes and fans out, in tick order (the observability folds with it).  A
+readback buffer goes back to its pool only once its tick is resolved.
 
 The client runs on the card unless it is asked for the CPU:
 ``SentinelClient(device=None)`` picks ``"cuda"`` and raises where no CUDA
@@ -60,18 +77,21 @@ reads an exact row's windowed stats (what demotion grades).
 
 Not ported yet (ROADMAP.md): cluster mode (a cluster-mode param rule
 raises), the hot-parameter value counters (``top_params``), the native
-completion ring, pipelined readback, adaptive protection, the flight
-recorder and the block log, the sketch-accuracy audit and the sketch
-ids' windowed stats (``stats.resource`` on a sketch id).
+completion ring, backpressure and deadlines (``deadline_ms`` raises),
+front doors, adaptive protection, the flight recorder and the block log,
+the obs span tracer, the sketch-accuracy audit and the sketch ids'
+windowed stats (``stats.resource`` on a sketch id).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FutTimeout
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +114,8 @@ from sentinel_tpu_torch.runtime.registry import Registry
 from sentinel_tpu_torch.sketch.hotset import HotSetManager, guarded_promote
 from sentinel_tpu_torch.utils.system_status import SystemStatusSampler
 from sentinel_tpu_torch.utils.time_source import TimeSource, VirtualTimeSource, mono_s
+
+_log = logging.getLogger(__name__)
 
 
 # -- device-resident telemetry (cfg.device_telemetry): the engine emits a
@@ -159,6 +181,23 @@ _C_PACKED_DECODE = OBS.counter(
     "sentinel_packed_decode_failures_total",
     "fused wire readbacks rejected by the packed decoder (tick fails CLOSED)",
 )
+_C_SEG_DROPPED = OBS.counter(
+    "sentinel_seg_dropped_total",
+    "items whose effects a seg_fallback=False engine dropped on capacity overflow",
+)
+_C_SEG_RESIZE = OBS.counter(
+    "sentinel_seg_resizes_total", "seg_u capacity grow-and-hot-swap events"
+)
+_C_RESOLVE_FAILED = OBS.counter(
+    "sentinel_resolve_failures_total",
+    "tick resolutions that raised; their items failed CLOSED (system block)",
+)
+_G_OCCUPANCY = OBS.gauge(
+    "sentinel_pipeline_occupancy", "dispatched-but-unresolved engine ticks"
+)
+_G_RESOLVER_Q = OBS.gauge(
+    "sentinel_resolver_queue_depth", "in-flight resolver-pool readbacks"
+)
 #: chaos site on the readback's main section (mangled bytes fail the tick
 #: CLOSED); the explain section has its own site, obs.explain.decode
 _FP_PACKED_DECODE = FP.register(
@@ -185,6 +224,16 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def _no_deadlines(deadline_ms: int) -> None:
+    """Deadline-aware backpressure is not ported (ROADMAP.md Queue A item
+    6): a deadline would be silently ignored, so it raises."""
+    if deadline_ms:
+        raise NotImplementedError(
+            "not ported to sentinel_tpu_torch yet: deadline_ms (deadline-aware "
+            "backpressure, ROADMAP.md Queue A item 6)"
+        )
 
 
 def grown_seg_u(cfg: EngineConfig, peak: int) -> int:
@@ -221,6 +270,82 @@ class Completion:
     success: int
     error: int
     param_hash: tuple = ()  # THREAD-grade release lanes
+
+
+@dataclass
+class ArrayBlock:
+    """A bulk acquire submission: column arrays, no per-item Python.
+
+    Resource IDS (registry currency) and optional per-item columns; the
+    tick loop slices blocks into engine batches.  ``future`` resolves to
+    (verdicts int8 [n], waits int32 [n]) in submission order once every
+    item has been decided."""
+
+    res: np.ndarray  # int32 [n]
+    count: Optional[np.ndarray] = None
+    prio: Optional[np.ndarray] = None
+    origin_id: Optional[np.ndarray] = None
+    origin_node: Optional[np.ndarray] = None
+    ctx_node: Optional[np.ndarray] = None
+    ctx_name: Optional[np.ndarray] = None
+    inbound: Optional[np.ndarray] = None
+    param_hash: Optional[np.ndarray] = None  # int32 [n, param_dims]
+    pre_verdict: Optional[np.ndarray] = None
+    future: Optional[Future] = None
+    # internal progress
+    taken: int = 0  # items already placed into ticks
+    unresolved: int = 0  # items whose verdicts are still pending
+    verdicts: Optional[np.ndarray] = None  # int8 [n] result buffer
+    waits: Optional[np.ndarray] = None  # int32 [n] result buffer
+
+
+@dataclass
+class _PendingTick:
+    """A dispatched engine tick whose wire has not been decoded yet.
+
+    Its readback is already under way: ``buf`` is a host buffer (pinned on
+    the card) the wire is being copied into, ``event`` the CUDA event
+    recorded behind that copy (None on the CPU, where the copy is done)."""
+
+    acq: List[AcquireRequest]
+    blocks: list  # [(ArrayBlock, src_off, take), ...] at batch offset n_obj
+    inv_a: Optional[np.ndarray]
+    out: Any  # TickOutput (device tensors)
+    n_obj: int  # object-request count (blocks start here)
+    n_blk: int  # block item count
+    wire_lo: Any  # packed-wire layout of this tick's batch shape
+    now_ms: int  # engine timestamp the tick ran at (timeline fold key)
+    buf: Optional[torch.Tensor] = None
+    event: Any = None
+    # fan-out progress: a failed resolve fails CLOSED only the blocks the
+    # normal path had not reached (no double decrement)
+    blocks_done: int = 0
+
+
+class _ReadbackPool:
+    """Host buffers for the wire's device-to-host copies, pinned when the
+    client runs on the card (so the copy is asynchronous).  A buffer is
+    handed out again only after ``give`` returned it — after its tick was
+    resolved — so an in-flight tick's bytes are never overwritten."""
+
+    def __init__(self, pinned: bool):
+        self._pinned = pinned
+        self._free: Dict[int, List[torch.Tensor]] = {}
+        self._lock = threading.Lock()
+        #: buffers allocated so far (steady state: pipeline_depth + 1 a shape)
+        self.allocated = 0
+
+    def take(self, n: int) -> torch.Tensor:
+        with self._lock:
+            free = self._free.get(n)
+            if free:
+                return free.pop()
+            self.allocated += 1
+        return torch.empty((n,), dtype=torch.int32, pin_memory=self._pinned)
+
+    def give(self, buf: torch.Tensor) -> None:
+        with self._lock:
+            self._free.setdefault(buf.shape[0], []).append(buf)
 
 
 #: acquire columns: (field, fill, host dtype)
@@ -351,6 +476,7 @@ class SentinelClient:
         device=None,
         timeline_log=False,  # bool | obs.timeline.MetricLog
         timeline_dir: Optional[str] = None,
+        pipeline_depth: int = 0,
     ):
         self.device = resolve_device(device)
         self.app_name = app_name or cfg_app_name()
@@ -391,13 +517,35 @@ class SentinelClient:
         self._tick_mutex = threading.RLock()
         self._acquires: List[AcquireRequest] = []
         self._completions: List[Completion] = []
+        # bulk column-array submissions (ArrayBlock) and bulk completions
+        # (dicts of _COMP_COLS columns plus param_hash)
+        self._acq_blocks: List[ArrayBlock] = []
+        self._comp_blocks: List[dict] = []
+        # guards block progress accounting (resolver thread vs fail-closed)
+        self._blk_lock = threading.Lock()
         self._wire_layouts: Dict[int, WIRE.WireLayout] = {}
+        # dispatched-but-unresolved ticks: under sustained load the loop runs
+        # up to pipeline_depth ticks ahead of their readback; ONE resolver
+        # thread decodes them in tick order (it always drains to empty before
+        # the loop goes idle, so latency at a low rate is unchanged)
+        self._pipeline_depth = max(0, int(pipeline_depth))
+        self._pending_ticks: List[_PendingTick] = []
+        self._resolver_pool: Optional[ThreadPoolExecutor] = None
+        self._resolve_futs: List[Future] = []
+        self._readback = _ReadbackPool(pinned=self.device.type == "cuda")
         #: ticks whose wire failed validation (each failed CLOSED)
         self.wire_decode_failures = 0
         #: items the engine failed closed past the segment capacity
         self.seg_dropped_total = 0
+        self._seg_drop_last_log_s = -1
+        #: ticks in which a side overflowed seg_u and ran the per-item
+        #: branch (seg_fallback=True)
+        self.seg_fallback_ticks = 0
         #: largest live-segment count seen in one batch
         self._seg_obs_peak = 0
+        #: overflowing ticks since the last seg_u resize (seg_fallback=True
+        #: resizes after 4)
+        self._seg_over_ticks = 0
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._started = False
@@ -471,6 +619,11 @@ class SentinelClient:
             self._thread = None
         # decide whatever is still queued so no caller is left waiting
         self.tick_once()
+        with self._tick_mutex:
+            self._drain_resolves()
+            if self._resolver_pool is not None:
+                self._resolver_pool.shutdown(wait=True)
+                self._resolver_pool = None
         if self.timeline is not None:
             # flush the still-open second, release the log handles (start()
             # builds a new recorder)
@@ -589,16 +742,22 @@ class SentinelClient:
         args: Optional[Sequence] = None,
         inbound: bool = False,
         origin: Optional[str] = None,
+        _ctx: Optional[Tuple[str, str]] = None,
+        _push_ctx: bool = True,
     ) -> Entry:
         """Acquire; raises BlockException on rejection (SphU.entry).
         ``args``: the call's arguments; the ones param-flow rules on this
-        resource index are hashed into the hot-parameter lanes."""
-        ctx_name, ctx_origin = CTX.current()
+        resource index are hashed into the hot-parameter lanes.
+        ``_ctx`` / ``_push_ctx`` serve ``entry_async``: the caller's
+        context captured on its own thread, and the entry left off this
+        thread's stack."""
+        ctx_name, ctx_origin = _ctx if _ctx is not None else CTX.current()
         origin = origin if origin is not None else ctx_origin
         rid = self.registry.resource_id(resource)
         if rid is None:
             e = _PassThroughEntry(self, resource)
-            CTX.push_entry(e)
+            if _push_ctx:
+                CTX.push_entry(e)
             return e  # capacity overflow → pass-through (CtSph.java:200)
         origin_id = self.registry.origin_id(origin) if origin else -1
         origin_node = (
@@ -635,6 +794,25 @@ class SentinelClient:
         e = Entry(
             self, resource, rid, origin_node, ctx_node, 1 if inbound else 0,
             count, self.time.now_ms(), wait_ms, param_hashes,
+        )
+        if _push_ctx:
+            CTX.push_entry(e)
+        return e
+
+    async def entry_async(self, resource: str, **kw) -> Entry:
+        """AsyncEntry analog: the entry handshake (a blocking wait on the
+        engine tick) runs in an executor so the event loop never blocks;
+        raises BlockException like entry().  Exit the returned Entry
+        normally.  The caller's context is captured HERE and the Entry is
+        pushed onto the awaiting task's context stack after the handshake:
+        ``run_in_executor`` does not carry contextvars across."""
+        import asyncio
+        import functools
+
+        ctx = CTX.current()
+        loop = asyncio.get_running_loop()
+        e = await loop.run_in_executor(
+            None, functools.partial(self.entry, resource, _ctx=ctx, _push_ctx=False, **kw)
         )
         CTX.push_entry(e)
         return e
@@ -711,6 +889,209 @@ class SentinelClient:
         if self.mode == "sync":
             self.tick_once()
 
+    # -- bulk API -------------------------------------------------------------
+
+    def submit_acquire(
+        self,
+        resource: str,
+        count: int = 1,
+        prioritized: bool = False,
+        inbound: bool = False,
+        deadline_ms: int = 0,
+    ) -> Optional[Future]:
+        """Non-blocking single acquire: queue the request and return its
+        Future of (verdict, wait_ms), or None for an unknown resource (a
+        pass-through: the registry is full).  Thousands of in-flight
+        requests coalesce into engine micro-batches without a thread each."""
+        _no_deadlines(deadline_ms)
+        rid = self.registry.resource_id(resource)
+        if rid is None:
+            return None
+        req = AcquireRequest(
+            res=rid,
+            count=count,
+            prio=1 if prioritized else 0,
+            origin_id=-1,
+            origin_node=self.cfg.trash_row,
+            ctx_node=self.cfg.trash_row,
+            ctx_name=-1,
+            inbound=1 if inbound else 0,
+            future=Future(),
+            param_hash=(0,) * self.cfg.param_dims,
+        )
+        with self._lock:
+            self._acquires.append(req)
+        if self.mode == "sync":
+            self.tick_once()
+        return req.future
+
+    def check_batch(
+        self,
+        resources: Sequence[str],
+        counts: Optional[Sequence[int]] = None,
+        origins: Optional[Sequence[str]] = None,
+        params: Optional[Sequence[Any]] = None,
+        prioritized: Optional[Sequence[bool]] = None,
+        inbound: bool = False,
+        deadline_ms: int = 0,
+    ) -> List[Tuple[int, int]]:
+        """Vector acquire: [(verdict, wait_ms)] per resource, N decisions in
+        as few ticks as the batch size allows.  ``params[i]`` is hashed into
+        lane 0; an unknown resource (full registry) passes through."""
+        _no_deadlines(deadline_ms)
+        futures = []
+        with self._lock:
+            for i, name in enumerate(resources):
+                rid = self.registry.resource_id(name)
+                if rid is None:
+                    futures.append(None)
+                    continue
+                origin = origins[i] if origins else ""
+                pv = params[i] if params else None
+                req = AcquireRequest(
+                    res=rid,
+                    count=counts[i] if counts else 1,
+                    prio=1 if (prioritized is not None and prioritized[i]) else 0,
+                    origin_id=self.registry.origin_id(origin) if origin else -1,
+                    origin_node=self.registry.origin_node_row(name, origin)
+                    if origin
+                    else self.cfg.trash_row,
+                    ctx_node=self.cfg.trash_row,
+                    ctx_name=-1,
+                    inbound=1 if inbound else 0,
+                    future=Future(),
+                    param_hash=(hash_param(pv),) + (0,) * (self.cfg.param_dims - 1)
+                    if pv is not None
+                    else (0,) * self.cfg.param_dims,
+                )
+                self._acquires.append(req)
+                futures.append(req.future)
+        if self.mode == "sync":
+            self.tick_once()
+        return [
+            (ERR.PASS, 0) if f is None else f.result(timeout=self.entry_timeout_s)
+            for f in futures
+        ]
+
+    def submit_block(
+        self,
+        res: np.ndarray,
+        counts: Optional[np.ndarray] = None,
+        prio: Optional[np.ndarray] = None,
+        origin_id: Optional[np.ndarray] = None,
+        origin_node: Optional[np.ndarray] = None,
+        ctx_node: Optional[np.ndarray] = None,
+        ctx_name: Optional[np.ndarray] = None,
+        inbound: Optional[np.ndarray] = None,
+        param_hash: Optional[np.ndarray] = None,
+        pre_verdict: Optional[np.ndarray] = None,
+        deadline_ms: int = 0,
+    ) -> Future:
+        """Bulk acquire: COLUMN ARRAYS of engine resource ids (from
+        ``registry.resource_id``), no per-item Python objects.  Returns a
+        Future of (verdicts int8 [n], waits int32 [n]) in submission order;
+        a block larger than the batch size spans ticks.  Negative ids are
+        padding (the trash row).  Done-callbacks run on the resolving
+        thread and must not block on another tick (they may submit more)."""
+        _no_deadlines(deadline_ms)
+        res = np.ascontiguousarray(res, dtype=np.int32)
+        n = len(res)
+        # negative ids would wrap in the scatters: they become padding
+        if (res < 0).any():
+            res = np.where(res < 0, np.int32(self.cfg.trash_row), res)
+
+        def col(x):
+            if x is None:
+                return None
+            x = np.ascontiguousarray(x, dtype=np.int32)
+            if len(x) != n:
+                raise ValueError(f"column of {len(x)} items for a block of {n}")
+            return x
+
+        blk = ArrayBlock(
+            res=res,
+            count=col(counts),
+            prio=col(prio),
+            origin_id=col(origin_id),
+            origin_node=col(origin_node),
+            ctx_node=col(ctx_node),
+            ctx_name=col(ctx_name),
+            inbound=col(inbound),
+            param_hash=(
+                np.ascontiguousarray(param_hash, dtype=np.int32).reshape(n, -1)
+                if param_hash is not None
+                else None
+            ),
+            pre_verdict=col(pre_verdict),
+            future=Future(),
+            unresolved=n,
+            verdicts=np.zeros(n, np.int8),
+            waits=np.zeros(n, np.int32),
+        )
+        if n == 0:
+            blk.future.set_result((blk.verdicts, blk.waits))
+            return blk.future
+        with self._lock:
+            self._acq_blocks.append(blk)
+        if self.mode == "sync":
+            self.tick_once()
+        return blk.future
+
+    def check_batch_ids(
+        self,
+        res: np.ndarray,
+        counts: Optional[np.ndarray] = None,
+        timeout_s: Optional[float] = None,
+        **cols,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Blocking form of submit_block: (verdicts, waits) arrays."""
+        fut = self.submit_block(res, counts=counts, **cols)
+        return fut.result(timeout=timeout_s or self.entry_timeout_s)
+
+    def submit_completion_block(
+        self,
+        res: np.ndarray,
+        rt: np.ndarray,
+        success: Optional[np.ndarray] = None,
+        error: Optional[np.ndarray] = None,
+        inbound: Optional[np.ndarray] = None,
+        origin_node: Optional[np.ndarray] = None,
+        ctx_node: Optional[np.ndarray] = None,
+        param_hash: Optional[np.ndarray] = None,
+    ) -> None:
+        """Bulk exits for block-acquired traffic: column arrays, queued for
+        the next tick (completions are fire-and-forget).  ``success``
+        defaults to 1, ``error`` and ``inbound`` to 0, the node rows to
+        the trash row; ``param_hash`` carries the THREAD-grade release
+        lanes."""
+        res = np.ascontiguousarray(res, dtype=np.int32)
+        n = len(res)
+        trash = self.cfg.trash_row
+        given = dict(res=res, origin_node=origin_node, ctx_node=ctx_node, inbound=inbound, rt=rt,
+                     success=success, error=error)
+        blk = {}
+        for f, fill, dt in _COMP_COLS:
+            x = given[f]
+            if x is None:  # a block's exits default to one success each
+                x = np.full(n, trash if fill is None else 1 if f == "success" else fill, dt)
+            x = np.ascontiguousarray(x, dtype=dt)
+            if len(x) != n:
+                raise ValueError(f"column {f} of {len(x)} items for a block of {n}")
+            blk[f] = x
+        blk["inbound"] = (blk["inbound"] != 0).astype(np.int32)
+        M = self.cfg.param_dims
+        ph = np.zeros((n, M), np.int32)
+        if param_hash is not None:
+            src = np.ascontiguousarray(param_hash, dtype=np.int32).reshape(n, -1)[:, :M]
+            ph[:, : src.shape[1]] = src
+        blk["param_hash"] = ph
+        if n == 0:
+            return
+        with self._lock:
+            self._comp_blocks.append(blk)
+        if self.mode == "sync":
+            self.tick_once()
+
     # -- tick machinery -------------------------------------------------------
 
     def _tick_loop(self, stop_evt: threading.Event) -> None:
@@ -738,38 +1119,125 @@ class SentinelClient:
             hs.maybe_evaluate()
 
     def _tick_once_locked(self, now_ms: Optional[int]) -> None:
+        bs, cbs = self.cfg.batch_size, self.cfg.complete_batch_size
         while True:
+            blocks = []
+            comp_pieces = []
             with self._lock:
-                acq = self._acquires[: self.cfg.batch_size]
-                self._acquires = self._acquires[self.cfg.batch_size :]
-                comp = self._completions[: self.cfg.complete_batch_size]
-                self._completions = self._completions[self.cfg.complete_batch_size :]
-            if not acq and not comp and now_ms is None:
+                acq = self._acquires[:bs]
+                self._acquires = self._acquires[bs:]
+                # bulk blocks fill the rest of the batch (object requests
+                # first: a caller is blocked on each of them)
+                room = bs - len(acq)
+                while room > 0 and self._acq_blocks:
+                    blk = self._acq_blocks[0]
+                    take = min(room, len(blk.res) - blk.taken)
+                    blocks.append((blk, blk.taken, take))
+                    blk.taken += take
+                    room -= take
+                    if blk.taken >= len(blk.res):
+                        self._acq_blocks.pop(0)
+                comp = self._completions[:cbs]
+                self._completions = self._completions[cbs:]
+                # completion blocks join after the object completions
+                room_c = cbs - len(comp)
+                while room_c > 0 and self._comp_blocks:
+                    cb = self._comp_blocks[0]
+                    k = len(cb["res"])
+                    if k <= room_c:
+                        comp_pieces.append(cb)
+                        self._comp_blocks.pop(0)
+                        room_c -= k
+                    else:
+                        comp_pieces.append({f: v[:room_c] for f, v in cb.items()})
+                        self._comp_blocks[0] = {f: v[room_c:] for f, v in cb.items()}
+                        room_c = 0
+            if not acq and not blocks and not comp and not comp_pieces and now_ms is None:
+                # idle: flush any deferred readbacks before returning
+                self._drain_resolves()
                 return
             try:
-                dispatched = self._run_tick(acq, comp, now_ms)
+                pending = self._run_tick(acq, comp, now_ms, blocks=blocks, comp_blocks=comp_pieces)
             except Exception:
                 # a tick that cannot run decides nothing: its callers
                 # get a fail-closed verdict, not an entry timeout
-                self._fail_closed(acq)
+                self._fail_tick(_PendingTick(
+                    acq=acq, blocks=blocks, inv_a=None, out=None, n_obj=len(acq), n_blk=0,
+                    wire_lo=None, now_ms=0,
+                ))
                 raise
-            self._resolve(acq, dispatched)
-            now_ms = None
+            self._pending_ticks.append(pending)
+            _G_OCCUPANCY.set(len(self._pending_ticks))
             with self._lock:
-                if not self._acquires and not self._completions:
+                more = bool(self._acquires or self._acq_blocks or self._completions or self._comp_blocks)
+            depth = self._pipeline_depth if more else 0
+            while len(self._pending_ticks) > depth:
+                p = self._pending_ticks.pop(0)
+                if self._pipeline_depth > 0:
+                    self._resolve_futs.append(self._pool().submit(self._resolve_tick, p))
+                else:
+                    self._resolve_tick(p)
+            if self._resolve_futs:
+                alive = []
+                for f in self._resolve_futs:
+                    if not f.done():
+                        alive.append(f)
+                    elif f.exception() is not None:
+                        # a lost resolution must never vanish silently (its
+                        # items were failed closed by _resolve_tick)
+                        _log.error("tick resolution failed: %r", f.exception(), exc_info=f.exception())
+                self._resolve_futs = alive
+            _G_RESOLVER_Q.set(len(self._resolve_futs))
+            if not more:
+                # wait out in-flight resolutions; their callbacks may queue
+                # new work (closed-loop callers) — check again
+                self._drain_resolves()
+                with self._lock:
+                    more = bool(self._acquires or self._acq_blocks or self._completions or self._comp_blocks)
+                if not more:
                     return
+            now_ms = None
+
+    def _pool(self) -> ThreadPoolExecutor:
+        """The resolver: ONE thread, so ticks resolve — and the
+        observability planes fold — in dispatch order; stop() shuts it."""
+        if self._resolver_pool is None:
+            self._resolver_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sentinel-resolve")
+        return self._resolver_pool
+
+    def _drain_resolves(self) -> None:
+        """Flush deferred readbacks: pending ticks not yet handed to the
+        resolver, then every in-flight resolution (bounded: a wedged
+        readback is abandoned after 2 x entry_timeout_s, at least 5 s)."""
+        while self._pending_ticks:
+            p = self._pending_ticks.pop(0)
+            if self._pipeline_depth > 0:
+                self._resolve_futs.append(self._pool().submit(self._resolve_tick, p))
+            else:
+                self._resolve_tick(p)
+        futs, self._resolve_futs = self._resolve_futs, []
+        deadline = mono_s() + max(2.0 * self.entry_timeout_s, 5.0)
+        for f in futs:
+            try:
+                f.result(timeout=max(0.0, deadline - mono_s()))
+            except _FutTimeout:
+                _log.warning("resolve drain abandoned a wedged tick")
+            except Exception as exc:
+                _log.error("tick resolution failed: %r", exc, exc_info=exc)
+        _G_OCCUPANCY.set(0)
+        _G_RESOLVER_Q.set(0)
 
     def _warm_shapes(self) -> None:
         """Run both batch shapes once with no-op batches (builds the
         kernels before serving)."""
-        self._resolve([], self._run_tick([], [], self.time.now_ms()))
+        self._resolve_tick(self._run_tick([], [], self.time.now_ms()))
         if self.cfg.batch_size > 256:
             filler = AcquireRequest(
                 res=self.cfg.trash_row, count=0, prio=0, origin_id=-1,
                 origin_node=self.cfg.trash_row, ctx_node=self.cfg.trash_row,
                 ctx_name=-1, inbound=0,
             )
-            self._resolve([], self._run_tick([filler] * 257, [], self.time.now_ms()))
+            self._resolve_tick(self._run_tick([filler] * 257, [], self.time.now_ms()))
 
     @staticmethod
     def _shape_for(n: int, cap: int) -> int:
@@ -778,25 +1246,62 @@ class SentinelClient:
         return min(256, cap) if n <= 256 else cap
 
     def _note_seg_count(self, segs: int, b: int) -> None:
-        """Track the live-segment count of the batch about to be dispatched;
-        when it exceeds the compacted capacity, grow ``seg_u`` to
-        ``grown_seg_u(cfg, peak)`` before the tick runs.  Eager PyTorch has nothing to compile, so the
-        new capacity serves this very tick.
+        """Track the live-segment count of the batch about to be dispatched
+        against the compacted capacity.
 
-        Unlike the JAX client, a light tick that overflows its own automatic
-        capacity while the full shape's still covers the peak pins ``seg_u``
-        at the full shape's capacity: with ``seg_fallback`` off, returning
-        there would fail that tick's overflow items closed."""
+        ``seg_fallback=True`` (the reference's rule): an overflowing tick is
+        exact through the per-item branch, only slower, so ``seg_u`` grows
+        — to ``ceil((1.25 * peak + 128) / 128) * 128``, at most the batch —
+        once four ticks have overflowed, and only past the full shape's
+        capacity.  ``seg_fallback=False``: overflow items would fail
+        closed, so ``seg_u`` grows at the first overflow, before the tick
+        runs (eager PyTorch has nothing to compile: the new capacity serves
+        this very tick); unlike the JAX client, a light tick that overflows
+        its own automatic capacity while the full shape's still covers the
+        peak pins ``seg_u`` at the full shape's capacity."""
         self._seg_obs_peak = max(self._seg_obs_peak, segs)
         if segs <= ES.seg_capacity(self.cfg, b):
+            return
+        if self.cfg.seg_fallback:
+            self._seg_over_ticks += 1
+            if self._seg_over_ticks < 4:
+                return
+            b_full = self.cfg.batch_size
+            new_u = min(b_full, -(-int(self._seg_obs_peak * 1.25 + 128) // 128) * 128)
+            if new_u <= ES.seg_capacity(self.cfg, b_full):
+                return  # the full shape's capacity already covers the peak
+            self._resize_seg_u(new_u)
             return
         new_u = grown_seg_u(self.cfg, self._seg_obs_peak)
         if new_u == self.cfg.seg_u:
             return  # already at the batch size: nothing larger to give
+        self._resize_seg_u(new_u)
+
+    def _resize_seg_u(self, new_u: int) -> None:
+        """Swap in a tick with the compacted capacity ``new_u`` (eager
+        PyTorch: nothing to compile, the swap is immediate)."""
+        _C_SEG_RESIZE.inc()
         cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
         with self._engine_lock:
             self.cfg = self.registry.cfg = cfg
             self._tick = E.make_tick(cfg, features=self._features)
+            self._seg_over_ticks = 0
+
+    def _record_seg_dropped(self, n: int) -> None:
+        """Surface fail-closed segment-overflow drops (seg_fallback=False):
+        the counter, the client's total and a warning at most once a
+        second (the reference also writes the block log, not ported)."""
+        _C_SEG_DROPPED.inc(n)
+        with self._blk_lock:
+            self.seg_dropped_total += n
+        sec = int(self.time.wall_ms() // 1000)
+        if sec != self._seg_drop_last_log_s:
+            self._seg_drop_last_log_s = sec
+            _log.warning(
+                "segment capacity overflow: %d items FAILED CLOSED this tick (total %d) — "
+                "seg_u=%d is undersized for the live traffic; raise seg_u or set seg_fallback=True",
+                n, self.seg_dropped_total, ES.seg_capacity(self.cfg, self.cfg.batch_size),
+            )
 
     def _hash_col(self, items: Sequence, rows: int) -> np.ndarray:
         """int32 [rows, param_dims]: each request's hashed lanes (0 = none;
@@ -814,36 +1319,83 @@ class SentinelClient:
             t = t.to(dtype)
         return t.to(self.device)
 
-    def _run_tick(self, acq: List[AcquireRequest], comp: List[Completion], now_ms):
-        """Build (and on the segment path presort) the batch columns, upload
-        them (the uploads finish before the tick starts), run one tick;
-        returns (TickOutput, wire layout, inverse permutation or None, the
-        tick's engine ms)."""
+    def _acquire_columns(self, acq: List[AcquireRequest], blocks, B: int) -> dict:
+        """The acquire batch's host columns: object requests at [0, n),
+        block slices after them (array copies, no per-item Python), trash
+        padding to B; counts clamped to the fused kernels' envelope."""
         cfg = self.cfg
         trash = cfg.trash_row
-        cap = cfg.max_batch_count
-        B = self._shape_for(len(acq), cfg.batch_size)
-        B2 = self._shape_for(len(comp), cfg.complete_batch_size)
-
-        acols = {}
+        n = len(acq)
+        cols = {}
         for f, fill, dt in _ACQ_COLS:
             col = np.full(B, trash if fill is None else fill, dt)
             if acq:
-                col[: len(acq)] = [getattr(r, f) for r in acq]
+                col[:n] = [getattr(r, f) for r in acq]
+            o = n
+            for blk, off, take in blocks:
+                src = getattr(blk, f)
+                if src is not None:
+                    col[o : o + take] = src[off : off + take]
+                elif f == "count":
+                    col[o : o + take] = 1
+                o += take
             if f == "count":
-                np.minimum(col, cap, out=col)  # the fused kernels' envelope
-            acols[f] = col
-        acols["param_hash"] = self._hash_col(acq, B)
-        ccols = {}
+                np.minimum(col, cfg.max_batch_count, out=col)  # the fused kernels' envelope
+            cols[f] = col
+        ph = self._hash_col(acq, B)
+        o = n
+        M = cfg.param_dims
+        for blk, off, take in blocks:
+            if blk.param_hash is not None:
+                src = blk.param_hash[off : off + take, :M]
+                ph[o : o + take, : src.shape[1]] = src
+            o += take
+        cols["param_hash"] = ph
+        return cols
+
+    def _completion_columns(self, comp: List[Completion], comp_blocks: List[dict], B2: int) -> dict:
+        """The completion batch's host columns: object completions first,
+        then completion-block slices; successes and errors clamped."""
+        cfg = self.cfg
+        trash = cfg.trash_row
+        cap = cfg.max_batch_count
+        n = len(comp)
+        cols = {}
         for f, fill, dt in _COMP_COLS:
             col = np.full(B2, trash if fill is None else fill, dt)
             if comp:
-                col[: len(comp)] = [getattr(c, f) for c in comp]
+                col[:n] = [getattr(c, f) for c in comp]
+            o = n
+            for cb in comp_blocks:
+                k = len(cb["res"])
+                col[o : o + k] = cb[f]
+                o += k
             if f in ("success", "error"):
                 np.minimum(col, cap, out=col)
-            ccols[f] = col
-        ccols["param_hash"] = self._hash_col(comp, B2)
+            cols[f] = col
+        ph = self._hash_col(comp, B2)
+        o = n
+        for cb in comp_blocks:
+            k = len(cb["res"])
+            ph[o : o + k] = cb["param_hash"]
+            o += k
+        cols["param_hash"] = ph
+        return cols
+
+    def _run_tick(self, acq: List[AcquireRequest], comp: List[Completion], now_ms, blocks=(), comp_blocks=()):
+        """Build (and on the segment path presort) the batch columns, upload
+        them (the uploads finish before the tick starts), run one tick and
+        start its wire's readback into a host buffer; returns the
+        ``_PendingTick``."""
+        cfg = self.cfg
+        n_blk = sum(t for _b, _o, t in blocks)
+        n_comp = len(comp) + sum(len(cb["res"]) for cb in comp_blocks)
+        B = self._shape_for(len(acq) + n_blk, cfg.batch_size)
+        B2 = self._shape_for(n_comp, cfg.complete_batch_size)
+        acols = self._acquire_columns(acq, blocks, B)
+        ccols = self._completion_columns(comp, list(comp_blocks), B2)
         inv = None
+        seg_fits = None
         if cfg.seg_effects:
             # trash-row padding has the largest res, so it sorts last and
             # stays inside the sort
@@ -853,9 +1405,17 @@ class SentinelClient:
             # are order-independent sums and minima)
             order_c, _ = PS.batch_sort3(*(ccols[k] for k in _COMP_SEG_KEYS))
             ccols = {k: v[order_c] for k, v in ccols.items()}
-            self._note_seg_count(PS.host_seg_count([acols[k] for k in _ACQ_SEG_KEYS]), B)
-            self._note_seg_count(PS.host_seg_count([ccols[k] for k in _COMP_SEG_KEYS]), B2)
+            segs_a = PS.host_seg_count([acols[k] for k in _ACQ_SEG_KEYS])
+            segs_c = PS.host_seg_count([ccols[k] for k in _COMP_SEG_KEYS])
+            self._note_seg_count(segs_a, B)
+            self._note_seg_count(segs_c, B2)
             cfg = self.cfg
+            if cfg.seg_fallback:
+                # the exact count decides each side's branch on the host
+                # (engine.tick's seg_fits): no device-side selection needed
+                seg_fits = (segs_c <= ES.seg_capacity(cfg, B2), segs_a <= ES.seg_capacity(cfg, B))
+                if not all(seg_fits):
+                    self.seg_fallback_ticks += 1
         wd_a = WIRE.acquire_wire_dtypes(cfg)
         wd_c = WIRE.complete_wire_dtypes(cfg)
         a = E.AcquireBatch(**{f: self._upload(v, wd_a.get(f)) for f, v in acols.items()})
@@ -863,8 +1423,21 @@ class SentinelClient:
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
         with self._engine_lock:
-            self._state, out = self._tick(self._state, self._rules_dev, a, c, int(t), load, cpu)
-        return out, self._wire_layout(B), inv, int(t)
+            self._state, out = self._tick(
+                self._state, self._rules_dev, a, c, int(t), load, cpu, seg_fits=seg_fits
+            )
+        # start the readback NOW: the copy into a host buffer (pinned on the
+        # card) is queued behind the tick, with an event the resolver waits on
+        buf = self._readback.take(out.wire.shape[0])
+        buf.copy_(out.wire, non_blocking=True)
+        event = None
+        if out.wire.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return _PendingTick(
+            acq=acq, blocks=list(blocks), inv_a=inv, out=out, n_obj=len(acq), n_blk=n_blk,
+            wire_lo=self._wire_layout(B), now_ms=int(t), buf=buf, event=event,
+        )
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
         lo = self._wire_layouts.get(b)
@@ -872,41 +1445,55 @@ class SentinelClient:
             lo = self._wire_layouts[b] = WIRE.layout_for(self.cfg, b)
         return lo
 
-    def _resolve(self, acq: List[AcquireRequest], dispatched) -> None:
-        """THE readback: one copy of the packed wire, validated; the
-        telemetry row, timeline rows and explain records are folded, then
-        the verdicts fan out to the futures.  A main section that fails
-        validation fails every item of the tick CLOSED; the explain section
-        fails OPEN on its own checksum (obs/explain.py)."""
-        out, lo, inv, now_ms = dispatched
+    def _resolve_tick(self, p: _PendingTick) -> None:
+        """Decode one dispatched tick and fan its verdicts out — or, if
+        anything on that path raises, fail the rest of the tick CLOSED
+        (BLOCK_SYSTEM) instead of stranding its callers; then return its
+        readback buffer to the pool."""
         try:
-            raw = out.wire.cpu().numpy()
-            tl_bytes = lo.tl_rows * lo.tl_cols * 4
-            _C_WIRE_RX.inc(raw.nbytes - tl_bytes)
-            if tl_bytes:
-                TLM._C_WIRE["rx"].inc(tl_bytes)
-            # the chaos pipe covers only the fail-CLOSED main section; the
-            # explain section behind it has its own site
-            buf = raw.tobytes()
-            split = lo.off_expl * 4
-            if lo.expl_k and len(buf) > split:
-                data = FP.pipe(_FP_PACKED_DECODE, buf[:split]) + buf[split:]
-            else:
-                data = FP.pipe(_FP_PACKED_DECODE, buf)
+            self._resolve_tick_inner(p)
+        except Exception:
+            _C_RESOLVE_FAILED.inc()
+            self._fail_tick(p)
+            raise
+        finally:
+            if p.buf is not None:
+                self._readback.give(p.buf)
+                p.buf = None
+
+    def _resolve_tick_inner(self, p: _PendingTick) -> None:
+        """THE readback: wait for the tick's copy (its CUDA event), validate
+        the packed wire; fold the telemetry row, timeline rows, hot block
+        and explain records; then fan the verdicts out to the futures and
+        the blocks.  A main section that fails validation fails every item
+        of the tick CLOSED; the explain section fails OPEN on its own
+        checksum (obs/explain.py)."""
+        lo, out, now_ms = p.wire_lo, p.out, p.now_ms
+        if p.event is not None:
+            p.event.synchronize()
+        raw = p.buf.numpy()
+        tl_bytes = lo.tl_rows * lo.tl_cols * 4
+        _C_WIRE_RX.inc(raw.nbytes - tl_bytes)
+        if tl_bytes:
+            TLM._C_WIRE["rx"].inc(tl_bytes)
+        # the chaos pipe covers only the fail-CLOSED main section; the
+        # explain section behind it has its own site
+        buf = raw.tobytes()
+        split = lo.off_expl * 4
+        if lo.expl_k and len(buf) > split:
+            data = FP.pipe(_FP_PACKED_DECODE, buf[:split]) + buf[split:]
+        else:
+            data = FP.pipe(_FP_PACKED_DECODE, buf)
+        try:
             frame = WIRE.unpack(data, lo)
-            verdict, wait = frame.verdict, frame.wait
-            if wait is None:  # more PASS_WAIT rows than the sidecar holds
-                wait = out.wait_ms.cpu().numpy()
         except WIRE.WireDecodeError:
             _C_PACKED_DECODE.inc()
             self.wire_decode_failures += 1
-            self._fail_closed(acq)
+            self._fail_tick(p)
             return
-        except Exception:
-            # a failed readback (device fault) fails the tick CLOSED too;
-            # the tick loop reports the error
-            self._fail_closed(acq)
-            raise
+        verdict, wait = frame.verdict, frame.wait
+        if wait is None:  # more PASS_WAIT rows than the sidecar holds
+            wait = out.wait_ms.cpu().numpy()
         if frame.stats is not None:
             self._fold_device_stats(frame.stats)
         if frame.res_stats is not None and self.timeline is not None:
@@ -918,14 +1505,43 @@ class SentinelClient:
             # BlockException can already look itself up in explain()
             self.explain_plane.ingest_section(frame.expl, ts_ms=now_ms)
         if frame.seg_dropped:
-            self.seg_dropped_total += frame.seg_dropped
-        if inv is not None:
+            self._record_seg_dropped(frame.seg_dropped)
+        if p.inv_a is not None:
             # the wire's rows (bitmap and PASS_WAIT sidecar alike) are
             # positions in the sorted batch: back to submission order
-            verdict, wait = verdict[inv], wait[inv]
-        for i, r in enumerate(acq):
+            verdict, wait = verdict[p.inv_a], wait[p.inv_a]
+        for i, r in enumerate(p.acq):
             if r.future is not None:
                 r.future.set_result((int(verdict[i]), int(wait[i])))
+        o = p.n_obj
+        for blk, off, take in p.blocks:
+            blk.verdicts[off : off + take] = verdict[o : o + take]
+            blk.waits[off : off + take] = wait[o : o + take]
+            self._block_done(blk, take)
+            p.blocks_done += 1
+            o += take
+
+    def _block_done(self, blk: ArrayBlock, take: int) -> None:
+        """``take`` more items of ``blk`` are decided; the block's future
+        resolves once, when none is left."""
+        with self._blk_lock:
+            blk.unresolved -= take
+            fire = blk.unresolved <= 0
+        if fire and blk.future is not None and not blk.future.done():
+            blk.future.set_result((blk.verdicts, blk.waits))
+
+    def _fail_tick(self, p: _PendingTick) -> None:
+        """Resolve every still-waiting consumer of a tick as BLOCK_SYSTEM:
+        its object requests, and the block slices the normal fan-out had
+        not reached (no double decrement)."""
+        for r in p.acq:
+            if r.future is not None and not r.future.done():
+                r.future.set_result((int(ERR.BLOCK_SYSTEM), 0))
+        for blk, off, take in p.blocks[p.blocks_done :]:
+            blk.verdicts[off : off + take] = ERR.BLOCK_SYSTEM
+            blk.waits[off : off + take] = 0
+            self._block_done(blk, take)
+            p.blocks_done += 1
 
     @staticmethod
     def _fold_device_stats(s) -> None:
@@ -962,13 +1578,6 @@ class SentinelClient:
         _G_DEV_CONC.set(float(s[E.STAT_ENTRY_CONC]))
         _G_DEV_CEIL_UTIL.set(float(s[E.STAT_CEIL_UTIL]))
         _G_DEV_SEG_LIVE.set(float(s[E.STAT_SEG_LIVE]))
-
-    @staticmethod
-    def _fail_closed(acq: List[AcquireRequest]) -> None:
-        """Resolve every still-waiting request of a tick as BLOCK_SYSTEM."""
-        for r in acq:
-            if r.future is not None and not r.future.done():
-                r.future.set_result((int(ERR.BLOCK_SYSTEM), 0))
 
 
 class ClientStats:

@@ -138,9 +138,9 @@ def test_client_fails_tick_closed_on_corrupt_wire(monkeypatch):
 
 def test_param_rules_raise_not_implemented():
     """Param rules load; what still raises is a CLUSTER-MODE param rule
-    (naming its queue item) and a config with an unported stage on
-    (``seg_fallback=True``); the observability planes and the sketch tier
-    are ported and build."""
+    (naming its queue item) and a config with an unported stage on (the
+    unpacked wire, ``packed_wire=False``); the observability planes, the
+    sketch tier and ``seg_fallback=True`` are ported and build."""
     tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
     tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
     assert "param" in tc._features
@@ -150,8 +150,10 @@ def test_param_rules_raise_not_implemented():
     tc.param_flow_rules.load([])
     assert "param" not in tc._features  # the stage is on only while param rules are loaded
     with pytest.raises(NotImplementedError):
-        SentinelClient(cfg=small_engine_config(fused_effects=True, seg_effects=True, seg_fallback=True),
-                       mode="sync", device="cpu")
+        SentinelClient(cfg=small_engine_config(fused_effects=True, packed_wire=False), mode="sync", device="cpu")
+    fallback = SentinelClient(cfg=small_engine_config(fused_effects=True, seg_effects=True, seg_fallback=True),
+                              mode="sync", device="cpu")
+    assert fallback.cfg.seg_fallback
     planes = SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu")
     assert planes.explain_plane is not None and planes.cfg.device_telemetry
     sketch = SentinelClient(cfg=small_engine_config(fused_effects=True, sketch_stats=True), mode="sync", device="cpu")

@@ -155,11 +155,14 @@ def test_tick_continues_a_jax_run_state():
 @pytest.mark.parametrize(
     "flags",
     [
-        dict(seg_effects=True, seg_fallback=True),
+        dict(fused_effects=False, seg_fallback=False),
         dict(fused_effects=False),
     ],
 )
 def test_unported_flags_raise(flags):
+    """The plain scatter path (``fused_effects=False``) is not ported,
+    whatever ``seg_fallback`` says; ``seg_fallback=True`` on the segment
+    path is (tests/test_torch_fallback.py)."""
     base = dict(H.FUSED_FLAGS)
     base.update(flags)
     cfg = small_engine_config(**base)
@@ -233,12 +236,13 @@ def test_param_tick_matches_jax_fused_tick(carry_after):
 
 
 def test_platform_config_is_the_fused_path_and_carries_across():
-    """platform_config() is the segment path without the per-tick fallback,
-    with the reference's observability defaults (telemetry row, 128
-    timeline rows, 32 explain records); seg_effects=False gives the
-    per-item fused path; both are supported."""
+    """platform_config() is the segment path with the per-tick fallback,
+    as the reference's accelerator default, with the reference's
+    observability defaults (telemetry row, 128 timeline rows, 32 explain
+    records); seg_effects=False gives the per-item fused path; both are
+    supported."""
     cfg = platform_config()
-    assert cfg.fused_effects and cfg.seg_effects and not cfg.seg_fallback
+    assert cfg.fused_effects and cfg.seg_effects and cfg.seg_fallback
     assert cfg.device_telemetry and cfg.timeline_k == 128 and cfg.explain_k == 32
     E.check_supported(cfg)
     fused = platform_config(seg_effects=False)

@@ -117,6 +117,13 @@ Phases (the first failure stops the script with a nonzero exit):
    demotions are printed.  Its bursts (with 64 acquires on that name
    each) through the segment client must equal, item for item, those of
    a per-item fused client on the same configuration.
+   The extension points (``drive_extension_points``): seg4's threaded
+   client runs one seeded script of 400 entries twice, from one request
+   thread on a stepped clock — plain, and with a no-op entry hook, a no-op
+   custom slot and a no-op metric extension loaded; the verdicts must be
+   equal, and the hook, the slot's entry and exit sides, and the
+   extension's pass + block callbacks must each fire once an entry
+   (``on_complete`` once a pass).
 4. The tick against itself, per configuration: one seeded, host-presorted
    B = 2,048 stream (``seg_u`` grown from its exact segment count by the
    client's rule) from one state, once with the kernels and once with
@@ -190,12 +197,18 @@ Phases (the first failure stops the script with a nonzero exit):
    shape (so ``seg_fallback=True``), its names and rules through the
    public surface, ``pipeline_depth=4``, ``seg_u`` with bench.py's
    headroom.  First the same blocks through two clients on a virtual
-   clock, at depth 4 and 0: equal verdicts and waits.  Then 32 blocks
-   with depth + 4 in flight, fed closed-loop from the resolver's
-   callbacks while this thread drives ``tick_once``; kernel launch counts
-   reset just before and read just after.  ``[client_bench]`` lines:
-   ``dps``, ``effective_tick_ms``, ``req_p50_ms``, ``req_p99_ms`` (submit
-   to resolve), the verdict mix, the ticks that took the per-item branch,
+   clock, at depth 4 and 0 (pinned staging): equal verdicts and waits.
+   Then 32 blocks with depth + 4 in flight, fed closed-loop from the
+   resolver's callbacks while this thread drives ``tick_once``; kernel
+   launch counts reset just before and read just after; run twice, the
+   span tracer off and then on.  ``[client_bench]`` lines: ``dps``,
+   ``effective_tick_ms``, ``req_p50_ms``, ``req_p99_ms`` (submit to
+   resolve), the verdict mix, the ticks that took the per-item branch;
+   ``host_build_ms_avg``, the upload (tx) and readback (rx) bytes and the
+   skipped columns a tick, which host sort ran (it must be the native
+   library's), dps with the tracer off beside on; and
+   ``stage_breakdown_ms``, the p50 / p99 / mean of each ``tick.*`` stage
+   span (assemble, presort, dispatch, device, readback, resolve) — all
    beside the card's name and power limit.
 
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
@@ -827,9 +840,9 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
     check(not any(t.is_alive() for t in threads), "request threads still running after 600 s")
     # the last exits ride one more tick
     deadline = time.perf_counter() + 30
-    while (client._completions or client._acquires) and time.perf_counter() < deadline:
+    while client._has_work() and time.perf_counter() < deadline:
         time.sleep(0.01)
-    check(not (client._completions or client._acquires), "queued work not drained within 30 s")
+    check(not client._has_work(), "queued work not drained within 30 s")
     client.tick_once()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -848,6 +861,108 @@ def drive_main_path(st, np, FU, SC, torch, cfg, n_entries):
         raise errors[0]
     st.reset()
     return counts, done[0], elapsed, launches, info
+
+
+#: entries of the extension-point runs (one request thread, a stepped clock)
+EXT_ENTRIES = 400
+
+
+def drive_extension_points(st, np, torch, cfg):
+    """Phase 3's threaded client twice on one seeded script: plain, and with
+    a no-op entry hook, a no-op custom slot and a no-op metric extension
+    loaded.  One request thread and a stepped clock (not a virtual one, so
+    the client keeps its tick thread) make both runs deterministic: every
+    entry's tick and the tick that lands its exits run at the same engine
+    time in both (the request thread ticks the exits in before it moves
+    the clock).
+    Returns both runs' verdicts and the callback counts of the second."""
+    from sentinel_tpu_torch.metrics import extension as MEXT
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.runtime.slots import ProcessorSlot
+    from sentinel_tpu_torch.utils.time_source import TimeSource
+
+    class SteppedClock(TimeSource):
+        """Engine time that moves only when the request thread moves it
+        (a pacing wait moves it too)."""
+
+        def __init__(self):
+            super().__init__()
+            self._now = 1_000
+
+        def now_ms(self):
+            return self._now
+
+        def sleep_ms(self, ms):
+            self._now += int(ms)
+
+    calls = {}
+
+    def bump(k):
+        calls[k] = calls.get(k, 0) + 1
+
+    class NoopSlot(ProcessorSlot):
+        def on_entry(self, ctx):
+            bump("slot_entry")
+
+        def on_exit(self, ctx):
+            bump("slot_exit")
+
+    class NoopExtension(MEXT.MetricExtension):
+        def on_pass(self, *a):
+            bump("on_pass")
+
+        def on_block(self, *a):
+            bump("on_block")
+
+        def on_complete(self, *a):
+            bump("on_complete")
+
+    def run(loaded):
+        client = SentinelClient(cfg=cfg, device="cuda", mode="threaded", time_source=SteppedClock(),
+                                entry_timeout_s=30.0)
+        client.start()
+        flow, degrade, authority, system, param = build_rules(st)
+        client.flow_rules.load(flow)
+        client.degrade_rules.load(degrade)
+        client.authority_rules.load(authority)
+        client.system_rules.load(system)
+        client.param_flow_rules.load(param)
+        ext = NoopExtension()
+        if loaded:
+            client.entry_hooks.append(lambda resource, origin, args: bump("hook"))
+            client.slots.register(NoopSlot())
+            MEXT.register_extension(ext)
+        rng = np.random.default_rng(SEED + 7)
+        picks = rng.choice(N_NAMES, size=EXT_ENTRIES, p=zipf_probs(np, N_NAMES))
+        values = rng.choice(N_VALUES, size=EXT_ENTRIES, p=zipf_probs(np, N_VALUES))
+        out, held = [], []
+        try:
+            for k, v in zip(picks, values):
+                try:
+                    e = client.entry(f"res-{k}", args=[arg_value(v)], origin="bad" if rng.random() < 0.05 else None)
+                    out.append(("pass", e.wait_ms))
+                    held.append(e)
+                except st.BlockException as exc:
+                    out.append((type(exc).__name__, 0))
+                client.time._now += int(rng.integers(0, 6))
+                while held and rng.random() < 0.7:
+                    e = held.pop(int(rng.integers(0, len(held))))
+                    if rng.random() < 0.05:
+                        e.trace(RuntimeError("business error"))
+                    e.exit()
+                client.tick_once()  # the exits land before the clock moves
+            for e in held:
+                e.exit()
+            client.tick_once()
+            torch.cuda.synchronize()
+        finally:
+            MEXT.unregister_extension(ext)
+            client.stop()
+        return out
+
+    plain = run(False)
+    loaded = run(True)
+    return plain, loaded, calls
 
 
 def drive_burst(st, np, FU, SC, cfg, rules):
@@ -906,8 +1021,10 @@ def drive_burst(st, np, FU, SC, cfg, rules):
     comps = [Completion(res=r.res, origin_node=trash, ctx_node=trash, inbound=0, rt=float(rng.integers(1, 80)),
                         success=1, error=int(rng.random() < 0.05), param_hash=r.param_hash)
              for r, (v, _w) in zip(reqs, first) if v in (ERR.PASS, ERR.PASS_WAIT)]
-    with client._lock:
-        client._completions.extend(comps)
+    client.mode = "threaded"  # queue the exits on the completion ring for ONE tick
+    for c in comps:
+        client._submit_completion(c)
+    client.mode = "sync"
     tick()
     client.time.advance(40)
     _, second = burst()
@@ -1017,7 +1134,7 @@ def drive_sketch_main(st, np, FU, SC, torch, cfg, n_entries):
         t.join(timeout=600)
     check(not any(t.is_alive() for t in threads), "request threads still running after 600 s")
     deadline = time.perf_counter() + 30
-    while (client._completions or client._acquires) and time.perf_counter() < deadline:
+    while client._has_work() and time.perf_counter() < deadline:
         time.sleep(0.01)
     client.tick_once()
     torch.cuda.synchronize()
@@ -1093,8 +1210,10 @@ def drive_sketch_burst(st, np, FU, SC, cfg):
     comps = [Completion(res=r.res, origin_node=trash, ctx_node=trash, inbound=r.inbound,
                         rt=float(rng.integers(1, 8)), success=1, error=0, param_hash=r.param_hash)
              for r, (v, _w) in zip(reqs, first) if v in (ERR.PASS, ERR.PASS_WAIT)]
-    with client._lock:
-        client._completions.extend(comps)
+    client.mode = "threaded"  # queue the exits on the completion ring for ONE tick
+    for c in comps:
+        client._submit_completion(c)
+    client.mode = "sync"
     tick()
     client.time.advance(40)
     _, second = burst()
@@ -1927,10 +2046,12 @@ def client_bench_phase(np, st, FU, SC, torch, B, smi) -> dict:
     pipeline_depth 4, seg_u with bench.py's headroom (:443-448).  First the
     same blocks (two batches each, with their completion blocks) through
     two clients on a virtual clock, at depth 4 and at 0: equal verdicts.
-    Then 32 blocks of B with depth + 4 in flight, a closed-loop feed from
-    the resolver's callbacks and the caller's thread driving tick_once
-    (bench.py:472-516): dps, effective_tick_ms, the p50 / p99 of submit ->
-    resolve, the verdict mix, the ticks that took the per-item branch."""
+    Then the measured loop (``measured_bench_run``) twice on one client,
+    the span tracer off and then on: dps, effective_tick_ms, the p50 / p99
+    of submit -> resolve, the verdict mix, the ticks that took the
+    per-item branch, and a tick's upload and readback bytes, skipped
+    columns and host build ms; with the tracer on, the stage breakdown.
+    The host presort must have been the native library's."""
     import dataclasses
 
     from sentinel_tpu_torch.core.config import platform_config
@@ -1975,6 +2096,61 @@ def client_bench_phase(np, st, FU, SC, torch, B, smi) -> dict:
     torch.cuda.empty_cache()
 
     c._warm_shapes()
+    off = measured_bench_run(np, FU, SC, torch, c, traffic, trace=False)
+    on = measured_bench_run(np, FU, SC, torch, c, traffic, trace=True)
+    info = dict(seg_dropped_total=c.seg_dropped_total, wire_decode_failures=c.wire_decode_failures,
+                readback_buffers=c._readback.allocated, host_sort=c.host_sort,
+                host_build_ms_avg_since_start=c.host_build_ms_avg)
+    c.stop()
+    del c
+    torch.cuda.empty_cache()
+    out = dict(batch=B, blocks=CB_BLOCKS, pipeline_depth=CB_DEPTH, inflight=CB_DEPTH + 4, seg_u=seg_u,
+               max_segments=max_segs, promoted_tail=promoted, virtual_clock_mix=virtual_mix,
+               tracer_off=off, tracer_on=on, **info)
+    # the untraced run is the measurement; the traced one splits it
+    out.update({k: off[k] for k in ("dps", "effective_tick_ms", "req_p50_ms", "req_p99_ms", "verdict_mix",
+                                      "launches", "fallback_ticks")})
+    for run in (off, on):
+        for kname in ("scatter_many", "seg_excl_cumsum", "seg_incl_min"):
+            check(run["launches"][kname] > 0, ("client_bench", B, kname, run["launches"]))
+        mix = run["verdict_mix"]
+        check(mix[0] > 0 and sum(mix[1:6]) > 0, ("client_bench", B, mix))
+        check(run["wire_tx_bytes_a_tick"] > 0 and run["wire_rx_bytes_a_tick"] > 0, ("client_bench wire", B, run))
+    check(info["seg_dropped_total"] == 0 and info["wire_decode_failures"] == 0, ("client_bench", B, info))
+    check(info["host_sort"] == "native",
+          f"client_bench B={B}: the host presort ran {info['host_sort']!r}, not the native library")
+    stages = on["stage_breakdown_ms"]
+    check(set(stages) == {"tick.assemble", "tick.presort", "tick.dispatch", "tick.device", "tick.readback",
+                          "tick.resolve"}, ("client_bench stage spans", B, sorted(stages)))
+    check(off["stage_breakdown_ms"] == {}, ("client_bench: spans recorded with the tracer off", B))
+    log(f"[client_bench] B={B}: dps {off['dps']:.0f}, effective_tick_ms {off['effective_tick_ms']:.3f}, "
+        f"req_p50_ms {off['req_p50_ms']:.3f}, req_p99_ms {off['req_p99_ms']:.3f} ({CB_BLOCKS} blocks, "
+        f"pipeline_depth {CB_DEPTH}, {CB_DEPTH + 4} in flight, tracer off; {smi}); verdict mix "
+        f"{off['verdict_mix']}; ticks that took the per-item branch {off['fallback_ticks']}; seg_u {seg_u} "
+        f"(peak {max_segs}); {promoted} tail names promoted; kernel launches {json.dumps(off['launches'])}; "
+        f"depth {CB_DEPTH} == depth 0 on a virtual clock (8 ticks, verdict mix {virtual_mix})")
+    log(f"[client_bench] B={B}: tracer on: dps {on['dps']:.0f} (off {off['dps']:.0f}), effective_tick_ms "
+        f"{on['effective_tick_ms']:.3f}; host_build_ms_avg {on['host_build_ms_avg']:.3f} (off "
+        f"{off['host_build_ms_avg']:.3f}); a tick: wire tx {on['wire_tx_bytes_a_tick']:.0f} B, rx "
+        f"{on['wire_rx_bytes_a_tick']:.0f} B, columns skipped {on['cols_skipped_a_tick']:.2f}; host sort "
+        f"{info['host_sort']}; {on['ticks']} ticks ({smi})")
+    log(f"[client_bench] B={B}: stage_breakdown_ms (p50 / p99 / mean, {on['ticks']} ticks): " + "; ".join(
+        f"{k} {v['p50_ms']} / {v['p99_ms']} / {v['mean_ms']}" for k, v in stages.items()))
+    return out
+
+
+def measured_bench_run(np, FU, SC, torch, c, traffic, trace: bool) -> dict:
+    """client_bench's measured loop (bench.py:472-516): 32 blocks with
+    depth + 4 in flight, fed closed-loop from the resolver's callbacks
+    while this thread drives tick_once; kernel launch counts reset just
+    before and read just after.  With ``trace`` the span tracer is on for
+    the run (the stage breakdown: p50 / p99 / mean ms of each tick.*
+    stage); the upload and readback bytes, skipped columns and host build
+    time are deltas over the run, a tick."""
+    from sentinel_tpu_torch import obs
+    from sentinel_tpu_torch.runtime import client as TCL
+
+    wire = (TCL._C_WIRE["tx"], TCL._C_WIRE["rx"], TCL._C_COLS_SKIPPED)
     c.seg_fallback_ticks = 0
     feed_lock = threading.Lock()
     progress = {"done": 0, "next": 0}
@@ -2003,38 +2179,35 @@ def client_bench_phase(np, st, FU, SC, torch, B, smi) -> dict:
 
     inflight = CB_DEPTH + 4
     torch.cuda.synchronize()
+    obs.TRACER.reset()
+    if trace:
+        obs.enable()
+    w0 = [m.value for m in wire]
+    b0 = (c._build_ms_sum, c._build_ticks)
     FU.reset_launches()
     SC.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(min(inflight, CB_BLOCKS)):
-        feed()
-    while progress["done"] < CB_BLOCKS:
-        c.tick_once()
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(min(inflight, CB_BLOCKS)):
+            feed()
+        while progress["done"] < CB_BLOCKS:
+            c.tick_once()
+        wall = time.perf_counter() - t0
+    finally:
+        obs.disable()
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
-    info = dict(seg_dropped_total=c.seg_dropped_total, wire_decode_failures=c.wire_decode_failures,
-                fallback_ticks=c.seg_fallback_ticks, readback_buffers=c._readback.allocated)
-    c.stop()
-    del c
-    torch.cuda.empty_cache()
+    ticks = c._build_ticks - b0[1]
+    tx, rx, skipped = (m.value - v for m, v in zip(wire, w0))
+    stages = obs.summarize(obs.TRACER.snapshot(), prefix="tick.")
+    obs.TRACER.reset()
     lat_ms = np.sort(np.array(lat[inflight:] or lat)) * 1000.0
-    mix = np.bincount(np.concatenate(results), minlength=7).tolist()
-    out = dict(batch=B, blocks=CB_BLOCKS, pipeline_depth=CB_DEPTH, inflight=inflight, seg_u=seg_u,
-               max_segments=max_segs, promoted_tail=promoted, dps=CB_BLOCKS * B / wall,
-               effective_tick_ms=wall / CB_BLOCKS * 1000.0, req_p50_ms=float(lat_ms[len(lat_ms) // 2]),
-               req_p99_ms=float(lat_ms[int(len(lat_ms) * 0.99)]), verdict_mix=mix, launches=launches,
-               virtual_clock_mix=virtual_mix, **info)
-    for kname in ("scatter_many", "seg_excl_cumsum", "seg_incl_min"):
-        check(launches[kname] > 0, ("client_bench", B, kname, launches))
-    check(info["seg_dropped_total"] == 0 and info["wire_decode_failures"] == 0, ("client_bench", B, info))
-    check(mix[0] > 0 and sum(mix[1:6]) > 0, ("client_bench", B, mix))
-    log(f"[client_bench] B={B}: dps {out['dps']:.0f}, effective_tick_ms {out['effective_tick_ms']:.3f}, "
-        f"req_p50_ms {out['req_p50_ms']:.3f}, req_p99_ms {out['req_p99_ms']:.3f} ({CB_BLOCKS} blocks, "
-        f"pipeline_depth {CB_DEPTH}, {inflight} in flight; {smi}); verdict mix {mix}; ticks that took the "
-        f"per-item branch {info['fallback_ticks']}; seg_u {seg_u} (peak {max_segs}); {promoted} tail names "
-        f"promoted; kernel launches {json.dumps(launches)}; depth {CB_DEPTH} == depth 0 on a virtual clock "
-        f"(8 ticks, verdict mix {virtual_mix})")
-    return out
+    return dict(dps=CB_BLOCKS * len(traffic[0][0]) / wall, effective_tick_ms=wall / CB_BLOCKS * 1000.0,
+                req_p50_ms=float(lat_ms[len(lat_ms) // 2]), req_p99_ms=float(lat_ms[int(len(lat_ms) * 0.99)]),
+                verdict_mix=np.bincount(np.concatenate(results), minlength=7).tolist(), launches=launches,
+                fallback_ticks=c.seg_fallback_ticks, ticks=ticks,
+                host_build_ms_avg=(c._build_ms_sum - b0[0]) / max(ticks, 1),
+                wire_tx_bytes_a_tick=tx / max(ticks, 1), wire_rx_bytes_a_tick=rx / max(ticks, 1),
+                cols_skipped_a_tick=skipped / max(ticks, 1), stage_breakdown_ms=stages)
 
 
 # -- phase 5: the probes ----------------------------------------------------------------
@@ -2711,6 +2884,19 @@ def main() -> int:
               (name, "explain coverage", info["explain_coverage"], n_blocked))
         check(info["timeline_rows"] > 0, (name, "the timeline recorded no rows"))
         main_runs[name] = dict(entries=n_done, seconds=elapsed, verdicts=counts, launches=launches, client=info)
+    # the extension points on the seg4 client: a no-op hook, slot and metric
+    # extension change no verdict, and each fires once an entry
+    plain, loaded, calls = drive_extension_points(st, np, torch, configs(platform_config)["seg4"])
+    n_pass = sum(1 for k, _w in loaded if k == "pass")
+    log(f"[main] extension points (seg4, {EXT_ENTRIES} entries, one thread, a stepped clock): verdicts with a "
+        f"no-op hook, slot and extension loaded equal the plain run's: {plain == loaded}; callbacks "
+        f"{json.dumps(calls, sort_keys=True)}; {n_pass} passed")
+    check(plain == loaded, "a no-op hook, slot and extension changed the verdicts")
+    check(calls.get("hook") == calls.get("slot_entry") == calls.get("slot_exit") == EXT_ENTRIES
+          and calls.get("on_pass", 0) + calls.get("on_block", 0) == EXT_ENTRIES
+          and calls.get("on_complete") == n_pass and 0 < n_pass < EXT_ENTRIES,
+          ("extension callback counts", calls, n_pass))
+    report["extension_points"] = dict(entries=EXT_ENTRIES, calls=calls, passed=n_pass, equal=plain == loaded)
     # the sketch configuration through the client: bench.py's names through
     # the registry (the exact space fills, the tail interns as sketch ids)
     sk_client = sketch_cfg(platform_config)  # the client sizes seg_u and seg_static_ranks itself

@@ -29,7 +29,10 @@ Ported so far: the admission path with flow (default, rate limiter,
 warm-up, occupy-ahead), degrade, authority, system and hot-parameter
 (param-flow) rules, the observability planes, the sketch tier for
 resources past the exact row space (``sentinel_tpu_torch.sketch``: tail
-flow rules, hot-set promotion), and the card's measurement probes
+flow rules, hot-set promotion), the client's host surface (the span
+tracer ``sentinel_tpu_torch.obs``, the native host library
+``sentinel_tpu_torch.native``, the entry hooks, custom slots and metric
+extensions), and the card's measurement probes
 (``sentinel_tpu_torch.probes``).  What is not ported raises
 ``NotImplementedError`` (see ROADMAP.md).
 """

@@ -2,6 +2,9 @@
 
 Copies of the JAX package's jax-free host modules (``sentinel_tpu/obs``):
 
+* ``obs.trace``    — the lock-light fixed-capacity span tracer (ring
+  buffer, Chrome-trace / Perfetto export, the wire trace context), whose
+  profiler passthrough enters ``torch.profiler.record_function``;
 * ``obs.registry`` — counters, gauges and power-of-two histograms with
   Prometheus text exposition; the port's own process-global ``REGISTRY``;
 * ``obs.timeline`` — the per-resource timeline: the tick's top-K rows
@@ -9,10 +12,77 @@ Copies of the JAX package's jax-free host modules (``sentinel_tpu/obs``):
 * ``obs.explain`` — the verdict-provenance plane: the wire's explain
   section decoded into per-resource "why blocked" rings.
 
-The span tracer, the flight recorder, the SLO engine, the fleet view and
-the device profile are not ported yet (ROADMAP.md, Queue A items 6 and 10).
+Tracing defaults OFF: call ``obs.enable()`` (or set ``SENTINEL_TRACE=1``)
+to start recording; ``summarize(TRACER.snapshot())`` gives each span
+name's count, p50 / p99, mean and total ms.  Disabled, every instrumented
+call site pays one flag check — no allocation, no formatting, no clock
+read.
+
+The flight recorder, the SLO engine, the fleet view, the device profile
+and the trace CLI are not ported yet (ROADMAP.md, Queue A items 6 and 10).
 """
 
 from sentinel_tpu_torch.obs.registry import REGISTRY, Counter, Gauge, Histogram, MetricRegistry
+from sentinel_tpu_torch.obs.trace import (
+    TRACER,
+    SpanTracer,
+    current_ctx,
+    event,
+    load_spans,
+    maybe_ctx,
+    new_span_id,
+    new_trace_id,
+    now_ns,
+    stage,
+    stage_ns,
+    summarize,
+    t0,
+    trace_ctx,
+)
 
-__all__ = ["REGISTRY", "Counter", "Gauge", "Histogram", "MetricRegistry"]
+
+def enable(torch_annotations: bool = False) -> None:
+    """Turn span recording on (optionally mirroring spans into
+    ``torch.profiler.record_function`` so they land in a torch.profiler
+    capture beside the kernels)."""
+    TRACER.enable(torch_annotations=torch_annotations)
+
+
+def disable() -> None:
+    TRACER.disable()
+
+
+def enabled() -> bool:
+    return TRACER.enabled
+
+
+def span(name: str, trace: int = 0, **attrs):
+    """Context-manager span on the default tracer (no-op when disabled)."""
+    return TRACER.span(name, trace, **attrs)
+
+
+__all__ = [
+    "REGISTRY",
+    "TRACER",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricRegistry",
+    "SpanTracer",
+    "current_ctx",
+    "disable",
+    "enable",
+    "enabled",
+    "event",
+    "load_spans",
+    "maybe_ctx",
+    "new_span_id",
+    "new_trace_id",
+    "now_ns",
+    "span",
+    "stage",
+    "stage_ns",
+    "summarize",
+    "t0",
+    "trace_ctx",
+]

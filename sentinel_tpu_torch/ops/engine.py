@@ -651,7 +651,7 @@ def compile_ruleset(
     if any(r.cluster_mode for r in param_rules):
         raise NotImplementedError(
             "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
-            "(ROADMAP.md Queue A item 6: the cluster token column)"
+            "(ROADMAP.md Queue A item A7: the cluster token column)"
         )
     tail = []
     exact_flow = []

@@ -8,10 +8,41 @@ back ONE packed wire buffer (ops/wire.py), whose verdicts resolve the
 waiting futures.  A wire buffer that fails validation fails the whole
 tick CLOSED (every item gets BLOCK_SYSTEM).
 
-Completions (``Entry.exit()``) go through a locked list and ride the
-next tick.  Counts, successes and errors are clamped to
-``cfg.max_batch_count`` at batch build — the envelope the fused kernels
-carry exactly (core/config.py).
+Completions (``Entry.exit()``) are one push onto the native MPMC event
+ring (native/ring.EventRing; an unbounded overflow list takes them when
+the ring is full, so none is ever lost) and ride the next tick; bulk
+completion blocks queue beside the ring in its column layout.  Counts,
+successes and errors are clamped to ``cfg.max_batch_count`` at batch
+build — the envelope the fused kernels carry exactly (core/config.py).
+
+Batch assembly writes into two-slot host staging buffers (``_sbuf``,
+pinned on the card), flipped every tick; a slot is written again only
+after the CUDA event recorded behind its last uploads has completed, so
+``pipeline_depth`` may run the card several ticks behind the host.  Each
+column goes up through ``_dev_col``: a column equal to its fill
+everywhere reuses one cached device constant, a column equal to the one
+uploaded the tick before reuses that tensor (``cols_skipped``), and every
+real upload is a copy, counted in ``sentinel_wire_bytes_total{direction=
+"tx"}`` (the readback in ``direction="rx"``).  The engine never writes a
+batch input in place, so cached columns are safe to share across ticks.
+
+Extension points, at the reference's places: ``enabled`` (False: every
+entry passes through and no tick runs), ``entry_hooks`` and the ordered
+custom slots ``slots`` (runtime/slots.py; a BlockException raised there
+rides the batch as the item's ``pre_verdict``, so the engine records the
+block, and the original exception is re-raised), and the metric
+extension SPI (metrics/extension.py: ``on_pass``, ``on_block``,
+``on_complete``, ``on_exception``).
+
+Stage spans (obs/trace.py, while tracing is on): each tick records
+``tick.assemble`` (presort time taken out), ``tick.presort``,
+``tick.dispatch`` (the eager tick call) on the dispatching thread, and
+``tick.device`` (dispatch to the wire host-visible: the wait on the
+tick's CUDA event), ``tick.readback`` and ``tick.resolve`` where it
+resolves, all under one trace id; rule recompiles record
+``client.recompile_rules`` and capacity resizes ``engine.seg_resize``.
+``host_build_ms_avg`` is the mean host build time a tick (assembly,
+presort, uploads), traced or not.
 
 On the segment path (``seg_effects``, the default ``platform_config()``)
 the client presorts each batch on the host by the engine's segment keys
@@ -76,11 +107,10 @@ tick iteration on its own cadence (``hotset_eval_s``).  ``stats.resource``
 reads an exact row's windowed stats (what demotion grades).
 
 Not ported yet (ROADMAP.md): cluster mode (a cluster-mode param rule
-raises), the hot-parameter value counters (``top_params``), the native
-completion ring, backpressure and deadlines (``deadline_ms`` raises),
-front doors, adaptive protection, the flight recorder and the block log,
-the obs span tracer, the sketch-accuracy audit and the sketch ids'
-windowed stats (``stats.resource`` on a sketch id).
+raises), the hot-parameter value counters (``top_params``), backpressure
+and deadlines (``deadline_ms`` raises), front doors, adaptive protection,
+the flight recorder and the block log, the sketch-accuracy audit and the
+sketch ids' windowed stats (``stats.resource`` on a sketch id).
 """
 
 from __future__ import annotations
@@ -101,7 +131,11 @@ from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
 from sentinel_tpu_torch.core.config import EngineConfig, app_name as cfg_app_name, platform_config
 from sentinel_tpu_torch.core.rule_tensors import hash_param, param_lanes
+from sentinel_tpu_torch.metrics import extension as MEXT
+from sentinel_tpu_torch.native import EventRing
+from sentinel_tpu_torch.native.ring import FLAG_COMPLETION, FLAG_INBOUND
 from sentinel_tpu_torch.obs import timeline as TLM
+from sentinel_tpu_torch.obs import trace as OT
 from sentinel_tpu_torch.obs.explain import ExplainPlane
 from sentinel_tpu_torch.obs.registry import REGISTRY as OBS
 from sentinel_tpu_torch.ops import engine as E
@@ -111,12 +145,36 @@ from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.runtime import context as CTX
 from sentinel_tpu_torch.runtime import presort as PS
 from sentinel_tpu_torch.runtime.registry import Registry
+from sentinel_tpu_torch.runtime.slots import SlotChain, SlotContext, run_entry, run_exit
 from sentinel_tpu_torch.sketch.hotset import HotSetManager, guarded_promote
 from sentinel_tpu_torch.utils.system_status import SystemStatusSampler
 from sentinel_tpu_torch.utils.time_source import TimeSource, VirtualTimeSource, mono_s
 
 _log = logging.getLogger(__name__)
 
+# -- per-stage tick histograms (obs/trace.py stage spans): they update only
+# while tracing is enabled (OT.t0() truthiness is the hot path's single
+# flag check)
+_H_ASSEMBLE = OBS.histogram(
+    "sentinel_tick_assemble_ms", "host batch assembly (columns + uploads) per tick"
+)
+_H_PRESORT = OBS.histogram(
+    "sentinel_tick_presort_ms", "host segment-key presort (native sort + permute) per tick"
+)
+_H_DISPATCH = OBS.histogram(
+    "sentinel_tick_dispatch_ms", "engine tick dispatch (the eager tick call) per tick"
+)
+_H_DEVICE = OBS.histogram(
+    "sentinel_tick_device_ms",
+    "dispatch to verdicts-host-visible per tick (device compute + transfer; "
+    "includes pipeline queue wait)",
+)
+_H_READBACK = OBS.histogram(
+    "sentinel_tick_readback_ms", "wire decode folds and residual device-to-host reads per tick"
+)
+_H_RESOLVE = OBS.histogram(
+    "sentinel_tick_resolve_ms", "verdict fan-out (futures, blocks) per tick"
+)
 
 # -- device-resident telemetry (cfg.device_telemetry): the engine emits a
 # stats row per tick (ops/engine.STAT_*) and the readback folds it here,
@@ -170,12 +228,20 @@ _G_DEV_SEG_LIVE = OBS.gauge(
     "sentinel_device_seg_live",
     "live compacted segments in the last tick (seg path only)",
 )
-# the readback's bytes (the timeline rows are counted under their own path,
-# obs/timeline.py); uploads are not counted yet
-_C_WIRE_RX = OBS.counter(
-    "sentinel_wire_bytes_total",
-    "bytes moved, by path (device|cluster) and direction (tx|rx)",
-    labels={"path": "device", "direction": "rx"},
+# -- wire byte accounting: the batch columns' uploads (tx) and the
+# readback (rx; the timeline rows are counted under their own path,
+# obs/timeline.py), as they cross between host and card
+_C_WIRE = {
+    d: OBS.counter(
+        "sentinel_wire_bytes_total",
+        "bytes moved, by path (device|cluster) and direction (tx|rx)",
+        labels={"path": "device", "direction": d},
+    )
+    for d in ("tx", "rx")
+}
+_C_COLS_SKIPPED = OBS.counter(
+    "sentinel_wire_cols_skipped_total",
+    "batch-column uploads skipped because the column matched the previous tick",
 )
 _C_PACKED_DECODE = OBS.counter(
     "sentinel_packed_decode_failures_total",
@@ -211,6 +277,12 @@ def _mask_min_rt(v: float) -> float:
     """RT_MIN_INIT (5000) is the 'no completions in window' sentinel:
     report 0.0 instead of a phantom 5-second minimum."""
     return 0.0 if v >= W.RT_MIN_INIT else v
+
+
+def _np_dtypes(wire_dtypes: dict) -> dict:
+    """ops/wire.py's narrow torch dtypes as the numpy dtypes the host
+    stages the columns in."""
+    return {f: torch.empty(0, dtype=dt).numpy().dtype for f, dt in wire_dtypes.items()}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -317,6 +389,10 @@ class _PendingTick:
     now_ms: int  # engine timestamp the tick ran at (timeline fold key)
     buf: Optional[torch.Tensor] = None
     event: Any = None
+    # stage-span correlation: the tick's trace id and the monotonic ns its
+    # dispatch returned (0 while tracing is off)
+    tick_id: int = 0
+    dispatched_ns: int = 0
     # fan-out progress: a failed resolve fails CLOSED only the blocks the
     # normal path had not reached (no double decrement)
     blocks_done: int = 0
@@ -348,34 +424,6 @@ class _ReadbackPool:
             self._free.setdefault(buf.shape[0], []).append(buf)
 
 
-#: acquire columns: (field, fill, host dtype)
-_ACQ_COLS = (
-    ("res", None, np.int32),
-    ("count", 0, np.int32),
-    ("prio", 0, np.int32),
-    ("origin_id", -1, np.int32),
-    ("origin_node", None, np.int32),
-    ("ctx_node", None, np.int32),
-    ("ctx_name", -1, np.int32),
-    ("inbound", 0, np.int32),
-    ("pre_verdict", 0, np.int32),
-)
-_COMP_COLS = (
-    ("res", None, np.int32),
-    ("origin_node", None, np.int32),
-    ("ctx_node", None, np.int32),
-    ("inbound", 0, np.int32),
-    ("rt", 0.0, np.float32),
-    ("success", 0, np.int32),
-    ("error", 0, np.int32),
-)
-#: the segment path's presort keys, most significant first: the segment
-#: keys of engine_seg.prepare_acquire / prepare_completions, res-major (the
-#: scan ranks also need res nondecreasing)
-_ACQ_SEG_KEYS = ("res", "ctx_node", "origin_node", "origin_id", "ctx_name")
-_COMP_SEG_KEYS = ("res", "ctx_node", "origin_node")
-
-
 class Entry:
     """Live entry handle (the reference's Entry/CtEntry).  ``exit()``
     records RT + success; ``trace(exc)`` marks a business exception."""
@@ -383,6 +431,7 @@ class Entry:
     __slots__ = (
         "client", "resource", "res", "origin_node", "ctx_node", "inbound",
         "count", "create_ms", "wait_ms", "param_hash", "_errors", "_exited",
+        "slots", "slot_ctx",
     )
 
     def __init__(self, client, resource, res, origin_node, ctx_node, inbound, count, create_ms, wait_ms=0,
@@ -399,6 +448,8 @@ class Entry:
         self.param_hash = param_hash
         self._errors = 0
         self._exited = False
+        self.slots = ()  # entered custom slots (runtime/slots.py)
+        self.slot_ctx = None
 
     def trace(self, exc: Optional[BaseException] = None, count: int = 1) -> None:
         if exc is not None and isinstance(exc, ERR.BlockException):
@@ -413,18 +464,28 @@ class Entry:
         if self.res is None:
             return  # pass-through entry (capacity overflow)
         now = self.client.time.now_ms()
+        rt = float(max(now - self.create_ms, 0))
+        n = count if count is not None else self.count
+        MEXT.safe_dispatch("on_complete", self.resource, rt, n, "")
+        if self._errors:
+            MEXT.safe_dispatch("on_exception", self.resource, self._errors, "")
         self.client._submit_completion(
             Completion(
                 res=self.res,
                 origin_node=self.origin_node,
                 ctx_node=self.ctx_node,
                 inbound=self.inbound,
-                rt=float(max(now - self.create_ms, 0)),
-                success=count if count is not None else self.count,
+                rt=rt,
+                success=n,
                 error=self._errors,
                 param_hash=self.param_hash,
             )
         )
+        if self.slots:
+            self.slot_ctx.rt_ms = rt
+            self.slot_ctx.success = n
+            self.slot_ctx.errors = self._errors
+            run_exit(self.slots, self.slot_ctx)
 
     def __enter__(self):
         return self
@@ -455,7 +516,7 @@ class RuleManager:
         if self.kind == "param-flow" and any(r.cluster_mode for r in rules):
             raise NotImplementedError(
                 "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
-                "(ROADMAP.md Queue A item 6: the cluster token column)"
+                "(ROADMAP.md Queue A item A7: the cluster token column)"
             )
         self._rules = rules
         self._client._recompile_rules()
@@ -495,6 +556,17 @@ class SentinelClient:
         self.tick_interval_ms = tick_interval_ms
         self.entry_timeout_s = entry_timeout_s
 
+        # global protection switch (Constants.ON): when off, every entry is
+        # a pass-through and nothing is counted
+        self.enabled = True
+        # custom entry hooks — the lightweight pre-check form: each hook
+        # sees (resource, origin, args) before the engine check and may
+        # raise a BlockException to reject
+        self.entry_hooks: List[Any] = []
+        # the ordered custom-slot SPI (runtime/slots.py): entry AND exit
+        # hooks; register with client.slots.register(slot)
+        self.slots = SlotChain()
+
         self.registry = Registry(self.cfg)
         self.flow_rules = RuleManager(self, "flow")
         self.degrade_rules = RuleManager(self, "degrade")
@@ -516,11 +588,41 @@ class SentinelClient:
         # threads); reentrant for future callbacks that tick again
         self._tick_mutex = threading.RLock()
         self._acquires: List[AcquireRequest] = []
-        self._completions: List[Completion] = []
+        # completions are fire-and-forget (no futures), so they ride the
+        # native MPMC event ring: Entry.exit() from any request thread is
+        # one C call, and the tick drains straight into numpy columns
+        self._comp_ring = EventRing(1 << 16)
+        # completions must NEVER be lost (they release concurrency and feed
+        # the breakers): when the ring is full they overflow into this
+        # unbounded list
+        self._comp_overflow: List[Completion] = []
         # bulk column-array submissions (ArrayBlock) and bulk completions
-        # (dicts of _COMP_COLS columns plus param_hash)
+        # (tuples of columns in the ring's drain layout)
         self._acq_blocks: List[ArrayBlock] = []
-        self._comp_blocks: List[dict] = []
+        self._comp_blocks: List[tuple] = []
+        # device-resident constant columns keyed by (field, fill, dtype,
+        # shape): a batch column equal to its fill everywhere reuses one
+        # cached device tensor instead of an upload every tick
+        self._const_cols: Dict[tuple, torch.Tensor] = {}
+        # dirty-column skip: field -> (PRIVATE host copy of the column as
+        # last uploaded, its device tensor)
+        self._col_last: Dict[str, tuple] = {}
+        # two-slot staging for batch assembly: per-column host buffers
+        # (pinned on the card) reused on alternating parity; a slot is
+        # rewritten only once the CUDA event recorded behind its last
+        # uploads has completed (_stage_events), whatever the pipeline depth
+        self._stage: Dict[tuple, list] = {}
+        self._stage_parity = 0
+        self._stage_events: List[Any] = [None, None]
+        self._pinned = self.device.type == "cuda"
+        # empty batches of a side with nothing queued (never uploaded)
+        self._empty_batches: Dict[tuple, Any] = {}
+        # running sum of host batch-build time (host_build_ms_avg)
+        self._build_ms_sum = 0.0
+        self._build_ticks = 0
+        #: which host presort ran the last segment-path tick: "native" (the
+        #: C++ library, native/) or "numpy" (np.lexsort); None before one
+        self.host_sort: Optional[str] = None
         # guards block progress accounting (resolver thread vs fail-closed)
         self._blk_lock = threading.Lock()
         self._wire_layouts: Dict[int, WIRE.WireLayout] = {}
@@ -687,6 +789,10 @@ class SentinelClient:
                 guarded_promote(self.registry, r.resource)
 
     def _recompile_rules(self) -> None:
+        with OT.TRACER.span("client.recompile_rules"):
+            self._recompile_rules_traced()
+
+    def _recompile_rules_traced(self) -> None:
         flow = [r for r in self.flow_rules.get() if not r.cluster_mode]
         if self.cfg.sketch_stats:
             self._promote_ruled_tail(flow)
@@ -751,14 +857,47 @@ class SentinelClient:
         ``_ctx`` / ``_push_ctx`` serve ``entry_async``: the caller's
         context captured on its own thread, and the entry left off this
         thread's stack."""
+        if not self.enabled:
+            e = _PassThroughEntry(self, resource)
+            if _push_ctx:
+                CTX.push_entry(e)
+            return e
         ctx_name, ctx_origin = _ctx if _ctx is not None else CTX.current()
         origin = origin if origin is not None else ctx_origin
+        # custom entry hooks: a raised BlockException rides the batch as a
+        # pre-verdict, so the ENGINE records the block (stats, telemetry,
+        # explain), and the ORIGINAL exception is re-raised at the end
+        hook_exc: Optional[ERR.BlockException] = None
+        for hook in self.entry_hooks:
+            try:
+                hook(resource, origin, args)
+            except ERR.BlockException as he:
+                hook_exc = he
+                break
         rid = self.registry.resource_id(resource)
         if rid is None:
             e = _PassThroughEntry(self, resource)
             if _push_ctx:
                 CTX.push_entry(e)
             return e  # capacity overflow → pass-through (CtSph.java:200)
+        # ordered custom slots: the entry side here; the exit side unwinds
+        # on Entry.exit or on rejection below.  Pass-through entries above
+        # run no slot (no chain runs at all)
+        slot_ctx = None
+        entered_slots: list = []
+        slot_list = self.slots.snapshot()
+        if slot_list and hook_exc is None:
+            slot_ctx = SlotContext(
+                resource=resource,
+                origin=origin or "",
+                args=args,
+                count=count,
+                prioritized=prioritized,
+                inbound=inbound,
+            )
+            entered_slots, slot_exc = run_entry(slot_list, slot_ctx)
+            if slot_exc is not None:
+                hook_exc = slot_exc
         origin_id = self.registry.origin_id(origin) if origin else -1
         origin_node = (
             self.registry.origin_node_row(resource, origin) if origin else self.cfg.trash_row
@@ -770,6 +909,10 @@ class SentinelClient:
             ctx_node = self.cfg.trash_row
             ctx_id = -1
         param_hashes = self.param_hashes(resource, args)
+        pre_verdict = 0
+        if hook_exc is not None:
+            code = getattr(hook_exc, "code", 0)
+            pre_verdict = code if code > 0 else ERR.BLOCK_FLOW
         req = AcquireRequest(
             res=rid,
             count=count,
@@ -779,6 +922,7 @@ class SentinelClient:
             ctx_node=ctx_node,
             ctx_name=ctx_id,
             inbound=1 if inbound else 0,
+            pre_verdict=pre_verdict,
             future=Future(),
             param_hash=param_hashes,
         )
@@ -788,13 +932,23 @@ class SentinelClient:
             self.tick_once()
         verdict, wait_ms = req.future.result(timeout=self.entry_timeout_s)
         if verdict not in (ERR.PASS, ERR.PASS_WAIT):
-            raise ERR.exception_for_verdict(verdict, resource)
+            # the engine already counted the block; here only the
+            # extension SPI and the slots' exit side fire
+            exc = hook_exc if hook_exc is not None else ERR.exception_for_verdict(verdict, resource)
+            MEXT.safe_dispatch("on_block", resource, count, origin or "", exc, args)
+            if entered_slots:
+                slot_ctx.block_exception = exc
+                run_exit(entered_slots, slot_ctx)
+            raise exc
         if verdict == ERR.PASS_WAIT and wait_ms > 0:
             self.time.sleep_ms(wait_ms)
+        MEXT.safe_dispatch("on_pass", resource, count, origin or "", args)
         e = Entry(
             self, resource, rid, origin_node, ctx_node, 1 if inbound else 0,
             count, self.time.now_ms(), wait_ms, param_hashes,
         )
+        e.slots = entered_slots
+        e.slot_ctx = slot_ctx
         if _push_ctx:
             CTX.push_entry(e)
         return e
@@ -884,8 +1038,27 @@ class SentinelClient:
         CTX.exit_ctx(token)
 
     def _submit_completion(self, c: Completion) -> None:
-        with self._lock:
-            self._completions.append(c)
+        """One push onto the completion ring (ring field names: origin_id
+        carries the origin node row, param_hash the context node row, the
+        aux lanes the THREAD-grade release hashes); the overflow list
+        takes it when the ring is full."""
+        ph = tuple(c.param_hash) + (0, 0, 0, 0)
+        ok = self._comp_ring.push(
+            res=c.res,
+            count=c.success,
+            origin_id=c.origin_node,
+            param_hash=c.ctx_node,
+            flags=FLAG_COMPLETION | (FLAG_INBOUND if c.inbound else 0),
+            rt_ms=c.rt,
+            error=c.error,
+            aux0=ph[0],
+            aux1=ph[1],
+            aux2=ph[2],
+            aux3=ph[3],
+        )
+        if not ok:
+            with self._lock:
+                self._comp_overflow.append(c)
         if self.mode == "sync":
             self.tick_once()
 
@@ -902,8 +1075,11 @@ class SentinelClient:
         """Non-blocking single acquire: queue the request and return its
         Future of (verdict, wait_ms), or None for an unknown resource (a
         pass-through: the registry is full).  Thousands of in-flight
-        requests coalesce into engine micro-batches without a thread each."""
+        requests coalesce into engine micro-batches without a thread each.
+        None too while the client is disabled (``enabled=False``)."""
         _no_deadlines(deadline_ms)
+        if not self.enabled:
+            return None
         rid = self.registry.resource_id(resource)
         if rid is None:
             return None
@@ -937,8 +1113,11 @@ class SentinelClient:
     ) -> List[Tuple[int, int]]:
         """Vector acquire: [(verdict, wait_ms)] per resource, N decisions in
         as few ticks as the batch size allows.  ``params[i]`` is hashed into
-        lane 0; an unknown resource (full registry) passes through."""
+        lane 0; an unknown resource (full registry) passes through, and
+        so does everything while the client is disabled."""
         _no_deadlines(deadline_ms)
+        if not self.enabled:
+            return [(ERR.PASS, 0)] * len(resources)
         futures = []
         with self._lock:
             for i, name in enumerate(resources):
@@ -986,14 +1165,17 @@ class SentinelClient:
         param_hash: Optional[np.ndarray] = None,
         pre_verdict: Optional[np.ndarray] = None,
         deadline_ms: int = 0,
-    ) -> Future:
+    ) -> Optional[Future]:
         """Bulk acquire: COLUMN ARRAYS of engine resource ids (from
         ``registry.resource_id``), no per-item Python objects.  Returns a
         Future of (verdicts int8 [n], waits int32 [n]) in submission order;
         a block larger than the batch size spans ticks.  Negative ids are
         padding (the trash row).  Done-callbacks run on the resolving
-        thread and must not block on another tick (they may submit more)."""
+        thread and must not block on another tick (they may submit more).
+        None while the client is disabled: the block passes through."""
         _no_deadlines(deadline_ms)
+        if not self.enabled:
+            return None
         res = np.ascontiguousarray(res, dtype=np.int32)
         n = len(res)
         # negative ids would wrap in the scatters: they become padding
@@ -1046,6 +1228,9 @@ class SentinelClient:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Blocking form of submit_block: (verdicts, waits) arrays."""
         fut = self.submit_block(res, counts=counts, **cols)
+        if fut is None:
+            n = len(res)
+            return np.full(n, ERR.PASS, np.int8), np.zeros(n, np.int32)
         return fut.result(timeout=timeout_s or self.entry_timeout_s)
 
     def submit_completion_block(
@@ -1060,35 +1245,43 @@ class SentinelClient:
         param_hash: Optional[np.ndarray] = None,
     ) -> None:
         """Bulk exits for block-acquired traffic: column arrays, queued for
-        the next tick (completions are fire-and-forget).  ``success``
-        defaults to 1, ``error`` and ``inbound`` to 0, the node rows to
-        the trash row; ``param_hash`` carries the THREAD-grade release
-        lanes."""
+        the next tick (completions are fire-and-forget) beside the
+        completion ring, in its drain layout.  ``success`` defaults to 1,
+        ``error`` and ``inbound`` to 0, the node rows to the trash row;
+        ``param_hash`` carries the THREAD-grade release lanes."""
         res = np.ascontiguousarray(res, dtype=np.int32)
         n = len(res)
         trash = self.cfg.trash_row
-        given = dict(res=res, origin_node=origin_node, ctx_node=ctx_node, inbound=inbound, rt=rt,
-                     success=success, error=error)
-        blk = {}
-        for f, fill, dt in _COMP_COLS:
-            x = given[f]
-            if x is None:  # a block's exits default to one success each
-                x = np.full(n, trash if fill is None else 1 if f == "success" else fill, dt)
+
+        def col(x, fill, dt=np.int32):
+            if x is None:
+                return np.full(n, fill, dt)
             x = np.ascontiguousarray(x, dtype=dt)
             if len(x) != n:
-                raise ValueError(f"column {f} of {len(x)} items for a block of {n}")
-            blk[f] = x
-        blk["inbound"] = (blk["inbound"] != 0).astype(np.int32)
-        M = self.cfg.param_dims
-        ph = np.zeros((n, M), np.int32)
+                raise ValueError(f"column of {len(x)} items for a block of {n}")
+            return x
+
+        flags = np.full(n, FLAG_COMPLETION, np.int32) | np.where(col(inbound, 0) != 0, FLAG_INBOUND, 0)
         if param_hash is not None:
-            src = np.ascontiguousarray(param_hash, dtype=np.int32).reshape(n, -1)[:, :M]
-            ph[:, : src.shape[1]] = src
-        blk["param_hash"] = ph
+            ph = np.ascontiguousarray(param_hash, dtype=np.int32).reshape(n, -1)
+            aux = [ph[:, k] if k < ph.shape[1] else np.zeros(n, np.int32) for k in range(4)]
+        else:
+            aux = [np.zeros(n, np.int32)] * 4
+        block = (
+            res,
+            col(success, 1),
+            col(origin_node, trash),
+            col(ctx_node, trash),
+            flags.astype(np.int32),
+            col(rt, 0.0, np.float32),
+            col(error, 0),
+            np.zeros(n, np.int32),
+            *aux,
+        )
         if n == 0:
             return
         with self._lock:
-            self._comp_blocks.append(blk)
+            self._comp_blocks.append(block)
         if self.mode == "sync":
             self.tick_once()
 
@@ -1118,11 +1311,61 @@ class SentinelClient:
         if hs is not None:
             hs.maybe_evaluate()
 
+    def _drain_completions(self, cbs: int):
+        """Up to ``cbs`` completions as ring-layout columns (res, count,
+        origin_node, ctx_node, flags, rt, error, tag, aux0..3), or None:
+        the ring first, then the overflow list (only once the ring drains
+        short, so spilled exits never jump ahead of older ring entries),
+        then the completion blocks."""
+        comp = self._comp_ring.drain(cbs)
+        n_comp = len(comp[0])
+        if n_comp < cbs and self._comp_overflow:
+            with self._lock:
+                spill = self._comp_overflow[: cbs - n_comp]
+                self._comp_overflow = self._comp_overflow[len(spill):]
+            if spill:
+                rows = [
+                    (c.res, c.success, c.origin_node, c.ctx_node,
+                     FLAG_COMPLETION | (FLAG_INBOUND if c.inbound else 0), c.rt, c.error, 0)
+                    + (tuple(c.param_hash) + (0, 0, 0, 0))[:4]
+                    for c in spill
+                ]
+                comp = tuple(
+                    np.concatenate([col, np.asarray(extra, col.dtype)])
+                    for col, extra in zip(comp, zip(*rows))
+                )
+                n_comp += len(spill)
+        if n_comp < cbs and self._comp_blocks:
+            pieces = []
+            with self._lock:
+                room = cbs - n_comp
+                while room > 0 and self._comp_blocks:
+                    cb = self._comp_blocks[0]
+                    k = len(cb[0])
+                    if k <= room:
+                        pieces.append(cb)
+                        self._comp_blocks.pop(0)
+                        room -= k
+                    else:
+                        pieces.append(tuple(col[:room] for col in cb))
+                        self._comp_blocks[0] = tuple(col[room:] for col in cb)
+                        room = 0
+            if pieces:
+                comp = tuple(np.concatenate([comp[j]] + [p[j] for p in pieces]) for j in range(len(comp)))
+                n_comp = len(comp[0])
+        return comp if n_comp else None
+
+    def _has_work(self) -> bool:
+        with self._lock:
+            return bool(
+                self._acquires or self._acq_blocks or self._comp_blocks or self._comp_overflow
+                or len(self._comp_ring)
+            )
+
     def _tick_once_locked(self, now_ms: Optional[int]) -> None:
         bs, cbs = self.cfg.batch_size, self.cfg.complete_batch_size
         while True:
             blocks = []
-            comp_pieces = []
             with self._lock:
                 acq = self._acquires[:bs]
                 self._acquires = self._acquires[bs:]
@@ -1137,27 +1380,13 @@ class SentinelClient:
                     room -= take
                     if blk.taken >= len(blk.res):
                         self._acq_blocks.pop(0)
-                comp = self._completions[:cbs]
-                self._completions = self._completions[cbs:]
-                # completion blocks join after the object completions
-                room_c = cbs - len(comp)
-                while room_c > 0 and self._comp_blocks:
-                    cb = self._comp_blocks[0]
-                    k = len(cb["res"])
-                    if k <= room_c:
-                        comp_pieces.append(cb)
-                        self._comp_blocks.pop(0)
-                        room_c -= k
-                    else:
-                        comp_pieces.append({f: v[:room_c] for f, v in cb.items()})
-                        self._comp_blocks[0] = {f: v[room_c:] for f, v in cb.items()}
-                        room_c = 0
-            if not acq and not blocks and not comp and not comp_pieces and now_ms is None:
+            comp = self._drain_completions(cbs)
+            if not acq and not blocks and comp is None and now_ms is None:
                 # idle: flush any deferred readbacks before returning
                 self._drain_resolves()
                 return
             try:
-                pending = self._run_tick(acq, comp, now_ms, blocks=blocks, comp_blocks=comp_pieces)
+                pending = self._run_tick(acq, comp, now_ms, blocks=blocks)
             except Exception:
                 # a tick that cannot run decides nothing: its callers
                 # get a fail-closed verdict, not an entry timeout
@@ -1168,8 +1397,7 @@ class SentinelClient:
                 raise
             self._pending_ticks.append(pending)
             _G_OCCUPANCY.set(len(self._pending_ticks))
-            with self._lock:
-                more = bool(self._acquires or self._acq_blocks or self._completions or self._comp_blocks)
+            more = self._has_work()
             depth = self._pipeline_depth if more else 0
             while len(self._pending_ticks) > depth:
                 p = self._pending_ticks.pop(0)
@@ -1192,9 +1420,7 @@ class SentinelClient:
                 # wait out in-flight resolutions; their callbacks may queue
                 # new work (closed-loop callers) — check again
                 self._drain_resolves()
-                with self._lock:
-                    more = bool(self._acquires or self._acq_blocks or self._completions or self._comp_blocks)
-                if not more:
+                if not self._has_work():
                     return
             now_ms = None
 
@@ -1230,14 +1456,14 @@ class SentinelClient:
     def _warm_shapes(self) -> None:
         """Run both batch shapes once with no-op batches (builds the
         kernels before serving)."""
-        self._resolve_tick(self._run_tick([], [], self.time.now_ms()))
+        self._resolve_tick(self._run_tick([], None, self.time.now_ms()))
         if self.cfg.batch_size > 256:
             filler = AcquireRequest(
                 res=self.cfg.trash_row, count=0, prio=0, origin_id=-1,
                 origin_node=self.cfg.trash_row, ctx_node=self.cfg.trash_row,
                 ctx_name=-1, inbound=0,
             )
-            self._resolve_tick(self._run_tick([filler] * 257, [], self.time.now_ms()))
+            self._resolve_tick(self._run_tick([filler] * 257, None, self.time.now_ms()))
 
     @staticmethod
     def _shape_for(n: int, cap: int) -> int:
@@ -1281,11 +1507,15 @@ class SentinelClient:
         """Swap in a tick with the compacted capacity ``new_u`` (eager
         PyTorch: nothing to compile, the swap is immediate)."""
         _C_SEG_RESIZE.inc()
-        cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
-        with self._engine_lock:
-            self.cfg = self.registry.cfg = cfg
-            self._tick = E.make_tick(cfg, features=self._features)
-            self._seg_over_ticks = 0
+        h = OT.TRACER.begin("engine.seg_resize", seg_u=int(new_u))
+        try:
+            cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
+            with self._engine_lock:
+                self.cfg = self.registry.cfg = cfg
+                self._tick = E.make_tick(cfg, features=self._features)
+                self._seg_over_ticks = 0
+        finally:
+            OT.TRACER.end(h)
 
     def _record_seg_dropped(self, n: int) -> None:
         """Surface fail-closed segment-overflow drops (seg_fallback=False):
@@ -1303,129 +1533,280 @@ class SentinelClient:
                 n, self.seg_dropped_total, ES.seg_capacity(self.cfg, self.cfg.batch_size),
             )
 
-    def _hash_col(self, items: Sequence, rows: int) -> np.ndarray:
-        """int32 [rows, param_dims]: each request's hashed lanes (0 = none;
-        padding rows and requests without arguments stay 0)."""
-        M = self.cfg.param_dims
-        col = np.zeros((rows, M), np.int32)
-        for i, r in enumerate(items):
-            if r.param_hash:
-                col[i, : len(r.param_hash[:M])] = r.param_hash[:M]
-        return col
+    @property
+    def host_build_ms_avg(self) -> float:
+        """Mean host batch-build time a tick (assembly, presort, uploads)
+        since the client was built — the serial host share of serving."""
+        return self._build_ms_sum / self._build_ticks if self._build_ticks else 0.0
 
-    def _upload(self, x: np.ndarray, dtype=None) -> torch.Tensor:
+    def _sbuf(self, name: str, shape, dt) -> np.ndarray:
+        """The current-parity slot of the two-slot host staging buffer for
+        one assembly column (pinned on the card); the caller fills it
+        completely."""
+        key = (name, shape, np.dtype(dt).str)
+        s = self._stage.get(key)
+        if s is None:
+            s = self._stage[key] = [self._host_buffer(shape, dt) for _ in range(2)]
+        return s[self._stage_parity]
+
+    def _host_buffer(self, shape, dt) -> np.ndarray:
+        if not self._pinned:
+            return np.empty(shape, dt)
+        tdt = torch.from_numpy(np.empty(0, dt)).dtype
+        return torch.empty(shape, dtype=tdt, pin_memory=True).numpy()
+
+    def _flip_stage(self) -> None:
+        """Flip the staging parity, then wait until the uploads that last
+        read this parity's slots have run on the card (the event recorded
+        behind them; it has almost always completed)."""
+        self._stage_parity ^= 1
+        ev = self._stage_events[self._stage_parity]
+        if ev is not None:
+            ev.synchronize()
+            self._stage_events[self._stage_parity] = None
+
+    def _h2d(self, x: np.ndarray) -> torch.Tensor:
+        """One column's upload — always a copy (on the CPU,
+        ``torch.from_numpy`` alone would alias the staging slot), and
+        asynchronous from a pinned slot on the card."""
         t = torch.from_numpy(x)
-        if dtype is not None:
-            t = t.to(dtype)
-        return t.to(self.device)
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.to(self.device, non_blocking=True)
 
-    def _acquire_columns(self, acq: List[AcquireRequest], blocks, B: int) -> dict:
-        """The acquire batch's host columns: object requests at [0, n),
-        block slices after them (array copies, no per-item Python), trash
-        padding to B; counts clamped to the fused kernels' envelope."""
+    def _dev_col(self, field: str, x: np.ndarray, fill) -> torch.Tensor:
+        """Upload a batch column — or reuse a cached device constant when
+        the column equals ``fill`` everywhere, or the tensor of the
+        previous upload of ``field`` when the column is bit-identical to
+        it (``sentinel_wire_cols_skipped_total``).  Keyed by FIELD, so two
+        batch leaves never share one tensor.  The dirty-skip's host ref is
+        a PRIVATE COPY of the uploaded column, never the staging slot,
+        which the next tick but one overwrites.  Every real upload counts
+        its bytes under ``sentinel_wire_bytes_total{direction="tx"}``."""
+        if (x == fill).all():
+            key = (field, float(fill), x.dtype.str, x.shape)
+            c = self._const_cols.get(key)
+            if c is None:
+                c = self._const_cols[key] = self._h2d(x)
+                _C_WIRE["tx"].inc(x.nbytes)  # the constant's first (only) upload
+            # the dirty ref would go stale while constant ticks bypass it
+            self._col_last.pop(field, None)
+            return c
+        prev = self._col_last.get(field)
+        if prev is not None and prev[0].shape == x.shape and prev[0].dtype == x.dtype and np.array_equal(prev[0], x):
+            _C_COLS_SKIPPED.inc()
+            return prev[1]
+        dev = self._h2d(x)
+        _C_WIRE["tx"].inc(x.nbytes)
+        self._col_last[field] = (x.copy(), dev)
+        return dev
+
+    def _empty(self, kind: str, b: int):
+        """The batch of a side with nothing queued (built once a shape,
+        never uploaded again: the engine does not write its inputs)."""
+        key = (kind, b)
+        batch = self._empty_batches.get(key)
+        if batch is None:
+            make = E.empty_acquire if kind == "a" else E.empty_complete
+            batch = self._empty_batches[key] = make(self.cfg, self.device, b)
+        return batch
+
+    def _run_tick(self, acq: List[AcquireRequest], comp, now_ms, blocks=()) -> _PendingTick:
+        """Build the batch columns into the staging slots (presorted on the
+        segment path), upload them through ``_dev_col``, run one tick and
+        start its wire's readback into a host buffer; returns the
+        ``_PendingTick``.  ``comp``: the drained ring-layout completion
+        columns, or None."""
         cfg = self.cfg
+        M = cfg.param_dims
         trash = cfg.trash_row
-        n = len(acq)
-        cols = {}
-        for f, fill, dt in _ACQ_COLS:
-            col = np.full(B, trash if fill is None else fill, dt)
-            if acq:
-                col[:n] = [getattr(r, f) for r in acq]
+        n_blk = sum(t for _b, _o, t in blocks)
+        # every _sbuf below hands out the slot the previous tick did not touch
+        self._flip_stage()
+        t_build0 = mono_s()
+        # one trace id correlates this tick's spans across the dispatching
+        # thread and the resolver; _t_asm truthiness is the single flag
+        # check, and presort time is taken out of the assemble span
+        tick_id = OT.TRACER.next_trace_id()
+        _t_asm = OT.t0()
+        _tp0 = 0
+        _ns_presort = 0
+        B = self._shape_for(len(acq) + n_blk, cfg.batch_size)
+        B2 = self._shape_for(0 if comp is None else len(comp[0]), cfg.complete_batch_size)
+        presort = cfg.seg_effects
+        inv = None
+        segs_a = segs_c = 0
+        if acq or n_blk:
+            n = len(acq)
+
+            def arr(f, fill, dt=np.int32, blk_default=None):
+                """Object requests at [0, n), block slices after them (array
+                copies, no per-item Python), padding to B."""
+                out = self._sbuf("a." + f, B, dt)
+                out.fill(fill)
+                if acq:
+                    out[:n] = [getattr(r, f) for r in acq]
+                o = n
+                for blk, off, take in blocks:
+                    src = getattr(blk, f)
+                    if src is not None:
+                        out[o : o + take] = src[off : off + take]
+                    elif blk_default is not None:
+                        out[o : o + take] = blk_default
+                    o += take
+                return out
+
+            res_np = arr("res", trash)
+            cnt_np = arr("count", 0, blk_default=1)
+            np.minimum(cnt_np, cfg.max_batch_count, out=cnt_np)  # the fused kernels' envelope
+            prio_np = arr("prio", 0)
+            oid_np = arr("origin_id", -1)
+            onode_np = arr("origin_node", trash)
+            cnode_np = arr("ctx_node", trash)
+            cname_np = arr("ctx_name", -1)
+            inb_np = arr("inbound", 0)
+            pre_np = arr("pre_verdict", 0)
+            ph_np = self._sbuf("a.ph", (B, M), np.int32)
+            ph_np.fill(0)
+            for i, r in enumerate(acq):
+                if r.param_hash:
+                    h = tuple(r.param_hash)[:M]
+                    ph_np[i, : len(h)] = h
             o = n
             for blk, off, take in blocks:
-                src = getattr(blk, f)
-                if src is not None:
-                    col[o : o + take] = src[off : off + take]
-                elif f == "count":
-                    col[o : o + take] = 1
+                if blk.param_hash is not None:
+                    src = blk.param_hash[off : off + take, :M]
+                    ph_np[o : o + take, : src.shape[1]] = src
                 o += take
-            if f == "count":
-                np.minimum(col, cfg.max_batch_count, out=col)  # the fused kernels' envelope
-            cols[f] = col
-        ph = self._hash_col(acq, B)
-        o = n
-        M = cfg.param_dims
-        for blk, off, take in blocks:
-            if blk.param_hash is not None:
-                src = blk.param_hash[off : off + take, :M]
-                ph[o : o + take, : src.shape[1]] = src
-            o += take
-        cols["param_hash"] = ph
-        return cols
+            if presort:
+                _tp = OT.t0()
+                # by the segment keys of engine_seg.prepare_acquire, res-major
+                # (the scan ranks also need res nondecreasing); trash-row
+                # padding has the largest res, so it sorts last
+                order, inv = PS.batch_sort5(res_np, cnode_np, onode_np, oid_np, cname_np)
+                self.host_sort = PS.sort_kind()
+                cols = [res_np, cnt_np, prio_np, oid_np, onode_np, cnode_np, cname_np, inb_np, pre_np]
+                for i, x in enumerate(cols):
+                    dst = self._sbuf(f"s.{i}", B, x.dtype)
+                    np.take(x, order, out=dst)
+                    cols[i] = dst
+                res_np, cnt_np, prio_np, oid_np, onode_np, cnode_np, cname_np, inb_np, pre_np = cols
+                dst = self._sbuf("s.ph", (B, M), np.int32)
+                np.take(ph_np, order, axis=0, out=dst)
+                ph_np = dst
+                if _tp:
+                    _tp0 = _tp0 or _tp
+                    _ns_presort += OT.now_ns() - _tp
+                segs_a = PS.host_seg_count((res_np, cnode_np, onode_np, oid_np, cname_np))
+                self._note_seg_count(segs_a, B)
+            wd_a = _np_dtypes(WIRE.acquire_wire_dtypes(cfg))
 
-    def _completion_columns(self, comp: List[Completion], comp_blocks: List[dict], B2: int) -> dict:
-        """The completion batch's host columns: object completions first,
-        then completion-block slices; successes and errors clamped."""
-        cfg = self.cfg
-        trash = cfg.trash_row
-        cap = cfg.max_batch_count
-        n = len(comp)
-        cols = {}
-        for f, fill, dt in _COMP_COLS:
-            col = np.full(B2, trash if fill is None else fill, dt)
-            if comp:
-                col[:n] = [getattr(c, f) for c in comp]
-            o = n
-            for cb in comp_blocks:
-                k = len(cb["res"])
-                col[o : o + k] = cb[f]
-                o += k
-            if f in ("success", "error"):
-                np.minimum(col, cap, out=col)
-            cols[f] = col
-        ph = self._hash_col(comp, B2)
-        o = n
-        for cb in comp_blocks:
-            k = len(cb["res"])
-            ph[o : o + k] = cb["param_hash"]
-            o += k
-        cols["param_hash"] = ph
-        return cols
+            def nar(name, key, x, fill):
+                # narrow upload (ops/wire.py): flags, verdict codes and
+                # clamped counts fit the wire dtype, so the downcast is exact
+                dt = wd_a.get(key)
+                if dt is not None and x.dtype != dt:
+                    nx = self._sbuf("w." + name, x.shape, dt)
+                    np.copyto(nx, x, casting="unsafe")
+                    x = nx
+                return self._dev_col(name, x, fill)
 
-    def _run_tick(self, acq: List[AcquireRequest], comp: List[Completion], now_ms, blocks=(), comp_blocks=()):
-        """Build (and on the segment path presort) the batch columns, upload
-        them (the uploads finish before the tick starts), run one tick and
-        start its wire's readback into a host buffer; returns the
-        ``_PendingTick``."""
-        cfg = self.cfg
-        n_blk = sum(t for _b, _o, t in blocks)
-        n_comp = len(comp) + sum(len(cb["res"]) for cb in comp_blocks)
-        B = self._shape_for(len(acq) + n_blk, cfg.batch_size)
-        B2 = self._shape_for(n_comp, cfg.complete_batch_size)
-        acols = self._acquire_columns(acq, blocks, B)
-        ccols = self._completion_columns(comp, list(comp_blocks), B2)
-        inv = None
+            a = E.AcquireBatch(
+                res=self._dev_col("a.res", res_np, trash),
+                count=nar("a.count", "count", cnt_np, 1),
+                prio=nar("a.prio", "prio", prio_np, 0),
+                origin_id=self._dev_col("a.oid", oid_np, -1),
+                origin_node=self._dev_col("a.onode", onode_np, trash),
+                ctx_node=self._dev_col("a.cnode", cnode_np, trash),
+                ctx_name=self._dev_col("a.cname", cname_np, -1),
+                inbound=nar("a.inb", "inbound", inb_np, 0),
+                param_hash=self._dev_col("a.ph", ph_np, 0),
+                pre_verdict=nar("a.pre", "pre_verdict", pre_np, 0),
+            )
+        else:
+            a = self._empty("a", B)
+        if comp is not None:
+            res_c, cnt_c, org_c, ctx_c, flags_c, rt_c, err_c, _tag, *aux_c = comp
+            n = len(res_c)
+            if presort and n > 1:
+                _tp = OT.t0()
+                # completions carry no futures: sorted, never unsorted (their
+                # effects are order-independent sums and minima)
+                order, _ = PS.batch_sort3(res_c, ctx_c, org_c, want_inv=False)
+                res_c, cnt_c, org_c, ctx_c, flags_c, rt_c, err_c = (
+                    x[order] for x in (res_c, cnt_c, org_c, ctx_c, flags_c, rt_c, err_c)
+                )
+                aux_c = [x[order] for x in aux_c]
+                if _tp:
+                    _tp0 = _tp0 or _tp
+                    _ns_presort += OT.now_ns() - _tp
+            wd_c = _np_dtypes(WIRE.complete_wire_dtypes(cfg))
+
+            def pad(name, x, fill, dt=np.int32):
+                out = self._sbuf(name, B2, dt)
+                out.fill(fill)
+                out[:n] = x
+                return out
+
+            c_res = pad("c.res", res_c, trash)
+            c_onode = pad("c.onode", org_c, trash)
+            c_cnode = pad("c.cnode", ctx_c, trash)
+            if presort:
+                segs_c = PS.host_seg_count((c_res, c_cnode, c_onode))
+                self._note_seg_count(segs_c, B2)
+            ph_c = self._sbuf("c.ph", (B2, M), np.int32)
+            ph_c.fill(0)
+            for k in range(min(M, len(aux_c))):
+                ph_c[:n, k] = aux_c[k]
+            cap = cfg.max_batch_count  # the acquire side's envelope
+            c = E.CompleteBatch(
+                res=self._dev_col("c.res", c_res, trash),
+                origin_node=self._dev_col("c.onode", c_onode, trash),
+                ctx_node=self._dev_col("c.cnode", c_cnode, trash),
+                inbound=self._dev_col("c.inb", pad("c.inb", flags_c & FLAG_INBOUND, 0, wd_c.get("inbound", np.int32)), 0),
+                rt=self._dev_col("c.rt", pad("c.rt", rt_c, 0.0, np.float32), 0.0),
+                success=self._dev_col(
+                    "c.succ", pad("c.succ", np.minimum(cnt_c, cap), 0, wd_c.get("success", np.int32)), 0
+                ),
+                error=self._dev_col("c.err", pad("c.err", np.minimum(err_c, cap), 0, wd_c.get("error", np.int32)), 0),
+                param_hash=self._dev_col("c.ph", ph_c, 0),
+            )
+        else:
+            c = self._empty("c", B2)
+        if self._pinned:
+            # the slots of this parity are free again once this has run
+            ev = torch.cuda.Event()
+            ev.record()
+            self._stage_events[self._stage_parity] = ev
         seg_fits = None
-        if cfg.seg_effects:
-            # trash-row padding has the largest res, so it sorts last and
-            # stays inside the sort
-            order, inv = PS.batch_sort5(*(acols[k] for k in _ACQ_SEG_KEYS))
-            acols = {k: v[order] for k, v in acols.items()}
-            # completions carry no futures: sort, no unsort (their effects
-            # are order-independent sums and minima)
-            order_c, _ = PS.batch_sort3(*(ccols[k] for k in _COMP_SEG_KEYS))
-            ccols = {k: v[order_c] for k, v in ccols.items()}
-            segs_a = PS.host_seg_count([acols[k] for k in _ACQ_SEG_KEYS])
-            segs_c = PS.host_seg_count([ccols[k] for k in _COMP_SEG_KEYS])
-            self._note_seg_count(segs_a, B)
-            self._note_seg_count(segs_c, B2)
-            cfg = self.cfg
+        if presort:
+            cfg = self.cfg  # a resize above swapped it
             if cfg.seg_fallback:
                 # the exact count decides each side's branch on the host
                 # (engine.tick's seg_fits): no device-side selection needed
                 seg_fits = (segs_c <= ES.seg_capacity(cfg, B2), segs_a <= ES.seg_capacity(cfg, B))
                 if not all(seg_fits):
                     self.seg_fallback_ticks += 1
-        wd_a = WIRE.acquire_wire_dtypes(cfg)
-        wd_c = WIRE.complete_wire_dtypes(cfg)
-        a = E.AcquireBatch(**{f: self._upload(v, wd_a.get(f)) for f, v in acols.items()})
-        c = E.CompleteBatch(**{f: self._upload(v, wd_c.get(f)) for f, v in ccols.items()})
+        _t_disp = OT.t0()
+        if _t_asm:
+            OT.stage_ns(
+                "tick.assemble", _t_asm, (_t_disp or OT.now_ns()) - _t_asm - _ns_presort, _H_ASSEMBLE,
+                trace=tick_id, attrs={"b": B, "b2": B2},
+            )
+            if _ns_presort:
+                OT.stage_ns("tick.presort", _tp0, _ns_presort, _H_PRESORT, trace=tick_id)
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
+        self._build_ms_sum += (mono_s() - t_build0) * 1000.0
+        self._build_ticks += 1
         with self._engine_lock:
             self._state, out = self._tick(
                 self._state, self._rules_dev, a, c, int(t), load, cpu, seg_fits=seg_fits
             )
+        _disp_done = 0
+        if _t_disp:
+            _disp_done = OT.now_ns()
+            OT.stage_ns("tick.dispatch", _t_disp, _disp_done - _t_disp, _H_DISPATCH, trace=tick_id)
         # start the readback NOW: the copy into a host buffer (pinned on the
         # card) is queued behind the tick, with an event the resolver waits on
         buf = self._readback.take(out.wire.shape[0])
@@ -1437,6 +1818,7 @@ class SentinelClient:
         return _PendingTick(
             acq=acq, blocks=list(blocks), inv_a=inv, out=out, n_obj=len(acq), n_blk=n_blk,
             wire_lo=self._wire_layout(B), now_ms=int(t), buf=buf, event=event,
+            tick_id=tick_id, dispatched_ns=_disp_done,
         )
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
@@ -1473,7 +1855,7 @@ class SentinelClient:
             p.event.synchronize()
         raw = p.buf.numpy()
         tl_bytes = lo.tl_rows * lo.tl_cols * 4
-        _C_WIRE_RX.inc(raw.nbytes - tl_bytes)
+        _C_WIRE["rx"].inc(raw.nbytes - tl_bytes)
         if tl_bytes:
             TLM._C_WIRE["rx"].inc(tl_bytes)
         # the chaos pipe covers only the fail-CLOSED main section; the
@@ -1491,9 +1873,19 @@ class SentinelClient:
             self.wire_decode_failures += 1
             self._fail_tick(p)
             return
+        if p.dispatched_ns and OT.TRACER.enabled:
+            # dispatch -> verdicts host-visible: device compute and the
+            # copy, plus the queue wait when pipelined (spans of successive
+            # ticks may overlap: that overlap IS the pipelining)
+            OT.stage_ns(
+                "tick.device", p.dispatched_ns, OT.now_ns() - p.dispatched_ns, _H_DEVICE, trace=p.tick_id
+            )
+        # readback: the folds and any residual device read, after the wait
+        _t_rb = OT.t0()
         verdict, wait = frame.verdict, frame.wait
         if wait is None:  # more PASS_WAIT rows than the sidecar holds
             wait = out.wait_ms.cpu().numpy()
+            _C_WIRE["rx"].inc(wait.nbytes)
         if frame.stats is not None:
             self._fold_device_stats(frame.stats)
         if frame.res_stats is not None and self.timeline is not None:
@@ -1506,6 +1898,9 @@ class SentinelClient:
             self.explain_plane.ingest_section(frame.expl, ts_ms=now_ms)
         if frame.seg_dropped:
             self._record_seg_dropped(frame.seg_dropped)
+        if _t_rb:
+            OT.stage("tick.readback", _t_rb, _H_READBACK, trace=p.tick_id)
+        _t_res = OT.t0()
         if p.inv_a is not None:
             # the wire's rows (bitmap and PASS_WAIT sidecar alike) are
             # positions in the sorted batch: back to submission order
@@ -1520,6 +1915,11 @@ class SentinelClient:
             self._block_done(blk, take)
             p.blocks_done += 1
             o += take
+        if _t_res:
+            OT.stage(
+                "tick.resolve", _t_res, _H_RESOLVE, trace=p.tick_id,
+                attrs={"n_obj": p.n_obj, "n_blk": p.n_blk},
+            )
 
     def _block_done(self, blk: ArrayBlock, take: int) -> None:
         """``take`` more items of ``blk`` are decided; the block's future

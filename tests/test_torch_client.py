@@ -144,7 +144,7 @@ def test_param_rules_raise_not_implemented():
     tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
     tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
     assert "param" in tc._features
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item A7"):
         tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, cluster_mode=True)])
     assert len(tc.param_flow_rules.get()) == 1  # the refused load changed nothing
     tc.param_flow_rules.load([])

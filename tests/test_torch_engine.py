@@ -181,7 +181,7 @@ def test_the_param_feature_is_ported_and_unknown_features_are_refused():
 def test_cluster_mode_param_rules_raise_naming_their_queue_item():
     cfg = small_engine_config(**H.FUSED_FLAGS)
     reg = Registry(cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item A7"):
         E.compile_ruleset(cfg, reg, device="cpu",
                           param_rules=[TR.ParamFlowRule(resource="p", count=1, cluster_mode=True)])
 

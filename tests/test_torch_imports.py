@@ -134,3 +134,33 @@ def test_the_scan_covers_the_sketch_tier():
     from sentinel_tpu_torch.sketch import hotset
 
     assert hotset.Hysteresis.__module__ == "sentinel_tpu_torch.adaptive.degrade"
+
+
+def test_the_scan_covers_the_native_library_the_metrics_spi_and_the_tracer():
+    """The client's host surface is the port's own: native/ (the loader,
+    the ring and interner wrappers, and the C++ source they build),
+    metrics/ (the extension SPI), runtime/slots.py and obs/trace.py are
+    walked by the checks above and import on the CPU without the JAX
+    package; the native source is a file of the port, not the reference's."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import sentinel_tpu_torch as st
+
+    mods = ("native", "native.loader", "native.ring", "metrics", "metrics.extension", "runtime.slots",
+            "obs.trace")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*") if p.is_file()}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    assert "native/sentinel_host.cpp" in files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    from sentinel_tpu_torch.native import loader
+    from sentinel_tpu_torch.obs import trace
+
+    assert loader._SRC == PKG / "native" / "sentinel_host.cpp"
+    ref = sys.modules.get("sentinel_tpu.obs.trace")
+    assert ref is None or ref.TRACER is not trace.TRACER

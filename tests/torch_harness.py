@@ -180,3 +180,34 @@ def workload(cfg, reg, seed: int, b: int = None, param: bool = False) -> dict:
         acq["param_hash"] = _param_hashes(rng, b, cfg.param_dims, hash_param)
         comp["param_hash"] = _param_hashes(rng, b, cfg.param_dims, hash_param)
     return dict(acq=acq, comp=comp)
+
+
+def jax_host_client(monkeypatch, cfg, time_source):
+    """The JAX package's client on ``cfg``'s HOST path (the count clamp and
+    narrow uploads of ``fused_effects``, the presort of ``seg_effects``),
+    whose engine tick is its jitted plain path (``make_tick`` on the same
+    config with the fused, MXU and segment flags off).
+
+    The host path is what the client-surface tests compare: stage spans,
+    upload bytes, extension callbacks.  The plain tick gives the same
+    verdicts (the JAX package's own equivalence tests) and the same state
+    and wire layouts, and compiles in seconds where an interpret-mode
+    fused tick takes most of a minute.  Every column upload gets a private
+    copy (ROADMAP.md Queue C: on the CPU ``jnp.asarray`` may alias the
+    client's reused staging buffers)."""
+    import dataclasses
+
+    from sentinel_tpu.ops import engine as JE
+    from sentinel_tpu.runtime.client import SentinelClient as JaxClient
+
+    real = JE.make_tick
+
+    def plain_tick(c, *args, **kw):
+        return real(dataclasses.replace(c, fused_effects=False, use_mxu_tables=False, seg_effects=False),
+                    *args, **kw)
+
+    monkeypatch.setattr(JE, "make_tick", plain_tick)
+    jc = JaxClient(cfg=cfg, time_source=time_source, mode="sync")
+    upload = jc._dev_col
+    jc._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
+    return jc

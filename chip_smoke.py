@@ -87,7 +87,7 @@ Phases (the first failure stops the script with a nonzero exit):
    configuration, 4,000 flow rules (one per resource: 40 rate limiters,
    40 warm-ups, the rest QPS; prioritized traffic borrows ahead), 1,000
    degrade rules, an authority black list and a system QPS rule, 8
-   request threads, Zipf(1.1) over 100,000 names, real exits, 6,000
+   request threads, Zipf(1.1) over 100,000 names, real exits, 3,000
    entries each.  Launch counts
    are reset just before each run and read just after; every kernel of the
    path must have launched, flow rules and param rules must have blocked
@@ -110,7 +110,7 @@ Phases (the first failure stops the script with a nonzero exit):
    names through the registry (res-1 .. res-10000 on exact rows, the
    organic rest burnt, tail-0 .. tail-2047 sketch ids), its rules through
    the managers (the loads promote ruled sketch ids into the reserve rows
-   until it is spent), 6,000 entries of its traffic by name from 8
+   until it is spent), 3,000 entries of its traffic by name from 8
    threads and 64 acquires from 4 more on a tail-ruled name left on its
    sketch id; the tail rule must block some of those, the client must
    have folded hot rows carrying sketch ids, and the promotions and
@@ -210,6 +210,35 @@ Phases (the first failure stops the script with a nonzero exit):
    ``stage_breakdown_ms``, the p50 / p99 / mean of each ``tick.*`` stage
    span (assemble, presort, dispatch, device, readback, resolve) — all
    beside the card's name and power limit.
+8. Cluster flow control (``cluster_phase``).  The token column
+   (``ops/token_col.py``, plain PyTorch: the reference has no kernel
+   there) through two ``TokenColumnBatcher`` instances, one on the card
+   and one on the CPU: 48 chunks of 256 entries over 1,024 flow slots with
+   thresholds from the seed, Zipf(1.1) slots, partial / strict / forced
+   entries, across bucket boundaries, and one re-projection halfway that
+   drops 128 flows and adds 256 (recycled rows, growth to 2,048): granted,
+   observed and every state leaf equal after every chunk; the chunk's ms
+   (median), ``decide_batch`` alone by CUDA events, and the device
+   launches and copies a chunk.  Then, once with ``use_token_column=True``
+   and once with ``False`` (the decision client's engine): a threaded
+   decision client on ``platform_config()`` with ``DefaultTokenService``
+   and a ``ClusterTokenServer`` on 127.0.0.1, and a threaded serving
+   client on ``platform_config()`` attached through
+   ``ClusterStateManager.set_to_client`` (token timeout 1,000 ms,
+   ``CLUSTER_REQUEST_TIMEOUT_MS``); 1,000 cluster flow rules (half
+   GLOBAL, half AVG_LOCAL) and 32 cluster param rules; 480 ``entry()``
+   calls from 8 threads, Zipf(1.1) over the ruled resources, one argument
+   each, 10 % prioritized, then one ``check_batch`` call at B = 2,048.
+   Checked: HELLO reached v2 (v3) and BATCH frames were counted; no flow
+   was granted past its threshold in any window of the decision path
+   other than by occupy-ahead (the server's decisions replayed with the
+   time each was made at); no token call failed; the kernel counts of
+   the run show B1, B2 and B4; stopping the server degrades the serving
+   client to its local fallback rules (they block), restarting it brings
+   the client back.  ``[cluster]`` lines: tokens/s, the decision round
+   trip p50 / p99, the verdict counts, cluster tx / rx bytes, and the
+   decision path's device launches a tick (a column call) and which of
+   B1-B4 it launched, from a profile with the serving client idle.
 
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
@@ -220,7 +249,8 @@ against what they replaced (``b2_main``), with whatever package lies
 beside the script: copied into an older checkout it measures that one.
 ``python3 chip_smoke.py --ops`` needs no card: it counts, on the CPU, the
 PyTorch operations of one ``sketch`` tick with the sketch tier on and off
-(``ops_main``).
+(``ops_main``).  ``python3 chip_smoke.py --cluster`` runs the build and
+phase 8 alone (``cluster_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -243,7 +273,7 @@ SEED = 20261016
 N_THREADS = 8
 N_NAMES = 100_000
 #: entries per threaded main-path run
-MAIN_ENTRIES = 6_000
+MAIN_ENTRIES = 3_000
 #: distinct argument values of the hot-parameter traffic, Zipf(1.1)
 N_VALUES = 10_000
 #: kernels each configuration's tick must launch
@@ -2210,6 +2240,507 @@ def measured_bench_run(np, FU, SC, torch, c, traffic, trace: bool) -> dict:
                 cols_skipped_a_tick=skipped / max(ticks, 1), stage_breakdown_ms=stages)
 
 
+# -- phase 8: cluster flow control (the token column, server and clients) --------------
+
+#: the token column's stream: flow slots, chunks, and the step it is re-projected at
+COLUMN_SLOTS = 1_024
+COLUMN_CHUNKS = 48
+COLUMN_PUSH_AT = 24
+#: the serving run: cluster flow rules (half GLOBAL, half AVG_LOCAL), cluster
+#: param rules on the hottest resources, entry() calls over N_THREADS threads
+#: (each with one argument), and check_batch calls at B = 2,048 (no argument:
+#: one token round trip a distinct resource)
+CLUSTER_FLOWS = 1_000
+CLUSTER_PARAMS = 32
+CLUSTER_ENTRIES = 480
+CLUSTER_BULK = (1, 2_048)
+#: the serving client's token request timeout.  The default, 200 ms
+#: (cluster/constants.DEFAULT_REQUEST_TIMEOUT_MS), is shorter than the
+#: port's engine-backed decisions take at the tail on the card: a param
+#: token waits for one to two eager decision-client ticks while the
+#: serving client's ticks share the host (a run at 200 ms timed out 14 of
+#: 126 param tokens and degraded the client for 5 s each time).  The run
+#: sets it through the client config and counts the calls past 200 ms.
+CLUSTER_REQUEST_TIMEOUT_MS = 1_000
+
+
+def _column_service(time_source, device):
+    """What a column batcher reads of its token service: the decision
+    client's clock and device (no timeline, no registry)."""
+    import types
+
+    client = types.SimpleNamespace(time=time_source, timeline=None, registry=None, device=device)
+    return types.SimpleNamespace(client=client)
+
+
+def _decide_now(batcher, entries, now) -> list:
+    """Decide ``entries`` as one drain of the batcher's worker does (chunks
+    of CAPACITY, presorted by slot), on this thread, so the chunks are the
+    same on both devices; returns each entry's (granted, observed, limit)."""
+    from concurrent.futures import Future
+
+    queued = [(*e, Future()) for e in entries]
+    with batcher._s_lock:
+        for i in range(0, len(queued), batcher.CAPACITY):
+            batcher._decide_chunk(queued[i : i + batcher.CAPACITY], now)
+    return [q[-1].result(timeout=0) for q in queued]
+
+
+def column_entries(np, rng, fids, n):
+    """n column entries (flow id, units, partial, forced): Zipf(1.1) over
+    ``fids``, asks 1..8, 40 % partial grants, 5 % forced (occupy-ahead)."""
+    w = 1.0 / np.arange(1, len(fids) + 1) ** 1.1
+    pick = rng.choice(len(fids), size=n, p=w / w.sum())
+    units = rng.integers(1, 9, n)
+    kind = rng.random(n)
+    return [(int(fids[k]), int(u), bool(x < 0.4), bool(x > 0.95)) for k, u, x in zip(pick, units, kind)]
+
+
+def column_phase(np, torch, S, TTS, VirtualTimeSource, device="cuda") -> dict:
+    """The token column's stream on ``device`` and on the CPU: equal
+    answers and state leaves after every chunk; the card's ms a chunk and
+    device launches a chunk."""
+    rng = np.random.default_rng(SEED + 8)
+    vt = VirtualTimeSource(10_000)
+    thr_a = {f: float(rng.integers(20, 400)) for f in range(1, COLUMN_SLOTS + 1)}
+    # the push: 128 flows dropped, 256 added (recycled rows, then growth to
+    # 2,048 slots), the others re-thresholded
+    kept = [f for f in thr_a if f > 128]
+    thr_b = {f: float(rng.integers(20, 400)) for f in kept + list(range(5_001, 5_257))}
+    cols = {k: TTS.TokenColumnBatcher(_column_service(vt, torch.device(d))) for k, d in (("dev", device), ("cpu", "cpu"))}
+    chunk_ms, now, granted, denied = [], vt.now_ms(), 0, 0
+    try:
+        for b in cols.values():
+            b.project(thr_a)
+        for i in range(COLUMN_CHUNKS):
+            if i == COLUMN_PUSH_AT:
+                for b in cols.values():
+                    b.project(thr_b)
+            fids = sorted(thr_b if i >= COLUMN_PUSH_AT else thr_a)
+            entries = column_entries(np, rng, fids, TTS.TokenColumnBatcher.CAPACITY)
+            t = time.perf_counter()
+            got = _decide_now(cols["dev"], entries, now)
+            chunk_ms.append((time.perf_counter() - t) * 1e3)
+            want = _decide_now(cols["cpu"], entries, now)
+            check(got == want, f"token column chunk {i}: the card's answers differ from the CPU's")
+            la, lb = S.leaves(cols["dev"]._state), S.leaves(cols["cpu"]._state)
+            for k in la:
+                check(torch.equal(la[k].cpu(), lb[k]), f"token column chunk {i}: state leaf {k} differs")
+            granted += sum(1 for g, _o, _l in got if g > 0)
+            denied += sum(1 for g, _o, _l in got if g == 0)
+            now += int(rng.choice([0, 13, 60, 100, 170]))
+        check(granted > 0 and denied > 0, ("token column: no grant or no deny", granted, denied))
+        out = dict(chunks=COLUMN_CHUNKS, entries_a_chunk=TTS.TokenColumnBatcher.CAPACITY, slots_final=cols["dev"]._cap,
+                   granted=granted, denied=denied, chunk_ms=chunk_ms,
+                   chunk_ms_median=sorted(chunk_ms[2:])[len(chunk_ms[2:]) // 2])
+        if device == "cuda":
+            out.update(column_device_report(np, torch, cols["dev"], rng, sorted(thr_b), now))
+        return out
+    finally:
+        for b in cols.values():
+            b.close()
+
+
+def column_device_report(np, torch, batcher, rng, fids, now) -> dict:
+    """One chunk's decision on the card: ``decide_batch`` alone (device ms
+    by CUDA events, on a copy of the state) and the whole chunk's device
+    launches and copies (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sentinel_tpu_torch.ops import engine as E
+    from sentinel_tpu_torch.ops import token_col as TC
+
+    cap = batcher.CAPACITY
+    entries = column_entries(np, rng, fids, cap)
+    slots = np.sort(rng.integers(0, batcher._next_slot, cap)).astype(np.int32)
+    args = [torch.from_numpy(x).cuda() for x in (
+        slots, rng.integers(1, 9, cap).astype(np.int32),
+        np.maximum.accumulate(np.where(np.r_[True, slots[1:] != slots[:-1]], np.arange(cap), 0)).astype(np.int32),
+    )] + [torch.from_numpy(rng.random(cap) < p).cuda() for p in (0.4, 0.05)]
+    base = E.clone_state(batcher._state)
+
+    def decide():
+        TC.decide_batch(base, now, *args)
+
+    dev_ms, host_ms = time_ms(decide, reps=30)
+    evs = []
+    for _session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                _decide_now(batcher, entries, now)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+    check(evs, "token column: the profiler saw no device event in 3 sessions")
+    copies = sum(1 for e in evs if "memcpy" in e.name.lower())
+    return dict(decide_device_ms=dev_ms, decide_host_ms=host_ms, device_launches_a_chunk=(len(evs) - copies) / 4,
+                copies_a_chunk=copies / 4, device_us_a_chunk=sum(e.time_range.elapsed_us() for e in evs) / 4)
+
+
+def cluster_rules(np, st, C):
+    """1,000 cluster flow rules (``cres-<i>``, flow id i + 1, half GLOBAL,
+    half AVG_LOCAL, counts 5..59 from the seed) and 32 cluster param rules
+    on the 32 hottest (flow id 10,001 + i, 2..5 a value a second)."""
+    rng = np.random.default_rng(SEED + 81)
+    flow = [st.FlowRule(resource=f"cres-{i}", count=int(rng.integers(5, 60)), cluster_mode=True,
+                        cluster_flow_id=i + 1,
+                        cluster_threshold_type=C.FLOW_THRESHOLD_GLOBAL if i % 2 else C.FLOW_THRESHOLD_AVG_LOCAL)
+            for i in range(CLUSTER_FLOWS)]
+    param = [st.ParamFlowRule(resource=f"cres-{i}", count=int(rng.integers(2, 6)), cluster_mode=True,
+                              cluster_flow_id=10_001 + i) for i in range(CLUSTER_PARAMS)]
+    return flow, param
+
+
+def windows_within(events, bucket_ms, n_buckets, limits) -> tuple:
+    """events: (now_ms, key, units).  The largest sum of units of one key
+    over ``n_buckets`` consecutive buckets, against its limit: (violations,
+    the largest sum over limit seen)."""
+    per = {}
+    for now, key, u in events:
+        b = per.setdefault(key, {})
+        k = int(now) // bucket_ms
+        b[k] = b.get(k, 0) + u
+    bad, worst = [], 0.0
+    for key, buckets in per.items():
+        for k in buckets:
+            total = sum(buckets.get(k - j, 0) for j in range(n_buckets))
+            worst = max(worst, total / limits[key] if limits[key] > 0 else float(total > 0))
+            if total > limits[key]:
+                bad.append((key, k, total, limits[key]))
+    return bad, worst
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def cluster_serving_run(np, st, FU, SC, torch, cfg, use_col, device="cuda", n_entries=CLUSTER_ENTRIES,
+                        bulk=CLUSTER_BULK, request_timeout_ms=CLUSTER_REQUEST_TIMEOUT_MS) -> dict:
+    """A decision client with a DefaultTokenService and a ClusterTokenServer
+    on 127.0.0.1, a serving client attached through ClusterStateManager,
+    both threaded on ``device`` at ``cfg``: entry() traffic from N_THREADS
+    threads, then the bulk check_batch; the thresholds held in every
+    window; HELLO at v3 and BATCH frames counted; the server stopped (the
+    serving client degrades to its local fallback rules) and restarted
+    (it comes back).  ``request_timeout_ms``: the token client's timeout
+    (None: the default, 200 ms; see CLUSTER_REQUEST_TIMEOUT_MS)."""
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.cluster import server as SRV
+    from sentinel_tpu_torch.cluster import state as STM
+    from sentinel_tpu_torch.cluster import token_service as TS
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    flow, param = cluster_rules(np, st, C)
+    dec = st.SentinelClient(cfg=cfg, mode="threaded", device=device)
+    dec.start()
+    svc = TS.DefaultTokenService(dec, use_token_column=use_col)
+    svc.flow_rules.load("default", flow)
+    svc.param_rules.load("default", param)
+    srv = SRV.ClusterTokenServer(svc, host="127.0.0.1", port=0)
+    srv.start()
+    app = st.SentinelClient(cfg=cfg, mode="threaded", device=device)
+    app.start()
+    mgr = STM.ClusterStateManager()
+    if request_timeout_ms is not None:
+        mgr.client_config.request_timeout_ms = request_timeout_ms
+    out = {"use_token_column": use_col, "request_timeout_ms": mgr.client_config.request_timeout_ms}
+    try:
+        mgr.set_to_client("127.0.0.1", srv.port)
+        app.set_cluster(mgr)
+        app.flow_rules.load(flow)
+        app.param_flow_rules.load(param)
+        tok = mgr.token_service()
+        deadline = time.monotonic() + 10
+        while tok.peer_version < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out["peer_version"] = tok.peer_version
+        check(tok.peer_version >= 2, f"cluster: HELLO did not reach v2 ({tok.peer_version})")
+
+        # the serving side's token calls, timed, with their statuses
+        calls = {"request_token": [], "request_param_token": [], "request_token_batch": []}
+        lock = threading.Lock()
+
+        def timed(name):
+            real = getattr(tok, name)
+
+            def call(*a, **kw):
+                t = time.perf_counter()
+                r = real(*a, **kw)
+                ms = (time.perf_counter() - t) * 1e3
+                units = a[1] if len(a) > 1 else kw.get("count", kw.get("units", 1))
+                with lock:
+                    calls[name].append((ms, r.status, int(units), t - t_start[0]))
+                return r
+            return call
+
+        t_start = [time.perf_counter()]
+        for name in calls:
+            setattr(tok, name, timed(name))
+        # the server's decisions with the time each was decided at
+        decided = []
+        if use_col:
+            real_col = svc.col._run_column
+
+            def cap_col(cols, now):
+                g, o = real_col(cols, now)
+                decided.append((now, cols.copy(), g.copy()))
+                return g, o
+            svc.col._run_column = cap_col
+        else:
+            real_tick = dec._run_tick
+
+            def cap_tick(acq, comp, now_ms, blocks=()):
+                p = real_tick(acq, comp, now_ms, blocks=blocks)
+                decided.append((p.now_ms, list(p.acq)))
+                return p
+            dec._run_tick = cap_tick
+
+        wire = {d: REGISTRY.get("sentinel_wire_bytes_total", {"path": "cluster", "direction": d}) for d in ("tx", "rx")}
+        frames = REGISTRY.get("sentinel_cluster_batch_frames_total", {"direction": "tx"})
+        w0 = {d: c.value for d, c in wire.items()}
+        f0 = frames.value if frames is not None else 0.0
+        rng = np.random.default_rng(SEED + 82)
+        zipf = zipf_probs(np, CLUSTER_FLOWS)
+        vals = zipf_probs(np, N_VALUES)
+        per_thread = n_entries // N_THREADS
+        plan = [(rng.choice(CLUSTER_FLOWS, size=per_thread, p=zipf), rng.choice(N_VALUES, size=per_thread, p=vals),
+                 rng.random(per_thread) < 0.1) for _ in range(N_THREADS)]
+        outcomes = {}
+
+        def worker(picks, values, prios):
+            mine = {}
+            for r, v, pr in zip(picks, values, prios):
+                try:
+                    app.entry(f"cres-{int(r)}", prioritized=bool(pr), args=[arg_value(int(v))]).exit()
+                    k = "pass"
+                except ERR.BlockException as e:
+                    k = type(e).__name__
+                mine[k] = mine.get(k, 0) + 1
+            with lock:
+                for k, n in mine.items():
+                    outcomes[k] = outcomes.get(k, 0) + n
+
+        FU.reset_launches()
+        SC.reset_launches()
+        threads = [threading.Thread(target=worker, args=p) for p in plan]
+        t0 = t_start[0] = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        t_entries = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "cluster: a request thread did not finish")
+        n_bulk, b = bulk
+        bulk_mix = np.zeros(7, np.int64)
+        t1 = time.perf_counter()
+        for _ in range(n_bulk):
+            picks = rng.choice(CLUSTER_FLOWS, size=b, p=zipf)
+            res = app.check_batch([f"cres-{int(r)}" for r in picks])
+            bulk_mix += np.bincount([v for v, _w in res], minlength=7)
+        t_bulk = time.perf_counter() - t1
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        # the thresholds: a flow's units granted other than by occupy-ahead
+        # stay within its threshold in every window of the decision path
+        limits = {}
+        if use_col:
+            svc.col._run_column = real_col
+            slot_limit = {svc.col._slots[f]: thr for f, thr in svc.col._limits_by_fid.items()}
+            events = []
+            for now, cols, g in decided:
+                live = cols[1] > 0
+                for s, gr, fo in zip(cols[0][live], g[live], cols[4][live]):
+                    if not fo:
+                        events.append((now, int(s), int(gr)))
+            limits = slot_limit
+            bad, worst = windows_within(events, 100, 10, limits)
+        else:
+            dec._run_tick = real_tick
+            fid_of = {dec.registry.peek_resource_id(f"$cluster/flow/{r.cluster_flow_id}"): r.cluster_flow_id
+                      for r in flow}
+            thr = {r.cluster_flow_id: float(r.count) for r in flow}
+            events = []
+            for now, acq in decided:
+                for a in acq:
+                    fid = fid_of.get(a.res)
+                    if fid is not None and a.future.done() and a.future.result()[0] == ERR.PASS:
+                        events.append((now, fid, a.count))
+            limits = thr
+            bad, worst = windows_within(events, cfg.second_window_ms, cfg.second_sample_count, limits)
+        check(not bad, f"cluster: a flow was granted past its threshold in a window: {bad[:5]}")
+        check(events, "cluster: the server decided no flow token")
+        statuses = {}
+        for name, rows in calls.items():
+            for _ms, stt, _u, _t in rows:
+                statuses[f"{name}:{stt}"] = statuses.get(f"{name}:{stt}", 0) + 1
+        failed = [(name, round(t, 3), round(ms, 3)) for name, rows in calls.items()
+                  for ms, stt, _u, t in rows if stt == C.STATUS_FAIL]
+        slow = sorted(((round(ms, 3), name, round(t, 3)) for name, rows in calls.items() for ms, _s, _u, t in rows),
+                      reverse=True)[:10]
+        check(not failed, ("cluster: token calls failed (call, s into the run, ms)", failed[:20], statuses,
+                           "slowest calls (ms, call, s into the run)", slow))
+        check(not app._cluster_degraded_active, "cluster: the serving client degraded during the run")
+        frames_tx = (frames.value if frames is not None else 0.0) - f0
+        check(frames_tx > 0, "cluster: no v2 BATCH frame was sent")
+        lat = [ms for ms, *_r in calls["request_token"]]
+        bulk_lat = [ms for ms, *_r in calls["request_token_batch"]]
+        param_lat = [ms for ms, *_r in calls["request_param_token"]]
+        units_entries = sum(u for rows in (calls["request_token"], calls["request_param_token"]) for _m, _s, u, _r in rows)
+        units_bulk = sum(u for _m, _s, u, _r in calls["request_token_batch"])
+        out.update(
+            entries=n_entries, entry_outcomes=outcomes, entries_s=t_entries, bulk_calls=n_bulk, bulk_b=b,
+            bulk_mix=bulk_mix.tolist(), bulk_s=t_bulk,
+            tokens_per_s_entries=units_entries / t_entries, tokens_per_s_bulk=units_bulk / t_bulk,
+            decision_p50_ms=_pct(lat, 0.5), decision_p99_ms=_pct(lat, 0.99),
+            bulk_call_p50_ms=_pct(bulk_lat, 0.5), bulk_call_p99_ms=_pct(bulk_lat, 0.99),
+            param_p50_ms=_pct(param_lat, 0.5), param_p99_ms=_pct(param_lat, 0.99),
+            calls_past_200ms={k: sum(1 for ms, *_r in v if ms > 200.0) for k, v in calls.items()},
+            token_calls={k: len(v) for k, v in calls.items()}, statuses=statuses,
+            cluster_tx_bytes=wire["tx"].value - w0["tx"], cluster_rx_bytes=wire["rx"].value - w0["rx"],
+            batch_frames_tx=frames_tx, window_events=len(events), window_worst_fill=worst,
+            kernel_launches_run=launches,
+        )
+        check(outcomes.get("pass", 0) > 0 and outcomes.get("FlowException", 0) + bulk_mix[ERR.BLOCK_FLOW] > 0,
+              ("cluster: the traffic met no cluster flow deny", outcomes, bulk_mix.tolist()))
+        if device == "cuda":
+            for kname in ("scatter_many", "gather_many", "seg_incl_min"):
+                check(launches[kname] > 0, ("cluster: a kernel of the path was not launched", kname, launches))
+            out["decision_client"] = decision_client_profile(FU, SC, torch, svc, dec, flow, param)
+        out["degrade"], srv = degrade_and_recover(SRV, ERR, app, svc, srv, tok, flow)
+        return out
+    finally:
+        mgr.stop()
+        srv.stop()
+        svc.close()
+        app.stop()
+        dec.stop()
+
+
+def decision_client_profile(FU, SC, torch, svc, dec, flow, param) -> dict:
+    """With the serving client idle: the decision path's device work for a
+    flow token batch (the column, or the decision client's ticks) and for a
+    param token (the decision client's ticks), each 4 times under the
+    profiler; the ticks the decision client ran, its device launches a
+    tick and which of B1-B4 it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, fn in (("flow_batch", lambda: svc.request_token_batch(flow[0].cluster_flow_id, 16)),
+                      ("param", lambda: svc.request_param_token(param[0].cluster_flow_id, 1, ["v-profile"]))):
+        fn()
+        torch.cuda.synchronize()
+        evs = []
+        for _session in range(3):
+            FU.reset_launches()
+            SC.reset_launches()
+            ticks0 = dec._build_ticks
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if evs:
+                break
+        ticks = dec._build_ticks - ticks0
+        # a flow token batch is one column call when the column decides it
+        cols = 4 if svc.col is not None and label == "flow_batch" else 0
+        kernels = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        out[label] = dict(decision_ticks=ticks, column_calls=cols, device_events=len(evs),
+                          device_launches_a_tick=(len(evs) / ticks) if ticks else None,
+                          device_launches_a_column_call=(len(evs) / cols) if cols and not ticks else None,
+                          b1_b4=kernels, b1_b4_launched=sorted(k for k, n in kernels.items() if n))
+    return out
+
+
+def degrade_and_recover(SRV, ERR, app, svc, srv, tok, flow) -> tuple:
+    """Stop the token server: the serving client degrades and its fallback
+    rules block locally (the flow with the smallest threshold, hammered);
+    restart it on the same port: the first answered probe brings the
+    client back.  Returns (report, the restarted server)."""
+    port = srv.port
+    app.cluster_retry_interval_s = 0.0  # every entry probes again
+    tok.reconnect_interval_s = 0.05
+    srv.stop()
+    target = min(flow, key=lambda r: r.count)
+    seen = {}
+    for _ in range(int(target.count) + 6):
+        try:
+            app.entry(target.resource).exit()
+            k = "pass"
+        except ERR.BlockException as e:
+            k = type(e).__name__
+        seen[k] = seen.get(k, 0) + 1
+    check(app._cluster_degraded_active, "cluster: stopping the server did not degrade the serving client")
+    check(seen.get("FlowException", 0) > 0, ("cluster: the local fallback rules blocked nothing", seen))
+    srv2 = SRV.ClusterTokenServer(svc, host="127.0.0.1", port=port)
+    srv2.start()
+    t = time.perf_counter()
+    probes = 0
+    while app._cluster_degraded_active and time.perf_counter() - t < 60:
+        probes += 1
+        try:
+            app.entry(flow[-1].resource).exit()
+        except ERR.BlockException:
+            pass
+        time.sleep(0.02)
+    check(not app._cluster_degraded_active, "cluster: the serving client did not come back after the restart")
+    return dict(degraded_entries=seen, target=target.resource, target_count=target.count, probes_to_recover=probes,
+                recover_s=time.perf_counter() - t), srv2
+
+
+def cluster_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 8: the token column (card against CPU), then a token server
+    and its clients over loopback TCP on the card, on both decision paths."""
+    from sentinel_tpu_torch.cluster import token_service as TTS
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    rep = {"card": smi}
+    col = column_phase(np, torch, S, TTS, VirtualTimeSource)
+    rep["column"] = col
+    log(f"[cluster] {smi}: token column, {col['chunks']} chunks of {col['entries_a_chunk']} entries over "
+        f"{COLUMN_SLOTS} flow slots (one re-projection at chunk {COLUMN_PUSH_AT}: 128 flows dropped, 256 added, "
+        f"{col['slots_final']} slots), Zipf(1.1), partial / strict / forced: the card's granted, observed and every "
+        f"state leaf equal the CPU's after every chunk ({col['granted']} granted, {col['denied']} denied); "
+        f"{col['chunk_ms_median']:.4f} ms a chunk (median; host presort + one upload + decide + one readback); "
+        f"decide_batch alone {col['decide_device_ms']:.4f} ms device, {col['decide_host_ms']:.4f} ms host enqueue; "
+        f"{col['device_launches_a_chunk']:g} device launches and {col['copies_a_chunk']:g} copies a chunk "
+        f"({col['device_us_a_chunk']:.1f} us device)")
+    for use_col in (True, False):
+        r = cluster_serving_run(np, st, FU, SC, torch, platform_config(), use_col)
+        rep[f"serving_{'column' if use_col else 'engine'}"] = r
+        dp = r.get("decision_client", {})
+        log(f"[cluster] {smi}: use_token_column={use_col}: HELLO at v{r['peer_version']}; {r['entries']} entry() "
+            f"calls from {N_THREADS} threads in {r['entries_s']:.2f} s ({r['tokens_per_s_entries']:.0f} tokens/s), "
+            f"outcomes {json.dumps(r['entry_outcomes'], sort_keys=True)}; decision (serving client -> token server "
+            f"-> back) p50 {r['decision_p50_ms']:.3f} ms, p99 {r['decision_p99_ms']:.3f} ms (param tokens p50 "
+            f"{r['param_p50_ms']:.3f}, p99 {r['param_p99_ms']:.3f}; timeout {r['request_timeout_ms']} ms, calls past 200 ms "
+            f"{json.dumps(r['calls_past_200ms'], sort_keys=True)}); bulk "
+            f"{r['bulk_calls']} x check_batch(B={r['bulk_b']}) in {r['bulk_s']:.2f} s ({r['tokens_per_s_bulk']:.0f} "
+            f"tokens/s), verdict mix {r['bulk_mix']}, batch call p50 {r['bulk_call_p50_ms']:.3f} / p99 "
+            f"{r['bulk_call_p99_ms']:.3f} ms; token statuses {json.dumps(r['statuses'], sort_keys=True)}; cluster "
+            f"tx {r['cluster_tx_bytes']:.0f} B, rx {r['cluster_rx_bytes']:.0f} B, {r['batch_frames_tx']:.0f} BATCH "
+            f"frames tx; thresholds held in every window ({r['window_events']} grants, fullest window "
+            f"{r['window_worst_fill']:.3f} of its threshold); kernel launches in the run (both clients) "
+            f"{json.dumps(r['kernel_launches_run'])}")
+        for label, d in dp.items():
+            log(f"[cluster] {smi}: use_token_column={use_col}: decision path, {label}, 4 calls alone: "
+                f"{d['decision_ticks']} decision-client ticks, {d['column_calls']} column calls, "
+                f"{d['device_events']} device events ({d['device_launches_a_tick']} a tick, "
+                f"{d['device_launches_a_column_call']} a column call); B1-B4 launched {d['b1_b4_launched']} "
+                f"{json.dumps(d['b1_b4'])}")
+        g = r["degrade"]
+        log(f"[cluster] {smi}: use_token_column={use_col}: server stopped -> degraded, local fallback on "
+            f"{g['target']} (threshold {g['target_count']}): {json.dumps(g['degraded_entries'], sort_keys=True)}; "
+            f"server restarted -> back to the token server after {g['probes_to_recover']} probes "
+            f"({g['recover_s']:.2f} s)")
+    return rep
+
+
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
@@ -2658,6 +3189,14 @@ def b2_main() -> int:
     return 0
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -2679,10 +3218,7 @@ def main() -> int:
     from sentinel_tpu_torch.ops import wire as WIRE
 
     report = {"torch": torch.__version__, "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     report["nvidia_smi"] = smi
 
     # -- 1. build -----------------------------------------------------------
@@ -3091,6 +3627,9 @@ def main() -> int:
     # -- 7. bench.py's client_bench through the port's client ---------------------------
     report["client_bench"] = {str(B): client_bench_phase(np, st, FU, SC, torch, B, smi) for B in (BIG_B, 2048)}
 
+    # -- 8. cluster flow control: the token column, server and clients --------------------
+    report["cluster"] = cluster_phase(np, st, S, FU, SC, torch, smi)
+
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
         name = RECORD_CFG[kname]
@@ -3159,6 +3698,30 @@ def ops_main() -> int:
     return 0
 
 
+def cluster_main() -> int:
+    """``python3 chip_smoke.py --cluster``: the kernels' build and phase 8
+    alone, on the card (about two minutes)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = cluster_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1:]
-    sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"] else main())
+    sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"]
+             else cluster_main() if mode == ["--cluster"] else main())

@@ -32,7 +32,9 @@ resources past the exact row space (``sentinel_tpu_torch.sketch``: tail
 flow rules, hot-set promotion), the client's host surface (the span
 tracer ``sentinel_tpu_torch.obs``, the native host library
 ``sentinel_tpu_torch.native``, the entry hooks, custom slots and metric
-extensions), and the card's measurement probes
+extensions), cluster flow control (``sentinel_tpu_torch.cluster``: the
+token service with its device token column, the TCP token server and
+client, and the client's cluster mode), and the card's measurement probes
 (``sentinel_tpu_torch.probes``).  What is not ported raises
 ``NotImplementedError`` (see ROADMAP.md).
 """

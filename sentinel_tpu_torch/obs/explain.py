@@ -18,13 +18,15 @@ we:
   plus per-resource rings — annotating sketch-tier records with an eps
   budget when one is supplied (a tail block whose margin is within eps
   is flagged ``possibly_false``: a CMS only ever OVERestimates);
+* fold a cluster deny's provenance (``fold_remote``; a deny with none,
+  from a pre-v3 peer, is ``count_unexplained``) — the client's cluster
+  check lands remote blocks here like local ones;
 * serve ``SentinelClient.explain(resource)``, ``explain_top_causes()``
   and ``explain_coverage()``.
 
-The reference's plane also folds cluster deny provenance
-(``fold_remote``, ``count_unexplained``), keys the block log
-(``latest_rule``) and feeds the flight recorder (``flight_section``); they
-come back with those layers (ROADMAP.md, Queue A items 6 and 7).
+The reference's plane also keys the block log (``latest_rule``) and feeds
+the flight recorder (``flight_section``); they come back with those
+layers (ROADMAP.md, Queue A item 6).
 
 Metrics (the port's own registry): ``sentinel_explain_records_total``,
 ``sentinel_explain_unexplained_total`` (blocked rows beyond the wire
@@ -324,6 +326,47 @@ class ExplainPlane:
                     dict(self._causes.most_common(_CAUSE_CAP // 2))
                 )
         return rec
+
+    def fold_remote(
+        self,
+        resource: int,
+        kind: int,
+        rule: Optional[int],
+        observed: Optional[float],
+        threshold: Optional[float],
+        origin: str = "cluster",
+        ts_ms: int = 0,
+    ) -> Optional[ExplainRecord]:
+        """Fold a provenance tuple from a cluster deny frame (protocol v3
+        _T_PROV block) — remote blocks explain themselves too."""
+        if kind not in KIND_NAMES:
+            return None
+        rec = ExplainRecord(
+            resource=int(resource),
+            kind=int(kind),
+            kind_name=KIND_NAMES[int(kind)],
+            rule=rule,
+            sketch_tier=False,
+            forced=False,
+            observed=observed,
+            threshold=threshold,
+            ts_ms=int(ts_ms),
+            origin=origin,
+        )
+        rec = self.fold(rec)
+        with self._lock:
+            self._blocked_total += 1
+            self._explained_total += 1
+        return rec
+
+    def count_unexplained(self, n: int = 1) -> None:
+        """A blocked decision the plane has no record for (e.g. a remote
+        deny from a pre-v3 peer)."""
+        if n <= 0:
+            return
+        with self._lock:
+            self._blocked_total += n
+        self._c_unexplained.inc(n)
 
     # -- read paths ----------------------------------------------------------
 

@@ -645,14 +645,11 @@ def compile_ruleset(
     space exhausted, promotion failed) compile into the tail threshold
     tables; other grades, behaviours, strategies or an origin-scoped
     limitApp on a sketch id cannot be enforced there and are dropped with a
-    warning.  Cluster-mode param rules raise."""
+    warning.  A cluster-mode param rule compiles as an ordinary param rule,
+    as in the reference: the client hands it here only while its cluster
+    enforcement is degraded to local rules (runtime/client.py)."""
     flow_rules = list(flow_rules)
     param_rules = list(param_rules)
-    if any(r.cluster_mode for r in param_rules):
-        raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
-            "(ROADMAP.md Queue A item A7: the cluster token column)"
-        )
     tail = []
     exact_flow = []
     for r in flow_rules:

@@ -177,6 +177,36 @@ def refresh(state: WindowState, now_ms: int, cfg: WindowConfig) -> WindowState:
     )
 
 
+def add_batch(
+    state: WindowState,
+    now_ms: int,
+    rows: torch.Tensor,  # int32 [B] — row per event
+    deltas: torch.Tensor,  # int32 [B, NUM_EVENTS]
+    cfg: WindowConfig,
+    refreshed: bool = False,
+) -> WindowState:
+    """Scatter a micro-batch of event counts into the current bucket
+    column (the token column's landing).
+
+    Duplicate rows accumulate (the batched LongAdder.add on the current
+    WindowWrap); every delta also lands in the running sums.  Rows outside
+    ``[0, rows)`` are dropped, as the reference's ``mode="drop"`` scatters
+    drop them (an out-of-range index would be a device-side assert on the
+    card).  The reference's RT operand (its plain engine path, ROADMAP.md
+    item A8) is not ported.  The bucket column is updated in place, the
+    running sums are new tensors.  ``refreshed=True`` skips the refresh:
+    the caller already refreshed at this ``now_ms`` (a second refresh there
+    changes nothing)."""
+    if not refreshed:
+        state = refresh(state, now_ms, cfg)
+    idx = current_index(now_ms, cfg)
+    keep = (rows >= 0) & (rows < state.run.shape[0])
+    r = torch.where(keep, rows, 0).to(torch.int64)
+    d = torch.where(keep[:, None], deltas.to(state.counts.dtype), 0)
+    state.counts[:, idx, :].index_add_(0, r, d)
+    return state._replace(run=state.run.index_add(0, r, d))
+
+
 def add_dense(
     state: WindowState,
     now_ms: int,
@@ -242,3 +272,9 @@ def window_counts_run(state: WindowState) -> torch.Tensor:
 
 def window_event_run(state: WindowState, event: int) -> torch.Tensor:
     return state.run[:, event]
+
+
+def gather_window_event_run(state: WindowState, rows: torch.Tensor, event: int) -> torch.Tensor:
+    """int32 [B] — one event's windowed totals at ``rows``: a single gather
+    from the running sums."""
+    return state.run[rows.to(torch.int64), event]

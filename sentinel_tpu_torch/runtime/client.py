@@ -106,11 +106,25 @@ threshold tables and turns the ``tail_flow`` stage on.  With
 tick iteration on its own cadence (``hotset_eval_s``).  ``stats.resource``
 reads an exact row's windowed stats (what demotion grades).
 
-Not ported yet (ROADMAP.md): cluster mode (a cluster-mode param rule
-raises), the hot-parameter value counters (``top_params``), backpressure
-and deadlines (``deadline_ms`` raises), front doors, adaptive protection,
-the flight recorder and the block log, the sketch-accuracy audit and the
-sketch ids' windowed stats (``stats.resource`` on a sketch id).
+Cluster mode (FlowRuleChecker.passClusterCheck): a rule load splits
+cluster-mode flow and param rules off the compiled ruleset; ``entry()``
+and ``check_batch`` consult the token service of the attached
+``ClusterStateManager`` (``set_cluster``) for them — after the host
+mirror of the authority gate (``_authority_pre_blocks``), so a request
+the authority slot will reject spends no token — and a remote deny rides
+the batch as the item's ``pre_verdict`` (the engine records the block;
+its provenance lands in the explain plane).  ``check_batch`` asks once per
+(resource, argument) group and hands the granted units out greedily in
+order.  With no service, or on a failed or overloaded one, the client
+degrades (the ``cluster.degrade`` hysteresis, ``cluster_retry_interval_s``
+of cooldown): the fallback-enabled cluster flow rules and every cluster
+param rule are compiled in as local rules until a probe is answered.
+
+Not ported yet (ROADMAP.md): the sharded cluster client (A7b), the
+hot-parameter value counters (``top_params``), backpressure and deadlines
+(``deadline_ms`` raises), front doors, adaptive protection, the flight
+recorder and the block log, the sketch-accuracy audit and the sketch ids'
+windowed stats (``stats.resource`` on a sketch id).
 """
 
 from __future__ import annotations
@@ -126,6 +140,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sentinel_tpu_torch.adaptive.degrade import Hysteresis
 from sentinel_tpu_torch.chaos import failpoints as FP
 from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
@@ -136,7 +151,7 @@ from sentinel_tpu_torch.native import EventRing
 from sentinel_tpu_torch.native.ring import FLAG_COMPLETION, FLAG_INBOUND
 from sentinel_tpu_torch.obs import timeline as TLM
 from sentinel_tpu_torch.obs import trace as OT
-from sentinel_tpu_torch.obs.explain import ExplainPlane
+from sentinel_tpu_torch.obs.explain import KIND_NAMES, ExplainPlane
 from sentinel_tpu_torch.obs.registry import REGISTRY as OBS
 from sentinel_tpu_torch.ops import engine as E
 from sentinel_tpu_torch.ops import engine_seg as ES
@@ -253,6 +268,19 @@ _C_SEG_DROPPED = OBS.counter(
 )
 _C_SEG_RESIZE = OBS.counter(
     "sentinel_seg_resizes_total", "seg_u capacity grow-and-hot-swap events"
+)
+_G_DEGRADED = OBS.gauge(
+    "sentinel_cluster_degraded", "1 while cluster enforcement is degraded to local rules"
+)
+_C_DEGRADE_ENTER = OBS.counter(
+    "sentinel_cluster_degrade_transitions_total",
+    "cluster degrade state transitions",
+    labels={"transition": "enter"},
+)
+_C_DEGRADE_EXIT = OBS.counter(
+    "sentinel_cluster_degrade_transitions_total",
+    "cluster degrade state transitions",
+    labels={"transition": "exit"},
 )
 _C_RESOLVE_FAILED = OBS.counter(
     "sentinel_resolve_failures_total",
@@ -513,11 +541,6 @@ class RuleManager:
 
     def load(self, rules: Sequence) -> None:
         rules = list(rules) if rules else []
-        if self.kind == "param-flow" and any(r.cluster_mode for r in rules):
-            raise NotImplementedError(
-                "not ported to sentinel_tpu_torch yet: cluster-mode param-flow rules "
-                "(ROADMAP.md Queue A item A7: the cluster token column)"
-            )
         self._rules = rules
         self._client._recompile_rules()
 
@@ -576,6 +599,29 @@ class SentinelClient:
         self._sys = SystemStatusSampler()
         #: resource -> ordered param_idx list: which argument each hash lane carries
         self._param_lanes_by_res: Dict[str, list] = {}
+
+        # cluster mode: cluster rules are checked against a TokenService; on
+        # token-server loss the client degrades to local enforcement of the
+        # rules that allow it (fallbackToLocalOrPass:166) and re-probes after
+        # a cooldown
+        self.cluster = None  # Optional[ClusterStateManager]
+        self._cluster_flow_by_res: Dict[str, R.FlowRule] = {}
+        self._cluster_param_by_res: Dict[str, R.ParamFlowRule] = {}
+        #: host mirror of the authority gate: resource -> (origins, strategy)
+        self._auth_host_rules: Dict[str, tuple] = {}
+        # enter on a failed or missing service, exit on the first answered
+        # probe; the transitions count on the reference's gauge and counters
+        self._cluster_hy = Hysteresis(
+            "cluster.degrade",
+            cooldown_s=5.0,
+            counter_enter=_C_DEGRADE_ENTER,
+            counter_exit=_C_DEGRADE_EXIT,
+            gauge=_G_DEGRADED,
+        )
+        # guards degrade transitions AND every ruleset recompile, so the
+        # degraded flag each compile reads matches the ruleset it commits
+        self._cluster_lock = threading.RLock()
+        self.cluster_retry_interval_s = 5.0
 
         self._features = self._select_features()
         self._tick = E.make_tick(self.cfg, features=self._features)
@@ -735,13 +781,19 @@ class SentinelClient:
 
     # -- rule compilation ---------------------------------------------------
 
-    def _select_features(self) -> frozenset:
-        """Engine stages the current rule set needs ('nodes' and 'occupy'
-        stay on; 'warmup' joins when a warm-up shaper exists, 'param' while
-        param rules are loaded, 'tail_flow' while a flow rule's resource
-        has a sketch id)."""
+    def _select_features(self, local_flow=None, local_param=None) -> frozenset:
+        """Engine stages the compiled (local) rule set needs ('nodes' and
+        'occupy' stay on; 'warmup' joins when a warm-up shaper exists,
+        'param' while local param rules are compiled, 'tail_flow' while a
+        flow rule's resource has a sketch id)."""
         feats = {"nodes", "occupy", "flow"}
-        if self.param_flow_rules.get():
+        flow = [r for r in self.flow_rules.get() if not r.cluster_mode] if local_flow is None else local_flow
+        param = (
+            [r for r in self.param_flow_rules.get() if not r.cluster_mode]
+            if local_param is None
+            else local_param
+        )
+        if param:
             feats.add("param")
         if self.degrade_rules.get():
             feats.add("degrade")
@@ -751,14 +803,13 @@ class SentinelClient:
             feats.add("system")
         if any(
             r.control_behavior in (R.CONTROL_WARM_UP, R.CONTROL_WARM_UP_RATE_LIMITER)
-            for r in self.flow_rules.get()
+            for r in flow
         ):
             feats.add("warmup")
         if self.cfg.sketch_stats and any(
             (rid := self.registry.peek_resource_id(r.resource)) is not None
             and self.registry.is_sketch_id(rid)
-            for r in self.flow_rules.get()
-            if not r.cluster_mode
+            for r in flow
         ):
             feats.add("tail_flow")
         return frozenset(feats)
@@ -789,19 +840,53 @@ class SentinelClient:
                 guarded_promote(self.registry, r.resource)
 
     def _recompile_rules(self) -> None:
-        with OT.TRACER.span("client.recompile_rules"):
-            self._recompile_rules_traced()
+        # cluster-mode rules are enforced through the TokenService, not the
+        # local engine — except while degraded, when the fallback-enabled
+        # ones compile in as local rules (fallbackToLocalOrPass semantics)
+        with self._cluster_lock:
+            changed = self._recompile_rules_noted()
+        self._warm_after_recompile(changed)
 
-    def _recompile_rules_traced(self) -> None:
-        flow = [r for r in self.flow_rules.get() if not r.cluster_mode]
+    def _recompile_rules_noted(self) -> bool:
+        """The traced recompile; the caller holds ``_cluster_lock``.
+        Returns whether the tick changed (the caller warms it)."""
+        with OT.TRACER.span("client.recompile_rules"):
+            return self._recompile_rules_traced()
+
+    def _warm_after_recompile(self, changed: bool) -> None:
+        """Run a changed tick once at both batch shapes, OUTSIDE
+        ``_cluster_lock`` (``_tick_mutex`` is the outer lock), so the first
+        entry after a rule load does not pay the new stages' first launches
+        (the card loads each kernel's module at its first use, and the
+        fused wrappers plan each new job signature) inside its wait — a
+        cluster token request has 200 ms by default.  Threaded clients
+        only, as in the reference."""
+        if changed and self._started and self.mode == "threaded":
+            with self._tick_mutex:
+                self._warm_shapes()
+
+    def _recompile_rules_traced(self) -> bool:
+        all_flow = self.flow_rules.get()
+        flow = [r for r in all_flow if not r.cluster_mode]
+        cluster_flow = [r for r in all_flow if r.cluster_mode]
+        self._cluster_flow_by_res = {r.resource: r for r in cluster_flow}
         if self.cfg.sketch_stats:
             self._promote_ruled_tail(flow)
-        param = self.param_flow_rules.get()
+        all_param = self.param_flow_rules.get()
+        param = [r for r in all_param if not r.cluster_mode]
+        cluster_param = [r for r in all_param if r.cluster_mode]
+        self._cluster_param_by_res = {r.resource: r for r in cluster_param}
+        self._auth_host_rules = self._authority_mirror()
         # per-resource hash LANES: each entry hashes up to param_dims
         # distinct argument indices; every rule reads the lane its param_idx
-        # was assigned (ParamFlowChecker.java:78 paramIdx dispatch)
-        lane_map = param_lanes(param, self.cfg.param_dims)
+        # was assigned (ParamFlowChecker.java:78 paramIdx dispatch).  Lane 0
+        # also feeds the cluster token request, so healthy (token service)
+        # and degraded (local engine) modes throttle the same argument
+        lane_map = param_lanes(all_param, self.cfg.param_dims)
         self._param_lanes_by_res = lane_map
+        if self._cluster_degraded_active:
+            flow = flow + [r for r in cluster_flow if r.cluster_fallback_to_local]
+            param = param + cluster_param
         rules_dev = E.compile_ruleset(
             self.cfg,
             self.registry,
@@ -813,7 +898,7 @@ class SentinelClient:
             system_rules=self.system_rules.get(),
             device=self.device,
         )
-        feats = self._select_features()
+        feats = self._select_features(flow, param)
         cfg = self.cfg
         if cfg.seg_effects:
             # every batch is presorted (_run_tick), so single-lane DIRECT /
@@ -833,10 +918,260 @@ class SentinelClient:
                 cfg = dataclasses.replace(cfg, seg_static_ranks=want_static)
         with self._engine_lock:
             self._rules_dev = rules_dev
-            if feats != self._features or cfg != self.cfg:
+            changed = feats != self._features or cfg != self.cfg
+            if changed:
                 self.cfg = self.registry.cfg = cfg
                 self._features = feats
                 self._tick = E.make_tick(cfg, features=feats)
+        return changed
+
+    def _authority_mirror(self) -> Dict[str, tuple]:
+        """Host mirror of the authority gate, used ONLY to order cluster
+        token consumption after the authority slot (the reference checks
+        cluster INSIDE FlowSlot, after AuthoritySlot — FlowRuleChecker.java
+        :64-72): a request the authority gate will reject must not consume
+        a cluster token.  The device decision stays authoritative, and the
+        mirror must only ever be host-LENIENT-or-equal — a host-stricter
+        verdict would skip the token check on traffic the device then
+        passes.  So it selects as ``compile_authority_rules`` does: invalid
+        rules skipped, over-capacity resources skipped, origins capped at
+        ``authority_origins_per_resource``, the LAST rule per resource wins;
+        and a rule carrying an origin the registry could not intern (the
+        device then matches it as -1, every un-interned request origin)
+        drops out of the mirror entirely."""
+        ka = self.cfg.authority_origins_per_resource
+        auth_host: Dict[str, tuple] = {}
+        for r in self.authority_rules.get():
+            if not r.is_valid():
+                continue
+            rid = self.registry.resource_id(r.resource)
+            if rid is None or rid > self.cfg.max_resources:
+                continue
+            origins = r.origins()[:ka]
+            if any(self.registry.origin_id(o) == -1 for o in origins):
+                # last-wins: this rule's outcome for the resource is "no mirror"
+                auth_host.pop(r.resource, None)
+                continue
+            auth_host[r.resource] = (frozenset(origins), r.strategy)
+        return auth_host
+
+    # -- cluster consultation -------------------------------------------------
+
+    def set_cluster(self, cluster_state_manager) -> None:
+        """Attach a ClusterStateManager; cluster-mode rules consult its
+        token service (client or embedded server role)."""
+        self.cluster = cluster_state_manager
+
+    @property
+    def _cluster_degraded_active(self) -> bool:
+        return self._cluster_hy.active
+
+    @property
+    def _cluster_degraded_until(self) -> float:
+        return self._cluster_hy.until
+
+    def _enter_cluster_degraded(self) -> None:
+        """Token service unreachable: enforce the fallback-enabled cluster
+        rules locally until a probe succeeds.  Idempotent — extends the
+        cooldown without recompiling when already degraded.  The flag flip
+        and the recompile are atomic under ``_cluster_lock``."""
+        changed = False
+        with self._cluster_lock:
+            entered = self._cluster_hy.enter(cooldown_s=self.cluster_retry_interval_s)
+            if entered:
+                changed = self._recompile_rules_noted()
+        self._warm_after_recompile(changed)
+
+    def _exit_cluster_degraded(self) -> None:
+        changed = False
+        with self._cluster_lock:
+            if self._cluster_hy.exit():
+                changed = self._recompile_rules_noted()
+        self._warm_after_recompile(changed)
+
+    def _authority_pre_blocks(self, resource: str, origin: str) -> bool:
+        """True when the device authority gate is going to reject this
+        (resource, origin) — consulted BEFORE a cluster token is spent."""
+        ent = self._auth_host_rules.get(resource)
+        if ent is None:
+            return False
+        origins, strategy = ent
+        listed = bool(origin) and origin in origins
+        if strategy == R.AUTHORITY_WHITE:
+            return not listed
+        return strategy == R.AUTHORITY_BLACK and listed
+
+    def _cluster_check(self, resource: str, count: int, prioritized: bool, param_value) -> Tuple[int, int]:
+        """Consult the token service for the cluster-mode rules on
+        ``resource``.  Returns (pre_verdict, wait_ms): pre_verdict > 0
+        forces a recorded block; wait_ms > 0 is SHOULD_WAIT pacing before
+        the entry proceeds.
+
+        Degrade protocol: on a transport failure (or the namespace guard's
+        overload, which the reference also routes to fallbackToLocalOrPass)
+        the client enforces the fallback-enabled cluster rules locally.
+        They STAY compiled through re-probes — only an answered probe drops
+        them — so the token server being down never opens an unenforced
+        window.  The SYSTEM gate still runs after the token is spent (as in
+        the reference: its verdict needs the device's live windows)."""
+        from sentinel_tpu_torch.cluster import constants as CC
+
+        frule = self._cluster_flow_by_res.get(resource)
+        prule = self._cluster_param_by_res.get(resource)
+        if frule is None and prule is None:
+            return 0, 0
+        degraded = self._cluster_degraded_active
+        if degraded and mono_s() < self._cluster_degraded_until:
+            return 0, 0  # cooling down; the local fallback rules enforce
+        svc = self.cluster.token_service() if self.cluster is not None else None
+        if svc is None:
+            self._enter_cluster_degraded()
+            return 0, 0
+
+        wait_total = 0
+        responded = False
+        if frule is not None:
+            try:
+                r = svc.request_token(frule.cluster_flow_id, count, prioritized)
+            except Exception:  # degrade to LOCAL: the fallback rules recompile into the engine
+                if frule.cluster_fallback_to_local:
+                    self._enter_cluster_degraded()
+                return 0, 0
+            if r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
+                # unreachable or overloaded server → local fallback
+                if frule.cluster_fallback_to_local:
+                    self._enter_cluster_degraded()
+                return 0, 0
+            # BAD_REQUEST is made client-side without the network: it proves
+            # nothing about the server, so it is no successful probe
+            if r.status != CC.STATUS_BAD_REQUEST:
+                responded = True
+            if r.status == CC.STATUS_BLOCKED:
+                if degraded:
+                    self._exit_cluster_degraded()
+                self._fold_remote_deny(resource, r, ERR.BLOCK_FLOW)
+                return ERR.BLOCK_FLOW, 0
+            if r.status == CC.STATUS_SHOULD_WAIT:
+                wait_total += r.wait_ms
+            # OK / NO_RULE → proceed
+
+        if prule is not None and param_value is not None:
+            try:
+                r = svc.request_param_token(prule.cluster_flow_id, count, [param_value])
+            except Exception:  # degrade to LOCAL: the fallback rules recompile into the engine
+                self._enter_cluster_degraded()
+                return 0, wait_total
+            if r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
+                self._enter_cluster_degraded()
+                return 0, wait_total
+            if r.status != CC.STATUS_BAD_REQUEST:
+                responded = True
+            if r.status == CC.STATUS_BLOCKED:
+                if degraded:
+                    self._exit_cluster_degraded()
+                self._fold_remote_deny(resource, r, ERR.BLOCK_PARAM)
+                return ERR.BLOCK_PARAM, 0
+
+        if degraded and responded:
+            self._exit_cluster_degraded()  # probe answered: back to remote
+        return 0, wait_total
+
+    def _fold_remote_deny(self, resource: str, r, default_kind: int, n: int = 1) -> None:
+        """Land a cluster deny's provenance in the explain plane.  A v3
+        peer's TokenResult carries (kind, rule, observed, limit); an
+        embedded service fills the same fields; a pre-v3 peer leaves them
+        None and the deny is counted unexplained."""
+        plane = self.explain_plane
+        if plane is None:
+            return
+        rid = self.registry.peek_resource_id(resource)
+        if rid is None or n <= 0:
+            return
+        if r.prov_kind is None:
+            plane.count_unexplained(n)
+            return
+        kind = int(r.prov_kind) if int(r.prov_kind) in KIND_NAMES else default_kind
+        for _ in range(n):
+            plane.fold_remote(
+                rid, kind, r.prov_rule, r.prov_observed, r.prov_limit, ts_ms=int(self.time.wall_ms())
+            )
+
+    def _cluster_check_bulk(self, resource: str, item_counts: List[int], param_value) -> Tuple[List[int], List[int]]:
+        """The bulk path's cluster consultation with a partial grant: ONE
+        ``request_token_batch`` round trip covers all items of a (resource,
+        argument) group, and the granted units go to the items greedily in
+        order.  The same degrade protocol as ``_cluster_check``."""
+        from sentinel_tpu_torch.cluster import constants as CC
+
+        n = len(item_counts)
+        verdicts, waits = [0] * n, [0] * n
+        frule = self._cluster_flow_by_res.get(resource)
+        prule = self._cluster_param_by_res.get(resource)
+        if frule is None and prule is None:
+            return verdicts, waits
+        degraded = self._cluster_degraded_active
+        if degraded and mono_s() < self._cluster_degraded_until:
+            return verdicts, waits
+        svc = self.cluster.token_service() if self.cluster is not None else None
+        if svc is None:
+            self._enter_cluster_degraded()
+            return verdicts, waits
+
+        responded = False
+        if frule is not None:
+            total = sum(item_counts)
+            try:
+                r = svc.request_token_batch(frule.cluster_flow_id, total)
+            except Exception:  # r=None takes the degrade-to-LOCAL branch below
+                r = None
+            if r is None or r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
+                if frule.cluster_fallback_to_local:
+                    self._enter_cluster_degraded()
+                return verdicts, waits
+            if r.status != CC.STATUS_BAD_REQUEST:
+                responded = True
+            if r.status in (CC.STATUS_OK, CC.STATUS_SHOULD_WAIT, CC.STATUS_BLOCKED):
+                granted = r.remaining if r.status != CC.STATUS_BLOCKED else 0
+                acc = 0
+                blocked_items = 0
+                for i, c in enumerate(item_counts):
+                    if acc + c <= granted:
+                        acc += c
+                        waits[i] = r.wait_ms
+                    else:
+                        verdicts[i] = ERR.BLOCK_FLOW
+                        blocked_items += 1
+                if blocked_items:
+                    self._fold_remote_deny(resource, r, ERR.BLOCK_FLOW, n=blocked_items)
+            # NO_RULE → proceed
+
+        if prule is not None and param_value is not None:
+            live = [i for i in range(n) if verdicts[i] == 0]
+            if live:
+                total = sum(item_counts[i] for i in live)
+                try:
+                    r = svc.request_param_token(prule.cluster_flow_id, total, [param_value])
+                except Exception:  # r=None takes the degrade-to-LOCAL branch below
+                    r = None
+                if r is None or r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
+                    self._enter_cluster_degraded()
+                    return verdicts, waits
+                if r.status != CC.STATUS_BAD_REQUEST:
+                    responded = True
+                if r.status == CC.STATUS_BLOCKED:
+                    for i in live:
+                        verdicts[i] = ERR.BLOCK_PARAM
+                    self._fold_remote_deny(resource, r, ERR.BLOCK_PARAM, n=len(live))
+
+        if degraded and responded:
+            self._exit_cluster_degraded()
+        return verdicts, waits
+
+    def pending_acquires(self) -> int:
+        """Depth of the un-ticked acquire queue (the token service's
+        load-shedding probe on the engine-backed decision path)."""
+        with self._lock:
+            return len(self._acquires)
 
     # -- entry API ------------------------------------------------------------
 
@@ -909,10 +1244,22 @@ class SentinelClient:
             ctx_node = self.cfg.trash_row
             ctx_id = -1
         param_hashes = self.param_hashes(resource, args)
-        pre_verdict = 0
+        pre_verdict, cluster_wait = 0, 0
         if hook_exc is not None:
             code = getattr(hook_exc, "code", 0)
             pre_verdict = code if code > 0 else ERR.BLOCK_FLOW
+        elif (self._cluster_flow_by_res or self._cluster_param_by_res) and not self._authority_pre_blocks(
+            resource, origin or ""
+        ):
+            # authority-doomed requests skip the token service: the slot
+            # order of the reference (the cluster check lives inside
+            # FlowSlot, after AuthoritySlot — FlowRuleChecker.java:64-72)
+            pre_verdict, cluster_wait = self._cluster_check(
+                resource, count, prioritized, self._lane0_value(resource, args)
+            )
+        if cluster_wait > 0:
+            # SHOULD_WAIT: pace before entering (TokenResultStatus.SHOULD_WAIT)
+            self.time.sleep_ms(cluster_wait)
         req = AcquireRequest(
             res=rid,
             count=count,
@@ -983,6 +1330,14 @@ class SentinelClient:
                 if 0 <= idx < len(args):
                     hashes[li] = hash_param(args[idx])
         return tuple(hashes)
+
+    def _lane0_value(self, resource: str, args: Optional[Sequence]):
+        """The argument hash lane 0 carries — the value a cluster param
+        token is asked for — or None."""
+        if not args:
+            return None
+        idx = (self._param_lanes_by_res.get(resource) or [0])[0]
+        return args[idx] if 0 <= idx < len(args) else None
 
     def param_lane(self, resource: str, param_idx: int) -> Optional[int]:
         """Hash lane the compile assigned to ``param_idx`` on ``resource``,
@@ -1118,6 +1473,23 @@ class SentinelClient:
         _no_deadlines(deadline_ms)
         if not self.enabled:
             return [(ERR.PASS, 0)] * len(resources)
+        # the cluster consultation runs OUTSIDE self._lock (a token-server
+        # round trip must not stall the tick thread) and is AGGREGATED: one
+        # request per distinct (resource, argument) group with the summed
+        # count, not one round trip an item
+        pre_verdicts = [0] * len(resources)
+        pre_waits = [0] * len(resources)
+        if self._cluster_flow_by_res or self._cluster_param_by_res:
+            groups: Dict[Tuple[str, Any], List[int]] = {}
+            for i, name in enumerate(resources):
+                if name in self._cluster_flow_by_res or name in self._cluster_param_by_res:
+                    if self._authority_pre_blocks(name, origins[i] if origins else ""):
+                        continue  # the engine rejects it; it consumes no token
+                    groups.setdefault((name, params[i] if params else None), []).append(i)
+            for (name, pv), idxs in groups.items():
+                vs, ws = self._cluster_check_bulk(name, [counts[i] if counts else 1 for i in idxs], pv)
+                for j, i in enumerate(idxs):
+                    pre_verdicts[i], pre_waits[i] = vs[j], ws[j]
         futures = []
         with self._lock:
             for i, name in enumerate(resources):
@@ -1138,6 +1510,7 @@ class SentinelClient:
                     ctx_node=self.cfg.trash_row,
                     ctx_name=-1,
                     inbound=1 if inbound else 0,
+                    pre_verdict=pre_verdicts[i],
                     future=Future(),
                     param_hash=(hash_param(pv),) + (0,) * (self.cfg.param_dims - 1)
                     if pv is not None
@@ -1147,10 +1520,17 @@ class SentinelClient:
                 futures.append(req.future)
         if self.mode == "sync":
             self.tick_once()
-        return [
-            (ERR.PASS, 0) if f is None else f.result(timeout=self.entry_timeout_s)
-            for f in futures
-        ]
+        out = []
+        for i, f in enumerate(futures):
+            if f is None:
+                out.append((ERR.PASS, 0))
+                continue
+            v, w = f.result(timeout=self.entry_timeout_s)
+            if pre_waits[i] > 0 and v == ERR.PASS:
+                # cluster SHOULD_WAIT pacing surfaces to bulk callers too
+                v, w = ERR.PASS_WAIT, w + pre_waits[i]
+            out.append((v, w))
+        return out
 
     def submit_block(
         self,

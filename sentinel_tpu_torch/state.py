@@ -1,12 +1,13 @@
 """State carried across between the JAX package and the port.
 
-The JAX package's ``EngineState`` and ``RuleSet`` become numpy with
-``jax.tree.map(np.asarray, x)``; ``state_from_numpy`` and
-``ruleset_from_numpy`` turn those (nested NamedTuples of arrays, matched
-by FIELD NAME) into the port's tensors on ``device``, and ``to_numpy``
-goes the other way.  A state run for a while in one package can so be
-continued in the other — the tests hold the two against each other that
-way.  Nothing here imports the JAX package: it only reads attributes.
+The JAX package's ``EngineState``, ``RuleSet`` and ``TokenColState``
+become numpy with ``jax.tree.map(np.asarray, x)``; ``state_from_numpy``,
+``ruleset_from_numpy`` and ``token_col_state_from_numpy`` turn those
+(nested NamedTuples of arrays, matched by FIELD NAME) into the port's
+tensors on ``device``, and ``to_numpy`` goes the other way.  A state run
+for a while in one package can so be continued in the other — the tests
+hold the two against each other that way.  Nothing here imports the JAX
+package: it only reads attributes.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from sentinel_tpu_torch.core.config import EngineConfig
 from sentinel_tpu_torch.ops import engine as E
 from sentinel_tpu_torch.ops import gsketch as GS
 from sentinel_tpu_torch.ops import rtq as RQ
+from sentinel_tpu_torch.ops import token_col as TC
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.sketch import salsa as SA
 
@@ -79,6 +81,13 @@ def ruleset_from_numpy(cfg: EngineConfig, leaves, device) -> E.RuleSet:
     """The port's RuleSet from the JAX package's (numpy leaves), param
     rules and the sketch-tail thresholds included."""
     return _convert(E.RuleSet, leaves, device, _SUBTYPES)
+
+
+def token_col_state_from_numpy(leaves, device) -> TC.TokenColState:
+    """The port's token-column state (ops/token_col.py) from the JAX
+    package's ``TokenColState`` (numpy leaves): the per-slot window ledger
+    and the limits."""
+    return _convert(TC.TokenColState, leaves, device, {(TC.TokenColState, "win"): W.WindowState})
 
 
 def _walk(x, path=""):

@@ -137,16 +137,19 @@ def test_client_fails_tick_closed_on_corrupt_wire(monkeypatch):
 
 
 def test_param_rules_raise_not_implemented():
-    """Param rules load; what still raises is a CLUSTER-MODE param rule
-    (naming its queue item) and a config with an unported stage on (the
-    unpacked wire, ``packed_wire=False``); the observability planes, the
-    sketch tier and ``seg_fallback=True`` are ported and build."""
+    """Param rules load, cluster-mode ones too (the cluster layer is
+    ported: they are kept out of the compiled ruleset and consult the
+    token service); what still raises is a config with an unported stage
+    on (the unpacked wire, ``packed_wire=False``); the observability
+    planes, the sketch tier and ``seg_fallback=True`` are ported and
+    build."""
     tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
     tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
     assert "param" in tc._features
-    with pytest.raises(NotImplementedError, match="item A7"):
-        tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, cluster_mode=True)])
-    assert len(tc.param_flow_rules.get()) == 1  # the refused load changed nothing
+    tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, cluster_mode=True, cluster_flow_id=5)])
+    assert len(tc.param_flow_rules.get()) == 1
+    assert set(tc._cluster_param_by_res) == {"p"}
+    assert "param" not in tc._features  # not compiled while the cluster is not degraded
     tc.param_flow_rules.load([])
     assert "param" not in tc._features  # the stage is on only while param rules are loaded
     with pytest.raises(NotImplementedError):

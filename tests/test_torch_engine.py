@@ -179,11 +179,31 @@ def test_the_param_feature_is_ported_and_unknown_features_are_refused():
 
 
 def test_cluster_mode_param_rules_raise_naming_their_queue_item():
+    """Since the cluster layer is ported, a cluster-mode param rule no
+    longer raises: the engine compiles it as the reference's
+    ``compile_ruleset`` does, as an ordinary param rule (the client hands
+    it over only while its cluster enforcement is degraded to local
+    rules).  The rule tensors equal the reference's."""
     cfg = small_engine_config(**H.FUSED_FLAGS)
-    reg = Registry(cfg)
-    with pytest.raises(NotImplementedError, match="item A7"):
-        E.compile_ruleset(cfg, reg, device="cpu",
-                          param_rules=[TR.ParamFlowRule(resource="p", count=1, cluster_mode=True)])
+    jcfg = jax_small_cfg(**H.FUSED_FLAGS)
+    reg, jreg = Registry(cfg), JaxRegistry(jcfg)
+
+    def rules(m):
+        return [
+            m.ParamFlowRule(resource="p", count=1, cluster_mode=True, cluster_flow_id=55),
+            m.ParamFlowRule(resource="q", count=3, param_idx=1, cluster_mode=True, cluster_flow_id=56,
+                            duration_in_sec=2),
+            m.ParamFlowRule(resource="q", count=2),
+        ]
+
+    trs = E.compile_ruleset(cfg, reg, device="cpu", param_rules=rules(TR))
+    jrs = JE.compile_ruleset(jcfg, jreg, param_rules=rules(JR))
+    want = S.leaves(S.ruleset_from_numpy(cfg, jax.tree.map(np.asarray, jrs), "cpu"))
+    got = S.leaves(trs)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    assert int(trs.param.enabled.sum()) == 3
 
 
 # -- the hot-parameter stage -----------------------------------------------------

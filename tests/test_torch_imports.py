@@ -164,3 +164,45 @@ def test_the_scan_covers_the_native_library_the_metrics_spi_and_the_tracer():
     assert loader._SRC == PKG / "native" / "sentinel_host.cpp"
     ref = sys.modules.get("sentinel_tpu.obs.trace")
     assert ref is None or ref.TRACER is not trace.TRACER
+
+
+def test_the_scan_covers_the_cluster_layer():
+    """The cluster token layer is the port's own: cluster/ (constants,
+    protocol, rules, the token service, server, client and state manager),
+    ops/token_col.py and utils/host_window.py are walked by the checks
+    above and import on the CPU without the JAX package; the codec, the
+    rules and the client import without torch (the column imports it where
+    it runs); the wire counters are the port's registry's."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import sentinel_tpu_torch as st
+
+    mods = ("cluster", "cluster.constants", "cluster.protocol", "cluster.rules", "cluster.token_service",
+            "cluster.server", "cluster.client", "cluster.state", "ops.token_col", "utils.host_window")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    code = (
+        "import sys\n"
+        "import sentinel_tpu_torch.cluster as CL\n"
+        "import sentinel_tpu_torch.cluster.protocol, sentinel_tpu_torch.utils.host_window\n"
+        "assert 'torch' not in sys.modules, 'the cluster codec pulled torch in'\n"
+        "assert not [n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'sentinel_tpu.'))]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    assert REGISTRY.get("sentinel_wire_bytes_total", {"path": "cluster", "direction": "tx"}) is P._C_WIRE_TX
+    ref = sys.modules.get("sentinel_tpu.cluster.protocol")
+    assert ref is None or ref._C_WIRE_TX is not P._C_WIRE_TX

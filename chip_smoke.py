@@ -240,6 +240,35 @@ Phases (the first failure stops the script with a nonzero exit):
    decision path's device launches a tick (a column call) and which of
    B1-B4 it launched, from a profile with the serving client idle.
 
+9. The control plane (``control_phase``): a threaded serving client on
+   ``platform_config()`` at the default widths with phase 3's rules, the
+   flow rules pushed through a ``FileRefreshableDataSource`` into a
+   ``DynamicSentinelProperty`` the flow manager is registered on; all
+   100,000 names interned; 8 closed-loop request threads (Zipf(1.1), one
+   argument from 10,000 values, 1 in 20 on the 50 hottest names from
+   origin "bad", no prioritized entries); ``start_command_center`` on
+   127.0.0.1 driven over real HTTP under that traffic: ``clusterNode``
+   (every resource: all 100,000 must be listed), ``jsonTree``, ``origin``,
+   ``topParams``, ``rtQuantiles``, ``systemStatus`` and ``getRules``,
+   each command's round trip p50 / p99; ``MetricTimerListener.run_once``
+   once a wall second for 5 s, then ``metric`` must serve back the
+   written lines, line for line; ``update_window_shape(sample_count=4,
+   window_ms=250)`` and a ``register_window_property`` push back to 2 x
+   500 ms under the traffic (the whole swap's ms and the engine lock's
+   hold; every DEFAULT flow resource's windowed pass within its threshold
+   in snapshots around both swaps); ``setRules`` with a new 0 QPS rule,
+   which must block the next entry; no entry lost, concurrency back to 0,
+   B1, B2 and B4 launched; ``setSwitch=false`` (200 entries pass, no tick,
+   no launch), then ``true``; one ``HeartbeatSender.send_once`` to a
+   local receiver; the readers (``snapshot``, ``origin``, ``entry_node``,
+   ``rt_quantiles``) on the card's state against a CPU copy of it at one
+   frozen time, and ``snapshot``'s device ms (CUDA events), lock wait and
+   hold, readback and dict ms at 100,000 resources.  Then bench.py's
+   sketch configuration through a sync client with every one of the 2^20
+   names interned and six client_bench blocks with their exits: the
+   readers against a CPU copy (the sketch ids' estimates included) and
+   ``snapshot``'s parts at ~1M sketch ids (``[control]`` lines).
+
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
 turns the fallback off).
@@ -250,7 +279,8 @@ beside the script: copied into an older checkout it measures that one.
 ``python3 chip_smoke.py --ops`` needs no card: it counts, on the CPU, the
 PyTorch operations of one ``sketch`` tick with the sketch tier on and off
 (``ops_main``).  ``python3 chip_smoke.py --cluster`` runs the build and
-phase 8 alone (``cluster_main``).
+phase 8 alone (``cluster_main``), ``python3 chip_smoke.py --control`` the
+build and phase 9 (``control_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -388,10 +418,13 @@ def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
     scratch = torch.empty(flush_bytes // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    # a session now and then records no device activity on the card (seen
-    # once in many sessions of one process): such a session is taken again
-    evs = []
-    for _session in range(3):
+    # a session now and then records no device activity on the card, or
+    # only part of it (a kernel recorded in 3 of 5 identical calls): such a
+    # session is taken again, up to 5 in all; the first whole one counts,
+    # else the one with the most device events (a call that truly launches
+    # a varying number of kernels does so in every session)
+    best = []
+    for _session in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 scratch.fill_(1)
@@ -401,9 +434,16 @@ def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
         evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                       and "fill" not in e.name.lower() and "spin" not in e.name.lower()),
                      key=lambda e: e.time_range.start)
-        if evs:
+        counts = {}
+        for e in evs:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if evs and all(n % reps == 0 for n in counts.values()):
+            best = evs
             break
-    check(evs, "launch breakdown: the profiler saw no device event in 3 sessions")
+        if len(evs) > len(best):
+            best = evs
+    evs = best
+    check(evs, "launch breakdown: the profiler saw no device event in 5 sessions")
     out = {}
     for e in evs:
         n, us = out.get(e.name, (0, 0.0))
@@ -2741,6 +2781,488 @@ def cluster_phase(np, st, S, FU, SC, torch, smi) -> dict:
     return rep
 
 
+# -- phase 9: the control plane ---------------------------------------------------------
+
+#: request threads' arguments and origins in phase 9: entries carry one
+#: argument; 1 in 20 on the 50 hottest names comes from origin "bad"
+CONTROL_ORIGIN_NAMES = 50
+#: HTTP round trips a command: the two whole-map reads, the rest
+CONTROL_HEAVY_REPS = 3
+CONTROL_LIGHT_REPS = 15
+#: wall seconds the metric timer writes for
+CONTROL_METRIC_S = 5
+
+
+class StateReader:
+    """What ``ClientStats`` and ``SentinelClient.rt_quantiles`` read off a
+    client — its config, registry and state, a clock frozen at one
+    ``now_ms`` and a lock of its own — so that the card's state and a copy
+    of it on the CPU go through the same reader code at the same time."""
+
+    def __init__(self, client, state, now_ms: int, device):
+        import torch
+
+        self.cfg, self.registry = client.cfg, client.registry
+        self._state, self.device = state, torch.device(device)
+        self._engine_lock = threading.Lock()
+        self.time = self
+        self._now = int(now_ms)
+
+    def now_ms(self) -> int:
+        return self._now
+
+    def reads(self, qs=(0.5, 0.9, 0.99, 0.999)) -> dict:
+        from sentinel_tpu_torch.runtime.client import ClientStats, SentinelClient
+
+        stats = ClientStats(self)
+        origins = {f"{k[1]}": stats._row_stats(row) for k, row in self.registry.extra_rows().items()
+                   if k[0] == "origin"}
+        return dict(snapshot=stats.snapshot(), origin=origins, entry=stats.entry_node(),
+                    rtq=SentinelClient.rt_quantiles(self, qs))
+
+
+def state_to(x, device):
+    """A (nested) state NamedTuple's tensors copied to ``device``."""
+    if hasattr(x, "to") and not isinstance(x, tuple):
+        return x.to(device, copy=True)
+    return type(x)(*[state_to(v, device) for v in x])
+
+
+def reads_equal(got, want, path="") -> list:
+    """Where two reader results differ: ints and strings must be equal,
+    floats within rtol 1e-6 (atol 1e-4)."""
+    bad = []
+    if isinstance(want, dict):
+        if list(got.keys()) != list(want.keys()):
+            return [f"{path}: keys differ"]
+        for k in want:
+            bad += reads_equal(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, float):
+        if not abs(got - want) <= 1e-4 + 1e-6 * abs(want):
+            bad.append(f"{path}: {got} != {want}")
+    elif got != want or type(got) is not type(want):
+        bad.append(f"{path}: {got!r} != {want!r}")
+    return bad
+
+
+def card_against_cpu(client, torch) -> tuple:
+    """The readers on the card's state against the same readers on a CPU
+    copy of it, at one frozen time (the client idle): (differences, the
+    number of values compared)."""
+    with client._engine_lock:
+        now = client.time.now_ms()
+        cpu_state = state_to(client._state, "cpu")
+    card = StateReader(client, client._state, now, client.device).reads()
+    cpu = StateReader(client, cpu_state, now, "cpu").reads()
+    n = sum(len(v) for v in card["snapshot"].values()) + sum(len(v) for v in card["origin"].values())
+    return reads_equal(card, cpu), n, card
+
+
+def http_call(url, data=None, token=None):
+    """(ms, status, body bytes) of one HTTP round trip."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST" if data is not None else "GET")
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as rsp:
+            body, status = rsp.read(), rsp.status
+    except urllib.error.HTTPError as e:
+        body, status = e.read(), e.code
+    return (time.perf_counter() - t) * 1e3, status, body
+
+
+def control_traffic(np, st, client, names, stop, outcomes, lock, seed):
+    """One closed-loop request thread: Zipf(1.1) names, one argument from
+    10,000 values, 1 in 20 of the hottest names from origin "bad", real
+    exits (1 in 20 after 2 ms); every outcome counted (a lost entry is any
+    other exception)."""
+    probs, vprobs = zipf_probs(np, N_NAMES), zipf_probs(np, N_VALUES)
+    rng = np.random.default_rng(seed)
+    local = {}
+    while not stop.is_set():
+        picks = rng.choice(N_NAMES, size=64, p=probs)
+        values = rng.choice(N_VALUES, size=64, p=vprobs)
+        for k, v in zip(picks, values):
+            origin = "bad" if k < CONTROL_ORIGIN_NAMES and rng.random() < 0.05 else None
+            try:
+                e = client.entry(names[k], args=[arg_value(v)], origin=origin, inbound=bool(rng.random() < 0.5))
+                if rng.random() < 0.03:
+                    e.trace(RuntimeError("business error"))
+                if rng.random() < 0.05:
+                    time.sleep(0.002)  # a call that takes a while: the RT histogram's input
+                e.exit()
+                kind = "pass"
+            except st.BlockException as exc:
+                kind = type(exc).__name__
+            except Exception as exc:  # counted: the phase fails on any
+                kind = f"lost:{type(exc).__name__}"
+            local[kind] = local.get(kind, 0) + 1
+            if stop.is_set():
+                break
+    with lock:
+        for k, v in local.items():
+            outcomes[k] = outcomes.get(k, 0) + v
+
+
+def control_flow_ok(client, snap, limits) -> tuple:
+    """Every DEFAULT flow rule's windowed pass count (from a snapshot)
+    against its threshold: (violations, the fullest window's share)."""
+    interval_s = client.cfg.second_sample_count * client.cfg.second_window_ms / 1000.0
+    bad, worst = [], 0.0
+    for name, limit in limits.items():
+        s = snap.get(name)
+        if s is None:
+            continue
+        passed = s["passQps"] * interval_s
+        worst = max(worst, passed / limit)
+        if passed > limit * interval_s:
+            bad.append((name, passed, limit))
+    return bad, worst
+
+
+def control_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 9: the control plane of a threaded serving client on the card
+    at the default widths — rules through a file datasource, the HTTP
+    command center under traffic, the metric log, live reshape, the
+    heartbeat, the readers against a CPU copy — then snapshot on bench.py's
+    sketch configuration."""
+    import tempfile
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from sentinel_tpu_torch import transport as TT
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.core.rules import rules_to_json_list
+    from sentinel_tpu_torch.datasource import DynamicSentinelProperty, FileRefreshableDataSource, json_rule_converter
+    from sentinel_tpu_torch.metrics import MetricSearcher, MetricTimerListener, MetricWriter
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    rep = {"card": smi}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="control-", dir=os.path.join(ROOT, "build"))
+    os.environ["CSP_SENTINEL_LOG_DIR"] = os.path.join(work, "logs")
+    t_phase = time.perf_counter()
+    client = SentinelClient(cfg=platform_config(), device="cuda", mode="threaded", entry_timeout_s=30.0,
+                            app_name="control")
+    flow, degrade, authority, system, param = build_rules(st)
+    rules_path = os.path.join(work, "flow-rules.json")
+    with open(rules_path, "w") as f:
+        json.dump(rules_to_json_list(flow), f)
+    ds = FileRefreshableDataSource(rules_path, json_rule_converter("flow"), refresh_ms=3_600_000)
+    client.flow_rules.register_property(ds.get_property())
+    check(len(client.flow_rules.get()) == len(flow), "the file datasource did not load the flow rules")
+    client.degrade_rules.load(degrade)
+    client.authority_rules.load(authority)
+    client.system_rules.load(system)
+    client.param_flow_rules.load(param)
+    names = [f"res-{i}" for i in range(N_NAMES)]
+    for n in names:
+        client.registry.resource_id(n)
+    client.start()
+    limits = {r.resource: r.count for r in flow if r.control_behavior == st.CONTROL_DEFAULT}
+    app_dir = os.path.join(work, "metrics")
+    searcher = MetricSearcher(app_dir, client.app_name)
+    center = TT.start_command_center(client, metric_searcher=searcher, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{center.port}"
+    rep["setup_s"] = time.perf_counter() - t_phase
+
+    stop, lock, outcomes = threading.Event(), threading.Lock(), {}
+
+    def start_traffic(seed):
+        stop.clear()
+        # daemons: a failed check must not leave the script waiting on them
+        ts = [threading.Thread(target=control_traffic, args=(np, st, client, names, stop, outcomes, lock, seed + i),
+                               daemon=True) for i in range(N_THREADS)]
+        for t in ts:
+            t.start()
+        return ts
+
+    def stop_traffic(ts):
+        stop.set()
+        for t in ts:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in ts), "control: request threads still running after 120 s")
+        deadline = time.perf_counter() + 30
+        while client._has_work() and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        client.tick_once()
+        torch.cuda.synchronize()
+
+    FU.reset_launches()
+    SC.reset_launches()
+    threads = start_traffic(SEED + 900)
+    time.sleep(2.0)
+    # -- the command center under traffic: each command's round trips
+    http = {}
+    commands = [("clusterNode", CONTROL_HEAVY_REPS), ("jsonTree", CONTROL_HEAVY_REPS),
+                ("origin?id=res-0", CONTROL_LIGHT_REPS), ("topParams?id=res-0&n=16", CONTROL_LIGHT_REPS),
+                ("rtQuantiles", CONTROL_LIGHT_REPS), ("systemStatus", CONTROL_LIGHT_REPS),
+                ("getRules?type=flow", CONTROL_HEAVY_REPS)]
+    bodies = {}
+    for cmd, reps in commands:
+        ms = []
+        for _ in range(reps):
+            t, status, body = http_call(f"{base}/{cmd}")
+            check(status == 200, f"control: {cmd} answered HTTP {status}: {body[:200]!r}")
+            ms.append(t)
+        bodies[cmd] = json.loads(body)
+        http[cmd.split("?")[0]] = dict(p50_ms=_pct(ms, 0.5), p99_ms=_pct(ms, 0.99), reps=reps, bytes=len(body))
+    n_res = len(client.registry.resources())
+    check(len(bodies["clusterNode"]) == n_res >= N_NAMES, f"clusterNode listed {len(bodies['clusterNode'])} of "
+          f"{n_res} resources")
+    check(len(bodies["getRules?type=flow"]) == len(flow), "getRules did not list the flow rules")
+    check(any(n["passQps"] > 0 for n in bodies["clusterNode"]), "clusterNode: no resource passed")
+    check(bodies["origin?id=res-0"] and bodies["topParams?id=res-0&n=16"], "origin / topParams answered nothing")
+    check(bodies["rtQuantiles"]["p50"] > 0, "rtQuantiles: no inbound RT")
+    check(bodies["jsonTree"]["resource"] == "machine-root" and len(bodies["jsonTree"]["children"]) == n_res,
+          "jsonTree: not the whole map")
+    snap_split = dict(client.stats.last_read)
+    # -- the metric log: the timer's run_once once a wall second for 5 s
+    timer = MetricTimerListener(client, MetricWriter(app_dir, client.app_name))
+    run_ms, lines_written = [], 0
+    for _ in range(CONTROL_METRIC_S):
+        time.sleep(1.0 - (time.time() % 1.0) + 0.01)
+        t = time.perf_counter()
+        lines_written += timer.run_once()
+        run_ms.append((time.perf_counter() - t) * 1e3)
+    timer.writer.close()
+    t, status, body = http_call(f"{base}/metric?startTime=0&maxLines=100000000")
+    check(status == 200, f"control: metric answered HTTP {status}")
+    served = body.decode().splitlines()
+    written = []
+    for f in sorted(os.listdir(app_dir)):
+        if ".idx" not in f:
+            with open(os.path.join(app_dir, f)) as fh:
+                written += fh.read().splitlines()
+    check(served == written and len(written) == lines_written and lines_written > 0,
+          f"control: the searcher served {len(served)} lines, the timer wrote {lines_written} ({len(written)} on disk)")
+    http["metric"] = dict(p50_ms=t, p99_ms=t, reps=1, bytes=len(body))
+    rep["metric"] = dict(run_once_ms=run_ms, lines=lines_written, seconds=CONTROL_METRIC_S)
+    # -- live reshape under traffic: 2 x 500 ms -> 4 x 250 ms, then a property push back
+    swaps = []
+    snaps = []
+    prop = DynamicSentinelProperty()
+    client.register_window_property(prop)
+    for label, do in (("update_window_shape(sample_count=4, window_ms=250)",
+                       lambda: client.update_window_shape(sample_count=4, window_ms=250)),
+                      ('property push {"sampleCount": 2, "intervalMs": 1000}',
+                       lambda: prop.update_value({"sampleCount": 2, "intervalMs": 1000}))):
+        snaps.append(client.stats.snapshot())
+        t = time.perf_counter()
+        do()
+        swap_ms = (time.perf_counter() - t) * 1e3
+        swaps.append(dict(what=label, swap_ms=swap_ms, lock_ms=client.swap_lock_ms,
+                          lock_wait_ms=client.swap_lock_wait_ms,
+                          shape=[client.cfg.second_sample_count, client.cfg.second_window_ms]))
+        for _ in range(5):
+            snaps.append(client.stats.snapshot())
+            time.sleep(0.25)
+    check([s["shape"] for s in swaps] == [[4, 250], [2, 500]], f"control: reshape shapes {swaps}")
+    fill = 0.0
+    for sn in snaps:
+        bad, worst = control_flow_ok(client, sn, limits)
+        check(not bad, f"control: a flow resource passed past its threshold across the swap: {bad[:5]}")
+        fill = max(fill, worst)
+    rep["reshape"] = dict(swaps=swaps, snapshots_checked=len(snaps), fullest_window=fill)
+    # -- setRules: a new rule blocks on the next tick
+    new_rule = st.FlowRule(resource="ctl-new", count=0)
+    e = client.try_entry("ctl-new")
+    check(e is not None, "control: ctl-new blocked before its rule")
+    e.exit()
+    data = "data=" + urllib.parse.quote(json.dumps(rules_to_json_list(flow + [new_rule])))
+    t, status, body = http_call(f"{base}/setRules?type=flow", data=data.encode())
+    check(status == 200 and body == b"success", f"control: setRules answered {status} {body[:200]!r}")
+    http["setRules"] = dict(p50_ms=t, p99_ms=t, reps=1, bytes=len(data))
+    try:
+        client.entry("ctl-new").exit()
+        blocked_after = False
+    except st.FlowException:
+        blocked_after = True
+    check(blocked_after, "control: the pushed rule did not block on the next tick")
+    stop_traffic(threads)
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    check(all(launches[k] > 0 for k in ("scatter_many", "gather_many", "seg_incl_min")),
+          f"control: the serving ticks did not launch B1, B2 and B4: {launches}")
+    lost = {k: v for k, v in outcomes.items() if k.startswith("lost")}
+    check(not lost, f"control: entries lost under the control plane: {lost}")
+    check(int(client._state.concurrency.sum().item()) == 0, "control: concurrency left after every exit")
+    rep["traffic"] = dict(outcomes=dict(outcomes), launches=launches)
+    # -- setSwitch=false: entries pass and no tick runs
+    ticks0, launch0 = client._build_ticks, sum(FU.LAUNCHES.values())
+    t_off, status, body = http_call(f"{base}/setSwitch?value=false")
+    check(status == 200, "control: setSwitch=false failed")
+    passed_off = 0
+    for i in range(200):
+        with client.entry("ctl-new"):
+            passed_off += 1
+    time.sleep(0.05)
+    ticks_off = client._build_ticks - ticks0
+    launches_off = sum(FU.LAUNCHES.values()) - launch0
+    t_on, status, _ = http_call(f"{base}/setSwitch?value=true")
+    check(status == 200, "control: setSwitch=true failed")
+    check(passed_off == 200 and ticks_off == 0 and launches_off == 0,
+          f"control: switch off passed {passed_off}, ran {ticks_off} ticks, {launches_off} launches")
+    try:
+        client.entry("ctl-new").exit()
+        check(False, "control: switch back on, ctl-new passed its 0 QPS rule")
+    except st.FlowException:
+        pass
+    http["setSwitch"] = dict(p50_ms=(t_off + t_on) / 2, p99_ms=max(t_off, t_on), reps=2, bytes=0)
+    rep["switch"] = dict(passed_off=passed_off, ticks_off=ticks_off, launches_off=launches_off,
+                         ticks_after_on=client._build_ticks - ticks0)
+    rep["http"] = http
+    # -- the heartbeat to a local receiver
+    got = []
+
+    class Recv(BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            got.append((self.path, self.rfile.read(n).decode()))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    recv = ThreadingHTTPServer(("127.0.0.1", 0), Recv)
+    threading.Thread(target=recv.serve_forever, daemon=True).start()
+    try:
+        hb = TT.HeartbeatSender(client.app_name, dashboard_addresses=[f"127.0.0.1:{recv.server_address[1]}"],
+                                center=center)
+        t = time.perf_counter()
+        ok = hb.send_once()
+        hb_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        recv.shutdown()
+        recv.server_close()
+    check(ok and got and got[0][0] == "/registry/machine" and f"port={center.port}" in got[0][1],
+          f"control: the heartbeat did not arrive: {got}")
+    rep["heartbeat"] = dict(ms=hb_ms, body=got[0][1])
+    # -- the readers: the card against a CPU copy; snapshot's parts at 100,000 resources
+    for i in range(40):  # inbound calls that take 1-3 ms: the RT histogram holds them
+        try:
+            with client.entry(f"res-{1000 + i}", inbound=True, origin="bad" if i % 4 == 0 else None):
+                time.sleep(0.001 + 0.0005 * (i % 5))
+        except st.BlockException:
+            pass
+    client.tick_once()
+    diffs, n_vals, card = card_against_cpu(client, torch)
+    check(not diffs, f"control: the card's readers differ from the CPU copy's: {diffs[:5]}")
+    check(card["rtq"][0.5] > 0, "control: the RT histogram read nothing")
+    rows_np = np.fromiter(client.registry.resources().values(), np.int64)
+    rows_dev = torch.as_tensor(rows_np, device=client.device)
+    now = client.time.now_ms()
+    dev_ms, host_ms = time_ms(lambda: client.stats._gather_exact(client._state, rows_dev, now), reps=10)
+    t = time.perf_counter()
+    client.stats.snapshot()
+    rep["snapshot_exact"] = dict(resources=len(rows_np), device_ms=dev_ms, enqueue_ms=host_ms,
+                                 wall_ms=(time.perf_counter() - t) * 1e3, under_traffic=snap_split,
+                                 idle=dict(client.stats.last_read))
+    rep["readers_equal"] = dict(values=n_vals, origins=len(card["origin"]), rtq=card["rtq"])
+    center.stop()
+    ds.close()
+    client.stop()
+    del client
+    torch.cuda.empty_cache()
+    rep["sketch"] = control_sketch(np, st, torch)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    control_log(rep)
+    return rep
+
+
+def control_sketch(np, st, torch) -> dict:
+    """snapshot on bench.py's sketch configuration: its names interned
+    (res-1 .. res-10000 exact, the organic rest burnt, tail-0 .. tail-2047,
+    then every other of the 2^20 names as a sketch id), its rules, six of
+    client_bench's B = 2,048 blocks with their exits; the readers on the
+    card against a CPU copy; snapshot's device, readback and dict ms."""
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.sketch import impl_for
+    from sentinel_tpu_torch.ops import engine as E
+
+    cfg = sketch_cfg(platform_config)
+    c = SentinelClient(cfg=cfg, device="cuda", mode="sync", app_name="control-sketch")
+    intern_bench_names(c.registry)
+    for raw in range(N_RULED + N_TAIL_RULED + 1, N_TOTAL):
+        c.registry.resource_id(f"n-{raw}")
+    flow, degrade, authority, system, param = sketch_rules(st)
+    c.flow_rules.load(flow)
+    c.degrade_rules.load(degrade)
+    c.param_flow_rules.load(param)
+    c.authority_rules.load(authority)
+    c.system_rules.load(system)
+    c.start()
+    tail_ids = np.asarray([c.registry.peek_resource_id(f"tail-{r}") for r in range(N_TAIL_RULED)], np.int32)
+    traffic, _ = bench_traffic(np, PS, c, 2048, tail_ids)
+    for ids, onode, oid, ph, inb, rt in traffic:
+        v, _w = c.check_batch_ids(ids, origin_node=onode, origin_id=oid, param_hash=ph, inbound=inb)
+        ok = v == 0
+        c.submit_completion_block(ids[ok], rt[ok], inbound=inb[ok], origin_node=onode[ok], param_hash=ph[ok])
+        c.tick_once()
+    res = c.registry.resources()
+    n_sketch = sum(1 for r in res.values() if c.registry.is_sketch_id(r))
+    diffs, n_vals, card = card_against_cpu(c, torch)
+    check(not diffs, f"control sketch: the card's readers differ from the CPU copy's: {diffs[:5]}")
+    check(any(s["passQps"] > 0 for n, s in card["snapshot"].items() if c.registry.is_sketch_id(res[n])),
+          "control sketch: no sketch-id resource shows traffic")
+    rids = torch.as_tensor(np.fromiter((r for r in res.values() if c.registry.is_sketch_id(r)), np.int64),
+                           device=c.device).to(torch.int32)
+    now = c.time.now_ms()
+    scfg = E.sketch_config(c.cfg)
+    est_ms, est_host = time_ms(lambda: impl_for(c.cfg).estimate(c._state.gs, now, rids, scfg), reps=10)
+    exact_rows = torch.as_tensor(np.fromiter((r for r in res.values() if not c.registry.is_sketch_id(r)), np.int64),
+                                 device=c.device)
+    ex_ms, ex_host = time_ms(lambda: c.stats._gather_exact(c._state, exact_rows, now), reps=10)
+    t = time.perf_counter()
+    snap = c.stats.snapshot()
+    wall = (time.perf_counter() - t) * 1e3
+    check(len(snap) == len(res), "control sketch: snapshot missed resources")
+    out = dict(resources=len(res), sketch_ids=n_sketch, exact=len(res) - n_sketch, values=n_vals,
+               sketch_device_ms=est_ms, sketch_enqueue_ms=est_host, exact_device_ms=ex_ms, exact_enqueue_ms=ex_host,
+               snapshot_wall_ms=wall, split=dict(c.stats.last_read))
+    c.stop()
+    return out
+
+
+def control_log(rep) -> None:
+    smi = rep["card"]
+    for cmd, h in rep["http"].items():
+        log(f"[control] {smi}: HTTP {cmd}: p50 {h['p50_ms']:.3f} ms, p99 {h['p99_ms']:.3f} ms over {h['reps']} "
+            f"round trips ({h['bytes']} B)")
+    s = rep["snapshot_exact"]
+    log(f"[control] {smi}: snapshot of {s['resources']} exact resources: device {s['device_ms']:.4f} ms (gathers, "
+        f"host enqueue {s['enqueue_ms']:.3f} ms); idle split {json.dumps(s['idle'], sort_keys=True)}; under traffic "
+        f"{json.dumps(s['under_traffic'], sort_keys=True)}; wall {s['wall_ms']:.3f} ms")
+    m = rep["metric"]
+    log(f"[control] {smi}: metric log: run_once ms {[round(x, 3) for x in m['run_once_ms']]} over "
+        f"{m['seconds']} wall seconds, {m['lines']} lines written, served back line for line")
+    for w in rep["reshape"]["swaps"]:
+        log(f"[control] {smi}: reshape {w['what']}: swap {w['swap_ms']:.3f} ms, engine lock waited for "
+            f"{w['lock_wait_ms']:.3f} ms, held {w['lock_ms']:.3f} ms -> {w['shape']}")
+    log(f"[control] {smi}: reshape under traffic: {rep['reshape']['snapshots_checked']} snapshots, every DEFAULT "
+        f"flow resource within its threshold (fullest window {rep['reshape']['fullest_window']:.3f}); "
+        f"traffic {json.dumps(rep['traffic']['outcomes'], sort_keys=True)}, none lost; launches "
+        f"{json.dumps(rep['traffic']['launches'])}")
+    sw = rep["switch"]
+    log(f"[control] {smi}: setSwitch=false: {sw['passed_off']} entries passed, {sw['ticks_off']} ticks, "
+        f"{sw['launches_off']} launches; setRules enforced on the next tick; heartbeat "
+        f"{rep['heartbeat']['ms']:.3f} ms ({rep['heartbeat']['body']})")
+    log(f"[control] {smi}: readers on the card == on a CPU copy ({rep['readers_equal']['values']} values, "
+        f"{rep['readers_equal']['origins']} origin rows, rtq {json.dumps(rep['readers_equal']['rtq'])})")
+    k = rep["sketch"]
+    log(f"[control] {smi}: sketch configuration: snapshot of {k['resources']} resources ({k['sketch_ids']} sketch "
+        f"ids, {k['exact']} exact): sketch estimate device {k['sketch_device_ms']:.4f} ms (enqueue "
+        f"{k['sketch_enqueue_ms']:.3f}), exact gather device {k['exact_device_ms']:.4f} ms (enqueue "
+        f"{k['exact_enqueue_ms']:.3f}); split {json.dumps(k['split'], sort_keys=True)}; wall "
+        f"{k['snapshot_wall_ms']:.3f} ms; card == CPU copy ({k['values']} values)")
+    log(f"[control] {smi}: phase 9 took {rep['phase_s']:.1f} s (set-up {rep['setup_s']:.1f} s)")
+
+
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
@@ -3630,6 +4152,9 @@ def main() -> int:
     # -- 8. cluster flow control: the token column, server and clients --------------------
     report["cluster"] = cluster_phase(np, st, S, FU, SC, torch, smi)
 
+    # -- 9. the control plane: readers, command center, metric log, reshape ---------------
+    report["control"] = control_phase(np, st, S, FU, SC, torch, smi)
+
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
         name = RECORD_CFG[kname]
@@ -3698,6 +4223,29 @@ def ops_main() -> int:
     return 0
 
 
+def control_main() -> int:
+    """``python3 chip_smoke.py --control``: the kernels' build and phase 9
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = control_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 def cluster_main() -> int:
     """``python3 chip_smoke.py --cluster``: the kernels' build and phase 8
     alone, on the card (about two minutes)."""
@@ -3724,4 +4272,5 @@ def cluster_main() -> int:
 if __name__ == "__main__":
     mode = sys.argv[1:]
     sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"]
-             else cluster_main() if mode == ["--cluster"] else main())
+             else cluster_main() if mode == ["--cluster"] else control_main() if mode == ["--control"]
+             else main())

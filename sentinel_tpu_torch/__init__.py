@@ -39,6 +39,8 @@ client, and the client's cluster mode), and the card's measurement probes
 ``NotImplementedError`` (see ROADMAP.md).
 """
 
+__version__ = "0.1.0"
+
 from sentinel_tpu_torch.core.errors import (
     AuthorityException,
     BlockException,

@@ -1,0 +1,49 @@
+"""Dynamic config / property layer (SURVEY.md L4).
+
+The port's copy of what it has ported of ``sentinel_tpu/datasource``:
+push-based dynamic rules.  A ``SentinelProperty`` fans values out to typed
+listeners; datasources (file poll) feed properties;
+``RuleManager.register_property`` subscribes a rule manager so rule
+updates flow  datasource → property → manager → engine recompilation
+(the reference's tail at DynamicSentinelProperty.java:49 →
+FlowPropertyListener.configUpdate).  The remote, store, redis and
+zookeeper datasources are not ported yet (ROADMAP.md, Queue A).
+"""
+
+from sentinel_tpu_torch.datasource.base import (
+    AbstractDataSource,
+    AutoRefreshDataSource,
+    Converter,
+    FileRefreshableDataSource,
+    FileWritableDataSource,
+    ReadableDataSource,
+    WritableDataSource,
+)
+from sentinel_tpu_torch.datasource.converters import (
+    json_rule_converter,
+    json_rule_encoder,
+)
+from sentinel_tpu_torch.datasource.property import (
+    DynamicSentinelProperty,
+    NoOpSentinelProperty,
+    PropertyListener,
+    SentinelProperty,
+    SimplePropertyListener,
+)
+
+__all__ = [
+    "SentinelProperty",
+    "DynamicSentinelProperty",
+    "NoOpSentinelProperty",
+    "PropertyListener",
+    "SimplePropertyListener",
+    "ReadableDataSource",
+    "WritableDataSource",
+    "AbstractDataSource",
+    "AutoRefreshDataSource",
+    "FileRefreshableDataSource",
+    "FileWritableDataSource",
+    "Converter",
+    "json_rule_converter",
+    "json_rule_encoder",
+]

@@ -19,10 +19,18 @@ call site pays one flag check — no allocation, no formatting, no clock
 read.
 
 The flight recorder, the SLO engine, the fleet view, the device profile
-and the trace CLI are not ported yet (ROADMAP.md, Queue A items 6 and 10).
+and the trace CLI are not ported yet (ROADMAP.md, Queue A items A6 and A10).
 """
 
-from sentinel_tpu_torch.obs.registry import REGISTRY, Counter, Gauge, Histogram, MetricRegistry
+from sentinel_tpu_torch.obs.registry import (
+    REGISTRY,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricRegistry,
+    register_build_info,
+    register_scrape_id,
+)
 from sentinel_tpu_torch.obs.trace import (
     TRACER,
     SpanTracer,
@@ -39,6 +47,10 @@ from sentinel_tpu_torch.obs.trace import (
     t0,
     trace_ctx,
 )
+
+# every /metrics scrape says what it scraped, and from which process
+register_build_info()
+register_scrape_id()
 
 
 def enable(torch_annotations: bool = False) -> None:
@@ -79,6 +91,8 @@ __all__ = [
     "new_span_id",
     "new_trace_id",
     "now_ns",
+    "register_build_info",
+    "register_scrape_id",
     "span",
     "stage",
     "stage_ns",

@@ -2,9 +2,9 @@
 
 The port's copy of ``sentinel_tpu/obs/registry.py``: the port keeps its
 own process-global ``REGISTRY``, so its counters never mix with the JAX
-package's.  The build-info and scrape-id gauges are left out: they label
-what ``GET /metrics`` and the fleet aggregator serve, and neither the
-command plane nor ``obs/fleet.py`` is ported yet (ROADMAP.md, Queue A).
+package's.  The build-info gauge labels the port's version, torch's
+version and the CUDA toolkit torch was built for, where the reference's
+labels jax's.
 
 The always-on quantitative side of the observability plane (the span
 tracer in ``obs/trace.py`` is the qualitative side): SALSA's argument
@@ -28,6 +28,8 @@ the command center serves at ``GET /metrics``.
 from __future__ import annotations
 
 import math
+import os
+import sys
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -381,3 +383,59 @@ class MetricRegistry:
 
 #: process-global default registry — the one ``GET /metrics`` serves
 REGISTRY = MetricRegistry()
+
+
+#: the one registered build-info series (module cache: labels freeze at
+#: first registration, so a later call can never fork a second series)
+_BUILD_INFO: Optional[Gauge] = None
+
+
+def register_build_info(registry: Optional[MetricRegistry] = None) -> Gauge:
+    """``sentinel_build_info`` — the Prometheus info-gauge idiom (value
+    1, identity in the labels) so every scrape says WHAT it scraped: the
+    port's version, torch's version, the CUDA toolkit torch was built for
+    and python.  Versions come from ``sys.modules`` only (no import
+    here); the default-registry labels freeze at the first call."""
+    global _BUILD_INFO
+    if registry is None and _BUILD_INFO is not None:
+        return _BUILD_INFO
+    st = sys.modules.get("sentinel_tpu_torch")
+    th = sys.modules.get("torch")
+    g = (registry or REGISTRY).gauge(
+        "sentinel_build_info",
+        "build/runtime identity (value is always 1; the labels carry it)",
+        labels={
+            "sentinel_version": getattr(st, "__version__", "unknown"),
+            "torch_version": str(getattr(th, "__version__", "unloaded")),
+            "cuda_version": str(getattr(getattr(th, "version", None), "cuda", None) or "none"),
+            "python": ".".join(str(x) for x in sys.version_info[:3]),
+        },
+    )
+    g.set(1)
+    if registry is None:
+        _BUILD_INFO = g
+    return g
+
+
+#: process-unique scrape identity (fleet aggregation dedupe): random so a
+#: forked/restarted process never collides with its predecessor's id
+_SCRAPE_ID_VALUE = os.urandom(8).hex()
+_SCRAPE_ID: Optional[Gauge] = None
+
+
+def register_scrape_id(registry: Optional[MetricRegistry] = None) -> Gauge:
+    """``sentinel_scrape_id{id="<hex>"} 1`` — the info-gauge a fleet
+    aggregator uses to recognize that two scrape targets answered from
+    the SAME process and merge it exactly once."""
+    global _SCRAPE_ID
+    if registry is None and _SCRAPE_ID is not None:
+        return _SCRAPE_ID
+    g = (registry or REGISTRY).gauge(
+        "sentinel_scrape_id",
+        "process-unique scrape identity (value 1; the id label carries it)",
+        labels={"id": _SCRAPE_ID_VALUE},
+    )
+    g.set(1)
+    if registry is None:
+        _SCRAPE_ID = g
+    return g

@@ -2075,6 +2075,112 @@ def tick(
     )
 
 
+def _leaf_shapes(x) -> list:
+    """The shapes of a (nested) state NamedTuple's tensors, in field order."""
+    if isinstance(x, torch.Tensor):
+        return [tuple(x.shape)]
+    return [s for v in x for s in _leaf_shapes(v)]
+
+
+def migrate_state(
+    state: EngineState,
+    old_cfg: EngineConfig,
+    new_cfg: EngineConfig,
+    now_ms: int,
+) -> EngineState:
+    """Carry engine state across a WINDOW-SHAPE change (the live analog of
+    IntervalProperty/SampleCountProperty, node/IntervalProperty.java —
+    which the reference handles by resetting node metrics; here the
+    current windowed totals MIGRATE so admission budgets don't reopen).
+
+    Only operating-point knobs may differ: the window shapes, the batch
+    shapes (no state leaf is batch-shaped) and the sketch window shape;
+    a capacity change raises ``ValueError``.  The old window's TOTALS land
+    in the new grid's current bucket, so the new window first sees the
+    whole old window (budgets stay conservative) and decays after one new
+    interval.  ``gs`` and ``rtq`` keep their state when every leaf shape
+    matches and otherwise restart fresh (a dashboard-only transient).
+    The new state is built on the old state's device; leaves the reshape
+    does not touch are carried over as they are (not copied)."""
+    import dataclasses
+
+    same_caps = dataclasses.replace(
+        old_cfg,
+        second_sample_count=new_cfg.second_sample_count,
+        second_window_ms=new_cfg.second_window_ms,
+        minute_sample_count=new_cfg.minute_sample_count,
+        minute_window_ms=new_cfg.minute_window_ms,
+        batch_size=new_cfg.batch_size,
+        complete_batch_size=new_cfg.complete_batch_size,
+        sketch_sample_count=new_cfg.sketch_sample_count,
+        sketch_window_ms=new_cfg.sketch_window_ms,
+        sketch_slack_frac=new_cfg.sketch_slack_frac,
+    )
+    if same_caps != new_cfg:
+        raise ValueError(
+            "migrate_state only supports operating-point changes "
+            "(window/batch/sketch shapes)"
+        )
+    now = int(now_ms)
+    out = init_state(new_cfg, state.concurrency.device)
+
+    def carry(old_win, o_cfg: W.WindowConfig, n_cfg: W.WindowConfig, new_win):
+        counts = W.window_counts(old_win, now, o_cfg).to(I32)  # [rows, NE]
+        rt_tot, rt_min = W.window_rt(old_win, now, o_cfg)
+        wid = W.wid_of(now, n_cfg.window_ms)
+        idx = W.current_index(now, n_cfg)
+        new_win.counts[:, idx, :] = counts
+        new_win.rt_sum[:, idx] = rt_tot
+        new_win.rt_min[:, idx] = rt_min
+        # a fill, not ``epochs[idx] = wid``: a host scalar written into a
+        # CUDA tensor is a synchronizing copy
+        new_win.epochs.select(0, idx).fill_(wid)
+        return new_win._replace(
+            # running sums mirror the single carried bucket exactly
+            run=counts,
+            run_rt=rt_tot,
+            run_rt_min=rt_min,
+            rot_wid=torch.full((), wid, dtype=I32, device=counts.device),
+        )
+
+    win_sec = carry(state.win_sec, _sec_cfg(old_cfg), _sec_cfg(new_cfg), out.win_sec)
+    win_min = out.win_min
+    if new_cfg.enable_minute_window and old_cfg.enable_minute_window:
+        win_min = carry(state.win_min, _min_cfg(old_cfg), _min_cfg(new_cfg), out.win_min)
+
+    # gs is impl-polymorphic (SALSA's state or the count-min seed's), so
+    # compare its type and leaf shapes
+    gs = (
+        state.gs
+        if type(out.gs) is type(state.gs) and _leaf_shapes(out.gs) == _leaf_shapes(state.gs)
+        else out.gs
+    )
+    rtq = state.rtq if out.rtq.counts.shape == state.rtq.counts.shape else out.rtq
+    # occupy epochs are second-window ids: a changed bucket length
+    # invalidates them, so pending borrowed-ahead grants drop
+    same_bucket = old_cfg.second_window_ms == new_cfg.second_window_ms
+    return out._replace(
+        win_sec=win_sec,
+        win_min=win_min,
+        concurrency=state.concurrency,
+        latest_passed_ms=state.latest_passed_ms,
+        warmup_tokens=state.warmup_tokens,
+        warmup_last_s=state.warmup_last_s,
+        warm_acc=state.warm_acc,
+        occ_tokens=state.occ_tokens if same_bucket else out.occ_tokens,
+        occ_epoch=state.occ_epoch if same_bucket else out.occ_epoch,
+        cb_state=state.cb_state,
+        cb_retry_ms=state.cb_retry_ms,
+        cb_counts=state.cb_counts,
+        cb_epochs=state.cb_epochs,
+        pcms=state.pcms,
+        pcms_epochs=state.pcms_epochs,
+        pconc=state.pconc,
+        gs=gs,
+        rtq=rtq,
+    )
+
+
 def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):
     """The tick bound to a config and a feature set (the JAX package's
     compiled-tick factory; PyTorch runs eagerly, so this only binds)."""

@@ -7,7 +7,7 @@ window bucket, scoped to the global ENTRY node (inbound traffic).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +52,11 @@ def bin_of(rt_ms: torch.Tensor, cfg: RtqConfig) -> torch.Tensor:
     return torch.clamp(x.to(torch.int32), 0, BINS - 1)
 
 
+def bin_upper_edge(b: int, cfg: RtqConfig) -> float:
+    """Upper RT edge of bin b (host-side, for quantile readout)."""
+    return float(2.0 ** ((b + 1) / _log_scale(cfg)) - 1.0)
+
+
 def add(
     state: RtqState,
     now_ms: int,
@@ -70,3 +75,24 @@ def add(
     state.counts[idx] = torch.where(stale, 0, state.counts[idx]) + hist
     col = torch.arange(cfg.sample_count, device=rt_ms.device) == idx
     return state._replace(epochs=torch.where(col, wid, state.epochs).to(torch.int32))
+
+
+def windowed_counts(state: RtqState, now_ms: int, cfg: RtqConfig) -> torch.Tensor:
+    """int32 [BINS] — the histogram summed over the columns inside the
+    trailing window."""
+    wid = W.wid_of(now_ms, cfg.window_ms)
+    valid = (state.epochs > wid - cfg.sample_count) & (state.epochs <= wid)
+    return torch.sum(state.counts * valid.to(torch.int32)[:, None], dim=0, dtype=torch.int32)
+
+
+def quantiles(counts: np.ndarray, qs: Sequence[float], cfg: RtqConfig) -> dict:
+    """Host-side readout: {q: upper-edge RT of the bin reaching q}."""
+    total = int(counts.sum())
+    out = {}
+    if total == 0:
+        return {q: 0.0 for q in qs}
+    cum = np.cumsum(counts)
+    for q in qs:
+        b = int(np.searchsorted(cum, q * total))
+        out[q] = round(bin_upper_edge(min(b, BINS - 1), cfg), 3)
+    return out

@@ -263,6 +263,33 @@ def window_counts(state: WindowState, now_ms: int, cfg: WindowConfig) -> torch.T
     return torch.sum(state.counts * mask[None, :, None], dim=1, dtype=torch.int32)
 
 
+def window_rt(state: WindowState, now_ms: int, cfg: WindowConfig):
+    """(rt_total f32 [rows], rt_min f32 [rows]) over valid buckets."""
+    mask = valid_mask(state, now_ms, cfg)
+    rt_total = torch.sum(state.rt_sum * mask.to(torch.float32)[None, :], dim=1)
+    rt_min = torch.amin(torch.where(mask[None, :], state.rt_min, RT_MIN_INIT), dim=1)
+    return rt_total, rt_min
+
+
+def gather_window_counts(
+    state: WindowState, now_ms: int, rows: torch.Tensor, cfg: WindowConfig
+) -> torch.Tensor:
+    """int32 [B, NUM_EVENTS] — the exact masked windowed totals of the
+    selected rows only (a [B, nbp, NE] gather + reduction)."""
+    mask = valid_mask(state, now_ms, cfg).to(torch.int32)
+    vals = state.counts[rows.to(torch.int64)]  # [B, nbp, NE]
+    return torch.sum(vals * mask[None, :, None], dim=1, dtype=torch.int32)
+
+
+def gather_window_rt(state: WindowState, now_ms: int, rows: torch.Tensor, cfg: WindowConfig):
+    """(rt_total f32 [B], rt_min f32 [B]) for the selected rows."""
+    mask = valid_mask(state, now_ms, cfg)
+    r = rows.to(torch.int64)
+    rt_total = torch.sum(state.rt_sum[r] * mask.to(torch.float32)[None, :], dim=1)
+    rt_min = torch.amin(torch.where(mask[None, :], state.rt_min[r], RT_MIN_INIT), dim=1)
+    return rt_total, rt_min
+
+
 # -- O(1) running-sum reads (the tick hot path) ------------------------------
 
 

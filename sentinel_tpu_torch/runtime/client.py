@@ -103,8 +103,21 @@ cannot serve go first); what stays in the tail compiles into the tail
 threshold tables and turns the ``tail_flow`` stage on.  With
 ``hotset_k > 0`` the readback's hot block feeds ``self.hotset``
 (sketch/hotset.HotSetManager), whose promote / demote pass runs after a
-tick iteration on its own cadence (``hotset_eval_s``).  ``stats.resource``
-reads an exact row's windowed stats (what demotion grades).
+tick iteration on its own cadence (``hotset_eval_s``).
+
+The control plane: ``stats`` (``ClientStats``) reads windowed statistics
+for one resource, one (resource, origin) pair, the ENTRY node, or every
+registered resource at once (``snapshot``: ONE device read for the exact
+rows and one for the sketch ids, both at one timestamp);
+``rt_quantiles`` reads the ENTRY node's RT histogram and ``top_params``
+the host-side counts of argument values seen by ``entry()``.  The rule
+managers take push listeners and a ``SentinelProperty`` (datasource/);
+``update_window_shape`` and ``register_window_property`` reshape the
+second / minute windows live (build and warm the new tick first, then
+migrate the state under the engine lock: ``engine.migrate_state``).
+``metric_log=True`` starts a ``MetricTimerListener`` (metrics/) that
+writes every active resource's second to the metric log.  The HTTP
+command center over all of it is ``transport/``.
 
 Cluster mode (FlowRuleChecker.passClusterCheck): a rule load splits
 cluster-mode flow and param rules off the compiled ruleset; ``entry()``
@@ -120,11 +133,11 @@ degrades (the ``cluster.degrade`` hysteresis, ``cluster_retry_interval_s``
 of cooldown): the fallback-enabled cluster flow rules and every cluster
 param rule are compiled in as local rules until a probe is answered.
 
-Not ported yet (ROADMAP.md): the sharded cluster client (A7b), the
-hot-parameter value counters (``top_params``), backpressure and deadlines
-(``deadline_ms`` raises), front doors, adaptive protection, the flight
-recorder and the block log, the sketch-accuracy audit and the sketch ids'
-windowed stats (``stats.resource`` on a sketch id).
+Not ported yet (ROADMAP.md): the sharded cluster client and front doors
+(A7b), backpressure and deadlines (``deadline_ms`` raises), adaptive
+protection, the flight recorder and the block log (A6), the live
+operating-point swap (``apply_operating_point``, with ``workload/``) and
+the sketch-accuracy audit.
 """
 
 from __future__ import annotations
@@ -132,6 +145,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+from contextlib import contextmanager
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
 from dataclasses import dataclass
@@ -531,21 +545,47 @@ class _PassThroughEntry(Entry):
 
 
 class RuleManager:
-    """Typed rule holder: ``load`` replaces the rule set and recompiles
-    (FlowRuleManager.loadRules analog)."""
+    """Typed rule holder with push-style listeners.
+
+    The analog of FlowRuleManager/DegradeRuleManager/...: ``load`` replaces
+    the full rule set and recompiles the engine's rule tables
+    (FlowRuleManager.loadRules → property.updateValue → listener).
+    """
 
     def __init__(self, client: "SentinelClient", kind: str):
         self._client = client
         self.kind = kind
         self._rules: list = []
+        self._listeners: list = []
+        self._property = None
 
     def load(self, rules: Sequence) -> None:
-        rules = list(rules) if rules else []
-        self._rules = rules
+        self._rules = list(rules) if rules else []
         self._client._recompile_rules()
+        for fn in list(self._listeners):
+            fn(self._rules)
 
     def get(self) -> list:
         return list(self._rules)
+
+    def add_listener(self, fn) -> None:
+        self._listeners.append(fn)
+
+    def register_property(self, prop) -> None:
+        """Subscribe this manager to a SentinelProperty so datasource pushes
+        drive rule reloads (FlowRuleManager.register2Property analog)."""
+        from sentinel_tpu_torch.datasource.property import SimplePropertyListener
+
+        if self._property is not None:
+            self._property.remove_listener(self._prop_listener)
+        self._property = prop
+        # None means "property not populated yet" — keep existing rules
+        # (FlowPropertyListener.configLoad null-check); an empty list is a
+        # real "clear all rules" push.
+        self._prop_listener = SimplePropertyListener(
+            lambda rules: None if rules is None else self.load(rules)
+        )
+        prop.add_listener(self._prop_listener)
 
 
 class SentinelClient:
@@ -561,6 +601,8 @@ class SentinelClient:
         timeline_log=False,  # bool | obs.timeline.MetricLog
         timeline_dir: Optional[str] = None,
         pipeline_depth: int = 0,
+        metric_log: bool = False,
+        metric_log_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.app_name = app_name or cfg_app_name()
@@ -699,6 +741,20 @@ class SentinelClient:
         self._started = False
         self.stats = ClientStats(self)
 
+        # host-side hot-param value tracking: the device store holds hashes
+        # only; the command plane's topParams view needs the VALUES, so the
+        # entry path keeps a small capped counter per resource
+        self._hot_params: Dict[str, Dict[Any, int]] = {}
+        self._hot_params_lock = threading.Lock()
+        # the metric log (MetricTimerListener, metrics/): built in start()
+        self._metric_log_enabled = metric_log
+        self._metric_log_dir = metric_log_dir
+        self.metric_timer = None
+        #: host ms the last live reshape waited for the engine lock (a tick's
+        #: dispatch holds it), and then held it (the migration's enqueue)
+        self.swap_lock_wait_ms = 0.0
+        self.swap_lock_ms = 0.0
+
         # hot-set manager (sketch/hotset.py): folds the readback's hot block
         # and promotes / demotes between the exact tier and the sketch tail
         # on its own cadence
@@ -759,6 +815,15 @@ class SentinelClient:
                 name="sentinel-tpu-torch-tick", daemon=True,
             )
             self._thread.start()
+        if self._metric_log_enabled and self.metric_timer is None:
+            from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+            from sentinel_tpu_torch.metrics.writer import MetricWriter
+            from sentinel_tpu_torch.utils.record_log import log_dir
+
+            writer = MetricWriter(self._metric_log_dir or log_dir(), self.app_name)
+            self.metric_timer = MetricTimerListener(self, writer)
+            if self.mode == "threaded":
+                self.metric_timer.start()
 
     def stop(self) -> None:
         self._stop_evt.set()
@@ -772,6 +837,9 @@ class SentinelClient:
             if self._resolver_pool is not None:
                 self._resolver_pool.shutdown(wait=True)
                 self._resolver_pool = None
+        if self.metric_timer is not None:
+            self.metric_timer.stop()
+            self.metric_timer = None
         if self.timeline is not None:
             # flush the still-open second, release the log handles (start()
             # builds a new recorder)
@@ -1243,7 +1311,10 @@ class SentinelClient:
         else:
             ctx_node = self.cfg.trash_row
             ctx_id = -1
-        param_hashes = self.param_hashes(resource, args)
+        # the hot-param value counters see every hashed argument: the port
+        # has no adaptive ladder (ROADMAP.md Queue A item A6), so the
+        # reference's PARAM_TAIL_OFF shed of this host work never applies
+        param_hashes = self.param_hashes(resource, args, note=True)
         pre_verdict, cluster_wait = 0, 0
         if hook_exc is not None:
             code = getattr(hook_exc, "code", 0)
@@ -1318,10 +1389,12 @@ class SentinelClient:
         CTX.push_entry(e)
         return e
 
-    def param_hashes(self, resource: str, args: Optional[Sequence]) -> tuple:
+    def param_hashes(self, resource: str, args: Optional[Sequence], note: bool = False) -> tuple:
         """``param_dims`` hashed lanes for an entry on ``resource``: one
         argument per lane the rule compile assigned (lane 0 reads args[0]
-        where no param rule names the resource); 0 = no argument."""
+        where no param rule names the resource); 0 = no argument.
+        ``note``: count each hashed value in the hot-param counters
+        (``top_params``), as ``entry()`` does."""
         M = self.cfg.param_dims
         hashes = [0] * M
         if args:
@@ -1329,7 +1402,42 @@ class SentinelClient:
             for li, idx in enumerate(lanes[:M]):
                 if 0 <= idx < len(args):
                     hashes[li] = hash_param(args[idx])
+                    if note:
+                        self._note_hot_param(resource, args[idx])
         return tuple(hashes)
+
+    _HOT_PARAM_CAP = 512
+
+    def _note_hot_param(self, resource: str, value) -> None:
+        """Count a parameter value sighting (ParameterMetric's value-keyed
+        CacheMap analog, host side, capped with decimation on overflow)."""
+        try:
+            with self._hot_params_lock:
+                counter = self._hot_params.setdefault(resource, {})
+                counter[value] = counter.get(value, 0) + 1
+                if len(counter) > self._HOT_PARAM_CAP:
+                    top = sorted(counter.items(), key=lambda kv: -kv[1])
+                    self._hot_params[resource] = dict(top[: self._HOT_PARAM_CAP // 2])
+        except TypeError:
+            pass  # unhashable param value — not trackable
+
+    def rt_quantiles(self, qs=(0.5, 0.9, 0.99)) -> Dict[float, float]:
+        """Service-level inbound RT quantiles over the trailing window
+        (ops/rtq.py log-bucket histogram; ~11% bucket resolution): one
+        device read of the 64 windowed bins."""
+        from sentinel_tpu_torch.ops import rtq as RQ
+
+        rcfg = E.rtq_config(self.cfg)
+        now = self.time.now_ms()
+        with self._engine_lock:
+            counts = RQ.windowed_counts(self._state.rtq, now, rcfg)
+        return RQ.quantiles(counts.cpu().numpy(), qs, rcfg)
+
+    def top_params(self, resource: str, n: int = 16) -> list:
+        """[(value, sightings)] — the hottest parameter values seen."""
+        with self._hot_params_lock:
+            counter = dict(self._hot_params.get(resource, {}))
+        return sorted(counter.items(), key=lambda kv: -kv[1])[:n]
 
     def _lane0_value(self, resource: str, args: Optional[Sequence]):
         """The argument hash lane 0 carries — the value a cluster param
@@ -1391,6 +1499,15 @@ class SentinelClient:
 
     def exit_context(self, token) -> None:
         CTX.exit_ctx(token)
+
+    @contextmanager
+    def context(self, name: str, origin: str = ""):
+        """Context-manager form of ContextUtil.enter/exit."""
+        token = CTX.enter(name, origin)
+        try:
+            yield
+        finally:
+            CTX.exit_ctx(token)
 
     def _submit_completion(self, c: Completion) -> None:
         """One push onto the completion ring (ring field names: origin_id
@@ -1913,6 +2030,98 @@ class SentinelClient:
                 n, self.seg_dropped_total, ES.seg_capacity(self.cfg, self.cfg.batch_size),
             )
 
+    def update_window_shape(
+        self,
+        sample_count: Optional[int] = None,
+        window_ms: Optional[int] = None,
+        minute_sample_count: Optional[int] = None,
+        minute_window_ms: Optional[int] = None,
+    ) -> None:
+        """LIVE window reshaping — the IntervalProperty/SampleCountProperty
+        analog (node/IntervalProperty.java): swap the engine onto a new
+        window grid under the engine lock, MIGRATING current windowed
+        totals so admission budgets don't reopen mid-flight (the reference
+        resets node metrics instead).  A capacity change raises
+        ``ValueError`` (``engine.migrate_state``)."""
+        changes = {}
+        if sample_count is not None:
+            changes["second_sample_count"] = int(sample_count)
+        if window_ms is not None:
+            changes["second_window_ms"] = int(window_ms)
+        if minute_sample_count is not None:
+            changes["minute_sample_count"] = int(minute_sample_count)
+        if minute_window_ms is not None:
+            changes["minute_window_ms"] = int(minute_window_ms)
+        if not changes:
+            return
+        new_cfg = dataclasses.replace(self.cfg, **changes)
+        if new_cfg == self.cfg:
+            return
+        self._swap_engine(new_cfg, "window-reshape", **changes)
+
+    def _swap_engine(self, new_cfg, cause: str, **span_attrs) -> None:
+        """Build-then-swap the engine onto ``new_cfg`` LIVE: bind the new
+        tick and run it at both batch shapes on a throwaway state while the
+        old engine keeps serving (the first launches load kernel modules
+        and plan the fused jobs), then migrate the state under the engine
+        lock, so the swap itself is only the migration.  The reference
+        also journals the swap as an expected retrace in its HBM ledger;
+        that waits for ``obs/profile`` (ROADMAP.md Queue A item A10)."""
+        _h = OT.TRACER.begin("client.engine_swap", cause=cause, **span_attrs)
+        try:
+            new_tick = E.make_tick(new_cfg, features=self._features)
+            dummy = E.init_state(new_cfg, self.device)
+            for bs in sorted({min(256, new_cfg.batch_size), new_cfg.batch_size}):
+                dummy, _ = new_tick(
+                    dummy,
+                    self._rules_dev,
+                    E.empty_acquire(new_cfg, self.device, b=bs),
+                    E.empty_complete(new_cfg, self.device, b=min(bs, new_cfg.complete_batch_size)),
+                    self.time.now_ms(),
+                    0.0,
+                    0.0,
+                )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            del dummy
+            t_wait = mono_s()
+            with self._engine_lock:
+                t_lock = mono_s()
+                self._state = E.migrate_state(self._state, self.cfg, new_cfg, self.time.now_ms())
+                self.cfg = new_cfg
+                self.registry.cfg = new_cfg
+                self._tick = new_tick
+                self._wire_layouts = {}
+            self.swap_lock_ms = (mono_s() - t_lock) * 1000.0
+            self.swap_lock_wait_ms = (t_lock - t_wait) * 1000.0
+            # ruleset tensors are capacity-shaped, not window-shaped — the
+            # recompile only keeps future rule edits keyed to the active cfg
+            self._recompile_rules()
+        finally:
+            OT.TRACER.end(_h)
+
+    def register_window_property(self, prop) -> None:
+        """Subscribe window shape to a SentinelProperty pushing dicts like
+        {"sampleCount": 4, "intervalMs": 1000} — datasource-driven live
+        reshaping (SampleCountProperty.register2Property analog)."""
+        from sentinel_tpu_torch.datasource.property import SimplePropertyListener
+
+        def apply(v):
+            if not v:
+                return
+            # reference semantics: intervalMs is the TOTAL window and
+            # sampleCount re-slices it — missing fields default to the
+            # CURRENT values so a partial push never changes the other
+            # dimension (a sampleCount-only push must not grow the window)
+            cur_total = self.cfg.second_sample_count * self.cfg.second_window_ms
+            sc = int(v.get("sampleCount") or self.cfg.second_sample_count)
+            iv = int(v.get("intervalMs") or cur_total)
+            if sc <= 0 or iv <= 0 or iv % sc:
+                return
+            self.update_window_shape(sample_count=sc, window_ms=iv // sc)
+
+        prop.add_listener(SimplePropertyListener(apply))
+
     @property
     def host_build_ms_avg(self) -> float:
         """Mean host batch-build time a tick (assembly, presort, uploads)
@@ -2360,47 +2569,204 @@ class SentinelClient:
         _G_DEV_SEG_LIVE.set(float(s[E.STAT_SEG_LIVE]))
 
 
+#: the exact rows' one readback, int32 [n, 8]: the five event counts, the RT
+#: total and minimum (float32 carried as int32 bits), the concurrency
+_RD_RT_TOT, _RD_RT_MIN, _RD_CONC = W.NUM_EVENTS, W.NUM_EVENTS + 1, W.NUM_EVENTS + 2
+
+
+def _stats_dicts(counts: np.ndarray, rt_tot: np.ndarray, rt_min, conc, interval_s: float) -> List[Dict[str, float]]:
+    """The stats dicts of n resources from their windowed counts [n, NE]
+    and RT totals [n] (``rt_min`` / ``conc``: [n] arrays, or None for the
+    sketch's 0.0 / 0) — the reference's per-row float arithmetic,
+    vectorized in float64."""
+    qps = counts[:, : W.NUM_EVENTS].astype(np.float64) / interval_s
+    succ = counts[:, W.EV_SUCCESS].astype(np.float64)
+    avg = np.zeros_like(succ)
+    np.divide(rt_tot.astype(np.float64), succ, out=avg, where=succ > 0)
+    n = counts.shape[0]
+    mins = [0.0] * n if rt_min is None else np.where(rt_min >= W.RT_MIN_INIT, 0.0, rt_min.astype(np.float64)).tolist()
+    threads = [0] * n if conc is None else conc.tolist()
+    return [
+        {
+            "passQps": p_,
+            "blockQps": b_,
+            "successQps": s_,
+            "exceptionQps": e_,
+            "occupiedPassQps": o_,
+            "avgRt": a_,
+            "minRt": m_,
+            "curThreadNum": t_,
+        }
+        for p_, b_, s_, e_, o_, a_, m_, t_ in zip(
+            qps[:, W.EV_PASS].tolist(), qps[:, W.EV_BLOCK].tolist(), qps[:, W.EV_SUCCESS].tolist(),
+            qps[:, W.EV_EXCEPTION].tolist(), qps[:, W.EV_OCCUPIED].tolist(), avg.tolist(), mins, threads,
+        )
+    ]
+
+
 class ClientStats:
-    """Windowed statistics of a resource as the client's state holds them
-    (the reference's ``ClientStats``, reduced to the exact rows' read the
-    hot-set manager's demotion grades).  The sketch ids' estimates
-    (``_sketch_stats``) are ROADMAP.md Queue A item 4."""
+    """Read-side node statistics (the ClusterNode/StatisticNode getters:
+    passQps/blockQps/successQps/exceptionQps/avgRt/curThreadNum).
+
+    Every read enqueues its gathers under the client's engine lock, on the
+    stream the ticks run on (the device's current stream), so it reads the
+    state as of a tick boundary; the gathered rows are new tensors, so the
+    copy to the host completes after the lock is released and a reader
+    never holds up a tick for the length of its readback.  The exact rows
+    come back in ONE copy: the counts, the RT total and minimum (float32
+    as int32 bits) and the concurrency stacked into one int32 tensor.
+    ``last_read`` holds the host ms of the last read's parts:
+    ``lock_wait_ms`` (waiting for the engine lock: a tick's dispatch holds
+    it), ``lock_ms`` (the lock held: the gathers' enqueue), ``read_ms``
+    (lock release to the rows host-visible) and, for ``snapshot``,
+    ``dict_ms`` (building the dicts) — for the exact rows and, with
+    ``sketch_`` in front, for the sketch ids."""
 
     def __init__(self, client: SentinelClient):
         self._c = client
+        self.last_read: Dict[str, float] = {}
+
+    def _sec_cfg(self) -> W.WindowConfig:
+        cfg = self._c.cfg
+        return W.WindowConfig(cfg.second_sample_count, cfg.second_window_ms)
+
+    def _to_device(self, rows: np.ndarray) -> torch.Tensor:
+        """The row ids as an int64 tensor on the client's device (through
+        pinned memory on the card, so the copy does not wait on a tick)."""
+        t = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+        if self._c.device.type == "cuda":
+            return t.pin_memory().to(self._c.device, non_blocking=True)
+        return t
+
+    def _readback(self, dev: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        """Queue ``dev``'s copy into a host buffer (pinned on the card) and
+        an event behind it; the caller waits on the event outside the lock."""
+        if not dev.is_cuda:
+            return dev, None
+        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _gather_exact(self, state, rows_dev: torch.Tensor, now_ms: int) -> torch.Tensor:
+        """int32 [n, 8] on the state's device: the second window's
+        masked counts and RT total / minimum of ``rows_dev`` and their
+        concurrency, stacked for one readback (a new tensor)."""
+        sec_cfg = self._sec_cfg()
+        counts = W.gather_window_counts(state.win_sec, now_ms, rows_dev, sec_cfg)
+        rt_tot, rt_min = W.gather_window_rt(state.win_sec, now_ms, rows_dev, sec_cfg)
+        return torch.cat(
+            [
+                counts,
+                rt_tot.view(torch.int32)[:, None],
+                rt_min.view(torch.int32)[:, None],
+                state.concurrency[rows_dev][:, None],
+            ],
+            dim=1,
+        )
+
+    def _read_exact(self, rows: np.ndarray, now_ms: int) -> np.ndarray:
+        """int32 [n, 8] for exact rows ``rows`` at ``now_ms``: ONE
+        gather of the second window and the concurrency, ONE readback."""
+        c = self._c
+        rows_dev = self._to_device(rows)
+        t0 = mono_s()
+        with c._engine_lock:
+            t1 = mono_s()
+            host, ev = self._readback(self._gather_exact(c._state, rows_dev, now_ms))
+        t2 = mono_s()
+        if ev is not None:
+            ev.synchronize()
+        self.last_read.update(
+            lock_wait_ms=(t1 - t0) * 1000.0, lock_ms=(t2 - t1) * 1000.0, read_ms=(mono_s() - t2) * 1000.0
+        )
+        return host.numpy()
+
+    def _rows_dicts(self, m: np.ndarray) -> List[Dict[str, float]]:
+        """The stats dicts of ``_read_exact``'s rows."""
+        rt = m[:, _RD_RT_TOT : _RD_RT_MIN + 1].copy().view(np.float32)
+        return _stats_dicts(m, rt[:, 0], rt[:, 1], m[:, _RD_CONC], self._sec_cfg().interval_ms / 1000.0)
 
     def _row_stats(self, row: int) -> Dict[str, float]:
-        c = self._c
-        sec_cfg = W.WindowConfig(c.cfg.second_sample_count, c.cfg.second_window_ms)
-        now = c.time.now_ms()
-        with c._engine_lock:
-            win = c._state.win_sec
-            mask = W.valid_mask(win, now, sec_cfg)
-            counts = torch.sum(win.counts[row] * mask.to(torch.int32)[:, None], dim=0).tolist()
-            rt_tot = float(torch.sum(win.rt_sum[row] * mask.to(torch.float32)))
-            rt_min = float(torch.amin(torch.where(mask, win.rt_min[row], W.RT_MIN_INIT)))
-            conc = int(c._state.concurrency[row])
-        interval_s = sec_cfg.interval_ms / 1000.0
-        succ = float(counts[W.EV_SUCCESS])
-        return {
-            "passQps": float(counts[W.EV_PASS]) / interval_s,
-            "blockQps": float(counts[W.EV_BLOCK]) / interval_s,
-            "successQps": succ / interval_s,
-            "exceptionQps": float(counts[W.EV_EXCEPTION]) / interval_s,
-            "occupiedPassQps": float(counts[W.EV_OCCUPIED]) / interval_s,
-            "avgRt": rt_tot / succ if succ > 0 else 0.0,
-            "minRt": _mask_min_rt(rt_min),
-            "curThreadNum": conc,
-        }
+        return self._rows_dicts(self._read_exact(np.asarray([row]), self._c.time.now_ms()))[0]
 
     def resource(self, name: str) -> Optional[Dict[str, float]]:
-        """The resource's windowed stats (None when it was never seen)."""
-        rid = self._c.registry.peek_resource_id(name)
+        """The resource's windowed stats (None when it was never seen);
+        a sketch id reads the global sketch's estimates."""
+        rid = self.registry_peek(name)
         if rid is None:
             return None
         if self._c.registry.is_sketch_id(rid):
-            raise NotImplementedError(
-                "not ported to sentinel_tpu_torch yet: windowed stats of a sketch-id "
-                "resource (ROADMAP.md Queue A item 4)"
-            )
+            return self._sketch_stats([rid])[0]
         return self._row_stats(rid)
+
+    def origin(self, resource: str, origin: str) -> Optional[Dict[str, float]]:
+        """Per-(resource, caller) stats — the ClusterNode.getOriginNode
+        read (ClusterBuilderSlot origin rows).  None until that caller has
+        been seen (the row is created on first entry with the origin)."""
+        row = self._c.registry.origin_row_if_exists(resource, origin)
+        return None if row is None else self._row_stats(row)
+
+    def _sketch_stats(self, rids, now_ms: Optional[int] = None) -> list:
+        """Windowed sketch estimates for sketch-id resources (SALSA or the
+        count-min seed, per cfg.sketch_salsa) in ONE device read; pass and
+        block are small overestimates bounded by the sketch (eps, delta)."""
+        from sentinel_tpu_torch.ops import gsketch as GS
+        from sentinel_tpu_torch.sketch import impl_for
+
+        c = self._c
+        scfg = E.sketch_config(c.cfg)
+        now = c.time.now_ms() if now_ms is None else now_ms
+        rids_dev = self._to_device(np.asarray(rids)).to(torch.int32)
+        t0 = mono_s()
+        with c._engine_lock:
+            ta = mono_s()
+            host, ev = self._readback(impl_for(c.cfg).estimate(c._state.gs, now, rids_dev, scfg))
+        t1 = mono_s()
+        if ev is not None:
+            ev.synchronize()
+        est = host.numpy()
+        t2 = mono_s()
+        out = _stats_dicts(
+            est, est[:, GS.RT_PLANE].astype(np.float64) / GS.RT_SCALE, None, None, scfg.interval_ms / 1000.0
+        )
+        self.last_read.update(
+            sketch_lock_wait_ms=(ta - t0) * 1000.0,
+            sketch_lock_ms=(t1 - ta) * 1000.0,
+            sketch_read_ms=(t2 - t1) * 1000.0,
+            sketch_dict_ms=(mono_s() - t2) * 1000.0,
+        )
+        return out
+
+    def snapshot(self, now_ms: Optional[int] = None) -> Dict[str, Dict[str, float]]:
+        """Trailing-second stats for ALL registered resources in ONE
+        device read of the exact rows — the walk of the ClusterNode map
+        that MetricTimerListener does per second.  Sketch-id resources
+        (beyond the exact row space) come from the global sketch in a
+        second read."""
+        c = self._c
+        resources = c.registry.resources()
+        if not resources:
+            return {}
+        # ONE timestamp for the whole snapshot, so the trailing window
+        # cannot slide between the exact and the sketch read
+        now_ms = c.time.now_ms() if now_ms is None else now_ms
+        is_sketch = c.registry.is_sketch_id
+        exact = {n: r for n, r in resources.items() if not is_sketch(r)}
+        sketch = {n: r for n, r in resources.items() if is_sketch(r)}
+        out: Dict[str, Dict[str, float]] = {}
+        if exact:
+            m = self._read_exact(np.fromiter(exact.values(), np.int64, len(exact)), now_ms)
+            t = mono_s()
+            out.update(zip(exact.keys(), self._rows_dicts(m)))
+            self.last_read["dict_ms"] = (mono_s() - t) * 1000.0
+        if sketch:
+            out.update(zip(sketch.keys(), self._sketch_stats(list(sketch.values()), now_ms=now_ms)))
+        return out
+
+    def entry_node(self) -> Dict[str, float]:
+        return self._row_stats(self._c.cfg.entry_node_row)
+
+    def registry_peek(self, name: str) -> Optional[int]:
+        return self._c.registry.peek_resource_id(name)

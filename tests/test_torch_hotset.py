@@ -227,8 +227,10 @@ def test_failed_promotion_keeps_the_tail_rule_enforcing():
         assert tc.registry.is_sketch_id(tc.registry.peek_resource_id("guarded"))
         got = sum(1 for _ in range(8) if tc.try_entry("guarded"))
         assert 1 <= got <= 2
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tc.stats.resource("guarded")  # the sketch ids' stats are not ported
+        # the sketch id's windowed stats come from the sketch: estimates
+        # that only ever overcount
+        s = tc.stats.resource("guarded")
+        assert s["passQps"] >= got and s["blockQps"] >= 8 - got and s["curThreadNum"] == 0
     finally:
         tc.stop()
 

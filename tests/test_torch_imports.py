@@ -206,3 +206,45 @@ def test_the_scan_covers_the_cluster_layer():
     assert REGISTRY.get("sentinel_wire_bytes_total", {"path": "cluster", "direction": "tx"}) is P._C_WIRE_TX
     ref = sys.modules.get("sentinel_tpu.cluster.protocol")
     assert ref is None or ref._C_WIRE_TX is not P._C_WIRE_TX
+
+
+def test_the_scan_covers_the_control_plane():
+    """The control plane is the port's own: transport/ (the command
+    registry, the handlers, the HTTP command center, the heartbeat, the
+    write-back registry), metrics/ (the line codec, the writer, searcher
+    and timer), datasource/ (property, base, converters) and
+    utils/authn.py, utils/record_log.py are walked by the checks above and
+    import on the CPU without the JAX package; their failpoints are the
+    port's registry's, their loggers the port's, and the datasource
+    package exports only what is ported."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import sentinel_tpu_torch as st
+
+    mods = ("transport", "transport.command", "transport.handlers", "transport.http_server",
+            "transport.heartbeat", "transport.writable_registry", "metrics.node", "metrics.writer",
+            "metrics.searcher", "metrics.timer", "datasource", "datasource.property", "datasource.base",
+            "datasource.converters", "utils.authn", "utils.record_log")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    from sentinel_tpu_torch import datasource
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.utils import record_log
+
+    for site in ("transport.command.dispatch", "transport.http.request", "transport.heartbeat.send",
+                 "datasource.refresh.read", "datasource.file.read"):
+        assert site in FP.catalog()
+    assert record_log.record_log().name == "sentinel_tpu_torch.record"
+    assert record_log.command_center_log().name == "sentinel_tpu_torch.command"
+    assert not {"HttpDataSource", "CallbackDataSource", "RedisDataSource"} & set(datasource.__all__)
+    assert st.__version__ == "0.1.0"
+    ref = sys.modules.get("sentinel_tpu.transport.command")
+    assert ref is None or ref.CommandRegistry is not importlib.import_module(
+        "sentinel_tpu_torch.transport.command").CommandRegistry

@@ -269,6 +269,28 @@ Phases (the first failure stops the script with a nonzero exit):
    readers against a CPU copy (the sketch ids' estimates included) and
    ``snapshot``'s parts at ~1M sketch ids (``[control]`` lines).
 
+10. Overload protection and the plain effects path (``overload_phase``).
+   (a) The plain path at the default widths, B = 2,048:
+   ``platform_config(fused_effects=False, seg_effects=False)`` and
+   ``platform_config(use_mxu_tables=False)`` on a stream with counts of
+   1-65,535, every tick held to the CPU's (readback verdicts and integers
+   equal, float planes and float state within rtol 1e-6 / atol 1e-4,
+   integer state equal; run under the sync-debug mode "error"); none of
+   B1-B4 launched; ms a tick, device busy and device launches beside the
+   fused path's on the same stream (counts clamped to 255).  (b)
+   ``adaptive.simload.run_overload_sim`` with the controller on and off,
+   on the card and on the CPU, in four processes of their own beside (a)
+   and (c): each ``SimResult`` equal field for field; healthy and storm
+   p99, goodput and the ladder's transitions.  (c) A threaded serving
+   client on ``platform_config()`` with ``enable_adaptive()``, the
+   watchdog armed, 8 request threads then a 2x burst (16 threads and a
+   bulk feeder), deadlines on a quarter of the entries, the steady ticks
+   under the sync-debug mode "error": shed counts by reason, the adaptive
+   step's host µs, the ceiling's trajectory, B1 / B2 / B4 launched; then
+   one 1.5 s stall through the ``runtime.watchdog.stall`` failpoint: the
+   time to fail closed, ``sentinel_watchdog_fired_total`` up by exactly
+   one, one fan-out (``[overload]`` lines).
+
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
 turns the fallback off).
@@ -280,7 +302,8 @@ beside the script: copied into an older checkout it measures that one.
 PyTorch operations of one ``sketch`` tick with the sketch tier on and off
 (``ops_main``).  ``python3 chip_smoke.py --cluster`` runs the build and
 phase 8 alone (``cluster_main``), ``python3 chip_smoke.py --control`` the
-build and phase 9 (``control_main``).
+build and phase 9 (``control_main``), ``python3 chip_smoke.py --overload``
+the build and phase 10 (``overload_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -3263,6 +3286,448 @@ def control_log(rep) -> None:
     log(f"[control] {smi}: phase 9 took {rep['phase_s']:.1f} s (set-up {rep['setup_s']:.1f} s)")
 
 
+# -- phase 10: overload protection and the plain effects path ---------------------------
+
+#: ticks of phase 10a's stream, a plain configuration each
+PLAIN_TICKS = 8
+#: phase 10c: request threads before and after the burst, and during it (2x)
+OVERLOAD_THREADS = (8, 16)
+#: phase 10c: seconds healthy, in the burst, after it
+OVERLOAD_SECONDS = (2.5, 4.0, 2.5)
+
+
+def plain_batches(np, E, torch, cfg, cols, device, clamp=None):
+    """Batches of ``cols`` in ``cfg``'s wire dtypes on ``device`` (counts
+    clamped to ``clamp``, as the client clamps them on the fused path)."""
+
+    def put(batch, cols_, k):
+        x = cols_[k] if clamp is None or k not in ("count", "success", "error") else np.minimum(cols_[k], clamp)
+        return torch.as_tensor(x).to(dtype=getattr(batch, k).dtype, device=device)
+
+    out = []
+    for a, c in cols:
+        B = a["res"].shape[0]
+        acq, comp = E.empty_acquire(cfg, device, B), E.empty_complete(cfg, device, B)
+        out.append((acq._replace(**{k: put(acq, a, k) for k in a}), comp._replace(**{k: put(comp, c, k) for k in c})))
+    return out
+
+
+def wires_match(np, WIRE, cfg, B, got: bytes, want: bytes):
+    """None when two readbacks of one tick agree — verdicts, waits, the
+    drop count and the hot block exactly, the telemetry and timeline rows
+    within rtol 1e-6 / atol 1e-4, the explain records' words exactly but
+    their observed / threshold values within the same tolerance (at their
+    1/256 resolution) — else what differs.  The plain path lands float32
+    sums whose order differs between the card (atomics, parallel scans)
+    and the CPU, and its counts run to 65,535, so such sums pass 2^24."""
+    from sentinel_tpu_torch.obs import explain as EX
+
+    lo = WIRE.layout_for(cfg, B)
+    a, b = WIRE.unpack(got, lo), WIRE.unpack(want, lo)
+    for f in ("verdict", "wait", "hot"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+            return f"{f} differs"
+    if (a.n_wait, a.seg_dropped) != (b.n_wait, b.seg_dropped):
+        return "header differs"
+    for f in ("stats", "res_stats"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not np.allclose(x, y, rtol=1e-6, atol=1e-4)):
+            return f"{f} differs beyond rtol 1e-6 / atol 1e-4"
+    if a.expl is not None:
+        (na, ra), (nb, rb) = EX.decode_section(a.expl), EX.decode_section(b.expl)
+        if na != nb or ra.shape != rb.shape or not np.array_equal(ra[:, :2], rb[:, :2]):
+            return "explain records differ"
+        fa, fb = ra[:, 2:].astype(np.float64), rb[:, 2:].astype(np.float64)
+        unknown = (ra[:, 2:] == EX.FX_UNKNOWN) | (rb[:, 2:] == EX.FX_UNKNOWN)
+        if not np.array_equal(ra[:, 2:][unknown], rb[:, 2:][unknown]) or not np.all(
+                np.abs(fa - fb)[~unknown] <= 1e-6 * np.maximum(fa, fb)[~unknown] + 1e-4 * EX.FX + 1):
+            return "explain observed / threshold differ beyond the tolerance"
+    return None
+
+
+def plain_path_run(np, st, E, S, FU, SC, torch) -> dict:
+    """Phase 10a: the plain effects path at the default widths, B = 2,048 —
+    ``platform_config(fused_effects=False, seg_effects=False)`` and
+    ``platform_config(use_mxu_tables=False)`` (fused_effects on, no one-hot
+    tables: the reference's _use_fused is False) — on a stream with counts
+    of 1-65,535, every tick (under the sync-debug mode "error") held to the
+    same tick on the CPU: the readback's verdicts, waits and integers equal
+    and its float planes within rtol 1e-6 / atol 1e-4 (``wires_match``),
+    every integer state leaf equal and every float leaf within the same
+    tolerance.  The
+    path launches none of B1-B4.  Then ms a tick (median, card) and, from a
+    profile of 4 ticks, device busy and device launches, beside the fused
+    path's on the same stream with its counts clamped to 255."""
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.core.rule_tensors import hash_param
+    from sentinel_tpu_torch.ops import wire as WIRE
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.registry import Registry
+
+    cfgs = {
+        "plain": platform_config(fused_effects=False, seg_effects=False, packed_wire=True),
+        "plain-nomxu": platform_config(use_mxu_tables=False, packed_wire=True),
+        "fused": platform_config(seg_effects=False, packed_wire=True),
+    }
+    check(not E._use_fused(cfgs["plain"]) and not E._use_fused(cfgs["plain-nomxu"]) and E._use_fused(cfgs["fused"]),
+          "phase 10a: the path selection")
+    reg = Registry(cfgs["plain"])
+    names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
+    value_hashes = np.array([hash_param(arg_value(k)) for k in range(N_VALUES)], dtype=np.int32)
+    B = cfgs["plain"].batch_size
+    cols = batch_columns(np, PS, PLAIN_TICKS, names_to_rows, B, SEED + 10, value_hashes)
+    rng = np.random.default_rng(SEED + 11)
+    for a, c in cols:
+        a["count"] = np.where(rng.random(B) < 0.5, 1, rng.integers(1, 65536, B)).astype(np.int32)
+        c["success"] = rng.integers(0, 65536, B).astype(np.int32)
+        c["error"] = np.where(rng.random(B) < 0.2, rng.integers(1, 65536, B), 0).astype(np.int32)
+        c["rt"] = (rng.random(B) * 120.0).astype(np.float32)
+    flow, degrade, authority, system, param = build_rules(st)
+    rules = {}
+    for name, cfg in cfgs.items():
+        for d in ("cuda", "cpu") if name != "fused" else ("cuda",):
+            rules[name, d] = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
+                                               authority_rules=authority, system_rules=system, device=d)
+    rep = {"ticks": PLAIN_TICKS, "batch": B}
+    t0_ms = 1_000
+    states, streams = {}, {}
+    for name in ("plain", "plain-nomxu"):
+        cfg = cfgs[name]
+        card, cpu = plain_batches(np, E, torch, cfg, cols, "cuda"), plain_batches(np, E, torch, cfg, cols, "cpu")
+        streams[name] = card
+        st_card, st_cpu = E.init_state(cfg, "cuda"), E.init_state(cfg, "cpu")
+        FU.reset_launches()
+        SC.reset_launches()
+        tick_ms, float_diff, n_leaves, exact = [], 0.0, 0, 0
+        for i in range(PLAIN_TICKS):
+            now = t0_ms + 137 * i
+            st_card, w_card, wt_card, t_s = run_stream(E, torch, st_card, rules[name, "cuda"], cfg,
+                                                       [card[i]], now, forbid_sync=True)
+            tick_ms.append(1e3 * t_s[0])
+            st_cpu, out = E.tick(st_cpu, rules[name, "cpu"], *cpu[i], now, 0.3, 0.2, cfg, E.ALL_FEATURES)
+            diff = wires_match(np, WIRE, cfg, B, w_card[0], out.wire.numpy().tobytes())
+            check(diff is None, f"phase 10a {name}: tick {i}'s readback: {diff}")
+            exact += w_card[0] == out.wire.numpy().tobytes()
+            check(np.array_equal(wt_card[0], out.wait_ms.numpy()), f"phase 10a {name}: tick {i}'s waits differ")
+            # the CPU's state goes up and the leaves compare on the card
+            got, want = S.leaves(st_card), S.leaves(st_cpu)
+            for k in want:
+                g, w = got[k], want[k].to("cuda")
+                if w.dtype.is_floating_point:
+                    check(bool(torch.allclose(g, w, rtol=1e-6, atol=1e-4)), f"phase 10a {name}: tick {i}: {k} differs")
+                    if g.numel():
+                        float_diff = max(float_diff, float((g.double() - w.double()).abs().max()))
+                else:
+                    check(bool(torch.equal(g, w)), f"phase 10a {name}: tick {i}: {k} differs")
+            n_leaves = len(want)
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        check(not any(launches.values()), f"phase 10a {name}: the plain path launched a kernel: {launches}")
+        big = int(max(int(st_card.win_sec.run.max()), 0))
+        check(big > 65_535, f"phase 10a {name}: the windows hold {big}, not the unclamped sums")
+        states[name] = st_card
+        rep[name] = dict(tick_ms=tick_ms, ms_median=float(np.median(tick_ms[1:])), state_leaves=n_leaves,
+                         float_state_max_diff=float_diff, kernel_launches=launches, window_max=big,
+                         wires_bit_equal=int(exact))
+        del st_cpu
+    streams["fused"] = plain_batches(np, E, torch, cfgs["fused"], cols, "cuda", clamp=cfgs["fused"].max_batch_count)
+    st_f = E.init_state(cfgs["fused"], "cuda")
+    st_f, _w, _wt, t_s = run_stream(E, torch, st_f, rules["fused", "cuda"], cfgs["fused"], streams["fused"], t0_ms,
+                                    forbid_sync=True)
+    rep["fused"] = dict(tick_ms=[1e3 * x for x in t_s], ms_median=float(np.median([1e3 * x for x in t_s[1:]])))
+    variants = [(n, states[n] if n != "fused" else st_f, rules[n, "cuda"], cfgs[n])
+                for n in ("plain", "plain-nomxu", "fused")]
+    # the profile continues each run from its last state, at later times
+    prof = {}
+    for n, st_, r, c in variants:
+        prof.update(profile_ticks(E, torch, [(n, st_, r, c)], streams[n], t0_ms + 137 * PLAIN_TICKS))
+    for n, (dev_us, wall_us, cpu_us, n_launch, ours, _top) in prof.items():
+        rep[n].update(device_busy_ms=dev_us / 4e3, wall_ms=wall_us / 4e3, host_cpu_ms=cpu_us / 4e3,
+                      device_launches=n_launch / 4, idle_share=1.0 - dev_us / max(wall_us, 1e-9),
+                      kernel_rows=ours)
+    return rep
+
+
+def simload_main(device: str, controller: str) -> int:
+    """``python3 chip_smoke.py --simload DEVICE on|off`` (phase 10b): the
+    full overload simulation, the controller on or off, on ``device``, in
+    a process of its own so that the four runs overlap each other and the
+    rest of phase 10; one JSON line (the ``SimResult`` and the wall
+    seconds)."""
+    import dataclasses
+
+    import torch
+
+    if device == "cpu":
+        torch.set_num_threads(2)
+    sys.path.insert(0, ROOT)
+    from sentinel_tpu_torch.adaptive import simload as TS
+
+    on = controller == "on"
+    t = time.perf_counter()
+    r = TS.run_overload_sim(adaptive=on, adaptive_cfg=TS.storm_controller_preset() if on else None, device=device)
+    print(json.dumps(dict(dataclasses.asdict(r), wall_s=time.perf_counter() - t)), flush=True)
+    return 0
+
+
+def adaptive_serving_run(np, st, FU, SC, torch) -> dict:
+    """Phase 10c: a threaded serving client on ``platform_config()`` with
+    ``enable_adaptive()`` and the watchdog armed (250 ms), 8 closed-loop
+    request threads, then a 2x burst — 16 threads and a bulk feeder that
+    queues a 2,048-item block every 40 ms — then 8 again.  Every entry is
+    inbound (the adaptive system columns gate it), one in ten prioritized,
+    and holds a backend whose service time grows with its occupancy (2 ms a
+    holder), so the burst's RT rises; one in four entries carries a 40 ms
+    deadline.  The controller reads queue pressure above 1,024 queued
+    items, RT above 1.3x its floor; its admission bound is 8,192 items.
+    The steady ticks run under the sync-debug mode "error": a host sync in
+    the controller's upload (or anywhere in the tick) fails the phase.
+    Then one stall through the ``runtime.watchdog.stall`` failpoint
+    (1.5 s) with the traffic paused: the time to fail closed,
+    ``sentinel_watchdog_fired_total`` up by exactly one, and no future
+    resolved twice."""
+    from sentinel_tpu_torch.adaptive import degrade as DG
+    from sentinel_tpu_torch.adaptive.controller import AdaptiveConfig
+    from sentinel_tpu_torch.chaos import FaultPlan, FaultSpec, armed
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    def counter(name, **labels):
+        m = REGISTRY.get(name, labels or None)
+        return 0 if m is None else m.value
+
+    reasons = [("admit", "queue_full"), ("admit", "low_priority"), ("admit", "fail_closed"),
+               ("admit", "deadline"), ("admit", "chaos"), ("tick", "deadline")]
+    shed0 = {f"{a}/{b}": counter("sentinel_shed_total", stage=a, reason=b) for a, b in reasons}
+    failed0 = counter("sentinel_resolve_failures_total")
+    client = SentinelClient(cfg=platform_config(), device="cuda", mode="threaded", entry_timeout_s=30.0,
+                            watchdog_timeout_s=0.25, app_name="overload")
+    names = [f"api-{i}" for i in range(16)]
+    client.flow_rules.load([st.FlowRule(resource=n, count=100_000) for n in names])
+    ad = client.enable_adaptive(AdaptiveConfig(rt_tolerance=1.3, queue_high=1024, queue_max=8192, min_ceiling=4.0,
+                                               climb_hold_ms=200, cool_hold_ms=500, cpu_high=2.0))
+    client.start()
+    stop = threading.Event()
+    lock = threading.Lock()
+    outcomes, errors = {}, []
+    holders = [0]
+
+    def worker(k, gate):
+        rng = np.random.default_rng(SEED + 100 + k)
+        while not stop.is_set():
+            if not gate.is_set():
+                time.sleep(0.002)
+                continue
+            name = names[int(rng.integers(0, len(names)))]
+            dl = client.time.now_ms() + 40 if rng.random() < 0.25 else 0
+            try:
+                e = client.entry(name, inbound=True, deadline_ms=dl, prioritized=bool(rng.random() < 0.1))
+                with lock:
+                    holders[0] += 1
+                    n_hold = holders[0]
+                time.sleep(0.002 * n_hold)
+                with lock:
+                    holders[0] -= 1
+                e.exit()
+                key = "pass"
+            except st.BlockException as exc:
+                key = type(exc).__name__
+                time.sleep(0.001)  # a rejected caller backs off a moment
+            except Exception as exc:  # counted: the phase fails on any
+                errors.append(repr(exc))
+                key = "error"
+            with lock:
+                outcomes[key] = outcomes.get(key, 0) + 1
+
+    rid = client.registry.resource_id(names[-1])
+    blocks = []
+
+    def feeder(gate):
+        while not stop.is_set():
+            if gate.is_set():
+                f = client.submit_block(np.full(2048, rid, np.int32))
+                if f is not None:
+                    blocks.append(f)
+            time.sleep(0.04)
+
+    lo, hi = OVERLOAD_THREADS
+    gates = [threading.Event() for _ in range(hi + 1)]  # the last one gates the feeder
+    threads = [threading.Thread(target=worker, args=(k, gates[k]), daemon=True) for k in range(hi)]
+    threads.append(threading.Thread(target=feeder, args=(gates[hi],), daemon=True))
+    for t in threads:
+        t.start()
+    trajectory = []
+    rep = {}
+    FU.reset_launches()
+    SC.reset_launches()
+    uploads0 = client._sys_stage.uploads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for stage, (n_threads, secs) in enumerate(zip((lo, hi, lo), OVERLOAD_SECONDS)):
+            for k in range(hi):
+                (gates[k].set if k < n_threads else gates[k].clear)()
+            (gates[hi].set if stage == 1 else gates[hi].clear)()
+            end = time.perf_counter() + secs
+            while time.perf_counter() < end:
+                time.sleep(0.1)
+                c = ad.ceiling
+                trajectory.append((stage, round(time.perf_counter(), 3), -1.0 if c == float("inf") else round(c, 3),
+                                   ad.ladder.level))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for g in gates:
+            g.clear()
+    for f in blocks:
+        v_blk, _w = f.result(timeout=30.0)
+        outcomes["block_items"] = outcomes.get("block_items", 0) + len(v_blk)
+    time.sleep(0.2)
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    check(not errors, f"phase 10c: request errors {errors[:3]}")
+    check(counter("sentinel_resolve_failures_total") == failed0, "phase 10c: a tick resolution failed (a sync?)")
+    for k in ("scatter_many", "gather_many", "seg_incl_min"):
+        check(launches.get(k, 0) > 0, f"phase 10c: the serving ticks launched no {k}: {launches}")
+    armed_ = [c for _s, _t, c, _l in trajectory if c > 0]
+    check(client._sys_stage.uploads > uploads0 and armed_, "phase 10c: the controller never published a ceiling")
+    rep.update(outcomes=dict(outcomes), launches=launches, uploads=client._sys_stage.uploads - uploads0,
+               adaptive_step_us=client.adaptive_step_us,
+               ceiling_trajectory=[(s, c, l) for s, _t, c, l in trajectory],
+               levels_seen=sorted({l for *_x, l in trajectory}),
+               transitions=list(ad.ladder.transitions)[:32])
+    # one measured control step's host time (the tick thread's own steps
+    # are excluded meanwhile), beside the one of the last tick
+    with client._tick_mutex:
+        load, cpu = client._sys.sample()
+        t = time.perf_counter()
+        client._adaptive_step(ad, client.time.now_ms(), load, cpu)
+        rep["adaptive_step_host_us"] = (time.perf_counter() - t) * 1e6
+    rep["shed"] = {k: counter("sentinel_shed_total", stage=k.split("/")[0], reason=k.split("/")[1]) - v
+                   for k, v in shed0.items()}
+
+    # -- the stall: traffic paused, one probe through a stalled readback ----
+    time.sleep(0.3)
+    fired0 = counter("sentinel_watchdog_fired_total")
+    failed1 = counter("sentinel_resolve_failures_total")
+    plan = FaultPlan(name="overload-stall", seed=3,
+                     faults=[FaultSpec("runtime.watchdog.stall", "delay", delay_ms=1500, max_fires=1)])
+    calls = []
+    # the ladder back at NORMAL first: at FAIL_CLOSED the probe would shed
+    # before it reached a tick
+    with client._tick_mutex:
+        ad.ladder.reset()
+    with armed(plan):
+        t = time.perf_counter()
+        f = client.submit_acquire(names[0], prioritized=True)
+        f.add_done_callback(lambda fut: calls.append(fut.result()))
+        v, _w = f.result(timeout=10.0)
+        rep["stall_fail_closed_ms"] = (time.perf_counter() - t) * 1e3
+        fired = counter("sentinel_watchdog_fired_total") - fired0
+        time.sleep(1.7)  # the stalled resolver finishes: it must not fan out again
+    check(v == ERR.BLOCK_SYSTEM, f"phase 10c: the stalled tick resolved {v}, not BLOCK_SYSTEM")
+    check(rep["stall_fail_closed_ms"] < 1_400, f"phase 10c: failed closed after {rep['stall_fail_closed_ms']:.0f} ms")
+    check(fired == 1 and counter("sentinel_watchdog_fired_total") - fired0 == 1,
+          f"phase 10c: the watchdog fired {counter('sentinel_watchdog_fired_total') - fired0} times")
+    check(len(calls) == 1 and counter("sentinel_resolve_failures_total") == failed1 and not client._inflight_ticks,
+          f"phase 10c: the stalled tick fanned out again ({len(calls)} callbacks)")
+    v2, _ = client.submit_acquire(names[0], prioritized=True).result(timeout=10.0)
+    check(v2 in (ERR.PASS, ERR.PASS_WAIT, ERR.BLOCK_SYSTEM), "phase 10c: serving after the stall")
+    rep["after_stall"] = int(v2)
+    stop.set()
+    for t_ in threads:
+        t_.join(timeout=5)
+    client.stop()
+    rep["watchdog_fired"] = fired
+    return rep
+
+
+def overload_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 10: the plain effects path at the default widths (10a), the
+    overload simulator on the card against the CPU (10b: four processes of
+    their own — card and CPU, controller on and off — that run beside 10a
+    and 10c), and a threaded serving client with adaptive protection,
+    deadlines and the watchdog (10c).  10a's and 10c's numbers are taken
+    with the simulations running beside them."""
+    from sentinel_tpu_torch.ops import engine as E
+
+    t_phase = time.perf_counter()
+    sims = {}
+    for where, d in (("cpu", "cpu"), ("card", "cuda")):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="") if d == "cpu" else dict(os.environ)
+        for k in ("on", "off"):
+            sims[where, k] = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--simload", d, k],
+                                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True)
+    results = {}
+    try:
+        rep = {"card": smi}
+        t = time.perf_counter()
+        rep["plain"] = plain_path_run(np, st, E, S, FU, SC, torch)
+        rep["plain_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rep["serving"] = adaptive_serving_run(np, st, FU, SC, torch)
+        rep["serving_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for key, proc in sims.items():
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"phase 10b: the simulation {key} failed: {err[-2000:]}")
+            results[key] = json.loads(out.strip().splitlines()[-1])
+        rep["simload_wait_s"] = time.perf_counter() - t
+    finally:
+        for proc in sims.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rep["simload"] = {w: {k: results[w, k] for k in ("on", "off")} for w in ("card", "cpu")}
+    for k in ("on", "off"):
+        card, cpu = (dict(rep["simload"][d][k]) for d in ("card", "cpu"))
+        card.pop("wall_s"), cpu.pop("wall_s")
+        check(card == cpu, f"phase 10b: the simulation with the controller {k} differs on the card: "
+                           f"{ {f: (card[f], cpu[f]) for f in card if card[f] != cpu[f]} }")
+    on = rep["simload"]["card"]["on"]
+    check(on["max_level"] >= 1 and on["blocked"] > 0, "phase 10b: the storm did not climb the ladder")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    overload_log(rep)
+    return rep
+
+
+def overload_log(rep) -> None:
+    smi = rep["card"]
+    p = rep["plain"]
+    for n in ("plain", "plain-nomxu", "fused"):
+        r = p[n]
+        extra = (f"; every tick == the CPU's ({r['wires_bit_equal']} of {p['ticks']} readbacks bit-equal, "
+                 f"{r['state_leaves']} state leaves, float max |diff| {r['float_state_max_diff']:.3g}); "
+                 f"B1-B4 launches {json.dumps(r['kernel_launches'])}; "
+                 f"windows hold up to {r['window_max']}") if n != "fused" else " (counts clamped to 255)"
+        log(f"[overload] {smi}: 10a {n} at B={p['batch']}: median {r['ms_median']:.3f} ms a tick "
+            f"({[round(x, 3) for x in r['tick_ms']]}); profile of 4 ticks: device busy {r['device_busy_ms']:.3f} ms "
+            f"a tick of {r['wall_ms']:.3f} ms wall (idle share {r['idle_share']:.3f}), host CPU "
+            f"{r['host_cpu_ms']:.3f} ms, {r['device_launches']:g} device launches a tick{extra}")
+    s = rep["simload"]
+    for k in ("on", "off"):
+        c = s["card"][k]
+        log(f"[overload] {smi}: 10b controller {k}: healthy p99 {c['p99_healthy_ms']} ms, storm p99 "
+            f"{c['p99_storm_ms']} ms, goodput healthy / storm {c['goodput_healthy']:.3f} / "
+            f"{c['goodput_storm']:.3f} a step (floor {c['goodput_floor']}), passed {c['passed']} blocked "
+            f"{c['blocked']}, ladder transitions {len(c['ladder_transitions'])} (max level {c['max_level']}); "
+            f"card == CPU field for field; {c['wall_s']:.2f} s on the card ({s['cpu'][k]['wall_s']:.2f} s on the "
+            f"CPU)")
+    v = rep["serving"]
+    log(f"[overload] {smi}: 10c outcomes {json.dumps(v['outcomes'], sort_keys=True)}; shed by reason "
+        f"{json.dumps(v['shed'], sort_keys=True)}; adaptive step host {v['adaptive_step_host_us']:.1f} us "
+        f"(last in a tick {v['adaptive_step_us']:.1f} us); {v['uploads']} column uploads, no host sync in the "
+        f"steady ticks; levels seen {v['levels_seen']}; launches {json.dumps(v['launches'], sort_keys=True)}")
+    log(f"[overload] {smi}: 10c ceiling trajectory (stage, ceiling, level) a 100 ms: "
+        f"{json.dumps(v['ceiling_trajectory'])}")
+    log(f"[overload] {smi}: 10c stall: failed closed after {v['stall_fail_closed_ms']:.1f} ms (watchdog 250 ms, "
+        f"stall 1,500 ms); sentinel_watchdog_fired_total +{v['watchdog_fired']}; one fan-out; next verdict "
+        f"{v['after_stall']}")
+    log(f"[overload] {smi}: phase 10 took {rep['phase_s']:.1f} s (10a {rep['plain_s']:.1f} s, 10c "
+        f"{rep['serving_s']:.1f} s, then {rep['simload_wait_s']:.1f} s waiting for 10b's processes)")
+
+
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
@@ -4155,6 +4620,9 @@ def main() -> int:
     # -- 9. the control plane: readers, command center, metric log, reshape ---------------
     report["control"] = control_phase(np, st, S, FU, SC, torch, smi)
 
+    # -- 10. overload protection and the plain effects path --------------------------------
+    report["overload"] = overload_phase(np, st, S, FU, SC, torch, smi)
+
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
         name = RECORD_CFG[kname]
@@ -4269,8 +4737,33 @@ def cluster_main() -> int:
     return 0
 
 
+def overload_main() -> int:
+    """``python3 chip_smoke.py --overload``: the kernels' build and phase 10
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = overload_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1:]
     sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"]
              else cluster_main() if mode == ["--cluster"] else control_main() if mode == ["--control"]
+             else overload_main() if mode == ["--overload"]
+             else simload_main(*mode[1:]) if mode[:1] == ["--simload"] and len(mode) == 3
              else main())

@@ -2,9 +2,10 @@
 
 The port's copies of ``sentinel_tpu/chaos/failpoints.py`` (named
 injection sites: one flag check when disarmed) and ``chaos/plans.py``
-(the declarative, seeded fault plans that arm them).  The runner, its
-scenarios and the invariant monitors are not ported yet (ROADMAP.md,
-Queue A items 6 and 10).
+(the declarative, seeded fault plans that arm them); every injected
+fault is journalled in the flight recorder (obs/flight.py).  The runner,
+its scenarios and the invariant monitors are not ported yet (ROADMAP.md,
+Queue A item A10).
 """
 
 from sentinel_tpu_torch.chaos import failpoints

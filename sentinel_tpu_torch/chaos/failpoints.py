@@ -2,9 +2,9 @@
 failure-handling paths.
 
 The port's copy of ``sentinel_tpu/chaos/failpoints.py`` (copied, not
-imported: this package never imports the JAX package).  One difference:
-an injected fault is not journalled in a flight recorder, which the port
-does not carry yet (ROADMAP.md, Queue A item 6).
+imported: this package never imports the JAX package).  Every injected
+fault is journalled in the flight recorder (``obs/flight.py``,
+``failpoint.fire``), as in the reference.
 
 Every place the system claims to degrade gracefully — cluster RPC
 round-trips, remote-shard chunk pipelines, resolver-pool readbacks,
@@ -284,6 +284,12 @@ def _apply(site: str, value):
                 st.events.append((site, s.action, hit_idx - 1))
             if lf.counter is not None:
                 lf.counter.inc()
+            # black-box journal: every injected fault lands in the flight
+            # recorder, so a post-mortem bundle shows WHAT was injected next
+            # to the transitions it caused.  Lazy import: the armed path only
+            from sentinel_tpu_torch.obs.flight import FLIGHT as _FLIGHT
+
+            _FLIGHT.note("failpoint.fire", site=site, action=s.action, hit=hit_idx - 1)
             if s.action == "delay":
                 delay_s += s.delay_ms / 1000.0
             elif s.action == "raise":

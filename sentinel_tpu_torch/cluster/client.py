@@ -1,8 +1,8 @@
 """Cluster token client: xid-correlated requests with auto-reconnect.
 
-The port's copy of ``sentinel_tpu/cluster/client.py``.  The reference also
-journals each connection teardown in the flight recorder (``obs.flight``),
-which comes with ROADMAP.md Queue A item 6.
+The port's copy of ``sentinel_tpu/cluster/client.py``.  Each connection
+teardown is journalled in the flight recorder (``obs.flight``:
+``cluster.conn.teardown`` with its kind and the requests it stranded).
 
 The reference pairs a Netty channel with a xid→promise map
 (DefaultClusterTokenClient.java:45, TokenClientPromiseHolder); here a plain
@@ -29,6 +29,7 @@ from sentinel_tpu_torch.chaos import failpoints as FP
 from sentinel_tpu_torch.cluster import constants as C
 from sentinel_tpu_torch.cluster import protocol as P
 from sentinel_tpu_torch.cluster.token_service import TokenResult, TokenService
+from sentinel_tpu_torch.obs import flight as FL
 from sentinel_tpu_torch.obs import trace as OT
 from sentinel_tpu_torch.obs.registry import REGISTRY as _OBS
 from sentinel_tpu_torch.utils.time_source import mono_s
@@ -258,8 +259,8 @@ class ClusterTokenClient(TokenService):
     def _teardown(self, kind: str = "conn_lost") -> None:
         """Drop the connection and fail its in-flight requests (they
         resolve None: STATUS_FAIL at the caller).  ``kind`` says why (close
-        / send_fail / conn_lost): the reference journals it in the flight
-        recorder, which is not ported yet."""
+        / send_fail / conn_lost); the flight recorder journals it with the
+        number of requests it stranded."""
         with self._lock:
             s, self._sock = self._sock, None
             pending, self._pending = self._pending, {}
@@ -267,6 +268,7 @@ class ClusterTokenClient(TokenService):
         if pending:
             _G_INFLIGHT.dec(len(pending))
         if s is not None:
+            FL.note("cluster.conn.teardown", kind=kind, peer=f"{self.host}:{self.port}", in_flight=len(pending))
             try:
                 s.close()
             except OSError:

@@ -132,14 +132,15 @@ class EngineConfig:
     # statistic max RT clamp (SentinelConfig.java:63)
     statistic_max_rt: int = 5000
     # memory-access strategy of the JAX package (one-hot MXU contractions
-    # on the TPU).  Kept so configs carry across; the port has no one-hot
-    # table strategy and ignores it — every table read is an indexed gather
+    # on the TPU).  The port has no one-hot table strategy — every table
+    # read is an indexed gather — but the flag selects the effects path as
+    # in the reference: the fused path needs it (ops/engine._use_fused)
     use_mxu_tables: bool = False
     mxu_n_lo: int = 512
     # land the tick's effects-phase scatters (stat windows + circuit
     # breakers + per-rule scatters) through one scatter kernel launch per
-    # phase (ops/fused.py).  The port carries only this path: the engine
-    # raises for fused_effects=False
+    # phase (ops/fused.py).  Requires use_mxu_tables, as in the reference;
+    # without either flag the tick runs the plain indexed-scatter path
     fused_effects: bool = False
     # largest per-item token count the fused kernels carry exactly (one
     # base-256 digit plane per byte; every MXU dot streams the whole item
@@ -375,10 +376,12 @@ def platform_config(**kw) -> EngineConfig:
     (``explain_k=32``, on the packed wire the client reads).  On the CPU
     (tests) the same flags apply: the kernels' plain versions run there.
 
-    ``use_mxu_tables`` is kept as a field so configs carry across from the
-    JAX package, but it selects nothing here: the port has no one-hot
-    table strategy, every table read is an indexed gather.  Explicit
-    keyword overrides win."""
+    ``use_mxu_tables=True`` is part of it: as in the reference, the fused
+    and segment paths run only when it is set (``ops/engine._use_fused``),
+    although the port has no one-hot table strategy — every table read is
+    an indexed gather.  ``platform_config(fused_effects=False,
+    seg_effects=False)`` (or ``use_mxu_tables=False``) is the plain path.
+    Explicit keyword overrides win."""
     base = dict(
         use_mxu_tables=True,
         fused_effects=True,

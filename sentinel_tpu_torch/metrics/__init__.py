@@ -5,10 +5,12 @@ The port's copy of what it has ported of ``sentinel_tpu/metrics``: the
 metric line codec (``node.py``), the metric log writer and searcher, the
 per-second ``MetricTimerListener`` over ``ClientStats.snapshot``, and the
 metric extension SPI, whose callbacks the client fires on every pass,
-block, completion and business exception.  The block log is not ported
-yet (ROADMAP.md, Queue A item A6).
+block, completion and business exception; and the block log
+(``block_log.py``: ``sentinel-block.log``, one line per blocked key a
+second, with the explain plane's cause and rule slot when it has them).
 """
 
+from sentinel_tpu_torch.metrics.block_log import BlockLogger, default_block_logger, parse_line
 from sentinel_tpu_torch.metrics.extension import (
     MetricExtension,
     clear_extensions,
@@ -23,6 +25,9 @@ from sentinel_tpu_torch.metrics.timer import MetricTimerListener
 from sentinel_tpu_torch.metrics.writer import MetricWriter, list_metric_files, metric_file_base
 
 __all__ = [
+    "BlockLogger",
+    "default_block_logger",
+    "parse_line",
     "MetricNode",
     "MetricWriter",
     "MetricSearcher",

@@ -18,8 +18,11 @@ name's count, p50 / p99, mean and total ms.  Disabled, every instrumented
 call site pays one flag check — no allocation, no formatting, no clock
 read.
 
-The flight recorder, the SLO engine, the fleet view, the device profile
-and the trace CLI are not ported yet (ROADMAP.md, Queue A items A6 and A10).
+* ``obs.flight``   — the black-box flight recorder: an always-on journal
+  of state transitions and triggered post-mortem bundles (``FLIGHT``).
+
+The SLO engine, the fleet view, the device profile and the trace CLI are
+not ported yet (ROADMAP.md, Queue A items A6, A4 and A10).
 """
 
 from sentinel_tpu_torch.obs.registry import (

@@ -24,9 +24,9 @@ we:
 * serve ``SentinelClient.explain(resource)``, ``explain_top_causes()``
   and ``explain_coverage()``.
 
-The reference's plane also keys the block log (``latest_rule``) and feeds
-the flight recorder (``flight_section``); they come back with those
-layers (ROADMAP.md, Queue A item 6).
+It also keys the block log (``latest_rule``: the blamed rule slot of a
+resource's newest record of one kind, metrics/block_log.py) and feeds the
+flight recorder (``flight_section``, obs/flight.py).
 
 Metrics (the port's own registry): ``sentinel_explain_records_total``,
 ``sentinel_explain_unexplained_total`` (blocked rows beyond the wire
@@ -378,6 +378,17 @@ class ExplainPlane:
         out.reverse()
         return out[:limit] if limit else out
 
+    def latest_rule(self, resource: int, kind: int) -> Optional[int]:
+        """Blamed rule slot of the newest record matching (resource, kind)
+        — the block log's provenance key lookup."""
+        with self._lock:
+            ring = self._per_res.get(int(resource))
+            recs = list(ring) if ring else []
+        for rec in reversed(recs):
+            if rec.kind == int(kind):
+                return rec.rule
+        return None
+
     def recent(self, limit: int = 0) -> List[ExplainRecord]:
         """Newest-first global ring."""
         with self._lock:
@@ -417,4 +428,13 @@ class ExplainPlane:
             "blocked": b,
             "explained": e,
             "frac": (e / b) if b else 1.0,
+        }
+
+    def flight_section(self) -> dict:
+        """Flight-recorder provider payload: the last explanations and the
+        cause leaderboard ride every black-box bundle."""
+        return {
+            "coverage": self.coverage(),
+            "top_causes": self.top_causes(10),
+            "recent": [r.to_dict() for r in self.recent(64)],
         }

@@ -23,9 +23,10 @@ dashboard's ``/metric?startTime&endTime`` pull.  Here:
 * ``MetricLog.find(resource, start_ms, end_ms)`` / the recorder's
   read-through ``find`` are the ``MetricSearcher`` analog.
 
-The reference's recorder also registers itself for the fleet-wide merge
-(``live_recorders``) and feeds the flight recorder (``flight_section``);
-they come back with those layers (ROADMAP.md, Queue A item 6).
+The recorder feeds the flight recorder (``flight_section``: the last
+~30 s of the hottest resources' rows).  The reference's recorder also
+registers itself for the fleet-wide merge (``live_recorders``); that
+comes back with the fleet view (ROADMAP.md, Queue A item A6).
 
 The timeline is OBSERVABILITY, never an admission dependency: a failed
 log write (full disk, chaos ``datasource.metriclog.write``) fails OPEN —
@@ -567,6 +568,26 @@ class TimelineRecorder:
         for s in sorted(by_sec):
             out.extend(self._combine(s, by_sec[s]))
         return out
+
+    # -- flight-recorder provider --------------------------------------------
+
+    def flight_section(self, seconds: int = 30, max_resources: int = 16) -> dict:
+        """The last ~``seconds`` of rows for the hottest resources — the
+        ``timeline`` section of a flight bundle (obs/flight.py)."""
+        with self._lock:
+            secs = sorted(self._mem)
+            pending = self._pending_snapshot_locked()
+            recent: List[MetricRow] = []
+            for sec in secs[-seconds:]:
+                recent.extend(self._mem[sec].values())
+        recent.extend(pending[-seconds * max_resources :])
+        volume: Dict[str, float] = {}
+        for r in recent:
+            volume[r.resource] = volume.get(r.resource, 0.0) + r.pass_count + r.block_count
+        keep = set(sorted(volume, key=lambda n: (-volume[n], n))[:max_resources])
+        rows = [r.to_dict() for r in recent if r.resource in keep]
+        rows.sort(key=lambda d: (d["ts"], d["resource"]))
+        return {"window_s": seconds, "resources": sorted(keep), "rows": rows}
 
     def close(self) -> None:
         self.flush(force=True)

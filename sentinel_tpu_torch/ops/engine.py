@@ -1,10 +1,14 @@
 """The decision engine: one tick per micro-batch.
 
-PyTorch counterpart of ``sentinel_tpu/ops/engine.py`` under
-``fused_effects=True``: the per-item fused path (``seg_effects=False``)
-and the segment-compacted path (``seg_effects=True``; ops/engine_seg.py),
-with or without its per-tick fallback to the per-item path
-(``seg_fallback``).  A tick ingests
+PyTorch counterpart of ``sentinel_tpu/ops/engine.py``.  The effects path
+is chosen as the reference chooses it (``_use_fused``): the fused path
+runs when ``fused_effects`` AND ``use_mxu_tables`` are both set — the
+per-item fused path (``seg_effects=False``) and the segment-compacted
+path (``seg_effects=True``; ops/engine_seg.py), with or without its
+per-tick fallback to the per-item path (``seg_fallback``).  Any other
+config runs the plain path, the reference's default: per-item indexed
+scatters and gathers (ops/tables.py), no kernel, counts exact to 65,535
+an item.  A tick ingests
 
     AcquireBatch  — entry attempts   (SphU.entry side)
     CompleteBatch — exits            (Entry.exit + Tracer side)
@@ -79,9 +83,18 @@ sketched ids by estimate (``TickOutput.hot``, the wire's hot block), for
 the client's promotion loop (sketch/hotset.py).  The sketch's reads are
 indexed gathers, never the reference's one-hot contractions.
 
+The plain path differs from the fused one only where the reference's
+does: the completion phase lands raw RT sums (``use_mxu_tables=False``)
+instead of 1/8 ms quanta; the system check ranks in float32 (monotone,
+inexact past 2^24, where an int32 total of 65,535-unit counts could wrap);
+the flow check reads its (pass, concurrency, borrow) triple with plain
+gathers, uncapped; and the RateLimiter's latestPassedTime advance and the
+occupy booking come from indexed scatters.  Its scatters produce the same
+``CompletionDeltas`` / ``AcquireDeltas`` the fused ones do, sized to the
+whole node table, and land through the same landings.
+
 Features: {nodes, occupy, flow, tail_flow, degrade, authority, system,
-warmup, param}.  ``fused_effects=False`` is not ported yet and raises
-``NotImplementedError`` (ROADMAP.md, Queue A).
+warmup, param}.
 """
 
 from __future__ import annotations
@@ -553,19 +566,21 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     return n_blocked, torch.where(live[:, None], words, 0)
 
 
+def _use_fused(cfg: EngineConfig) -> bool:
+    """The fused effects path runs only on the one-hot table config, as in
+    the reference (``fused_effects and use_mxu_tables``); every other
+    config takes the plain path.  The reference's third operand, its
+    ``SENTINEL_NO_PALLAS`` switch, has no counterpart: the port hides no
+    kernel behind an environment variable."""
+    return bool(cfg.fused_effects and cfg.use_mxu_tables)
+
+
 def check_supported(cfg: EngineConfig, features: frozenset = ALL_FEATURES) -> None:
-    """Raise NotImplementedError for any flag or stage this engine does not
-    carry — it never silently ignores one."""
-    unported = []
-    if not cfg.fused_effects:
-        unported.append("fused_effects=False (the plain scatter path)")
+    """Raise for a tick stage this engine does not know — it never silently
+    ignores one."""
     extra = set(features) - ALL_FEATURES
     if extra:
         raise ValueError(f"unknown tick features {sorted(extra)}")
-    if unported:
-        raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: " + "; ".join(unported)
-        )
 
 
 def _sec_cfg(cfg: EngineConfig) -> W.WindowConfig:
@@ -979,13 +994,22 @@ def _cb_transitions(
 
 
 def _node_hist(cfg: EngineConfig, cols: dict, entry_deltas, device):
-    """[node_rows, NUM_EVENTS] int32 histogram: int32 [max_nodes] columns
-    by event, plus the ENTRY-row reduction."""
+    """[node_rows, NUM_EVENTS] int32 histogram: int32 columns by event
+    (``max_nodes`` rows from the fused scatters, ``node_rows`` from the
+    plain ones), plus the ENTRY-row reduction."""
     hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=device)
     for ev, col in cols.items():
-        hist[: cfg.max_nodes, ev] = col
+        hist[: col.shape[0], ev] = col
     hist[cfg.entry_node_row] += entry_deltas
     return hist
+
+
+def _to_rows(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """A per-row delta [m] padded with ``fill`` to the node table's ``n``
+    rows (the fused scatters cover ``max_nodes``, the plain ``node_rows``)."""
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, torch.full((n - x.shape[0],), fill, dtype=x.dtype, device=x.device)])
 
 
 class CompletionDeltas(NamedTuple):
@@ -994,7 +1018,7 @@ class CompletionDeltas(NamedTuple):
     ``engine_seg.completion_scatters_seg``), so that ``seg_fallback`` can
     select between two of them on the device and land once."""
 
-    succ: torch.Tensor  # int32 [max_nodes] successes per node row
+    succ: torch.Tensor  # int32 [max_nodes] successes per node row ([node_rows] plain)
     err: torch.Tensor  # int32 [max_nodes] exceptions per node row
     rt: torch.Tensor  # float32 [max_nodes] RT sums (ms)
     row_min: tuple  # (float32 [max_nodes] RT minima, bool [max_nodes] present)
@@ -1113,6 +1137,70 @@ def _completion_scatters_fused(
     )
 
 
+def _completion_scatters_plain(
+    cfg: EngineConfig, rules: RuleSet, comp: CompleteBatch, features: frozenset, dg,
+) -> CompletionDeltas:
+    """The exit path's scatters on the plain path (the reference's
+    ``_process_completions``): the same deltas as
+    ``_completion_scatters_fused``, from indexed scatters over the whole
+    node table (ops/tables.py).  The RT sums are the raw float sums —
+    quantized to 1/8 ms, as the reference's one-hot histogram quantizes
+    them, only under ``use_mxu_tables`` — and the per-row RT minimum is a
+    scatter-min over the positive RTs.  Successes and errors are exact at
+    any count (no digit envelope)."""
+    valid = comp.res != cfg.trash_row
+    with_nodes = "nodes" in features
+    fan = 3 if with_nodes else 1
+    n = cfg.node_rows
+    rows = _stat_rows(cfg, comp.res, comp.ctx_node, comp.origin_node, with_nodes)
+    succ_w = torch.where(valid, comp.success, 0).to(I32)
+    err_w = torch.where(valid, comp.error, 0).to(I32)
+    rt1 = torch.where(valid, comp.rt, 0.0)
+    counts = T.histogram(rows, torch.stack([succ_w, err_w], dim=1).repeat(fan, 1), n)
+    if cfg.use_mxu_tables:
+        rt_q = torch.round(torch.clamp_max(rt1, float(cfg.statistic_max_rt)) * 8.0).to(I32)
+        rt = T.histogram(rows, rt_q.repeat(fan), n).to(F32) / 8.0
+    else:
+        rt = T.histogram(rows, rt1.repeat(fan), n)
+    rt_for_min = torch.where(rt1 > 0, rt1, W.RT_MIN_INIT).repeat(fan)
+    mins = T.small_scatter_max(
+        torch.full((n,), -W.RT_MIN_INIT, dtype=F32, device=rt1.device), rows, -rt_for_min
+    )
+    mins = -mins
+    sketch = prel = cb = probe = None
+    if cfg.sketch_stats:
+        rt_q = torch.round(torch.clamp_max(comp.rt, float(cfg.statistic_max_rt)) * GS.RT_SCALE).to(I32)
+        vals = torch.stack([comp.success.to(I32), comp.error.to(I32), rt_q], dim=1)
+        cols = PM.cms_cell(comp.res, cfg.sketch_depth, cfg.sketch_width)
+        sketch = GS.depth_histogram(cols, vals, valid, cfg.sketch_depth, cfg.sketch_width)
+    if "param" in features:
+        rel, prows_c, rel_cnt = _param_release_ctx(cfg, rules, comp, valid)
+        prel = torch.stack([
+            T.histogram(torch.where(rel, prows_c[:, d], -1), rel_cnt.to(I32), cfg.param_width)
+            for d in range(cfg.param_depth)
+        ])
+    if dg is not None:
+        slots_f, _cb_counts, _cb_epochs, active, is_err, is_slow, g_idx, half_open = dg
+        nbd = cfg.cb_sample_count
+        Dn = cfg.max_degrade_rules
+        # pad slots (slot == Dn) are never enabled, so they land nothing
+        flat = torch.where(slots_f < Dn, slots_f * nbd + g_idx, -1)
+        upd = torch.stack([active.to(I32), is_err.to(I32), is_slow.to(I32)], dim=1)
+        cb = T.histogram(flat, upd, Dn * nbd).reshape(Dn, nbd, 3)
+        probe_done = active & half_open
+        probe_fail = probe_done & (is_err | is_slow)
+        probe = T.histogram(
+            torch.where(slots_f < Dn, slots_f, -1),
+            torch.stack([probe_done.to(I32), probe_fail.to(I32)], dim=1),
+            Dn,
+        )
+    return CompletionDeltas(
+        succ=counts[:, 0], err=counts[:, 1], rt=rt,
+        row_min=(mins, torch.ones((n,), dtype=torch.bool, device=mins.device)),
+        sketch=sketch, prel=prel, cb=cb, probe=probe,
+    )
+
+
 def _land_completions(
     cfg: EngineConfig,
     state: EngineState,
@@ -1130,19 +1218,18 @@ def _land_completions(
     valid = comp.res != cfg.trash_row
     sec_cfg, min_cfg = _sec_cfg(cfg), _min_cfg(cfg)
     erow = cfg.entry_node_row
-    pad_tail = cfg.node_rows - cfg.max_nodes
+    n = cfg.node_rows
     inb, entry_deltas, entry_rt, entry_rt_min = _completion_entry_stats(cfg, comp, valid)
     if d.prel is not None:
         state = state._replace(pconc=torch.clamp_min(state.pconc - d.prel, 0))
 
     hist = _node_hist(cfg, {W.EV_SUCCESS: d.succ, W.EV_EXCEPTION: d.err}, entry_deltas, dev)
-    rt_hist = torch.cat([d.rt, torch.zeros((pad_tail,), dtype=F32, device=dev)])
+    rt_hist = _to_rows(d.rt, n, 0.0)
+    if rt_hist is d.rt:
+        rt_hist = rt_hist.clone()  # written below: never the branch's own delta
     rt_hist[erow] += entry_rt
     mins_m, present_m = d.row_min
-    row_min = (
-        torch.cat([mins_m, torch.full((pad_tail,), W.RT_MIN_INIT, dtype=F32, device=dev)]),
-        torch.cat([present_m, torch.zeros((pad_tail,), dtype=torch.bool, device=dev)]),
-    )
+    row_min = (_to_rows(mins_m, n, W.RT_MIN_INIT), _to_rows(present_m, n, False))
     # the tick's ONE refresh per window: every later landing at this
     # now_ms passes refreshed=True
     win_sec = W.add_dense(state.win_sec, now_ms, hist, rt_hist, sec_cfg, row_min=row_min)
@@ -1271,9 +1358,17 @@ def _check_system(
 
     inbound = (acq.inbound > 0) & eligible
     cnt = acq.count.to(F32)
-    # single group (the ENTRY node): int32 exclusive prefix sum, exact
+    # single group (the ENTRY node): a plain exclusive prefix sum.  Fused
+    # path: int32, exact (counts clamp to max_batch_count, so the total
+    # stays < 2^31).  Plain path: counts run to 65,535 and an int32 total
+    # could wrap negative and admit the batch; float32 is monotone under
+    # positive addends — inexact past 2^24, but it never un-blocks
     vim_i = torch.where(inbound, acq.count, 0)
-    rank_q = (torch.cumsum(vim_i, dim=0, dtype=I32) - vim_i).to(F32)
+    if _use_fused(cfg):
+        rank_q = (torch.cumsum(vim_i, dim=0, dtype=I32) - vim_i).to(F32)
+    else:
+        vim_f = vim_i.to(F32)
+        rank_q = torch.cumsum(vim_f, dim=0) - vim_f
     rank_t = rank_q
 
     s = rules.system
@@ -1296,16 +1391,18 @@ def fold_i32(x: torch.Tensor) -> torch.Tensor:
 def param_verdicts(
     cfg: EngineConfig, state: EngineState, rules: RuleSet, pcms, pcms_epochs,
     now_ms: int, slots, ph, cls, is_thread, thr, item_hash, item_thr, cnt,
-    elig, key_mult: int,
+    elig, key_mult: int, fused: bool = True,
 ):
     """The item-level half of the param check, shared by the per-item and
     the segment phases: hashed rows, windowed / concurrency estimates,
     per-value exception thresholds, the within-tick rank, and the
     over-threshold mask.  Every argument is per (item, rule lane) [N];
-    ``item_hash`` / ``item_thr`` are [N, KI].  Returns (prows, over)."""
+    ``item_hash`` / ``item_thr`` are [N, KI].  ``fused``: the flat table
+    read of the fused path, else the plain path's class-table read (the
+    same values).  Returns (prows, over)."""
     prows = PM.pair_rows(slots, ph, cfg.param_depth, cfg.param_width)  # [N, depth]
     wtab = PM.class_tables(pcms, pcms_epochs, rules.param.class_k, now_ms, cfg)
-    est = PM.estimate_fused(cfg, wtab, prows, cls)
+    est = (PM.estimate_fused if fused else PM.estimate)(cfg, wtab, prows, cls)
     # the reference reads pconc only when a THREAD-grade rule exists
     # (lax.cond); without one no lane is THREAD-grade, so the estimate is
     # never selected below and reading it always is the same
@@ -1372,6 +1469,7 @@ def _check_param(
         cfg, state, rules, pcms, pcms_epochs, now_ms, slots_f, ph, cls, is_thread,
         pg[:, 1], T.small_gather_int(rules.param.item_hash, slots_f),
         T.small_gather_fields(rules.param.item_threshold, slots_f), cnt, elig_f, KP + 1,
+        fused=_use_fused(cfg),
     )
     blocked = (applicable & over & elig_f).reshape(b, KP).any(dim=1)
     return blocked, pcms, pcms_epochs, cur_idx, prows, applicable & ~is_thread, applicable & is_thread
@@ -1491,12 +1589,24 @@ def _check_flow(
         key, [cnt, torch.ones_like(cnt), cost], elig_f
     )
 
-    # ONE gather kernel launch for (windowed pass, concurrency, borrow pool)
+    # the (windowed pass, concurrency, borrow pool) triple at each item's
+    # node row: ONE gather kernel launch on the fused path (each capped at
+    # 2^24 - 1), plain uncapped gathers on the plain path (the borrow pool
+    # rounded under use_mxu_tables, as the reference's int table holds it)
     cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
-    (both,) = FU.gather_many([flow_read_job(state, node_safe, cur_wid)])
-    wp = both[:, 0]
-    conc = both[:, 1]
-    pool = both[:, 2]
+    if _use_fused(cfg):
+        (both,) = FU.gather_many([flow_read_job(state, node_safe, cur_wid)])
+        wp = both[:, 0]
+        conc = both[:, 1]
+        pool = both[:, 2]
+    else:
+        node_l = node_safe.to(torch.int64)
+        pool_dense = torch.where(state.occ_epoch == W.i32(cur_wid + 1), state.occ_tokens, 0.0)
+        if cfg.use_mxu_tables:
+            pool_dense = torch.round(pool_dense)
+        wp = W.gather_window_event_run(state.win_sec, node_safe, W.EV_PASS).to(F32)
+        conc = state.concurrency[node_l].to(F32)
+        pool = pool_dense[node_l]
 
     # DefaultController.canPass:31-49
     thr_eff = torch.where(is_warm, warm_qps, rcount)
@@ -1836,6 +1946,79 @@ def _acquire_scatters_fused(
     )
 
 
+def _acquire_scatters_plain(
+    cfg: EngineConfig,
+    acq: AcquireBatch,
+    features: frozenset,
+    passed,
+    occupying,
+    valid,
+    fslots,
+    occ_grant,
+    rl_info,
+    param_ctx,
+) -> AcquireDeltas:
+    """Acquire-side scatters on the plain path (the reference's unfused
+    tick, ``engine.py:2631-2860``), as indexed scatters over the whole
+    node table: the stat fan, the sketch, the warm-up drain, the
+    RateLimiter (cost, count) sums (the reference folds them into
+    latestPassedTime at the end of its flow check; nothing reads it in
+    between), the occupy-ahead booking and the param-flow pass /
+    concurrency counts.  Exact at any count."""
+    with_nodes = "nodes" in features
+    fan = 3 if with_nodes else 1
+    n = cfg.node_rows
+    pass_c, block_c, occ_c, _entry_deltas = _acquire_entry_stats(cfg, acq, valid, passed, occupying)
+    rows = _stat_rows(cfg, acq.res, acq.ctx_node, acq.origin_node, with_nodes)
+    stat = T.histogram(rows, torch.stack([pass_c, block_c, occ_c], dim=1).to(I32).repeat(fan, 1), n)
+    sketch = warm = latest = occ_add = param = None
+    if cfg.sketch_stats:
+        vals = torch.stack([torch.where(passed, acq.count, 0), block_c], dim=1).to(I32)
+        cols = PM.cms_cell(acq.res, cfg.sketch_depth, cfg.sketch_width)
+        sketch = GS.depth_histogram(cols, vals, valid, cfg.sketch_depth, cfg.sketch_width)
+    if fslots is not None:
+        K = cfg.flow_rules_per_resource
+        F = cfg.max_flow_rules
+        cnt_f = _fan(acq.count, K).to(F32)
+        if "warmup" in features:
+            # pad-slot lanes drop (row F is never read)
+            adm = _fan(passed, K) & (fslots < F)
+            warm = T.histogram(torch.where(adm, fslots, -1), torch.where(adm, cnt_f, 0.0), F)
+        if rl_info is not None:
+            rl_ok, cost = rl_info
+            sums = T.histogram(
+                torch.where(rl_ok, fslots, -1),
+                torch.stack([torch.where(rl_ok, cost, 0.0), rl_ok.to(F32)], dim=1),
+                F,
+            )
+            latest = (sums[:, 0], sums[:, 1])
+    if occ_grant is not None:
+        K = cfg.flow_rules_per_resource
+        grant_lane, onodes, ocnt = occ_grant
+        commit = grant_lane & _fan(occupying, K)
+        occ_add = T.histogram(
+            torch.where(commit, onodes, -1), torch.where(commit, torch.round(ocnt).to(I32), 0), n
+        ).to(F32)
+    if param_ctx is not None:
+        _pcms, _epochs, _idx, prows, q_add, thread_add = param_ctx
+        KP = cfg.param_rules_per_resource
+        adm = _fan(passed, KP)
+        cnt_p = _fan(acq.count, KP).to(I32)
+        q_rows = torch.where((q_add & adm)[:, None], prows, -1)
+        t_rows = torch.where((thread_add & adm)[:, None], prows, -1)
+        param = torch.stack([
+            torch.stack([
+                T.histogram(q_rows[:, d], cnt_p, cfg.param_width),
+                T.histogram(t_rows[:, d], cnt_p, cfg.param_width),
+            ], dim=1)
+            for d in range(cfg.param_depth)
+        ])
+    return AcquireDeltas(
+        pas=stat[:, 0], blk=stat[:, 1], occ=stat[:, 2], sketch=sketch, warm=warm,
+        latest=latest, occ_add=occ_add, param=param,
+    )
+
+
 def _land_acquire(
     cfg: EngineConfig,
     state: EngineState,
@@ -1873,9 +2056,7 @@ def _land_acquire(
             latest_passed_ms=_apply_latest(state.latest_passed_ms, T_s, n_s, now_ms)
         )
     if d.occ_add is not None:
-        add = torch.cat(
-            [d.occ_add, torch.zeros((cfg.node_rows - cfg.max_nodes,), dtype=F32, device=dev)]
-        )
+        add = _to_rows(d.occ_add, cfg.node_rows, 0.0)
         nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)  # wraps as the reference's int32
         pool_vec = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
         state = state._replace(
@@ -1955,7 +2136,8 @@ def tick(
     # (seg_fits), or both branches compute their deltas and torch.where
     # selects on ctx.ok — the small per-branch outputs, never the state —
     # before ONE landing.  No host sync either way.
-    use_seg = cfg.seg_effects
+    fused = _use_fused(cfg)
+    use_seg = cfg.seg_effects and fused
     fallback = use_seg and cfg.seg_fallback
     seg_dropped = torch.zeros((), dtype=I32, device=dev)
     ctx_c = carry_c = ctx_a = carry_a = None
@@ -1980,7 +2162,9 @@ def tick(
     d_comp = _branch(
         run_c, ctx_c,
         lambda: ES.completion_scatters_seg(cfg, rules, comp, features, ctx_c, carry_c, dg),
-        lambda: _completion_scatters_fused(cfg, rules, comp, features, dg),
+        lambda: (_completion_scatters_fused if fused else _completion_scatters_plain)(
+            cfg, rules, comp, features, dg
+        ),
     )
     state = _land_completions(cfg, state, rules, comp, now_ms, d_comp, dg)
     if run_c == "seg":
@@ -2040,7 +2224,7 @@ def tick(
     d_acq = _branch(
         run_a, ctx_a,
         lambda: ES.acquire_scatters_seg(cfg, acq, features, *eff, ctx_a, carry_a),
-        lambda: _acquire_scatters_fused(cfg, acq, features, *eff),
+        lambda: (_acquire_scatters_fused if fused else _acquire_scatters_plain)(cfg, acq, features, *eff),
     )
     state = _land_acquire(cfg, state, acq, now_ms, d_acq, passed, occupying, valid, param_ctx)
     if run_a == "seg":
@@ -2073,6 +2257,64 @@ def tick(
         verdict=verdict, wait_ms=wait_ms, seg_dropped=seg_dropped, stats=stats,
         res_stats=res_stats, hot=hot,
     )
+
+
+class ScalarStage:
+    """Pinned host slots for the adaptive controller's five-scalar uploads
+    (``replace_system_columns``).  On the card a ``torch.tensor([...],
+    device=...)`` from pageable memory, or a Python scalar written into a
+    device tensor, synchronizes the host with the card; here the values
+    are written into a pinned slot and copied ``non_blocking`` behind a
+    CUDA event, and a slot is written again only once the event recorded
+    behind its last copy has completed (it almost always has: the ring
+    holds ``SLOTS`` of them).  On the CPU the upload is a plain tensor."""
+
+    SLOTS = 4
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.n = len(RT.SystemTensors._fields)
+        self._i = 0
+        self._cuda = self.device.type == "cuda"
+        self._bufs = [
+            torch.empty((self.n,), dtype=F32, pin_memory=self._cuda) for _ in range(self.SLOTS)
+        ]
+        self._events: list = [None] * self.SLOTS
+        #: uploads so far (each one host-to-device copy)
+        self.uploads = 0
+
+    def upload(self, values) -> torch.Tensor:
+        """float32 [n] on the device holding ``values`` (a fresh tensor:
+        earlier uploads are never overwritten)."""
+        self.uploads += 1
+        if not self._cuda:
+            return torch.tensor([float(v) for v in values], dtype=F32, device=self.device)
+        self._i = (self._i + 1) % len(self._bufs)
+        ev = self._events[self._i]
+        if ev is not None and not ev.query():
+            ev.synchronize()  # the slot's last copy has not run yet (rare)
+        buf = self._bufs[self._i]
+        buf.numpy()[:] = [float(v) for v in values]
+        dst = torch.empty((self.n,), dtype=F32, device=self.device)
+        dst.copy_(buf, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[self._i] = ev
+        return dst
+
+
+def replace_system_columns(ruleset: RuleSet, system: RT.SystemTensors, stage: ScalarStage) -> RuleSet:
+    """Swap ONLY the system-threshold columns of a live ruleset — the
+    adaptive controller's upload path (adaptive/controller.py).
+
+    The SystemTensors leaves are ordinary tensor arguments of the tick,
+    so publishing new VALUES (five scalars, same shapes and dtypes) is one
+    small host-to-device copy and nothing else: the tick is not rebuilt,
+    and every other leaf of the ruleset is the same tensor as before.
+    ``stage``: the caller's ``ScalarStage`` on the ruleset's device; on
+    the card the copy is asynchronous, with no host sync."""
+    vals = stage.upload([getattr(system, f) for f in RT.SystemTensors._fields])
+    return ruleset._replace(system=RT.SystemTensors(*vals.unbind(0)))
 
 
 def _leaf_shapes(x) -> list:

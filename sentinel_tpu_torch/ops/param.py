@@ -1,8 +1,6 @@
 """Hot-parameter statistics: hashed (rule, value) rows on a global window.
 
-PyTorch counterpart of ``sentinel_tpu/ops/param.py`` for the fused path
-(``estimate``, ``add`` and ``conc_add`` serve ``fused_effects=False``,
-which this engine refuses):
+PyTorch counterpart of ``sentinel_tpu/ops/param.py``:
 
     pcms   : int32 [depth, Q, nb]   windowed counts; row = hash_d(rule, value)
     epochs : int32 [nb]             ONE global bucket grid (param_bucket_ms)
@@ -16,10 +14,13 @@ overestimate, so enforcement errs towards blocking).
 
 The reference hashes in uint32; PyTorch has no uint32 multiply, shift or
 modulo on the CPU, so the hashes run in int64 masked to 32 bits after
-every multiply and add, with logical shifts on the masked value.  The
-writes land through the scatter kernel (``param{d}`` and ``prel{d}`` jobs
-of ops/fused.scatter_many); the reads here are plain indexed gathers, as
-they are plain XLA gathers in the reference.
+every multiply and add, with logical shifts on the masked value.  On the
+fused path the writes land through the scatter kernel (``param{d}`` and
+``prel{d}`` jobs of ops/fused.scatter_many); on the plain path through
+indexed histograms (ops/engine.py).  The reads here are plain indexed
+gathers, as they are plain XLA gathers in the reference: ``estimate`` is
+the plain path's class-table read, ``estimate_fused`` the fused path's
+flat one, and the two give the same values.
 """
 
 from __future__ import annotations
@@ -104,6 +105,27 @@ def class_tables(
         for c in range(valid.shape[0])
     ]
     return torch.stack(out, dim=2).to(F32)
+
+
+def estimate(
+    cfg: EngineConfig,
+    wtab: torch.Tensor,  # [depth, Q, C] from class_tables
+    rows: torch.Tensor,  # [N, depth] from pair_rows
+    cls: torch.Tensor,  # int32 [N] — the rule's duration class per item
+) -> torch.Tensor:
+    """f32 [N] — windowed CMS estimate (min over depth) for each item: each
+    depth row's [Q, C] table read at the item's row, saturated at
+    256**param_est_digits - 1 before the read, its class picked out."""
+    C = wtab.shape[2]
+    cap = 256**cfg.param_est_digits - 1
+    cls_l = torch.clamp(cls, 0, C - 1).to(torch.int64)[:, None]
+    ests = []
+    for d in range(wtab.shape[0]):
+        g = T.big_gather(
+            torch.clamp_max(wtab[d].to(I32), cap), rows[:, d], cfg.param_width, max_int=cap
+        )  # [N, C]
+        ests.append(torch.gather(g, 1, cls_l)[:, 0].to(F32))
+    return torch.amin(torch.stack(ests, dim=0), dim=0).to(F32)
 
 
 def estimate_fused(

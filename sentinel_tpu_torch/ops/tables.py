@@ -2,8 +2,12 @@
 
 The PyTorch counterpart of the ``use_mxu_tables=False`` branch of
 ``sentinel_tpu/ops/tables.py``.  The port has no one-hot table strategy:
-on the card every table read is an indexed gather, and the effect
-scatters ride the scatter kernel (ops/fused.py).
+on the card every table read is an indexed gather.  The fused path's
+effect scatters ride the scatter kernel (ops/fused.py); the plain path's
+(``fused_effects=False``, or no ``use_mxu_tables``) are the indexed
+scatters here — ``index_add_`` and ``scatter_reduce_`` into a copy of the
+table with one spare row that takes every dropped id, so the values stay
+exact (integer payloads to 65,535 an item and beyond: the sums are int32).
 """
 
 from __future__ import annotations
@@ -66,6 +70,12 @@ def lane_gather_1col(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Te
     return torch.where(ok, table[safe].to(torch.float32), 0.0)
 
 
+def lane_gather_1col_int(table: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``lane_gather_1col`` for small-int tables (slot ids, modes): the
+    values are float32-exact (< 2^24), so a plain cast restores them."""
+    return lane_gather_1col(table, idx, n).to(torch.int32)
+
+
 def lane_gather_multi(
     tables: Sequence[torch.Tensor], idx: torch.Tensor, n: int
 ) -> list:
@@ -105,3 +115,54 @@ def small_scatter_or(
         0, torch.where(ok, slots, S).to(torch.int64), flag.to(torch.int32)
     )
     return (table.to(torch.bool) | (hist[:S] > 0)).to(table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# scatters (the plain effects path)
+# ---------------------------------------------------------------------------
+
+
+def _with_drop_row(table: torch.Tensor, idx: torch.Tensor, n: int):
+    """(a copy of ``table`` with one spare row, the int64 row of every id:
+    itself inside [0, n), the spare row outside)."""
+    rows = table.shape[0]
+    pad = torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype, device=table.device)
+    ok = (idx >= 0) & (idx < n)
+    return torch.cat([table, pad]), torch.where(ok, idx, rows).to(torch.int64)
+
+
+def big_scatter_add(
+    table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, n: int
+) -> torch.Tensor:
+    """``table.at[idx].add(values)`` dropping ids outside [0, n): a fresh
+    tensor, the caller's table is left as it was."""
+    out, rows = _with_drop_row(table, idx, n)
+    out.index_add_(0, rows, values.to(table.dtype))
+    return out[: table.shape[0]]
+
+
+def histogram(idx: torch.Tensor, values: torch.Tensor, n: int) -> torch.Tensor:
+    """Dense [n, ...planes] sum of ``values`` grouped by id (ids outside
+    [0, n) drop): float32 for float values, int32 otherwise."""
+    dt = torch.float32 if values.dtype.is_floating_point else torch.int32
+    zeros = torch.zeros((n,) + tuple(values.shape[1:]), dtype=dt, device=values.device)
+    return big_scatter_add(zeros, idx, values, n)
+
+
+def small_scatter_add(
+    table: torch.Tensor, slots: torch.Tensor, values: torch.Tensor
+) -> torch.Tensor:
+    """``table [S, ...planes] .at[slots].add(values)``; out-of-range slots
+    drop."""
+    return big_scatter_add(table, slots, values, table.shape[0])
+
+
+def small_scatter_max(
+    table: torch.Tensor, slots: torch.Tensor, values: torch.Tensor
+) -> torch.Tensor:
+    """``table [S]`` = elementwise max with the per-slot max of ``values``
+    [N]; out-of-range slots drop, and a slot no value names keeps its
+    entry (the table takes part in the max)."""
+    out, rows = _with_drop_row(table, slots, table.shape[0])
+    out.scatter_reduce_(0, rows, values.to(table.dtype), reduce="amax", include_self=True)
+    return out[: table.shape[0]]

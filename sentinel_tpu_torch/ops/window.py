@@ -192,8 +192,9 @@ def add_batch(
     WindowWrap); every delta also lands in the running sums.  Rows outside
     ``[0, rows)`` are dropped, as the reference's ``mode="drop"`` scatters
     drop them (an out-of-range index would be a device-side assert on the
-    card).  The reference's RT operand (its plain engine path, ROADMAP.md
-    item A8) is not ported.  The bucket column is updated in place, the
+    card).  It carries no RT operand: the engine's plain path lands its
+    RT sums and minima through ``add_dense``, as the fused path does.  The
+    bucket column is updated in place, the
     running sums are new tensors.  ``refreshed=True`` skips the refresh:
     the caller already refreshed at this ``now_ms`` (a second refresh there
     changes nothing)."""

@@ -43,7 +43,7 @@ checksum is checked by ``obs/explain.decode_section``.
 Upload — batch columns with a static value range travel narrow and widen
 at tick entry: prio/inbound are 0/1 flags, pre_verdict a verdict code, and
 count/success/error are clamped to ``cfg.max_batch_count`` by the client
-(the fused path is the only path here, so the clamp always applies).
+on the fused path, and stay int32 (exact to 65,535) on the plain path.
 """
 
 from __future__ import annotations
@@ -262,7 +262,14 @@ def unpack(data: bytes, lo: WireLayout) -> WireFrame:
 
 
 def _count_dtype(cfg: EngineConfig):
-    """Narrowest dtype that carries the clamped count columns exactly."""
+    """Narrowest dtype that carries the count columns exactly.  The client
+    clamps counts to ``cfg.max_batch_count`` only on the fused path
+    (``engine._use_fused``), so narrowing is sound exactly there; the plain
+    path stays exact to 65,535 and keeps int32."""
+    from sentinel_tpu_torch.ops.engine import _use_fused
+
+    if not _use_fused(cfg):
+        return torch.int32
     if cfg.max_batch_count <= 0xFF:
         return torch.uint8
     if cfg.max_batch_count <= 0x7FFF:

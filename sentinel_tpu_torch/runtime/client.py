@@ -11,9 +11,12 @@ tick CLOSED (every item gets BLOCK_SYSTEM).
 Completions (``Entry.exit()``) are one push onto the native MPMC event
 ring (native/ring.EventRing; an unbounded overflow list takes them when
 the ring is full, so none is ever lost) and ride the next tick; bulk
-completion blocks queue beside the ring in its column layout.  Counts,
-successes and errors are clamped to ``cfg.max_batch_count`` at batch
-build — the envelope the fused kernels carry exactly (core/config.py).
+completion blocks queue beside the ring in its column layout.  On the
+fused path (``engine._use_fused``: ``fused_effects`` and
+``use_mxu_tables``) counts, successes and errors are clamped to
+``cfg.max_batch_count`` at batch build — the envelope the fused kernels
+carry exactly (core/config.py); on the plain path they go up as they
+are, exact to 65,535.
 
 Batch assembly writes into two-slot host staging buffers (``_sbuf``,
 pinned on the card), flipped every tick; a slot is written again only
@@ -44,8 +47,8 @@ resolves, all under one trace id; rule recompiles record
 ``host_build_ms_avg`` is the mean host build time a tick (assembly,
 presort, uploads), traced or not.
 
-On the segment path (``seg_effects``, the default ``platform_config()``)
-the client presorts each batch on the host by the engine's segment keys
+On the segment path (``seg_effects`` on the fused path, the default
+``platform_config()``) the client presorts each batch on the host by the engine's segment keys
 (runtime/presort.py) and maps the verdicts and waits back through the
 inverse permutation.  It counts each side's live segments exactly before
 it dispatches.  Under ``seg_fallback=True`` (the default) it hands the
@@ -133,11 +136,33 @@ degrades (the ``cluster.degrade`` hysteresis, ``cluster_retry_interval_s``
 of cooldown): the fallback-enabled cluster flow rules and every cluster
 param rule are compiled in as local rules until a probe is answered.
 
+Overload protection (adaptive/): ``enable_adaptive()`` arms a closed
+loop that steps once a tick on the tick thread (``_adaptive_step``): the
+signals row, the BBR-style controller, the degrade ladder's rung effects
+(shed non-prioritized work, stop the host's hot-param counting, fall back
+from the cluster token service, fail closed), and changed ceilings
+published into the live system columns as a five-scalar upload
+(``engine.replace_system_columns``: pinned staging behind a CUDA event,
+no host sync, no rebuilt tick).  ``admission_queue_limit`` bounds the
+un-ticked queue, block items included (``_admission_shed``; the
+``sentinel_shed_total{stage,reason}`` counters).  ``deadline_ms`` on
+``entry`` and the bulk API sheds work CLOSED once it is worthless: at
+admission when it has already expired, and before dispatch
+(``_sweep_expired``).  ``watchdog_timeout_s`` starts a watchdog thread
+that fails a dispatched tick CLOSED when its wire is not host-visible in
+time; a claim on the tick's state (``_claim_tick``) makes exactly one of
+the watchdog and the resolver fan it out.  The flight recorder
+(obs/flight.py) gets the client's ``client``, ``timeline`` and
+``explain`` sections and its journal notes (``rules.recompile``,
+``seg.resize``, ``watchdog.fired``, ``resolve.fail_closed``), and a
+cluster-degrade entry triggers a bundle; ``block_log=True`` writes
+``sentinel-block.log`` (metrics/block_log.py), each line keyed by the
+explain plane's cause and rule slot.
+
 Not ported yet (ROADMAP.md): the sharded cluster client and front doors
-(A7b), backpressure and deadlines (``deadline_ms`` raises), adaptive
-protection, the flight recorder and the block log (A6), the live
-operating-point swap (``apply_operating_point``, with ``workload/``) and
-the sketch-accuracy audit.
+(A7b), the live operating-point swap (``apply_operating_point``, with
+``workload/``, A4), the SLO engine and the fleet view (A6), and the
+sketch-accuracy audit and the device profile (A10).
 """
 
 from __future__ import annotations
@@ -148,21 +173,23 @@ import threading
 from contextlib import contextmanager
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sentinel_tpu_torch.adaptive.degrade import Hysteresis
+from sentinel_tpu_torch.adaptive import degrade as DG
+from sentinel_tpu_torch.adaptive.controller import AdaptiveConfig, AdaptiveController
 from sentinel_tpu_torch.chaos import failpoints as FP
 from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
 from sentinel_tpu_torch.core.config import EngineConfig, app_name as cfg_app_name, platform_config
-from sentinel_tpu_torch.core.rule_tensors import hash_param, param_lanes
+from sentinel_tpu_torch.core.rule_tensors import compile_system_rules, hash_param, param_lanes
 from sentinel_tpu_torch.metrics import extension as MEXT
 from sentinel_tpu_torch.native import EventRing
 from sentinel_tpu_torch.native.ring import FLAG_COMPLETION, FLAG_INBOUND
+from sentinel_tpu_torch.obs import flight as FL
 from sentinel_tpu_torch.obs import timeline as TLM
 from sentinel_tpu_torch.obs import trace as OT
 from sentinel_tpu_torch.obs.explain import KIND_NAMES, ExplainPlane
@@ -306,12 +333,54 @@ _G_OCCUPANCY = OBS.gauge(
 _G_RESOLVER_Q = OBS.gauge(
     "sentinel_resolver_queue_depth", "in-flight resolver-pool readbacks"
 )
+# -- adaptive protection / backpressure (adaptive/): shed accounting and
+# the tick watchdog, registered at import so the exposition surface
+# carries them from process start
+_SHED_HELP = "admissions shed before device dispatch, by stage and reason"
+_C_SHED: Dict[tuple, Any] = {
+    (st, rs): OBS.counter("sentinel_shed_total", _SHED_HELP, labels={"stage": st, "reason": rs})
+    for st, rs in (
+        ("admit", "queue_full"),
+        ("admit", "low_priority"),
+        ("admit", "fail_closed"),
+        ("admit", "deadline"),
+        ("admit", "chaos"),
+        ("tick", "deadline"),
+    )
+}
+_C_WATCHDOG = OBS.counter(
+    "sentinel_watchdog_fired_total",
+    "stalled engine ticks the watchdog failed CLOSED",
+)
+
+
+def _shed_counter(stage: str, reason: str):
+    c = _C_SHED.get((stage, reason))
+    if c is None:
+        c = _C_SHED[(stage, reason)] = OBS.counter(
+            "sentinel_shed_total", _SHED_HELP, labels={"stage": stage, "reason": reason}
+        )
+    return c
+
+
 #: chaos site on the readback's main section (mangled bytes fail the tick
 #: CLOSED); the explain section has its own site, obs.explain.decode
 _FP_PACKED_DECODE = FP.register(
     "transport.packed.decode",
     "fused packed-wire readback bytes (mangled bytes fail the tick CLOSED)",
     FP.PIPE_ACTIONS,
+)
+#: the pre-engine admission shed check: a raise sheds the request CLOSED
+_FP_ADMIT = FP.register(
+    "runtime.client.admit",
+    "pre-engine admission shed check (a raise sheds the request CLOSED)",
+    FP.HIT_ACTIONS,
+)
+#: the readback's entry: a delay stalls the tick for the watchdog
+_FP_WD_STALL = FP.register(
+    "runtime.watchdog.stall",
+    "verdict readback entry (a delay stalls the tick for the watchdog)",
+    FP.HIT_ACTIONS,
 )
 
 
@@ -340,16 +409,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _no_deadlines(deadline_ms: int) -> None:
-    """Deadline-aware backpressure is not ported (ROADMAP.md Queue A item
-    6): a deadline would be silently ignored, so it raises."""
-    if deadline_ms:
-        raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: deadline_ms (deadline-aware "
-            "backpressure, ROADMAP.md Queue A item 6)"
-        )
-
-
 def grown_seg_u(cfg: EngineConfig, peak: int) -> int:
     """The segment capacity the client grows to for a live-segment peak:
     ``ceil((1.25 * peak + 128) / 128) * 128``, at most the batch size and
@@ -372,6 +431,9 @@ class AcquireRequest:
     pre_verdict: int = 0
     future: Optional[Future] = None
     param_hash: tuple = ()  # param_dims hashed hot-param lanes (0 = none)
+    #: absolute engine-time ms past which the answer is worthless to the
+    #: caller (0 = none); expired entries shed CLOSED before dispatch
+    deadline_ms: int = 0
 
 
 @dataclass
@@ -405,6 +467,9 @@ class ArrayBlock:
     inbound: Optional[np.ndarray] = None
     param_hash: Optional[np.ndarray] = None  # int32 [n, param_dims]
     pre_verdict: Optional[np.ndarray] = None
+    #: block-wide absolute engine-time deadline (0 = none); the untaken
+    #: remainder of an expired block sheds CLOSED before it reaches a tick
+    deadline_ms: int = 0
     future: Optional[Future] = None
     # internal progress
     taken: int = 0  # items already placed into ticks
@@ -438,6 +503,14 @@ class _PendingTick:
     # fan-out progress: a failed resolve fails CLOSED only the blocks the
     # normal path had not reached (no double decrement)
     blocks_done: int = 0
+    # watchdog handshake: exactly ONE side fans this tick out.  The
+    # resolver claims "done" once the wire is host-visible and decoded;
+    # the watchdog (or the resolve-failure path) claims "failed" — whoever
+    # wins the transition under state_lock owns the fan-out, the loser
+    # discards
+    state: str = "pending"  # pending | done | failed
+    state_lock: threading.Lock = field(default_factory=threading.Lock)
+    deadline_mono: float = 0.0  # mono_s() stall deadline (0 = unwatched)
 
 
 class _ReadbackPool:
@@ -603,6 +676,9 @@ class SentinelClient:
         pipeline_depth: int = 0,
         metric_log: bool = False,
         metric_log_dir: Optional[str] = None,
+        block_log: bool = False,
+        watchdog_timeout_s: float = 0.0,
+        admission_queue_limit: int = 0,
     ):
         self.device = resolve_device(device)
         self.app_name = app_name or cfg_app_name()
@@ -653,7 +729,7 @@ class SentinelClient:
         self._auth_host_rules: Dict[str, tuple] = {}
         # enter on a failed or missing service, exit on the first answered
         # probe; the transitions count on the reference's gauge and counters
-        self._cluster_hy = Hysteresis(
+        self._cluster_hy = DG.Hysteresis(
             "cluster.degrade",
             cooldown_s=5.0,
             counter_enter=_C_DEGRADE_ENTER,
@@ -664,6 +740,35 @@ class SentinelClient:
         # degraded flag each compile reads matches the ruleset it commits
         self._cluster_lock = threading.RLock()
         self.cluster_retry_interval_s = 5.0
+
+        # -- adaptive protection / deadline-aware backpressure -------------
+        # disabled mode is one `is None` / one flag check per call site (the
+        # obs tracing and chaos failpoint contract, guarded by tests);
+        # enable_adaptive() arms the closed loop
+        self._adaptive: Optional[AdaptiveController] = None
+        #: host copy of the STATIC system-rule tensors — the base the
+        #: controller folds its live ceilings into (tightest wins)
+        self._system_static = compile_system_rules([], self.cfg)
+        #: pinned staging of the controller's five-scalar uploads (no host
+        #: sync on the card: ops/engine.ScalarStage)
+        self._sys_stage = E.ScalarStage(self.device)
+        #: hard bound on the un-ticked acquire queue, block items included
+        #: (0 = unbounded); enable_adaptive() defaults it from
+        #: AdaptiveConfig.queue_max
+        self._admission_max = max(0, int(admission_queue_limit))
+        #: the one flag the submit paths check — True only while
+        #: backpressure has anything to do (a bound set or the ladder up)
+        self._bp_armed = self._admission_max > 0
+        #: set on the first deadline-carrying submission; the tick
+        #: loop's expiry sweep runs only while True
+        self._deadlines_live = False
+        #: tick watchdog: fail a dispatched tick CLOSED when its wire is not
+        #: host-visible within this budget (0 = off; threaded mode only)
+        self.watchdog_timeout_s = max(0.0, float(watchdog_timeout_s))
+        self._wd_thread: Optional[threading.Thread] = None
+        #: dispatched ticks the watchdog may fail over (only while armed)
+        self._inflight_ticks: Dict[int, _PendingTick] = {}
+        self._inflight_lock = threading.Lock()
 
         self._features = self._select_features()
         self._tick = E.make_tick(self.cfg, features=self._features)
@@ -750,6 +855,13 @@ class SentinelClient:
         self._metric_log_enabled = metric_log
         self._metric_log_dir = metric_log_dir
         self.metric_timer = None
+        # the block log (metrics/block_log.py: sentinel-block.log, one line
+        # per (resource, exception, origin, cause) a second)
+        self.block_log = None
+        if block_log:
+            from sentinel_tpu_torch.metrics.block_log import default_block_logger
+
+            self.block_log = default_block_logger()
         #: host ms the last live reshape waited for the engine lock (a tick's
         #: dispatch holds it), and then held it (the migration's enqueue)
         self.swap_lock_wait_ms = 0.0
@@ -769,6 +881,9 @@ class SentinelClient:
         self._timeline_log_opt = timeline_log
         self._timeline_dir = timeline_dir
         self.timeline: Optional[TLM.TimelineRecorder] = None
+        self._timeline_provider = None
+        self._flight_provider = None
+        self._explain_provider = None
         # verdict provenance plane (obs/explain.py): the readback's explain
         # section decoded into per-resource "why blocked" rings
         self.explain_plane: Optional[ExplainPlane] = None
@@ -806,6 +921,9 @@ class SentinelClient:
                 log=log,
                 name=self.app_name,
             )
+            # flight bundles carry the last ~30 s of top-K rows
+            self._timeline_provider = self.timeline.flight_section
+            FL.FLIGHT.register_provider("timeline", self._timeline_provider)
         if self.mode == "threaded":
             # first ticks build the CUDA kernels (nvcc, seconds): run them
             # before serving so early entries don't time out
@@ -815,6 +933,12 @@ class SentinelClient:
                 name="sentinel-tpu-torch-tick", daemon=True,
             )
             self._thread.start()
+            if self.watchdog_timeout_s > 0:
+                self._wd_thread = threading.Thread(
+                    target=self._watchdog_loop, args=(self._stop_evt,),
+                    name="sentinel-tpu-torch-watchdog", daemon=True,
+                )
+                self._wd_thread.start()
         if self._metric_log_enabled and self.metric_timer is None:
             from sentinel_tpu_torch.metrics.timer import MetricTimerListener
             from sentinel_tpu_torch.metrics.writer import MetricWriter
@@ -824,12 +948,64 @@ class SentinelClient:
             self.metric_timer = MetricTimerListener(self, writer)
             if self.mode == "threaded":
                 self.metric_timer.start()
+        # black-box providers: every flight bundle captured while this
+        # client serves carries its rule fingerprints, pipeline state and a
+        # config digest, and its explain plane's recent records (the last
+        # started client wins the names)
+        self._flight_provider = self._flight_state
+        FL.FLIGHT.register_provider("client", self._flight_provider)
+        if self.explain_plane is not None:
+            self._explain_provider = self.explain_plane.flight_section
+            FL.FLIGHT.register_provider("explain", self._explain_provider)
+
+    def _flight_state(self) -> dict:
+        """Flight-bundle section: what a post-mortem needs to know about
+        this client at capture time (obs/flight.py provider contract)."""
+        import hashlib
+        import json
+
+        fps = {}
+        for name in ("flow_rules", "degrade_rules", "system_rules", "authority_rules", "param_flow_rules"):
+            rules = getattr(self, name).get()
+            js = json.dumps(R.rules_to_json_list(rules), sort_keys=True)
+            fps[name] = {"count": len(rules), "sha1": hashlib.sha1(js.encode()).hexdigest()[:12]}
+        cfg = {k: v for k, v in dataclasses.asdict(self.cfg).items() if isinstance(v, (int, float, str, bool))}
+        ad = self._adaptive
+        return {
+            "app": self.app_name,
+            "mode": self.mode,
+            "device": str(self.device),
+            "enabled": self.enabled,
+            "degraded": self._cluster_degraded_active,
+            "adaptive": {
+                "level": DG.LEVEL_NAMES[ad.ladder.level],
+                "ceiling": -1.0 if ad.ceiling == float("inf") else round(ad.ceiling, 3),
+            }
+            if ad is not None
+            else None,
+            "pending_ticks": len(self._pending_ticks),
+            "registered_resources": self.registry.num_resources,
+            "rule_fingerprints": fps,
+            "config": cfg,
+        }
 
     def stop(self) -> None:
+        fp = getattr(self, "_flight_provider", None)
+        if fp is not None:
+            # only if still ours: a newer client may have taken the name
+            FL.FLIGHT.unregister_provider("client", fp)
+            self._flight_provider = None
+        ep = getattr(self, "_explain_provider", None)
+        if ep is not None:
+            FL.FLIGHT.unregister_provider("explain", ep)
+            self._explain_provider = None
         self._stop_evt.set()
         if self._thread is not None:
             self._thread.join(timeout=2.0)
             self._thread = None
+        if self._wd_thread is not None:
+            self._wd_thread.join(timeout=2.0)
+            self._wd_thread = None
         # decide whatever is still queued so no caller is left waiting
         self.tick_once()
         with self._tick_mutex:
@@ -841,11 +1017,172 @@ class SentinelClient:
             self.metric_timer.stop()
             self.metric_timer = None
         if self.timeline is not None:
+            if self._timeline_provider is not None:
+                FL.FLIGHT.unregister_provider("timeline", self._timeline_provider)
+                self._timeline_provider = None
             # flush the still-open second, release the log handles (start()
             # builds a new recorder)
             self.timeline.close()
             self.timeline = None
+        if self.block_log is not None:
+            self.block_log.flush()
         self._started = False
+
+    # -- adaptive protection / backpressure -----------------------------------
+
+    def enable_adaptive(self, cfg: Optional[AdaptiveConfig] = None) -> AdaptiveController:
+        """Arm closed-loop system-adaptive protection (adaptive/): a per-tick
+        controller republishes the SystemSlot ceilings (maxPass x minRT) as
+        live values of the ruleset's system columns — a five-scalar upload,
+        never a rebuilt tick (``engine.replace_system_columns``) — and drives
+        the degrade ladder whose rungs the admission path enforces.  The one
+        recompile is here: it turns the system stage on (it stays on while
+        the controller is armed).  Idempotent; returns the controller."""
+        with self._cluster_lock:
+            if self._adaptive is not None:
+                return self._adaptive
+            self._adaptive = AdaptiveController(cfg)
+            if self._admission_max == 0:
+                self._admission_max = int(self._adaptive.cfg.queue_max)
+            self._bp_armed = True
+        self._recompile_rules()
+        return self._adaptive
+
+    def disable_adaptive(self) -> None:
+        """Disarm the closed loop and restore the static thresholds."""
+        with self._cluster_lock:
+            ad, self._adaptive = self._adaptive, None
+            if ad is None:
+                return
+            ad.disarm()
+            self._bp_armed = self._admission_max > 0
+        self._recompile_rules()
+
+    def _queue_depth(self) -> int:
+        """Un-ticked acquire items, block items included (unlocked reads:
+        approximate is fine — a submit_block flood must not slip past the
+        bound because its items sit in _acq_blocks)."""
+        return len(self._acquires) + sum(len(b.res) - b.taken for b in list(self._acq_blocks))
+
+    def _admission_shed(self, prio: int) -> Optional[str]:
+        """Pre-engine shed decision for one submission: the shed reason, or
+        None to admit.  Disarmed, it is the single ``_bp_armed`` check."""
+        if not self._bp_armed:
+            return None
+        try:
+            FP.hit(_FP_ADMIT)  # chaos: a raise sheds this admission CLOSED
+        except Exception:  # sheds CLOSED (BLOCK_SYSTEM): nothing is admitted
+            return "chaos"
+        ad = self._adaptive
+        level = ad.ladder.level if ad is not None else DG.NORMAL
+        if level >= DG.FAIL_CLOSED:
+            return "fail_closed"
+        qmax = self._admission_max
+        if qmax:
+            qd = self._queue_depth()
+            if qd >= qmax:
+                return "queue_full"
+            if (
+                level >= DG.SHED_LOW_PRIORITY
+                and not prio
+                and ad is not None
+                and qd >= qmax * ad.cfg.shed_lowprio_frac
+            ):
+                return "low_priority"
+        elif level >= DG.SHED_LOW_PRIORITY and not prio:
+            # no queue bound configured: the rung itself sheds the
+            # non-prioritized share
+            return "low_priority"
+        return None
+
+    def _shed_blocked(self, stage: str, reason: str, n: int = 1) -> None:
+        _shed_counter(stage, reason).inc(n)
+
+    def _adaptive_step(self, ad: AdaptiveController, now_ms: int, load, cpu) -> None:
+        """One closed-loop control step, on the tick thread: the signals row,
+        the controller and ladder, the rung effects, and changed ceilings
+        published into the live system columns (under the engine lock,
+        replacing only the system leaves)."""
+        t0 = mono_s()
+        with self._lock:
+            qd = self._queue_depth()
+        sig = ad.signals.observe_tick(
+            now_ms, qd, len(self._pending_ticks), len(self._resolve_futs), load, cpu
+        )
+        want = ad.on_tick(sig)
+        level = ad.ladder.level
+        self._bp_armed = level > DG.NORMAL or self._admission_max > 0
+        if level >= DG.CLUSTER_FALLBACK and (self._cluster_flow_by_res or self._cluster_param_by_res):
+            # rung effect: stop paying token-server round trips on the
+            # admission path; fallback-enabled cluster rules enforce
+            # locally.  Re-entering every step extends the cooldown, so
+            # probes resume only after the ladder descends
+            self._enter_cluster_degraded()
+        if want is not None:
+            qps, max_thread = want
+            sys_np = ad.system_columns(self._system_static, qps, max_thread)
+            with self._engine_lock:
+                # re-read under the lock: a concurrent recompile may have
+                # swapped the whole ruleset; only the system leaves change
+                self._rules_dev = E.replace_system_columns(self._rules_dev, sys_np, self._sys_stage)
+        #: host µs of the last control step (signals, controller, upload)
+        self.adaptive_step_us = (mono_s() - t0) * 1e6
+
+    adaptive_step_us = 0.0
+
+    # -- tick watchdog ----------------------------------------------------------
+
+    def _watchdog_loop(self, stop_evt: threading.Event) -> None:
+        period = max(self.watchdog_timeout_s / 4.0, 0.01)
+        while not stop_evt.wait(period):
+            try:
+                self._watchdog_scan()
+            except Exception:  # a dead watchdog must not take serving down; the next scan retries
+                _log.warning("watchdog scan failed", exc_info=True)
+
+    def _watchdog_scan(self) -> None:
+        """Fail CLOSED every dispatched tick whose wire is not host-visible
+        past its stall deadline.  The state handshake with the resolver
+        (``_claim_tick``) makes exactly one side fan the tick out."""
+        now = mono_s()
+        with self._inflight_lock:
+            stalled = [p for p in self._inflight_ticks.values() if p.deadline_mono and now > p.deadline_mono]
+        for p in stalled:
+            if not self._claim_tick(p, "failed"):
+                continue  # the resolver won the race: it fans the tick out
+            _C_WATCHDOG.inc()
+            OT.event("watchdog.fired")
+            FL.note("watchdog.fired", n_obj=p.n_obj, n_blk=p.n_blk, budget_s=self.watchdog_timeout_s)
+            ad = self._adaptive
+            if ad is not None:
+                ad.note_severe()  # a stalled device is overload evidence
+            _log.error(
+                "tick watchdog: device tick stalled past %.2fs — failing %d object / %d block item(s) CLOSED",
+                self.watchdog_timeout_s, p.n_obj, p.n_blk,
+            )
+            self._fail_tick(p)
+            self._untrack_tick(p)
+
+    @staticmethod
+    def _claim_tick(p: _PendingTick, state: str) -> bool:
+        """Atomically move a tick pending -> done / failed; False when the
+        other side already owns the fan-out."""
+        with p.state_lock:
+            if p.state != "pending":
+                return False
+            p.state = state
+            return True
+
+    def _track_tick(self, p: _PendingTick) -> None:
+        if self.watchdog_timeout_s > 0:
+            p.deadline_mono = mono_s() + self.watchdog_timeout_s
+            with self._inflight_lock:
+                self._inflight_ticks[id(p)] = p
+
+    def _untrack_tick(self, p: _PendingTick) -> None:
+        if p.deadline_mono:
+            with self._inflight_lock:
+                self._inflight_ticks.pop(id(p), None)
 
     # -- rule compilation ---------------------------------------------------
 
@@ -867,7 +1204,9 @@ class SentinelClient:
             feats.add("degrade")
         if self.authority_rules.get():
             feats.add("authority")
-        if self.system_rules.get():
+        if self.system_rules.get() or self._adaptive is not None:
+            # the adaptive controller publishes live ceilings through the
+            # system columns: the stage must run even with no static rule
             feats.add("system")
         if any(
             r.control_behavior in (R.CONTROL_WARM_UP, R.CONTROL_WARM_UP_RATE_LIMITER)
@@ -919,7 +1258,14 @@ class SentinelClient:
         """The traced recompile; the caller holds ``_cluster_lock``.
         Returns whether the tick changed (the caller warms it)."""
         with OT.TRACER.span("client.recompile_rules"):
-            return self._recompile_rules_traced()
+            changed = self._recompile_rules_traced()
+        FL.note(
+            "rules.recompile",
+            degraded=self._cluster_degraded_active,
+            flow=len(self.flow_rules.get()),
+            param=len(self.param_flow_rules.get()),
+        )
+        return changed
 
     def _warm_after_recompile(self, changed: bool) -> None:
         """Run a changed tick once at both batch shapes, OUTSIDE
@@ -986,6 +1332,10 @@ class SentinelClient:
                 cfg = dataclasses.replace(cfg, seg_static_ranks=want_static)
         with self._engine_lock:
             self._rules_dev = rules_dev
+            # host copy of the STATIC system thresholds: the adaptive
+            # controller folds its live ceilings into these (tightest
+            # wins), so a recompile resets the base, never the loop
+            self._system_static = compile_system_rules(self.system_rules.get(), self.cfg)
             changed = feats != self._features or cfg != self.cfg
             if changed:
                 self.cfg = self.registry.cfg = cfg
@@ -1048,7 +1398,12 @@ class SentinelClient:
             entered = self._cluster_hy.enter(cooldown_s=self.cluster_retry_interval_s)
             if entered:
                 changed = self._recompile_rules_noted()
-        self._warm_after_recompile(changed)
+        if entered:
+            self._warm_after_recompile(changed)
+            # black box: freeze the state that produced the degrade —
+            # outside the lock (the bundle reads the rule managers) and
+            # rate-limited inside trigger()
+            FL.FLIGHT.trigger("cluster-degrade-enter")
 
     def _exit_cluster_degraded(self) -> None:
         changed = False
@@ -1251,12 +1606,17 @@ class SentinelClient:
         args: Optional[Sequence] = None,
         inbound: bool = False,
         origin: Optional[str] = None,
+        deadline_ms: int = 0,
         _ctx: Optional[Tuple[str, str]] = None,
         _push_ctx: bool = True,
     ) -> Entry:
         """Acquire; raises BlockException on rejection (SphU.entry).
         ``args``: the call's arguments; the ones param-flow rules on this
         resource index are hashed into the hot-parameter lanes.
+        ``deadline_ms`` (absolute engine-time ms, 0 = none): past it the
+        caller no longer wants the answer — an entry already expired raises
+        SystemBlockException at once, and a still-queued expired one sheds
+        CLOSED before device dispatch instead of burning a tick.
         ``_ctx`` / ``_push_ctx`` serve ``entry_async``: the caller's
         context captured on its own thread, and the entry left off this
         thread's stack."""
@@ -1283,6 +1643,23 @@ class SentinelClient:
             if _push_ctx:
                 CTX.push_entry(e)
             return e  # capacity overflow → pass-through (CtSph.java:200)
+        if self._bp_armed:
+            # backpressure rungs / the admission bound (adaptive/degrade.py):
+            # shed CLOSED before any engine or cluster work — but AFTER the
+            # pass-through branch (ungoverned traffic never queues, so
+            # backpressure must not turn it into a block)
+            reason = self._admission_shed(1 if prioritized else 0)
+            if reason is not None:
+                self._shed_blocked("admit", reason)
+                if self.mode == "sync":
+                    # a sync client ticks only on its submissions:
+                    # the control loop must keep stepping even when every
+                    # one sheds, or FAIL_CLOSED could never observe calm
+                    self.tick_once()
+                raise ERR.SystemBlockException(resource)
+        if deadline_ms and deadline_ms < self.time.now_ms():
+            self._shed_blocked("admit", "deadline")
+            raise ERR.SystemBlockException(resource)
         # ordered custom slots: the entry side here; the exit side unwinds
         # on Entry.exit or on rejection below.  Pass-through entries above
         # run no slot (no chain runs at all)
@@ -1311,10 +1688,12 @@ class SentinelClient:
         else:
             ctx_node = self.cfg.trash_row
             ctx_id = -1
-        # the hot-param value counters see every hashed argument: the port
-        # has no adaptive ladder (ROADMAP.md Queue A item A6), so the
-        # reference's PARAM_TAIL_OFF shed of this host work never applies
-        param_hashes = self.param_hashes(resource, args, note=True)
+        # the hot-param value counters see every hashed argument — except at
+        # PARAM_TAIL_OFF and above, where the ladder sheds this host-side
+        # tail work (the enforcement hashes still flow)
+        ad = self._adaptive
+        tail_off = ad is not None and ad.ladder.level >= DG.PARAM_TAIL_OFF
+        param_hashes = self.param_hashes(resource, args, note=not tail_off)
         pre_verdict, cluster_wait = 0, 0
         if hook_exc is not None:
             code = getattr(hook_exc, "code", 0)
@@ -1343,16 +1722,31 @@ class SentinelClient:
             pre_verdict=pre_verdict,
             future=Future(),
             param_hash=param_hashes,
+            deadline_ms=int(deadline_ms),
         )
         with self._lock:
+            if deadline_ms:
+                self._deadlines_live = True
             self._acquires.append(req)
         if self.mode == "sync":
             self.tick_once()
         verdict, wait_ms = req.future.result(timeout=self.entry_timeout_s)
         if verdict not in (ERR.PASS, ERR.PASS_WAIT):
-            # the engine already counted the block; here only the
-            # extension SPI and the slots' exit side fire
+            # the engine already counted the block; here only the block log,
+            # the extension SPI and the slots' exit side fire
             exc = hook_exc if hook_exc is not None else ERR.exception_for_verdict(verdict, resource)
+            if self.block_log is not None:
+                kind_name = rule_slot = None
+                if self.explain_plane is not None:
+                    kind_name = KIND_NAMES.get(int(verdict))
+                    # the resolver folded this tick's explain records BEFORE
+                    # resolving our future: the newest matching record is
+                    # this block's provenance
+                    rule_slot = self.explain_plane.latest_rule(rid, int(verdict))
+                self.block_log.log(
+                    self.time.wall_ms(), resource, type(exc).__name__, origin or "", count,
+                    kind=kind_name, rule=rule_slot,
+                )
             MEXT.safe_dispatch("on_block", resource, count, origin or "", exc, args)
             if entered_slots:
                 slot_ctx.block_exception = exc
@@ -1548,13 +1942,23 @@ class SentinelClient:
         Future of (verdict, wait_ms), or None for an unknown resource (a
         pass-through: the registry is full).  Thousands of in-flight
         requests coalesce into engine micro-batches without a thread each.
-        None too while the client is disabled (``enabled=False``)."""
-        _no_deadlines(deadline_ms)
+        None too while the client is disabled (``enabled=False``).
+        ``deadline_ms`` as in ``entry``; a shed request's future is already
+        resolved, BLOCK_SYSTEM."""
         if not self.enabled:
             return None
         rid = self.registry.resource_id(resource)
         if rid is None:
-            return None
+            return None  # pass-through: never queued, never backpressured
+        if self._bp_armed:
+            reason = self._admission_shed(1 if prioritized else 0)
+            if reason is not None:
+                self._shed_blocked("admit", reason)
+                if self.mode == "sync":
+                    self.tick_once()  # keep the control loop stepping
+                f: Future = Future()
+                f.set_result((int(ERR.BLOCK_SYSTEM), 0))
+                return f
         req = AcquireRequest(
             res=rid,
             count=count,
@@ -1566,8 +1970,11 @@ class SentinelClient:
             inbound=1 if inbound else 0,
             future=Future(),
             param_hash=(0,) * self.cfg.param_dims,
+            deadline_ms=int(deadline_ms),
         )
         with self._lock:
+            if deadline_ms:
+                self._deadlines_live = True
             self._acquires.append(req)
         if self.mode == "sync":
             self.tick_once()
@@ -1586,10 +1993,15 @@ class SentinelClient:
         """Vector acquire: [(verdict, wait_ms)] per resource, N decisions in
         as few ticks as the batch size allows.  ``params[i]`` is hashed into
         lane 0; an unknown resource (full registry) passes through, and
-        so does everything while the client is disabled."""
-        _no_deadlines(deadline_ms)
+        so does everything while the client is disabled.  Items the
+        backpressure sheds, or whose ``deadline_ms`` expires in the queue,
+        get (BLOCK_SYSTEM, 0)."""
         if not self.enabled:
             return [(ERR.PASS, 0)] * len(resources)
+        shed: List[Optional[str]] = [None] * len(resources)
+        if self._bp_armed:
+            for i in range(len(resources)):
+                shed[i] = self._admission_shed(1 if (prioritized is not None and prioritized[i]) else 0)
         # the cluster consultation runs OUTSIDE self._lock (a token-server
         # round trip must not stall the tick thread) and is AGGREGATED: one
         # request per distinct (resource, argument) group with the summed
@@ -1599,6 +2011,8 @@ class SentinelClient:
         if self._cluster_flow_by_res or self._cluster_param_by_res:
             groups: Dict[Tuple[str, Any], List[int]] = {}
             for i, name in enumerate(resources):
+                if shed[i] is not None:
+                    continue  # sheds CLOSED below: it consumes no token
                 if name in self._cluster_flow_by_res or name in self._cluster_param_by_res:
                     if self._authority_pre_blocks(name, origins[i] if origins else ""):
                         continue  # the engine rejects it; it consumes no token
@@ -1609,10 +2023,20 @@ class SentinelClient:
                     pre_verdicts[i], pre_waits[i] = vs[j], ws[j]
         futures = []
         with self._lock:
+            if deadline_ms:
+                # armed under the queue lock, so the sweep's all-clear check
+                # serializes with the items it must cover
+                self._deadlines_live = True
             for i, name in enumerate(resources):
                 rid = self.registry.resource_id(name)
                 if rid is None:
+                    # a full registry: contractually a pass-through; it never
+                    # queues, so backpressure must not turn it into a block
                     futures.append(None)
+                    continue
+                if shed[i] is not None:
+                    self._shed_blocked("admit", shed[i])
+                    futures.append("shed")
                     continue
                 origin = origins[i] if origins else ""
                 pv = params[i] if params else None
@@ -1632,6 +2056,7 @@ class SentinelClient:
                     param_hash=(hash_param(pv),) + (0,) * (self.cfg.param_dims - 1)
                     if pv is not None
                     else (0,) * self.cfg.param_dims,
+                    deadline_ms=int(deadline_ms),
                 )
                 self._acquires.append(req)
                 futures.append(req.future)
@@ -1641,6 +2066,9 @@ class SentinelClient:
         for i, f in enumerate(futures):
             if f is None:
                 out.append((ERR.PASS, 0))
+                continue
+            if f == "shed":
+                out.append((ERR.BLOCK_SYSTEM, 0))
                 continue
             v, w = f.result(timeout=self.entry_timeout_s)
             if pre_waits[i] > 0 and v == ERR.PASS:
@@ -1669,12 +2097,24 @@ class SentinelClient:
         a block larger than the batch size spans ticks.  Negative ids are
         padding (the trash row).  Done-callbacks run on the resolving
         thread and must not block on another tick (they may submit more).
-        None while the client is disabled: the block passes through."""
-        _no_deadlines(deadline_ms)
+        None while the client is disabled: the block passes through.
+        ``deadline_ms`` (absolute engine-time ms, 0 = none) covers the whole
+        block: its untaken remainder sheds CLOSED once it expires.  A block
+        sheds whole, before it queues, only on the hard limits (FAIL_CLOSED,
+        the admission bound, an injected admission fault)."""
         if not self.enabled:
             return None
         res = np.ascontiguousarray(res, dtype=np.int32)
         n = len(res)
+        if self._bp_armed:
+            reason = self._admission_shed(1)  # blocks shed only on hard limits
+            if reason in ("fail_closed", "queue_full", "chaos"):
+                self._shed_blocked("admit", reason, n)
+                if self.mode == "sync":
+                    self.tick_once()  # keep the control loop stepping
+                f: Future = Future()
+                f.set_result((np.full(n, ERR.BLOCK_SYSTEM, np.int8), np.zeros(n, np.int32)))
+                return f
         # negative ids would wrap in the scatters: they become padding
         if (res < 0).any():
             res = np.where(res < 0, np.int32(self.cfg.trash_row), res)
@@ -1702,6 +2142,7 @@ class SentinelClient:
                 else None
             ),
             pre_verdict=col(pre_verdict),
+            deadline_ms=int(deadline_ms),
             future=Future(),
             unresolved=n,
             verdicts=np.zeros(n, np.int8),
@@ -1711,6 +2152,8 @@ class SentinelClient:
             blk.future.set_result((blk.verdicts, blk.waits))
             return blk.future
         with self._lock:
+            if deadline_ms:
+                self._deadlines_live = True
             self._acq_blocks.append(blk)
         if self.mode == "sync":
             self.tick_once()
@@ -1862,6 +2305,12 @@ class SentinelClient:
     def _tick_once_locked(self, now_ms: Optional[int]) -> None:
         bs, cbs = self.cfg.batch_size, self.cfg.complete_batch_size
         while True:
+            if self._deadlines_live:
+                # deadline-aware backpressure: work that has already expired
+                # is worthless — shed it CLOSED here, BEFORE it costs a
+                # device dispatch (one queue pass, only while a
+                # deadline-carrying submission is live)
+                self._sweep_expired(now_ms)
             blocks = []
             with self._lock:
                 acq = self._acquires[:bs]
@@ -1879,6 +2328,14 @@ class SentinelClient:
                         self._acq_blocks.pop(0)
             comp = self._drain_completions(cbs)
             if not acq and not blocks and comp is None and now_ms is None:
+                ad = self._adaptive
+                if ad is not None and (ad.ladder.level > DG.NORMAL or ad.ceiling != float("inf")):
+                    # the closed loop keeps stepping on EMPTY ticks: at
+                    # FAIL_CLOSED everything sheds before the engine, and
+                    # without this the ladder would never observe the calm
+                    # that lets it descend
+                    load, cpu = self._sys.sample()
+                    self._adaptive_step(ad, self.time.now_ms(), load, cpu)
                 # idle: flush any deferred readbacks before returning
                 self._drain_resolves()
                 return
@@ -1920,6 +2377,44 @@ class SentinelClient:
                 if not self._has_work():
                     return
             now_ms = None
+
+    def _sweep_expired(self, now_ms: Optional[int]) -> None:
+        """Shed already-expired queued work CLOSED before device dispatch
+        (the admission half of deadline-aware backpressure; the watchdog
+        covers work already ON the device)."""
+        now = now_ms if now_ms is not None else self.time.now_ms()
+        expired: List[AcquireRequest] = []
+        exp_blocks: List[ArrayBlock] = []
+        with self._lock:
+            if any(r.deadline_ms and r.deadline_ms < now for r in self._acquires):
+                keep = []
+                for r in self._acquires:
+                    (expired if r.deadline_ms and r.deadline_ms < now else keep).append(r)
+                self._acquires = keep
+            if any(b.deadline_ms and b.deadline_ms < now for b in self._acq_blocks):
+                kept = []
+                for b in self._acq_blocks:
+                    (exp_blocks if b.deadline_ms and b.deadline_ms < now else kept).append(b)
+                self._acq_blocks = kept
+            if not any(r.deadline_ms for r in self._acquires) and not any(
+                b.deadline_ms for b in self._acq_blocks
+            ):
+                # nothing deadline-carrying is left: disarm the sweep (the
+                # flag re-arms under this same lock at the next deadline
+                # submission, so nothing slips between)
+                self._deadlines_live = False
+        for r in expired:
+            if r.future is not None and not r.future.done():
+                r.future.set_result((int(ERR.BLOCK_SYSTEM), 0))
+        if expired:
+            self._shed_blocked("tick", "deadline", len(expired))
+        for blk in exp_blocks:
+            remaining = len(blk.res) - blk.taken
+            blk.verdicts[blk.taken :] = ERR.BLOCK_SYSTEM
+            blk.waits[blk.taken :] = 0
+            blk.taken = len(blk.res)
+            self._block_done(blk, remaining)
+            self._shed_blocked("tick", "deadline", remaining)
 
     def _pool(self) -> ThreadPoolExecutor:
         """The resolver: ONE thread, so ticks resolve — and the
@@ -2004,6 +2499,7 @@ class SentinelClient:
         """Swap in a tick with the compacted capacity ``new_u`` (eager
         PyTorch: nothing to compile, the swap is immediate)."""
         _C_SEG_RESIZE.inc()
+        FL.note("seg.resize", seg_u=int(new_u), old_u=int(self.cfg.seg_u))
         h = OT.TRACER.begin("engine.seg_resize", seg_u=int(new_u))
         try:
             cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
@@ -2016,12 +2512,15 @@ class SentinelClient:
 
     def _record_seg_dropped(self, n: int) -> None:
         """Surface fail-closed segment-overflow drops (seg_fallback=False):
-        the counter, the client's total and a warning at most once a
-        second (the reference also writes the block log, not ported)."""
+        the counter, the client's total, the block log (every rejection is
+        logged) and a warning at most once a second."""
         _C_SEG_DROPPED.inc(n)
         with self._blk_lock:
             self.seg_dropped_total += n
-        sec = int(self.time.wall_ms() // 1000)
+        now = self.time.wall_ms()
+        if self.block_log is not None:
+            self.block_log.log(now, "__seg_overflow__", "SegCapacityDrop", "", n)
+        sec = int(now // 1000)
         if sec != self._seg_drop_last_log_s:
             self._seg_drop_last_log_s = sec
             _log.warning(
@@ -2222,7 +2721,11 @@ class SentinelClient:
         _ns_presort = 0
         B = self._shape_for(len(acq) + n_blk, cfg.batch_size)
         B2 = self._shape_for(0 if comp is None else len(comp[0]), cfg.complete_batch_size)
-        presort = cfg.seg_effects
+        # the clamp and the presort follow the ACTIVE path, as the
+        # reference's do: the segment path needs the fused one, and the
+        # plain path is exact to 65,535 without a clamp
+        clamp = E._use_fused(cfg)
+        presort = cfg.seg_effects and clamp
         inv = None
         segs_a = segs_c = 0
         if acq or n_blk:
@@ -2247,7 +2750,8 @@ class SentinelClient:
 
             res_np = arr("res", trash)
             cnt_np = arr("count", 0, blk_default=1)
-            np.minimum(cnt_np, cfg.max_batch_count, out=cnt_np)  # the fused kernels' envelope
+            if clamp:
+                np.minimum(cnt_np, cfg.max_batch_count, out=cnt_np)  # the fused kernels' envelope
             prio_np = arr("prio", 0)
             oid_np = arr("origin_id", -1)
             onode_np = arr("origin_node", trash)
@@ -2317,6 +2821,9 @@ class SentinelClient:
         if comp is not None:
             res_c, cnt_c, org_c, ctx_c, flags_c, rt_c, err_c, _tag, *aux_c = comp
             n = len(res_c)
+            if self._adaptive is not None and n:
+                # the BBR minRT input: this tick's completion RT floor
+                self._adaptive.signals.note_completions(n, float(rt_c.min()))
             if presort and n > 1:
                 _tp = OT.t0()
                 # completions carry no futures: sorted, never unsorted (their
@@ -2347,7 +2854,8 @@ class SentinelClient:
             ph_c.fill(0)
             for k in range(min(M, len(aux_c))):
                 ph_c[:n, k] = aux_c[k]
-            cap = cfg.max_batch_count  # the acquire side's envelope
+            # the acquire side's envelope, on the fused path only
+            cap = cfg.max_batch_count if clamp else np.iinfo(np.int32).max
             c = E.CompleteBatch(
                 res=self._dev_col("c.res", c_res, trash),
                 origin_node=self._dev_col("c.onode", c_onode, trash),
@@ -2386,6 +2894,11 @@ class SentinelClient:
                 OT.stage_ns("tick.presort", _tp0, _ns_presort, _H_PRESORT, trace=tick_id)
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
+        ad = self._adaptive
+        if ad is not None:
+            # the closed loop: signals row -> controller -> ladder and the
+            # live system columns (disabled: the one check above)
+            self._adaptive_step(ad, int(t), load, cpu)
         self._build_ms_sum += (mono_s() - t_build0) * 1000.0
         self._build_ticks += 1
         with self._engine_lock:
@@ -2404,11 +2917,13 @@ class SentinelClient:
         if out.wire.is_cuda:
             event = torch.cuda.Event()
             event.record()
-        return _PendingTick(
+        p = _PendingTick(
             acq=acq, blocks=list(blocks), inv_a=inv, out=out, n_obj=len(acq), n_blk=n_blk,
             wire_lo=self._wire_layout(B), now_ms=int(t), buf=buf, event=event,
             tick_id=tick_id, dispatched_ns=_disp_done,
         )
+        self._track_tick(p)  # watchdog coverage (a no-op while disarmed)
+        return p
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
         lo = self._wire_layouts.get(b)
@@ -2420,14 +2935,24 @@ class SentinelClient:
         """Decode one dispatched tick and fan its verdicts out — or, if
         anything on that path raises, fail the rest of the tick CLOSED
         (BLOCK_SYSTEM) instead of stranding its callers; then return its
-        readback buffer to the pool."""
+        readback buffer to the pool.  A tick the watchdog already failed
+        over is not fanned out again (``_claim_tick``)."""
         try:
             self._resolve_tick_inner(p)
-        except Exception:
+        except Exception as exc:
+            if not self._claim_tick(p, "failed"):
+                with p.state_lock:
+                    if p.state == "failed":
+                        return  # the watchdog already failed this tick over
+                # "done": this thread claimed the fan-out and broke partway —
+                # finish the remaining consumers CLOSED (_fail_tick is safe
+                # after a partial fan-out)
             _C_RESOLVE_FAILED.inc()
+            FL.note("resolve.fail_closed", error=f"{type(exc).__name__}: {exc}", n_obj=p.n_obj, n_blk=p.n_blk)
             self._fail_tick(p)
             raise
         finally:
+            self._untrack_tick(p)
             if p.buf is not None:
                 self._readback.give(p.buf)
                 p.buf = None
@@ -2440,6 +2965,8 @@ class SentinelClient:
         of the tick CLOSED; the explain section fails OPEN on its own
         checksum (obs/explain.py)."""
         lo, out, now_ms = p.wire_lo, p.out, p.now_ms
+        FP.hit(_FP_WD_STALL)  # chaos: a delay here stalls the readback — the
+        # stand-in for a hung device tick the watchdog must fail over
         if p.event is not None:
             p.event.synchronize()
         raw = p.buf.numpy()
@@ -2460,7 +2987,8 @@ class SentinelClient:
         except WIRE.WireDecodeError:
             _C_PACKED_DECODE.inc()
             self.wire_decode_failures += 1
-            self._fail_tick(p)
+            if self._claim_tick(p, "failed"):
+                self._fail_tick(p)
             return
         if p.dispatched_ns and OT.TRACER.enabled:
             # dispatch -> verdicts host-visible: device compute and the
@@ -2489,11 +3017,30 @@ class SentinelClient:
             self._record_seg_dropped(frame.seg_dropped)
         if _t_rb:
             OT.stage("tick.readback", _t_rb, _H_READBACK, trace=p.tick_id)
+        if not self._claim_tick(p, "done"):
+            return  # the watchdog failed this tick over while it was read back
+        self._untrack_tick(p)
         _t_res = OT.t0()
         if p.inv_a is not None:
             # the wire's rows (bitmap and PASS_WAIT sidecar alike) are
             # positions in the sorted batch: back to submission order
             verdict, wait = verdict[p.inv_a], wait[p.inv_a]
+        ad = self._adaptive
+        if ad is not None:
+            st = frame.stats
+            if st is not None:
+                # the device's accounting: valid items ARE the real items
+                n_real = int(st[E.STAT_VALID])
+                passed = int(st[E.STAT_PASS] + st[E.STAT_PASS_WAIT])
+                if n_real:
+                    ad.signals.note_resolved(passed, n_real - passed)
+                ad.signals.note_device_stats(st)
+            else:
+                n_real = p.n_obj + p.n_blk
+                if n_real:
+                    v = verdict[:n_real]
+                    passed = int(((v == ERR.PASS) | (v == ERR.PASS_WAIT)).sum())
+                    ad.signals.note_resolved(passed, n_real - passed)
         for i, r in enumerate(p.acq):
             if r.future is not None:
                 r.future.set_result((int(verdict[i]), int(wait[i])))

@@ -19,10 +19,10 @@ and on a fixed cadence:
 Flap damping reuses ``adaptive.degrade.Hysteresis``: a demotion arms a
 ``hotset-cooldown`` per resource, and promotion is skipped while it
 cools — the same enter/cooldown/exit shape every other degrade site in
-the tree shares.  The reference also journals promotions, failed
-promotions and cooldowns in its flight recorder; the flight recorder is
-not ported yet (ROADMAP.md Queue A item 6), so this copy counts them on
-its metrics and journals nothing.
+the tree shares.  Promotions, failed promotions and cooldowns are counted
+on the metrics and journalled in the flight recorder (``obs/flight.py``:
+``hotset.promote``, ``hotset.promote_fail``, ``hotset-cooldown.enter`` /
+``.exit``).
 
 Failure contract (chaos-verified, ``runtime.hotset.promote``): a failed
 promotion fails OPEN for statistics — the resource simply stays in the
@@ -42,6 +42,7 @@ import numpy as np
 
 from sentinel_tpu_torch.adaptive.degrade import Hysteresis
 from sentinel_tpu_torch.chaos import failpoints as FP
+from sentinel_tpu_torch.obs import flight as FL
 from sentinel_tpu_torch.obs.registry import REGISTRY as _OBS
 from sentinel_tpu_torch.utils.time_source import mono_s
 
@@ -92,6 +93,7 @@ def guarded_promote(registry, name: str) -> Optional[int]:
         row = registry.promote_resource(name)
     except Exception:  # promotion is an optimization: the resource keeps its sketch id
         _C_PROMOTE_FAIL.inc()
+        FL.note("hotset.promote_fail", resource=name)
         return None
     if (
         row is not None
@@ -100,6 +102,7 @@ def guarded_promote(registry, name: str) -> Optional[int]:
         and not registry.is_sketch_id(row)
     ):
         _C_PROMOTIONS.inc()
+        FL.note("hotset.promote", resource=name, row=row)
     return row
 
 

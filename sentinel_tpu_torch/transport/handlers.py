@@ -6,13 +6,14 @@ FetchClusterNode..., ModifyClusterMode..., OnOffSet..., BasicInfo...).
 All handlers are methods on one group object bound to a SentinelClient so
 the registry stays explicit and testable.
 
-The port's copy of ``sentinel_tpu/transport/handlers.py``.  Five commands
-read modules the port has not ported yet; each raises
+The port's copy of ``sentinel_tpu/transport/handlers.py``; ``api/flight``
+answers from the port's flight recorder (``obs/flight.FLIGHT``).  Four
+commands read modules the port has not ported yet; each raises
 ``NotImplementedError`` naming its ROADMAP.md item, and
 ``CommandRegistry.handle`` answers that as a failure response:
-``metrics?fleet=1`` (``obs/fleet``, Queue A item A6), ``api/flight``
-(``obs/flight``, A6), ``api/profile`` and ``api/memory`` (``obs/profile``,
-A10) and ``api/shards`` (``cluster/shard``, A7b).
+``metrics?fleet=1`` (``obs/fleet``, Queue A item A6), ``api/profile`` and
+``api/memory`` (``obs/profile``, A10) and ``api/shards``
+(``cluster/shard``, A7b).
 """
 
 from __future__ import annotations
@@ -248,8 +249,19 @@ class DefaultHandlerGroup:
 
     @command_mapping("api/flight", "flight-recorder bundle (black-box post-mortem)")
     def api_flight(self, req: CommandRequest) -> CommandResponse:
-        """``GET /api/flight`` — a flight-recorder bundle, fresh or stored."""
-        _not_ported("api/flight (obs/flight.py, the flight recorder)", "A6")
+        """``GET /api/flight`` — the black-box surface: by default a FRESH
+        bundle captured on demand (not rate-limited — an operator asking
+        for state deserves current state); ``?stored=N`` returns the last N
+        automatically triggered bundles instead (cluster-degrade entries).
+        Read either back with ``obs.flight.load_bundle`` once saved."""
+        from sentinel_tpu_torch.obs.flight import FLIGHT
+
+        stored = req.param("stored")
+        if stored is not None:
+            n = max(int(stored), 0)
+            # [-0:] would slice the WHOLE list; stored=0 means none
+            return CommandResponse.of_success(FLIGHT.bundles()[-n:] if n else [])
+        return CommandResponse.of_success(FLIGHT.dump_bundle(reason="api"))
 
     @command_mapping("api/profile", "bounded deep-profile capture (Chrome trace)")
     def api_profile(self, req: CommandRequest) -> CommandResponse:

@@ -42,7 +42,7 @@ NAMES = ["a", "b", "c", "d", "w", "o", "x", "y"]
 #: they share their other keys (the reference's presort does the same)
 ORIGIN = {"d": "bad", "o": "good"}
 PATHS = {
-    "fused": dict(fused_effects=True, **NO_PLANES),
+    "fused": dict(use_mxu_tables=True, fused_effects=True, **NO_PLANES),
     "seg": dict(SEG),
     "fallback": dict(SEG, **SINGLE_LANE, seg_fallback=True, seg_u=8),
 }
@@ -308,10 +308,19 @@ def test_seg_u_grows_after_four_overflowing_ticks_under_the_fallback():
 
 
 def test_deadlines_raise_until_ported():
+    """Deadline-aware backpressure is ported: ``deadline_ms`` no longer
+    raises on the bulk API.  An expired block sheds CLOSED before it
+    reaches the engine (tests/test_torch_adaptive.py has the rest); a live
+    one is decided as without a deadline."""
+    from sentinel_tpu_torch.core.errors import BLOCK_SYSTEM
+
     c = _port_client(PATHS["seg"])
     try:
-        with pytest.raises(NotImplementedError, match="deadline"):
-            c.submit_block(np.array([1], np.int32), deadline_ms=5)
+        now = c.time.now_ms()
+        v, w = c.check_batch_ids(np.array([1, 1], np.int32), deadline_ms=now - 1)
+        assert (v == BLOCK_SYSTEM).all() and (w == 0).all()
+        v_live, _ = c.submit_block(np.array([1], np.int32), deadline_ms=now + 5).result(timeout=5)
+        assert v_live.tolist() == [0]
     finally:
         c.stop()
 
@@ -329,7 +338,7 @@ def test_register_init_func_runs_in_order_once():
     TAPI.register_init_func(lambda c: seen.append(("late", c.device.type)), order=5)
     TAPI.register_init_func(lambda c: seen.append(("early", c.device.type)), order=-1)
     try:
-        tst.init(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
+        tst.init(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
         tst.init()
         assert seen == [("early", "cpu"), ("late", "cpu")]
     finally:

@@ -91,7 +91,7 @@ def _jax_client():
 def test_client_matches_jax_client_verdict_for_verdict(seed):
     jc = _jax_client()
     tc = SentinelClient(
-        cfg=small_engine_config(fused_effects=True, **NO_PLANES),
+        cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES),
         time_source=VirtualTimeSource(1_000),
         mode="sync",
         device="cpu",
@@ -114,7 +114,7 @@ def test_client_fails_tick_closed_on_corrupt_wire(monkeypatch):
     from sentinel_tpu_torch.ops import wire as WIRE
 
     tc = SentinelClient(
-        cfg=small_engine_config(fused_effects=True, **NO_PLANES),
+        cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES),
         time_source=VirtualTimeSource(1_000),
         mode="sync",
         device="cpu",
@@ -143,7 +143,7 @@ def test_param_rules_raise_not_implemented():
     on (the unpacked wire, ``packed_wire=False``); the observability
     planes, the sketch tier and ``seg_fallback=True`` are ported and
     build."""
-    tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
+    tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
     tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
     assert "param" in tc._features
     tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, cluster_mode=True, cluster_flow_id=5)])
@@ -153,20 +153,20 @@ def test_param_rules_raise_not_implemented():
     tc.param_flow_rules.load([])
     assert "param" not in tc._features  # the stage is on only while param rules are loaded
     with pytest.raises(NotImplementedError):
-        SentinelClient(cfg=small_engine_config(fused_effects=True, packed_wire=False), mode="sync", device="cpu")
-    fallback = SentinelClient(cfg=small_engine_config(fused_effects=True, seg_effects=True, seg_fallback=True),
+        SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, packed_wire=False), mode="sync", device="cpu")
+    fallback = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, seg_effects=True, seg_fallback=True),
                               mode="sync", device="cpu")
     assert fallback.cfg.seg_fallback
-    planes = SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu")
+    planes = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), mode="sync", device="cpu")
     assert planes.explain_plane is not None and planes.cfg.device_telemetry
-    sketch = SentinelClient(cfg=small_engine_config(fused_effects=True, sketch_stats=True), mode="sync", device="cpu")
+    sketch = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, sketch_stats=True), mode="sync", device="cpu")
     assert sketch.hotset is not None
 
 
 def test_facade_quick_start_on_cpu():
     tst.reset()
     try:
-        tst.init(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
+        tst.init(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
         tst.load_flow_rules([tst.FlowRule(resource="HelloWorld", count=2)])
         seen = []
         for _ in range(4):
@@ -188,7 +188,7 @@ def test_threaded_client_under_contention_loses_no_entry_or_exit():
     import threading
 
     tc = SentinelClient(
-        cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="threaded",
+        cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="threaded",
         device="cpu", entry_timeout_s=30.0,
     )
     tc.start()
@@ -228,7 +228,7 @@ def test_a_tick_that_cannot_run_fails_its_entries_closed(monkeypatch):
     """A tick that raises (a lost device, say) resolves its waiting entries
     as system blocks instead of leaving them to time out."""
     tc = SentinelClient(
-        cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="threaded",
+        cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="threaded",
         device="cpu", entry_timeout_s=30.0,
     )
     tc.start()
@@ -249,7 +249,7 @@ def test_a_tick_that_cannot_run_fails_its_entries_closed(monkeypatch):
 
 # -- the segment path (presort, unsort, seg_u sizing, static ranks) ----------
 
-SEG = dict(fused_effects=True, seg_effects=True, seg_fallback=False, **NO_PLANES)
+SEG = dict(use_mxu_tables=True, fused_effects=True, seg_effects=True, seg_fallback=False, **NO_PLANES)
 SINGLE_LANE = dict(flow_rules_per_resource=1, degrade_rules_per_resource=1, param_rules_per_resource=1)
 
 
@@ -308,7 +308,7 @@ def test_param_client_matches_jax_client_verdict_for_verdict(path):
     changes the lane map — on the per-item fused path and on the segment
     path (4 lanes and single lanes, where the hashes ride the presort)."""
     extra = SINGLE_LANE if path == "seg-single" else {}
-    flags = dict(fused_effects=True, **NO_PLANES) if path == "fused" else SEG
+    flags = dict(use_mxu_tables=True, fused_effects=True, **NO_PLANES) if path == "fused" else SEG
     jc = JaxClient(cfg=jax_small_cfg(**NO_PLANES, **extra), time_source=JaxVT(1_000), mode="sync")
     upload = jc._dev_col
     jc._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
@@ -341,7 +341,7 @@ def test_param_client_matches_jax_client_verdict_for_verdict(path):
 def test_param_hashes_follow_the_lane_map():
     from sentinel_tpu_torch.core.rule_tensors import hash_param
 
-    tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
+    tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
     assert tc.param_hashes("r", ["a", "b"]) == (hash_param("a"), 0)  # no rule: lane 0 reads args[0]
     assert tc.param_hashes("r", None) == (0, 0)
     tc.param_flow_rules.load([
@@ -416,7 +416,7 @@ def test_segment_client_unsorts_multi_item_ticks():
         tst.FlowRule(resource="c", count=2),
     ]
     outs = []
-    for cfg in (small_engine_config(**SEG, **SINGLE_LANE), small_engine_config(fused_effects=True, **NO_PLANES)):
+    for cfg in (small_engine_config(**SEG, **SINGLE_LANE), small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES)):
         c = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
         c.start()
         c.flow_rules.load(rules)

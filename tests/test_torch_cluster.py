@@ -342,7 +342,7 @@ def _service(pkg, use_token_column):
         cfgm, sfc, mod, m, C = JCfgMgr(), JSFC, JTS, JR, JC
     else:
         vt = VirtualTimeSource(1_000)
-        dec = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES), time_source=vt,
+        dec = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), time_source=vt,
                              mode="sync", device="cpu")
         cfgm, sfc, mod, m, C = TCfgMgr(), TSFC, TTS, TR, TC_
     dec.start()

@@ -35,7 +35,7 @@ def _jax_client(time_source=None, **cfg):
 
 
 def _port_client(time_source=None, **cfg):
-    return SentinelClient(cfg=small_engine_config(fused_effects=True, **dict(NO_PLANES, **cfg)),
+    return SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **dict(NO_PLANES, **cfg)),
                           time_source=time_source or VirtualTimeSource(1_000), mode="sync", device="cpu")
 
 

@@ -160,14 +160,18 @@ def test_tick_continues_a_jax_run_state():
     ],
 )
 def test_unported_flags_raise(flags):
-    """The plain scatter path (``fused_effects=False``) is not ported,
-    whatever ``seg_fallback`` says; ``seg_fallback=True`` on the segment
-    path is (tests/test_torch_fallback.py)."""
+    """The plain scatter path (``fused_effects=False``) is ported now
+    (tests/test_torch_plain.py holds it against the reference), whatever
+    ``seg_fallback`` says: ``check_supported`` accepts it and the tick
+    takes the plain path, as the reference's ``_use_fused`` picks it; what
+    still raises is a tick stage the engine does not know."""
     base = dict(H.FUSED_FLAGS)
     base.update(flags)
     cfg = small_engine_config(**base)
-    with pytest.raises(NotImplementedError):
-        E.check_supported(cfg)
+    E.check_supported(cfg)
+    assert not E._use_fused(cfg)
+    with pytest.raises(ValueError):
+        E.check_supported(cfg, H.FEATURES | {"no_such_stage"})
 
 
 def test_the_param_feature_is_ported_and_unknown_features_are_refused():

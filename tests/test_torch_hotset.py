@@ -50,7 +50,7 @@ def _pair(**kw):
     jc = JaxClient(cfg=jax_small_cfg(**NO_PLANES, **kw), time_source=JaxVT(1_000), mode="sync")
     upload = jc._dev_col  # a private copy per upload (tests/test_torch_client.py)
     jc._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
-    tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES, **kw),
+    tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES, **kw),
                         time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
     jc.start()
     tc.start()
@@ -208,7 +208,7 @@ def test_failed_promotion_keeps_the_tail_rule_enforcing():
     """``runtime.hotset.promote`` failing (the port's failpoint): the ruled
     resource stays on its sketch id, the failure is counted, and its rule
     still blocks from the tail tables — fail CLOSED for verdicts."""
-    tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES, **HOT),
+    tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES, **HOT),
                         time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
     tc.start()
     try:
@@ -239,7 +239,7 @@ def test_manager_bookkeeping():
     """The fold keeps QPS (a minute-window sketch folds 120 events as 2 QPS),
     ``guarded_promote`` counts transitions only, a demoted row recycles
     after a zero quarantine, and the hot block is off with hotset_k=0."""
-    cfg = small_engine_config(fused_effects=True, **NO_PLANES,
+    cfg = small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES,
                               **dict(HOT, sketch_sample_count=60, sketch_window_ms=1000))
     tc = SentinelClient(cfg=cfg, time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
     rid = cfg.node_rows + 7
@@ -258,6 +258,6 @@ def test_manager_bookkeeping():
     reg.resource_id("next-hot")
     assert reg.promote_resource("next-hot") == row
     assert E.hotset_k(small_engine_config(**dict(HOT, hotset_k=0))) == 0
-    off = SentinelClient(cfg=small_engine_config(fused_effects=True, **dict(HOT, hotset_k=0)), mode="sync",
+    off = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **dict(HOT, hotset_k=0)), mode="sync",
                          device="cpu")
     assert off.hotset is None

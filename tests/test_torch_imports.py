@@ -248,3 +248,37 @@ def test_the_scan_covers_the_control_plane():
     ref = sys.modules.get("sentinel_tpu.transport.command")
     assert ref is None or ref.CommandRegistry is not importlib.import_module(
         "sentinel_tpu_torch.transport.command").CommandRegistry
+
+
+def test_the_scan_covers_overload_protection():
+    """Overload protection is the port's own: adaptive/ (the controller,
+    the signals, the degrade ladder, the overload simulator), obs/flight.py,
+    metrics/block_log.py and workload/operating_point.py are walked by the
+    checks above and import on the CPU without the JAX package; the
+    client's admission and watchdog failpoints are the port's registry's,
+    and its shed / watchdog / ladder metrics live on the port's registry."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    mods = ("adaptive", "adaptive.controller", "adaptive.signals", "adaptive.degrade", "adaptive.simload",
+            "obs.flight", "metrics.block_log", "workload", "workload.operating_point")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    importlib.import_module("sentinel_tpu_torch.runtime.client")
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.obs import flight
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    for site in ("runtime.client.admit", "runtime.watchdog.stall"):
+        assert site in FP.catalog()
+    for name in ("sentinel_shed_total", "sentinel_watchdog_fired_total", "sentinel_adaptive_level",
+                 "sentinel_adaptive_ceiling"):
+        assert REGISTRY.series(name), name
+    assert flight.FLIGHT.__class__.__module__ == "sentinel_tpu_torch.obs.flight"

@@ -152,7 +152,7 @@ def test_client_metric_log_option_writes_through_its_timer(tmp_path):
     from sentinel_tpu_torch.runtime.client import SentinelClient
     from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
 
-    c = SentinelClient(cfg=small_engine_config(fused_effects=True), time_source=VirtualTimeSource(5_000),
+    c = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), time_source=VirtualTimeSource(5_000),
                        mode="sync", device="cpu", metric_log=True, metric_log_dir=str(tmp_path), app_name="mlog")
     c.start()
     try:

@@ -65,7 +65,7 @@ def _jax_client():
 
 
 def _port_client():
-    return SentinelClient(cfg=small_engine_config(fused_effects=True), time_source=VirtualTimeSource(1_000),
+    return SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), time_source=VirtualTimeSource(1_000),
                           mode="sync", device="cpu")
 
 
@@ -144,7 +144,7 @@ def test_timeline_dir_attaches_the_metric_log(tmp_path):
     stop() flushes the open one."""
     import os
 
-    tc = SentinelClient(cfg=small_engine_config(fused_effects=True), time_source=VirtualTimeSource(1_000),
+    tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), time_source=VirtualTimeSource(1_000),
                         mode="sync", device="cpu", timeline_dir=str(tmp_path), app_name="app")
     tc.start()
     tc.flow_rules.load([tst.FlowRule(resource="a", count=2)])

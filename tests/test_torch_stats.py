@@ -54,7 +54,7 @@ def _pair(**kw):
     jc = JaxClient(cfg=jax_small_cfg(**NO_PLANES, **kw), time_source=JaxVT(1_000), mode="sync")
     upload = jc._dev_col  # a private copy per upload (tests/test_torch_client.py)
     jc._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
-    tc = SentinelClient(cfg=small_engine_config(fused_effects=True, **NO_PLANES, **kw),
+    tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES, **kw),
                         time_source=VirtualTimeSource(1_000), mode="sync", device="cpu")
     jc.start()
     tc.start()

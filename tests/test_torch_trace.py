@@ -33,7 +33,7 @@ from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
 from tests.test_torch_client import NO_PLANES, SEG
 from tests.torch_harness import jax_host_client
 
-FUSED = dict(fused_effects=True, **NO_PLANES)
+FUSED = dict(use_mxu_tables=True, fused_effects=True, **NO_PLANES)
 #: the JAX client's host flags for each path (its tick: tests/torch_harness.jax_host_client)
 JAX_HOST = {"fused": dict(FUSED, use_mxu_tables=True), "seg": dict(SEG, use_mxu_tables=True)}
 PORT = {"fused": FUSED, "seg": SEG}

@@ -49,7 +49,6 @@ WALL_EPOCH_MS = 1_700_000_000_000
 #: the commands whose backing modules are not ported: command, params, ROADMAP item
 UNPORTED = [
     ("metrics", {"fleet": "1"}, "A6"),
-    ("api/flight", {}, "A6"),
     ("api/profile", {"ms": "10"}, "A10"),
     ("api/memory", {}, "A10"),
     ("api/shards", {}, "A7b"),
@@ -162,7 +161,7 @@ def test_unported_handlers_answer_a_failure_naming_their_item(name, params, item
     from sentinel_tpu_torch.core.config import small_engine_config
     from sentinel_tpu_torch.runtime.client import SentinelClient
 
-    c = SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu")
+    c = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), mode="sync", device="cpu")
     reg = TT.build_default_handlers(c)
     ok, msg = _ask(reg, TReq, name, **params)
     assert not ok
@@ -176,7 +175,7 @@ def test_metrics_and_traces_serve_the_ports_own_planes():
     from sentinel_tpu_torch.core.config import small_engine_config
     from sentinel_tpu_torch.runtime.client import SentinelClient
 
-    c = SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu")
+    c = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), mode="sync", device="cpu")
     reg = TT.build_default_handlers(c)
     c.entry("m").exit()
     ok, text = _ask(reg, TReq, "metrics")
@@ -203,7 +202,7 @@ def test_http_command_center_over_loopback():
     from sentinel_tpu_torch.core.config import small_engine_config
     from sentinel_tpu_torch.runtime.client import SentinelClient
 
-    c = SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu")
+    c = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), mode="sync", device="cpu")
     center = TT.start_command_center(c, port=0)
     try:
         assert center.host == "127.0.0.1" and center.port
@@ -265,7 +264,7 @@ def test_heartbeat_reaches_a_local_receiver():
 
     srv = ThreadingHTTPServer(("127.0.0.1", 0), Recv)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
-    c = SentinelClient(cfg=small_engine_config(fused_effects=True), mode="sync", device="cpu", app_name="hb-app")
+    c = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), mode="sync", device="cpu", app_name="hb-app")
     center = TT.start_command_center(c, port=0)
     dead = ThreadingHTTPServer(("127.0.0.1", 0), Recv)
     dead_port = dead.server_address[1]

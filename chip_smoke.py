@@ -291,6 +291,35 @@ Phases (the first failure stops the script with a nonzero exit):
    time to fail closed, ``sentinel_watchdog_fired_total`` up by exactly
    one, one fan-out (``[overload]`` lines).
 
+11. The operations plane (``workload_phase``).  (a) ``workload.
+   run_closed_loop`` on a sync client on virtual time under
+   ``platform_config()`` at the default widths (flow rules on the 16
+   keys): flash_crowd_2x(seed=7) as bench.py:1859, op0 the config's point
+   (batch 2,048), candidates batch 512 and 256 each also with
+   pipeline_depth=2; static, then tuned twice (the replay must be
+   identical), and the same static and tuned runs on the CPU in a process
+   of its own (journal, latencies and counts equal to the card's);
+   B1 / B2 / B4 launched, no surprise retrace, and one captured tick of the
+   tuned run replayed with the kernels (profiled by name) and with their
+   plain versions, equal.  (b) A threaded ``platform_config()`` client at
+   pipeline_depth=4 under 8 request threads: ``apply_operating_point``
+   moves the batch 2,048 -> 512 -> 2,048 and the depth 4 -> 0 -> 4 live;
+   no timeout, every future resolved, each swap's engine-lock hold and
+   decisions/s before, during and after.  (c) The memory ledger against
+   the card's allocator on that client and on bench.py's build: pools,
+   ``reconcile()``, the sketch pool within 10 % of ``salsa.hbm_bytes``,
+   ``stop()`` dropping the client's entries, and a capacity one byte over
+   the total making the tuner reject a grown sketch point.  (d) The
+   sketch audit (k 8, period 16) on bench.py's build over phase 4's
+   sketch stream at B = 2,048: checks > 0, no underestimate, no eps
+   violation, no failure; every tick but the audit's under the sync-debug
+   mode "error"; B1 / B3 / B4 launched; an audit tick's host and device
+   time beside another's; a captured tick against its plain-version tick.
+   (e) Through the HTTP command center of (b)'s client: api/memory,
+   api/profile?ms=250 (ok, then rate_limited), metrics?fleet=1 with the
+   center itself as a fleet target (well formed, the self-scrape dropped);
+   then ``default_slos()`` judged over the phase (``[workload]`` lines).
+
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
 turns the fallback off).
@@ -303,7 +332,8 @@ PyTorch operations of one ``sketch`` tick with the sketch tier on and off
 (``ops_main``).  ``python3 chip_smoke.py --cluster`` runs the build and
 phase 8 alone (``cluster_main``), ``python3 chip_smoke.py --control`` the
 build and phase 9 (``control_main``), ``python3 chip_smoke.py --overload``
-the build and phase 10 (``overload_main``).
+the build and phase 10 (``overload_main``), ``python3 chip_smoke.py
+--workload`` the build and phase 11 (``workload_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -3728,6 +3758,601 @@ def overload_log(rep) -> None:
         f"{rep['serving_s']:.1f} s, then {rep['simload_wait_s']:.1f} s waiting for 10b's processes)")
 
 
+# -- phase 11: the operations plane -----------------------------------------------------
+
+#: steps of phase 11a's flash crowd (bench.py:1859's shape and seed), cut
+#: from bench.py's 300: at 300 the CPU side took 136.9 s for its static and
+#: tuned runs (NVIDIA H100 80GB HBM3 machine, 700 W); the tuner converges by
+#: step ~95 (15 steps to measure op0, 20 a candidate)
+WORKLOAD_STEPS = 120
+WORKLOAD_STEPS_UNCUT = 300
+#: request threads and seconds of each stage of phase 11b's live swap
+SWAP_THREADS = 8
+SWAP_STAGE_S = 1.5
+
+
+def kernel_sets(FU, SC):
+    """(real, plain, install): the kernels' wrappers, their plain versions,
+    and a function that installs either set where the engine calls them."""
+    real = {"scatter_many": FU.scatter_many, "gather_many": FU.gather_many,
+            "seg_excl_cumsum": SC.seg_excl_cumsum, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many,
+            "seg_incl_min": SC.seg_incl_min}
+    plain = {"scatter_many": FU.scatter_many_plain, "gather_many": FU.gather_many_plain,
+             "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many_plain,
+             "seg_incl_min": SC.seg_incl_min_plain}
+    mods = {"scatter_many": FU, "gather_many": FU, "seg_excl_cumsum": SC, "seg_excl_cumsum_many": SC,
+            "seg_incl_min": SC}
+
+    def install(fns):
+        for k, fn in fns.items():
+            setattr(mods[k], k, fn)
+
+    return real, plain, install
+
+
+def capture_client_tick(E, nth: int) -> tuple:
+    """Keep a copy of the inputs (state, rules, batches, clock, route hint,
+    config, features) of the ``nth`` engine tick from now on — whichever
+    tick binding runs it (a resize or a swap rebinds the client's) — and
+    return (the copy, a function that stops watching).  The watch goes
+    as soon as it has its copy."""
+    real_tick = E.tick
+    box = {}
+    n = [0]
+
+    def rec(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits=None):
+        n[0] += 1
+        if n[0] == nth:
+            box.update(state=E.clone_state(state), rules=rules, acq=E.clone_state(acq), comp=E.clone_state(comp),
+                       now=now_ms, load=sys_load, cpu=sys_cpu, fits=seg_fits, cfg=cfg, feats=features)
+            E.tick = real_tick
+        return real_tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits)
+
+    E.tick = rec
+    return box, lambda: setattr(E, "tick", real_tick)
+
+
+def device_profile(torch, fn) -> tuple:
+    """(device busy us, kernel launches by name) of one call, from
+    torch.profiler; a session that records no device activity is taken
+    again (twice at most)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if dev:
+            break
+    check(dev, "phase 11: the profiler recorded no device activity in 3 sessions")
+    names = {}
+    for e in dev:
+        names[e.name] = names.get(e.name, 0) + 1
+    return sum(e.time_range.elapsed_us() for e in dev), names
+
+
+#: profiler kernel-name fragments of B1-B4 (csrc/fused.cu, csrc/segscan.cu)
+PROFILE_NAMES = {"scatter_many": "scatter_many", "gather_many": "gather_many", "seg_excl_cumsum": "seg_sum",
+                 "seg_incl_min": "seg_min"}
+
+
+def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
+    """Phase 4's check on a tick the client ran: its captured inputs run
+    again with the kernels (profiled: each kernel of ``want`` must show by
+    name) and with their plain versions; wire bytes and integer state
+    leaves equal, float leaves within 1e-6 / 1e-4."""
+    check(box, f"phase 11 {label}: no tick was captured")
+    real, plain, install = kernel_sets(FU, SC)
+    tick = E.make_tick(box["cfg"], box["feats"])
+
+    def run():
+        st, out = tick(E.clone_state(box["state"]), box["rules"], box["acq"], box["comp"], box["now"], box["load"],
+                       box["cpu"], seg_fits=box["fits"])
+        return st, out.wire.cpu().numpy().tobytes()
+
+    got = {}
+    busy, names = device_profile(torch, lambda: got.update(k=run()))
+    install(plain)
+    try:
+        st_p, wire_p = run()
+    finally:
+        install(real)
+    st_k, wire_k = got["k"]
+    check(wire_k == wire_p, f"phase 11 {label}: the captured tick's wire differs from its plain-version tick")
+    la, lb = S.leaves(st_k), S.leaves(st_p)
+    fdiff = 0.0
+    for k in la:
+        if la[k].dtype.is_floating_point:
+            d = (la[k] - lb[k]).abs()
+            check(bool(torch.all(d <= 1e-4 + 1e-6 * lb[k].abs())), f"phase 11 {label}: float leaf {k} differs")
+            fdiff = max(fdiff, float(d.max()) if d.numel() else 0.0)
+        else:
+            check(torch.equal(la[k], lb[k]), f"phase 11 {label}: integer state leaf {k} differs")
+    seen = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm) for k in want}
+    for k in want:
+        check(seen[k] > 0, f"phase 11 {label}: the profile of the captured tick shows no {k} kernel: {names}")
+    return dict(profile_kernels=seen, device_busy_us=busy, float_state_max_diff=fdiff,
+                batch=int(box["acq"].res.shape[0]), now_ms=int(box["now"]))
+
+
+def loop_client(st, device, cfg, app):
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    c = SentinelClient(cfg=cfg, device=device, mode="sync", time_source=VirtualTimeSource(start_ms=1_000),
+                       app_name=app)
+    c.flow_rules.load([st.FlowRule(resource=f"wl/key{k}", count=150.0) for k in range(16)])
+    c.start()
+    return c
+
+
+def closed_loop_runs(np, st, device, steps: int, labels, on_client=None) -> dict:
+    """Phase 11a's runs on ``device``: ``run_closed_loop`` on a sync client
+    on virtual time under ``platform_config()`` at the default widths,
+    flash_crowd_2x(seed=7), op0 = the config's point (batch 2,048), the
+    candidates batch 512 and 256 (both batch fields), each also with
+    pipeline_depth=2; one run a label in ``labels`` ("static", or a tuned
+    one), each on a fresh client.  ``on_client(label, client)`` runs
+    before each loop."""
+    from sentinel_tpu_torch import workload as WL
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs import profile as PROF
+
+    spec = WL.flash_crowd_2x(seed=7, steps=steps)
+    out = {}
+    for label in labels:
+        c = loop_client(st, device, platform_config(), f"workload-{label}")
+        op0 = WL.OperatingPoint.from_engine_config(c.cfg)
+        cands = []
+        for b in (512, 256):
+            p = op0.replace(batch_size=b, complete_batch_size=b)
+            cands += [p, p.replace(pipeline_depth=2)]
+        if on_client is not None:
+            on_client(label, c)
+        surprise0 = PROF.RETRACE.surprise_count()
+        t = time.perf_counter()
+        tune = label != "static"
+        r = WL.run_closed_loop(c, spec, op0, candidates=cands if tune else (), tune=tune)
+        wall = time.perf_counter() - t
+        out[label] = dict(counts=[r.submitted, r.passed, r.blocked], latencies=r.latencies_ms, decisions=r.decisions,
+                          converged=r.converged_op.describe(), bad_frac=r.bad_frac(), p99_ms=r.p99_ms(),
+                          surprises=PROF.RETRACE.surprise_count() - surprise0, wall_s=wall,
+                          ticks=c._build_ticks, swap_lock_ms=c.swap_lock_ms, swap_lock_wait_ms=c.swap_lock_wait_ms)
+        c.stop()
+    return out
+
+
+def workload_loop_main(device: str, steps: str, label: str) -> int:
+    """``python3 chip_smoke.py --workload-loop DEVICE STEPS LABEL`` (phase
+    11a): one closed-loop run (``static`` or ``tuned0``) on ``device`` in a
+    process of its own (the CPU side the card's journal is held against);
+    one JSON line."""
+    import numpy as np
+    import torch
+
+    if device == "cpu":
+        torch.set_num_threads(3)
+    sys.path.insert(0, ROOT)
+    import sentinel_tpu_torch as st
+
+    t = time.perf_counter()
+    out = closed_loop_runs(np, st, device, int(steps), [label])
+    print(json.dumps(dict(runs=out, wall_s=time.perf_counter() - t)), flush=True)
+    return 0
+
+
+def loop_view(run) -> dict:
+    """What two runs of the closed loop must agree on."""
+    return {k: run[k] for k in ("counts", "latencies", "decisions", "converged")}
+
+
+def swap_under_traffic(np, st, torch, FU, SC) -> tuple:
+    """Phase 11b: a threaded ``platform_config()`` client with
+    pipeline_depth=4 and 8 request threads; ``apply_operating_point``
+    moves the batch 2,048 -> 512 -> 2,048, then pipeline_depth 4 -> 0 -> 4,
+    with the traffic running.  Returns (report, the live client, and
+    ``finish()``, which stops the traffic — it keeps running for 11c and
+    11e — and checks that no request failed and every future resolved)."""
+    from sentinel_tpu_torch import workload as WL
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs import profile as PROF
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    c = SentinelClient(cfg=platform_config(), device="cuda", mode="threaded", pipeline_depth=4,
+                       entry_timeout_s=20.0, app_name="workload-swap")
+    names = [f"api-{i}" for i in range(64)]
+    c.flow_rules.load([st.FlowRule(resource=n, count=2_000.0) for n in names])
+    c.start()
+    stop = threading.Event()
+    lock = threading.Lock()
+    done = [0]
+    errors, outcomes = [], {}
+
+    def worker(k):
+        rng = np.random.default_rng(SEED + 300 + k)
+        while not stop.is_set():
+            try:
+                e = c.entry(names[int(rng.integers(0, len(names)))], inbound=True)
+                e.exit()
+                key = "pass"
+            except st.BlockException as exc:
+                key = type(exc).__name__
+            except Exception as exc:  # a timeout among them: the phase fails on any
+                errors.append(repr(exc))
+                key = "error"
+            with lock:
+                done[0] += 1
+                outcomes[key] = outcomes.get(key, 0) + 1
+
+    threads = [threading.Thread(target=worker, args=(k,), daemon=True) for k in range(SWAP_THREADS)]
+    surprise0 = PROF.RETRACE.surprise_count()
+    for t_ in threads:
+        t_.start()
+    time.sleep(0.5)  # the threads reach steady state
+    op = WL.OperatingPoint.from_engine_config(c.cfg, pipeline_depth=4)
+    moves = [("batch 512", op.replace(batch_size=512, complete_batch_size=512)), ("batch 2048", op),
+             ("depth 0", op.replace(pipeline_depth=0)), ("depth 4", op)]
+    rates, swaps = [], []
+
+    def window(label, secs):
+        n0, t0 = done[0], time.perf_counter()
+        time.sleep(secs)
+        rates.append((label, (done[0] - n0) / (time.perf_counter() - t0)))
+
+    window("before", SWAP_STAGE_S)
+    for label, p in moves:
+        n0, t0 = done[0], time.perf_counter()
+        applied = c.apply_operating_point(p, cause="chip-smoke-swap")
+        dt = time.perf_counter() - t0
+        swaps.append(dict(move=label, applied=applied, swap_ms=dt * 1e3, lock_ms=c.swap_lock_ms if applied["engine"]
+                          else 0.0, lock_wait_ms=c.swap_lock_wait_ms if applied["engine"] else 0.0,
+                          batch=c.cfg.batch_size, depth=c._pipeline_depth))
+        rates.append((f"during {label}", (done[0] - n0) / max(dt, 1e-9)))
+        window(f"after {label}", SWAP_STAGE_S / 2)
+    check(c.cfg.batch_size == op.batch_size and c._pipeline_depth == 4, "phase 11b: the client did not come back")
+    check(PROF.RETRACE.surprise_count() == surprise0, "phase 11b: a swap made a surprise retrace")
+    rep = dict(outcomes=outcomes, rates=rates, swaps=swaps)
+
+    def finish():
+        stop.set()
+        for t_ in threads:
+            t_.join(timeout=30)
+        check(not any(t_.is_alive() for t_ in threads), "phase 11b: a request thread never returned")
+        check(not errors, f"phase 11b: request errors (timeouts among them): {errors[:3]}")
+        f = c.submit_acquire(names[0])
+        check(f is not None and f.result(timeout=10)[0] in (0, 1), "phase 11b: serving after the swaps")
+        rep["entries"] = done[0]
+
+    return rep, c, finish
+
+
+def memory_report(PROF, client, label) -> dict:
+    rec = PROF.LEDGER.reconcile(client.device)
+    mine = {k: v for k, v in rec["entries"].items() if f"/{client._ledger_name}:" in k}
+    pools = {}
+    for k, v in mine.items():
+        p = k.split("/", 1)[0]
+        pools[p] = pools.get(p, 0) + v
+    return dict(client_pools=pools, pools=rec["pools"], total_bytes=rec["total_bytes"],
+                live_array_bytes=rec["live_array_bytes"], unaccounted_bytes=rec["unaccounted_bytes"],
+                device_memory_stats={k: v for k, v in (rec["device_memory_stats"] or {}).items()
+                                     if k.startswith(("allocated_bytes.all.current", "reserved_bytes.all.current",
+                                                      "allocated_bytes.all.peak", "reserved_bytes.all.peak"))},
+                label=label)
+
+
+def command_plane(np, torch, client, slo_eng, clock) -> dict:
+    """Phase 11e, with 11b's traffic running: api/memory, api/profile?ms=250
+    (ok, then rate_limited), metrics?fleet=1 with the center's own URL as a
+    fleet target (the duplicate dropped), through the HTTP command center;
+    then ``slo_eng`` (default_slos(), anchored at the phase's start on
+    ``clock``) judges the registry's deltas over the phase."""
+    from sentinel_tpu_torch import transport as TT
+    from sentinel_tpu_torch.obs import fleet as FLT
+    from sentinel_tpu_torch.obs import profile as PROF
+
+    center = TT.start_command_center(client, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{center.port}"
+    FLT.add_fleet_target(f"127.0.0.1:{center.port}")
+    out = {}
+    try:
+        ms = []
+        for _ in range(5):
+            t, status, body = http_call(base + "/api/memory")
+            check(status == 200, f"phase 11e: api/memory answered {status}: {body[:200]}")
+            ms.append(t)
+        mem = json.loads(body)
+        check(mem["live_array_bytes"] and mem["pools"], "phase 11e: api/memory read no allocator on the card")
+        out["api/memory"] = dict(p50_ms=float(np.median(ms)), live_array_bytes=mem["live_array_bytes"])
+        PROF._LAST_CAPTURE[0] = 0.0
+        t1, s1, b1 = http_call(base + "/api/profile?ms=250")
+        t2, s2, b2 = http_call(base + "/api/profile?ms=250")
+        p1, p2 = json.loads(b1), json.loads(b2)
+        check(s1 == 200 and "chrome_trace" in p1, f"phase 11e: api/profile did not capture: {b1[:200]}")
+        check(s2 == 200 and p2.get("error") == "rate_limited", f"phase 11e: the second capture was not "
+                                                               f"rate-limited: {b2[:200]}")
+        out["api/profile"] = dict(p50_ms=float(np.median([t1, t2])), ok_ms=t1, rate_limited_ms=t2,
+                                  spans=p1["span_count"])
+        ms = []
+        for _ in range(5):
+            t, status, body = http_call(base + "/metrics?fleet=1")
+            check(status == 200, f"phase 11e: metrics?fleet=1 answered {status}")
+            ms.append(t)
+        text = body.decode()
+        lines = text.strip().split("\n")
+        pat = __import__("re").compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?[0-9][0-9a-zA-Z+.e-]*$")
+        bad = [ln for ln in lines if not (ln.startswith(("# HELP ", "# TYPE ", "# EXEMPLAR ")) or pat.match(ln))]
+        check(not bad, f"phase 11e: the fleet exposition is malformed: {bad[:3]}")
+        check("sentinel_fleet_members 1" in lines and "sentinel_fleet_scrape_duplicates 1" in lines,
+              "phase 11e: the self-scrape was not dropped as a duplicate")
+        out["metrics?fleet=1"] = dict(p50_ms=float(np.median(ms)), lines=len(lines), bytes=len(body))
+    finally:
+        FLT.set_fleet_targets([])
+        center.stop()
+    out["slo"] = {s.name: s.to_dict() for s in slo_eng.step(clock.now_ms())}
+    return out
+
+
+def audit_run(np, st, torch, FU, SC, E, S, PS) -> tuple:
+    """Phase 11d: bench.py's build (``sketch_cfg``) in a sync client with
+    sketch_audit_k=8, sketch_audit_period=16, its exact rules loaded by
+    name, 48 ticks of phase 4's sketch stream at B = 2,048 (13 ticks,
+    repeated) with their completions, 137 virtual ms apart; every tick
+    but the audit's under the sync-debug mode "error"; one audit iteration
+    and the one after it profiled (device us).  Returns (report, the
+    client)."""
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    def counter(name):
+        m = REGISTRY.get(name)
+        return 0 if m is None else m.value
+
+    names = ("sentinel_sketch_audit_checks_total", "sentinel_sketch_underestimates_total",
+             "sentinel_sketch_eps_violations_total", "sentinel_sketch_audit_failures_total")
+    c0 = {n: counter(n) for n in names}
+    cfg = sketch_cfg(platform_config)
+    c = SentinelClient(cfg=cfg, device="cuda", mode="sync", time_source=VirtualTimeSource(start_ms=1_000),
+                       sketch_audit_k=8, sketch_audit_period=16, app_name="workload-audit")
+    for i in range(N_RULED):
+        c.registry.resource_id(f"res-{i + 1}")
+    flow, degrade, authority, system, param = sketch_rules(st, with_tail_names=False)
+    c.flow_rules.load(flow)
+    c.degrade_rules.load(degrade)
+    c.start()
+    origin = (c.registry.origin_node_row("res-1", "peer-app"), c.registry.origin_id("peer-app"))
+    cols, _peak = sketch_columns(np, PS, 13, 2048, SEED + 9, cfg.node_rows, cfg.trash_row, *origin)
+    au = c._audit
+    box, unwatch = capture_client_tick(E, 20)
+    host = {"audit": [], "plain": []}
+    dev = {}
+    FU.reset_launches()
+    SC.reset_launches()
+    for i in range(48):
+        a, cc = cols[i % len(cols)]
+        # an iteration runs two ticks (the acquires', then the exits'); the
+        # audit reads the card on the tick where its count hits the period
+        auditing = any((au._ticks + j) % au.period == 0 for j in (1, 2))
+
+        def one():
+            if not auditing:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                c.check_batch_ids(a["res"], origin_node=a["origin_node"], origin_id=a["origin_id"],
+                                  param_hash=a["param_hash"], inbound=a["inbound"])
+                c.submit_completion_block(cc["res"], cc["rt"], inbound=cc["inbound"], param_hash=cc["param_hash"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        kind = "audit" if auditing else "plain"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i >= 16 and kind not in dev and (kind == "audit" or "audit" in dev):
+            dev[kind] = device_profile(torch, one)[0]  # the first audit iteration after the first, then the next
+        else:
+            one()
+            host[kind].append((time.perf_counter() - t) * 1e3)
+        c.time.advance(137)
+    unwatch()
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    d = {n.split("_", 2)[2]: counter(n) - c0[n] for n in names}
+    check(d["audit_checks_total"] > 0, "phase 11d: the audit made no check")
+    check(d["underestimates_total"] == 0 and d["eps_violations_total"] == 0 and d["audit_failures_total"] == 0,
+          f"phase 11d: the audit found {d}")
+    for k in ("scatter_many", "seg_excl_cumsum", "seg_incl_min"):
+        check(launches.get(k, 0) > 0, f"phase 11d: the audit run launched no {k}: {launches}")
+    replay = replay_against_plain(np, E, S, FU, SC, torch, box, ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
+                                  "11d")
+    check(set(dev) == {"audit", "plain"}, f"phase 11d: no audit iteration and no other was profiled: {dev}")
+    return dict(counters=d, launches=launches, tracked=sorted(au._tracked), last_audit=dict(au._last_audit),
+                host_ms={k: float(np.median(v)) for k, v in host.items()}, audit_ticks=len(host["audit"]),
+                device_us=dev, replay=replay), c
+
+
+def workload_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 11: the operations plane on the card — (a) the autotuner's
+    closed loop at full width, replayed, and held against the same loop on
+    the CPU in a process of its own; (b) a live swap under traffic; (c) the
+    memory ledger against the card's allocator; (d) the sketch audit on
+    bench.py's build; (e) the command plane and the SLO judgement."""
+    from sentinel_tpu_torch import workload as WL
+    from sentinel_tpu_torch.obs import profile as PROF
+    from sentinel_tpu_torch.ops import engine as E
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.sketch import salsa as SA
+
+    from sentinel_tpu_torch.obs import slo as SLO
+    from sentinel_tpu_torch.utils.time_source import TimeSource
+
+    t_phase = time.perf_counter()
+    clock = TimeSource()
+    slo_eng = SLO.SloEngine()  # default_slos() over the process registry, anchored before any traffic
+    slo_eng.step(clock.now_ms())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    cpu_procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--workload-loop", "cpu",
+                                          str(WORKLOAD_STEPS), label], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True) for label in ("static", "tuned0")}
+    rep = {"card": smi, "steps": WORKLOAD_STEPS}
+    log(f"[workload] {smi}: 11a steps cut from bench.py's {WORKLOAD_STEPS_UNCUT} to {WORKLOAD_STEPS} on both sides "
+        f"(the CPU side's two runs took 136.9 s at {WORKLOAD_STEPS_UNCUT}); the CPU runs are two processes of their "
+        f"own, beside the card's work")
+    try:
+        # -- (a) the closed loop on the card, counts from zero ----------------------
+        boxes = {}
+
+        def on_client(label, c):
+            if label == "tuned0":
+                boxes[label], unwatch[0] = capture_client_tick(E, 12)
+            if label == "static":
+                FU.reset_launches()
+                SC.reset_launches()
+
+        unwatch = [lambda: None]
+        try:
+            runs = closed_loop_runs(np, st, "cuda", WORKLOAD_STEPS, ["static", "tuned0", "tuned1"], on_client)
+        finally:
+            unwatch[0]()
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        loop_log(smi, WORKLOAD_STEPS, runs)
+        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+            check(launches.get(k, 0) > 0, f"phase 11a: the closed loop launched no {k}: {launches}")
+        static, tuned = runs["static"], runs["tuned0"]
+        for label, r in runs.items():
+            n, p, b = r["counts"]
+            check(n == p + b > 0, f"phase 11a {label}: submitted {n} != passed {p} + blocked {b}")
+            check(len(r["latencies"]) == p, f"phase 11a {label}: {len(r['latencies'])} latencies for {p} admits")
+            check(r["surprises"] == 0, f"phase 11a {label}: {r['surprises']} surprise retraces")
+        acts = [d["action"] for d in tuned["decisions"]]
+        check("applied" in acts, f"phase 11a: the tuner applied no point: {acts}")
+        check(acts[-1] in ("converged", "rollback"), f"phase 11a: the tuner ended on {acts[-1]}")
+        check(loop_view(runs["tuned1"]) == loop_view(tuned), "phase 11a: the tuned loop did not replay on the card")
+        rep["loop"] = {k: {f: v for f, v in r.items() if f != "latencies"} for k, r in runs.items()}
+        rep["loop_launches"] = launches
+        rep["loop_replay"] = replay_against_plain(np, E, S, FU, SC, torch, boxes.pop("tuned0"),
+                                                  ("scatter_many", "gather_many", "seg_incl_min"), "11a")
+        torch.cuda.empty_cache()  # the captured full-width state goes
+
+        # -- (b) a live swap under traffic; (c) its ledger; (e) its command plane -----
+        rep["swap"], client, finish = swap_under_traffic(np, st, torch, FU, SC)
+        rep["memory_serving"] = memory_report(PROF, client, "serving")
+        check(rep["memory_serving"]["live_array_bytes"] and rep["memory_serving"]["device_memory_stats"],
+              "phase 11c: reconcile() read no allocator statistics on the card")
+        check({"windows", "rules", "wire"} <= set(rep["memory_serving"]["client_pools"]),
+              f"phase 11c: the serving client's pools {rep['memory_serving']['client_pools']}")
+        rep["commands"] = command_plane(np, torch, client, slo_eng, clock)
+        finish()
+        owner = client._ledger_name
+        client.stop()
+        left = [k for k in PROF.LEDGER.snapshot()["entries"] if f"/{owner}:" in k]
+        check(not left, f"phase 11c: stop() left ledger entries {left}")
+
+        # -- (d) the audit on bench.py's build; (c) the sketch pool, the capacity guard --
+        rep["audit"], sk = audit_run(np, st, torch, FU, SC, E, S, PS)
+        mem = memory_report(PROF, sk, "sketch")
+        want = SA.hbm_bytes(E.sketch_config(sk.cfg))
+        got = mem["client_pools"].get("sketch", 0)
+        check(abs(got - want) <= 0.1 * want, f"phase 11c: the sketch pool {got} B is not within 10 % of {want} B")
+        mem["salsa_hbm_bytes"] = want
+        rep["memory_sketch"] = mem
+        cap0 = PROF.LEDGER.snapshot()["capacity_bytes"]
+        PROF.LEDGER.set_capacity(PROF.LEDGER.total_bytes() + 1)
+        from sentinel_tpu_torch.obs.registry import REGISTRY
+        from sentinel_tpu_torch.obs.slo import SloEngine
+
+        slo = SloEngine(specs=WL.workload_slos(), registry=REGISTRY)
+        try:
+            op0 = WL.OperatingPoint.from_engine_config(sk.cfg)
+            grown = op0.replace(sketch_sample_count=max(8, op0.sketch_sample_count) * 8)
+            tuner = WL.AutoTuner(sk, slo, op0, [grown], seed=3, tcfg=WL.TunerConfig(settle_steps=1, warmup_steps=0))
+            tuner.step(sk.time.now_ms())
+            acts = [d["action"] for d in tuner.decisions]
+            check("rejected_hbm" in acts and sk.cfg.sketch_sample_count == op0.sketch_sample_count,
+                  f"phase 11c: a capacity one byte over the total did not reject the grown sketch point: {acts}")
+            rep["capacity_guard"] = acts
+        finally:
+            slo.close()
+            PROF.LEDGER.set_capacity(cap0)
+            sk.stop()
+
+        t = time.perf_counter()
+        cpu = {}
+        for label, proc in cpu_procs.items():
+            out, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"phase 11a: the CPU loop {label} failed: {err[-2000:]}")
+            cpu[label] = json.loads(out.strip().splitlines()[-1])
+            check(loop_view(cpu[label]["runs"][label]) == loop_view(runs[label]),
+                  f"phase 11a {label}: the card's closed loop differs from the CPU's")
+        rep["cpu"] = dict(wall_s=max(v["wall_s"] for v in cpu.values()), wait_s=time.perf_counter() - t,
+                          loop_wall_s={k: v["runs"][k]["wall_s"] for k, v in cpu.items()})
+    finally:
+        slo_eng.close()
+        for proc in cpu_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    workload_log(rep)
+    return rep
+
+
+def loop_log(smi, steps, runs) -> None:
+    for label, r in runs.items():
+        n, p, b = r["counts"]
+        log(f"[workload] {smi}: 11a {label}: {steps} steps of flash_crowd_2x(seed=7) at the default widths, "
+            f"submitted {n} passed {p} blocked {b}, bad_frac {r['bad_frac']:.4f}, p99 {r['p99_ms']:.2f} ms "
+            f"(modeled), converged {r['converged']}, {r['ticks']} ticks in {r['wall_s']:.2f} s "
+            f"({r['wall_s'] / max(r['ticks'], 1) * 1e3:.2f} ms a tick), surprise retraces {r['surprises']}")
+    log(f"[workload] {smi}: 11a decisions {json.dumps([(d['action'], d['op']) for d in runs['tuned0']['decisions']])}")
+
+
+def workload_log(rep) -> None:
+    smi = rep["card"]
+    lp = rep["loop"]
+    log(f"[workload] {smi}: 11a the tuned loop replayed on the card, and static and tuned equal the CPU's "
+        f"({json.dumps({k: round(v, 1) for k, v in rep['cpu']['loop_wall_s'].items()})} s a run on the CPU, "
+        f"{rep['cpu']['wait_s']:.1f} s waited for them at the end) — journal, latencies, counts; the last swap held the engine lock "
+        f"{lp['tuned0']['swap_lock_ms']:.2f} ms after waiting {lp['tuned0']['swap_lock_wait_ms']:.2f} ms; launches "
+        f"{json.dumps(rep['loop_launches'], sort_keys=True)}; captured tick == its plain-version tick "
+        f"({json.dumps(rep['loop_replay'], sort_keys=True)})")
+    sw = rep["swap"]
+    for s in sw["swaps"]:
+        log(f"[workload] {smi}: 11b {s['move']}: {json.dumps(s['applied'])}, {s['swap_ms']:.1f} ms, engine lock held "
+            f"{s['lock_ms']:.2f} ms after a wait of {s['lock_wait_ms']:.2f} ms (batch {s['batch']}, depth "
+            f"{s['depth']})")
+    log(f"[workload] {smi}: 11b decisions/s {json.dumps([(k, round(v, 1)) for k, v in sw['rates']])}; outcomes "
+        f"{json.dumps(sw['outcomes'], sort_keys=True)} ({sw['entries']} entries); no timeout, every future resolved, "
+        f"no surprise retrace")
+    for key in ("memory_serving", "memory_sketch"):
+        m = rep[key]
+        log(f"[workload] {smi}: 11c {m['label']}: the client's pools {json.dumps(m['client_pools'], sort_keys=True)}; "
+            f"all pools {json.dumps(m['pools'], sort_keys=True)}, total {m['total_bytes']} B; allocated "
+            f"{m['live_array_bytes']} B (unaccounted {m['unaccounted_bytes']} B); allocator "
+            f"{json.dumps(m['device_memory_stats'], sort_keys=True)}"
+            + (f"; salsa.hbm_bytes {m['salsa_hbm_bytes']} B" if "salsa_hbm_bytes" in m else ""))
+    log(f"[workload] {smi}: 11c stop() dropped the serving client's entries; a capacity one byte over the total: "
+        f"{rep['capacity_guard']}")
+    a = rep["audit"]
+    log(f"[workload] {smi}: 11d audit on bench.py's build: {json.dumps(a['counters'], sort_keys=True)}; "
+        f"{a['audit_ticks']} audit ticks, tracked {a['tracked']}, last {json.dumps(a['last_audit'], sort_keys=True)}; "
+        f"host ms a tick (median) audit {a['host_ms']['audit']:.2f} / other {a['host_ms']['plain']:.2f}; device us "
+        f"audit {a['device_us']['audit']:.1f} / other {a['device_us']['plain']:.1f}; launches "
+        f"{json.dumps(a['launches'], sort_keys=True)}; no host sync outside the audit tick; captured tick == its "
+        f"plain-version tick ({json.dumps(a['replay'], sort_keys=True)})")
+    cm = rep["commands"]
+    log(f"[workload] {smi}: 11e p50 ms api/memory {cm['api/memory']['p50_ms']:.2f}, api/profile?ms=250 "
+        f"{cm['api/profile']['ok_ms']:.1f} (ok, {cm['api/profile']['spans']} spans) then "
+        f"{cm['api/profile']['rate_limited_ms']:.2f} (rate_limited), metrics?fleet=1 "
+        f"{cm['metrics?fleet=1']['p50_ms']:.2f} ({cm['metrics?fleet=1']['lines']} lines, the self-scrape dropped)")
+    log(f"[workload] {smi}: 11e default_slos(): {json.dumps(cm['slo'], sort_keys=True)}")
+    log(f"[workload] {smi}: phase 11 took {rep['phase_s']:.1f} s")
+
+
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
@@ -4623,6 +5248,9 @@ def main() -> int:
     # -- 10. overload protection and the plain effects path --------------------------------
     report["overload"] = overload_phase(np, st, S, FU, SC, torch, smi)
 
+    # -- 11. the operations plane: closed loop, live swap, ledger, audit, commands ---------
+    report["workload"] = workload_phase(np, st, S, FU, SC, torch, smi)
+
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
         name = RECORD_CFG[kname]
@@ -4760,10 +5388,34 @@ def overload_main() -> int:
     return 0
 
 
+def workload_main() -> int:
+    """``python3 chip_smoke.py --workload``: the kernels' build and phase 11
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = workload_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1:]
     sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"]
              else cluster_main() if mode == ["--cluster"] else control_main() if mode == ["--control"]
-             else overload_main() if mode == ["--overload"]
+             else overload_main() if mode == ["--overload"] else workload_main() if mode == ["--workload"]
+             else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4
              else simload_main(*mode[1:]) if mode[:1] == ["--simload"] and len(mode) == 3
              else main())

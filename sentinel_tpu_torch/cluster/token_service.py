@@ -50,6 +50,7 @@ from sentinel_tpu_torch.cluster.rules import (
 )
 from sentinel_tpu_torch.core import errors as ERR
 from sentinel_tpu_torch.core import rules as R
+from sentinel_tpu_torch.obs import profile as PROF
 from sentinel_tpu_torch.obs import trace as OT
 from sentinel_tpu_torch.obs.registry import REGISTRY as _OBS
 from sentinel_tpu_torch.utils.host_window import HostWindow
@@ -308,6 +309,11 @@ class TokenColumnBatcher:
         self._limits_by_fid: Dict[int, float] = {}
         self._cap = 8
         self._state = TC.init_state(self._cap, self.device)
+        # memory ledger (obs/profile.py): the column's device state under a
+        # per-batcher owner, so close() releases exactly this claim
+        self._ledger_name = f"tokencol:{id(self):x}"
+        with PROF.ledger_owner(self._ledger_name):
+            PROF.LEDGER.track("tokens", "token_col.state", self._state)
         self._closed = False
         self._worker = threading.Thread(
             target=self._run, name="sentinel-token-col", daemon=True
@@ -342,6 +348,7 @@ class TokenColumnBatcher:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+        PROF.LEDGER.drop_owner(self._ledger_name)
 
     def warm(self) -> None:
         """Run one all-padding decision at the current time, as the
@@ -415,6 +422,8 @@ class TokenColumnBatcher:
                 )
                 self._state = self._TC.TokenColState(win=win, limits=self._state.limits)
                 self._cap = cap
+                with PROF.ledger_owner(self._ledger_name):
+                    PROF.LEDGER.track("tokens", "token_col.state", self._state)
             limits = np.zeros(cap, np.float32)
             for fid, thr in thresholds.items():
                 limits[self._slots[fid]] = thr

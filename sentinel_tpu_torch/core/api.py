@@ -123,7 +123,9 @@ def load_authority_rules(rules: Iterable[R.AuthorityRule]):
 
 def load_param_flow_rules(rules: Iterable[R.ParamFlowRule]):
     """Hot-parameter rules; ``entry(resource, args=...)`` then limits per
-    argument value.  A cluster-mode rule raises NotImplementedError."""
+    argument value.  A cluster-mode rule asks the attached cluster's token
+    service, and compiles in as a local rule while the client is degraded
+    (runtime/client.py, ``_recompile_rules``)."""
     get_client().param_flow_rules.load(list(rules))
 
 

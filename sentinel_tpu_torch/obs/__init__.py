@@ -19,12 +19,31 @@ call site pays one flag check — no allocation, no formatting, no clock
 read.
 
 * ``obs.flight``   — the black-box flight recorder: an always-on journal
-  of state transitions and triggered post-mortem bundles (``FLIGHT``).
+  of state transitions and triggered post-mortem bundles (``FLIGHT``);
+* ``obs.profile``  — the continuous profiling plane: the device memory
+  ledger (``LEDGER``), the retrace journal of new tick bindings
+  (``RETRACE``), bounded profile capture and the online sketch-accuracy
+  audit (``SketchAudit``);
+* ``obs.slo``      — declarative SLOs judged by multi-window burn rates
+  over the registry (``SloEngine``, ``default_slos``);
+* ``obs.fleet``    — the fleet view: scrapes merged into one exposition
+  (``GET /metrics?fleet=1``) and one per-resource timeline.
 
-The SLO engine, the fleet view, the device profile and the trace CLI are
-not ported yet (ROADMAP.md, Queue A items A6, A4 and A10).
+The trace CLI (``python -m sentinel_tpu.obs`` in the reference) is not
+ported yet (ROADMAP.md, Queue A item A10).
 """
 
+from sentinel_tpu_torch.obs.flight import FLIGHT, FlightRecorder, load_bundle
+from sentinel_tpu_torch.obs.profile import (
+    LEDGER,
+    RETRACE,
+    MemoryLedger,
+    RetraceObservatory,
+    SketchAudit,
+    capture_profile,
+    expected_retrace,
+    ledger_owner,
+)
 from sentinel_tpu_torch.obs.registry import (
     REGISTRY,
     Counter,
@@ -77,18 +96,29 @@ def span(name: str, trace: int = 0, **attrs):
 
 
 __all__ = [
+    "FLIGHT",
+    "LEDGER",
     "REGISTRY",
+    "RETRACE",
     "TRACER",
     "Counter",
+    "FlightRecorder",
     "Gauge",
     "Histogram",
+    "MemoryLedger",
     "MetricRegistry",
+    "RetraceObservatory",
+    "SketchAudit",
     "SpanTracer",
+    "capture_profile",
     "current_ctx",
     "disable",
     "enable",
     "enabled",
     "event",
+    "expected_retrace",
+    "ledger_owner",
+    "load_bundle",
     "load_spans",
     "maybe_ctx",
     "new_span_id",

@@ -24,9 +24,8 @@ dashboard's ``/metric?startTime&endTime`` pull.  Here:
   read-through ``find`` are the ``MetricSearcher`` analog.
 
 The recorder feeds the flight recorder (``flight_section``: the last
-~30 s of the hottest resources' rows).  The reference's recorder also
-registers itself for the fleet-wide merge (``live_recorders``); that
-comes back with the fleet view (ROADMAP.md, Queue A item A6).
+~30 s of the hottest resources' rows), and registers itself for the
+fleet-wide merge (``live_recorders``; obs/fleet.fleet_timeline).
 
 The timeline is OBSERVABILITY, never an admission dependency: a failed
 log write (full disk, chaos ``datasource.metriclog.write``) fails OPEN —
@@ -403,6 +402,17 @@ def _seek_offset(idx: List[tuple], start_ms: int) -> int:
 
 # -- the write-behind recorder -----------------------------------------------
 
+#: live recorders by id — the local sources a fleet timeline merge reads
+#: (obs/fleet.fleet_timeline)
+_LIVE: Dict[int, "TimelineRecorder"] = {}
+_LIVE_LOCK = threading.Lock()
+
+
+def live_recorders() -> List["TimelineRecorder"]:
+    with _LIVE_LOCK:
+        return list(_LIVE.values())
+
+
 class TimelineRecorder:
     """Folds per-tick device top-K matrices into exact per-second rows.
 
@@ -434,6 +444,8 @@ class TimelineRecorder:
         #: flushed rows ring: sec_ms -> {resource -> MetricRow}
         self._mem: Dict[int, Dict[str, MetricRow]] = {}
         self._wall_off = 0
+        with _LIVE_LOCK:
+            _LIVE[id(self)] = self
 
     # -- hot path (resolver thread, once per tick) ---------------------------
 
@@ -591,5 +603,7 @@ class TimelineRecorder:
 
     def close(self) -> None:
         self.flush(force=True)
+        with _LIVE_LOCK:
+            _LIVE.pop(id(self), None)
         if self.log is not None:
             self.log.close()

@@ -99,6 +99,7 @@ warmup, param}.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -127,6 +128,7 @@ from sentinel_tpu_torch.core.rules import (
 from sentinel_tpu_torch.obs.explain import FX as EXPLAIN_FX
 from sentinel_tpu_torch.obs.explain import FX_MAX as _EXPLAIN_FX_MAX
 from sentinel_tpu_torch.obs.explain import FX_UNKNOWN as EXPLAIN_UNKNOWN
+from sentinel_tpu_torch.obs import profile as PROF
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import fused as FU
@@ -600,6 +602,19 @@ def rtq_config(cfg: EngineConfig) -> RQ.RtqConfig:
 
 
 def init_state(cfg: EngineConfig, device) -> EngineState:
+    state = _init_state(cfg, device)
+    # memory ledger (obs/profile.py): the window rings + breaker / param /
+    # rtq state are the "windows" pool; the global sketch is accounted by
+    # its own init (salsa / gsketch), so its leaves are subtracted
+    PROF.LEDGER.set(
+        "windows",
+        "engine.init_state",
+        PROF.tree_nbytes(state) - PROF.tree_nbytes(state.gs),
+    )
+    return state
+
+
+def _init_state(cfg: EngineConfig, device) -> EngineState:
     rows = cfg.node_rows
     min_rows = rows if cfg.enable_minute_window else 1
     F = cfg.max_flow_rules
@@ -692,7 +707,7 @@ def compile_ruleset(
                 )
         else:
             exact_flow.append(r)
-    return RuleSet(
+    rs = RuleSet(
         flow=RT.to_device(RT.compile_flow_rules(exact_flow, cfg, registry), device),
         degrade=RT.to_device(
             RT.compile_degrade_rules(list(degrade_rules), cfg, registry), device
@@ -706,6 +721,10 @@ def compile_ruleset(
         system=RT.to_device(RT.compile_system_rules(list(system_rules), cfg), device),
         tail=RT.to_device(RT.compile_tail_flow_rules(tail, cfg), device),
     )
+    # memory ledger: compiled rule tensors are the "rules" pool (the latest
+    # compile at this site replaces the previous claim)
+    PROF.LEDGER.track("rules", "engine.compile_ruleset", rs)
+    return rs
 
 
 def empty_acquire(cfg: EngineConfig, device, b: Optional[int] = None) -> AcquireBatch:
@@ -1600,11 +1619,14 @@ def _check_flow(
         conc = both[:, 1]
         pool = both[:, 2]
     else:
-        node_l = node_safe.to(torch.int64)
+        # a sketch id (>= node_rows) has no exact row: clamped into the
+        # table, as the reference's gathers clamp an out-of-range index
+        # (its item is not applicable, so what it reads never decides)
+        node_l = torch.clamp(node_safe.to(torch.int64), 0, cfg.node_rows - 1)
         pool_dense = torch.where(state.occ_epoch == W.i32(cur_wid + 1), state.occ_tokens, 0.0)
         if cfg.use_mxu_tables:
             pool_dense = torch.round(pool_dense)
-        wp = W.gather_window_event_run(state.win_sec, node_safe, W.EV_PASS).to(F32)
+        wp = W.gather_window_event_run(state.win_sec, node_l, W.EV_PASS).to(F32)
         conc = state.concurrency[node_l].to(F32)
         pool = pool_dense[node_l]
 
@@ -2423,12 +2445,30 @@ def migrate_state(
     )
 
 
+#: (cfg, features) -> bound tick: one binding per key, shared by every
+#: client on that key (the reference's compiled-tick cache)
+_TICK_CACHE: dict = {}
+_TICK_CACHE_LOCK = threading.Lock()
+
+
 def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):
     """The tick bound to a config and a feature set (the JAX package's
-    compiled-tick factory; PyTorch runs eagerly, so this only binds)."""
+    compiled-tick factory; PyTorch runs eagerly, so this only binds).
+
+    Cached per ``(cfg, features)`` under a lock, as the reference caches
+    its compiled ticks: a miss is a new binding — the port's "retrace" —
+    journaled with its cause in the retrace observatory
+    (``obs/profile.RETRACE``: the key diff against the previous binding,
+    expected or a surprise); a hit reaches nothing."""
     check_supported(cfg, features)
+    key = (cfg, features)
+    with _TICK_CACHE_LOCK:
+        fn = _TICK_CACHE.get(key)
+        if fn is None:
 
-    def _tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, seg_fits=None):
-        return tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits)
+            def fn(state, rules, acq, comp, now_ms, sys_load, sys_cpu, seg_fits=None):
+                return tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits)
 
-    return _tick
+            _TICK_CACHE[key] = fn
+            PROF.RETRACE.observe("engine.tick", cfg=cfg, features=features)
+    return fn

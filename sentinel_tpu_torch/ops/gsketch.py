@@ -35,6 +35,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from sentinel_tpu_torch.obs import profile as PROF
 from sentinel_tpu_torch.ops import tables as T
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops.param import cms_cell
@@ -81,10 +82,14 @@ class SketchState(NamedTuple):
 
 def init_sketch(cfg: SketchConfig, device) -> SketchState:
     nbp = cfg.phys_buckets
-    return SketchState(
+    state = SketchState(
         counts=torch.zeros((nbp, cfg.depth, cfg.width, PLANES), dtype=I32, device=device),
         epochs=torch.full((nbp,), -(cfg.sample_count + 1), dtype=I32, device=device),
     )
+    # memory ledger (obs/profile.py): the count-min tier under the same
+    # "sketch" pool the salsa tier reports to
+    PROF.LEDGER.track("sketch", "gsketch.init_sketch", state)
+    return state
 
 
 def _wid(now_ms: int, cfg: SketchConfig) -> int:

@@ -159,10 +159,19 @@ cluster-degrade entry triggers a bundle; ``block_log=True`` writes
 ``sentinel-block.log`` (metrics/block_log.py), each line keyed by the
 explain plane's cause and rule slot.
 
+The operations plane (obs/profile.py, workload/): every device buffer
+the client builds is claimed in the memory ledger under the client's
+owner tag (``stop()`` drops it); every new tick binding journals in the
+retrace observatory, expected under its cause (``client-init``,
+``rule-feature-change``, ``segment-resize``, a swap's cause) or a
+surprise; ``sketch_audit_k`` arms the online sketch-accuracy audit
+(``SketchAudit``: audit-then-fold before each dispatch, one estimate and
+one readback on an audit tick only); ``apply_operating_point`` applies a
+``workload.OperatingPoint`` live (host knobs as attribute writes, engine
+knobs through ``_swap_engine``) — the autotuner's actuator.
+
 Not ported yet (ROADMAP.md): the sharded cluster client and front doors
-(A7b), the live operating-point swap (``apply_operating_point``, with
-``workload/``, A4), the SLO engine and the fleet view (A6), and the
-sketch-accuracy audit and the device profile (A10).
+(A7b).
 """
 
 from __future__ import annotations
@@ -190,6 +199,7 @@ from sentinel_tpu_torch.metrics import extension as MEXT
 from sentinel_tpu_torch.native import EventRing
 from sentinel_tpu_torch.native.ring import FLAG_COMPLETION, FLAG_INBOUND
 from sentinel_tpu_torch.obs import flight as FL
+from sentinel_tpu_torch.obs import profile as PROF
 from sentinel_tpu_torch.obs import timeline as TLM
 from sentinel_tpu_torch.obs import trace as OT
 from sentinel_tpu_torch.obs.explain import KIND_NAMES, ExplainPlane
@@ -679,6 +689,8 @@ class SentinelClient:
         block_log: bool = False,
         watchdog_timeout_s: float = 0.0,
         admission_queue_limit: int = 0,
+        sketch_audit_k: int = 0,
+        sketch_audit_period: int = 16,
     ):
         self.device = resolve_device(device)
         self.app_name = app_name or cfg_app_name()
@@ -771,9 +783,16 @@ class SentinelClient:
         self._inflight_lock = threading.Lock()
 
         self._features = self._select_features()
-        self._tick = E.make_tick(self.cfg, features=self._features)
-        self._state = E.init_state(self.cfg, self.device)
-        self._rules_dev = E.compile_ruleset(self.cfg, self.registry, device=self.device)
+        # memory-ledger ownership (obs/profile.py): every device buffer built
+        # FOR this client — engine state (the sketch tier claims itself inside
+        # init_state), ruleset tensors, wire staging — is claimed under this
+        # owner tag so stop() releases exactly them; the first tick binding
+        # per config is a warmup retrace by contract
+        self._ledger_name = f"client:{self.app_name}:{id(self):x}"
+        with PROF.ledger_owner(self._ledger_name), PROF.expected_retrace("client-init"):
+            self._tick = E.make_tick(self.cfg, features=self._features)
+            self._state = E.init_state(self.cfg, self.device)
+            self._rules_dev = E.compile_ruleset(self.cfg, self.registry, device=self.device)
 
         self._lock = threading.Lock()  # guards the queues
         self._engine_lock = threading.Lock()  # guards state / rules / tick
@@ -874,6 +893,27 @@ class SentinelClient:
         if self.cfg.sketch_stats and E.hotset_k(self.cfg) > 0:
             self.hotset = HotSetManager(self)
 
+        # online sketch-accuracy audit (obs/profile.SketchAudit): a rotating
+        # exact shadow of up to sketch_audit_k sketched resources, compared
+        # against the device estimates every sketch_audit_period ticks.
+        # Disarmed (k=0, the default) the tick pays ONE `is not None` check
+        self._audit: Optional[PROF.SketchAudit] = None
+        self._audit_scfg = None
+        self._audit_provider = None
+        if sketch_audit_k > 0 and self.cfg.sketch_stats:
+            scfg = E.sketch_config(self.cfg)
+            self._audit_scfg = scfg
+            self._audit = PROF.SketchAudit(
+                node_rows=self.cfg.node_rows,
+                window_ms=scfg.window_ms,
+                sample_count=scfg.sample_count,
+                slack_buckets=scfg.slack_buckets,
+                width=scfg.width,
+                k=int(sketch_audit_k),
+                period=int(sketch_audit_period),
+                trash_row=self.cfg.trash_row,
+            )
+
         # per-resource timeline (obs/timeline.py): built in start() when the
         # engine emits timeline rows; an on-disk MetricLog is attached only
         # when asked for (timeline_log=True, a prebuilt MetricLog, or
@@ -888,7 +928,12 @@ class SentinelClient:
         # section decoded into per-resource "why blocked" rings
         self.explain_plane: Optional[ExplainPlane] = None
         if E.explain_k(self.cfg) > 0:
-            self.explain_plane = ExplainPlane(name_source=self.registry.resource_name)
+
+            def _audit_eps() -> Optional[float]:
+                au = self._audit
+                return None if au is None else au._last_audit.get("eps_budget")
+
+            self.explain_plane = ExplainPlane(eps_source=_audit_eps, name_source=self.registry.resource_name)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -954,6 +999,9 @@ class SentinelClient:
         # started client wins the names)
         self._flight_provider = self._flight_state
         FL.FLIGHT.register_provider("client", self._flight_provider)
+        if self._audit is not None:
+            self._audit_provider = self._audit.flight_section
+            FL.FLIGHT.register_provider("audit", self._audit_provider)
         if self.explain_plane is not None:
             self._explain_provider = self.explain_plane.flight_section
             FL.FLIGHT.register_provider("explain", self._explain_provider)
@@ -995,6 +1043,10 @@ class SentinelClient:
             # only if still ours: a newer client may have taken the name
             FL.FLIGHT.unregister_provider("client", fp)
             self._flight_provider = None
+        ap = getattr(self, "_audit_provider", None)
+        if ap is not None:
+            FL.FLIGHT.unregister_provider("audit", ap)
+            self._audit_provider = None
         ep = getattr(self, "_explain_provider", None)
         if ep is not None:
             FL.FLIGHT.unregister_provider("explain", ep)
@@ -1026,6 +1078,9 @@ class SentinelClient:
             self.timeline = None
         if self.block_log is not None:
             self.block_log.flush()
+        # release this client's memory-ledger claims (engine state, rule
+        # tensors, wire staging): the owner tag brackets exactly them
+        PROF.LEDGER.drop_owner(self._ledger_name)
         self._started = False
 
     # -- adaptive protection / backpressure -----------------------------------
@@ -1340,7 +1395,8 @@ class SentinelClient:
             if changed:
                 self.cfg = self.registry.cfg = cfg
                 self._features = feats
-                self._tick = E.make_tick(cfg, features=feats)
+                with PROF.expected_retrace("rule-feature-change"):
+                    self._tick = E.make_tick(cfg, features=feats)
         return changed
 
     def _authority_mirror(self) -> Dict[str, tuple]:
@@ -2303,8 +2359,11 @@ class SentinelClient:
             )
 
     def _tick_once_locked(self, now_ms: Optional[int]) -> None:
-        bs, cbs = self.cfg.batch_size, self.cfg.complete_batch_size
         while True:
+            # read every iteration: a live operating-point swap (a future's
+            # callback, another thread) may change the batch shape between
+            # two ticks of this loop, and a batch must fit the tick it runs on
+            bs, cbs = self.cfg.batch_size, self.cfg.complete_batch_size
             if self._deadlines_live:
                 # deadline-aware backpressure: work that has already expired
                 # is worthless — shed it CLOSED here, BEFORE it costs a
@@ -2354,11 +2413,7 @@ class SentinelClient:
             more = self._has_work()
             depth = self._pipeline_depth if more else 0
             while len(self._pending_ticks) > depth:
-                p = self._pending_ticks.pop(0)
-                if self._pipeline_depth > 0:
-                    self._resolve_futs.append(self._pool().submit(self._resolve_tick, p))
-                else:
-                    self._resolve_tick(p)
+                self._hand_off(self._pending_ticks.pop(0))
             if self._resolve_futs:
                 alive = []
                 for f in self._resolve_futs:
@@ -2423,16 +2478,22 @@ class SentinelClient:
             self._resolver_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sentinel-resolve")
         return self._resolver_pool
 
+    def _hand_off(self, p: _PendingTick) -> None:
+        """Resolve one dispatched tick in tick order: on the resolver thread
+        while pipelining — or while earlier ticks are still queued there
+        (a live ``pipeline_depth`` cut to 0 drains them, never overtakes
+        them) — else inline."""
+        if self._pipeline_depth > 0 or self._resolve_futs:
+            self._resolve_futs.append(self._pool().submit(self._resolve_tick, p))
+        else:
+            self._resolve_tick(p)
+
     def _drain_resolves(self) -> None:
         """Flush deferred readbacks: pending ticks not yet handed to the
         resolver, then every in-flight resolution (bounded: a wedged
         readback is abandoned after 2 x entry_timeout_s, at least 5 s)."""
         while self._pending_ticks:
-            p = self._pending_ticks.pop(0)
-            if self._pipeline_depth > 0:
-                self._resolve_futs.append(self._pool().submit(self._resolve_tick, p))
-            else:
-                self._resolve_tick(p)
+            self._hand_off(self._pending_ticks.pop(0))
         futs, self._resolve_futs = self._resolve_futs, []
         deadline = mono_s() + max(2.0 * self.entry_timeout_s, 5.0)
         for f in futs:
@@ -2447,15 +2508,20 @@ class SentinelClient:
 
     def _warm_shapes(self) -> None:
         """Run both batch shapes once with no-op batches (builds the
-        kernels before serving)."""
+        kernels before serving); each warm-up's host ms lands in
+        ``sentinel_compile_ms{entry="engine.tick"}``."""
+        tw = mono_s()
         self._resolve_tick(self._run_tick([], None, self.time.now_ms()))
+        PROF.RETRACE.observe_compile_ms("engine.tick", (mono_s() - tw) * 1000.0)
         if self.cfg.batch_size > 256:
             filler = AcquireRequest(
                 res=self.cfg.trash_row, count=0, prio=0, origin_id=-1,
                 origin_node=self.cfg.trash_row, ctx_node=self.cfg.trash_row,
                 ctx_name=-1, inbound=0,
             )
+            tw = mono_s()
             self._resolve_tick(self._run_tick([filler] * 257, None, self.time.now_ms()))
+            PROF.RETRACE.observe_compile_ms("engine.tick", (mono_s() - tw) * 1000.0)
 
     @staticmethod
     def _shape_for(n: int, cap: int) -> int:
@@ -2505,7 +2571,8 @@ class SentinelClient:
             cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
             with self._engine_lock:
                 self.cfg = self.registry.cfg = cfg
-                self._tick = E.make_tick(cfg, features=self._features)
+                with PROF.expected_retrace("segment-resize"):
+                    self._tick = E.make_tick(cfg, features=self._features)
                 self._seg_over_ticks = 0
         finally:
             OT.TRACER.end(h)
@@ -2563,13 +2630,23 @@ class SentinelClient:
         tick and run it at both batch shapes on a throwaway state while the
         old engine keeps serving (the first launches load kernel modules
         and plan the fused jobs), then migrate the state under the engine
-        lock, so the swap itself is only the migration.  The reference
-        also journals the swap as an expected retrace in its HBM ledger;
-        that waits for ``obs/profile`` (ROADMAP.md Queue A item A10)."""
+        lock, so the swap itself is only the migration.  The new binding
+        journals as an EXPECTED retrace under ``cause`` (obs/profile.py): a
+        tuning or reshaping session keeps the surprise count flat.  The
+        throwaway state re-claims this client's windows / sketch ledger
+        entries at the new config's sizes, the shapes the migrated state
+        lands in.
+
+        Ticks dispatched before the swap resolve as they were built: each
+        ``_PendingTick`` carries its own wire layout and readback buffer
+        (the pool is keyed by wire size), and the migration is queued
+        behind them on the card's stream."""
         _h = OT.TRACER.begin("client.engine_swap", cause=cause, **span_attrs)
         try:
-            new_tick = E.make_tick(new_cfg, features=self._features)
-            dummy = E.init_state(new_cfg, self.device)
+            with PROF.ledger_owner(self._ledger_name), PROF.expected_retrace(cause):
+                new_tick = E.make_tick(new_cfg, features=self._features)
+            with PROF.ledger_owner(self._ledger_name):
+                dummy = E.init_state(new_cfg, self.device)
             for bs in sorted({min(256, new_cfg.batch_size), new_cfg.batch_size}):
                 dummy, _ = new_tick(
                     dummy,
@@ -2598,6 +2675,32 @@ class SentinelClient:
             self._recompile_rules()
         finally:
             OT.TRACER.end(_h)
+
+    def apply_operating_point(self, op, cause: str = "tuner-retune") -> dict:
+        """Apply a ``workload.OperatingPoint`` LIVE — the autotuner's
+        actuator.  Host-only knobs (pipeline depth, audit cadence) are plain
+        attribute writes with no effect on the bound tick; engine knobs
+        (batch / sketch shapes) ride the same build-then-swap path as
+        ``update_window_shape``, journaled as one expected retrace under
+        ``cause``.  ``op`` is duck-typed (``engine_changes`` + the knob
+        attributes), so the runtime never imports workload.
+
+        Returns ``{"engine": bool, "host": [knob, ...]}``: what actually
+        changed (an identity apply returns all-empty)."""
+        applied = {"engine": False, "host": []}
+        depth = getattr(op, "pipeline_depth", None)
+        if depth is not None and int(depth) != self._pipeline_depth:
+            self._pipeline_depth = max(0, int(depth))
+            applied["host"].append("pipeline_depth")
+        period = getattr(op, "audit_period", None)
+        if period is not None and self._audit is not None and max(1, int(period)) != self._audit.period:
+            self._audit.period = max(1, int(period))
+            applied["host"].append("audit_period")
+        changes = op.engine_changes(self.cfg)
+        if changes:
+            self._swap_engine(dataclasses.replace(self.cfg, **changes), cause, **changes)
+            applied["engine"] = True
+        return applied
 
     def register_window_property(self, prop) -> None:
         """Subscribe window shape to a SentinelProperty pushing dicts like
@@ -2635,7 +2738,20 @@ class SentinelClient:
         s = self._stage.get(key)
         if s is None:
             s = self._stage[key] = [self._host_buffer(shape, dt) for _ in range(2)]
+            self._ledger_wire()  # cold: a new staging slot pair
         return s[self._stage_parity]
+
+    def _ledger_wire(self) -> None:
+        """Re-claim the wire pool (obs/profile.LEDGER) after a cold
+        allocation: the two-slot staging buffers (pinned host memory on the
+        card) plus the cached device constant columns.  The dirty-column
+        copies (``_col_last``) churn with traffic and stay out: ledger
+        entries change only on allocation events, never per tick."""
+        nb = sum(s[0].nbytes + s[1].nbytes for s in self._stage.values()) + sum(
+            PROF.tree_nbytes(c) for c in self._const_cols.values()
+        )
+        with PROF.ledger_owner(self._ledger_name):
+            PROF.LEDGER.set("wire", "client.staging", nb)
 
     def _host_buffer(self, shape, dt) -> np.ndarray:
         if not self._pinned:
@@ -2677,6 +2793,7 @@ class SentinelClient:
             if c is None:
                 c = self._const_cols[key] = self._h2d(x)
                 _C_WIRE["tx"].inc(x.nbytes)  # the constant's first (only) upload
+                self._ledger_wire()  # cold: a new (field, dtype, shape) constant
             # the dirty ref would go stale while constant ticks bypass it
             self._col_last.pop(field, None)
             return c
@@ -2728,6 +2845,7 @@ class SentinelClient:
         presort = cfg.seg_effects and clamp
         inv = None
         segs_a = segs_c = 0
+        au_cols = None
         if acq or n_blk:
             n = len(acq)
 
@@ -2752,6 +2870,12 @@ class SentinelClient:
             cnt_np = arr("count", 0, blk_default=1)
             if clamp:
                 np.minimum(cnt_np, cfg.max_batch_count, out=cnt_np)  # the fused kernels' envelope
+            if self._audit is not None:
+                # the audit's shadow-fold input: the CLAMPED columns before
+                # the presort (a fold is a sum: order is irrelevant) —
+                # exactly the units the engine lands in the sketch; these
+                # slots are not written again before observe() below
+                au_cols = (res_np, cnt_np)
             prio_np = arr("prio", 0)
             oid_np = arr("origin_id", -1)
             onode_np = arr("origin_node", trash)
@@ -2894,6 +3018,18 @@ class SentinelClient:
                 OT.stage_ns("tick.presort", _tp0, _ns_presort, _H_PRESORT, trace=tick_id)
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
+        au = self._audit
+        if au is not None:
+            # audit-then-fold (obs/profile.py): the estimate read and the
+            # shadow both cover the stream through the PREVIOUS tick — this
+            # tick's batch lands on the card only in the dispatch below.
+            # Outside _engine_lock; fails OPEN inside.
+            au.observe(
+                int(t),
+                au_cols[0] if au_cols is not None else None,
+                au_cols[1] if au_cols is not None else None,
+                self._audit_attempts,
+            )
         ad = self._adaptive
         if ad is not None:
             # the closed loop: signals row -> controller -> ladder and the
@@ -2905,6 +3041,9 @@ class SentinelClient:
             self._state, out = self._tick(
                 self._state, self._rules_dev, a, c, int(t), load, cpu, seg_fits=seg_fits
             )
+            # under the lock a swap also takes: the layout of the config
+            # this tick ran on, whatever swap comes after
+            wire_lo = self._wire_layout(B)
         _disp_done = 0
         if _t_disp:
             _disp_done = OT.now_ns()
@@ -2919,11 +3058,31 @@ class SentinelClient:
             event.record()
         p = _PendingTick(
             acq=acq, blocks=list(blocks), inv_a=inv, out=out, n_obj=len(acq), n_blk=n_blk,
-            wire_lo=self._wire_layout(B), now_ms=int(t), buf=buf, event=event,
+            wire_lo=wire_lo, now_ms=int(t), buf=buf, event=event,
             tick_id=tick_id, dispatched_ns=_disp_done,
         )
         self._track_tick(p)  # watchdog coverage (a no-op while disarmed)
         return p
+
+    def _audit_attempts(self, rids, now_ms: int) -> np.ndarray:
+        """SketchAudit's reader: the device sketch's windowed ATTEMPTS
+        estimate (PASS + BLOCK planes — exactly the units the engine folds:
+        ``acq.count`` per valid entry) of the tracked ids, through the
+        port's own sketch path (``sketch.impl_for(cfg).estimate``: SALSA's
+        running sums, or the count-min seed's).  The ids are padded to the
+        audit's fixed K with the first sketch row.  One estimate under the
+        engine lock (queued on the card's stream ahead of the next tick's
+        in-place updates), then one readback: the audit tick's only host
+        sync."""
+        from sentinel_tpu_torch.sketch import impl_for
+
+        k = len(rids)
+        ids = list(rids) + [self.cfg.node_rows] * (self._audit.k - k)
+        ids_dev = torch.tensor(ids, dtype=torch.int32, device=self.device)
+        with self._engine_lock:
+            est = impl_for(self.cfg).estimate(self._state.gs, int(now_ms), ids_dev, self._audit_scfg)
+            att = est[:k, W.EV_PASS] + est[:k, W.EV_BLOCK]
+        return att.cpu().numpy()
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
         lo = self._wire_layouts.get(b)

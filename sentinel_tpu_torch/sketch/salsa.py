@@ -45,6 +45,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from sentinel_tpu_torch.obs import profile as PROF
 from sentinel_tpu_torch.ops import tables as T
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops.gsketch import (
@@ -93,7 +94,7 @@ def init_sketch(cfg: SketchConfig, device) -> SalsaState:
     wp = _wp(cfg)
     nbp = cfg.phys_buckets
     empty = -(cfg.sample_count + 1)
-    return SalsaState(
+    state = SalsaState(
         words=torch.zeros((nbp, cfg.depth, PLANES, wp), dtype=I32, device=device),
         lvlmap=torch.zeros((nbp, cfg.depth, PLANES, wp // _BMP), dtype=I32, device=device),
         run=torch.zeros((cfg.depth, PLANES, cfg.width), dtype=I32, device=device),
@@ -102,6 +103,10 @@ def init_sketch(cfg: SketchConfig, device) -> SalsaState:
         cur=torch.zeros((cfg.depth, PLANES, cfg.width), dtype=I32, device=device),
         cur_wid=torch.full((), empty, dtype=I32, device=device),
     )
+    # memory ledger (obs/profile.py): the measured live counterpart of the
+    # static hbm_bytes(cfg) claim — the two must agree within 10%
+    PROF.LEDGER.track("sketch", "salsa.init_sketch", state)
+    return state
 
 
 def _index_of(wid: torch.Tensor, cfg: SketchConfig) -> torch.Tensor:

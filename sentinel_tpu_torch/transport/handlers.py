@@ -7,13 +7,13 @@ All handlers are methods on one group object bound to a SentinelClient so
 the registry stays explicit and testable.
 
 The port's copy of ``sentinel_tpu/transport/handlers.py``; ``api/flight``
-answers from the port's flight recorder (``obs/flight.FLIGHT``).  Four
-commands read modules the port has not ported yet; each raises
-``NotImplementedError`` naming its ROADMAP.md item, and
-``CommandRegistry.handle`` answers that as a failure response:
-``metrics?fleet=1`` (``obs/fleet``, Queue A item A6), ``api/profile`` and
-``api/memory`` (``obs/profile``, A10) and ``api/shards``
-(``cluster/shard``, A7b).
+answers from the port's flight recorder (``obs/flight.FLIGHT``),
+``metrics?fleet=1`` from its fleet view (``obs/fleet``), ``api/profile``
+and ``api/memory`` from its profiling plane (``obs/profile``).  One
+command reads a module the port has not ported yet: ``api/shards``
+(``cluster/shard``, ROADMAP.md Queue A item A7b) raises
+``NotImplementedError`` naming its item, and ``CommandRegistry.handle``
+answers that as a failure response.
 """
 
 from __future__ import annotations
@@ -228,7 +228,9 @@ class DefaultHandlerGroup:
         from sentinel_tpu_torch.obs import REGISTRY
 
         if (req.param("fleet") or "").lower() in ("1", "true"):
-            _not_ported("metrics?fleet=1 (obs/fleet.py)", "A6")
+            from sentinel_tpu_torch.obs.fleet import fleet_exposition
+
+            return CommandResponse.of_success(fleet_exposition())
         return CommandResponse.of_success(REGISTRY.exposition())
 
     @command_mapping("api/traces", "span-tracer ring dump (Chrome trace JSON)")
@@ -265,13 +267,28 @@ class DefaultHandlerGroup:
 
     @command_mapping("api/profile", "bounded deep-profile capture (Chrome trace)")
     def api_profile(self, req: CommandRequest) -> CommandResponse:
-        """``GET /api/profile?ms=250`` — one bounded dense-capture window."""
-        _not_ported("api/profile (obs/profile.py, capture_profile)", "A10")
+        """``GET /api/profile?ms=250`` — one bounded dense-capture window
+        (obs/profile.capture_profile): the span tracer is force-enabled
+        (with its ``torch.profiler.record_function`` passthrough) for at
+        most ``ms`` milliseconds and the window's spans come back as a
+        Chrome-trace payload.  Rate-limited (a second capture inside the
+        interval returns ``{"error": "rate_limited", "retry_after_s": ...}``)
+        and fail-OPEN: errors return a payload, decisions are untouched."""
+        from sentinel_tpu_torch.obs.profile import capture_profile
+
+        return CommandResponse.of_success(capture_profile(req.param("ms") or 250.0))
 
     @command_mapping("api/memory", "HBM memory-ledger reconciliation")
     def api_memory(self, req: CommandRequest) -> CommandResponse:
-        """``GET /api/memory`` — the memory ledger reconciled on demand."""
-        _not_ported("api/memory (obs/profile.py, the memory ledger)", "A10")
+        """``GET /api/memory`` — the memory ledger's view (per-pool bytes,
+        per-entry breakdown, capacity posture) reconciled on demand against
+        the client's device: on the card ``torch.cuda.memory_allocated``
+        and the allocator's ``*bytes*`` statistics (``unaccounted_bytes`` =
+        allocated bytes no ledger entry claims); on the CPU those read
+        None."""
+        from sentinel_tpu_torch.obs.profile import LEDGER
+
+        return CommandResponse.of_success(LEDGER.reconcile(getattr(self.client, "device", None)))
 
     @command_mapping("api/shards", "token-fleet topology + per-shard health")
     def api_shards(self, req: CommandRequest) -> CommandResponse:

@@ -9,7 +9,7 @@ runs and the point a client serves cannot silently drift:
   from it, and its controller preset (``storm_controller_preset``)
   derives its queue bound from the same point;
 * the live retune (``SentinelClient.apply_operating_point``) and the
-  autotuner over it come with ``workload/`` (ROADMAP.md, Queue A).
+  autotuner over it (``workload/tuner.py``) move a client between points.
 
 Engine-built knobs (batch / sketch shape) are separated from host-only
 knobs (pipeline depth, audit cadence) because applying them costs very

@@ -282,3 +282,48 @@ def test_the_scan_covers_overload_protection():
                  "sentinel_adaptive_ceiling"):
         assert REGISTRY.series(name), name
     assert flight.FLIGHT.__class__.__module__ == "sentinel_tpu_torch.obs.flight"
+
+
+def test_the_scan_covers_the_operations_plane():
+    """The operations plane is the port's own: obs/slo.py, obs/fleet.py,
+    obs/profile.py and workload/ (shapes, generator, tuner) are walked by
+    the checks above and import on the CPU without the JAX package; their
+    failpoints and the ledger's counters are the port's registry's; the
+    profiling plane imports without torch (the cluster codec imports it)."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import sentinel_tpu_torch as st
+
+    mods = ("obs.slo", "obs.fleet", "obs.profile", "workload", "workload.shapes", "workload.generator",
+            "workload.tuner")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    from sentinel_tpu_torch import obs, workload
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    for site in ("obs.profile.capture", "sketch.audit.shadow", "workload.gen.emit", "workload.tuner.step"):
+        assert site in FP.catalog()
+    for name in ("sentinel_hbm_capacity_checks_total", "sentinel_hbm_capacity_breaches_total"):
+        assert REGISTRY.series(name), name
+    assert not {"drive_gateway", "drive_asgi", "drive_streaming", "drive_grpc"} & set(workload.__all__)
+    assert {"LEDGER", "RETRACE", "SketchAudit", "capture_profile", "FLIGHT"} <= set(obs.__all__)
+    ref = sys.modules.get("sentinel_tpu.obs.profile")
+    assert ref is None or ref.LEDGER is not obs.LEDGER
+    code = (
+        "import sys\n"
+        "import sentinel_tpu_torch.obs.profile, sentinel_tpu_torch.obs.slo, sentinel_tpu_torch.obs.fleet\n"
+        "assert 'torch' not in sys.modules, 'the profiling plane pulled torch in'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -320,6 +320,39 @@ Phases (the first failure stops the script with a nonzero exit):
    center itself as a fleet target (well formed, the self-scrape dropped);
    then ``default_slos()`` judged over the phase (``[workload]`` lines).
 
+12. The front doors and the adapters (``doors_phase``).  (a) The native
+   front door at the default widths: a ``platform_config()`` decision
+   client, a ``DefaultTokenService`` deciding on its engine with phase 8's
+   rules, two ``NativeFrontDoor``s on one port (``reuseport=True``)
+   attached and following it, then a cluster param rule whose resource
+   gateway rules left no hash lane (``sentinel_front_door_unenforceable_
+   rules`` must not move for the lane-0 rules and must count that one).
+   A sync client on virtual time: 8 sockets in turn each pipeline 512
+   frames (flow, param with int and string values, concurrent acquire and
+   release), the rings fill, one ``tick_once`` drains them (under
+   ``set_sync_debug_mode("error")`` with the kernels); once with the
+   kernels, once with their plain versions and once on the CPU in a
+   process of its own — every response's status, wait and token id equal;
+   one captured door tick against its plain-version tick, B1 / B2 / B4 by
+   name.  Then a threaded client: 8 load threads pipelining bursts of 64
+   frames for 8 s beside 2 ``entry()`` threads — every frame answered, no
+   tick failed closed; tokens/s, round trip p50 / p99, ms a tick, the
+   doors' share of a batch, and a half-second profile (busy and idle share
+   a tick, B1 / B2 / B4 by name).  (b) The Envoy RLS rule model
+   (``rls/rules.py``; no grpcio, no protobuf): 10,000 descriptors over a
+   matched domain, unmatched values and an unknown domain resolved to flow
+   ids and decided through (a)'s token service, ``hits_addend`` 1 then 3;
+   OK / OVER_LIMIT equal the CPU's, code for code (the gRPC wire is held
+   on the CPU by the tests).  (c) A threaded ``platform_config()`` client
+   with flow rules, gateway route rules and gateway param rules (header,
+   URL param, client IP): bare ``entry()``, WSGI and ASGI apps called in
+   process, ``@sentinel_resource`` with a fallback, ``guard_stream`` —
+   requests/s and µs added over bare ``entry()``; ``drive_gateway``,
+   ``drive_asgi`` and ``drive_streaming`` over flash_crowd_2x(seed=7) cut
+   to 16 steps: submitted == passed + blocked, blocks where a rule binds,
+   B1 / B2 / B4 launched; and ``drive_gateway``'s sync replay (12 steps)
+   equal to the CPU's request for request (``[doors]`` lines).
+
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
 turns the fallback off).
@@ -333,7 +366,8 @@ PyTorch operations of one ``sketch`` tick with the sketch tier on and off
 phase 8 alone (``cluster_main``), ``python3 chip_smoke.py --control`` the
 build and phase 9 (``control_main``), ``python3 chip_smoke.py --overload``
 the build and phase 10 (``overload_main``), ``python3 chip_smoke.py
---workload`` the build and phase 11 (``workload_main``).
+--workload`` the build and phase 11 (``workload_main``), ``python3
+chip_smoke.py --doors`` the build and phase 12 (``doors_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -2586,8 +2620,8 @@ def cluster_serving_run(np, st, FU, SC, torch, cfg, use_col, device="cuda", n_en
         else:
             real_tick = dec._run_tick
 
-            def cap_tick(acq, comp, now_ms, blocks=()):
-                p = real_tick(acq, comp, now_ms, blocks=blocks)
+            def cap_tick(acq, comp, now_ms, blocks=(), fronts=()):
+                p = real_tick(acq, comp, now_ms, blocks=blocks, fronts=fronts)
                 decided.append((p.now_ms, list(p.acq)))
                 return p
             dec._run_tick = cap_tick
@@ -3812,23 +3846,25 @@ def capture_client_tick(E, nth: int) -> tuple:
     return box, lambda: setattr(E, "tick", real_tick)
 
 
-def device_profile(torch, fn) -> tuple:
+def device_profile(torch, fn, cpu=True) -> tuple:
     """(device busy us, kernel launches by name) of one call, from
-    torch.profiler; a session that records no device activity is taken
-    again (twice at most)."""
+    torch.profiler (``cpu=False``: the card's activity alone, which slows
+    the host's threads less); a session that records no device activity
+    is taken again (twice at most)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     for _ in range(3):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
         if dev:
             break
-    check(dev, "phase 11: the profiler recorded no device activity in 3 sessions")
+    check(dev, "the profiler recorded no device activity in 3 sessions")
     names = {}
     for e in dev:
         names[e.name] = names.get(e.name, 0) + 1
@@ -3845,7 +3881,7 @@ def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
     again with the kernels (profiled: each kernel of ``want`` must show by
     name) and with their plain versions; wire bytes and integer state
     leaves equal, float leaves within 1e-6 / 1e-4."""
-    check(box, f"phase 11 {label}: no tick was captured")
+    check(box, f"phase {label}: no tick was captured")
     real, plain, install = kernel_sets(FU, SC)
     tick = E.make_tick(box["cfg"], box["feats"])
 
@@ -3862,19 +3898,19 @@ def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
     finally:
         install(real)
     st_k, wire_k = got["k"]
-    check(wire_k == wire_p, f"phase 11 {label}: the captured tick's wire differs from its plain-version tick")
+    check(wire_k == wire_p, f"phase {label}: the captured tick's wire differs from its plain-version tick")
     la, lb = S.leaves(st_k), S.leaves(st_p)
     fdiff = 0.0
     for k in la:
         if la[k].dtype.is_floating_point:
             d = (la[k] - lb[k]).abs()
-            check(bool(torch.all(d <= 1e-4 + 1e-6 * lb[k].abs())), f"phase 11 {label}: float leaf {k} differs")
+            check(bool(torch.all(d <= 1e-4 + 1e-6 * lb[k].abs())), f"phase {label}: float leaf {k} differs")
             fdiff = max(fdiff, float(d.max()) if d.numel() else 0.0)
         else:
-            check(torch.equal(la[k], lb[k]), f"phase 11 {label}: integer state leaf {k} differs")
+            check(torch.equal(la[k], lb[k]), f"phase {label}: integer state leaf {k} differs")
     seen = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm) for k in want}
     for k in want:
-        check(seen[k] > 0, f"phase 11 {label}: the profile of the captured tick shows no {k} kernel: {names}")
+        check(seen[k] > 0, f"phase {label}: the profile of the captured tick shows no {k} kernel: {names}")
     return dict(profile_kernels=seen, device_busy_us=busy, float_state_max_diff=fdiff,
                 batch=int(box["acq"].res.shape[0]), now_ms=int(box["now"]))
 
@@ -4351,6 +4387,803 @@ def workload_log(rep) -> None:
         f"{cm['metrics?fleet=1']['p50_ms']:.2f} ({cm['metrics?fleet=1']['lines']} lines, the self-scrape dropped)")
     log(f"[workload] {smi}: 11e default_slos(): {json.dumps(cm['slo'], sort_keys=True)}")
     log(f"[workload] {smi}: phase 11 took {rep['phase_s']:.1f} s")
+
+
+# -- phase 12: the front doors and the adapters ------------------------------------------
+
+#: phase 12a: sockets and frames a socket (one step each: 4,096 frames in
+#: all); the threaded half's load threads, burst and seconds, and its
+#: entry() threads
+DOOR_SOCKETS = 8
+DOOR_FRAMES = 512
+DOOR_LOAD_THREADS = 8
+DOOR_BURST = 64
+DOOR_LOAD_S = 8.0
+DOOR_ENTRY_THREADS = 2
+#: the cluster param rule given no hash lane on purpose (gateway rules take
+#: both lanes of its resource first)
+UNLANED_FID = 20_001
+#: phase 12b: descriptors resolved and decided, in chunks of RLS_CHUNK a tick
+RLS_REQUESTS = 10_000
+RLS_CHUNK = 500
+#: phase 12c: the flash crowd's steps (bench.py's flash_crowd_2x has 240),
+#: cut to the phase's time — the threaded drivers', and the sync replay's
+#: (held against the CPU, whose full-width ticks take ~0.2-0.5 s) — and the
+#: requests each in-process adapter serves
+ADAPTER_STEPS = 10
+REPLAY_STEPS = 6
+ADAPTER_REQUESTS = 32
+
+
+def door_frames(np, P, C, rng, n, xid0, tokens) -> list:
+    """One socket's step: ``n`` frames — flow frames (Zipf(1.1) over the
+    1,000 cluster flows, 1 in 5 prioritized, 1-3 units), param frames (the
+    32 param flows and the unlaned one, an int or a string value from 64),
+    concurrent acquires on the first 16 flows, and releases of the tokens
+    the previous step was granted (``tokens``), in a seeded order."""
+    w = 1.0 / np.arange(1, CLUSTER_FLOWS + 1) ** 1.1
+    w /= w.sum()
+    values = [f"user-{i}" for i in range(32)] + list(range(1_000, 1_032))
+    out, rel = [], list(tokens)
+    for i in range(n):
+        u, xid = rng.random(), xid0 + i
+        if rel and u < 0.05:
+            out.append(P.ClusterRequest(xid=xid, type=C.MSG_TYPE_CONCURRENT_RELEASE, token_id=rel.pop()))
+        elif u < 0.10:
+            out.append(P.ClusterRequest(xid=xid, type=C.MSG_TYPE_CONCURRENT_ACQUIRE,
+                                        flow_id=int(rng.integers(1, 17)), count=1))
+        elif u < 0.32:
+            fid = UNLANED_FID if rng.random() < 0.05 else 10_001 + int(rng.integers(0, CLUSTER_PARAMS))
+            out.append(P.ClusterRequest(xid=xid, type=C.MSG_TYPE_PARAM_FLOW, flow_id=fid, count=1,
+                                        params=[values[int(rng.integers(0, len(values)))]]))
+        else:
+            out.append(P.ClusterRequest(xid=xid, type=C.MSG_TYPE_FLOW, flow_id=int(rng.choice(CLUSTER_FLOWS, p=w)) + 1,
+                                        count=int(rng.integers(1, 4)), priority=bool(rng.random() < 0.2)))
+    return out
+
+
+def read_frames(P, sock, n, deadline_s=30.0) -> dict:
+    """xid -> (status, wait_ms, token_id) of ``n`` response frames read from
+    ``sock`` (every read with a timeout)."""
+    import socket
+
+    got, buf = {}, b""
+    end = time.perf_counter() + deadline_s
+    while len(got) < n and time.perf_counter() < end:
+        try:
+            chunk = sock.recv(1 << 16)
+        except socket.timeout:
+            continue
+        if not chunk:
+            break
+        buf += chunk
+        while len(buf) >= 2:
+            ln = int.from_bytes(buf[:2], "big")
+            if len(buf) - 2 < ln:
+                break
+            r = P.decode_response(buf[2 : 2 + ln])
+            got[r.xid] = (r.status, r.wait_ms, r.token_id)
+            buf = buf[2 + ln :]
+    check(len(got) == n, f"phase 12: {len(got)} of {n} frames answered")
+    return got
+
+
+def door_setup(np, st, device, mode, time_source=None):
+    """Phase 12a's setup: a ``platform_config()`` decision client at the
+    default widths, a DefaultTokenService deciding on its engine with
+    phase 8's rules (1,000 cluster flow rules, 32 cluster param rules),
+    two NativeFrontDoors on one port (``reuseport=True``) attached and
+    following the service; then one more cluster param rule whose resource
+    gateway rules have no lane left for.  Returns (client, service, doors,
+    the unenforceable counter's moves: lane-0 rules, the unlaned rule)."""
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.cluster.front_door import _C_UNENFORCEABLE, NativeFrontDoor
+    from sentinel_tpu_torch.cluster.rules import param_resource
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    dec = SentinelClient(cfg=platform_config(), device=device, mode=mode, time_source=time_source,
+                         tick_interval_ms=1.0, app_name=f"doors-{mode}")
+    dec.start()
+    svc = DefaultTokenService(dec, use_token_column=False)
+    flow, param = cluster_rules(np, st, C)
+    svc.flow_rules.load("default", flow)
+    doors = [NativeFrontDoor(port=0, reuseport=True)]
+    doors.append(NativeFrontDoor(port=doors[0].port, reuseport=True))
+    for d in doors:
+        d.follow(svc)
+        dec.attach_front_door(d)
+        d.start()
+    u0 = _C_UNENFORCEABLE.value
+    svc.param_rules.load("default", param)
+    lane0 = _C_UNENFORCEABLE.value - u0
+    name = param_resource(UNLANED_FID)
+    dec.gateway_param_rules.load([st.ParamFlowRule(resource=name, count=5.0, param_idx=1),
+                                  st.ParamFlowRule(resource=name, count=5.0, param_idx=2)])
+    u1 = _C_UNENFORCEABLE.value
+    svc.param_rules.load("default", param + [st.ParamFlowRule(resource="cres-unlaned", count=3.0, cluster_mode=True,
+                                                              cluster_flow_id=UNLANED_FID)])
+    return dec, svc, doors, (lane0, _C_UNENFORCEABLE.value - u1)
+
+
+def door_close(dec, svc, doors, socks=()):
+    for s in socks:
+        s.close()
+    for d in doors:
+        d.stop()
+    dec.stop()
+    for d in doors:
+        d.close()
+    svc.close()
+
+
+def door_replay(np, st, device, guard=None) -> dict:
+    """Phase 12a's deterministic half on ``device``: a sync decision client
+    on virtual time (``door_setup``); each of 8 sockets in turn sends its
+    512 frames pipelined, the doors' rings fill, and ONE ``tick_once``
+    drains them into a full-shape batch (``guard(True)`` / ``guard(False)``
+    around it: the card's sync-debug mode); every response is read back,
+    the virtual clock moves 137 ms.  Then phase 12b's RLS stream on the
+    same client.  Returns the responses, the counter's moves, the doors'
+    items a tick, and the stream's codes."""
+    import socket
+
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    dec, svc, doors, unenf = door_setup(np, st, device, "sync", time_source=VirtualTimeSource(start_ms=1_000))
+    socks = [socket.create_connection(("127.0.0.1", doors[0].port), timeout=10) for _ in range(DOOR_SOCKETS)]
+    n_front = []  # door items a tick
+    real_run = dec._run_tick
+
+    def spy(*a, fronts=(), **kw):
+        n_front.append(sum(len(cols[0]) for _d, cols in fronts))
+        return real_run(*a, fronts=fronts, **kw)
+
+    try:
+        dec._warm_shapes()  # the staging slots exist before the guarded ticks
+        dec._run_tick = spy
+        rng = np.random.default_rng(SEED + 121)
+        responses, tokens, xid = [], [], 1
+        for k, s in enumerate(socks):
+            frames = door_frames(np, P, C, rng, DOOR_FRAMES, xid, tokens)
+            xid += len(frames)
+            s.sendall(b"".join(P.encode_request(f) for f in frames))
+            # the unlaned rule's frames are answered NO_RULE in C: the rest ring
+            n_ring = sum(1 for f in frames if f.flow_id != UNLANED_FID)
+            end = time.perf_counter() + 30
+            while sum(d.pending() for d in doors) < n_ring:
+                check(time.perf_counter() < end, "phase 12a: the doors' rings never filled")
+                time.sleep(0.001)
+            if guard is not None:
+                guard(True)
+            try:
+                dec.tick_once(dec.time.now_ms())
+            finally:
+                if guard is not None:
+                    guard(False)
+            got = read_frames(P, s, len(frames))
+            tokens = [got[f.xid][2] for f in frames
+                      if f.type == C.MSG_TYPE_CONCURRENT_ACQUIRE and got[f.xid][0] == C.STATUS_OK]
+            responses += [(k, f.xid, f.type) + got[f.xid] for f in frames]
+            dec.time.advance(137)
+        dec._run_tick = real_run
+        rls = rls_stream(np, st, svc, dec)
+        return dict(responses=responses, unenforceable=list(unenf), fronts=list(n_front), rls=rls,
+                    resolve_failures=dec.wire_decode_failures)
+    finally:
+        dec._run_tick = real_run
+        door_close(dec, svc, doors, socks)
+
+
+def rls_stream(np, st, svc, dec) -> dict:
+    """Phase 12b on a sync decision client: an ``EnvoyRlsRuleManager``
+    (rls/rules.py; no protobuf) over the client's token service with 64
+    descriptors in domain "mesh" (counts 20-200); 10,000 requests — a
+    matched descriptor (Zipf(1.1) over the 64), an unmatched value in
+    "mesh", or the unknown domain "edge" — resolved to flow ids on the
+    host, and the resolved ones decided through the service's token path,
+    ``hits_addend`` 1 for the first half and 3 for the second, in chunks of
+    500 a tick, 50 virtual ms apart.  The codes follow the RLS service's
+    rule (rls/server.py ``_decide``): no flow id, OK or NO_RULE is OK,
+    anything else OVER_LIMIT."""
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.rls.rules import EnvoyRlsRule, EnvoyRlsRuleManager, RlsKeyValue, RlsResourceDescriptor
+
+    rng = np.random.default_rng(SEED + 122)
+    mgr = EnvoyRlsRuleManager(svc)
+    counts = rng.integers(20, 201, 64)
+    mgr.load([EnvoyRlsRule(domain="mesh", descriptors=[
+        RlsResourceDescriptor(key_values=[RlsKeyValue("dest", f"svc-{i}"), RlsKeyValue("route", f"r{i % 4}")],
+                              count=float(counts[i])) for i in range(64)])])
+    w = 1.0 / np.arange(1, 65) ** 1.1
+    w /= w.sum()
+    t = time.perf_counter()
+    resolved = []
+    for _ in range(RLS_REQUESTS):
+        u = rng.random()
+        if u < 0.8:
+            i = int(rng.choice(64, p=w))
+            resolved.append(mgr.lookup_flow_id("mesh", [("route", f"r{i % 4}"), ("dest", f"svc-{i}")]))
+        elif u < 0.9:
+            resolved.append(mgr.lookup_flow_id("mesh", [("dest", "svc-none")]))
+        else:
+            resolved.append(mgr.lookup_flow_id("edge", [("dest", "svc-0")]))
+    resolve_ms = (time.perf_counter() - t) * 1e3
+    codes, t = [], time.perf_counter()
+    for lo in range(0, RLS_REQUESTS, RLS_CHUNK):
+        hits = 1 if lo < RLS_REQUESTS // 2 else 3
+        dec.mode = "threaded"  # queue the chunk without ticking
+        futs = [None if fid is None else svc.request_token_async(fid, hits, False)
+                for fid in resolved[lo : lo + RLS_CHUNK]]
+        dec.mode = "sync"
+        dec.tick_once(dec.time.now_ms())
+        for f in futs:
+            r = None if f is None else f.result(timeout=30)
+            codes.append("ok" if r is None or r.status in (C.STATUS_OK, C.STATUS_NO_RULE) else "over_limit")
+        dec.time.advance(50)
+    decide_ms = (time.perf_counter() - t) * 1e3
+    return dict(codes=codes, counts={k: codes.count(k) for k in ("ok", "over_limit")},
+                unresolved=sum(1 for f in resolved if f is None), resolve_ms=resolve_ms, decide_ms=decide_ms)
+
+
+def count_frames(sock, n, stamps, deadline_s=30.0) -> None:
+    """Read ``n`` response frames from ``sock`` by their length prefixes
+    (no decode: the load threads leave the interpreter to the tick loop),
+    appending each frame's perf_counter arrival to ``stamps``."""
+    import socket
+
+    got, buf = 0, b""
+    end = time.perf_counter() + deadline_s
+    while got < n and time.perf_counter() < end:
+        try:
+            chunk = sock.recv(1 << 16)
+        except socket.timeout:
+            continue
+        if not chunk:
+            break
+        buf += chunk
+        now, off = time.perf_counter(), 0
+        while len(buf) - off >= 2:
+            ln = int.from_bytes(buf[off : off + 2], "big")
+            if len(buf) - off - 2 < ln:
+                break
+            off += 2 + ln
+            got += 1
+            stamps.append(now)
+        buf = buf[off:]
+    check(got == n, f"phase 12a: {got} of {n} frames answered")
+
+
+def door_load(np, st, torch, FU, SC) -> dict:
+    """Phase 12a's threaded half: ``door_setup`` on a threaded client with
+    the real clock; 8 load threads, each with its own socket, pipelining
+    bursts of 64 frames (encoded before the clock starts, answers counted
+    by their length prefixes) for 8 s, and 2 threads calling ``entry()`` on
+    the flows' own resources beside them.  Over those 8 s: tokens/s, round
+    trip p50 / p99 (a frame's answer against its burst's send), ms a tick
+    (median and p90 from one dispatch to the next), the doors' share of each
+    batch; then, under the same load, a
+    CUDA-only profile of half a second: device busy a tick, the card's idle
+    share, B1 / B2 / B4 by name."""
+    import socket
+
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.cluster.rules import flow_resource
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    dec, svc, doors, unenf = door_setup(np, st, "cuda", "threaded")
+    socks = [socket.create_connection(("127.0.0.1", doors[0].port), timeout=10) for _ in range(DOOR_LOAD_THREADS)]
+    shares, real_run = [], dec._run_tick
+
+    stamps_run = []  # each dispatch's perf_counter: dispatch to dispatch is a tick while the loop is busy
+
+    def spy(acq, comp, now_ms, blocks=(), fronts=()):
+        stamps_run.append(time.perf_counter())
+        n_f = sum(len(cols[0]) for _d, cols in fronts)
+        n_a = len(acq) + sum(t for _b, _o, t in blocks)
+        if n_f + n_a:
+            shares.append(n_f / (n_f + n_a))
+        return real_run(acq, comp, now_ms, blocks=blocks, fronts=fronts)
+
+    stop = threading.Event()
+    rtts, answered, errors, entries = [], [0], [], [0]
+    lock = threading.Lock()
+    bursts = []
+    for k in range(DOOR_LOAD_THREADS):
+        rng = np.random.default_rng(SEED + 130 + k)
+        bursts.append([b"".join(P.encode_request(f) for f in door_frames(np, P, C, rng, DOOR_BURST, 1 + j * DOOR_BURST,
+                                                                          [])) for j in range(32)])
+
+    def loader(k):
+        j = 0
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                socks[k].sendall(bursts[k][j % len(bursts[k])])
+                stamps = []
+                count_frames(socks[k], DOOR_BURST, stamps)
+                j += 1
+                with lock:
+                    rtts.extend((t - t0) * 1e3 for t in stamps)
+                    answered[0] += DOOR_BURST
+        except Exception as exc:  # reported by the check below
+            errors.append(repr(exc))
+
+    def caller(k):
+        rng = np.random.default_rng(SEED + 140 + k)
+        while not stop.is_set():
+            try:
+                dec.entry(flow_resource(int(rng.integers(1, CLUSTER_FLOWS + 1)))).exit()
+            except st.BlockException:
+                pass
+            with lock:
+                entries[0] += 1
+
+    fail0 = REGISTRY.get("sentinel_resolve_failures_total").value
+    try:
+        dec._run_tick = spy
+        FU.reset_launches()
+        SC.reset_launches()
+        threads = [threading.Thread(target=loader, args=(k,), daemon=True) for k in range(DOOR_LOAD_THREADS)]
+        threads += [threading.Thread(target=caller, args=(k,), daemon=True) for k in range(DOOR_ENTRY_THREADS)]
+        ticks0, t0 = dec._build_ticks, time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(DOOR_LOAD_S)
+        # the measured window ends here; the profile after it (its CUPTI
+        # callbacks slow every launch) sees the same load
+        with lock:
+            wall, ticks = time.perf_counter() - t0, dec._build_ticks - ticks0
+            frames, rtts_w, gaps = answered[0], list(rtts), np.diff(stamps_run[1:]) * 1e3
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        tk, tw = dec._build_ticks, time.perf_counter()
+        busy, names = device_profile(torch, lambda: time.sleep(0.5), cpu=False)
+        prof_ticks, prof_wall = dec._build_ticks - tk, (time.perf_counter() - tw) * 1e3
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        stop.set()
+        dec._run_tick = real_run
+        door_close(dec, svc, doors, socks)
+    check(not errors, f"phase 12a: a load thread failed: {errors[:3]}")
+    check(REGISTRY.get("sentinel_resolve_failures_total").value == fail0 and dec.wire_decode_failures == 0,
+          "phase 12a: a door tick failed closed under load")
+    seen = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm)
+            for k in ("scatter_many", "gather_many", "seg_incl_min")}
+    for k, n in seen.items():
+        check(n > 0 and launches.get(k, 0) > 0, f"phase 12a: the threaded doors launched no {k}: {names}")
+    return dict(tokens_per_s=frames / wall, frames=frames, entries=entries[0], wall_s=wall,
+                rtt_p50_ms=_pct(rtts_w, 0.5), rtt_p99_ms=_pct(rtts_w, 0.99), ticks=ticks,
+                ms_a_tick=float(np.median(gaps)), ms_a_tick_p90=float(np.percentile(gaps, 90)),
+                door_share_mean=float(np.mean(shares)), door_share_p50=_pct(shares, 0.5), unenforceable=list(unenf),
+                profile=dict(ticks=prof_ticks, wall_ms=prof_wall, busy_ms=busy / 1e3,
+                             busy_ms_a_tick=busy / 1e3 / max(prof_ticks, 1), idle_share=1 - busy / 1e3 / prof_wall,
+                             kernels=seen),
+                launches=launches)
+
+
+class _RecordingGateway:
+    """A GatewayAdapter as ``drive_gateway`` sees it, recording each
+    request's verdict in order (1 passed, 0 blocked)."""
+
+    def __init__(self, adapter, block_exc):
+        self._a, self._exc = adapter, block_exc
+        self.client = adapter.client
+        self.verdicts = []
+
+    def entries_for(self, route_id, req):
+        try:
+            entries = self._a.entries_for(route_id, req)
+        except self._exc:
+            self.verdicts.append(0)
+            raise
+        self.verdicts.append(1)
+        return entries
+
+
+def adapter_rules(st, c):
+    """Phase 12c's rules on ``c``: a GatewayAdapter with route rules on
+    ``wl-route`` keyed by the X-Wl-Param header and by the URL param ``p``
+    (values starting "attacker": the flood's), an API group over every
+    ``/wl`` path keyed by the client IP, and flow rules on the route and on
+    the drivers' and the in-process apps' resources.  Returns the
+    adapter."""
+    from sentinel_tpu_torch.adapters import gateway as GW
+
+    g = GW.GatewayAdapter(c)
+    g.apis.load([GW.ApiDefinition("wl-api", [GW.ApiPredicateItem("/wl", GW.URL_MATCH_STRATEGY_PREFIX)])])
+    g.rules.load_rules([
+        GW.GatewayFlowRule(resource="wl-route", count=2, param_item=GW.GatewayParamFlowItem(
+            GW.PARAM_PARSE_STRATEGY_HEADER, field_name="X-Wl-Param", pattern="attacker",
+            match_strategy=GW.PARAM_MATCH_STRATEGY_PREFIX)),
+        GW.GatewayFlowRule(resource="wl-route", count=1, param_item=GW.GatewayParamFlowItem(
+            GW.PARAM_PARSE_STRATEGY_URL_PARAM, field_name="p", pattern="attacker",
+            match_strategy=GW.PARAM_MATCH_STRATEGY_PREFIX)),
+        GW.GatewayFlowRule(resource="wl-api", count=150, param_item=GW.GatewayParamFlowItem(
+            GW.PARAM_PARSE_STRATEGY_CLIENT_IP)),
+    ])
+    c.flow_rules.load([st.FlowRule(resource="wl-route", count=120), st.FlowRule(resource="wl/key0", count=1),
+                       st.FlowRule(resource="GET:/wl/key0", count=1), st.FlowRule(resource="GET:/app/wsgi", count=50),
+                       st.FlowRule(resource="GET:/app/asgi", count=50), st.FlowRule(resource="deco", count=50),
+                       st.FlowRule(resource="stream", count=50)])
+    return g
+
+
+def adapter_spec(WL, steps=ADAPTER_STEPS):
+    """flash_crowd_2x(seed=7) cut to ``steps`` steps, with a hot parameter
+    flood so the param-keyed rules see values."""
+    base = WL.flash_crowd_2x(seed=7, steps=steps, start_step=steps // 3)
+    return WL.WorkloadSpec(seed=base.seed, steps=base.steps, step_ms=base.step_ms, keys=base.keys,
+                           shapes=base.shapes + (WL.HotParamFlood(rate=2.0, start_step=5, duration_steps=20),))
+
+
+def gateway_replay(np, st, device) -> dict:
+    """Phase 12c's replay: ``drive_gateway`` over ``adapter_spec`` at
+    REPLAY_STEPS through a sync ``platform_config()`` client on virtual
+    time at the default widths; its counts and every request's verdict."""
+    from sentinel_tpu_torch import workload as WL
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    c = SentinelClient(cfg=platform_config(), device=device, mode="sync", time_source=VirtualTimeSource(start_ms=1_000),
+                       app_name="gateway-replay")
+    c.start()
+    try:
+        rec = _RecordingGateway(adapter_rules(st, c), st.BlockException)
+        t = time.perf_counter()
+        res = WL.drive_gateway(rec, WL.TrafficGenerator(adapter_spec(WL, REPLAY_STEPS)))
+        return dict(counts=[res.submitted, res.passed, res.blocked], verdicts=rec.verdicts,
+                    wall_s=time.perf_counter() - t)
+    finally:
+        c.stop()
+
+
+def adapters_run(np, st, torch, FU, SC) -> dict:
+    """Phase 12c on a threaded ``platform_config()`` client at the default
+    widths with ``adapter_rules``: bare ``entry()``, a WSGI app and an ASGI
+    app called in process, ``@sentinel_resource`` with a fallback and
+    ``guard_stream`` over an async generator, ADAPTER_REQUESTS requests
+    each; then ``drive_gateway``, ``drive_asgi`` and ``drive_streaming``
+    over ``adapter_spec``.  Each adapter's requests/s and the µs it adds a
+    request over bare ``entry()``; B1 / B2 / B4 launched over the run and
+    in a profile of the WSGI requests."""
+    import asyncio
+
+    from sentinel_tpu_torch import adapters as AD
+    from sentinel_tpu_torch import workload as WL
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    c = SentinelClient(cfg=platform_config(), device="cuda", mode="threaded", tick_interval_ms=1.0,
+                       app_name="adapters")
+    c.start()
+    rep = {}
+    try:
+        g = adapter_rules(st, c)
+
+        def timed(label, one, n=ADAPTER_REQUESTS):
+            out = []
+            t = time.perf_counter()
+            for i in range(n):
+                out.append(one(i))
+            s = time.perf_counter() - t
+            rep[label] = dict(requests=n, per_s=n / s, us_a_request=s / n * 1e6, outcomes={
+                str(k): out.count(k) for k in sorted(set(map(str, out)))})
+            return out
+
+        def bare(i):
+            try:
+                c.entry("bare").exit()
+                return "pass"
+            except st.BlockException:
+                return "block"
+
+        def wsgi_app(environ, start_response):
+            start_response("200 OK", [("Content-Type", "text/plain")])
+            return [b"ok"]
+
+        wsgi = AD.SentinelWSGIMiddleware(wsgi_app, client=c)
+
+        def wsgi_one(i):
+            status = {}
+            body = wsgi({"REQUEST_METHOD": "GET", "PATH_INFO": "/app/wsgi"}, lambda s, h: status.update(s=s))
+            b"".join(body)
+            body.close() if hasattr(body, "close") else None
+            return status["s"][:3]
+
+        async def asgi_app(scope, receive, send):
+            await send({"type": "http.response.start", "status": 200, "headers": []})
+            await send({"type": "http.response.body", "body": b"ok"})
+
+        asgi = AD.SentinelASGIMiddleware(asgi_app, client=c)
+
+        async def asgi_many(n):
+            out = []
+            for _ in range(n):
+                sent = []
+
+                async def send(msg):
+                    sent.append(msg)
+
+                async def receive():
+                    return {"type": "http.request"}
+
+                await asgi({"type": "http", "method": "GET", "path": "/app/asgi", "headers": []}, receive, send)
+                out.append(sent[0]["status"])
+            return out
+
+        @AD.sentinel_resource("deco", fallback=lambda i, exception=None: "fallback", client=c)
+        def deco(i):
+            if i % 10 == 9:
+                raise ValueError("business error")
+            return "pass"
+
+        async def numbers():
+            for i in range(2):
+                yield i
+
+        async def streams(n):
+            out = []
+            for _ in range(n):
+                try:
+                    out.append(len([x async for x in AD.guard_stream("stream", numbers(), client=c)]))
+                except st.BlockException:
+                    out.append("block")
+            return out
+
+        FU.reset_launches()
+        SC.reset_launches()
+        timed("bare_entry", bare)
+        _busy, names = device_profile(torch, lambda: timed("wsgi", wsgi_one))
+        t = time.perf_counter()
+        got = asyncio.run(asgi_many(ADAPTER_REQUESTS))
+        s = time.perf_counter() - t
+        rep["asgi"] = dict(requests=len(got), per_s=len(got) / s, us_a_request=s / len(got) * 1e6,
+                           outcomes={str(k): got.count(k) for k in set(got)})
+        timed("decorator", deco)
+        t = time.perf_counter()
+        got = asyncio.run(streams(ADAPTER_REQUESTS))
+        s = time.perf_counter() - t
+        rep["guard_stream"] = dict(requests=len(got), per_s=len(got) / s, us_a_request=s / len(got) * 1e6,
+                                   outcomes={str(k): got.count(k) for k in set(got)})
+        base_us = rep["bare_entry"]["us_a_request"]
+        for k in ("wsgi", "asgi", "decorator", "guard_stream"):
+            rep[k]["added_us"] = rep[k]["us_a_request"] - base_us
+        # the adapters' own host cost, apart from the tick each request
+        # waits for: the same calls with the client switched off (every
+        # entry a pass-through, no tick), 500 each
+        c.enabled = False
+        try:
+            host = {}
+            for k, one in (("bare_entry", bare), ("wsgi", wsgi_one), ("decorator", deco)):
+                t = time.perf_counter()
+                for i in range(500):
+                    one(i)
+                host[k] = (time.perf_counter() - t) / 500 * 1e6
+            for k, many in (("asgi", asgi_many), ("guard_stream", streams)):
+                t = time.perf_counter()
+                asyncio.run(many(500))
+                host[k] = (time.perf_counter() - t) / 500 * 1e6
+        finally:
+            c.enabled = True
+        for k in ("wsgi", "asgi", "decorator", "guard_stream"):
+            rep[k]["passthrough_us"] = host[k]
+            rep[k]["added_passthrough_us"] = host[k] - host["bare_entry"]
+        rep["bare_entry"]["passthrough_us"] = host["bare_entry"]
+        check(rep["decorator"]["outcomes"].get("fallback", 0) == ADAPTER_REQUESTS // 10,
+              f"phase 12c: the decorator's fallbacks {rep['decorator']['outcomes']}")
+        drivers = {}
+        spec = adapter_spec(WL)
+        n_events = len(WL.TrafficGenerator(spec).all_events())
+        for label, run in (("drive_gateway", lambda: WL.drive_gateway(g, WL.TrafficGenerator(spec))),
+                           ("drive_asgi", lambda: WL.drive_asgi(asgi, WL.TrafficGenerator(spec))),
+                           ("drive_streaming", lambda: WL.drive_streaming(c, WL.TrafficGenerator(spec)))):
+            t = time.perf_counter()
+            res = run()
+            s = time.perf_counter() - t
+            drivers[label] = dict(counts=[res.submitted, res.passed, res.blocked], per_s=res.submitted / s, wall_s=s)
+            check(res.submitted == n_events == res.passed + res.blocked,
+                  f"phase 12c {label}: submitted {res.submitted} of {n_events}, passed {res.passed} + blocked "
+                  f"{res.blocked}")
+            check(res.blocked > 0 and res.passed > 0, f"phase 12c {label}: no rule bound ({res.passed} passed, "
+                  f"{res.blocked} blocked)")
+        rep["drivers"] = drivers
+        rep["launches"] = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        rep["wsgi_profile_kernels"] = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm)
+                                       for k in ("scatter_many", "gather_many", "seg_incl_min")}
+        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+            check(rep["launches"].get(k, 0) > 0 and rep["wsgi_profile_kernels"][k] > 0,
+                  f"phase 12c: the adapters' run launched no {k}: {rep['launches']}, profile {names}")
+        for name in ("wl-route", "wl-api", "GET:/app/wsgi", "deco", "stream"):
+            s = c.stats.resource(name)
+            check(s is not None and s["curThreadNum"] == 0, f"phase 12c: {name} holds {s} (an entry not exited)")
+    finally:
+        c.stop()
+    return rep
+
+
+def doors_cpu_main(part: str) -> int:
+    """``python3 chip_smoke.py --doors-cpu replay|gateway`` (phase 12): the
+    deterministic door run with its RLS stream, or the gateway driver's
+    sync replay, on the CPU in a process of its own; one JSON line."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(3)
+    sys.path.insert(0, ROOT)
+    import sentinel_tpu_torch as st
+
+    t = time.perf_counter()
+    out = door_replay(np, st, "cpu") if part == "replay" else gateway_replay(np, st, "cpu")
+    print(json.dumps(dict(out, wall_s=time.perf_counter() - t)), flush=True)
+    return 0
+
+
+def doors_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 12: the front doors and the adapters on the card — (a) the
+    native front door at the default widths: a deterministic replay with
+    the kernels, with their plain versions and on the CPU (a process of
+    its own), one captured door tick against its plain-version tick, then
+    a threaded load; (b) the RLS rule model resolving 10,000 descriptors
+    decided through (a)'s token service, against the CPU; (c) the adapters
+    and the workload drivers on a threaded client, and the gateway
+    driver's sync replay against the CPU."""
+    from sentinel_tpu_torch.ops import engine as E
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    cpu_procs = {part: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--doors-cpu", part], cwd=ROOT,
+                                        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for part in ("replay", "gateway")}
+    rep = {"card": smi}
+    try:
+        real, plain, install = kernel_sets(FU, SC)
+
+        def guard(on):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if on else "default")
+
+        # -- (a) + (b): the deterministic door replay, kernels then plain versions ----
+        FU.reset_launches()
+        SC.reset_launches()
+        box, unwatch = capture_client_tick(E, 12)  # a door tick (after the warm-up's two and a rule load's)
+        t = time.perf_counter()
+        try:
+            kern = door_replay(np, st, "cuda", guard=guard)
+        finally:
+            unwatch()
+        rep["replay_s"] = time.perf_counter() - t
+        rep["replay_launches"] = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+            check(rep["replay_launches"].get(k, 0) > 0, f"phase 12a: the door replay launched no {k}")
+        rep["tick_replay"] = replay_against_plain(np, E, S, FU, SC, torch, box,
+                                                  ("scatter_many", "gather_many", "seg_incl_min"), "12a")
+        install(plain)
+        try:
+            pl = door_replay(np, st, "cuda")
+        finally:
+            install(real)
+        check(kern["responses"] == pl["responses"], "phase 12a: the door's responses differ between the kernels and "
+              "their plain versions")
+        check(kern["rls"]["codes"] == pl["rls"]["codes"], "phase 12b: the RLS codes differ between the kernels and "
+              "their plain versions")
+        check(kern["unenforceable"][0] == 0 and kern["unenforceable"][1] > 0,
+              f"phase 12a: sentinel_front_door_unenforceable_rules moved {kern['unenforceable']} (lane-0 rules, the "
+              f"unlaned rule)")
+        statuses = {}
+        for r in kern["responses"]:
+            statuses[r[3]] = statuses.get(r[3], 0) + 1
+        rep["replay"] = dict(frames=len(kern["responses"]), statuses=statuses, fronts_a_tick=kern["fronts"],
+                             unenforceable=kern["unenforceable"], rls=dict(kern["rls"], codes=None))
+        torch.cuda.empty_cache()
+
+        # -- (a): the threaded half -------------------------------------------------
+        rep["load"] = door_load(np, st, torch, FU, SC)
+        torch.cuda.empty_cache()
+
+        # -- (c): the adapters, then the gateway driver's sync replay -----------------
+        rep["adapters"] = adapters_run(np, st, torch, FU, SC)
+        gw = gateway_replay(np, st, "cuda")
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        cpu = {}
+        for part, proc in cpu_procs.items():
+            out, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"phase 12: the CPU run {part} failed: {err[-2000:]}")
+            cpu[part] = json.loads(out.strip().splitlines()[-1])
+        rep["cpu"] = dict(wall_s=max(v["wall_s"] for v in cpu.values()), wait_s=time.perf_counter() - t)
+        check(cpu["replay"]["responses"] == [list(r) for r in kern["responses"]],
+              "phase 12a: the door's responses on the card differ from the CPU's")
+        check(cpu["replay"]["rls"]["codes"] == kern["rls"]["codes"], "phase 12b: the RLS codes on the card differ "
+              "from the CPU's")
+        check(cpu["gateway"]["counts"] == gw["counts"] and cpu["gateway"]["verdicts"] == gw["verdicts"],
+              f"phase 12c: the gateway driver's sync replay differs: card {gw['counts']}, CPU "
+              f"{cpu['gateway']['counts']}")
+        n, p, b = gw["counts"]
+        check(n == p + b and b > 0 and p > 0, f"phase 12c: the sync replay's counts {gw['counts']}")
+        rep["gateway_replay"] = dict(counts=gw["counts"], wall_s=gw["wall_s"], cpu_wall_s=cpu["gateway"]["wall_s"])
+    finally:
+        for proc in cpu_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    doors_log(rep)
+    return rep
+
+
+def doors_log(rep) -> None:
+    smi = rep["card"]
+    r = rep["replay"]
+    log(f"[doors] {smi}: 12a replay: {r['frames']} frames over {DOOR_SOCKETS} sockets, two REUSEPORT doors, "
+        f"statuses {json.dumps(r['statuses'], sort_keys=True)}; door items a tick {r['fronts_a_tick']}; responses "
+        f"with the kernels == plain versions == the CPU; door ticks under set_sync_debug_mode('error'); "
+        f"unenforceable rules +{r['unenforceable'][0]} for the lane-0 rules, +{r['unenforceable'][1]} for the "
+        f"unlaned one; {rep['replay_s']:.1f} s; launches {json.dumps(rep['replay_launches'], sort_keys=True)}")
+    log(f"[doors] {smi}: 12a captured door tick == its plain-version tick "
+        f"({json.dumps(rep['tick_replay'], sort_keys=True)})")
+    ld = rep["load"]
+    pf = ld["profile"]
+    log(f"[doors] {smi}: 12a load: {ld['tokens_per_s']:.0f} tokens/s ({ld['frames']} frames from "
+        f"{DOOR_LOAD_THREADS} threads in bursts of {DOOR_BURST}, {ld['entries']} entry() calls beside them, "
+        f"{ld['wall_s']:.1f} s); round trip p50 {ld['rtt_p50_ms']:.2f} ms p99 {ld['rtt_p99_ms']:.2f} ms; "
+        f"{ld['ms_a_tick']:.2f} ms a tick, p90 {ld['ms_a_tick_p90']:.2f} (dispatch to dispatch; {ld['ticks']} ticks); "
+        f"the doors' share of a batch mean {ld['door_share_mean']:.3f} p50 {ld['door_share_p50']:.3f}; CUDA "
+        f"profile of {pf['wall_ms']:.0f} ms: {pf['ticks']} ticks, device busy {pf['busy_ms']:.3f} ms "
+        f"({pf['busy_ms_a_tick']:.3f} ms a tick), idle share {pf['idle_share']:.3f}, kernels {json.dumps(pf['kernels'], sort_keys=True)}; every frame answered, no tick "
+        f"failed closed; launches {json.dumps(ld['launches'], sort_keys=True)}")
+    rl = r["rls"]
+    log(f"[doors] {smi}: 12b RLS: {RLS_REQUESTS} descriptors resolved in {rl['resolve_ms']:.1f} ms "
+        f"({rl['unresolved']} to no rule), decided in {rl['decide_ms']:.1f} ms through the token service: "
+        f"{json.dumps(rl['counts'], sort_keys=True)} == the CPU's, code for code; the gRPC wire is held on the CPU "
+        f"by tests/test_torch_rls.py")
+    ad = rep["adapters"]
+    for k in ("bare_entry", "wsgi", "asgi", "decorator", "guard_stream"):
+        a = ad[k]
+        log(f"[doors] {smi}: 12c {k}: {a['per_s']:.1f} requests/s, {a['us_a_request']:.0f} us a request"
+            + (f" ({a['added_us']:+.0f} us over bare entry())" if "added_us" in a else "")
+            + f"; switched off (no tick) {a['passthrough_us']:.1f} us a request"
+            + (f" ({a['added_passthrough_us']:+.1f} us over bare entry())" if "added_passthrough_us" in a else "")
+            + f", outcomes {json.dumps(a['outcomes'], sort_keys=True)}")
+    for k, d in ad["drivers"].items():
+        log(f"[doors] {smi}: 12c {k}: submitted / passed / blocked {d['counts']}, {d['per_s']:.1f} requests/s")
+    gw = rep["gateway_replay"]
+    log(f"[doors] {smi}: 12c drive_gateway sync replay {gw['counts']} == the CPU's, request for request "
+        f"({gw['wall_s']:.1f} s on the card, {gw['cpu_wall_s']:.1f} s on the CPU); launches "
+        f"{json.dumps(ad['launches'], sort_keys=True)}; the WSGI profile's kernels "
+        f"{json.dumps(ad['wsgi_profile_kernels'], sort_keys=True)}")
+    log(f"[doors] {smi}: phase 12 took {rep['phase_s']:.1f} s (the CPU run {rep['cpu']['wall_s']:.1f} s, waited "
+        f"{rep['cpu']['wait_s']:.1f} s for it at the end)")
+
+
+def doors_main() -> int:
+    """``python3 chip_smoke.py --doors``: the kernels' build and phase 12
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = doors_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
 
 
 # -- phase 5: the probes ----------------------------------------------------------------
@@ -5251,6 +6084,9 @@ def main() -> int:
     # -- 11. the operations plane: closed loop, live swap, ledger, audit, commands ---------
     report["workload"] = workload_phase(np, st, S, FU, SC, torch, smi)
 
+    # -- 12. the front doors and the adapters ------------------------------------------------
+    report["doors"] = doors_phase(np, st, S, FU, SC, torch, smi)
+
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
         name = RECORD_CFG[kname]
@@ -5416,6 +6252,8 @@ if __name__ == "__main__":
     sys.exit(b2_main() if mode == ["--b2"] else ops_main() if mode == ["--ops"]
              else cluster_main() if mode == ["--cluster"] else control_main() if mode == ["--control"]
              else overload_main() if mode == ["--overload"] else workload_main() if mode == ["--workload"]
+             else doors_main() if mode == ["--doors"]
+             else doors_cpu_main(mode[1]) if mode[:1] == ["--doors-cpu"] and len(mode) == 2
              else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4
              else simload_main(*mode[1:]) if mode[:1] == ["--simload"] and len(mode) == 3
              else main())

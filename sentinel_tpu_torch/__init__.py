@@ -34,7 +34,11 @@ tracer ``sentinel_tpu_torch.obs``, the native host library
 ``sentinel_tpu_torch.native``, the entry hooks, custom slots and metric
 extensions), cluster flow control (``sentinel_tpu_torch.cluster``: the
 token service with its device token column, the TCP token server and
-client, and the client's cluster mode), and the card's measurement probes
+client, the client's cluster mode, and the native front door whose ring
+the client drains into its engine batches), the Envoy RLS front door
+(``sentinel_tpu_torch.rls``), the adapters (``sentinel_tpu_torch.adapters``:
+decorator, WSGI, ASGI, gRPC, outbound HTTP, RPC chains, streams, gateway
+routes), and the card's measurement probes
 (``sentinel_tpu_torch.probes``).  What is not ported raises
 ``NotImplementedError`` (see ROADMAP.md).
 """
@@ -96,4 +100,10 @@ def __getattr__(name):
         from sentinel_tpu_torch.runtime.client import SentinelClient
 
         return SentinelClient
+    if name in ("AdaptiveConfig", "AdaptiveController"):
+        # overload protection (adaptive/); lazy like SentinelClient, so
+        # `import sentinel_tpu_torch` stays light
+        import sentinel_tpu_torch.adaptive as _ad
+
+        return getattr(_ad, name)
     raise AttributeError(name)

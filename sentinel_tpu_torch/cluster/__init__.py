@@ -16,9 +16,13 @@ Modules:
   server         — asyncio TCP token server + ConnectionManager
   client         — ClusterTokenClient (xid-correlated, auto-reconnect)
   state          — ClusterStateManager (NOT_STARTED / CLIENT / SERVER flips)
+  front_door     — NativeFrontDoor: the C epoll token front door whose
+                   ring a SentinelClient drains into its engine batches
+                   (imported from its module, as in the reference)
 
-Not ported yet (ROADMAP.md item A7b): the consistent-hash ring, the
-N-shard fleet with bounded-slack leases, the front door and RLS.
+Not ported yet (ROADMAP.md item A7b): the consistent-hash ring and the
+N-shard fleet with bounded-slack leases.  The Envoy RLS front door is
+``sentinel_tpu_torch.rls``.
 """
 
 from sentinel_tpu_torch.cluster.constants import (  # noqa: F401

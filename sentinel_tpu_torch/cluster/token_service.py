@@ -25,8 +25,8 @@ Host-side pieces (naturally request-scoped, not tensor-shaped):
     TokenCacheNodeManager, RegularExpireStrategy)
 
 A failed decision is STATUS_FAIL at every caller: the caller degrades to
-its local rules, never passes.  The reference's memory-ledger claim for
-the column's state (``obs/profile``) comes with ROADMAP.md item A10.
+its local rules, never passes.  The column's state is claimed in the
+memory ledger (``obs/profile``) as the reference claims it.
 """
 
 from __future__ import annotations

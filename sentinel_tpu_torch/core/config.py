@@ -4,10 +4,11 @@ Equivalent of the reference's SentinelConfig/SentinelConfigLoader
 (sentinel-core/.../config/SentinelConfig.java:49-63,
 SentinelConfigLoader.java): values resolve, highest priority first, from
 
-  1. environment variables  (``CSP_SENTINEL_*`` — dots become underscores)
-  2. a properties file      (``sentinel.properties`` in cwd, or the path in
+  1. programmatic overrides (``set_config``)
+  2. environment variables  (``CSP_SENTINEL_*`` — dots become underscores)
+  3. a properties file      (``sentinel.properties`` in cwd, or the path in
                              ``CSP_SENTINEL_CONFIG_FILE``)
-  3. built-in defaults
+  4. built-in defaults
 
 Also holds the EngineConfig dataclass — the capacity/shape knobs of the
 device engine (the analog of Constants.MAX_SLOT_CHAIN_SIZE=6000 and the
@@ -19,8 +20,9 @@ config carries across between the two packages unchanged.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 _DEFAULTS: Dict[str, str] = {
     "csp.sentinel.app.name": "sentinel-tpu-app",
@@ -35,6 +37,8 @@ _DEFAULTS: Dict[str, str] = {
     "csp.sentinel.heartbeat.interval.ms": "10000",
 }
 
+_overrides: Dict[str, str] = {}
+_overrides_lock = threading.Lock()
 _file_props: Optional[Dict[str, str]] = None
 
 
@@ -59,6 +63,8 @@ def _load_file_props() -> Dict[str, str]:
 
 
 def get_config(key: str, default: Optional[str] = None) -> Optional[str]:
+    if key in _overrides:
+        return _overrides[key]
     env_key = key.upper().replace(".", "_")
     if env_key in os.environ:
         return os.environ[env_key]
@@ -68,6 +74,24 @@ def get_config(key: str, default: Optional[str] = None) -> Optional[str]:
     if key in _DEFAULTS:
         return _DEFAULTS[key]
     return default
+
+
+def get_int(key: str, default: int = 0) -> int:
+    v = get_config(key)
+    try:
+        return int(v) if v is not None else default
+    except ValueError:
+        return default
+
+
+def set_config(key: str, value: Any) -> None:
+    with _overrides_lock:
+        _overrides[key] = str(value)
+
+
+def reset_overrides() -> None:
+    with _overrides_lock:
+        _overrides.clear()
 
 
 def app_name() -> str:

@@ -129,6 +129,7 @@ from sentinel_tpu_torch.obs.explain import FX as EXPLAIN_FX
 from sentinel_tpu_torch.obs.explain import FX_MAX as _EXPLAIN_FX_MAX
 from sentinel_tpu_torch.obs.explain import FX_UNKNOWN as EXPLAIN_UNKNOWN
 from sentinel_tpu_torch.obs import profile as PROF
+from sentinel_tpu_torch.obs.registry import REGISTRY as _OBS
 from sentinel_tpu_torch.ops import degrade as D
 from sentinel_tpu_torch.ops import engine_seg as ES
 from sentinel_tpu_torch.ops import fused as FU
@@ -2450,6 +2451,13 @@ def migrate_state(
 _TICK_CACHE: dict = {}
 _TICK_CACHE_LOCK = threading.Lock()
 
+#: distinct tick bindings this process made (a climbing count in steady
+#: state means config churn)
+_C_TICK_BUILDS = _OBS.counter(
+    "sentinel_engine_tick_builds_total",
+    "distinct (config, features) tick callables built (each = one XLA compile)",
+)
+
 
 def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):
     """The tick bound to a config and a feature set (the JAX package's
@@ -2459,7 +2467,8 @@ def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):
     its compiled ticks: a miss is a new binding — the port's "retrace" —
     journaled with its cause in the retrace observatory
     (``obs/profile.RETRACE``: the key diff against the previous binding,
-    expected or a surprise); a hit reaches nothing."""
+    expected or a surprise) and counted in
+    ``sentinel_engine_tick_builds_total``; a hit reaches nothing."""
     check_supported(cfg, features)
     key = (cfg, features)
     with _TICK_CACHE_LOCK:
@@ -2470,5 +2479,6 @@ def make_tick(cfg: EngineConfig, features: frozenset = ALL_FEATURES):
                 return tick(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits)
 
             _TICK_CACHE[key] = fn
+            _C_TICK_BUILDS.inc()
             PROF.RETRACE.observe("engine.tick", cfg=cfg, features=features)
     return fn

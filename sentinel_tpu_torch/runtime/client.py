@@ -170,8 +170,18 @@ one readback on an audit tick only); ``apply_operating_point`` applies a
 ``workload.OperatingPoint`` live (host knobs as attribute writes, engine
 knobs through ``_swap_engine``) — the autotuner's actuator.
 
-Not ported yet (ROADMAP.md): the sharded cluster client and front doors
-(A7b).
+Front doors: ``attach_front_door`` hands the tick loop a native front
+door (cluster/front_door.py).  Each tick drains the doors' rings,
+round-robin, into the room its batch has left after the object requests
+and the blocks; concurrent acquire / release events are answered on the
+host, and the engine items ride the batch after the blocks (their param
+columns carry the lanes the door hashed in C).  The resolver answers
+each door by its slice, under ``_respond_lock``; a tick that fails
+answers every door it had not reached, CLOSED.  The adapters
+(``adapters/``) and the Envoy RLS front door (``rls/``) call ``entry()``
+and the token service as any caller does.
+
+Not ported yet (ROADMAP.md): the sharded cluster client (A7b).
 """
 
 from __future__ import annotations
@@ -373,6 +383,46 @@ def _shed_counter(stage: str, reason: str):
     return c
 
 
+# -- window rotation cadence: the windows' refresh is a pure function of
+# the stamped tick timestamp, so the host derives the card's rotation and
+# skip decisions from the timestamps it stamps — no readback.  "second" is
+# the exact tier (every boundary rotates); "sketch" the minute-scale tier,
+# whose slack batches the purge every slack_buckets buckets (a skip is a
+# deferred boundary)
+_C_WIN_ROT = {
+    w: OBS.counter(
+        "sentinel_window_rotations_total",
+        "window bucket rotations whose batched expiry purge ran (host-derived"
+        " from the tick timestamps; mirrors the device rotation condition)",
+        labels={"window": w},
+    )
+    for w in ("second", "sketch")
+}
+_C_WIN_SLACK = {
+    w: OBS.counter(
+        "sentinel_window_slack_skips_total",
+        "window bucket boundaries crossed with the expiry purge deferred by"
+        " slack batching (bounded overestimate until the next rotation)",
+        labels={"window": w},
+    )
+    for w in ("second", "sketch")
+}
+
+#: chaos sites on the tick loop's own failure surfaces (one flag check a
+#: site while disarmed): the tick's timestamp, the readback, the fan-out
+#: and the seg_u resize
+_FP_TICK_CLOCK = FP.register(
+    "runtime.tick.clock", "engine tick timestamp (skew shifts windows)", FP.SKEW_ACTIONS,
+)
+_FP_READBACK = FP.register(
+    "runtime.resolve.readback", "verdict device-to-host readback", FP.HIT_ACTIONS
+)
+_FP_FANOUT = FP.register(
+    "runtime.resolve.fanout", "verdict fan-out to futures/blocks/doors", FP.HIT_ACTIONS,
+)
+_FP_SEG_RESIZE = FP.register(
+    "runtime.seg.resize", "background seg_u grow-and-swap compile", FP.HIT_ACTIONS
+)
 #: chaos site on the readback's main section (mangled bytes fail the tick
 #: CLOSED); the explain section has its own site, obs.explain.decode
 _FP_PACKED_DECODE = FP.register(
@@ -506,13 +556,18 @@ class _PendingTick:
     now_ms: int  # engine timestamp the tick ran at (timeline fold key)
     buf: Optional[torch.Tensor] = None
     event: Any = None
+    #: drained front-door items at batch offset n_obj + n_blk:
+    #: [(door, (row, count, prio, corr, a0, a1)), ...]
+    fronts: list = field(default_factory=list)
     # stage-span correlation: the tick's trace id and the monotonic ns its
     # dispatch returned (0 while tracing is off)
     tick_id: int = 0
     dispatched_ns: int = 0
-    # fan-out progress: a failed resolve fails CLOSED only the blocks the
-    # normal path had not reached (no double decrement)
+    # fan-out progress: a failed resolve fails CLOSED only the blocks and
+    # doors the normal path had not reached (no double decrement, no
+    # double respond)
     blocks_done: int = 0
+    fronts_done: int = 0
     # watchdog handshake: exactly ONE side fans this tick out.  The
     # resolver claims "done" once the wire is host-visible and decoded;
     # the watchdog (or the resolve-failure path) claims "failed" — whoever
@@ -726,6 +781,10 @@ class SentinelClient:
         self.system_rules = RuleManager(self, "system")
         self.authority_rules = RuleManager(self, "authority")
         self.param_flow_rules = RuleManager(self, "param-flow")
+        # gateway rules project onto param rules in a manager of their own,
+        # so gateway pushes never clobber user param rules
+        # (adapters/gateway.GatewayRuleManager)
+        self.gateway_param_rules = RuleManager(self, "gateway-param")
         self._sys = SystemStatusSampler()
         #: resource -> ordered param_idx list: which argument each hash lane carries
         self._param_lanes_by_res: Dict[str, list] = {}
@@ -837,6 +896,13 @@ class SentinelClient:
         self.host_sort: Optional[str] = None
         # guards block progress accounting (resolver thread vs fail-closed)
         self._blk_lock = threading.Lock()
+        # attached native front doors (attach_front_door): every tick drains
+        # their rings into the batch, round-robin from _door_rr; their
+        # response rings are single-producer on the C side, so every
+        # respond holds _respond_lock
+        self._front_doors: list = []
+        self._door_rr = -1
+        self._respond_lock = threading.Lock()
         self._wire_layouts: Dict[int, WIRE.WireLayout] = {}
         # dispatched-but-unresolved ticks: under sustained load the loop runs
         # up to pipeline_depth ticks ahead of their readback; ONE resolver
@@ -860,6 +926,13 @@ class SentinelClient:
         #: overflowing ticks since the last seg_u resize (seg_fallback=True
         #: resizes after 4)
         self._seg_over_ticks = 0
+        #: host mirror of the windows' rotation cadence, a window each:
+        #: [bucket ms, slack buckets, last bucket id, last rotated id]
+        #: (_count_rotations, from each tick's stamped timestamp)
+        self._rot_track = {"second": [self.cfg.second_window_ms, 1, None, None]}
+        if self.cfg.sketch_stats:
+            scfg = E.sketch_config(self.cfg)
+            self._rot_track["sketch"] = [scfg.window_ms, scfg.slack_buckets, None, None]
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._started = False
@@ -1249,7 +1322,7 @@ class SentinelClient:
         feats = {"nodes", "occupy", "flow"}
         flow = [r for r in self.flow_rules.get() if not r.cluster_mode] if local_flow is None else local_flow
         param = (
-            [r for r in self.param_flow_rules.get() if not r.cluster_mode]
+            [r for r in self.param_flow_rules.get() + self.gateway_param_rules.get() if not r.cluster_mode]
             if local_param is None
             else local_param
         )
@@ -1341,7 +1414,8 @@ class SentinelClient:
         self._cluster_flow_by_res = {r.resource: r for r in cluster_flow}
         if self.cfg.sketch_stats:
             self._promote_ruled_tail(flow)
-        all_param = self.param_flow_rules.get()
+        gateway_param = self.gateway_param_rules.get()
+        all_param = self.param_flow_rules.get() + gateway_param
         param = [r for r in all_param if not r.cluster_mode]
         cluster_param = [r for r in all_param if r.cluster_mode]
         self._cluster_param_by_res = {r.resource: r for r in cluster_param}
@@ -1350,8 +1424,11 @@ class SentinelClient:
         # distinct argument indices; every rule reads the lane its param_idx
         # was assigned (ParamFlowChecker.java:78 paramIdx dispatch).  Lane 0
         # also feeds the cluster token request, so healthy (token service)
-        # and degraded (local engine) modes throttle the same argument
-        lane_map = param_lanes(all_param, self.cfg.param_dims)
+        # and degraded (local engine) modes throttle the same argument.
+        # Gateway rules claim lanes first on shared resources: gateway
+        # traffic supplies the (short) parsed gateway vector as args, and a
+        # user rule's larger param_idx would index past it
+        lane_map = param_lanes(all_param, self.cfg.param_dims, priority=gateway_param)
         self._param_lanes_by_res = lane_map
         if self._cluster_degraded_active:
             flow = flow + [r for r in cluster_flow if r.cluster_fallback_to_local]
@@ -1430,6 +1507,15 @@ class SentinelClient:
         return auth_host
 
     # -- cluster consultation -------------------------------------------------
+
+    def attach_front_door(self, door) -> None:
+        """Serve a NativeFrontDoor's traffic from this client's tick loop:
+        its pending acquires join every engine batch as array lanes and
+        their verdicts return through the door's response ring — the
+        per-request work never touches Python (cluster/front_door.py).
+        May be called once per SO_REUSEPORT shard: every attached door is
+        drained into the same engine batches."""
+        self._front_doors.append(door)
 
     def set_cluster(self, cluster_state_manager) -> None:
         """Attach a ClusterStateManager; cluster-mode rules consult its
@@ -2386,7 +2472,8 @@ class SentinelClient:
                     if blk.taken >= len(blk.res):
                         self._acq_blocks.pop(0)
             comp = self._drain_completions(cbs)
-            if not acq and not blocks and comp is None and now_ms is None:
+            fronts = self._drain_doors(bs - len(acq) - sum(t for _b, _o, t in blocks))
+            if not acq and not blocks and comp is None and not fronts and now_ms is None:
                 ad = self._adaptive
                 if ad is not None and (ad.ladder.level > DG.NORMAL or ad.ceiling != float("inf")):
                     # the closed loop keeps stepping on EMPTY ticks: at
@@ -2399,18 +2486,18 @@ class SentinelClient:
                 self._drain_resolves()
                 return
             try:
-                pending = self._run_tick(acq, comp, now_ms, blocks=blocks)
+                pending = self._run_tick(acq, comp, now_ms, blocks=blocks, fronts=fronts)
             except Exception:
                 # a tick that cannot run decides nothing: its callers
                 # get a fail-closed verdict, not an entry timeout
                 self._fail_tick(_PendingTick(
                     acq=acq, blocks=blocks, inv_a=None, out=None, n_obj=len(acq), n_blk=0,
-                    wire_lo=None, now_ms=0,
+                    wire_lo=None, now_ms=0, fronts=fronts,
                 ))
                 raise
             self._pending_ticks.append(pending)
             _G_OCCUPANCY.set(len(self._pending_ticks))
-            more = self._has_work()
+            more = self._has_work() or any(d.pending() > 0 for d in self._front_doors)
             depth = self._pipeline_depth if more else 0
             while len(self._pending_ticks) > depth:
                 self._hand_off(self._pending_ticks.pop(0))
@@ -2432,6 +2519,35 @@ class SentinelClient:
                 if not self._has_work():
                     return
             now_ms = None
+
+    def _drain_doors(self, room: int) -> list:
+        """Up to ``room`` engine items from the attached front doors, as
+        ``[(door, (row, count, prio, corr, a0, a1)), ...]``.  The drain
+        order rotates a tick (``_door_rr``), so a saturated first shard
+        cannot starve the later shards' rings; concurrent acquire / release
+        events (``kind >= 3``) are answered on the host
+        (``handle_host_events``) and take no batch row."""
+        fronts = []
+        doors = self._front_doors
+        if len(doors) > 1:
+            rr = self._door_rr = (self._door_rr + 1) % len(doors)
+            doors = doors[rr:] + doors[:rr]
+        for door in doors:
+            if room <= 0:
+                break
+            row, cnt, prio, corr, kind, a0, a1 = door.drain(room)
+            if not len(row):
+                continue
+            host = kind >= 3
+            if host.any():
+                door.handle_host_events(kind[host], cnt[host], corr[host], a0[host], a1[host])
+            eng = ~host
+            if eng.any():
+                # copies: the door reuses its drain buffers at the next drain
+                cols = (row[eng], cnt[eng], prio[eng], corr[eng], a0[eng], a1[eng])
+                fronts.append((door, cols))
+                room -= len(cols[0])
+        return fronts
 
     def _sweep_expired(self, now_ms: Optional[int]) -> None:
         """Shed already-expired queued work CLOSED before device dispatch
@@ -2563,17 +2679,27 @@ class SentinelClient:
 
     def _resize_seg_u(self, new_u: int) -> None:
         """Swap in a tick with the compacted capacity ``new_u`` (eager
-        PyTorch: nothing to compile, the swap is immediate)."""
+        PyTorch: nothing to compile, the swap is immediate, inline before
+        the tick that needs it).  A failure keeps the old capacity and is
+        logged, never raised into the serving path (the
+        ``runtime.seg.resize`` failpoint's raise)."""
         _C_SEG_RESIZE.inc()
         FL.note("seg.resize", seg_u=int(new_u), old_u=int(self.cfg.seg_u))
         h = OT.TRACER.begin("engine.seg_resize", seg_u=int(new_u))
         try:
+            FP.hit(_FP_SEG_RESIZE)  # chaos: a raise keeps the old capacity
             cfg = dataclasses.replace(self.cfg, seg_u=int(new_u))
             with self._engine_lock:
                 self.cfg = self.registry.cfg = cfg
                 with PROF.expected_retrace("segment-resize"):
                     self._tick = E.make_tick(cfg, features=self._features)
                 self._seg_over_ticks = 0
+        except Exception:
+            # serving continues on the old capacity (exact through the
+            # per-item branch under seg_fallback, counted drops without);
+            # the next overflow tries again
+            _log.warning("seg_u resize to %d failed; serving continues on the old capacity", new_u,
+                         exc_info=True)
         finally:
             OT.TRACER.end(h)
 
@@ -2816,16 +2942,23 @@ class SentinelClient:
             batch = self._empty_batches[key] = make(self.cfg, self.device, b)
         return batch
 
-    def _run_tick(self, acq: List[AcquireRequest], comp, now_ms, blocks=()) -> _PendingTick:
+    def _run_tick(self, acq: List[AcquireRequest], comp, now_ms, blocks=(), fronts=()) -> _PendingTick:
         """Build the batch columns into the staging slots (presorted on the
         segment path), upload them through ``_dev_col``, run one tick and
         start its wire's readback into a host buffer; returns the
         ``_PendingTick``.  ``comp``: the drained ring-layout completion
-        columns, or None."""
+        columns, or None.  The batch holds the object requests, then the
+        block slices, then the drained front-door items (``fronts``:
+        ``[(door, (row, count, prio, corr, a0, a1)), ...]``), whose param
+        columns take the door's pre-hashed lanes ``a0`` / ``a1``."""
         cfg = self.cfg
         M = cfg.param_dims
         trash = cfg.trash_row
         n_blk = sum(t for _b, _o, t in blocks)
+        # every attached door's drained engine items, concatenated; the
+        # responses route back a door by slice
+        front = tuple(np.concatenate([cols[j] for _d, cols in fronts]) for j in range(6)) if fronts else None
+        n_front = 0 if front is None else len(front[0])
         # every _sbuf below hands out the slot the previous tick did not touch
         self._flip_stage()
         t_build0 = mono_s()
@@ -2836,7 +2969,7 @@ class SentinelClient:
         _t_asm = OT.t0()
         _tp0 = 0
         _ns_presort = 0
-        B = self._shape_for(len(acq) + n_blk, cfg.batch_size)
+        B = self._shape_for(len(acq) + n_blk + n_front, cfg.batch_size)
         B2 = self._shape_for(0 if comp is None else len(comp[0]), cfg.complete_batch_size)
         # the clamp and the presort follow the ACTIVE path, as the
         # reference's do: the segment path needs the fused one, and the
@@ -2846,12 +2979,14 @@ class SentinelClient:
         inv = None
         segs_a = segs_c = 0
         au_cols = None
-        if acq or n_blk:
+        if acq or n_blk or n_front:
             n = len(acq)
+            f0 = n + n_blk  # the doors' items start here
 
-            def arr(f, fill, dt=np.int32, blk_default=None):
-                """Object requests at [0, n), block slices after them (array
-                copies, no per-item Python), padding to B."""
+            def arr(f, fill, dt=np.int32, blk_default=None, front_col=None):
+                """Object requests at [0, n), block slices after them, then
+                the front-door items (array copies, no per-item Python),
+                padding to B."""
                 out = self._sbuf("a." + f, B, dt)
                 out.fill(fill)
                 if acq:
@@ -2864,10 +2999,12 @@ class SentinelClient:
                     elif blk_default is not None:
                         out[o : o + take] = blk_default
                     o += take
+                if front_col is not None:
+                    out[f0 : f0 + n_front] = front_col
                 return out
 
-            res_np = arr("res", trash)
-            cnt_np = arr("count", 0, blk_default=1)
+            res_np = arr("res", trash, front_col=front[0] if n_front else None)
+            cnt_np = arr("count", 0, blk_default=1, front_col=front[1] if n_front else None)
             if clamp:
                 np.minimum(cnt_np, cfg.max_batch_count, out=cnt_np)  # the fused kernels' envelope
             if self._audit is not None:
@@ -2876,7 +3013,7 @@ class SentinelClient:
                 # exactly the units the engine lands in the sketch; these
                 # slots are not written again before observe() below
                 au_cols = (res_np, cnt_np)
-            prio_np = arr("prio", 0)
+            prio_np = arr("prio", 0, front_col=front[2] if n_front else None)
             oid_np = arr("origin_id", -1)
             onode_np = arr("origin_node", trash)
             cnode_np = arr("ctx_node", trash)
@@ -2895,6 +3032,11 @@ class SentinelClient:
                     src = blk.param_hash[off : off + take, :M]
                     ph_np[o : o + take, : src.shape[1]] = src
                 o += take
+            if n_front:
+                # the door's param requests carry lane values hashed in C
+                ph_np[f0 : f0 + n_front, 0] = front[4]
+                if M > 1:
+                    ph_np[f0 : f0 + n_front, 1] = front[5]
             if presort:
                 _tp = OT.t0()
                 # by the segment keys of engine_seg.prepare_acquire, res-major
@@ -3018,6 +3160,8 @@ class SentinelClient:
                 OT.stage_ns("tick.presort", _tp0, _ns_presort, _H_PRESORT, trace=tick_id)
         load, cpu = self._sys.sample()
         t = now_ms if now_ms is not None else self.time.now_ms()
+        t += FP.skew_ms(_FP_TICK_CLOCK)  # chaos: deterministic clock skew
+        self._count_rotations(int(t))
         au = self._audit
         if au is not None:
             # audit-then-fold (obs/profile.py): the estimate read and the
@@ -3058,11 +3202,31 @@ class SentinelClient:
             event.record()
         p = _PendingTick(
             acq=acq, blocks=list(blocks), inv_a=inv, out=out, n_obj=len(acq), n_blk=n_blk,
-            wire_lo=wire_lo, now_ms=int(t), buf=buf, event=event,
+            wire_lo=wire_lo, now_ms=int(t), buf=buf, event=event, fronts=list(fronts),
             tick_id=tick_id, dispatched_ns=_disp_done,
         )
         self._track_tick(p)  # watchdog coverage (a no-op while disarmed)
         return p
+
+    def _count_rotations(self, t: int) -> None:
+        """Advance the host mirror of the windows' rotation cadence for one
+        stamped tick timestamp: a refresh at a new bucket rotates iff
+        ``wid - last_rotated >= slack_buckets`` (the windows' refresh
+        condition), otherwise slack deferred it."""
+        for key, tr in self._rot_track.items():
+            wms, g, last_wid, last_rot = tr
+            wid = (t & 0xFFFFFFFF) // wms  # the uint32 view of the window id
+            if last_wid is None:
+                tr[2] = tr[3] = wid
+                continue
+            if wid == last_wid:
+                continue
+            if wid - last_rot >= g:
+                _C_WIN_ROT[key].inc()
+                tr[3] = wid
+            else:
+                _C_WIN_SLACK[key].inc()
+            tr[2] = wid
 
     def _audit_attempts(self, rids, now_ms: int) -> np.ndarray:
         """SketchAudit's reader: the device sketch's windowed ATTEMPTS
@@ -3093,8 +3257,8 @@ class SentinelClient:
     def _resolve_tick(self, p: _PendingTick) -> None:
         """Decode one dispatched tick and fan its verdicts out — or, if
         anything on that path raises, fail the rest of the tick CLOSED
-        (BLOCK_SYSTEM) instead of stranding its callers; then return its
-        readback buffer to the pool.  A tick the watchdog already failed
+        (BLOCK_SYSTEM) instead of stranding its callers, and log the
+        error; then return its readback buffer to the pool.  A tick the watchdog already failed
         over is not fanned out again (``_claim_tick``)."""
         try:
             self._resolve_tick_inner(p)
@@ -3108,8 +3272,11 @@ class SentinelClient:
                 # after a partial fan-out)
             _C_RESOLVE_FAILED.inc()
             FL.note("resolve.fail_closed", error=f"{type(exc).__name__}: {exc}", n_obj=p.n_obj, n_blk=p.n_blk)
+            # logged, never raised: a sync client's entry() must see its
+            # fail-closed verdict, not the resolver's exception
+            _log.error("tick resolution failed (%r); failing %d object / %d block item(s) CLOSED",
+                       exc, p.n_obj, p.n_blk, exc_info=True)
             self._fail_tick(p)
-            raise
         finally:
             self._untrack_tick(p)
             if p.buf is not None:
@@ -3124,6 +3291,7 @@ class SentinelClient:
         of the tick CLOSED; the explain section fails OPEN on its own
         checksum (obs/explain.py)."""
         lo, out, now_ms = p.wire_lo, p.out, p.now_ms
+        FP.hit(_FP_READBACK)  # chaos: a raise fails this tick closed
         FP.hit(_FP_WD_STALL)  # chaos: a delay here stalls the readback — the
         # stand-in for a hung device tick the watchdog must fail over
         if p.event is not None:
@@ -3176,6 +3344,7 @@ class SentinelClient:
             self._record_seg_dropped(frame.seg_dropped)
         if _t_rb:
             OT.stage("tick.readback", _t_rb, _H_READBACK, trace=p.tick_id)
+        FP.hit(_FP_FANOUT)  # chaos: a raise BEFORE any consumer resolves
         if not self._claim_tick(p, "done"):
             return  # the watchdog failed this tick over while it was read back
         self._untrack_tick(p)
@@ -3195,7 +3364,7 @@ class SentinelClient:
                     ad.signals.note_resolved(passed, n_real - passed)
                 ad.signals.note_device_stats(st)
             else:
-                n_real = p.n_obj + p.n_blk
+                n_real = p.n_obj + p.n_blk + sum(len(cols[0]) for _d, cols in p.fronts)
                 if n_real:
                     v = verdict[:n_real]
                     passed = int(((v == ERR.PASS) | (v == ERR.PASS_WAIT)).sum())
@@ -3210,6 +3379,14 @@ class SentinelClient:
             self._block_done(blk, take)
             p.blocks_done += 1
             o += take
+        if p.fronts:
+            # each door answers its own slice, in its drained corr order
+            with self._respond_lock:
+                for door, cols in p.fronts:
+                    k = len(cols[0])
+                    door.respond(cols[3], verdict[o : o + k].astype(np.int32), wait[o : o + k].astype(np.int32))
+                    p.fronts_done += 1
+                    o += k
         if _t_res:
             OT.stage(
                 "tick.resolve", _t_res, _H_RESOLVE, trace=p.tick_id,
@@ -3227,8 +3404,9 @@ class SentinelClient:
 
     def _fail_tick(self, p: _PendingTick) -> None:
         """Resolve every still-waiting consumer of a tick as BLOCK_SYSTEM:
-        its object requests, and the block slices the normal fan-out had
-        not reached (no double decrement)."""
+        its object requests, and the block slices and door slices the
+        normal fan-out had not reached (no double decrement, no door
+        answered twice)."""
         for r in p.acq:
             if r.future is not None and not r.future.done():
                 r.future.set_result((int(ERR.BLOCK_SYSTEM), 0))
@@ -3237,6 +3415,19 @@ class SentinelClient:
             blk.waits[off : off + take] = 0
             self._block_done(blk, take)
             p.blocks_done += 1
+        if p.fronts_done < len(p.fronts):
+            with self._respond_lock:
+                for door, cols in p.fronts[p.fronts_done :]:
+                    # advance FIRST: a door whose respond fails here failed
+                    # the normal path too, and retrying it would raise out of
+                    # this handler and strand every other consumer
+                    p.fronts_done += 1
+                    k = len(cols[0])
+                    try:
+                        door.respond(cols[3], np.full(k, ERR.BLOCK_SYSTEM, np.int32), np.zeros(k, np.int32))
+                    except Exception:
+                        _log.error("front-door respond failed during the fail-closed fan-out; its clients "
+                                   "will time out", exc_info=True)
 
     @staticmethod
     def _fold_device_stats(s) -> None:

@@ -6,17 +6,15 @@ Three layers, importable independently:
 * :mod:`~sentinel_tpu_torch.workload.shapes` — pure-arithmetic traffic
   shapes (diurnal, flash crowd, Zipf churn, hot-param flood, skewed keys);
 * :mod:`~sentinel_tpu_torch.workload.generator` — the seeded
-  deterministic offered-event stream, the client driver, and the queueing
-  service model that turns real verdicts into modeled request latencies;
+  deterministic offered-event stream, the drivers that push it through
+  the real adapters (``drive_client``, ``drive_gateway``, ``drive_asgi``,
+  ``drive_streaming``, ``drive_grpc``), and the queueing service model
+  that turns real verdicts into modeled request latencies;
 * :mod:`~sentinel_tpu_torch.workload.tuner` /
   :mod:`~sentinel_tpu_torch.workload.operating_point` — the SLO-burn
   driven autotuner that retunes the shared ``OperatingPoint`` LIVE
   (``SentinelClient.apply_operating_point``), guarded by the retrace
   journal and the memory ledger (obs/profile.py).
-
-The reference's adapter drivers (``drive_gateway``, ``drive_asgi``,
-``drive_streaming``, ``drive_grpc``) come with ``adapters/`` (ROADMAP.md
-Queue A, item A4.3).
 """
 
 from sentinel_tpu_torch.workload.generator import (
@@ -24,7 +22,11 @@ from sentinel_tpu_torch.workload.generator import (
     ServiceBackend,
     ServiceModel,
     TrafficGenerator,
+    drive_asgi,
     drive_client,
+    drive_gateway,
+    drive_grpc,
+    drive_streaming,
 )
 from sentinel_tpu_torch.workload.operating_point import (
     BENCH_WINDOW_EXACT,
@@ -72,7 +74,11 @@ __all__ = [
     "TunerConfig",
     "WorkloadSpec",
     "ZipfKeys",
+    "drive_asgi",
     "drive_client",
+    "drive_gateway",
+    "drive_grpc",
+    "drive_streaming",
     "flash_crowd_2x",
     "run_closed_loop",
     "sim_default_op",

@@ -11,11 +11,16 @@ keys/params come only from those streams.  Two runs at one seed replay
 bit-identically, and the port's stream equals the reference's event for
 event.
 
-``drive_client`` pushes the stream through the client's bulk
-``check_batch`` on the client's own clock (virtual or real).  The
-reference's adapter drivers (``drive_gateway``, ``drive_asgi``,
-``drive_streaming``, ``drive_grpc``) come with the port's ``adapters/``
-(ROADMAP.md Queue A, item A4.3).
+Drivers push the stream through each real adapter surface on the
+clock of the caller's ``SentinelClient`` (virtual or real):
+
+* ``drive_client``     — ``check_batch`` bulk decisions
+* ``drive_gateway``    — ``GatewayAdapter.entries_for`` with real
+  ``RequestAttributes`` (param floods hit the per-param rule path)
+* ``drive_asgi``       — ``SentinelASGIMiddleware`` scopes
+* ``drive_streaming``  — ``guard_stream`` async generators
+* ``drive_grpc``       — ``SentinelServerInterceptor`` handlers (None
+  where the optional ``grpc`` package is absent)
 
 ``ServiceModel`` is the queueing backend the closed tuner loop rides:
 the same FIFO service model `adaptive/simload.py` established — admitted
@@ -262,7 +267,7 @@ class ServiceBackend:
         return out
 
 
-# -- the client driver -------------------------------------------------------
+# -- adapter drivers ---------------------------------------------------------
 
 
 @dataclass
@@ -352,4 +357,142 @@ def drive_client(
                 on_step(step, 0)
             vt.sleep_ms(step_ms)
             step += 1
+    return res
+
+
+def drive_gateway(adapter, gen: TrafficGenerator, route_id: str = "wl-route") -> DriveResult:
+    """Every event becomes one ``entries_for`` acquisition with real
+    ``RequestAttributes`` (key → path, param → X-Wl-Param header +
+    url param so param-parse strategies see it)."""
+    from sentinel_tpu_torch.adapters.gateway import RequestAttributes
+    from sentinel_tpu_torch.core.errors import BlockException
+
+    vt = adapter.client.time
+    res = DriveResult()
+    for _step, evs in gen.events():
+        for ev in evs:
+            req = RequestAttributes(
+                path=f"/{ev.key}",
+                client_ip="10.0.0.1",
+                host="wl.example",
+                headers={"X-Wl-Param": ev.param or ""},
+                url_params={"p": ev.param or ""},
+            )
+            try:
+                entries = adapter.entries_for(route_id, req)
+            except BlockException:
+                _account(res, False)
+                continue
+            for e in entries:
+                e.exit()
+            _account(res, True)
+        vt.sleep_ms(gen.spec.step_ms)
+    return res
+
+
+def drive_asgi(middleware, gen: TrafficGenerator) -> DriveResult:
+    """One ASGI scope per event (GET /{key}); 429 counts as blocked."""
+    import asyncio
+
+    res = DriveResult()
+    vt = middleware.client.time
+
+    async def one(ev: OfferedEvent) -> int:
+        sent = []
+
+        async def send(msg):
+            sent.append(msg)
+
+        async def receive():
+            return {"type": "http.request"}
+
+        scope = {
+            "type": "http",
+            "method": "GET",
+            "path": f"/{ev.key}",
+            "headers": [(b"x-wl-param", (ev.param or "").encode())],
+        }
+        await middleware(scope, receive, send)
+        return sent[0]["status"]
+
+    for _step, evs in gen.events():
+        for ev in evs:
+            _account(res, asyncio.run(one(ev)) != middleware.block_status)
+        vt.sleep_ms(gen.spec.step_ms)
+    return res
+
+
+def drive_streaming(client, gen: TrafficGenerator, chunks: int = 2) -> DriveResult:
+    """Each event opens a guarded async stream (``guard_stream``) and
+    consumes it to completion; a BlockException on first pull counts as
+    blocked."""
+    import asyncio
+
+    from sentinel_tpu_torch.adapters.streaming import guard_stream
+    from sentinel_tpu_torch.core.errors import BlockException
+
+    res = DriveResult()
+    vt = client.time
+
+    async def one(ev: OfferedEvent) -> bool:
+        async def source():
+            for i in range(chunks):
+                yield i
+
+        try:
+            async for _chunk in guard_stream(
+                ev.key, source(), client=client, inbound=True
+            ):
+                pass
+        except BlockException:
+            return False
+        return True
+
+    for _step, evs in gen.events():
+        for ev in evs:
+            _account(res, asyncio.run(one(ev)))
+        vt.sleep_ms(gen.spec.step_ms)
+    return res
+
+
+def drive_grpc(client, gen: TrafficGenerator) -> Optional[DriveResult]:
+    """Unary-unary handlers through ``SentinelServerInterceptor`` —
+    returns None when the optional grpc dependency is absent (the image
+    contract: never require an install)."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        return None
+    import grpc
+
+    from sentinel_tpu_torch.adapters.grpc_adapter import SentinelServerInterceptor
+
+    res = DriveResult()
+    vt = client.time
+    interceptor = SentinelServerInterceptor(client=client)
+
+    class _Ctx:
+        def abort(self, code, details):
+            raise _Aborted()
+
+    class _Aborted(Exception):
+        pass
+
+    def inner(request, context):
+        return "ok"
+
+    base = grpc.unary_unary_rpc_method_handler(inner)
+    for _step, evs in gen.events():
+        for ev in evs:
+            class _Details:
+                method = f"/{ev.key}"
+                invocation_metadata = ()
+
+            handler = interceptor.intercept_service(lambda d: base, _Details())
+            try:
+                handler.unary_unary("req", _Ctx())
+                _account(res, True)
+            except _Aborted:
+                _account(res, False)
+        vt.sleep_ms(gen.spec.step_ms)
     return res

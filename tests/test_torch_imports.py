@@ -286,10 +286,11 @@ def test_the_scan_covers_overload_protection():
 
 def test_the_scan_covers_the_operations_plane():
     """The operations plane is the port's own: obs/slo.py, obs/fleet.py,
-    obs/profile.py and workload/ (shapes, generator, tuner) are walked by
-    the checks above and import on the CPU without the JAX package; their
-    failpoints and the ledger's counters are the port's registry's; the
-    profiling plane imports without torch (the cluster codec imports it)."""
+    obs/profile.py and workload/ (shapes, generator, tuner, and the adapter
+    drivers since the adapters are ported) are walked by the checks above
+    and import on the CPU without the JAX package; their failpoints and the
+    ledger's counters are the port's registry's; the profiling plane
+    imports without torch (the cluster codec imports it)."""
     import importlib
     import pkgutil
     import sys
@@ -313,7 +314,7 @@ def test_the_scan_covers_the_operations_plane():
         assert site in FP.catalog()
     for name in ("sentinel_hbm_capacity_checks_total", "sentinel_hbm_capacity_breaches_total"):
         assert REGISTRY.series(name), name
-    assert not {"drive_gateway", "drive_asgi", "drive_streaming", "drive_grpc"} & set(workload.__all__)
+    assert {"drive_gateway", "drive_asgi", "drive_streaming", "drive_grpc"} <= set(workload.__all__)
     assert {"LEDGER", "RETRACE", "SketchAudit", "capture_profile", "FLIGHT"} <= set(obs.__all__)
     ref = sys.modules.get("sentinel_tpu.obs.profile")
     assert ref is None or ref.LEDGER is not obs.LEDGER
@@ -321,6 +322,67 @@ def test_the_scan_covers_the_operations_plane():
         "import sys\n"
         "import sentinel_tpu_torch.obs.profile, sentinel_tpu_torch.obs.slo, sentinel_tpu_torch.obs.fleet\n"
         "assert 'torch' not in sys.modules, 'the profiling plane pulled torch in'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_scan_covers_the_front_doors_and_the_adapters():
+    """The front doors and the adapters are the port's own:
+    cluster/front_door.py, rls/ (the rule model, the protoc module and the
+    gRPC server) and adapters/ (gRPC interceptors included: this box has
+    grpcio and protobuf) are walked by the checks above and import on the
+    CPU without the JAX package; the rule model imports without grpc and
+    protobuf, as the reference's does; the client's four tick-loop
+    failpoints and the front-door, RLS, rotation and tick-build metrics are
+    the port's registry's; the packages export what the reference's do."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import sentinel_tpu_torch as st
+
+    mods = ("cluster.front_door", "rls", "rls.rules", "rls.rls_pb2", "rls.server", "adapters",
+            "adapters._common", "adapters.decorator", "adapters.wsgi", "adapters.asgi", "adapters.streaming",
+            "adapters.http_client", "adapters.rpc", "adapters.gateway", "adapters.grpc_adapter")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    importlib.import_module("sentinel_tpu_torch.runtime.client")
+    from sentinel_tpu_torch import adapters, rls
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    for site in ("runtime.tick.clock", "runtime.resolve.readback", "runtime.resolve.fanout",
+                 "runtime.seg.resize"):
+        assert site in FP.catalog()
+    for name in ("sentinel_front_door_unenforceable_rules", "sentinel_rls_decision_ms",
+                 "sentinel_rls_requests_total", "sentinel_window_rotations_total",
+                 "sentinel_window_slack_skips_total", "sentinel_engine_tick_builds_total"):
+        assert REGISTRY.series(name), name
+    ref_adapters = {"sentinel_resource", "SentinelWSGIMiddleware", "SentinelASGIMiddleware", "SentinelHttpClient",
+                    "consumer_call", "consumer_entry", "provider_call", "provider_entry", "guard_aiter",
+                    "guard_awaitable", "guard_stream", "guarded_urlopen", "default_url_resource", "ApiDefinition",
+                    "ApiDefinitionManager", "ApiPredicateItem", "GatewayAdapter", "GatewayFlowRule",
+                    "GatewayParamFlowItem", "GatewayParamParser", "GatewayRuleManager", "RequestAttributes",
+                    "convert_to_param_rule"}
+    assert set(adapters.__all__) == ref_adapters
+    assert set(rls.__all__) == {"EnvoyRlsRule", "EnvoyRlsRuleManager", "RlsKeyValue", "RlsResourceDescriptor"}
+    ref = sys.modules.get("sentinel_tpu.cluster.front_door")
+    assert ref is None or ref._C_UNENFORCEABLE is not importlib.import_module(
+        "sentinel_tpu_torch.cluster.front_door")._C_UNENFORCEABLE
+    code = (
+        "import sys\n"
+        "import sentinel_tpu_torch.rls, sentinel_tpu_torch.adapters\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] == 'grpc' or n.startswith('google.protobuf')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -38,8 +38,13 @@ client, the client's cluster mode, and the native front door whose ring
 the client drains into its engine batches), the Envoy RLS front door
 (``sentinel_tpu_torch.rls``), the adapters (``sentinel_tpu_torch.adapters``:
 decorator, WSGI, ASGI, gRPC, outbound HTTP, RPC chains, streams, gateway
-routes), and the card's measurement probes
-(``sentinel_tpu_torch.probes``).  What is not ported raises
+routes), the operator's plane (``sentinel_tpu_torch.dashboard``: machine
+discovery, the metric fetcher and repository, rule CRUD and cluster
+assignment over each machine's command center; and the HTTP, callback,
+Redis, ZooKeeper, Nacos, Consul, Apollo, Eureka, etcd and Spring Cloud
+Config rule datasources under ``sentinel_tpu_torch.datasource``), the
+unpacked-wire client (``packed_wire=False``), and the card's measurement
+probes (``sentinel_tpu_torch.probes``).  What is not ported raises
 ``NotImplementedError`` (see ROADMAP.md).
 """
 

@@ -6,7 +6,10 @@ thread in ``mode="threaded"``, the caller's own thread in ``mode="sync"``)
 builds the batch columns, uploads them, runs ONE engine tick, and reads
 back ONE packed wire buffer (ops/wire.py), whose verdicts resolve the
 waiting futures.  A wire buffer that fails validation fails the whole
-tick CLOSED (every item gets BLOCK_SYSTEM).
+tick CLOSED (every item gets BLOCK_SYSTEM).  Under ``packed_wire=False``
+the tick returns the classic ``TickOutput`` tensors instead, read one by
+one on the resolving thread (``_read_unpacked``), and every column is a
+full int32 upload: the reference client the packed one is held to.
 
 Completions (``Entry.exit()``) are one push onto the native MPMC event
 ring (native/ring.EventRing; an unbounded overflow list takes them when
@@ -24,9 +27,10 @@ after the CUDA event recorded behind its last uploads has completed, so
 ``pipeline_depth`` may run the card several ticks behind the host.  Each
 column goes up through ``_dev_col``: a column equal to its fill
 everywhere reuses one cached device constant, a column equal to the one
-uploaded the tick before reuses that tensor (``cols_skipped``), and every
-real upload is a copy, counted in ``sentinel_wire_bytes_total{direction=
-"tx"}`` (the readback in ``direction="rx"``).  The engine never writes a
+uploaded the tick before reuses that tensor (``cols_skipped``; the packed
+wire only), and every real upload is a copy, counted in
+``sentinel_wire_bytes_total{direction="tx"}`` (the readback in
+``direction="rx"``).  The engine never writes a
 batch input in place, so cached columns are safe to share across ticks.
 
 Extension points, at the reference's places: ``enabled`` (False: every
@@ -552,7 +556,7 @@ class _PendingTick:
     out: Any  # TickOutput (device tensors)
     n_obj: int  # object-request count (blocks start here)
     n_blk: int  # block item count
-    wire_lo: Any  # packed-wire layout of this tick's batch shape
+    wire_lo: Any  # packed-wire layout of this tick's batch shape (None: unpacked)
     now_ms: int  # engine timestamp the tick ran at (timeline fold key)
     buf: Optional[torch.Tensor] = None
     event: Any = None
@@ -576,6 +580,9 @@ class _PendingTick:
     state: str = "pending"  # pending | done | failed
     state_lock: threading.Lock = field(default_factory=threading.Lock)
     deadline_mono: float = 0.0  # mono_s() stall deadline (0 = unwatched)
+    # unpacked wire: read seg_dropped (the segment path without its
+    # capacity fallback; 0 everywhere else)
+    check_dropped: bool = False
 
 
 class _ReadbackPool:
@@ -751,13 +758,10 @@ class SentinelClient:
         self.app_name = app_name or cfg_app_name()
         self.cfg = cfg or platform_config()
         if self.cfg.packed_wire is None:
-            # the client path always reads the packed wire
+            # tri-state: None resolves to the packed wire here; an explicit
+            # False keeps the classic TickOutput tensors, read one by one
+            # (the full-upload reference client the packed one is held to)
             self.cfg = dataclasses.replace(self.cfg, packed_wire=True)
-        if not self.cfg.packed_wire:
-            raise NotImplementedError(
-                "sentinel_tpu_torch's client reads the packed wire only "
-                "(packed_wire=False is not ported)"
-            )
         E.check_supported(self.cfg)
         self.time = time_source or TimeSource()
         self.mode = mode if not isinstance(self.time, VirtualTimeSource) else "sync"
@@ -2923,7 +2927,9 @@ class SentinelClient:
             # the dirty ref would go stale while constant ticks bypass it
             self._col_last.pop(field, None)
             return c
-        prev = self._col_last.get(field)
+        # the dirty-column delta is part of the packed transport:
+        # packed_wire=False stays a full-upload reference client
+        prev = self._col_last.get(field) if self.cfg.packed_wire else None
         if prev is not None and prev[0].shape == x.shape and prev[0].dtype == x.dtype and np.array_equal(prev[0], x):
             _C_COLS_SKIPPED.inc()
             return prev[1]
@@ -3187,23 +3193,26 @@ class SentinelClient:
             )
             # under the lock a swap also takes: the layout of the config
             # this tick ran on, whatever swap comes after
-            wire_lo = self._wire_layout(B)
+            wire_lo = self._wire_layout(B) if out.wire is not None else None
         _disp_done = 0
         if _t_disp:
             _disp_done = OT.now_ns()
             OT.stage_ns("tick.dispatch", _t_disp, _disp_done - _t_disp, _H_DISPATCH, trace=tick_id)
         # start the readback NOW: the copy into a host buffer (pinned on the
-        # card) is queued behind the tick, with an event the resolver waits on
-        buf = self._readback.take(out.wire.shape[0])
-        buf.copy_(out.wire, non_blocking=True)
+        # card) is queued behind the tick, with an event the resolver waits
+        # on.  Unpacked, the event alone: the resolver reads the tensors
+        buf = None
+        if out.wire is not None:
+            buf = self._readback.take(out.wire.shape[0])
+            buf.copy_(out.wire, non_blocking=True)
         event = None
-        if out.wire.is_cuda:
+        if out.wait_ms.is_cuda:
             event = torch.cuda.Event()
             event.record()
         p = _PendingTick(
             acq=acq, blocks=list(blocks), inv_a=inv, out=out, n_obj=len(acq), n_blk=n_blk,
             wire_lo=wire_lo, now_ms=int(t), buf=buf, event=event, fronts=list(fronts),
-            tick_id=tick_id, dispatched_ns=_disp_done,
+            tick_id=tick_id, dispatched_ns=_disp_done, check_dropped=bool(presort and not cfg.seg_fallback),
         )
         self._track_tick(p)  # watchdog coverage (a no-op while disarmed)
         return p
@@ -3289,61 +3298,17 @@ class SentinelClient:
         and explain records; then fan the verdicts out to the futures and
         the blocks.  A main section that fails validation fails every item
         of the tick CLOSED; the explain section fails OPEN on its own
-        checksum (obs/explain.py)."""
-        lo, out, now_ms = p.wire_lo, p.out, p.now_ms
+        checksum (obs/explain.py).  Unpacked (``packed_wire=False``), the
+        tick's tensors are read one by one instead (``_read_unpacked``)."""
         FP.hit(_FP_READBACK)  # chaos: a raise fails this tick closed
         FP.hit(_FP_WD_STALL)  # chaos: a delay here stalls the readback — the
         # stand-in for a hung device tick the watchdog must fail over
         if p.event is not None:
             p.event.synchronize()
-        raw = p.buf.numpy()
-        tl_bytes = lo.tl_rows * lo.tl_cols * 4
-        _C_WIRE["rx"].inc(raw.nbytes - tl_bytes)
-        if tl_bytes:
-            TLM._C_WIRE["rx"].inc(tl_bytes)
-        # the chaos pipe covers only the fail-CLOSED main section; the
-        # explain section behind it has its own site
-        buf = raw.tobytes()
-        split = lo.off_expl * 4
-        if lo.expl_k and len(buf) > split:
-            data = FP.pipe(_FP_PACKED_DECODE, buf[:split]) + buf[split:]
-        else:
-            data = FP.pipe(_FP_PACKED_DECODE, buf)
-        try:
-            frame = WIRE.unpack(data, lo)
-        except WIRE.WireDecodeError:
-            _C_PACKED_DECODE.inc()
-            self.wire_decode_failures += 1
-            if self._claim_tick(p, "failed"):
-                self._fail_tick(p)
-            return
-        if p.dispatched_ns and OT.TRACER.enabled:
-            # dispatch -> verdicts host-visible: device compute and the
-            # copy, plus the queue wait when pipelined (spans of successive
-            # ticks may overlap: that overlap IS the pipelining)
-            OT.stage_ns(
-                "tick.device", p.dispatched_ns, OT.now_ns() - p.dispatched_ns, _H_DEVICE, trace=p.tick_id
-            )
-        # readback: the folds and any residual device read, after the wait
-        _t_rb = OT.t0()
-        verdict, wait = frame.verdict, frame.wait
-        if wait is None:  # more PASS_WAIT rows than the sidecar holds
-            wait = out.wait_ms.cpu().numpy()
-            _C_WIRE["rx"].inc(wait.nbytes)
-        if frame.stats is not None:
-            self._fold_device_stats(frame.stats)
-        if frame.res_stats is not None and self.timeline is not None:
-            self.timeline.note_tick(frame.res_stats, now_ms, self.time.wall_ms(now_ms) - now_ms)
-        if frame.hot is not None and self.hotset is not None:
-            self.hotset.fold(frame.hot)
-        if frame.expl is not None and self.explain_plane is not None:
-            # BEFORE the verdict fan-out, so an entry() that raises a
-            # BlockException can already look itself up in explain()
-            self.explain_plane.ingest_section(frame.expl, ts_ms=now_ms)
-        if frame.seg_dropped:
-            self._record_seg_dropped(frame.seg_dropped)
-        if _t_rb:
-            OT.stage("tick.readback", _t_rb, _H_READBACK, trace=p.tick_id)
+        got = self._read_packed(p) if p.wire_lo is not None else self._read_unpacked(p)
+        if got is None:
+            return  # failed validation: the tick was failed CLOSED
+        verdict, wait, stats = got
         FP.hit(_FP_FANOUT)  # chaos: a raise BEFORE any consumer resolves
         if not self._claim_tick(p, "done"):
             return  # the watchdog failed this tick over while it was read back
@@ -3355,14 +3320,13 @@ class SentinelClient:
             verdict, wait = verdict[p.inv_a], wait[p.inv_a]
         ad = self._adaptive
         if ad is not None:
-            st = frame.stats
-            if st is not None:
+            if stats is not None:
                 # the device's accounting: valid items ARE the real items
-                n_real = int(st[E.STAT_VALID])
-                passed = int(st[E.STAT_PASS] + st[E.STAT_PASS_WAIT])
+                n_real = int(stats[E.STAT_VALID])
+                passed = int(stats[E.STAT_PASS] + stats[E.STAT_PASS_WAIT])
                 if n_real:
                     ad.signals.note_resolved(passed, n_real - passed)
-                ad.signals.note_device_stats(st)
+                ad.signals.note_device_stats(stats)
             else:
                 n_real = p.n_obj + p.n_blk + sum(len(cols[0]) for _d, cols in p.fronts)
                 if n_real:
@@ -3391,6 +3355,117 @@ class SentinelClient:
             OT.stage(
                 "tick.resolve", _t_res, _H_RESOLVE, trace=p.tick_id,
                 attrs={"n_obj": p.n_obj, "n_blk": p.n_blk},
+            )
+
+    def _read_packed(self, p: _PendingTick):
+        """Decode the tick's packed wire and fold its planes; returns
+        ``(verdict, wait, stats)`` in batch order, or None when the main
+        section failed validation (the tick is then failed CLOSED)."""
+        lo, out, now_ms = p.wire_lo, p.out, p.now_ms
+        raw = p.buf.numpy()
+        tl_bytes = lo.tl_rows * lo.tl_cols * 4
+        _C_WIRE["rx"].inc(raw.nbytes - tl_bytes)
+        if tl_bytes:
+            TLM._C_WIRE["rx"].inc(tl_bytes)
+        # the chaos pipe covers only the fail-CLOSED main section; the
+        # explain section behind it has its own site
+        buf = raw.tobytes()
+        split = lo.off_expl * 4
+        if lo.expl_k and len(buf) > split:
+            data = FP.pipe(_FP_PACKED_DECODE, buf[:split]) + buf[split:]
+        else:
+            data = FP.pipe(_FP_PACKED_DECODE, buf)
+        try:
+            frame = WIRE.unpack(data, lo)
+        except WIRE.WireDecodeError:
+            _C_PACKED_DECODE.inc()
+            self.wire_decode_failures += 1
+            if self._claim_tick(p, "failed"):
+                self._fail_tick(p)
+            return None
+        self._span_device(p)
+        # readback: the folds and any residual device read, after the wait
+        _t_rb = OT.t0()
+        verdict, wait = frame.verdict, frame.wait
+        if wait is None:  # more PASS_WAIT rows than the sidecar holds
+            wait = out.wait_ms.cpu().numpy()
+            _C_WIRE["rx"].inc(wait.nbytes)
+        if frame.stats is not None:
+            self._fold_device_stats(frame.stats)
+        if frame.res_stats is not None and self.timeline is not None:
+            self.timeline.note_tick(frame.res_stats, now_ms, self.time.wall_ms(now_ms) - now_ms)
+        if frame.hot is not None and self.hotset is not None:
+            self.hotset.fold(frame.hot)
+        if frame.expl is not None and self.explain_plane is not None:
+            # BEFORE the verdict fan-out, so an entry() that raises a
+            # BlockException can already look itself up in explain()
+            self.explain_plane.ingest_section(frame.expl, ts_ms=now_ms)
+        if frame.seg_dropped:
+            self._record_seg_dropped(frame.seg_dropped)
+        if _t_rb:
+            OT.stage("tick.readback", _t_rb, _H_READBACK, trace=p.tick_id)
+        return verdict, wait, frame.stats
+
+    def _read_unpacked(self, p: _PendingTick):
+        """The unpacked wire's reads, as the reference's client makes them:
+        the verdict, then the telemetry row, the timeline rows and the hot
+        block, each its own device-to-host read with its own bytes; then
+        ``seg_dropped`` (from the telemetry row when it is on, else a
+        4-byte read of its own), and the wait column only when a verdict
+        may be PASS_WAIT.  Each read is a host sync on the resolving
+        thread, after the tick's event: the designed readback points.
+        Returns ``(verdict, wait, stats)`` in batch order."""
+        out, now_ms = p.out, p.now_ms
+        verdict = out.verdict.cpu().numpy()
+        _C_WIRE["rx"].inc(verdict.nbytes)
+        self._span_device(p)
+        # the residual reads after the verdict's wait
+        _t_rb = OT.t0()
+        stats = None
+        if out.stats is not None:
+            stats = out.stats.cpu().numpy()
+            _C_WIRE["rx"].inc(stats.nbytes)
+            self._fold_device_stats(stats)
+        if out.res_stats is not None and self.timeline is not None:
+            rs = out.res_stats.cpu().numpy()
+            TLM._C_WIRE["rx"].inc(rs.nbytes)  # the timeline's own wire path
+            self.timeline.note_tick(rs, now_ms, self.time.wall_ms(now_ms) - now_ms)
+        if out.hot is not None and self.hotset is not None:
+            hot = out.hot.cpu().numpy()
+            _C_WIRE["rx"].inc(hot.nbytes)
+            self.hotset.fold(hot)
+        if p.check_dropped:
+            if stats is not None:
+                dropped = int(stats[E.STAT_SEG_DROPPED])
+            else:
+                dropped = int(out.seg_dropped.cpu())
+                _C_WIRE["rx"].inc(4)
+            if dropped:
+                self._record_seg_dropped(dropped)
+        # the engine zeroes the wait of every item that is not PASS_WAIT:
+        # skip the column unless the telemetry row (or, without it, the
+        # verdicts) says some item waits
+        if stats is not None:
+            waits = stats[E.STAT_PASS_WAIT] > 0
+        else:
+            waits = bool((verdict == ERR.PASS_WAIT).any())
+        if waits:
+            wait = out.wait_ms.cpu().numpy()
+            _C_WIRE["rx"].inc(wait.nbytes)
+        else:
+            wait = np.zeros(verdict.shape[0], np.int32)
+        if _t_rb:
+            OT.stage("tick.readback", _t_rb, _H_READBACK, trace=p.tick_id)
+        return verdict, wait, stats
+
+    @staticmethod
+    def _span_device(p: _PendingTick) -> None:
+        """``tick.device``: dispatch -> verdicts host-visible: device compute
+        and the copy, plus the queue wait when pipelined (spans of
+        successive ticks may overlap: that overlap IS the pipelining)."""
+        if p.dispatched_ns and OT.TRACER.enabled:
+            OT.stage_ns(
+                "tick.device", p.dispatched_ns, OT.now_ns() - p.dispatched_ns, _H_DEVICE, trace=p.tick_id
             )
 
     def _block_done(self, blk: ArrayBlock, take: int) -> None:

@@ -139,10 +139,9 @@ def test_client_fails_tick_closed_on_corrupt_wire(monkeypatch):
 def test_param_rules_raise_not_implemented():
     """Param rules load, cluster-mode ones too (the cluster layer is
     ported: they are kept out of the compiled ruleset and consult the
-    token service); what still raises is a config with an unported stage
-    on (the unpacked wire, ``packed_wire=False``); the observability
-    planes, the sketch tier and ``seg_fallback=True`` are ported and
-    build."""
+    token service); the unpacked wire (``packed_wire=False``) builds and
+    serves an entry; the observability planes, the sketch tier and
+    ``seg_fallback=True`` are ported and build."""
     tc = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, **NO_PLANES), mode="sync", device="cpu")
     tc.param_flow_rules.load([tst.ParamFlowRule(resource="p", count=1, param_idx=0)])
     assert "param" in tc._features
@@ -152,8 +151,15 @@ def test_param_rules_raise_not_implemented():
     assert "param" not in tc._features  # not compiled while the cluster is not degraded
     tc.param_flow_rules.load([])
     assert "param" not in tc._features  # the stage is on only while param rules are loaded
-    with pytest.raises(NotImplementedError):
-        SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, packed_wire=False), mode="sync", device="cpu")
+    unpacked = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, packed_wire=False), mode="sync",
+                              device="cpu")
+    unpacked.start()
+    unpacked.flow_rules.load([tst.FlowRule(resource="u", count=1)])
+    unpacked.entry("u").exit()  # the unpacked wire serves
+    with pytest.raises(tst.FlowException):
+        unpacked.entry("u")
+    assert unpacked.explain_plane is None and unpacked.explain("u") == []
+    unpacked.stop()
     fallback = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True, seg_effects=True, seg_fallback=True),
                               mode="sync", device="cpu")
     assert fallback.cfg.seg_fallback

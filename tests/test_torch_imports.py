@@ -216,7 +216,8 @@ def test_the_scan_covers_the_control_plane():
     utils/authn.py, utils/record_log.py are walked by the checks above and
     import on the CPU without the JAX package; their failpoints are the
     port's registry's, their loggers the port's, and the datasource
-    package exports only what is ported."""
+    package exports what the reference's exports (the remote and redis
+    datasources among them, ported since)."""
     import importlib
     import pkgutil
     import sys
@@ -243,7 +244,12 @@ def test_the_scan_covers_the_control_plane():
         assert site in FP.catalog()
     assert record_log.record_log().name == "sentinel_tpu_torch.record"
     assert record_log.command_center_log().name == "sentinel_tpu_torch.command"
-    assert not {"HttpDataSource", "CallbackDataSource", "RedisDataSource"} & set(datasource.__all__)
+    assert set(datasource.__all__) == {
+        "SentinelProperty", "DynamicSentinelProperty", "NoOpSentinelProperty", "PropertyListener",
+        "SimplePropertyListener", "ReadableDataSource", "WritableDataSource", "AbstractDataSource",
+        "CallbackDataSource", "HttpDataSource", "AutoRefreshDataSource", "FileRefreshableDataSource",
+        "FileWritableDataSource", "Converter", "json_rule_converter", "json_rule_encoder", "RedisConnection",
+        "RedisDataSource", "RespError"}
     assert st.__version__ == "0.1.0"
     ref = sys.modules.get("sentinel_tpu.transport.command")
     assert ref is None or ref.CommandRegistry is not importlib.import_module(
@@ -389,3 +395,51 @@ def test_the_scan_covers_the_front_doors_and_the_adapters():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_scan_covers_the_dashboard_and_the_store_datasources():
+    """The operator's plane is the port's own: dashboard/ (api client,
+    discovery, fetcher, repository, server, ui) and the remote, redis,
+    zookeeper and store datasources are walked by the checks above and
+    import on the CPU without jax or the JAX package, in a fresh process;
+    the fetcher's two series and the store watch failpoint are the port's
+    registry's; the packages export what the reference's do."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    mods = ("dashboard", "dashboard.api_client", "dashboard.discovery", "dashboard.metric_fetcher",
+            "dashboard.repository", "dashboard.server", "dashboard.ui", "datasource.remote", "datasource.redis",
+            "datasource.zookeeper", "datasource.stores")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if "." in m} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    from sentinel_tpu_torch import dashboard, datasource
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    assert "datasource.store.watch" in FP.catalog()
+    for name in ("sentinel_dashboard_fetch_total", "sentinel_dashboard_last_success_ms"):
+        assert REGISTRY.series(name), name
+    assert set(dashboard.__all__) == {"SentinelApiClient", "AppManagement", "MachineInfo", "MetricFetcher",
+                                      "InMemoryMetricsRepository", "DashboardServer", "DynamicRuleProvider",
+                                      "DynamicRulePublisher"}
+    assert {"CallbackDataSource", "HttpDataSource", "RedisConnection", "RedisDataSource", "RespError"} <= set(
+        datasource.__all__)
+    code = (
+        "import sys\n"
+        "import " + ", ".join(f"sentinel_tpu_torch.{m}" for m in mods) + "\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'sentinel_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -384,6 +384,46 @@ Phases (the first failure stops the script with a nonzero exit):
    (B1, B3, B4): verdicts and waits bit-identical on the card and equal to
    the CPU's unpacked run; ms a tick, tx / rx bytes a tick, reads a tick,
    B1-B4 launches a tick (``[operator]`` lines).
+14. The sharded cluster and the shard router (``shards_phase``).  (a) A
+   4-shard ``ShardFleet``: each shard a ``DefaultTokenService`` (the token
+   column) on its own sync ``platform_config()`` client on the card
+   behind a ``ClusterTokenServer`` on 127.0.0.1, holding phase 8's 1,000
+   cluster flow rules (all GLOBAL here) and 32 cluster param rules,
+   partitioned over the ring (the shards' clients are sync, on the real
+   clock, as ``cluster_sharded_bench``'s).  A threaded ``platform_config()`` serving
+   client with 4,000 flow rules (those 1,000 cluster-mode) and the param
+   rules joins through ``ClusterStateManager.set_to_sharded_client``; 8
+   threads send 60 Zipf(1.1) entries each over the 4,000 names (one in 8
+   with an argument), then one ``check_batch`` of 2,048.  Every decision
+   an owner's token column makes is for a flow the ring gives it; the owners'
+   grants stay within each threshold in every window, and the client's
+   admits (remote grants plus lease-local admits) within the threshold
+   plus one lease; lease-first local admits happen; no token call fails.
+   The hottest flow's owner is killed: that flow's decisions pass only
+   against the lease carried at the kill and then block (never
+   STATUS_FAIL, the client's own cluster degrade never engages), the
+   other shards still answer remotely, and ``api/shards`` from the serving
+   client's command center lists four shards, one degraded; on ``rejoin``
+   the exit transition comes and remote answers resume.  The serving
+   client's tick launches B1, B2 and B4, and one captured tick is held
+   against its plain versions.  ``cluster_sharded_bench``'s row
+   (bench.py:615-700) at 1 and 4 shards.  A sync replay of a seeded token
+   sequence (a kill and a rejoin in it) on virtual time with
+   ``lease_refresh_async=False`` on a 2-shard card fleet equals the CPU's
+   (a process of its own).  (b) A ``ShardRouter`` over two ``RemoteShard``
+   s, each on an in-process token server whose host client (sync,
+   virtual time, ``platform_config()``) runs on the card, takes four mixed
+   batches of 2,048: verdicts in input order equal to a router over two
+   in-process card clients and to the CPU's; one host's server stops
+   before the third batch (its spans give BLOCK_SYSTEM through the
+   router's ``block`` mode, no chunk answered twice) and restarts on its
+   port: served again after ``retry_interval_s``.  A second pass over two
+   threaded card host clients behind servers at their default worker count
+   (a connection's chunks decide on 8 workers, answers in any order) takes
+   eight batches of 2,048 whose names' verdicts are fixed by their rules:
+   every item gets its own verdict, no chunk degrades, each host decides
+   each of its items once; its decisions/s and chunk ms are the router's
+   numbers.  The hosts' ticks launch B1, B2 and B4 (``[shards]`` lines).
 
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
@@ -400,7 +440,8 @@ build and phase 9 (``control_main``), ``python3 chip_smoke.py --overload``
 the build and phase 10 (``overload_main``), ``python3 chip_smoke.py
 --workload`` the build and phase 11 (``workload_main``), ``python3
 chip_smoke.py --doors`` the build and phase 12 (``doors_main``), ``python3
-chip_smoke.py --operator`` the build and phase 13 (``operator_main``).
+chip_smoke.py --operator`` the build and phase 13 (``operator_main``),
+``python3 chip_smoke.py --shards`` the build and phase 14 (``shards_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -409,6 +450,7 @@ limit (nvidia-smi), and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import socket
@@ -2582,14 +2624,16 @@ def column_device_report(np, torch, batcher, rng, fids, now) -> dict:
                 copies_a_chunk=copies / 4, device_us_a_chunk=sum(e.time_range.elapsed_us() for e in evs) / 4)
 
 
-def cluster_rules(np, st, C):
+def cluster_rules(np, st, C, threshold_type=None):
     """1,000 cluster flow rules (``cres-<i>``, flow id i + 1, half GLOBAL,
-    half AVG_LOCAL, counts 5..59 from the seed) and 32 cluster param rules
-    on the 32 hottest (flow id 10,001 + i, 2..5 a value a second)."""
+    half AVG_LOCAL — or all of ``threshold_type`` — counts 5..59 from the
+    seed) and 32 cluster param rules on the 32 hottest (flow id 10,001 + i,
+    2..5 a value a second)."""
     rng = np.random.default_rng(SEED + 81)
     flow = [st.FlowRule(resource=f"cres-{i}", count=int(rng.integers(5, 60)), cluster_mode=True,
                         cluster_flow_id=i + 1,
-                        cluster_threshold_type=C.FLOW_THRESHOLD_GLOBAL if i % 2 else C.FLOW_THRESHOLD_AVG_LOCAL)
+                        cluster_threshold_type=threshold_type if threshold_type is not None
+                        else C.FLOW_THRESHOLD_GLOBAL if i % 2 else C.FLOW_THRESHOLD_AVG_LOCAL)
             for i in range(CLUSTER_FLOWS)]
     param = [st.ParamFlowRule(resource=f"cres-{i}", count=int(rng.integers(2, 6)), cluster_mode=True,
                               cluster_flow_id=10_001 + i) for i in range(CLUSTER_PARAMS)]
@@ -3926,19 +3970,22 @@ def kernel_sets(FU, SC):
     return real, plain, install
 
 
-def capture_client_tick(E, nth: int) -> tuple:
+def capture_client_tick(E, nth: int, only=None) -> tuple:
     """Keep a copy of the inputs (state, rules, batches, clock, route hint,
     config, features) of the ``nth`` engine tick from now on — whichever
     tick binding runs it (a resize or a swap rebinds the client's) — and
     return (the copy, a function that stops watching).  The watch goes
-    as soon as it has its copy."""
+    as soon as it has its copy.  ``only``: a predicate a tick must meet to
+    be counted (another client's ticks pass through uncounted)."""
     real_tick = E.tick
     box = {}
     n = [0]
 
     def rec(state, rules, acq, comp, now_ms, sys_load, sys_cpu, cfg, features, seg_fits=None):
-        n[0] += 1
-        if n[0] == nth:
+        counted = only is None or only()
+        if counted:
+            n[0] += 1
+        if counted and n[0] == nth and not box:
             box.update(state=E.clone_state(state), rules=rules, acq=E.clone_state(acq), comp=E.clone_state(comp),
                        now=now_ms, load=sys_load, cpu=sys_cpu, fits=seg_fits, cfg=cfg, feats=features)
             E.tick = real_tick
@@ -6326,6 +6373,938 @@ def operator_main() -> int:
     return 0
 
 
+# -- phase 14: the sharded cluster and the shard router ----------------------------------
+
+#: 14a: token shards; the serving client's local flow rules beside the 1,000
+#: cluster flow rules; entry() calls a request thread makes, one in
+#: SHARD_ARG_EVERY with an argument (a param token, never leased)
+SHARDS = 4
+SHARD_LOCAL_FLOWS = 3_000
+SHARD_ENTRIES = 60
+SHARD_ARG_EVERY = 8
+#: the bulk check after the entries (one request_token_batch a distinct cluster name)
+SHARD_BULK = 2_048
+#: the fleet's and the router's failover cooldown (retry_interval_s)
+SHARD_RETRY_S = 1.0
+#: cluster_sharded_bench's row (bench.py:615-700): flows, requests, workers
+SHARD_BENCH = (16, 2_000, 8)
+#: the sync replay: flows, operations, the kill and the rejoin
+REPLAY_FLOWS = 8
+REPLAY_OPS = 96
+REPLAY_KILL_AT, REPLAY_HEAL_AT = 40, 70
+#: 14b: router names, mixed batches of ROUTER_B, and the batch before which
+#: host 1's server stops (it restarts after that batch)
+ROUTER_NAMES = 512
+ROUTER_BATCHES = 4
+ROUTER_B = 2_048
+ROUTER_DOWN_AT = 2
+#: 14b's second pass (hosts at the server's default worker count): mixed
+#: batches of ROUTER_B after one untimed; one name in ROUTER_BLOCK_EVERY
+#: has a count of 0 (BLOCK_FLOW), the rest 1e9 (PASS)
+ROUTER_THREADED_BATCHES = 8
+ROUTER_BLOCK_EVERY = 3
+#: the kernels a platform_config() tick launches
+SHARD_KERNELS = ("scatter_many", "gather_many", "seg_incl_min")
+
+
+class ShardDown:
+    """A RemoteShard fallback that refuses: a host that stops answering
+    fails its spans CLOSED through the router's ``block`` mode instead of
+    RemoteShard's fail-open pass-through."""
+
+    def check_batch(self, resources, **kw):
+        raise OSError("shard host down")
+
+
+#: the sharded client's series that 14a reads as deltas, by shard
+SHARD_SERIES = ("sentinel_shard_requests_total", "sentinel_lease_local_admits_total",
+                "sentinel_shard_lease_tokens_total")
+
+
+def shard_series() -> dict:
+    """{(series, shard): value} of SHARD_SERIES from the port's registry."""
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    out = {}
+    for key, v in REGISTRY.snapshot().items():
+        name, _, labels = key.partition("{")
+        if name in SHARD_SERIES and 'shard="' in labels:
+            out[(name, labels.split('shard="')[1].split('"')[0])] = v
+    return out
+
+
+def shard_names():
+    """The serving client's 4,000 names, a cluster name every fourth, so
+    that Zipf ranks spread over both kinds: cres-0, res-0, res-1, res-2,
+    cres-1, ..."""
+    local = [f"res-{i}" for i in range(SHARD_LOCAL_FLOWS)]
+    return [x for k in range(CLUSTER_FLOWS) for x in (f"cres-{k}", *local[3 * k:3 * k + 3])]
+
+
+def wait_v3(clients, timeout_s=10.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while any(c.peer_version < 3 for c in clients) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    check(all(c.peer_version >= 3 for c in clients), ("a token client did not reach protocol v3",
+                                                      [c.peer_version for c in clients]))
+
+
+def sync_client(st, device, cfg):
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    c = st.SentinelClient(cfg=cfg, mode="sync", device=device, time_source=VirtualTimeSource(1_000))
+    c.start()
+    return c
+
+
+def shards_serving_run(np, st, FU, SC, E, S, torch, device="cuda", cfg=None, entries=SHARD_ENTRIES) -> dict:
+    """14a: the 4-shard fleet (sync decision clients) and a threaded serving
+    client joined through set_to_sharded_client, on ``device`` at ``cfg``
+    (platform_config())."""
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.cluster import shard as SH
+    from sentinel_tpu_torch.cluster import state as STM
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.transport import start_command_center
+
+    cfg = cfg or platform_config()
+    made, out = [], {}
+
+    def factory():
+        # a sync decision client on the real clock, as bench.py's fleet's:
+        # the token column answers on its own worker, a param token ticks
+        # on the server's worker thread, and no tick loop of its own
+        # competes with the serving client's for the interpreter
+        c = st.SentinelClient(cfg=cfg, mode="sync", device=device)
+        c.start()
+        made.append(c)
+        return c
+
+    t = time.perf_counter()
+    fleet = SH.ShardFleet(factory, n_shards=SHARDS, retry_interval_s=SHARD_RETRY_S,
+                          timeout_ms=CLUSTER_REQUEST_TIMEOUT_MS, reconnect_interval_s=0.0)
+    out["fleet_build_s"] = time.perf_counter() - t
+    app = mgr = center = None
+    try:
+        flow, param = cluster_rules(np, st, C, threshold_type=C.FLOW_THRESHOLD_GLOBAL)
+        fleet.load_flow_rules("default", flow)
+        for name in fleet.names:
+            fleet.services[name].param_rules.load(
+                "default", [r for r in param if fleet.client.owner_of(r.cluster_flow_id) == name])
+        app = st.SentinelClient(cfg=cfg, mode="threaded", device=device)
+        app.start()
+        mgr = STM.ClusterStateManager()
+        mgr.client_config.request_timeout_ms = CLUSTER_REQUEST_TIMEOUT_MS
+        mgr.set_to_sharded_client({n: ("127.0.0.1", p) for n, p in fleet._ports.items()},
+                                  reconnect_interval_s=0.0, retry_interval_s=SHARD_RETRY_S)
+        tok = mgr.token_service()
+        tok.flow_rules.load("default", flow)  # the thresholds, for lease sizing
+        wait_v3([s.client for s in tok._shards.values()])
+        app.set_cluster(mgr)
+        local = [st.FlowRule(resource=f"res-{i}", count=5 + i % 20) for i in range(SHARD_LOCAL_FLOWS)]
+        app.flow_rules.load(local + flow)
+        app.param_flow_rules.load(param)
+        center = start_command_center(app, host="127.0.0.1", port=0)
+        thr = {r.cluster_flow_id: float(r.count) for r in flow}
+        owner_clock = {fid: fleet.services[tok.owner_of(fid)].client.time for fid in thr}
+
+        # -- instruments.  The routed calls by shard, the lease-local admits
+        # and the leased units come from the port's own series (deltas over
+        # the run, ``shard_series``); wrappers stay where a check needs what
+        # no series holds: the owners' grants and the lease-local admits a
+        # window (windows_within), the units leased a flow and the lease
+        # frames (the shard clients' two lease calls), and each public
+        # token call's time and status
+        lock = threading.Lock()
+        grants, answered, admits, calls, batch_grants = [], [], [], [], []
+        leased, lease_frames = {}, [0]
+
+        def note_leases(fids, results):
+            with lock:
+                lease_frames[0] += 1
+                for f, r in zip(fids, results):
+                    if r.status == C.STATUS_OK and r.remaining > 0:
+                        leased[int(f)] = leased.get(int(f), 0) + int(r.remaining)
+
+        for sst in tok._shards.values():
+            cli = sst.client
+
+            def lease_call(fid, units, _real=cli.request_lease):
+                r = _real(fid, units)
+                note_leases([fid], [r])
+                return r
+
+            def batch_call(entries_, _real=cli.request_batch):
+                rs = _real(entries_)
+                lease = [(e[1], r) for e, r in zip(entries_, rs) if int(e[0]) == C.BATCH_KIND_LEASE]
+                if lease:
+                    note_leases(*zip(*lease))
+                return rs
+
+            cli.request_lease, cli.request_batch = lease_call, batch_call
+        for name, svc in fleet.services.items():
+            real_col = svc.col._run_column
+
+            def cap_col(cols, now, _real=real_col, _svc=svc, _name=name):
+                g, o = _real(cols, now)
+                fid_of = {s_: f for f, s_ in _svc.col._slots.items()}
+                live = cols[1] > 0
+                with lock:
+                    for s_, gr, part, fo in zip(cols[0][live], g[live], cols[3][live], cols[4][live]):
+                        if int(s_) in fid_of:
+                            answered.append((_name, fid_of[int(s_)]))
+                            if not fo:
+                                grants.append((int(now), fid_of[int(s_)], int(gr), bool(part)))
+                return g, o
+
+            svc.col._run_column = cap_col
+        real_admit = tok._lease_admit
+
+        def lease_admit(fid, count):
+            r = real_admit(fid, count)
+            if r is not None:
+                clock = owner_clock.get(int(fid))
+                with lock:
+                    admits.append((clock.now_ms() if clock is not None else 0, int(fid), int(count)))
+            return r
+
+        tok._lease_admit = lease_admit
+        for meth in ("request_token", "request_param_token", "request_token_batch"):
+            real = getattr(tok, meth)
+
+            def timed(*a, _real=real, _meth=meth, **kw):
+                t0 = time.perf_counter()
+                r = _real(*a, **kw)
+                with lock:
+                    calls.append((_meth, (time.perf_counter() - t0) * 1e3, r.status, int(a[1]) if len(a) > 1 else 1))
+                    if _meth == "request_token_batch" and r.status == C.STATUS_OK and int(a[0]) in owner_clock:
+                        # a partial grant: its units are admits (those from the
+                        # lease are in ``admits`` already; these are the rest)
+                        batch_grants.append((owner_clock[int(a[0])].now_ms(), int(a[0]), int(r.remaining)))
+                return r
+
+            setattr(tok, meth, timed)
+
+        names = shard_names()
+        zipf = zipf_probs(np, len(names))
+        vals = zipf_probs(np, N_VALUES)
+        rng = np.random.default_rng(SEED + 141)
+        plan = [(rng.choice(len(names), size=entries, p=zipf), rng.choice(N_VALUES, size=entries, p=vals))
+                for _ in range(N_THREADS)]
+        outcomes = {}
+
+        def worker(picks, values):
+            mine = {}
+            for k, (r, v) in enumerate(zip(picks, values)):
+                args = [arg_value(int(v))] if k % SHARD_ARG_EVERY == 0 else None
+                try:
+                    app.entry(names[int(r)], args=args).exit()
+                    key = "pass"
+                except ERR.BlockException as e:
+                    key = type(e).__name__
+                mine[key] = mine.get(key, 0) + 1
+            with lock:
+                for key, n in mine.items():
+                    outcomes[key] = outcomes.get(key, 0) + n
+
+        out["heap"] = settle_heap()
+        box = unwatch = None
+        if device == "cuda":
+            box, unwatch = capture_client_tick(E, 3, only=lambda: threading.current_thread() is app._thread)
+        series0 = shard_series()
+        FU.reset_launches()
+        SC.reset_launches()
+        threads = [threading.Thread(target=worker, args=p) for p in plan]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        t_entries = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "14a: a request thread did not finish")
+        with lock:
+            entry_calls, n_entry_admits = list(calls), len(admits)
+        # one bulk check through the same client: one request_token_batch a
+        # distinct cluster name (lease-first too)
+        t1 = time.perf_counter()
+        bulk = app.check_batch([names[int(r)] for r in rng.choice(len(names), size=SHARD_BULK, p=zipf)])
+        t_bulk = time.perf_counter() - t1
+        bulk_mix = np.bincount([v for v, _w in bulk], minlength=7)
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        if unwatch is not None:
+            unwatch()
+        check(tok.flush_lease_refresh(10.0), "14a: a lease top-up did not drain")
+        with lock:
+            run_admits, run_leased = list(admits), dict(leased)
+        series = {k: v - series0.get(k, 0) for k, v in shard_series().items()}
+        out["full_collections"] = gc_pauses_since(t0)
+        # -- the checks of the run.  Every decision an owner's column made
+        # was for a flow the ring gives it; a param token past its owner
+        # would find no rule there (param rules load on the owners alone)
+        misrouted = sorted({(n, f) for n, f in answered if tok.owner_of(f) != n})[:10]
+        check(answered and not misrouted, ("14a: an owner decided a flow the ring gives another (shard, flow)",
+                                           misrouted))
+        failed = [(m, round(ms, 1)) for m, ms, stt, _u in calls if stt == C.STATUS_FAIL]
+        check(not failed, ("14a: token calls failed", failed[:20]))
+        odd = sorted({stt for m, _ms, stt, _u in calls if m == "request_param_token"}
+                     - {C.STATUS_OK, C.STATUS_BLOCKED, C.STATUS_SHOULD_WAIT})
+        check(not odd, ("14a: a param token met no rule at the shard it reached", odd))
+        # the port's own series agree with what the wrappers saw
+        by = {kind: sum(v for (n, _sh), v in series.items() if n == kind) for kind in SHARD_SERIES}
+        check(by["sentinel_lease_local_admits_total"] == len(run_admits)
+              and by["sentinel_shard_lease_tokens_total"] == sum(run_leased.values()),
+              ("14a: the shard series disagree with the admits and leases seen", by, len(run_admits),
+               sum(run_leased.values())))
+        check(not app._cluster_degraded_active, "14a: the serving client's cluster degrade engaged")
+        # the owners' grants (tokens and leases) within each threshold in
+        # every window of their own clock
+        bad, worst = windows_within([(now, fid, g) for now, fid, g, _part in grants if fid in thr], 100, 10, thr)
+        check(not bad, ("14a: an owner granted a flow past its threshold in a window", bad[:5]))
+        # the client's admits: remote all-or-nothing grants (at the owner's
+        # decision), lease-local admits and the bulk's partial grants (on the
+        # owner's clock when the client saw them) within threshold + one lease
+        flow_grants = [(now, fid, g) for now, fid, g, part in grants if not part and fid in thr]
+        lease_units = {fid: tok._lease_units(fid) for fid in thr}
+        bound = {fid: thr[fid] + lease_units[fid] for fid in thr}
+        bad_c, worst_c = windows_within(flow_grants + admits + batch_grants, 100, 10, bound)
+        check(not bad_c, ("14a: the client admitted a flow past its threshold plus one lease", bad_c[:5]))
+        # every lease-local admit spends a unit an owner granted as a lease
+        spent = {}
+        for _now, fid, u in run_admits:
+            spent[fid] = spent.get(fid, 0) + u
+        over = [(fid, u, run_leased.get(fid, 0)) for fid, u in spent.items() if u > run_leased.get(fid, 0)]
+        check(not over, ("14a: lease-local admits past the leased units (flow, admitted, leased)", over[:5]))
+        n_tokens = sum(1 for m, *_r in entry_calls if m == "request_token")
+        check(run_admits, "14a: no lease-first local admit")
+        check(outcomes.get("pass", 0) > 0 and outcomes.get("FlowException", 0) + bulk_mix[ERR.BLOCK_FLOW] > 0,
+              ("14a: the traffic met no flow deny", outcomes, bulk_mix.tolist()))
+        if device == "cuda":
+            for k in SHARD_KERNELS:
+                check(launches[k] > 0, ("14a: a kernel of the path was not launched", k, launches))
+        lat = [ms for m, ms, *_r in entry_calls if m == "request_token"]
+        param_lat = [ms for m, ms, *_r in entry_calls if m == "request_param_token"]
+        units = sum(u for m, _ms, stt, u in entry_calls if stt == C.STATUS_OK and m == "request_token")
+        out.update(
+            entries=entries * N_THREADS, entry_outcomes=outcomes, entries_s=t_entries, bulk_b=SHARD_BULK,
+            bulk_s=t_bulk, bulk_mix=bulk_mix.tolist(), leased_units=by["sentinel_shard_lease_tokens_total"],
+            tokens_per_s=units / t_entries, decisions=len(calls), token_calls=n_tokens, param_calls=len(param_lat),
+            decision_p50_ms=_pct(lat, 0.5), decision_p99_ms=_pct(lat, 0.99),
+            param_p50_ms=_pct(param_lat, 0.5), param_p99_ms=_pct(param_lat, 0.99),
+            local_admits=n_entry_admits, local_admit_share=n_entry_admits / max(n_tokens, 1),
+            lease_frames=lease_frames[0], lease_frames_per_1000=1e3 * lease_frames[0] / max(len(calls), 1),
+            owner_grants=len(grants), window_worst_fill=worst, client_window_worst_fill=worst_c,
+            kernel_launches_run=launches,
+            routed_by_shard={n: series.get(("sentinel_shard_requests_total", n), 0) for n in fleet.names},
+        )
+        # -- kill the hottest flow's owner
+        fid = flow[0].cluster_flow_id
+        victim = tok.owner_of(fid)
+        vst = tok._shards[victim]
+        carry = 0
+        for _ in range(3):
+            # a standing lease to carry into the kill: the flow's next token
+            # (remote once the last lease lapsed) re-leases it; a spent
+            # window waits for the next one
+            tok.request_token(fid)
+            check(tok.flush_lease_refresh(10.0), "14a: a lease top-up did not drain")
+            with vst.lock:
+                lease = vst.leases.get(fid)
+                carry = (max(lease.granted - lease.used, 0) if lease is not None
+                         and SH.wall_ms_now() < lease.expires_ms else 0)
+            if carry:
+                break
+            time.sleep(1.1)
+        check(carry > 0, "14a: the hottest flow holds no lease to carry into the kill")
+        exits0 = vst.c_exit.value
+        t_kill = time.perf_counter()
+        fleet.kill(victim)
+        statuses, blip_kill, first_ms = [], None, None
+        for _ in range(carry + 64):
+            statuses.append(tok.request_token(fid).status)
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t_kill) * 1e3
+            if blip_kill is None and tok.shard_degraded(victim):
+                blip_kill = (time.perf_counter() - t_kill) * 1e3
+            if statuses[-1] == C.STATUS_BLOCKED and blip_kill is not None:
+                break
+        statuses += [tok.request_token(fid).status for _ in range(3)]
+        first_block = statuses.index(C.STATUS_BLOCKED) if C.STATUS_BLOCKED in statuses else len(statuses)
+        check(tok.shard_degraded(victim), "14a: the killed shard did not degrade")
+        check(C.STATUS_FAIL not in statuses, ("14a: a killed shard's flow returned STATUS_FAIL", statuses))
+        check(set(statuses[:first_block]) <= {C.STATUS_OK} and 1 <= first_block <= carry
+              and set(statuses[first_block:]) == {C.STATUS_BLOCKED},
+              ("14a: the killed shard's flow passed past its lease or did not block", carry, statuses))
+        victim_res = flow[0].resource
+        killed_entries = []
+        for _ in range(4):
+            try:
+                app.entry(victim_res).exit()
+                killed_entries.append("pass")
+            except ERR.BlockException as e:
+                killed_entries.append(type(e).__name__)
+        check(set(killed_entries) == {"FlowException"} and not app._cluster_degraded_active,
+              ("14a: entries on the killed shard's flow did not fail closed through the fleet", killed_entries))
+        others = {}
+        for name in fleet.names:
+            if name == victim:
+                continue
+            ofid = next(r.cluster_flow_id for r in flow if tok.owner_of(r.cluster_flow_id) == name)
+            req0 = tok._shards[name].c_requests.value
+            r = tok.request_lease(ofid, 1)  # always routed: a remote answer
+            others[name] = dict(status=r.status, routed=tok._shards[name].c_requests.value - req0)
+            check(r.status in (C.STATUS_OK, C.STATUS_BLOCKED) and not tok.shard_degraded(name)
+                  and others[name]["routed"] == 1, ("14a: a live shard did not answer remotely", name, others))
+        ms, status, body = http_call(f"http://127.0.0.1:{center.port}/api/shards")
+        listed = json.loads(body)
+        ports = {f"127.0.0.1:{p}" for p in fleet._ports.values()}
+        views = [[(s_["name"], s_["degraded"]) for s_ in d["shards"]] for d in listed
+                 if {s_["addr"] for s_ in d["shards"]} == ports]
+        check(status == 200 and [(victim, True)] in [[x for x in v if x[1]] for v in views]
+              and all(len(v) == SHARDS for v in views),
+              ("14a: api/shards did not list four shards with the killed one degraded", listed))
+        out["api_shards"] = dict(ms=ms, fleets=len(listed), degraded=[x[0] for v in views for x in v if x[1]])
+        # -- rejoin: the first probe after the cooldown exits, remote answers resume
+        t_rejoin = time.perf_counter()
+        fleet.rejoin(victim)
+        while tok.shard_degraded(victim) and time.perf_counter() - t_rejoin < 30:
+            tok.request_token(fid)
+            time.sleep(0.01)
+        blip_rejoin = (time.perf_counter() - t_rejoin) * 1e3
+        check(not tok.shard_degraded(victim) and vst.c_exit.value - exits0 == 1,
+              "14a: the rejoined shard did not exit degraded")
+        req0 = vst.c_requests.value
+        r = tok.request_lease(fid, 1)
+        check(r.status in (C.STATUS_OK, C.STATUS_BLOCKED) and vst.c_requests.value - req0 == 1,
+              ("14a: the rejoined shard gave no remote answer", r))
+        out.update(victim=victim, victim_flow=fid, carry_at_kill=carry, killed_statuses=statuses,
+                   killed_entries=killed_entries, other_shards=others, first_after_kill_ms=first_ms, blip_kill_ms=blip_kill,
+                   blip_rejoin_ms=blip_rejoin, retry_interval_s=SHARD_RETRY_S)
+        if box is not None:
+            out["plain_check"] = replay_against_plain(np, E, S, FU, SC, torch, box, SHARD_KERNELS, "14a")
+        out["bench"] = shard_bench_rows(st, made)
+        return out
+    finally:
+        if center is not None:
+            center.stop()
+        if mgr is not None:
+            mgr.stop()
+        fleet.stop()
+        for svc in fleet.services.values():
+            svc.close()
+        if app is not None:
+            app.stop()
+        for c in made:
+            c.stop()
+
+
+def shard_bench_rows(st, decision_clients) -> list:
+    """bench.py's cluster_sharded_bench (bench.py:615-700) on the card: 16
+    flows at count 1e9 (routing, not admission) behind 1 and 4 shards (new
+    token services on the fleet's decision clients), 2,000 requests from 8
+    workers through the fleet's own client: decisions/s, p50 / p99 ms."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sentinel_tpu_torch.cluster import constants as C
+    from sentinel_tpu_torch.cluster import shard as SH
+
+    n_flows, n_requests, workers = SHARD_BENCH
+    flows = list(range(1001, 1001 + n_flows))
+    rows = []
+    for n_shards in (1, 4):
+        it = iter(decision_clients)
+        fleet = SH.ShardFleet(lambda: next(it), n_shards=n_shards, lease_slack=0.25, retry_interval_s=300.0,
+                              lease_ttl_ms=600_000, timeout_ms=5000, reconnect_interval_s=0.0, warm=False)
+        try:
+            fleet.load_flow_rules("default", [st.FlowRule(resource=f"res-{f}", count=1e9, cluster_mode=True,
+                                                          cluster_flow_id=f, cluster_threshold_type=1)
+                                              for f in flows])
+            wait_v3([s.client for s in fleet.client._shards.values()])
+            for f in flows:  # connections and leases off the clock
+                fleet.client.request_token(f)
+            lat = []
+
+            def one(i):
+                t0 = time.perf_counter()
+                r = fleet.client.request_token(flows[i % n_flows])
+                lat.append((time.perf_counter() - t0) * 1e3)
+                return r.status
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                statuses = list(pool.map(one, range(n_requests)))
+            wall = time.perf_counter() - t0
+            rows.append(dict(shards=n_shards, dps=n_requests / wall, decision_p50_ms=_pct(lat, 0.5),
+                             decision_p99_ms=_pct(lat, 0.99),
+                             non_ok=sum(1 for s_ in statuses if s_ != C.STATUS_OK)))
+            check(rows[-1]["non_ok"] == 0, ("14a: cluster_sharded_bench met a non-OK decision", rows[-1]))
+        finally:
+            fleet.stop()
+            for svc in fleet.services.values():
+                svc.close()
+    return rows
+
+
+def shard_replay(np, st, clients) -> list:
+    """A seeded token sequence through a 2-shard fleet on ``clients`` (sync,
+    virtual time): single and batch tokens, many-flow asks (each flow once),
+    param tokens, concurrent acquire / release and leases over 8 GLOBAL
+    flows, shard-0 killed at one operation and rejoined at a later one;
+    top-ups inline.  Returns every result as (status, remaining, wait_ms,
+    deny provenance)."""
+    from sentinel_tpu_torch.cluster import shard as SH
+
+    rng = np.random.default_rng(SEED + 142)
+    counts = [int(c) for c in rng.integers(3, 30, size=REPLAY_FLOWS)]
+    plan = []
+    for _ in range(REPLAY_OPS):
+        k = int(rng.integers(7))
+        many = rng.choice(REPLAY_FLOWS, size=int(rng.integers(1, 5)), replace=False)
+        plan.append((k, int(rng.integers(REPLAY_FLOWS)), int(rng.integers(1, 4)), bool(rng.random() < 0.2),
+                     [(int(a), int(rng.integers(1, 3))) for a in many], f"u{int(rng.integers(3))}"))
+    it = iter(clients)
+    fleet = SH.ShardFleet(lambda: next(it), n_shards=2, lease_slack=0.5, retry_interval_s=300.0,
+                          lease_ttl_ms=600_000, timeout_ms=10_000, reconnect_interval_s=0.0,
+                          lease_refresh_async=False)
+    try:
+        tok = fleet.client
+        wait_v3([s.client for s in tok._shards.values()])
+        fids = [next(f for f in range(101 + 50 * i, 2_000) if tok.owner_of(f) == f"shard-{i % 2}")
+                for i in range(REPLAY_FLOWS)]
+        fleet.load_flow_rules("default", [st.FlowRule(resource=f"res-{f}", count=float(c), cluster_mode=True,
+                                                      cluster_flow_id=f, cluster_threshold_type=1)
+                                          for f, c in zip(fids, counts)])
+        for name in fleet.names:
+            fleet.services[name].param_rules.load("default", [
+                st.ParamFlowRule(resource=f"res-{f}", count=2, cluster_mode=True, cluster_flow_id=f)
+                for f in fids if tok.owner_of(f) == name])
+
+        def res(r):
+            return [r.status, r.remaining, r.wait_ms, r.prov_kind, r.prov_rule, r.prov_observed, r.prov_limit]
+
+        held, out = [], []
+        for i, (k, j, n, prio, many, value) in enumerate(plan):
+            if i == REPLAY_KILL_AT:
+                fleet.kill("shard-0")
+                time.sleep(0.2)
+            if i == REPLAY_HEAL_AT:
+                fleet.rejoin("shard-0")
+                sst = tok._shards["shard-0"]
+                check(sst.client._ensure_connected(), "14a replay: no reconnect to the rejoined shard")
+                wait_v3([sst.client])
+                with sst.lock:
+                    sst.degraded_until = 0.0
+            fid = fids[j]
+            if k == 0:
+                out.append(res(tok.request_token(fid, n, prio)))
+            elif k == 1:
+                out.append(res(tok.request_token_batch(fid, n)))
+            elif k == 2:
+                out.append([res(r) for r in tok.request_token_many([(fids[a], b) for a, b in many])])
+            elif k == 3:
+                out.append(res(tok.request_param_token(fid, 1, [value])))
+            elif k == 4:
+                r = tok.request_concurrent_token(fid)
+                if r.ok:
+                    held.append(r.token_id)
+                out.append(res(r) + [r.token_id >> 48])
+            elif k == 5 and held:
+                out.append(res(tok.release_concurrent_token(held.pop(0))))
+            else:
+                out.append(res(tok.request_lease(fid, n)))
+        return out
+    finally:
+        fleet.stop()
+        for svc in fleet.services.values():
+            svc.close()
+
+
+def router_rules(st):
+    """Flow rules on the router's names, each on its owning host of two:
+    counts 5..44."""
+    from sentinel_tpu_torch.parallel.router import shard_of
+
+    per = [[], []]
+    for i in range(ROUTER_NAMES):
+        name = f"rres-{i}"
+        per[shard_of(name, 2)].append(st.FlowRule(resource=name, count=5 + i % 40))
+    return per
+
+
+def router_batches(np) -> list:
+    """ROUTER_BATCHES mixed batches of ROUTER_B names, Zipf(1.1) over the
+    router's names (one unit an entry: a tick's rank and a chunk's agree)."""
+    rng = np.random.default_rng(SEED + 143)
+    p = zipf_probs(np, ROUTER_NAMES)
+    return [[f"rres-{int(i)}" for i in rng.choice(ROUTER_NAMES, size=ROUTER_B, p=p)] for _ in range(ROUTER_BATCHES)]
+
+
+def inprocess_router_run(np, st, clients) -> list:
+    """The router's batches over in-process clients (sync, virtual time; 300
+    ms between batches); before ROUTER_DOWN_AT's batch host 1 is down (its
+    spans fail closed, BLOCK_SYSTEM)."""
+    from sentinel_tpu_torch.parallel.router import ShardRouter
+
+    for c, rules in zip(clients, router_rules(st)):
+        c.flow_rules.load(rules)
+    up, down = ShardRouter(clients), ShardRouter([clients[0], ShardDown()])
+    out = []
+    for b, names in enumerate(router_batches(np)):
+        out.append([[int(v), int(w)] for v, w in (down if b == ROUTER_DOWN_AT else up).check_batch(names)])
+        for c in clients:
+            c.time.advance(300)
+    return out
+
+
+def shards_router_run(np, st, FU, SC, torch, device="cuda", cfg=None) -> dict:
+    """14b: a ShardRouter over two RemoteShards on in-process token servers
+    (one worker each: a host answers its chunks in order) whose host
+    clients run ``cfg`` on ``device``; host 1's server stops before batch
+    ROUTER_DOWN_AT and restarts after it."""
+    from sentinel_tpu_torch import obs
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+    from sentinel_tpu_torch.parallel.remote_shard import RemoteShard
+    from sentinel_tpu_torch.parallel.router import ShardRouter
+
+    cfg = cfg or platform_config()
+    hosts = [sync_client(st, device, cfg) for _ in range(2)]
+    for c, rules in zip(hosts, router_rules(st)):
+        c.flow_rules.load(rules)
+    svcs = [DefaultTokenService(c) for c in hosts]
+    servers = [ClusterTokenServer(s, host="127.0.0.1", port=0, workers=1) for s in svcs]
+    for s in servers:
+        s.start()
+    processed = [0, 0]
+    for k, c in enumerate(hosts):
+        real = c.check_batch
+
+        def counted(names, *a, _real=real, _k=k, **kw):
+            processed[_k] += len(names)
+            return _real(names, *a, **kw)
+
+        c.check_batch = counted
+    shards = [RemoteShard("127.0.0.1", s.port, timeout_s=30.0, fallback=ShardDown(), retry_interval_s=SHARD_RETRY_S)
+              for s in servers]
+    router = ShardRouter(shards, on_shard_error="block")
+    fail_key = 'sentinel_shard_route_failures_total{kind="io",shard="1"}'
+    fails0 = REGISTRY.snapshot().get(fail_key, 0)
+    out, verdicts, times = {}, [], []
+    try:
+        FU.reset_launches()
+        SC.reset_launches()
+        obs.TRACER.reset()
+        obs.enable()
+        try:
+            for b, names in enumerate(router_batches(np)):
+                if b == ROUTER_DOWN_AT:
+                    port1 = servers[1].port
+                    servers[1].stop()
+                t0 = time.perf_counter()
+                verdicts.append([[int(v), int(w)] for v, w in router.check_batch(names)])
+                times.append(time.perf_counter() - t0)
+                for c in hosts:
+                    c.time.advance(300)
+                if b == ROUTER_DOWN_AT:
+                    servers[1] = ClusterTokenServer(svcs[1], host="127.0.0.1", port=port1, workers=1)
+                    servers[1].start()
+                    t_up = time.perf_counter()
+                    time.sleep(SHARD_RETRY_S)
+            spans = obs.summarize(obs.TRACER.snapshot(), prefix="shard.")
+        finally:
+            obs.disable()
+            obs.TRACER.reset()
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        owner = [[router._owner(x) for x in names] for names in router_batches(np)]
+        down = [v for v, o in zip(verdicts[ROUTER_DOWN_AT], owner[ROUTER_DOWN_AT]) if o == 1]
+        check(set(v for v, _w in down) == {ERR.BLOCK_SYSTEM},
+              ("14b: the stopped host's spans did not fail closed", sorted(set(v for v, _w in down))))
+        after = [v for v, o in zip(verdicts[-1], owner[-1]) if o == 1]
+        check(ERR.BLOCK_SYSTEM not in {v for v, _w in after} and not shards[1]._hy.active,
+              "14b: the restarted host was not served again after retry_interval_s")
+        remote_items = [sum(1 for b, names in enumerate(owner) for o in names if o == k and
+                            not (k == 1 and b == ROUTER_DOWN_AT)) for k in range(2)]
+        check(processed == remote_items, ("14b: a host answered an item twice or missed one", processed,
+                                          remote_items))
+        fails = REGISTRY.snapshot().get(fail_key, 0) - fails0
+        check(fails == 1, ("14b: the stopped host's leg was not counted once as an io route failure", fails))
+        if device == "cuda":
+            for k in SHARD_KERNELS:
+                check(launches[k] > 0, ("14b: a kernel of the hosts' ticks was not launched", k, launches))
+        chunk = spans.get("shard.chunk", {})
+        served = [t for b, t in enumerate(times) if b != ROUTER_DOWN_AT]
+        out.update(verdicts=verdicts, batches=ROUTER_BATCHES, batch=ROUTER_B,
+                   decisions_per_s=ROUTER_B * len(served) / sum(served), batch_s=times,
+                   chunk_p50_ms=chunk.get("p50_ms"), chunk_p99_ms=chunk.get("p99_ms"), chunks=chunk.get("count"),
+                   host_items=processed, route_failures=fails, kernel_launches=launches,
+                   restart_to_batch_s=time.perf_counter() - t_up if ROUTER_DOWN_AT < ROUTER_BATCHES - 1 else None)
+        return out
+    finally:
+        for s in shards:
+            s.close()
+        for s in servers:
+            s.stop()
+        for s in svcs:
+            s.close()
+        for c in hosts:
+            c.stop()
+
+
+def shards_router_threaded_run(np, st, FU, SC, torch, device="cuda", cfg=None) -> dict:
+    """14b's second pass: the router over two RemoteShards on token servers
+    at their default worker count, whose threaded host clients run ``cfg``
+    on ``device``: a connection's pipelined chunks decide on the server's
+    workers and their answers come back in any order.  A name's verdict is
+    fixed by its rule (count 0 or 1e9), so every item must get its own;
+    no chunk degrades, and each host decides each of its items once."""
+    from sentinel_tpu_torch import obs
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+    from sentinel_tpu_torch.parallel.remote_shard import RemoteShard
+    from sentinel_tpu_torch.parallel.router import ShardRouter, shard_of
+
+    cfg = cfg or platform_config()
+    workers = inspect.signature(ClusterTokenServer).parameters["workers"].default
+    want, per = {}, [[], []]
+    for i in range(ROUTER_NAMES):
+        name = f"rres-{i}"
+        blocked = i % ROUTER_BLOCK_EVERY == 0
+        want[name] = ERR.BLOCK_FLOW if blocked else ERR.PASS
+        per[shard_of(name, 2)].append(st.FlowRule(resource=name, count=0 if blocked else 1e9))
+    rng = np.random.default_rng(SEED + 144)
+    p = zipf_probs(np, ROUTER_NAMES)
+    batches = [[f"rres-{int(i)}" for i in rng.choice(ROUTER_NAMES, size=ROUTER_B, p=p)]
+               for _ in range(ROUTER_THREADED_BATCHES + 1)]
+    hosts, svcs, servers, shards = [], [], [], []
+    try:
+        for rules in per:
+            c = st.SentinelClient(cfg=cfg, mode="threaded", device=device)
+            c.start()
+            hosts.append(c)
+            c.flow_rules.load(rules)
+        processed = [0, 0]
+        for k, c in enumerate(hosts):
+            real = c.check_batch
+
+            def counted(names, *a, _real=real, _k=k, **kw):
+                processed[_k] += len(names)
+                return _real(names, *a, **kw)
+
+            c.check_batch = counted
+        svcs = [DefaultTokenService(c) for c in hosts]
+        servers = [ClusterTokenServer(s, host="127.0.0.1", port=0) for s in svcs]
+        for s in servers:
+            s.start()
+        shards = [RemoteShard("127.0.0.1", s.port, timeout_s=30.0, fallback=ShardDown(),
+                              retry_interval_s=SHARD_RETRY_S) for s in servers]
+        router = ShardRouter(shards, on_shard_error="block")
+        router.check_batch(batches[0])  # connections and HELLO off the clock
+        degraded_key = "sentinel_shard_chunks_degraded_total"
+        degraded0 = REGISTRY.snapshot().get(degraded_key, 0)
+        processed[:] = [0, 0]
+        wrong, times = [], []
+        FU.reset_launches()
+        SC.reset_launches()
+        obs.TRACER.reset()
+        obs.enable()
+        try:
+            for names in batches[1:]:
+                t0 = time.perf_counter()
+                got = router.check_batch(names)
+                times.append(time.perf_counter() - t0)
+                wrong += [(b, v, w) for b, (v, w) in zip(names, got) if v != want[b] or w != 0][:5]
+            spans = obs.summarize(obs.TRACER.snapshot(), prefix="shard.")
+        finally:
+            obs.disable()
+            obs.TRACER.reset()
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        degraded = REGISTRY.snapshot().get(degraded_key, 0) - degraded0
+        check(not wrong, ("14b: an item got another item's verdict through a threaded host (name, verdict, wait)",
+                          wrong[:10]))
+        check(degraded == 0, ("14b: chunks degraded through a threaded host", degraded))
+        items = [sum(1 for names in batches[1:] for x in names if router._owner(x) == k) for k in range(2)]
+        check(processed == items, ("14b: a threaded host decided an item twice or missed one", processed, items))
+        if device == "cuda":
+            for k in SHARD_KERNELS:
+                check(launches[k] > 0, ("14b: a kernel of the threaded hosts' ticks was not launched", k, launches))
+        chunk = spans.get("shard.chunk", {})
+        return dict(batches=len(times), batch=ROUTER_B, workers=workers,
+                    decisions_per_s=ROUTER_B * len(times) / sum(times), batch_s=times,
+                    chunk_p50_ms=chunk.get("p50_ms"), chunk_p99_ms=chunk.get("p99_ms"), chunks=chunk.get("count"),
+                    host_items=processed, kernel_launches=launches)
+    finally:
+        for s in shards:
+            s.close()
+        for s in servers:
+            s.stop()
+        for s in svcs:
+            s.close()
+        for c in hosts:
+            c.stop()
+
+
+def shards_cpu_main() -> int:
+    """``python3 chip_smoke.py --shards-cpu``: 14's CPU side, in a process of
+    its own: the router's batches over in-process CPU clients at the
+    default widths, then the sync replay on a CPU fleet over the same two
+    clients; one JSON line."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core.config import platform_config
+
+    t = time.perf_counter()
+    clients = [sync_client(st, "cpu", platform_config()) for _ in range(2)]
+    try:
+        verdicts = inprocess_router_run(np, st, clients)
+        replay = shard_replay(np, st, clients)
+    finally:
+        for c in clients:
+            c.stop()
+    print(json.dumps(dict(router=verdicts, replay=replay, wall_s=time.perf_counter() - t)), flush=True)
+    return 0
+
+
+def shards_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 14: (a) the 4-shard token fleet under a serving client on the
+    card, the kill and the rejoin, the bench row, the sync replay against
+    the CPU; (b) the shard router over two remote hosts on the card against
+    in-process card clients and the CPU."""
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.ops import engine as E
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    cpu = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shards-cpu"], cwd=ROOT, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rep = {"card": smi}
+    try:
+        t = time.perf_counter()
+        rep["serving"] = shards_serving_run(np, st, FU, SC, E, S, torch)
+        rep["serving_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rep["router"] = shards_router_run(np, st, FU, SC, torch)
+        rep["router_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rep["router_threaded"] = shards_router_threaded_run(np, st, FU, SC, torch)
+        rep["router_threaded_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        clients = [sync_client(st, "cuda", platform_config()) for _ in range(2)]
+        try:
+            local = inprocess_router_run(np, st, clients)
+            replay = shard_replay(np, st, clients)
+        finally:
+            for c in clients:
+                c.stop()
+        rep["inprocess_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        check(rep["router"]["verdicts"] == local,
+              "14b: the remote router's verdicts differ from the in-process card router's")
+        t = time.perf_counter()
+        out, err = cpu.communicate(timeout=900)
+        check(cpu.returncode == 0, f"phase 14: the CPU run failed: {err[-2000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        rep["cpu"] = dict(wall_s=got["wall_s"], wait_s=time.perf_counter() - t)
+        check(got["router"] == local, "14b: the card router's verdicts differ from the CPU's")
+        check(got["replay"] == replay, "14a: the card fleet's sync replay differs from the CPU fleet's")
+        rep["replay"] = dict(ops=len(replay), statuses={
+            str(s_): sum(1 for r in replay for x in (r if isinstance(r[0], list) else [r]) if x[0] == s_)
+            for s_ in sorted({x[0] for r in replay for x in (r if isinstance(r[0], list) else [r])})})
+        mix = np.bincount([v for batch in local for v, _w in batch], minlength=7)
+        rep["router"]["verdict_mix"] = mix.tolist()
+        del rep["router"]["verdicts"]
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    shards_log(rep)
+    return rep
+
+
+def shards_log(rep) -> None:
+    smi, sv, ro = rep["card"], rep["serving"], rep["router"]
+    log(f"[shards] {smi}: 14a fleet of {SHARDS} shards built in {sv['fleet_build_s']:.1f} s; {sv['entries']} entry() "
+        f"calls from {N_THREADS} threads in {sv['entries_s']:.2f} s ({sv['tokens_per_s']:.0f} tokens/s), outcomes "
+        f"{json.dumps(sv['entry_outcomes'], sort_keys=True)}; one check_batch(B={sv['bulk_b']}) in {sv['bulk_s']:.2f} s, "
+        f"mix {sv['bulk_mix']}; flow-token decisions p50 {sv['decision_p50_ms']:.3f} ms, p99 "
+        f"{sv['decision_p99_ms']:.3f} ms over {sv['token_calls']} calls (param tokens p50 {sv['param_p50_ms']:.3f}, "
+        f"p99 {sv['param_p99_ms']:.3f} over {sv['param_calls']}); "
+        f"local admits {sv['local_admits']} of {sv['token_calls']} flow tokens (share {sv['local_admit_share']:.3f}; "
+        f"{sv['leased_units']} units leased); "
+        f"{sv['lease_frames']} lease frames ({sv['lease_frames_per_1000']:.1f} per 1,000 decisions); routed "
+        f"(sentinel_shard_requests_total) {json.dumps(sv['routed_by_shard'], sort_keys=True)}, every owner's "
+        f"decision on a flow of its own; owners' grants "
+        f"{sv['owner_grants']}, fullest window {sv['window_worst_fill']:.3f} of its threshold; the client's "
+        f"admits, fullest window {sv['client_window_worst_fill']:.3f} of threshold + one lease; launches in the run "
+        f"(every client) {json.dumps(sv['kernel_launches_run'])}; full collections in it {json.dumps(sv['full_collections'])}")
+    log(f"[shards] {smi}: 14a kill {sv['victim']} (flow {sv['victim_flow']}, lease carry {sv['carry_at_kill']}): "
+        f"first decision {sv['first_after_kill_ms']:.2f} ms after the kill (lease-local), the first lease-fallback "
+        f"decision (degraded) {sv['blip_kill_ms']:.1f} ms after it; statuses {sv['killed_statuses']}; "
+        f"entries {sv['killed_entries']}; other shards {json.dumps(sv['other_shards'], sort_keys=True)}; api/shards "
+        f"{sv['api_shards']['ms']:.1f} ms, degraded {sv['api_shards']['degraded']}; rejoin -> first remote answer "
+        f"{sv['blip_rejoin_ms']:.1f} ms (cooldown {sv['retry_interval_s']} s)")
+    if "plain_check" in sv:
+        r = sv["plain_check"]
+        log(f"[shards] {smi}: 14a a serving tick (B={r['batch']}) against its plain versions: wire and state equal; "
+            f"profile kernels {json.dumps(r['profile_kernels'])}")
+    for row in sv["bench"]:
+        log(f"[shards] {smi}: cluster_sharded_bench {row['shards']} shard(s): {row['dps']:.0f} decisions/s, p50 "
+            f"{row['decision_p50_ms']:.3f} ms, p99 {row['decision_p99_ms']:.3f} ms, non-OK {row['non_ok']}")
+    log(f"[shards] {smi}: 14a sync replay on virtual time, {rep['replay']['ops']} operations with a kill and a "
+        f"rejoin: the card fleet == the CPU fleet, statuses {json.dumps(rep['replay']['statuses'])}")
+    rt = rep["router_threaded"]
+    log(f"[shards] {smi}: 14b router over 2 remote hosts at the server's default {rt['workers']} workers "
+        f"(threaded host clients, answers in any order), {rt['batches']} batches of {rt['batch']}: "
+        f"{rt['decisions_per_s']:.0f} decisions/s (batch s {[round(x, 3) for x in rt['batch_s']]}), chunk p50 "
+        f"{rt['chunk_p50_ms']} ms p99 {rt['chunk_p99_ms']} ms over {rt['chunks']} chunks; every item its own "
+        f"verdict, no chunk degraded, host items {rt['host_items']} (each once); launches "
+        f"{json.dumps(rt['kernel_launches'])}")
+    log(f"[shards] {smi}: 14b router over 2 remote one-worker hosts (sync, virtual time: the CPU comparison), "
+        f"{ro['batches']} batches of {ro['batch']}: "
+        f"{ro['decisions_per_s']:.0f} decisions/s (batch s {[round(x, 3) for x in ro['batch_s']]}), chunk p50 "
+        f"{ro['chunk_p50_ms']} ms p99 {ro['chunk_p99_ms']} ms over {ro['chunks']} chunks; verdicts == in-process card "
+        f"router == CPU, mix {ro['verdict_mix']}; host 1 stopped for batch {ROUTER_DOWN_AT}: its spans BLOCK_SYSTEM, "
+        f"route failures {ro['route_failures']}, host items {ro['host_items']} (each once); served again "
+        f"{SHARD_RETRY_S} s after the restart; launches {json.dumps(ro['kernel_launches'])}")
+    log(f"[shards] {smi}: phase 14 took {rep['phase_s']:.1f} s (serving {rep['serving_s']:.1f}, router "
+        f"{rep['router_s']:.1f}, router at default workers {rep['router_threaded_s']:.1f}, in-process + replay {rep['inprocess_s']:.1f}; the CPU run {rep['cpu']['wall_s']:.1f} s, "
+        f"waited {rep['cpu']['wait_s']:.1f} s for it)")
+
+
+def shards_main() -> int:
+    """``python3 chip_smoke.py --shards``: the kernels' build and phase 14
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = shards_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
@@ -7257,6 +8236,9 @@ def main() -> int:
     # -- 13. the operator's plane: dashboard, datasources, the unpacked wire ------------------
     report["operator"] = operator_phase(np, st, S, FU, SC, torch, smi)
     end_phase("13")
+    # -- 14. the sharded cluster and the shard router -------------------------------------------
+    report["shards"] = shards_phase(np, st, S, FU, SC, torch, smi)
+    end_phase("14")
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
@@ -7437,6 +8419,8 @@ if __name__ == "__main__":
              else doors_main() if mode == ["--doors"]
              else doors_cpu_main(mode[1]) if mode[:1] == ["--doors-cpu"] and len(mode) == 2
              else operator_main() if mode == ["--operator"]
+             else shards_main() if mode == ["--shards"]
+             else shards_cpu_main() if mode == ["--shards-cpu"]
              else operator_cpu_main(mode[1]) if mode[:1] == ["--operator-cpu"] and len(mode) == 2
              else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4
              else simload_main(*mode[1:]) if mode[:1] == ["--simload"] and len(mode) == 3

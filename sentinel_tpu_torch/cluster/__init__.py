@@ -16,13 +16,14 @@ Modules:
   server         — asyncio TCP token server + ConnectionManager
   client         — ClusterTokenClient (xid-correlated, auto-reconnect)
   state          — ClusterStateManager (NOT_STARTED / CLIENT / SERVER flips)
+  ring           — consistent-hash ring with virtual nodes (placement law)
+  shard          — ShardedTokenClient + ShardFleet: N-shard fleet with
+                   per-shard failover and bounded-slack budget leases
   front_door     — NativeFrontDoor: the C epoll token front door whose
                    ring a SentinelClient drains into its engine batches
                    (imported from its module, as in the reference)
 
-Not ported yet (ROADMAP.md item A7b): the consistent-hash ring and the
-N-shard fleet with bounded-slack leases.  The Envoy RLS front door is
-``sentinel_tpu_torch.rls``.
+The Envoy RLS front door is ``sentinel_tpu_torch.rls``.
 """
 
 from sentinel_tpu_torch.cluster.constants import (  # noqa: F401
@@ -47,3 +48,8 @@ from sentinel_tpu_torch.cluster.token_service import (  # noqa: F401
     DefaultTokenService,
 )
 from sentinel_tpu_torch.cluster.state import ClusterStateManager  # noqa: F401
+from sentinel_tpu_torch.cluster.ring import HashRing, flow_key  # noqa: F401
+from sentinel_tpu_torch.cluster.shard import (  # noqa: F401
+    ShardFleet,
+    ShardedTokenClient,
+)

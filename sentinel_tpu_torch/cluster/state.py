@@ -1,8 +1,6 @@
 """Cluster role management (ClusterStateManager.java:38-137).
 
-The port's copy of ``sentinel_tpu/cluster/state.py``.  The N-shard fleet
-(``set_to_sharded_client``, the reference's cluster/shard.py) is not ported
-yet: it raises, naming ROADMAP.md item A7b.
+The port's copy of ``sentinel_tpu/cluster/state.py``.
 
 A process is NOT_STARTED, a token CLIENT (remote server), or a token SERVER
 (embedded: serves the network *and* its own in-process traffic).  Roles flip
@@ -82,12 +80,46 @@ class ClusterStateManager:
             self._token_client.start()
             self.mode = CLUSTER_CLIENT
 
-    def set_to_sharded_client(self, members, namespace: str = C.DEFAULT_NAMESPACE, **sharded_kw) -> None:
-        """Become a client of an N-shard token fleet — not ported yet."""
-        raise NotImplementedError(
-            "not ported to sentinel_tpu_torch yet: the sharded token client "
-            "(cluster/shard.py, cluster/ring.py; ROADMAP.md Queue A item A7b)"
-        )
+    def set_to_sharded_client(
+        self,
+        members,
+        namespace: str = C.DEFAULT_NAMESPACE,
+        **sharded_kw,
+    ) -> None:
+        """Become a client of an N-shard token FLEET (cluster/shard.py):
+        cluster-mode rules consult a ``ShardedTokenClient`` that routes
+        each flow to its ring owner.  Failover lives INSIDE the sharded
+        client: a dead shard's flows serve from its bounded-slack lease
+        and then fail CLOSED — always STATUS_BLOCKED, never STATUS_FAIL
+        — so the runtime's cluster-degrade hysteresis and rules'
+        ``cluster_fallback_to_local`` do NOT engage behind a fleet.  A
+        total-fleet outage blocks cluster-ruled traffic rather than
+        reverting to unmetered local enforcement (token conservation
+        over availability, the fleet's fail-closed-on-ambiguity law).
+
+        Lease sizing needs the flow thresholds: feed the same rules the
+        shard servers hold through ``token_service().flow_rules.load``
+        (the client's built-in threshold-learning facade) — without them
+        every flow's lease is zero and shard failover fails closed
+        immediately."""
+        from sentinel_tpu_torch.cluster.shard import ShardedTokenClient
+
+        with self._lock:
+            if self._embedded is not None:
+                self._last_service = self._embedded
+            self._stop_server_locked()
+            if self._token_client is not None:
+                self._token_client.close()
+            sharded_kw.setdefault(
+                "timeout_ms", self.client_config.request_timeout_ms
+            )
+            self._token_client = ShardedTokenClient(
+                dict(members),
+                namespace=namespace,
+                **sharded_kw,
+            )
+            self._token_client.start()
+            self.mode = CLUSTER_CLIENT
 
     def set_to_server(
         self,

@@ -24,9 +24,7 @@ the exposition they already serve:
   ``sentinel_fleet_shard_info`` info-gauges.
 
 The port's copy of ``sentinel_tpu/obs/fleet.py`` over the port's own
-``REGISTRY``.  The shard topology lines wait for the sharded token client
-(``cluster/shard.py``, ROADMAP.md Queue A item A7b): until it is ported,
-``_shard_topology_lines`` returns none.
+``REGISTRY`` and sharded token clients (``cluster/shard.py``).
 
 Surface: ``GET /metrics?fleet=1`` on any command center
 (transport/handlers.py); the one-shot CLI scrape comes with the port's
@@ -407,11 +405,39 @@ def _http_fetch(url: str, timeout_s: float = 2.0) -> str:
 
 
 def _shard_topology_lines() -> List[str]:
-    """The live ``/api/shards`` view as ``sentinel_fleet_shard_info``
-    info-gauge series.  The port has no sharded token client yet
-    (``cluster/shard.describe_fleets``, ROADMAP.md item A7b, wires it), so
-    there is no fleet to describe and no line to render."""
-    return []
+    """The live ``/api/shards`` view as info-gauge series — fleet scrape
+    and shard topology on one surface."""
+    try:
+        from sentinel_tpu_torch.cluster.shard import describe_fleets
+
+        fleets = describe_fleets()
+    except Exception:  # stlint: disable=fail-open — topology decoration only; the metric merge must survive a shard-layer error
+        return []
+    lines: List[str] = []
+    if not fleets:
+        return lines
+    lines.append(
+        "# HELP sentinel_fleet_shard_info live shard topology "
+        "(value 1; labels carry fleet/shard/addr/state)"
+    )
+    lines.append("# TYPE sentinel_fleet_shard_info gauge")
+    for fi, fleet in enumerate(fleets):
+        ns = fleet.get("namespace", str(fi))
+        for sh in fleet.get("shards", ()):
+            lab = _fmt_labels(
+                tuple(
+                    sorted(
+                        {
+                            "fleet": str(ns),
+                            "shard": str(sh.get("name", "?")),
+                            "addr": str(sh.get("addr", "?")),
+                            "degraded": "1" if sh.get("degraded") else "0",
+                        }.items()
+                    )
+                )
+            )
+            lines.append(f"sentinel_fleet_shard_info{lab} 1")
+    return lines
 
 
 def fleet_exposition(

@@ -2,12 +2,9 @@
 metrics registry.
 
 The port's copy of ``sentinel_tpu/obs/slo.py`` (pure host code over the
-port's own ``REGISTRY`` and ``FLIGHT``).  Every counter ``default_slos()``
-reads is registered by the port once a client has served, except
-``sentinel_shard_requests_total`` and the two shard-failure counters of
-``fleet_error_budget``: they come with the sharded token client
-(``cluster/shard.py``, ROADMAP.md Queue A item A7b).  Until then that
-spec reads 0 / 0 and reports no burn.
+port's own ``REGISTRY`` and ``FLIGHT``).  ``fleet_error_budget`` reads the
+sharded token client's series (``cluster/shard.py``) and the shard
+router's route failures (``parallel/router.py``), as the reference's does.
 
 The obs plane measures; this module JUDGES: an ``SloSpec`` names a
 good/bad event ratio (counter sums, or a latency histogram judged
@@ -133,8 +130,7 @@ def default_slos(req_p99_ms: float = 10.0) -> Tuple[SloSpec, ...]:
     posture.  Totals are denominated in the device telemetry verdict
     counters (``sentinel_device_verdicts_total``) — the fleet's
     decisions as the DEVICE counted them — except the last two, which
-    ride their own check counters (obs/profile.py).  The shard counters
-    of ``fleet_error_budget`` wait for ``cluster/shard.py`` (A7b)."""
+    ride their own check counters (obs/profile.py)."""
     verdicts = ("sentinel_device_verdicts_total",)
     return (
         SloSpec(

@@ -183,9 +183,11 @@ columns carry the lanes the door hashed in C).  The resolver answers
 each door by its slice, under ``_respond_lock``; a tick that fails
 answers every door it had not reached, CLOSED.  The adapters
 (``adapters/``) and the Envoy RLS front door (``rls/``) call ``entry()``
-and the token service as any caller does.
-
-Not ported yet (ROADMAP.md): the sharded cluster client (A7b).
+and the token service as any caller does.  A sharded token fleet
+(``cluster/shard.py``) joins through
+``ClusterStateManager.set_to_sharded_client``: its client is the token
+service the cluster check consults, and it fails a dead shard's flows
+closed itself, so the client's own cluster degrade does not engage.
 """
 
 from __future__ import annotations

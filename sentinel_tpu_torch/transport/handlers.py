@@ -9,11 +9,8 @@ the registry stays explicit and testable.
 The port's copy of ``sentinel_tpu/transport/handlers.py``; ``api/flight``
 answers from the port's flight recorder (``obs/flight.FLIGHT``),
 ``metrics?fleet=1`` from its fleet view (``obs/fleet``), ``api/profile``
-and ``api/memory`` from its profiling plane (``obs/profile``).  One
-command reads a module the port has not ported yet: ``api/shards``
-(``cluster/shard``, ROADMAP.md Queue A item A7b) raises
-``NotImplementedError`` naming its item, and ``CommandRegistry.handle``
-answers that as a failure response.
+and ``api/memory`` from its profiling plane (``obs/profile``), and
+``api/shards`` from its sharded token clients (``cluster/shard``).
 """
 
 from __future__ import annotations
@@ -292,8 +289,13 @@ class DefaultHandlerGroup:
 
     @command_mapping("api/shards", "token-fleet topology + per-shard health")
     def api_shards(self, req: CommandRequest) -> CommandResponse:
-        """``GET /api/shards`` — every live sharded token client's ring and shards."""
-        _not_ported("api/shards (cluster/shard.py, describe_fleets)", "A7b")
+        """``GET /api/shards`` — every live sharded token client in the
+        process: ring parameters, per-flow spread, and per-shard address
+        / connection / failover state (the operator's view of WHICH
+        shard is degraded and how long its cooldown has left)."""
+        from sentinel_tpu_torch.cluster.shard import describe_fleets
+
+        return CommandResponse.of_success(describe_fleets())
 
     @command_mapping("api/explain", "verdict provenance: why decisions blocked")
     def api_explain(self, req: CommandRequest) -> CommandResponse:
@@ -419,12 +421,6 @@ class DefaultHandlerGroup:
                 "running": srv is not None,
             }
         )
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"not ported to sentinel_tpu_torch yet: {what} (ROADMAP.md Queue A item {item})"
-    )
 
 
 def build_default_handlers(

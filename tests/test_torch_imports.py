@@ -443,3 +443,75 @@ def test_the_scan_covers_the_dashboard_and_the_store_datasources():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_the_scan_covers_the_sharded_cluster_and_the_router():
+    """The sharded cluster and the host-layer router are the port's own:
+    cluster/ring.py, cluster/shard.py, parallel/router.py and
+    parallel/remote_shard.py are walked by the checks above and import on
+    the CPU without jax or the JAX package, in a fresh process; their
+    failpoints and series are the port's registry's; cluster/ exports
+    what the reference's does.  Then tests/test_torch_multihost.py, run
+    as a script as its tests run it, serves as a shard host (it prints its
+    port) without importing jax or the JAX package either."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    mods = ("cluster.ring", "cluster.shard", "parallel", "parallel.router", "parallel.remote_shard")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"cluster/ring.py", "cluster/shard.py", "parallel/__init__.py", "parallel/router.py",
+            "parallel/remote_shard.py"} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    from sentinel_tpu_torch import cluster
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+
+    assert {"cluster.shard.route", "cluster.shard.probe", "cluster.shard.lease", "cluster.lease.refresh_async",
+            "parallel.shard.connect", "parallel.shard.send", "parallel.shard.recv"} <= set(FP.catalog())
+    for name in ("sentinel_shard_chunk_ms", "sentinel_shard_chunks_total", "sentinel_shard_chunks_degraded_total"):
+        assert REGISTRY.series(name), name
+    assert {"HashRing", "flow_key", "ShardFleet", "ShardedTokenClient"} <= set(dir(cluster))
+    code = (
+        "import sys\n"
+        "import " + ", ".join(f"sentinel_tpu_torch.{m}" for m in mods) + "\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'sentinel_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    host = ROOT / "tests" / "test_torch_multihost.py"
+    code = (
+        "import os, runpy, sys, threading\n"
+        "class Served(Exception):\n"
+        "    pass\n"
+        "real_wait = threading.Event.wait\n"
+        "def wait(self, timeout=None):\n"
+        "    if sys._getframe(1).f_code.co_name == 'shard_host_main':\n"
+        "        raise Served  # the host's serve-forever wait: it is up\n"
+        "    return real_wait(self, timeout)\n"
+        "threading.Event.wait = wait\n"
+        f"sys.argv = [{str(host)!r}, '[{{\"resource\": \"r\", \"count\": 1}}]']\n"
+        "try:\n"
+        f"    runpy.run_path({str(host)!r}, run_name='__main__')\n"
+        "except Served:\n"
+        "    pass\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'sentinel_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', flush=True)\n"
+        "os._exit(0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("PORT ") and lines[-1] == "ok", proc.stdout

@@ -5,13 +5,16 @@ each scenario runs once through each package's modules (registries,
 flight recorders, SLO engines and fleet merges of its own) on the same
 counter sequence, and the two outcomes must be equal — ``SloStatus
 .to_dict()`` at every step, the rendered merged expositions, the merged
-timelines — beside the reference test's own assertions.  (The live
-four-shard fleet case waits for ``cluster/shard.py``, ROADMAP.md A7b.)
+timelines, the ``sentinel_fleet_shard_info`` topology lines — beside the
+reference test's own assertions.  (The live four-shard fleet case is
+tests/test_torch_shard_fleet.py::test_metrics_fleet_over_a_live_four_shard_fleet.)
 
 Then the port's serving client: every metric name ``default_slos()``
-reads must exist in the port's registry after a serving run, as it does
-in the reference, except the sharded token client's counters (A7b) — a
-spec over a counter nobody registers reads 0 and would hide a burn.
+reads must exist in the port's registry after a serving run, a sharded
+token fleet's requests and a router's failed leg, as it does in the
+reference — a spec over a counter nobody registers reads 0 and would
+hide a burn — and the three series ``fleet_error_budget`` reads move as
+the reference's do on the same sequence.
 
 Tolerances: everything compared here is an integer count, a string, or a
 float computed by the same host arithmetic on equal inputs: equal.
@@ -19,6 +22,7 @@ float computed by the same host arithmetic on equal inputs: equal.
 
 from __future__ import annotations
 
+import importlib
 import re
 
 import pytest
@@ -120,14 +124,23 @@ def test_fleet_exposition_counts_errors_and_members():
             return t1
 
         local = _member_registry(Reg, 0)
-        return F.fleet_exposition(targets=["peer:1", "dead:2"], fetch=fetch, registry=local)
+        # a live sharded token client (never started: its shards read as
+        # unconnected, healthy) renders as the topology info lines
+        shard = importlib.import_module(F.__name__.replace("obs.fleet", "cluster.shard"))
+        client = shard.ShardedTokenClient({"shard-0": ("127.0.0.1", 1), "shard-1": ("127.0.0.1", 2)},
+                                          namespace="slo-fleet")
+        try:
+            return F.fleet_exposition(targets=["peer:1", "dead:2"], fetch=fetch, registry=local)
+        finally:
+            client.close()
 
     text = _both(run)
     _assert_wellformed(text)
     assert "sentinel_fleet_members 2" in text  # local + peer
     assert "sentinel_fleet_scrape_errors 1" in text
-    # no shard topology lines: the port has no sharded token client (A7b)
-    assert "sentinel_fleet_shard_info" not in text
+    info = [ln for ln in text.splitlines() if ln.startswith("sentinel_fleet_shard_info")]
+    assert info == [f'sentinel_fleet_shard_info{{addr="127.0.0.1:{i + 1}",degraded="0",fleet="slo-fleet",'
+                    f'shard="shard-{i}"}} 1' for i in range(2)]
 
 
 def test_fleet_target_registry_and_env(monkeypatch):
@@ -254,12 +267,66 @@ def test_slo_no_total_traffic_means_no_burn():
 
 
 #: the counters default_slos() reads that only the sharded token client
-#: (cluster/shard.py, ROADMAP.md A7b) registers
-A7B_NAMES = {
+#: (cluster/shard.py) and the shard router (parallel/router.py) register
+FLEET_BUDGET_NAMES = {
     "sentinel_shard_requests_total",
     "sentinel_shard_route_failures_total",
     "sentinel_shard_fallback_total",
 }
+
+
+class _DeadShard:
+    def check_batch(self, resources, **kw):
+        raise TimeoutError("shard leg timed out")
+
+
+def _fleet_budget_run(pkg: str) -> dict:
+    """The fleet_error_budget series' moves over one sequence: a one-shard
+    fleet (a sync decision client on virtual time; the port's on the CPU)
+    answers four tokens of a flow of threshold 2 (no lease), its shard
+    dies and two more fail closed, then a router's leg times out twice."""
+    import numpy as np
+
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
+    st, REG = importlib.import_module(pkg), mod("obs.registry").REGISTRY
+    vt = mod("utils.time_source").VirtualTimeSource(1_000)
+
+    def factory():
+        kw = dict(device="cpu") if pkg == "sentinel_tpu_torch" else {}
+        c = mod("runtime.client").SentinelClient(cfg=mod("core.config").small_engine_config(), time_source=vt,
+                                                 mode="sync", **kw)
+        if pkg == "sentinel_tpu":
+            upload = c._dev_col  # a private copy per upload (ROADMAP.md Queue C: jnp.asarray may alias)
+            c._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
+        c.start()
+        made.append(c)
+        return c
+
+    def series() -> dict:
+        return {k: v for k, v in REG.snapshot().items() if k.split("{")[0] in FLEET_BUDGET_NAMES}
+
+    made = []
+    before = series()
+    fleet = mod("cluster.shard").ShardFleet(factory, n_shards=1, lease_slack=0.0, retry_interval_s=300.0,
+                                            timeout_ms=5000, reconnect_interval_s=0.0)
+    try:
+        fleet.load_flow_rules("default", [st.FlowRule(resource="r", count=2, cluster_mode=True,
+                                                      cluster_flow_id=101, cluster_threshold_type=1)])
+        statuses = [fleet.client.request_token(101).status for _ in range(4)]
+        fleet.kill("shard-0")
+        statuses += [fleet.client.request_token(101).status for _ in range(2)]
+        router = mod("parallel.router").ShardRouter([made[0], _DeadShard()])
+        other = next(f"x{i}" for i in range(100) if router.ring.owner(f"x{i}") == "1")
+        verdicts = [v for _ in range(2) for v, _w in router.check_batch([other])]
+    finally:
+        fleet.stop()
+        for svc in fleet.services.values():
+            svc.close()
+        for c in made:
+            c.stop()
+    after = series()
+    return dict(statuses=statuses, verdicts=verdicts,
+                moved={k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)})
 
 
 def _slo_names(S) -> set:
@@ -276,9 +343,10 @@ def _slo_names(S) -> set:
 def test_every_counter_default_slos_reads_exists_after_a_serving_run():
     """A spec whose counter the port never registers reads 0 and hides a
     burn: after a serving run (the sketch tier with its audit on, a
-    capacity set, a shed) every name default_slos() reads is in the
-    port's registry, except the three the sharded token client brings
-    (A7b) — listed here by name."""
+    capacity set, a shed), a sharded fleet's tokens and a router's failed
+    leg, every name default_slos() reads is in the port's registry; the
+    three the fleet and the router bring moved as the reference's did on
+    the same sequence."""
     import sentinel_tpu_torch as st
     from sentinel_tpu_torch.core.config import platform_config, small_engine_config
     from sentinel_tpu_torch.obs import profile as PROF
@@ -309,7 +377,16 @@ def test_every_counter_default_slos_reads_exists_after_a_serving_run():
         c.stop()
         PROF.LEDGER.set_capacity(cap0)
     missing = {n for n in _slo_names(TS) if not REGISTRY.series(n)}
-    assert missing == A7B_NAMES
+    assert missing <= FLEET_BUDGET_NAMES
+    port = _fleet_budget_run("sentinel_tpu_torch")
+    assert not {n for n in _slo_names(TS) if not REGISTRY.series(n)}
+    assert port == _fleet_budget_run("sentinel_tpu")
+    assert port["statuses"] == [0, 0, 2, 2, 2, 2]  # OK, OK, BLOCKED; dead: BLOCKED (fail closed)
+    assert port["moved"] == {
+        'sentinel_shard_requests_total{shard="shard-0"}': 6,
+        'sentinel_shard_fallback_total{shard="shard-0",verdict="block"}': 2,
+        'sentinel_shard_route_failures_total{kind="timeout",shard="1"}': 2,
+    }
 
 
 def dataclass_small(cfg) -> dict:

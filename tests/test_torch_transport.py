@@ -8,10 +8,12 @@ is asked of both, and the JSON responses must be equal, leaving out only
 the process id (``basicInfo``) and the host's load / CPU samples
 (``systemStatus``, pinned to one value on both).  ``metrics`` and
 ``api/traces`` serve each package's own process-global registry and
-tracer, so they are held to their shape only.  ``api/shards``, whose
-module the port has not ported, answers a failure naming its ROADMAP.md
-item; ``metrics?fleet=1``, ``api/profile`` and ``api/memory``, which once
-answered so, now answer from the port's fleet view and profiling plane.  Then over a real loopback socket: the HTTP command center (GET,
+tracer, so they are held to their shape only.  ``metrics?fleet=1``,
+``api/profile``, ``api/memory`` and ``api/shards``, which once answered a
+failure naming their ROADMAP.md item, now answer from the port's fleet
+view, profiling plane and sharded token clients; ``api/shards`` is held
+to the reference's JSON over a one-shard fleet of each package, ports
+aside.  Then over a real loopback socket: the HTTP command center (GET,
 form POST, JSON POST, bearer auth, 400 on a failure) and the heartbeat
 against a local receiver.
 
@@ -47,15 +49,67 @@ from tests.test_torch_stats import _pair, assert_close
 
 WALL_EPOCH_MS = 1_700_000_000_000
 
-#: the commands whose backing modules were not ported: command, params, and
-#: the ROADMAP item it still waits for (None: ported since, with obs/fleet
-#: and obs/profile)
+#: the commands whose backing modules were once not ported: command, params,
+#: and the ROADMAP item it waited for (None: ported since, with obs/fleet,
+#: obs/profile and cluster/shard)
 UNPORTED = [
     ("metrics", {"fleet": "1"}, None),
     ("api/profile", {"ms": "10"}, None),
     ("api/memory", {}, None),
-    ("api/shards", {}, "A7b"),
+    ("api/shards", {}, None),
 ]
+
+
+def _one_shard_fleets():
+    """(port fleet, reference fleet, stop): one shard each, on a sync
+    decision client on virtual time (the port's on the CPU)."""
+    import numpy as np
+
+    from sentinel_tpu.cluster.shard import ShardFleet as JFleet
+    from sentinel_tpu.core.config import small_engine_config as jax_small_cfg
+    from sentinel_tpu.runtime.client import SentinelClient as JaxClient
+    from sentinel_tpu.utils.time_source import VirtualTimeSource as JVT
+    from sentinel_tpu_torch.cluster.shard import ShardFleet
+    from sentinel_tpu_torch.core.config import small_engine_config
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    made = []
+
+    def port_client():
+        c = SentinelClient(cfg=small_engine_config(), time_source=VirtualTimeSource(1_000), mode="sync",
+                           device="cpu")
+        c.start()
+        made.append(c)
+        return c
+
+    def ref_client():
+        c = JaxClient(cfg=jax_small_cfg(), time_source=JVT(1_000), mode="sync")
+        upload = c._dev_col  # a private copy per upload (ROADMAP.md Queue C: jnp.asarray may alias)
+        c._dev_col = lambda field, x, fill: upload(field, np.array(x, copy=True), fill)
+        c.start()
+        made.append(c)
+        return c
+
+    kw = dict(n_shards=1, retry_interval_s=300.0, timeout_ms=5000, reconnect_interval_s=0.0)
+    fleets = [ShardFleet(port_client, **kw), JFleet(ref_client, **kw)]
+
+    def stop():
+        for f in fleets:
+            f.stop()
+            for svc in f.services.values():
+                svc.close()
+        for c in made:
+            c.stop()
+
+    return fleets[0], fleets[1], stop
+
+
+def _fleet_json(answer, fleet):
+    """The fleet's entry of an api/shards answer, its ports aside."""
+    addr = f"127.0.0.1:{fleet._ports['shard-0']}"
+    ours = [d for d in answer if [s["addr"] for s in d["shards"]] == [addr]]
+    return [dict(d, shards=[dict(s, addr="127.0.0.1") for s in d["shards"]]) for d in ours]
 
 
 @pytest.fixture(autouse=True)
@@ -166,19 +220,36 @@ def test_unported_handlers_answer_a_failure_naming_their_item(name, params, item
 
     c = SentinelClient(cfg=small_engine_config(use_mxu_tables=True, fused_effects=True), mode="sync", device="cpu")
     reg = TT.build_default_handlers(c)
-    ok, msg = _ask(reg, TReq, name, **params)
-    if item is None:
-        # ported: the command answers from the port's own plane
-        assert ok
-        if name == "metrics":
-            assert "sentinel_fleet_members 1" in msg.splitlines()
-        elif name == "api/profile":
-            assert "chrome_trace" in msg or msg.get("error") == "rate_limited"
-        else:
-            assert "pools" in msg and msg["live_array_bytes"] is None  # no allocator stats on the CPU
+    if name == "api/shards":
+        fleet, jfleet, stop = _one_shard_fleets()
+        try:
+            fleet.load_flow_rules("default", [tst.FlowRule(resource="r", count=5, cluster_mode=True,
+                                                           cluster_flow_id=101, cluster_threshold_type=1)])
+            jfleet.load_flow_rules("default", [jst.FlowRule(resource="r", count=5, cluster_mode=True,
+                                                            cluster_flow_id=101, cluster_threshold_type=1)])
+            fleet.client.request_token(101)
+            jfleet.client.request_token(101)
+            ok, msg = _ask(reg, TReq, name, **params)
+            jok, jmsg = _ask(JT.build_default_handlers(jfleet.services["shard-0"].client), JReq, name)
+            msg, jmsg = _fleet_json(msg, fleet), _fleet_json(jmsg, jfleet)
+        finally:
+            stop()
+        from sentinel_tpu_torch.cluster.shard import describe_fleets
+
+        assert not [d for d in describe_fleets() if _fleet_json([d], fleet)]  # a stopped fleet drops out
     else:
-        assert not ok
-        assert msg.startswith("NotImplementedError: ") and f"ROADMAP.md Queue A item {item})" in msg
+        ok, msg = _ask(reg, TReq, name, **params)
+    # ported: the command answers from the port's own plane
+    assert item is None and ok
+    if name == "metrics":
+        assert "sentinel_fleet_members 1" in msg.splitlines()
+    elif name == "api/profile":
+        assert "chrome_trace" in msg or msg.get("error") == "rate_limited"
+    elif name == "api/shards":
+        assert jok and msg == jmsg and len(msg) == 1
+        assert msg[0]["flows_registered"] == 1 and msg[0]["shards"][0]["leases"] == 1
+    else:
+        assert "pools" in msg and msg["live_array_bytes"] is None  # no allocator stats on the CPU
     # and the command is listed, as the reference lists it
     assert name in {n["name"] for n in _ask(reg, TReq, "api")[1]}
 
@@ -234,11 +305,14 @@ def test_http_command_center_over_loopback():
         with urllib.request.urlopen(req, timeout=5) as rsp:
             assert rsp.read() == b"success"
         assert c.degrade_rules.get()[0].count == 5
-        for bad in ("bogus", "api/shards"):
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                _get(f"{base}/{bad}")
-            assert ei.value.code == 400
-        assert b"A7b" in ei.value.read()
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _get(f"{base}/bogus")
+        assert ei.value.code == 400 and b"bogus" in ei.value.read()
+        from sentinel_tpu_torch.cluster.shard import describe_fleets
+
+        status, ctype, body = _get(f"{base}/api/shards")  # answered since the sharded cluster came
+        assert status == 200 and ctype.startswith("application/json")
+        assert json.loads(body) == json.loads(json.dumps(describe_fleets()))
     finally:
         center.stop()
     secured = TT.SimpleHttpCommandCenter(TT.build_default_handlers(c), port=0, auth_token="s3cret")

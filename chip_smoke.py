@@ -424,6 +424,32 @@ Phases (the first failure stops the script with a nonzero exit):
    every item gets its own verdict, no chunk degrades, each host decides
    each of its items once; its decisions/s and chunk ms are the router's
    numbers.  The hosts' ticks launch B1, B2 and B4 (``[shards]`` lines).
+15. The chaos plane, the lock witness and the trace CLI (``chaos_phase``).
+   (a) Every chaos scenario of ``sentinel_tpu_torch/chaos/runner.py`` (all
+   eleven, the two outside the ``fast`` set too) on the card at seed 7:
+   each green, its injected counts equal to the CPU's run of the same
+   seed (a process of its own, ``--chaos-cpu``); ``seg_overflow_storm``
+   (the fused segment path: B1, B3, B4) again with the kernels and with
+   their plain versions: both storms' verdicts and waits and the seg drops
+   equal; the fast set a second time, every injected count as in the
+   first (the determinism check); each scenario's seconds and launches.
+   (b) The lock witness over a full-width serving client: a threaded
+   ``platform_config()`` client at the default widths with phase 9's
+   4,000 flow and 1,000 degrade rules (plus eight cluster-mode rules
+   served by a two-shard fleet through ``set_to_sharded_client``), beside
+   a token server and client pair, under 8 Zipf(1.1) request threads over
+   100,000 names (every 16th request also asks the token client), with
+   ``runtime.lock.contend`` armed as a delay — once unwitnessed, once with
+   the witness installed before anything is built: ``verdict-accounting``,
+   ``no-stranded-futures``, ``pipeline-drained`` and ``no-order-violations``
+   green, no dynamic edge the port's ``lock_order.json`` lacks, B1, B2 and
+   B4 launched; ms a tick and decisions/s of both runs and
+   ``sentinel_lock_wait_ms``.  (c) The trace CLI on the card: a
+   self-capture ``--summary`` with all six ``tick.*`` stages (B1 and B2
+   launched), ``explain``, ``--profile 250``, ``--merge`` of a token
+   client's and a token server's dumps (every RPC span linked) and
+   ``--postmortem`` of the bundle a deliberately red invariant triggered
+   (``[chaos]`` lines).
 
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
@@ -441,7 +467,8 @@ the build and phase 10 (``overload_main``), ``python3 chip_smoke.py
 --workload`` the build and phase 11 (``workload_main``), ``python3
 chip_smoke.py --doors`` the build and phase 12 (``doors_main``), ``python3
 chip_smoke.py --operator`` the build and phase 13 (``operator_main``),
-``python3 chip_smoke.py --shards`` the build and phase 14 (``shards_main``).
+``python3 chip_smoke.py --shards`` the build and phase 14 (``shards_main``),
+``python3 chip_smoke.py --chaos`` the build and phase 15 (``chaos_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -520,6 +547,57 @@ RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": 
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: the environment variable that names a child's parent (child_env): a
+#: child dies with the process that started it (die_with_parent)
+PARENT_PID_ENV = "CHIP_SMOKE_PARENT_PID"
+
+
+def child_env(cpu: bool = True) -> dict:
+    """The environment of a process this script starts: the CPU alone
+    unless ``cpu`` is false, and this process's pid, so that the child ends
+    when this process does, however it ends (``die_with_parent``)."""
+    env = dict(os.environ, **{PARENT_PID_ENV: str(os.getpid())})
+    if cpu:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def die_with_parent() -> None:
+    """In a process ``child_env`` started: have the kernel send it SIGKILL
+    when its parent ends (``PR_SET_PDEATHSIG``), a crash by a fatal signal
+    included, where no ``finally`` of the parent's runs; a parent already
+    gone ends it now."""
+    parent = os.environ.get(PARENT_PID_ENV)
+    if not parent:
+        return
+    import ctypes
+    import signal
+
+    pr_set_pdeathsig = 1
+    if ctypes.CDLL(None, use_errno=True).prctl(pr_set_pdeathsig, signal.SIGKILL) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != int(parent):
+        os._exit(3)
+
+
+def live_children() -> list:
+    """This process's child processes that still run (zombies left out),
+    read from /proc: [(pid, command)]."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue  # ended while listed
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me and state != "Z":
+            out.append((int(d), stat[stat.index("(") + 1:stat.rindex(")")]))
+    return out
 
 
 def check(ok, what) -> None:
@@ -3864,7 +3942,7 @@ def overload_phase(np, st, S, FU, SC, torch, smi) -> dict:
     t_phase = time.perf_counter()
     sims = {}
     for where, d in (("cpu", "cpu"), ("card", "cuda")):
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="") if d == "cpu" else dict(os.environ)
+        env = child_env(cpu=d == "cpu")
         for k in ("on", "off"):
             sims[where, k] = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--simload", d, k],
                                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -3998,11 +4076,13 @@ def capture_client_tick(E, nth: int, only=None) -> tuple:
 def device_profile(torch, fn, cpu=True) -> tuple:
     """(device busy us, kernel launches by name) of one call, from
     torch.profiler (``cpu=False``: the card's activity alone, which slows
-    the host's threads less; a call that another thread's ticks serve
-    takes it: a session recording the host's operations while a client's
-    tick thread ran them once died of a segmentation fault in no Python
-    thread); a session that records no device activity is taken again
-    (twice at most)."""
+    the host's threads less; a short call that another thread's ticks
+    serve takes it: a session recording the host's operations while a
+    client's tick thread ran them once died of a segmentation fault in no
+    Python thread, and a 10 s session of ~45,500 device events that a tick
+    thread launched did so too, so no long call of that kind is profiled);
+    a session that records no device activity is taken again (twice at
+    most)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4388,7 +4468,7 @@ def workload_phase(np, st, S, FU, SC, torch, smi) -> dict:
     clock = TimeSource()
     slo_eng = SLO.SloEngine()  # default_slos() over the process registry, anchored before any traffic
     slo_eng.step(clock.now_ms())
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = child_env()
     cpu_procs = {label: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--workload-loop", "cpu",
                                           str(WORKLOAD_STEPS), label], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                          stderr=subprocess.PIPE, text=True) for label in ("static", "tuned0")}
@@ -5010,7 +5090,7 @@ def adapters_run(np, st, torch, FU, SC) -> dict:
     each; then ``drive_gateway``, ``drive_asgi`` and ``drive_streaming``
     over ``adapter_spec``.  Each adapter's requests/s and the µs it adds a
     request over bare ``entry()``; B1 / B2 / B4 launched over the run and
-    in a profile of the WSGI requests."""
+    by the WSGI requests."""
     import asyncio
 
     from sentinel_tpu_torch import adapters as AD
@@ -5098,7 +5178,13 @@ def adapters_run(np, st, torch, FU, SC) -> dict:
         FU.reset_launches()
         SC.reset_launches()
         timed("bare_entry", bare)
-        _busy, names = device_profile(torch, lambda: timed("wsgi", wsgi_one), cpu=False)
+        # the WSGI requests' ticks, by the wrappers' counts: no profiler
+        # session here, where another thread (the client's tick thread)
+        # launches all of its ~45,500 device events (the process died of a
+        # segmentation fault in native code inside such a session twice)
+        before = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        timed("wsgi", wsgi_one)
+        rep["wsgi_launches"] = {k: n - before.get(k, 0) for k, n in dict(FU.LAUNCHES, **SC.LAUNCHES).items()}
         t = time.perf_counter()
         got = asyncio.run(asgi_many(ADAPTER_REQUESTS))
         s = time.perf_counter() - t
@@ -5153,11 +5239,10 @@ def adapters_run(np, st, torch, FU, SC) -> dict:
                   f"{res.blocked} blocked)")
         rep["drivers"] = drivers
         rep["launches"] = dict(FU.LAUNCHES, **SC.LAUNCHES)
-        rep["wsgi_profile_kernels"] = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm)
-                                       for k in ("scatter_many", "gather_many", "seg_incl_min")}
         for k in ("scatter_many", "gather_many", "seg_incl_min"):
-            check(rep["launches"].get(k, 0) > 0 and rep["wsgi_profile_kernels"][k] > 0,
-                  f"phase 12c: the adapters' run launched no {k}: {rep['launches']}, profile {names}")
+            check(rep["launches"].get(k, 0) > 0 and rep["wsgi_launches"].get(k, 0) > 0,
+                  f"phase 12c: the adapters' run launched no {k}: {rep['launches']}, the WSGI requests "
+                  f"{rep['wsgi_launches']}")
         for name in ("wl-route", "wl-api", "GET:/app/wsgi", "deco", "stream"):
             s = c.stats.resource(name)
             check(s is not None and s["curThreadNum"] == 0, f"phase 12c: {name} holds {s} (an entry not exited)")
@@ -5195,7 +5280,7 @@ def doors_phase(np, st, S, FU, SC, torch, smi) -> dict:
     from sentinel_tpu_torch.ops import engine as E
 
     t_phase = time.perf_counter()
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = child_env()
     cpu_procs = {part: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--doors-cpu", part], cwd=ROOT,
                                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for part in ("replay", "gateway")}
@@ -5315,8 +5400,8 @@ def doors_log(rep) -> None:
     gw = rep["gateway_replay"]
     log(f"[doors] {smi}: 12c drive_gateway sync replay {gw['counts']} == the CPU's, request for request "
         f"({gw['wall_s']:.1f} s on the card, {gw['cpu_wall_s']:.1f} s on the CPU); launches "
-        f"{json.dumps(ad['launches'], sort_keys=True)}; the WSGI profile's kernels "
-        f"{json.dumps(ad['wsgi_profile_kernels'], sort_keys=True)}")
+        f"{json.dumps(ad['launches'], sort_keys=True)}; the WSGI requests' launches "
+        f"{json.dumps(ad['wsgi_launches'], sort_keys=True)}")
     log(f"[doors] {smi}: phase 12 took {rep['phase_s']:.1f} s (the CPU run {rep['cpu']['wall_s']:.1f} s, waited "
         f"{rep['cpu']['wait_s']:.1f} s for it at the end)")
 
@@ -6238,7 +6323,7 @@ def operator_phase(np, st, S, FU, SC, torch, smi) -> dict:
     import tempfile
 
     t_phase = time.perf_counter()
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = child_env()
     cpu_procs = {part: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--operator-cpu", part], cwd=ROOT,
                                         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for part in ("datasources", "unpacked")}
@@ -7181,7 +7266,7 @@ def shards_phase(np, st, S, FU, SC, torch, smi) -> dict:
     from sentinel_tpu_torch.ops import engine as E
 
     t_phase = time.perf_counter()
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env = child_env()
     cpu = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shards-cpu"], cwd=ROOT, env=env,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     rep = {"card": smi}
@@ -7301,6 +7386,496 @@ def shards_main() -> int:
 
     _build.load_library()
     rep = shards_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
+# -- phase 15: the chaos plane, the lock witness and the trace CLI --------------------------
+
+#: the chaos plan seed phase 15 runs every scenario at (the CLI's default)
+CHAOS_SEED = 7
+#: 15b: seconds of 8-thread traffic in each of the unwitnessed and witnessed runs
+WITNESS_S = 4.0
+#: 15b: the contention the witnessed run injects: a delay at every 64th
+#: witnessed acquisition (``runtime.lock.contend``, armed in both runs: it
+#: fires only at witnessed locks)
+CONTEND = dict(every_nth=64, delay_ms=0.2)
+#: 15c: token requests whose client and server spans --merge links
+MERGE_TOKENS = 16
+
+
+def scenario_view(r) -> dict:
+    """What 15a holds between the card and the CPU: the injected counts,
+    the verdict and every invariant (name, ok, detail)."""
+    return dict(ok=r.ok, injected=r.injected, invariants=[[v.name, v.ok, v.detail] for v in r.verdicts])
+
+
+def chaos_cpu_main() -> int:
+    """``python3 chip_smoke.py --chaos-cpu``: every chaos scenario at the
+    phase's seed on the CPU (phase 15a's comparison), one JSON line."""
+    import torch
+
+    torch.set_num_threads(3)
+    sys.path.insert(0, ROOT)
+    from sentinel_tpu_torch.chaos import runner as CR
+
+    t = time.perf_counter()
+    out = {r.name: scenario_view(r) for r in CR.run_all(CHAOS_SEED, device="cpu")}
+    print(json.dumps(dict(scenarios=out, wall_s=time.perf_counter() - t)), flush=True)
+    return 0
+
+
+def storm_run(FU, SC, install, fns) -> dict:
+    """``seg_overflow_storm`` on the card with ``fns`` (the kernels or their
+    plain versions) installed: its result, the verdicts and waits of both
+    storms (the client's ``check_batch_ids`` answers), the seg drops it
+    counted and the kernel launches."""
+    from sentinel_tpu_torch.chaos import runner as CR
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    real_check = SentinelClient.check_batch_ids
+    answers = []
+
+    def spy(self, *a, **kw):
+        v, w = real_check(self, *a, **kw)
+        answers.append([v.tolist(), w.tolist()])
+        return v, w
+
+    drops = REGISTRY.get("sentinel_seg_dropped_total")
+    d0 = drops.value
+    install(fns)
+    SentinelClient.check_batch_ids = spy
+    FU.reset_launches()
+    SC.reset_launches()
+    try:
+        t = time.perf_counter()
+        r = CR.run_scenario("seg_overflow_storm", CHAOS_SEED, "cuda")
+        wall = time.perf_counter() - t
+    finally:
+        SentinelClient.check_batch_ids = real_check
+    return dict(result=scenario_view(r), answers=answers, seg_drops=drops.value - d0, launches=dict(FU.LAUNCHES, **SC.LAUNCHES),
+                s=wall)
+
+
+def chaos_scenarios(np, st, FU, SC, torch) -> dict:
+    """15a: every scenario (all eleven) on the card at the seed, each green
+    and with the CPU's injected counts; ``seg_overflow_storm`` again with
+    the kernels and with their plain versions (equal verdicts and drops);
+    the fast set a second time (the determinism check)."""
+    from sentinel_tpu_torch.chaos import runner as CR
+
+    env = child_env()
+    cpu = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--chaos-cpu"], cwd=ROOT, env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rep = {}
+    try:
+        first, rows = {}, {}
+        for name, scn in CR.SCENARIOS.items():
+            FU.reset_launches()
+            SC.reset_launches()
+            t = time.perf_counter()
+            r = CR.run_scenario(name, CHAOS_SEED, "cuda")
+            rows[name] = dict(s=time.perf_counter() - t, fast=scn.fast, injected=r.injected,
+                              launches=dict(FU.LAUNCHES, **SC.LAUNCHES))
+            first[name] = scenario_view(r)
+            check(r.ok, f"15a: {name} is red on the card: {CR.report([r])}")
+            torch.cuda.empty_cache()
+        real, plain, install = kernel_sets(FU, SC)
+        storms = {}
+        try:
+            for label, fns in (("kernels", real), ("plain", plain)):
+                storms[label] = storm_run(FU, SC, install, fns)
+        finally:
+            install(real)
+        k, p = storms["kernels"], storms["plain"]
+        check(k["result"]["ok"] and p["result"]["ok"], ("15a: seg_overflow_storm red", k["result"], p["result"]))
+        check(len(k["answers"]) == 2 and k["answers"] == p["answers"],
+              "15a: seg_overflow_storm's verdicts with the kernels differ from those with the plain versions")
+        check(k["seg_drops"] == p["seg_drops"] > 0, ("15a: seg drops differ", k["seg_drops"], p["seg_drops"]))
+        check(all(k["launches"][x] > 0 for x in ("scatter_many", "seg_incl_min")),
+              ("15a: the storm launched no B1 / B4", k["launches"]))
+        check(not any(p["launches"].values()), ("15a: the plain-version storm launched a kernel", p["launches"]))
+        t = time.perf_counter()
+        again = {r.name: r for r in CR.run_all(CHAOS_SEED, fast_only=True, device="cuda")}
+        rep["determinism_s"] = time.perf_counter() - t
+        fast = [n for n, s in CR.SCENARIOS.items() if s.fast]
+        check(sorted(again) == sorted(fast), ("15a: the fast set", sorted(again)))
+        for name, r in again.items():
+            check(r.ok, f"15a: {name} is red in the second pass: {CR.report([r])}")
+            check(r.injected == first[name]["injected"],
+                  ("15a: DETERMINISM VIOLATION", name, r.injected, first[name]["injected"]))
+        t = time.perf_counter()
+        out, err = cpu.communicate(timeout=600)
+        check(cpu.returncode == 0, f"15a: the CPU run failed: {err[-2000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        rep["cpu"] = dict(wall_s=got["wall_s"], wait_s=time.perf_counter() - t)
+        for name in CR.SCENARIOS:
+            mine, cpu_r = first[name], got["scenarios"][name]
+            check(cpu_r["ok"], f"15a: {name} is red on the CPU")
+            check(mine["injected"] == cpu_r["injected"], ("15a: injected differs from the CPU's", name,
+                                                          mine["injected"], cpu_r["injected"]))
+            rows[name]["details_unlike_cpu"] = [a[0] for a, b in zip(mine["invariants"], cpu_r["invariants"]) if a != b]
+        rep["scenarios"] = rows
+        rep["storm"] = {label: dict(seg_drops=v["seg_drops"], launches=v["launches"], s=v["s"],
+                                    verdicts=[np.bincount(a[0], minlength=7).tolist() for a in v["answers"]])
+                        for label, v in storms.items()}
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    return rep
+
+
+def witness_traffic(np, st, client, names, stop, counts, lock, futures, tok, seed):
+    """One 15b request thread: Zipf(1.1) entries over the names with one
+    argument; every 32nd an asynchronous acquire whose future is kept; every
+    16th a token request on the token client; every outcome counted."""
+    probs, vprobs = zipf_probs(np, len(names)), zipf_probs(np, N_VALUES)
+    rng = np.random.default_rng(seed)
+    local, mine, i = {}, [], 0
+    while not stop.is_set():
+        picks = rng.choice(len(names), size=64, p=probs)
+        values = rng.choice(N_VALUES, size=64, p=vprobs)
+        for k, v in zip(picks, values):
+            i += 1
+            if i % 32 == 0:
+                mine.append(client.submit_acquire(names[k]))
+                kind = "submitted"
+            else:
+                try:
+                    client.entry(names[k], args=[arg_value(v)]).exit()
+                    kind = "pass"
+                except st.BlockException:
+                    kind = "blocked"
+                except Exception as exc:  # counted: the accounting invariant fails on any
+                    kind = f"lost:{type(exc).__name__}"
+            if i % 16 == 0:
+                local["token"] = local.get("token", 0) + 1
+                tok.request_token(101)
+            local[kind] = local.get(kind, 0) + 1
+            if stop.is_set():
+                break
+    with lock:
+        futures.extend(mine)
+        for k, v in local.items():
+            counts[k] = counts.get(k, 0) + v
+
+
+def witness_run(np, st, FU, SC, torch, witnessed: bool, device="cuda", cfg=None, seconds=WITNESS_S) -> dict:
+    """15b's run: a threaded serving client (``platform_config()`` at the
+    default widths, phase 9's rules; a fleet of two shards joined by
+    ``set_to_sharded_client`` for its cluster rules) beside a token server
+    and client pair, under 8 request threads for ``seconds`` with
+    ``runtime.lock.contend`` armed; with ``witnessed`` the lock witness is
+    installed before anything is built.  The four invariants judge it."""
+    from sentinel_tpu_torch.analysis.concurrency import witness as W
+    from sentinel_tpu_torch.chaos import failpoints as FP
+    from sentinel_tpu_torch.chaos.invariants import MetricsDelta, ScenarioContext, evaluate
+    from sentinel_tpu_torch.chaos.plans import FaultPlan, FaultSpec
+    from sentinel_tpu_torch.chaos.runner import _make_client, _make_token_server
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.shard import ShardFleet
+    from sentinel_tpu_torch.cluster.state import ClusterStateManager
+    from sentinel_tpu_torch.core import errors as ERR
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.obs.registry import REGISTRY
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+
+    rep = {}
+    made, closers = [], []
+    if witnessed:
+        t = time.perf_counter()
+        rep["witness_sites"] = W.install()
+        W.reset()
+        rep["install_s"] = time.perf_counter() - t
+    try:
+        decision, svc, server = _make_token_server(device, flow_count=1e9)
+        closers += [server.stop, decision.stop]
+        tok = ClusterTokenClient("127.0.0.1", server.port, timeout_ms=5000)
+        tok.start()
+        closers.insert(0, tok.close)
+
+        def factory():
+            c = _make_client(device)
+            made.append(c)
+            return c
+
+        fleet = ShardFleet(factory, n_shards=2, retry_interval_s=300.0, reconnect_interval_s=0.0)
+        closers.insert(0, lambda: [c.stop() for c in made])
+        closers.insert(0, fleet.stop)
+        cflow = [st.FlowRule(resource=f"cres-{k}", count=1e9, cluster_mode=True, cluster_flow_id=500 + k,
+                             cluster_threshold_type=1) for k in range(8)]
+        fleet.load_flow_rules("default", cflow)
+        mgr = ClusterStateManager()
+        mgr.set_to_sharded_client({n: ("127.0.0.1", p) for n, p in fleet._ports.items()})
+        mgr.token_service().flow_rules.load("default", cflow)
+        closers.insert(0, mgr.stop)
+        client = SentinelClient(cfg=cfg or platform_config(), device=device, mode="threaded", entry_timeout_s=30.0,
+                                app_name="witness" if witnessed else "unwitnessed")
+        closers.insert(0, client.stop)
+        flow, degrade, authority, system, _param = build_rules(st)
+        client.flow_rules.load(flow + cflow)
+        client.degrade_rules.load(degrade)
+        client.authority_rules.load(authority)
+        client.system_rules.load(system)
+        client.set_cluster(mgr)
+        names = [f"cres-{k}" for k in range(8)] + [f"res-{i}" for i in range(N_NAMES - 8)]
+        for n in names:
+            client.registry.resource_id(n)
+        client.start()
+        wait = REGISTRY.get("sentinel_lock_wait_ms")
+        w_n0 = wait.count
+        metrics = MetricsDelta()
+        stop, lock, counts, futures = threading.Event(), threading.Lock(), {}, []
+        plan = FaultPlan(name="witness-contend", seed=CHAOS_SEED, faults=[FaultSpec("runtime.lock.contend", "delay",
+                                                                                   **CONTEND)])
+        FU.reset_launches()
+        SC.reset_launches()
+        ticks0 = client._build_ticks
+        with FP.armed(plan) as armed_state:
+            ts = [threading.Thread(target=witness_traffic, daemon=True,
+                                   args=(np, st, client, names, stop, counts, lock, futures, tok, SEED + 1500 + i))
+                  for i in range(N_THREADS)]
+            t = time.perf_counter()
+            for th in ts:
+                th.start()
+            time.sleep(seconds)
+            stop.set()
+            for th in ts:
+                th.join(timeout=120)
+            check(not any(th.is_alive() for th in ts), "15b: request threads still running after 120 s")
+            results = [f.result(timeout=60.0) for f in futures if f is not None]
+            wall = time.perf_counter() - t
+            injected = armed_state.injected()
+        ticks = client._build_ticks - ticks0
+        launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+        client.stop()
+        # a name the registry cannot intern passes through (None, no future)
+        ok = sum(1 for v, _w in results if v in (ERR.PASS, ERR.PASS_WAIT)) + sum(1 for f in futures if f is None)
+        submitted = sum(v for k, v in counts.items() if k != "token")
+        ctx = ScenarioContext(metrics=metrics, client=client, submitted=submitted, passed=counts.get("pass", 0) + ok,
+                              blocked=counts.get("blocked", 0) + len(results) - (ok - futures.count(None)),
+                              futures=futures)
+        verdicts = evaluate(["verdict-accounting", "no-stranded-futures", "pipeline-drained"], ctx)
+        rep.update(verdicts=[[v.name, v.ok, v.detail] for v in verdicts], counts=counts, wall_s=wall, ticks=ticks,
+                   ms_a_tick=wall * 1e3 / max(ticks, 1), decisions_per_s=submitted / wall, launches=launches,
+                   contend_fires=injected.get("runtime.lock.contend:delay", 0), lock_waits=wait.count - w_n0,
+                   lock_wait_ms=dict(p50=wait.quantile(0.5), p99=wait.quantile(0.99)))
+        if witnessed:
+            rep.update(dynamic_edges=len(W.dynamic_edges()), violations=W.violations(),
+                       unknown_edges=W.edges_unknown_to_static(),
+                       runtime_edges=sorted(f"{a} -> {b}" for a, b in W.dynamic_edges()
+                                            if a.startswith(("runtime.", "cluster.")) or b.startswith(("runtime.", "cluster."))))
+    finally:
+        for close in closers:
+            close()
+        if witnessed:
+            W.uninstall()
+            W.reset()
+    return rep
+
+
+def chaos_witness(np, st, FU, SC, torch) -> dict:
+    """15b: the unwitnessed run, then the witnessed one; every invariant
+    green, no violation and no edge the port's golden lacks, B1 / B2 / B4
+    launched."""
+    rep = {"unwitnessed": witness_run(np, st, FU, SC, torch, False)}
+    torch.cuda.empty_cache()
+    settle_heap()
+    rep["witnessed"] = w = witness_run(np, st, FU, SC, torch, True)
+    torch.cuda.empty_cache()
+    for label in ("unwitnessed", "witnessed"):
+        r = rep[label]
+        check(all(ok for _n, ok, _d in r["verdicts"]), (f"15b: an invariant is red ({label})", r["verdicts"]))
+        check(not any(k.startswith("lost") for k in r["counts"]), (f"15b: entries lost ({label})", r["counts"]))
+        check(all(r["launches"][k] > 0 for k in ("scatter_many", "gather_many", "seg_incl_min")),
+              (f"15b: B1 / B2 / B4 not all launched ({label})", r["launches"]))
+    check(not w["violations"] and not w["unknown_edges"], ("15b: the witness", w["violations"], w["unknown_edges"]))
+    check(w["dynamic_edges"] > 0 and w["contend_fires"] > 0 and w["lock_waits"] > 0,
+          ("15b: the witness saw nothing", w["dynamic_edges"], w["contend_fires"], w["lock_waits"]))
+    check(any(e.startswith("cluster.") for e in w["runtime_edges"]), ("15b: no cluster lock edge", w["runtime_edges"]))
+    return rep
+
+
+def chaos_trace_cli(np, st, FU, SC, torch) -> dict:
+    """15c: the trace CLI on the card — a self-capture ``--summary`` with
+    all six tick stages, ``explain``, ``--profile 250``, ``--merge`` of a
+    token client's and server's dumps with the RPC spans linked, and
+    ``--postmortem`` of the bundle a deliberately red invariant triggered.
+    The span ring is left empty and the tracer off."""
+    import contextlib
+    import io
+
+    from sentinel_tpu_torch import obs
+    from sentinel_tpu_torch.chaos.invariants import MetricsDelta, ScenarioContext, evaluate
+    from sentinel_tpu_torch.chaos.runner import _make_token_server
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.obs import __main__ as CLI
+    from sentinel_tpu_torch.obs import profile as PROF
+    from sentinel_tpu_torch.obs.flight import FLIGHT
+
+    work = os.path.join(ROOT, "build", "chaos")
+    os.makedirs(work, exist_ok=True)
+    rep = {}
+
+    def run(argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = CLI.main(argv)
+        check(code == 0, (f"15c: {argv} exited {code}", buf.getvalue()[-2000:]))
+        return buf.getvalue(), time.perf_counter() - t
+
+    obs.TRACER.reset()
+    try:
+        FU.reset_launches()
+        SC.reset_launches()
+        out, s = run(["--summary"])
+        stages = {ln.split()[0]: int(ln.split()[1]) for ln in out.splitlines() if ln.startswith("tick.")}
+        check(sorted(stages) == sorted(CLI.TICK_STAGES) and all(stages.values()), ("15c: --summary stages", out))
+        rep["summary"] = dict(stages=stages, s=s, launches=dict(FU.LAUNCHES, **SC.LAUNCHES), text=out)
+        # the fast-path config's single lanes: the segment check phase (B1,
+        # B3, B4), no per-item read (B2)
+        check(all(rep["summary"]["launches"][k] > 0 for k in ("scatter_many", "seg_excl_cumsum", "seg_incl_min")),
+              ("15c: the self-capture launched no B1 / B3 / B4", rep["summary"]["launches"]))
+        obs.TRACER.reset()
+        out, s = run(["explain"])
+        check("explain coverage: blocked=" in out and "(100.0%)" in out and " flow " in out, ("15c: explain", out))
+        rep["explain"] = dict(s=s, head=out.splitlines()[:3])
+        PROF._LAST_CAPTURE[0] = 0.0
+        out, s = run(["--profile", "250"])
+        head = json.loads(out[: out.index("}") + 1])
+        check(head["span_count"] > 0, ("15c: --profile", out))
+        rep["profile"] = dict(s=s, span_count=head["span_count"], ms=head["ms"])
+        obs.TRACER.reset()
+        # --merge: a token client's and a token server's dumps of one run
+        decision, svc, server = _make_token_server("cuda", flow_count=1e9)
+        tok = ClusterTokenClient("127.0.0.1", server.port, timeout_ms=5000)
+        tok.start()
+        try:
+            obs.enable()
+            statuses = [tok.request_token(101).status for _ in range(MERGE_TOKENS)]
+        finally:
+            obs.disable()
+            tok.close()
+            server.stop()
+            decision.stop()
+        spans = obs.TRACER.snapshot()
+        obs.TRACER.reset()
+        client_spans = [x for x in spans if x["name"].startswith("cluster.rpc")]
+        server_spans = [x for x in spans if not x["name"].startswith("cluster.rpc")]
+        paths = [os.path.join(work, "client.json"), os.path.join(work, "server.json")]
+        for path, part, pid in zip(paths, (client_spans, server_spans), (1, 2)):
+            doc = obs.TRACER.chrome_trace(part)
+            for e in doc["traceEvents"]:
+                e["pid"] = pid
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        merged = os.path.join(work, "merged.json")
+        out, s = run(["--merge", *paths, "-o", merged])
+        with open(merged) as f:
+            links = json.load(f)["otherData"]["flow_links"]
+        check(links >= MERGE_TOKENS, ("15c: --merge linked too few RPC spans", links, statuses, out))
+        rep["merge"] = dict(s=s, flow_links=links, client_spans=len(client_spans), server_spans=len(server_spans),
+                            statuses=sorted(set(statuses)))
+        # --postmortem of the bundle a red invariant triggers
+        FLIGHT.reset_rate_limit()
+        red = evaluate(["verdict-accounting"], ScenarioContext(metrics=MetricsDelta(), submitted=1))
+        b = FLIGHT.last_bundle()
+        check(not red[0].ok and b is not None and b["reason"] == "invariant-breach", "15c: no invariant-breach bundle")
+        bundle = os.path.join(work, "bundle.json")
+        with open(bundle, "w") as f:
+            json.dump(b, f)
+        out, s = run(["--postmortem", bundle])
+        check("reason='invariant-breach'" in out and "invariant.breach" in out, ("15c: --postmortem", out[-2000:]))
+        rep["postmortem"] = dict(s=s, lines=len(out.splitlines()))
+    finally:
+        obs.disable()
+        obs.TRACER.reset()
+    return rep
+
+
+def chaos_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 15: (a) the chaos scenarios on the card, (b) the lock witness
+    over a full-width serving client, (c) the trace CLI on the card."""
+    t_phase = time.perf_counter()
+    rep = {"card": smi}
+    for part, fn, logger in (("scenarios", chaos_scenarios, log_scenarios), ("witness", chaos_witness, log_witness),
+                             ("cli", chaos_trace_cli, log_trace_cli)):
+        t = time.perf_counter()
+        rep[part] = fn(np, st, FU, SC, torch)
+        rep[f"{part}_s"] = time.perf_counter() - t
+        logger(smi, rep[part])
+        settle_heap()
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[chaos] {smi}: phase 15 took {rep['phase_s']:.1f} s (15a {rep['scenarios_s']:.1f}, 15b "
+        f"{rep['witness_s']:.1f}, 15c {rep['cli_s']:.1f})")
+    return rep
+
+
+def log_scenarios(smi, a) -> None:
+    for name, r in a["scenarios"].items():
+        log(f"[chaos] {smi}: 15a {name}{'' if r['fast'] else ' (not fast)'}: green on the card in {r['s']:.2f} s, "
+            f"injected {json.dumps(r['injected'], sort_keys=True)} == the CPU's (invariants whose detail differs "
+            f"from the CPU's: {r['details_unlike_cpu']}); launches {json.dumps(r['launches'])}")
+    k, p = a["storm"]["kernels"], a["storm"]["plain"]
+    log(f"[chaos] {smi}: 15a seg_overflow_storm with the kernels ({k['s']:.2f} s, launches {json.dumps(k['launches'])})"
+        f" == with their plain versions ({p['s']:.2f} s): both storms' verdicts and waits equal (verdict counts "
+        f"{k['verdicts']}), seg drops {k['seg_drops']:g} == {p['seg_drops']:g}")
+    log(f"[chaos] {smi}: 15a determinism: the fast set again in {a['determinism_s']:.1f} s, every injected count "
+        f"equal; the CPU ran all eleven in {a['cpu']['wall_s']:.1f} s (waited {a['cpu']['wait_s']:.1f} s)")
+
+
+def log_witness(smi, w) -> None:
+    for label in ("unwitnessed", "witnessed"):
+        r = w[label]
+        log(f"[chaos] {smi}: 15b {label}: {r['wall_s']:.2f} s of 8 threads, {sum(v for kk, v in r['counts'].items() if kk != 'token')} "
+            f"decisions ({json.dumps(r['counts'], sort_keys=True)}) -> {r['decisions_per_s']:.0f} decisions/s, "
+            f"{r['ticks']} ticks -> {r['ms_a_tick']:.3f} ms a tick; contend fires {r['contend_fires']}, "
+            f"witnessed acquisitions {r['lock_waits']} (sentinel_lock_wait_ms p50 {r['lock_wait_ms']['p50']:g} / "
+            f"p99 {r['lock_wait_ms']['p99']:g}); B1 / B2 / B3 / B4 launches {r['launches']['scatter_many']} / "
+            f"{r['launches']['gather_many']} / {r['launches']['seg_excl_cumsum']} / {r['launches']['seg_incl_min']}; "
+            f"invariants {json.dumps([[n, ok] for n, ok, _d in r['verdicts']])}")
+    ww = w["witnessed"]
+    log(f"[chaos] {smi}: 15b witness: {ww['witness_sites']} creation sites, installed in {ww['install_s']:.2f} s; "
+        f"{ww['dynamic_edges']} dynamic edges, 0 violations, 0 edges unknown to the port's golden; runtime / cluster "
+        f"edges seen: {json.dumps(ww['runtime_edges'])}")
+
+
+def log_trace_cli(smi, c) -> None:
+    s = c["summary"]
+    log(f"[chaos] {smi}: 15c --summary self-capture on the card in {s['s']:.2f} s: stages {json.dumps(s['stages'])}; "
+        f"launches {json.dumps(s['launches'])}")
+    for ln in s["text"].splitlines():
+        log(f"[chaos] 15c   {ln}")
+    log(f"[chaos] {smi}: 15c explain {c['explain']['s']:.2f} s ({c['explain']['head'][0]}); --profile 250: "
+        f"{c['profile']['span_count']} spans in {c['profile']['s']:.2f} s; --merge: {c['merge']['flow_links']} flow "
+        f"links ({c['merge']['client_spans']} client / {c['merge']['server_spans']} server spans, statuses "
+        f"{c['merge']['statuses']}) in {c['merge']['s']:.2f} s; --postmortem {c['postmortem']['lines']} lines in "
+        f"{c['postmortem']['s']:.2f} s")
+
+
+def chaos_main() -> int:
+    """``python3 chip_smoke.py --chaos``: the kernels' build and phase 15
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = chaos_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    rep["cli"]["summary"].pop("text")
     log("[report]", json.dumps(rep, sort_keys=True, default=str))
     return 0
 
@@ -8239,6 +8814,12 @@ def main() -> int:
     # -- 14. the sharded cluster and the shard router -------------------------------------------
     report["shards"] = shards_phase(np, st, S, FU, SC, torch, smi)
     end_phase("14")
+    # -- 15. the chaos plane, the lock witness and the trace CLI --------------------------------
+    report["chaos"] = chaos_phase(np, st, S, FU, SC, torch, smi)
+    report["chaos"]["cli"]["summary"].pop("text")
+    end_phase("15")
+    left = live_children()
+    check(not left, f"processes this script started still run at its end: {left}")
 
     kernels = []
     for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
@@ -8409,6 +8990,7 @@ if __name__ == "__main__":
     import faulthandler
 
     faulthandler.enable()  # a fatal signal in native code prints every thread's stack to stderr
+    die_with_parent()
     import gc
 
     gc.callbacks.append(_gc_watch)
@@ -8421,6 +9003,8 @@ if __name__ == "__main__":
              else operator_main() if mode == ["--operator"]
              else shards_main() if mode == ["--shards"]
              else shards_cpu_main() if mode == ["--shards-cpu"]
+             else chaos_main() if mode == ["--chaos"]
+             else chaos_cpu_main() if mode == ["--chaos-cpu"]
              else operator_cpu_main(mode[1]) if mode[:1] == ["--operator-cpu"] and len(mode) == 2
              else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4
              else simload_main(*mode[1:]) if mode[:1] == ["--simload"] and len(mode) == 3

@@ -372,7 +372,7 @@ class TokenColumnBatcher:
         g, obs, self._state = self._TC.decide_batch(
             self._state, now, dev[0], dev[1], dev[2], dev[3] != 0, dev[4] != 0
         )
-        out = torch.stack([g, obs.view(torch.int32)]).cpu().numpy()
+        out = torch.stack([g, obs.view(torch.int32)]).cpu().numpy()  # stlint: disable=blocking-under-lock — the column's decision is read back under _s_lock, which serializes its state, as the reference's np.asarray readback is
         return out[0], out[1].view(np.float32)
 
     def project(self, thresholds: Dict[int, float]) -> None:
@@ -631,8 +631,10 @@ class DefaultTokenService(TokenService):
                         param_flow_item_list=rule.param_flow_item_list,
                     )
                 )
-            self.client.flow_rules.load(flow)
-            self.client.param_flow_rules.load(param)
+            # stlint: disable-next-line=blocking-under-lock — _lock serializes projections (a stale one must never overwrite a newer one); the decision client's recompile is the work it serializes, on rule pushes, off the request path
+            self.client.flow_rules.load_projection(flow)
+            # stlint: disable-next-line=blocking-under-lock — as above: the second half of one projection
+            self.client.param_flow_rules.load_projection(param)
             if self.col is not None:
                 self.col.project(thresholds)
 

@@ -121,7 +121,7 @@ def compile_tail_flow_rules(tail_rules: List[tuple], cfg: EngineConfig) -> TailF
         ids = np.asarray([rid for rid, _ in tail_rules], dtype=np.int32)
         counts = np.asarray([c for _rid, c in tail_rules], dtype=np.float32) * np.float32(scale)
         counts = np.minimum(counts, np.float32((1 << 24) - 2))
-        cols = cms_cell(torch.from_numpy(ids), cfg.sketch_depth, cfg.sketch_width).numpy()
+        cols = cms_cell(torch.from_numpy(ids), cfg.sketch_depth, cfg.sketch_width).numpy()  # stlint: disable=blocking-under-lock — a host tensor (torch.from_numpy): host arithmetic, no device to wait for
         for d in range(cfg.sketch_depth):
             np.minimum.at(thr[d], cols[:, d], counts)
     return TailFlowTensors(thr=thr)

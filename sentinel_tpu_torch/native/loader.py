@@ -141,7 +141,7 @@ def load_native() -> Optional[ctypes.CDLL]:
         so = _so_path()
         # the hash in the filename ties the binary to this exact source —
         # existence is sufficient freshness
-        if not so.exists() and not _build(so):
+        if not os.path.exists(so) and not _build(so):
             return None
         try:
             _LIB = _bind(ctypes.CDLL(str(so)))

@@ -29,8 +29,11 @@ read.
 * ``obs.fleet``    — the fleet view: scrapes merged into one exposition
   (``GET /metrics?fleet=1``) and one per-resource timeline.
 
-The trace CLI (``python -m sentinel_tpu.obs`` in the reference) is not
-ported yet (ROADMAP.md, Queue A item A10).
+The trace CLI, ``python -m sentinel_tpu_torch.obs`` (``obs/__main__.py``):
+``--summary`` / ``--chrome`` / ``--json`` over a dump or a self-capture
+(a small client on the card, or ``--device cpu``), ``--merge`` of
+per-process dumps with their RPC spans linked, ``--postmortem`` of a
+flight bundle, ``--profile``, ``--timeline``, ``--fleet`` and ``explain``.
 """
 
 from sentinel_tpu_torch.obs.flight import FLIGHT, FlightRecorder, load_bundle

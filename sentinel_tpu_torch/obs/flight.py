@@ -23,9 +23,11 @@ black box for that moment:
   journal events, and whatever registered providers contribute (the
   runtime client registers rule fingerprints, pending-tick/pipeline
   summary, and a config digest; its timeline and explain planes add
-  theirs).  Captured automatically on cluster-degrade entry
-  (rate-limited; the last K bundles are kept), on demand via the command
-  center's ``GET /api/flight``, and read back with ``load_bundle``.
+  theirs).  Captured automatically on cluster-degrade entry and on any
+  ``chaos.invariants`` breach (rate-limited; the last K bundles are
+  kept), on demand via the command center's ``GET /api/flight``, read
+  back with ``load_bundle`` and analyzed offline by ``python -m
+  sentinel_tpu_torch.obs --postmortem bundle.json``.
 
 Set ``SENTINEL_FLIGHT_DIR`` to also persist each triggered bundle as
 ``flight_<seq>_<reason>.json`` in that directory (post-mortem survives

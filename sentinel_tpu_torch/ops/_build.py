@@ -121,7 +121,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             so = _target()
-            if not so.exists():
+            if not os.path.exists(so):
                 _build(so)
             _lib = _bind(ctypes.CDLL(str(so)))
         return _lib

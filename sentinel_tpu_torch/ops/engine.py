@@ -2290,7 +2290,10 @@ class ScalarStage:
     are written into a pinned slot and copied ``non_blocking`` behind a
     CUDA event, and a slot is written again only once the event recorded
     behind its last copy has completed (it almost always has: the ring
-    holds ``SLOTS`` of them).  On the CPU the upload is a plain tensor."""
+    holds ``SLOTS`` of them; when none has, the ring grows by one slot,
+    so the host never waits for the card under the client's engine lock,
+    as the reference's asynchronous upload never does).  On the CPU the
+    upload is a plain tensor."""
 
     SLOTS = 4
 
@@ -2306,18 +2309,27 @@ class ScalarStage:
         #: uploads so far (each one host-to-device copy)
         self.uploads = 0
 
+    def _free_slot(self) -> int:
+        """The next slot whose last copy has run (its event completed);
+        a new slot at the ring's end when none has."""
+        for _ in range(len(self._bufs)):
+            self._i = (self._i + 1) % len(self._bufs)
+            ev = self._events[self._i]
+            if ev is None or ev.query():
+                return self._i
+        self._bufs.append(torch.empty((self.n,), dtype=F32, pin_memory=self._cuda))
+        self._events.append(None)
+        self._i = len(self._bufs) - 1
+        return self._i
+
     def upload(self, values) -> torch.Tensor:
         """float32 [n] on the device holding ``values`` (a fresh tensor:
         earlier uploads are never overwritten)."""
         self.uploads += 1
         if not self._cuda:
             return torch.tensor([float(v) for v in values], dtype=F32, device=self.device)
-        self._i = (self._i + 1) % len(self._bufs)
-        ev = self._events[self._i]
-        if ev is not None and not ev.query():
-            ev.synchronize()  # the slot's last copy has not run yet (rare)
-        buf = self._bufs[self._i]
-        buf.numpy()[:] = [float(v) for v in values]
+        buf = self._bufs[self._free_slot()]
+        buf.copy_(torch.tensor([float(v) for v in values], dtype=F32))
         dst = torch.empty((self.n,), dtype=F32, device=self.device)
         dst.copy_(buf, non_blocking=True)
         ev = torch.cuda.Event()

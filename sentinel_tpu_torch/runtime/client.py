@@ -712,6 +712,15 @@ class RuleManager:
         for fn in list(self._listeners):
             fn(self._rules)
 
+    def load_projection(self, rules: Sequence) -> None:
+        """``load``, as a cluster token service projects its rules onto its
+        decision client (``DefaultTokenService._reproject``, under the
+        service's ``_lock``).  A name no other def shares: the tier-3
+        analyzer resolves the call, so the lock-order graph holds the
+        service lock -> client lock edges that the projection takes (the
+        lock witness sees them at run time)."""
+        self.load(rules)
+
     def get(self) -> list:
         return list(self._rules)
 
@@ -1140,7 +1149,7 @@ class SentinelClient:
         # decide whatever is still queued so no caller is left waiting
         self.tick_once()
         with self._tick_mutex:
-            self._drain_resolves()
+            self._drain_resolves()  # stlint: disable=blocking-under-lock — shutdown: a tick still pending at pipeline_depth 0 resolves inline here (its own readback), as the reference's stop() does under _tick_mutex; the drain of the resolver thread is bounded
             if self._resolver_pool is not None:
                 self._resolver_pool.shutdown(wait=True)
                 self._resolver_pool = None
@@ -1411,7 +1420,7 @@ class SentinelClient:
         only, as in the reference."""
         if changed and self._started and self.mode == "threaded":
             with self._tick_mutex:
-                self._warm_shapes()
+                self._warm_shapes()  # stlint: disable=blocking-under-lock — deliberate: warm-up first-calls must exclude serving ticks; runs post-recompile on the control plane
 
     def _recompile_rules_traced(self) -> bool:
         all_flow = self.flow_rules.get()
@@ -1528,13 +1537,24 @@ class SentinelClient:
         token service (client or embedded server role)."""
         self.cluster = cluster_state_manager
 
+    # attribute-compatible views of the shared hysteresis state (tests
+    # and the chaos harness read and poke these directly, as the
+    # reference's do)
     @property
     def _cluster_degraded_active(self) -> bool:
         return self._cluster_hy.active
 
+    @_cluster_degraded_active.setter
+    def _cluster_degraded_active(self, v: bool) -> None:
+        self._cluster_hy.active = bool(v)
+
     @property
     def _cluster_degraded_until(self) -> float:
         return self._cluster_hy.until
+
+    @_cluster_degraded_until.setter
+    def _cluster_degraded_until(self, v: float) -> None:
+        self._cluster_hy.until = float(v)
 
     def _enter_cluster_degraded(self) -> None:
         """Token service unreachable: enforce the fallback-enabled cluster
@@ -2394,7 +2414,7 @@ class SentinelClient:
         one cadence check of the hot-set manager, outside the tick mutex (a
         promotion's rule recompile must not hold up the serving path)."""
         with self._tick_mutex:
-            self._tick_once_locked(now_ms)
+            self._tick_once_locked(now_ms)  # stlint: disable=blocking-under-lock — the tick IS the device dispatch: _tick_mutex exists to serialize exactly this work; readbacks ride the resolver thread, not this lock
         hs = self.hotset
         if hs is not None:
             hs.maybe_evaluate()
@@ -2620,7 +2640,7 @@ class SentinelClient:
         deadline = mono_s() + max(2.0 * self.entry_timeout_s, 5.0)
         for f in futs:
             try:
-                f.result(timeout=max(0.0, deadline - mono_s()))
+                f.result(timeout=max(0.0, deadline - mono_s()))  # stlint: disable=blocking-under-lock — the deadline above bounds the whole drain; a wedged readback is abandoned
             except _FutTimeout:
                 _log.warning("resolve drain abandoned a wedged tick")
             except Exception as exc:
@@ -3307,10 +3327,7 @@ class SentinelClient:
         # stand-in for a hung device tick the watchdog must fail over
         if p.event is not None:
             p.event.synchronize()
-        got = self._read_packed(p) if p.wire_lo is not None else self._read_unpacked(p)
-        if got is None:
-            return  # failed validation: the tick was failed CLOSED
-        verdict, wait, stats = got
+        verdict, wait, stats = self._read_packed(p) if p.wire_lo is not None else self._read_unpacked(p)
         FP.hit(_FP_FANOUT)  # chaos: a raise BEFORE any consumer resolves
         if not self._claim_tick(p, "done"):
             return  # the watchdog failed this tick over while it was read back
@@ -3361,8 +3378,9 @@ class SentinelClient:
 
     def _read_packed(self, p: _PendingTick):
         """Decode the tick's packed wire and fold its planes; returns
-        ``(verdict, wait, stats)`` in batch order, or None when the main
-        section failed validation (the tick is then failed CLOSED)."""
+        ``(verdict, wait, stats)`` in batch order.  A main section that
+        fails validation raises ``WireDecodeError`` (counted here), which
+        ``_resolve_tick`` turns into a CLOSED tick."""
         lo, out, now_ms = p.wire_lo, p.out, p.now_ms
         raw = p.buf.numpy()
         tl_bytes = lo.tl_rows * lo.tl_cols * 4
@@ -3380,11 +3398,11 @@ class SentinelClient:
         try:
             frame = WIRE.unpack(data, lo)
         except WIRE.WireDecodeError:
+            # detected, never fanned out: _resolve_tick fails the tick
+            # CLOSED and counts it, as it does any resolve error
             _C_PACKED_DECODE.inc()
             self.wire_decode_failures += 1
-            if self._claim_tick(p, "failed"):
-                self._fail_tick(p)
-            return None
+            raise
         self._span_device(p)
         # readback: the folds and any residual device read, after the wait
         _t_rb = OT.t0()

@@ -187,7 +187,7 @@ class HotSetManager:
         Serialized on its own lock: the body mutates the promote/demote
         bookkeeping outside ``self._lock`` (which fold's hot path takes)."""
         with self._eval_lock:
-            self._evaluate_locked()
+            self._evaluate_locked()  # stlint: disable=blocking-under-lock — hot-set promotion is an off-tick maintenance pass single-flighted by _eval_lock; its recompile must be atomic vs a concurrent evaluate
 
     def _evaluate_locked(self) -> None:
         c = self._c
@@ -306,10 +306,12 @@ class HotSetManager:
             from sentinel_tpu_torch.ops import engine as E
             from sentinel_tpu_torch.sketch import salsa as SA
 
-            # under _engine_lock like every host-side gs reader: the tick
-            # updates the sketch's ring in place
+            # computed under _engine_lock like every host-side gs reader (the
+            # tick updates the sketch's ring in place); read back after it:
+            # a later tick's updates queue behind the histogram on the stream
             with self._c._engine_lock:
-                hist = SA.level_histogram(self._c._state.gs, E.sketch_config(cfg)).cpu().numpy()
+                hist = SA.level_histogram(self._c._state.gs, E.sketch_config(cfg))
+            hist = hist.cpu().numpy()
         except Exception:  # health gauges only
             return
         n0, n1, n2 = (float(x) for x in hist)

@@ -515,3 +515,57 @@ def test_the_scan_covers_the_sharded_cluster_and_the_router():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert lines[0].startswith("PORT ") and lines[-1] == "ok", proc.stdout
+
+
+def test_the_scan_covers_the_chaos_plane_the_analyzer_and_the_trace_cli():
+    """The chaos plane's runner, invariants and CLI, the analyzer's
+    framework with the concurrency tier and the lock witness, and the trace
+    CLI are the port's own: walked by the checks above and imported, in a
+    fresh process, without jax or the JAX package — the two CLIs run their
+    ``--list`` / ``--sites`` and a ``--postmortem`` there, the analyzer
+    loads the port's golden and reads the port's source, and the witness
+    registers its failpoint and series in the port's registry."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    mods = ("analysis", "analysis.astutil", "analysis.framework", "analysis.concurrency",
+            "analysis.concurrency.summaries", "analysis.concurrency.passes", "analysis.concurrency.witness",
+            "chaos.invariants", "chaos.runner", "chaos.__main__", "obs.__main__")
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {m.replace(".", "/") + ".py" for m in mods if m not in ("analysis", "analysis.concurrency")} <= files
+    assert {"analysis/__init__.py", "analysis/concurrency/__init__.py"} <= files
+    assert (PKG / "analysis" / "concurrency" / "lock_order.json").is_file()
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    code = (
+        "import contextlib, io, json, os, sys, tempfile\n"
+        "import " + ", ".join(f"sentinel_tpu_torch.{m}" for m in mods) + "\n"
+        "from sentinel_tpu_torch.analysis import concurrency as AC\n"
+        "from sentinel_tpu_torch.chaos import failpoints as FP\n"
+        "from sentinel_tpu_torch.obs.flight import FLIGHT\n"
+        "from sentinel_tpu_torch.obs.registry import REGISTRY\n"
+        "main = sys.modules['sentinel_tpu_torch.chaos.__main__'].main\n"
+        "obs_main = sys.modules['sentinel_tpu_torch.obs.__main__'].main\n"
+        "edges = AC.load_lock_order()\n"
+        "assert edges and set(AC.current_edges()) == edges\n"
+        "assert 'runtime.lock.contend' in FP.catalog()\n"
+        "assert REGISTRY.series('sentinel_lock_wait_ms') and REGISTRY.series('sentinel_lock_order_violations_total')\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert main(['--list']) == 0 and main(['--sites']) == 0\n"
+        "    path = os.path.join(tempfile.mkdtemp(), 'b.json')\n"
+        "    json.dump(FLIGHT.dump_bundle('imports'), open(path, 'w'))\n"
+        "    assert obs_main(['--postmortem', path]) == 0\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'sentinel_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -451,6 +451,27 @@ Phases (the first failure stops the script with a nonzero exit):
    ``--postmortem`` of the bundle a deliberately red invariant triggered
    (``[chaos]`` lines).
 
+16. The sharded engine (``spmd_phase``; ``parallel/spmd.py``), phase 4's
+   traffic: ``platform_config()`` at the default widths, build_rules'
+   4,000 flow and 1,000 degrade rules, SPMD_TICKS ticks of B = 2,048
+   Zipf(1.1) over 100,000 names.  (a) World size 1 over NCCL: the
+   sharded ticks under ``set_sync_debug_mode("error")`` equal
+   ``make_tick``'s tick for tick (the wire) and in state; B1-B4 launches,
+   the collectives' count, bytes and ms a tick.  (b) 2 and 4 ranks on the
+   one card over gloo (NCCL refuses two ranks on one device; gloo stages
+   CUDA tensors through the host, so these runs are exempt from the sync
+   check): every tick's wire equal to (a)'s single-device tick and the
+   gathered state equal, once with the kernels and once with their plain
+   versions installed on every rank, and at 4 ranks phase 4's sketch
+   build (SALSA, width-sharded) against its single-device run; ms a tick,
+   collectives and their bytes and ms, state bytes a rank against the
+   whole, each rank's memory_allocated and B1 / B2 launches.  (c) The
+   tier-4 analyzer's 8 ranks on the card (``--device cuda``, gloo): their
+   recorded ledger equals the CPU ranks' (as ``analysis/spmd/collectives.json``
+   pins it), ``run_spmd_analysis`` gives zero
+   findings; the card's total_memory (``[spmd]`` lines).  Every rank
+   group has a deadline and dies with the script (``parallel/launch.py``).
+
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
 turns the fallback off).
@@ -468,7 +489,11 @@ the build and phase 10 (``overload_main``), ``python3 chip_smoke.py
 chip_smoke.py --doors`` the build and phase 12 (``doors_main``), ``python3
 chip_smoke.py --operator`` the build and phase 13 (``operator_main``),
 ``python3 chip_smoke.py --shards`` the build and phase 14 (``shards_main``),
-``python3 chip_smoke.py --chaos`` the build and phase 15 (``chaos_main``).
+``python3 chip_smoke.py --chaos`` the build and phase 15 (``chaos_main``),
+``python3 chip_smoke.py --spmd`` the build and phase 16 (``spmd_main``).
+``python3 chip_smoke.py --profile-probe [N]`` counts the device records
+that profiler sessions over one replayed tick lose, with and without the
+wait each session here starts with (``profile_probe_main``).
 
 The last lines: the run's fuller numbers, every kernel shape included
 (``[report] {...}``), the kernels' JSON record, the card's name and power
@@ -566,20 +591,15 @@ def child_env(cpu: bool = True) -> dict:
 
 def die_with_parent() -> None:
     """In a process ``child_env`` started: have the kernel send it SIGKILL
-    when its parent ends (``PR_SET_PDEATHSIG``), a crash by a fatal signal
-    included, where no ``finally`` of the parent's runs; a parent already
-    gone ends it now."""
+    when its parent ends, however the parent ends, and end it now if the
+    parent is already gone (``parallel/launch.die_with_parent``)."""
     parent = os.environ.get(PARENT_PID_ENV)
     if not parent:
         return
-    import ctypes
-    import signal
+    sys.path.insert(0, ROOT)
+    from sentinel_tpu_torch.parallel.launch import die_with_parent as die_with
 
-    pr_set_pdeathsig = 1
-    if ctypes.CDLL(None, use_errno=True).prctl(pr_set_pdeathsig, signal.SIGKILL) != 0:
-        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
-    if os.getppid() != int(parent):
-        os._exit(3)
+    die_with(int(parent))
 
 
 def live_children() -> list:
@@ -709,6 +729,7 @@ def launch_breakdown(fn, reps: int = 5, flush_bytes: int = 64 << 20) -> list:
     best = []
     for _session in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            settle_profiler(torch)
             for _ in range(reps):
                 scratch.fill_(1)
                 torch.cuda._sleep(200_000)
@@ -1698,6 +1719,7 @@ def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
     # taken again, from copies of the same states
     for _session in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            settle_profiler(torch)
             for label, state, rules, cfg, *fits in variants:
                 fits = fits[0] if fits else None
                 state = E.clone_state(state)
@@ -2690,6 +2712,7 @@ def column_device_report(np, torch, batcher, rng, fids, now) -> dict:
     evs = []
     for _session in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            settle_profiler(torch)
             for _ in range(4):
                 _decide_now(batcher, entries, now)
             torch.cuda.synchronize()
@@ -2971,6 +2994,7 @@ def decision_client_profile(FU, SC, torch, svc, dec, flow, param) -> dict:
             # the card's activity alone: the decision client's tick thread
             # launches while the session runs (see device_profile)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                settle_profiler(torch)
                 for _ in range(4):
                     fn()
                 torch.cuda.synchronize()
@@ -4073,6 +4097,20 @@ def capture_client_tick(E, nth: int, only=None) -> tuple:
     return box, lambda: setattr(E, "tick", real_tick)
 
 
+#: seconds a profiler session waits, the card idle, before the work it
+#: records: the device work of the first moments of a session can go
+#: unrecorded (a replayed tick's first kernels, B4's among them; measured
+#: by ``--profile-probe``), so every CUDA session here starts with this wait
+PROFILE_SETTLE_S = 0.02
+
+
+def settle_profiler(torch) -> None:
+    """Inside a profiler session, before its work: the card idle for
+    ``PROFILE_SETTLE_S`` (see there)."""
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_SETTLE_S)
+
+
 def device_profile(torch, fn, cpu=True) -> tuple:
     """(device busy us, kernel launches by name) of one call, from
     torch.profiler (``cpu=False``: the card's activity alone, which slows
@@ -4090,6 +4128,7 @@ def device_profile(torch, fn, cpu=True) -> tuple:
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
+            settle_profiler(torch)
             fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -4123,9 +4162,10 @@ def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
         return st, out.wire.cpu().numpy().tobytes()
 
     got = {}
-    # the profiler drops some sessions' device records (PERF.md §7): a
-    # session that shows a wanted kernel by none of its records is taken
-    # again, three sessions at most, each a run of the same captured tick
+    # the profiler drops some sessions' device records (PERF.md §7; each
+    # session waits in settle_profiler first, which spares the tick's first
+    # kernels): a session that shows a wanted kernel by none of its records
+    # is taken again, three sessions at most, each a run of the same tick
     for sessions in range(1, 4):
         busy, names = device_profile(torch, lambda: got.update(k=run()))
         seen = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm) for k in want}
@@ -4148,7 +4188,9 @@ def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
         else:
             check(torch.equal(la[k], lb[k]), f"phase {label}: integer state leaf {k} differs")
     for k in want:
-        check(seen[k] > 0, f"phase {label}: {sessions} profiles of the captured tick show no {k} kernel: {names}")
+        # the names first: the facts stay at the end of a cut error log
+        check(seen[k] > 0, f"phase {label}: device records by name {names}; {sessions} profiles of the captured "
+                           f"tick show no {k} kernel ({sum(names.values())} device records, {seen} of {want})")
     return dict(profile_kernels=seen, profile_sessions=sessions, device_busy_us=busy, float_state_max_diff=fdiff,
                 batch=int(box["acq"].res.shape[0]), now_ms=int(box["now"]))
 
@@ -8336,6 +8378,470 @@ def nvidia_smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+# -- phase 16: the sharded engine on the card -------------------------------------------------
+
+#: ticks of the sharded runs (phase 4's traffic) and each rank group's deadline
+SPMD_TICKS = 64
+SPMD_DEADLINE_S = 240.0
+
+
+def spmd_setup(np, st, E, torch, which: str, device="cuda"):
+    """(cfg, rules, stream) of a phase-16 run, the same on every rank (all
+    from SEED): ``platform`` is phase 4's traffic — platform_config() at
+    the default widths with build_rules' 4,000 flow, 1,000 degrade, 32
+    param, an authority and a system rule, SPMD_TICKS presorted ticks of
+    B = 2,048 Zipf(1.1) over N_NAMES names; ``sketch`` is phase 4's
+    sketch build (bench.py's), its 13 ticks of B = 2,048."""
+    import dataclasses
+
+    from sentinel_tpu_torch.core import rule_tensors as RT
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.core.rule_tensors import hash_param
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import grown_seg_u
+    from sentinel_tpu_torch.runtime.registry import Registry
+
+    if which == "platform":
+        cfg = platform_config(packed_wire=True)
+        reg = Registry(cfg)
+        names_to_rows = np.array([reg.resource_id(f"res-{i}") for i in range(N_NAMES)], dtype=np.int32)
+        flow, degrade, authority, system, param = build_rules(st)
+        value_hashes = np.array([hash_param(arg_value(k)) for k in range(N_VALUES)], dtype=np.int32)
+        cols = batch_columns(np, PS, SPMD_TICKS, names_to_rows, cfg.batch_size, SEED + 16, value_hashes)
+        rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
+                                  authority_rules=authority, system_rules=system, device=device)
+        stream = to_batches(E, torch, cfg, cols) if device == "cuda" else None
+        return cfg, rules, stream
+    base = sketch_cfg(platform_config)
+    reg = Registry(base)
+    for i in range(N_RULED):
+        reg.resource_id(f"res-{i + 1}")
+    origin = (reg.origin_node_row("res-1", "peer-app"), reg.origin_id("peer-app"))
+    nr, trash = base.node_rows, base.trash_row
+    cols, peak = sketch_columns(np, PS, 13, 2048, SEED + 9, nr, trash, *origin)
+    cfg = dataclasses.replace(base, seg_u=grown_seg_u(base, peak), seg_static_ranks=True)
+    flow, degrade, authority, system, param = sketch_rules(st, with_tail_names=False)
+    rules = E.compile_ruleset(cfg, reg, flow_rules=flow, degrade_rules=degrade, param_rules=param,
+                              authority_rules=authority, system_rules=system, device=device)
+    tail = [(nr + r, 20.0) for r in range(N_RULED + 1, N_RULED + 1 + N_TAIL_RULED)]
+    rules = rules._replace(tail=RT.to_device(RT.compile_tail_flow_rules(tail, cfg), device))
+    return cfg, rules, sketch_batches(E, torch, cfg, cols, device)
+
+
+def spmd_digests(S, state) -> dict:
+    """sha256 of every leaf's bytes: the state compared across processes."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest() for k, v in S.leaves(state).items()}
+
+
+def spmd_ticks(E, CL, torch, tick, state, rules, stream, forbid_sync=False) -> dict:
+    """Run ``stream`` through ``tick`` (phase 4's timestamps): each tick's
+    wire bytes and wait, its wall ms (synchronized on both sides), B1-B4
+    launches and the collectives sent (count, bytes, host and device ms)."""
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    wires, ms = [], []
+    FU.reset_launches()
+    SC.reset_launches()
+    with CL.stats() as cs:
+        for i, (acq, comp) in enumerate(stream):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if forbid_sync:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, out = tick(state, rules, acq, comp, 1_000 + 137 * i, 0.3, 0.2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            wires.append(out.wire.cpu().numpy().tobytes())  # the one readback
+            ms.append((time.perf_counter() - t) * 1e3)
+        dev_ms = cs.device_ms()
+    n = len(stream)
+    launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
+    return dict(state=state, wires=wires, ms=sorted(ms)[n // 2], launches={k: v / n for k, v in launches.items()},
+                coll_count=cs.count / n, coll_bytes=cs.bytes / n, coll_host_ms=cs.host_ms / n,
+                coll_device_ms=dev_ms / n)
+
+
+def spmd_rank(rank: int, n: int, mode: str) -> dict:
+    """A phase-16 rank (``parallel/launch.start_ranks`` starts it): ``one``
+    is 16a — the single-device ticks and the world-size-1 sharded ticks
+    over NCCL; ``gloo`` is 16b — the sharded ticks on ``n`` ranks of the
+    one card, with the kernels and with their plain versions, and at 4
+    ranks the sketch build too.  The set-up (the mesh, the rules, the
+    batches, NCCL's first collective) runs before ``launch.gate()``, while
+    the other groups set up too; what is measured runs after it, one
+    group at a time."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import engine as E
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+    from sentinel_tpu_torch.parallel import collectives as CL
+    from sentinel_tpu_torch.parallel import launch, spmd
+
+    _build.load_library()
+    mesh = spmd.make_mesh(n, device="cuda")
+    out = dict(rank=rank, backend=mesh.backend, world=mesh.world)
+
+    def sharded_run(cfg, rules, stream, forbid_sync=False):
+        whole = E.init_state(cfg, "cuda")
+        state = spmd.shard_state(whole, cfg, mesh)
+        out_bytes = dict(whole=sum(v.numel() * v.element_size() for v in S.leaves(whole).values()),
+                         rank=sum(v.numel() * v.element_size() for v in S.leaves(state).values()))
+        del whole
+        torch.cuda.empty_cache()
+        tick = spmd.make_sharded_tick(cfg, mesh)
+        r = spmd_ticks(E, CL, torch, tick, state, rules, stream, forbid_sync)
+        r["memory_allocated"] = torch.cuda.memory_allocated()
+        gathered = spmd.gather_state(r.pop("state"), cfg, mesh)
+        r["digests"] = spmd_digests(S, gathered) if rank == 0 else None
+        del gathered
+        torch.cuda.empty_cache()
+        r["state_bytes"] = out_bytes
+        if rank:
+            r["wires"] = None
+        return r
+
+    cfg, rules, stream = spmd_setup(np, st, E, torch, "platform")
+    if mode == "one" or n == 4:
+        scfg, srules, sstream = spmd_setup(np, st, E, torch, "sketch")
+    if mode == "one":
+        # a first sharded tick outside the measured run: NCCL's communicator
+        # starts at its first collective
+        warm = spmd.make_sharded_tick(cfg, mesh)
+        warm(spmd.shard_state(E.init_state(cfg, "cuda"), cfg, mesh), rules, *stream[0], 1_000, 0.3, 0.2)
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    launch.gate()
+    if mode == "one":
+        single = spmd_ticks(E, CL, torch, E.make_tick(cfg), E.init_state(cfg, "cuda"), rules, stream)
+        single["digests"] = spmd_digests(S, single.pop("state"))
+        out["single"] = single
+        out["sharded"] = sharded_run(cfg, rules, stream, forbid_sync=True)
+        sk = spmd_ticks(E, CL, torch, E.make_tick(scfg), E.init_state(scfg, "cuda"), srules, sstream)
+        sk["digests"] = spmd_digests(S, sk.pop("state"))
+        out["sketch_single"] = sk
+        props = torch.cuda.get_device_properties(0)
+        out["total_memory"] = props.total_memory
+        out["device_name"] = props.name
+        return out
+    out["kernels"] = sharded_run(cfg, rules, stream)
+    real, plain, install = kernel_sets(FU, SC)
+    install(plain)
+    try:
+        out["plain"] = sharded_run(cfg, rules, stream)
+    finally:
+        install(real)
+    if n == 4:
+        out["sketch"] = sharded_run(scfg, srules, sstream)
+    return out
+
+
+def stop_resource_tracker() -> None:
+    """The ``spawn`` start method (phase 16's rank groups) starts
+    multiprocessing's resource tracker, a child of this process that would
+    live until this process ends.  Nothing of this script registers a
+    resource with it (the ranks answer through pipes), so it is stopped
+    once every rank group has ended; a later spawn would start it again."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+
+
+def spmd_phase(np, st, S, FU, SC, torch, smi) -> dict:
+    """Phase 16: (a) world size 1 over NCCL — SPMD_TICKS sharded ticks of
+    phase 4's traffic under ``set_sync_debug_mode("error")`` equal
+    make_tick's, tick for tick (the wire: verdicts, waits, the three
+    planes) and in state; (b) 2 and 4 ranks on the one card over gloo
+    (NCCL refuses two ranks on one device; gloo stages CUDA tensors
+    through the host, so these runs are exempt from the sync check) —
+    every tick's wire equal to (a)'s single-device tick and the gathered
+    state equal, with the kernels and with their plain versions, and at 4
+    ranks the sketch build (SALSA width-sharded) against its single-device
+    run; (c) the tier-4 analyzer's ranks on the card (``--device cuda``)
+    at 8 ranks: their recorded ledger equals the CPU ranks' inventory as
+    ``analysis/spmd/collectives.json`` pins it, and ``run_spmd_analysis``
+    gives zero findings.
+
+    Every group starts at once, and (c)'s ranks run beside their set-up;
+    once all are set up, (a) and then (b)'s groups run what they measure
+    one at a time (``launch.gate``), with no other rank busy.  Every
+    group has a deadline; a rank's failure fails the phase."""
+    from sentinel_tpu_torch.analysis import spmd as AS
+    from sentinel_tpu_torch.analysis.spmd import runner as AR
+    from sentinel_tpu_torch.parallel import launch
+    from sentinel_tpu_torch.parallel import meshspec as MS
+
+    rep = {}
+    t_phase = time.perf_counter()
+    n_c = MS.mesh_spec().n_devices
+    card_c = {}
+
+    def run_c():
+        try:
+            card_c["report"] = AR.worker_report(n_c, refresh=True, device="cuda")
+        except BaseException as e:  # noqa: BLE001 — the main thread raises it
+            card_c["error"] = e
+
+    c_thread = threading.Thread(target=run_c, name="spmd-16c", daemon=True)
+    c_thread.start()
+    groups = {}
+    try:
+        groups[1] = launch.start_ranks(spmd_rank, 1, ("one",), timeout_s=SPMD_DEADLINE_S, backend="nccl")
+        for n in (2, 4):
+            groups[n] = launch.start_ranks(spmd_rank, n, ("gloo",), timeout_s=SPMD_DEADLINE_S, backend="gloo")
+        c_thread.join(timeout=AR.WORKER_TIMEOUT_S + 30.0)  # the runner kills its ranks at its own deadline
+        check(not c_thread.is_alive(), "16c: the analyzer's ranks outlived the runner's deadline")
+        if "error" in card_c:
+            raise card_c["error"]
+        t_c = time.perf_counter() - t_phase
+        for g in groups.values():
+            g.ready()
+        rep["setup_seconds"] = time.perf_counter() - t_phase
+        log(f"[spmd] {smi}: the 1-, 2- and 4-rank groups set up at once in {rep['setup_seconds']:.1f} s, the "
+            f"tier-4 analyzer's {n_c} card ranks (16c) running beside them ({t_c:.1f} s); what follows runs one "
+            f"group at a time")
+        rep.update(spmd_measured(groups, smi))
+    finally:
+        for g in groups.values():
+            g.kill()
+    stop_resource_tracker()
+
+    # -- 16c: the tier-4 analyzer's ranks on the card, against the CPU
+    # ranks' inventory as the golden pins it (tests/test_torch_spmd_analysis.py
+    # holds the golden equal to the CPU ranks' ledger at this world size)
+    card = card_c["report"]
+    golden = json.load(open(AS.COLLECTIVES_PATH))
+    check(card["device"] == "cuda" and card["backend"] == "gloo", ("16c ranks", card["device"], card["backend"]))
+    check(golden["mesh"]["n_devices"] == n_c, ("16c: the golden's world size", golden["mesh"]))
+    inventory = {e["name"]: AS.group_collectives(AS.collectives_from_ledger(e["collectives"])) for e in card["entries"]}
+    check(inventory == {k: v["collectives"] for k, v in golden["entries"].items()},
+          ("16c: the card's ledger differs from the CPU ranks'", inventory))
+    findings = AS.run_spmd_analysis(program=AS.build_program(device="cuda"))
+    check(findings == [], ("16c findings", [f"{f.path}:{f.line} [{f.rule}] {f.message}" for f in findings]))
+    one = rep.pop("one")
+    rep["c"] = dict(ranks=n_c, entries={e["name"]: len(e["collectives"]) for e in card["entries"]},
+                    total_memory=one["total_memory"], device_name=one["device_name"],
+                    analyzer_capacity=AS.DEFAULT_CAPACITY_BYTES, seconds=t_c)
+    log(f"[spmd] 16c {smi}: the tier-4 analyzer's {n_c} ranks on the card (gloo): ledger equal to the CPU ranks' "
+        f"(the golden; {json.dumps(rep['c']['entries'])} collectives an entry), zero findings; total_memory "
+        f"{one['total_memory']} B ({one['device_name']}; the analyzer's default capacity "
+        f"{AS.DEFAULT_CAPACITY_BYTES} B); 16c took {t_c:.1f} s beside the set-up")
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
+
+
+def spmd_measured(groups, smi) -> dict:
+    """Phase 16's (a) and (b) on groups that are set up (``spmd_phase``):
+    each group in turn is let past its gate and waited for."""
+    rep = {}
+    t = time.perf_counter()
+    groups[1].go()
+    (one,) = groups[1].wait()
+    rep["one"] = one
+    single, sh = one["single"], one["sharded"]
+    check(one["backend"] == "nccl", ("16a backend", one["backend"]))
+    bad = [i for i, (a, b) in enumerate(zip(sh["wires"], single["wires"])) if a != b]
+    check(not bad, ("16a: sharded ticks differ from make_tick's", bad[:8]))
+    check(sh["digests"] == single["digests"],
+          ("16a: sharded state differs", sorted(k for k in single["digests"] if sh["digests"][k] != single["digests"][k])))
+    # route A on four rule lanes: B1, B2 and B4 (B3 ranks only single-lane
+    # segment checks: the sketch build at 4 ranks launches it)
+    check(sh["launches"] == single["launches"], ("16a launches", sh["launches"], single["launches"]))
+    for k in PATH_KERNELS["seg4"]:
+        check(sh["launches"][k] > 0, ("16a launched no", k, sh["launches"]))
+    rep["a"] = dict(single_ms=single["ms"], sharded_ms=sh["ms"], launches=sh["launches"],
+                    coll_count=sh["coll_count"], coll_bytes=sh["coll_bytes"], coll_device_ms=sh["coll_device_ms"],
+                    coll_host_ms=sh["coll_host_ms"], state_bytes=sh["state_bytes"],
+                    memory_allocated=sh["memory_allocated"], seconds=time.perf_counter() - t)
+    log(f"[spmd] 16a {smi}: world 1 over {one['backend']}, {SPMD_TICKS} ticks B=2048 under "
+        f"set_sync_debug_mode('error'): equal to make_tick tick for tick (wire) and in state; ms a tick "
+        f"{sh['ms']:.3f} sharded vs {single['ms']:.3f} make_tick; B1-B4 launches a tick "
+        f"{json.dumps(sh['launches'])}; collectives a tick {sh['coll_count']:.1f}, {sh['coll_bytes']:.0f} B, "
+        f"{sh['coll_device_ms']:.4f} device ms ({sh['coll_host_ms']:.4f} host ms); 16a took {rep['a']['seconds']:.1f} s")
+
+    for n in (2, 4):
+        t = time.perf_counter()
+        groups[n].go()
+        ranks = groups[n].wait()
+        r0 = ranks[0]
+        check(r0["backend"] == "gloo", (f"16b n={n} backend", r0["backend"]))
+        row = {}
+        for label in ("kernels", "plain"):
+            got = r0[label]
+            bad = [i for i, (a, b) in enumerate(zip(got["wires"], single["wires"])) if a != b]
+            check(not bad and len(got["wires"]) == SPMD_TICKS, (f"16b n={n} {label}: ticks differ", bad[:8]))
+            check(got["digests"] == single["digests"], (f"16b n={n} {label}: gathered state differs",
+                  sorted(k for k in single["digests"] if got["digests"][k] != single["digests"][k])))
+            row[label] = dict(
+                ms=got["ms"], coll_count=got["coll_count"], coll_bytes=got["coll_bytes"],
+                coll_host_ms=got["coll_host_ms"], state_bytes=got["state_bytes"],
+                memory_allocated=[r[label]["memory_allocated"] for r in ranks],
+                b1_b2=[(r[label]["launches"]["scatter_many"], r[label]["launches"]["gather_many"]) for r in ranks],
+            )
+        for r in ranks:
+            check(r["kernels"]["launches"]["scatter_many"] > 0 and r["kernels"]["launches"]["gather_many"] > 0,
+                  (f"16b n={n} rank {r['rank']} launched no B1/B2", r["kernels"]["launches"]))
+            check(r["plain"]["launches"]["scatter_many"] == 0, (f"16b n={n}: the plain run launched B1",))
+        if n == 4:
+            got, want = r0["sketch"], one["sketch_single"]
+            bad = [i for i, (a, b) in enumerate(zip(got["wires"], want["wires"])) if a != b]
+            check(not bad, ("16b sketch at 4 ranks: ticks differ", bad[:8]))
+            check(got["digests"] == want["digests"], ("16b sketch at 4 ranks: gathered state differs",
+                  sorted(k for k in want["digests"] if got["digests"][k] != want["digests"][k])))
+            for k in PATH_KERNELS["sketch"]:
+                check(got["launches"][k] > 0, ("16b sketch at 4 ranks launched no", k, got["launches"]))
+            row["sketch"] = dict(ms=got["ms"], single_ms=want["ms"], coll_count=got["coll_count"], launches=got["launches"],
+                                 coll_bytes=got["coll_bytes"], coll_host_ms=got["coll_host_ms"],
+                                 state_bytes=got["state_bytes"])
+        row["seconds"] = time.perf_counter() - t
+        rep[f"b{n}"] = row
+        k = row["kernels"]
+        log(f"[spmd] 16b {smi}: {n} ranks on one card over gloo (host-staged: exempt from the sync check), "
+            f"{SPMD_TICKS} ticks equal to 16a's make_tick and the gathered state equal, kernels and plain versions; "
+            f"ms a tick {k['ms']:.3f} (plain {row['plain']['ms']:.3f}); collectives a tick {k['coll_count']:.1f}, "
+            f"{k['coll_bytes']:.0f} B, {k['coll_host_ms']:.3f} host ms; state bytes a rank "
+            f"{k['state_bytes']['rank']} of {k['state_bytes']['whole']}; memory_allocated a rank "
+            f"{k['memory_allocated']}; B1/B2 launches a tick a rank {k['b1_b2']}"
+            + (f"; sketch build: ms a tick {row['sketch']['ms']:.3f} (single device {row['sketch']['single_ms']:.3f}), "
+               f"collectives {row['sketch']['coll_count']:.1f} a tick, {row['sketch']['coll_bytes']:.0f} B" if n == 4 else "")
+            + f"; took {row['seconds']:.1f} s")
+    return rep
+
+
+def spmd_main() -> int:
+    """``python3 chip_smoke.py --spmd``: the kernels' build and phase 16
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch import state as S
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = spmd_phase(np, st, S, FU, SC, torch, nvidia_smi())
+    left = live_children()
+    check(not left, f"processes this script started still run at its end: {left}")
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
+def profile_probe_main(n: int = 40) -> int:
+    """``python3 chip_smoke.py --profile-probe [N]``: the kernels' build,
+    then phase 11d's captured tick (``sketch_cfg``, a sync client, bench.py's
+    rules and traffic; the 20th tick) replayed under ``N`` profiler
+    sessions (CPU and CUDA activity, as ``replay_against_plain`` takes
+    them) in each of four set-ups: with and without ``settle_profiler``
+    first, each with the card otherwise idle and beside a thread that
+    launches a short spin kernel every 0.5 ms.  Prints, per set-up, the fewest
+    and most device records a session held, the sessions short of the
+    most, and the sessions that showed no record of B1, B3 or B4."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.core.config import platform_config
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import engine as E
+    from sentinel_tpu_torch.runtime import presort as PS
+    from sentinel_tpu_torch.runtime.client import SentinelClient
+    from sentinel_tpu_torch.utils.time_source import VirtualTimeSource
+
+    _build.load_library()
+    smi = nvidia_smi()
+    cfg = sketch_cfg(platform_config)
+    c = SentinelClient(cfg=cfg, device="cuda", mode="sync", time_source=VirtualTimeSource(start_ms=1_000),
+                       app_name="profile-probe")
+    for i in range(N_RULED):
+        c.registry.resource_id(f"res-{i + 1}")
+    flow, degrade, _authority, _system, _param = sketch_rules(st, with_tail_names=False)
+    c.flow_rules.load(flow)
+    c.degrade_rules.load(degrade)
+    c.start()
+    origin = (c.registry.origin_node_row("res-1", "peer-app"), c.registry.origin_id("peer-app"))
+    cols, _peak = sketch_columns(np, PS, 13, 2048, SEED + 9, cfg.node_rows, cfg.trash_row, *origin)
+    box, unwatch = capture_client_tick(E, 20)
+    for i in range(24):
+        a, cc = cols[i % len(cols)]
+        c.check_batch_ids(a["res"], origin_node=a["origin_node"], origin_id=a["origin_id"],
+                          param_hash=a["param_hash"], inbound=a["inbound"])
+        c.submit_completion_block(cc["res"], cc["rt"], inbound=cc["inbound"], param_hash=cc["param_hash"])
+        c.time.advance(137)
+    unwatch()
+    c.stop()
+    check(box, "profile probe: no tick was captured")
+    tick = E.make_tick(box["cfg"], box["feats"])
+    want = ("scatter_many", "seg_excl_cumsum", "seg_incl_min")
+
+    def run():
+        tick(E.clone_state(box["state"]), box["rules"], box["acq"], box["comp"], box["now"], box["load"],
+             box["cpu"], seg_fits=box["fits"])[1].wire.cpu()
+
+    run()
+    stop = threading.Event()
+
+    def background():
+        while not stop.is_set():
+            torch.cuda._sleep(1000)  # a "spin" kernel, left out of the counts below
+            time.sleep(0.0005)
+
+    rep = {"card": smi, "sessions_each": n}
+    for settle in (False, True):
+        for busy in (False, True):
+            th = threading.Thread(target=background, daemon=True) if busy else None
+            if th is not None:
+                stop.clear()
+                th.start()
+            records, missed = [], 0
+            try:
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        if settle:
+                            settle_profiler(torch)
+                        run()
+                        torch.cuda.synchronize()
+                    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                             and not getattr(e, "is_user_annotation", False) and "spin" not in e.name.lower()]
+                    records.append(len(names))
+                    missed += not all(any(PROFILE_NAMES[k] in nm for nm in names) for k in want)
+            finally:
+                if th is not None:
+                    stop.set()
+                    th.join()
+            key = f"settle={settle},busy={busy}"
+            rep[key] = dict(fewest=min(records), most=max(records), short=sum(r < max(records) for r in records),
+                            missed_a_kernel=missed)
+            log(f"[probe] {smi}: {key}: {n} sessions; device records fewest {min(records)}, most {max(records)}, "
+                f"{rep[key]['short']} sessions short of the most; {missed} showed no record of one of {want}")
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 def main() -> int:
     t_script = time.perf_counter()
     #: (phase, perf_counter at its end): each phase's seconds in the [timing] line
@@ -8818,6 +9324,9 @@ def main() -> int:
     report["chaos"] = chaos_phase(np, st, S, FU, SC, torch, smi)
     report["chaos"]["cli"]["summary"].pop("text")
     end_phase("15")
+    # -- 16. the sharded engine: world 1 over NCCL, 2 and 4 ranks over gloo, the tier-4 ranks ------
+    report["spmd"] = spmd_phase(np, st, S, FU, SC, torch, smi)
+    end_phase("16")
     left = live_children()
     check(not left, f"processes this script started still run at its end: {left}")
 
@@ -9005,6 +9514,8 @@ if __name__ == "__main__":
              else shards_cpu_main() if mode == ["--shards-cpu"]
              else chaos_main() if mode == ["--chaos"]
              else chaos_cpu_main() if mode == ["--chaos-cpu"]
+             else spmd_main() if mode == ["--spmd"]
+             else profile_probe_main(*map(int, mode[1:])) if mode[:1] == ["--profile-probe"] and len(mode) <= 2
              else operator_cpu_main(mode[1]) if mode[:1] == ["--operator-cpu"] and len(mode) == 2
              else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4
              else simload_main(*mode[1:]) if mode[:1] == ["--simload"] and len(mode) == 3

@@ -11,19 +11,26 @@ Python source and so can be pointed at the port:
   thread-lifecycle) against the port's own blessed graph
   (``concurrency/lock_order.json``), and the runtime lock witness
   (``concurrency/witness.py``) that the chaos plane's
-  ``no-order-violations`` invariant reads.
+  ``no-order-violations`` invariant reads;
+* ``spmd/`` — the tier-4 SPMD analyzer: the sharded entry points
+  (``parallel/spmd.py``) run on the blessed mesh in child processes,
+  five passes (collective-ledger, implicit-reshard, replication-hazard,
+  shard-divisibility, shard-hbm-budget) over the collectives they
+  recorded (``parallel/collectives.py``) and the declared placements,
+  against the port's own golden (``spmd/collectives.json``).
 
-This slice carries only what the concurrency tier and the witness need:
-``REPO_ROOT`` and the framework's exports.  The tier-1 AST passes with
-``ALL_PASSES``, ``rule_catalog``, ``run_repo_analysis`` and the CLI
-(``python -m sentinel_tpu.analysis`` in the reference) come in a later
-slice; the reference's jaxpr and spmd tiers analyze JAX programs, so
-the port will carry their intent, not their code.
+Still to come: the tier-1 AST passes with ``ALL_PASSES``,
+``rule_catalog``, ``run_repo_analysis``, ``metrics_catalog.py``,
+``baseline.json`` and the CLI (``python -m sentinel_tpu.analysis`` in the
+reference); then the intent of the reference's jaxpr tier, which
+analyzes JAX programs, so the port will carry its intent, not its code.
 
 Programmatic surface::
 
     from sentinel_tpu_torch.analysis.concurrency import run_concurrency_analysis
     findings = run_concurrency_analysis()        # over sentinel_tpu_torch/
+    from sentinel_tpu_torch.analysis.spmd import run_spmd_analysis
+    findings = run_spmd_analysis()               # ranks on the card
 """
 
 from __future__ import annotations

@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import tempfile
 import time as _time
 from contextlib import contextmanager
@@ -243,7 +244,7 @@ def _scn_rpc_error_burst(seed: int, device: str = "cuda") -> ScenarioResult:
     )
     flight_detail = "bundle not captured"
     flight_ok = False
-    sm = None
+    sm = dead = None
     try:
         with session.window(plan):
             results = [tok.request_token(101) for _ in range(n)]
@@ -255,8 +256,15 @@ def _scn_rpc_error_burst(seed: int, device: str = "cuda") -> ScenarioResult:
         # already holds this run's failpoint.fire events.
         tok.close()
         server.stop()
+        # the lost server's address: a port this process holds bound and
+        # never listens on, so every connect is refused.  The stopped
+        # server's own port could be taken by any process's next listener
+        # (a token server on a loaded host answers NO_RULE, and the client
+        # never degrades)
+        dead = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        dead.bind(("127.0.0.1", 0))
         sm = ClusterStateManager()
-        sm.set_to_client("127.0.0.1", server.port)
+        sm.set_to_client("127.0.0.1", dead.getsockname()[1])
         sm.token_service().reconnect_interval_s = 0.0
         decision.set_cluster(sm)
         decision.flow_rules.load(
@@ -292,6 +300,8 @@ def _scn_rpc_error_burst(seed: int, device: str = "cuda") -> ScenarioResult:
         tok.close()
         if sm is not None:
             sm.stop()
+        if dead is not None:
+            dead.close()
         server.stop()
         decision.stop()
 

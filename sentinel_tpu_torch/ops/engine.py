@@ -93,6 +93,18 @@ occupy booking come from indexed scatters.  Its scatters produce the same
 ``CompletionDeltas`` / ``AcquireDeltas`` the fused ones do, sized to the
 whole node table, and land through the same landings.
 
+Row-sharded (parallel/spmd.make_sharded_tick, under a shard context):
+the state is the rank's shard — its slice of the node rows, of the
+sketch's width, and a copy of everything else — while batches and rules
+stay whole.  Every effect lands only the rank's own rows (``_rows_job``,
+``_width_job``, the plain path's ``sharded`` histograms); every read of a
+row-sharded table reads the rank's own rows and all-reduces over the
+mesh's group (the ENTRY row: ``_entry_row``; the flow check's triple; the
+explain records' pass runs; the sketch's estimates); and the timeline's
+top-K merges each rank's top K in rank order with a stable sort
+(``_device_res_stats``), so every rank computes the same verdicts and
+planes.  Off a shard every helper is the single-device code.
+
 Features: {nodes, occupy, flow, tail_flow, degrade, authority, system,
 warmup, param}.
 """
@@ -141,6 +153,7 @@ from sentinel_tpu_torch.ops import tables as T
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops import wire as WIRE
 from sentinel_tpu_torch.ops.rank import grouped_exclusive_cumsum
+from sentinel_tpu_torch.parallel import collectives as CL
 from sentinel_tpu_torch.sketch import impl_for as _sketch
 
 I32, F32 = torch.int32, torch.float32
@@ -154,6 +167,59 @@ ALL_FEATURES = frozenset(
 def _fan(x: torch.Tensor, K: int) -> torch.Tensor:
     """Per-item -> per-(item, rule-lane) fan-out (repeat each item K times)."""
     return x if K == 1 else torch.repeat_interleave(x, K, dim=0)
+
+
+# -- the shard's rows (parallel/spmd.py) --------------------------------------
+
+
+def _local_rows(cfg: EngineConfig) -> int:
+    """Node rows the state holds: all of them, or the rank's slice."""
+    ctx = CL.current()
+    return cfg.node_rows if ctx is None else cfg.node_rows // ctx.world
+
+
+def _rows_job(cfg: EngineConfig, job: FU.Job) -> FU.Job:
+    """A scatter job on the node-row axis as the rank lands it."""
+    return FU.on_shard(job, cfg.node_rows)
+
+
+def _width_job(cfg: EngineConfig, job: FU.Job) -> FU.Job:
+    """A scatter job on the sketch's width axis as the rank lands it."""
+    return FU.on_shard(job, cfg.sketch_width)
+
+
+def _entry_row(cfg: EngineConfig, tables) -> list:
+    """Each row-sharded table's ENTRY row (views off a shard; on one, the
+    owner's values through one all-reduce per dtype)."""
+    erow = cfg.entry_node_row
+    if CL.current() is None:
+        return [t[erow] for t in tables]
+    return CL.row_values(tables, erow, cfg.node_rows)
+
+
+def _entry_local(cfg: EngineConfig) -> Optional[int]:
+    """The ENTRY row's index in the state's rows, or None where another
+    rank holds it."""
+    ctx = CL.current()
+    erow = cfg.entry_node_row
+    if ctx is None:
+        return erow
+    lo, hi = ctx.span(cfg.node_rows)
+    return erow - lo if lo <= erow < hi else None
+
+
+def _read_node_rows(cfg: EngineConfig, tables, node: torch.Tensor) -> torch.Tensor:
+    """float32 [len(tables), N]: row-sharded [rows] tables read at the
+    global node rows ``node`` (inside [0, node_rows)), on a shard as the
+    rank's own rows plus ONE all-reduce SUM (exact: one rank holds each
+    row, the rest add zeros)."""
+    ctx = CL.current()
+    lo, hi = ctx.span(cfg.node_rows)
+    loc = node - lo
+    held = (loc >= 0) & (loc < hi - lo)
+    c = torch.clamp(loc, 0, hi - lo - 1).to(torch.int64)
+    vals = torch.stack([t[c].to(F32) for t in tables])
+    return CL.all_reduce(torch.where(held[None, :], vals, 0.0))
 
 
 class EngineState(NamedTuple):
@@ -285,8 +351,18 @@ def _device_stats(
     tick.  Integer slots are int32 sums cast to float32, as the reference's
     are; the qps and max_thread ceilings stay 0-d device tensors."""
     dev = verdict.device
-    erow = cfg.entry_node_row
     win = state.win_sec
+    erow = cfg.entry_node_row
+    if CL.current() is None:
+        run = win.run[erow]
+        conc_e, run_rt_e, run_rt_min_e = (
+            t[erow : erow + 1] for t in (state.concurrency, win.run_rt, win.run_rt_min)
+        )
+    else:
+        run, conc_e, run_rt_e, run_rt_min_e = _entry_row(
+            cfg, (win.run, state.concurrency, win.run_rt, win.run_rt_min)
+        )
+        conc_e, run_rt_e, run_rt_min_e = (t.reshape(1) for t in (conc_e, run_rt_e, run_rt_min_e))
     # one compare of every valid verdict against the codes 0..6
     codes = torch.arange(PASS_WAIT + 1, dtype=I32, device=dev)
     onehot = torch.where(valid, verdict.to(I32), -1)[None, :] == codes[:, None]
@@ -301,7 +377,6 @@ def _device_stats(
             torch.where(valid & ~admitted, cnt, 0),
         ]
     ).sum(dim=1, dtype=I32)
-    run = win.run[erow]
     ints = torch.cat(
         [sums[0:1]]
         + [n_code[c : c + 1] for c in _STAT_VERDICTS]
@@ -313,7 +388,7 @@ def _device_stats(
             run[W.EV_BLOCK : W.EV_BLOCK + 1],
             run[W.EV_SUCCESS : W.EV_SUCCESS + 1],
             run[W.EV_EXCEPTION : W.EV_EXCEPTION + 1],
-            state.concurrency[erow : erow + 1],
+            conc_e,
         ]
     ).to(F32)
     win_pass = ints[STAT_WIN_PASS : STAT_WIN_PASS + 1]
@@ -322,8 +397,8 @@ def _device_stats(
     return torch.cat(
         [
             ints[:STAT_WIN_RT_SUM],
-            win.run_rt[erow : erow + 1],
-            win.run_rt_min[erow : erow + 1],
+            run_rt_e,
+            run_rt_min_e,
             ints[STAT_WIN_RT_SUM:],  # STAT_ENTRY_CONC
             qps,
             rules.system.max_thread.to(F32).reshape(1),
@@ -373,6 +448,8 @@ def _device_res_stats(cfg: EngineConfig, state, now_ms: int) -> torch.Tensor:
     win = state.win_sec
     wid = W.wid_of(now_ms, cfg.second_window_ms)
     bidx = W.current_index(now_ms, _sec_cfg(cfg))
+    if CL.current() is not None:
+        return _sharded_res_stats(cfg, state, K, wid, bidx)
     r = win.run[1 : cfg.max_resources]
     score = r[:, W.EV_PASS] + r[:, W.EV_BLOCK]
     rows = torch.sort(score, descending=True, stable=True).indices[:K] + 1
@@ -391,6 +468,52 @@ def _device_res_stats(cfg: EngineConfig, state, now_ms: int) -> torch.Tensor:
         dim=1,
     ).to(F32)
     return torch.cat([ints[:, :TL_RT_SUM], rt_sum[:, None], rt_min[:, None], ints[:, TL_RT_SUM:]], dim=1)
+
+
+def _sharded_res_stats(cfg: EngineConfig, state, K: int, wid: int, bidx: int) -> torch.Tensor:
+    """``_device_res_stats`` on a shard: each rank ranks its own rows of
+    [1, max_resources) (a stable descending sort, its top K, padded to K
+    with score -1, below every real score), every rank's top K with its
+    row's columns rides ONE all-gather in rank order — rows ascending —
+    and a stable descending sort of that keeps ``lax.top_k``'s order: the
+    lower global row first on a tie.  The global top K lies inside the
+    union of the ranks' top K."""
+    ctx = CL.current()
+    win = state.win_sec
+    lo, hi = ctx.span(cfg.node_rows)
+    dev = win.run.device
+    a, b = max(1, lo), min(cfg.max_resources, hi)
+    fresh = win.epochs[bidx] == wid
+    if b > a:
+        r = win.run[a - lo : b - lo]
+        score = r[:, W.EV_PASS] + r[:, W.EV_BLOCK]
+        loc = torch.sort(score, descending=True, stable=True).indices[:K] + (a - lo)
+        score = win.run[loc, W.EV_PASS] + win.run[loc, W.EV_BLOCK]
+    else:
+        loc = torch.zeros((0,), dtype=torch.int64, device=dev)
+        score = torch.zeros((0,), dtype=I32, device=dev)
+    c = torch.where(fresh, win.counts[:, bidx].index_select(0, loc), 0)  # [k, NE]
+    rt_sum = torch.where(fresh, win.rt_sum[:, bidx].index_select(0, loc), 0.0)
+    rt_min = torch.where(fresh, win.rt_min[:, bidx].index_select(0, loc), W.RT_MIN_INIT)
+    mine = torch.cat(
+        [
+            score.to(I32)[:, None],
+            (loc + lo).to(I32)[:, None],
+            c[:, W.EV_PASS : W.EV_BLOCK + 1],
+            c[:, W.EV_SUCCESS : W.EV_SUCCESS + 1],
+            c[:, W.EV_EXCEPTION : W.EV_EXCEPTION + 1],
+            state.concurrency.index_select(0, loc)[:, None],
+            torch.stack([rt_sum, rt_min], dim=1).contiguous().view(I32),
+        ],
+        dim=1,
+    )
+    pad = torch.zeros((K - mine.shape[0], mine.shape[1]), dtype=I32, device=dev)
+    pad[:, 0] = -1
+    every = CL.all_gather(torch.cat([mine, pad]))  # [world * K, 9], rank order
+    top = every.index_select(0, torch.sort(every[:, 0], descending=True, stable=True).indices[:K])
+    ints = top[:, 1:7].to(F32)
+    rts = top[:, 7:9].contiguous().view(F32)
+    return torch.cat([ints[:, :TL_RT_SUM], rts, ints[:, TL_RT_SUM:]], dim=1)
 
 
 def sketch_config(cfg: EngineConfig) -> GS.SketchConfig:
@@ -504,7 +627,12 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
     run_pass = W.window_event_run(state.win_sec, W.EV_PASS)
     qps = rules.system.qps.to(F32)
     zero = torch.zeros((K,), dtype=I32, device=dev)
-    flow_obs = run_pass.index_select(0, torch.clamp_max(res, cfg.node_rows - 1))
+    if CL.current() is None:
+        flow_obs = run_pass.index_select(0, torch.clamp_max(res, cfg.node_rows - 1))
+        entry_pass = run_pass[cfg.entry_node_row]
+    else:
+        flow_obs = T.big_gather(run_pass, torch.clamp_max(res, cfg.node_rows - 1), cfg.node_rows, sharded=True)
+        (entry_pass,) = _entry_row(cfg, (run_pass,))
     flow_thr = rules.flow.count.index_select(0, torch.clamp_max(slot_f, Fn))
     tail_ok = tail_thr_ok = torch.zeros((K,), dtype=torch.bool, device=dev)
     if cfg.sketch_stats:
@@ -532,7 +660,7 @@ def _device_explain(cfg: EngineConfig, state, rules, acq, verdict, valid, forced
             slot_f, flow_obs,
             slot_d, state.cb_state.index_select(0, slot_dc),
             slot_p, zero,
-            zero, run_pass[cfg.entry_node_row].expand(K),
+            zero, entry_pass.expand(K),
             zero, rules.auth.mode.index_select(0, res_r),
         ]
     ).view(6, 2, K)
@@ -810,7 +938,7 @@ def _scatter_with_stat_fan(
     else:
         rows = _clean_rows(cfg, res)[None, :]
     return FU.scatter_many(
-        [FU.Job("stat", cfg.max_nodes, rows, stat_vals, stat_digits)] + other_jobs
+        [_rows_job(cfg, FU.Job("stat", cfg.max_nodes, rows, stat_vals, stat_digits))] + other_jobs
     )
 
 
@@ -876,7 +1004,7 @@ def sketch_jobs(cfg: EngineConfig, res, valid, vals, digits) -> list:
     (ops/param.cms_cell); invalid items drop via row -1."""
     cols = PM.cms_cell(res, cfg.sketch_depth, cfg.sketch_width)
     return [
-        FU.Job(f"sketch{d}", cfg.sketch_width, torch.where(valid, cols[:, d], -1)[None, :], vals, digits)
+        _width_job(cfg, FU.Job(f"sketch{d}", cfg.sketch_width, torch.where(valid, cols[:, d], -1)[None, :], vals, digits))
         for d in range(cfg.sketch_depth)
     ]
 
@@ -1017,10 +1145,12 @@ def _node_hist(cfg: EngineConfig, cols: dict, entry_deltas, device):
     """[node_rows, NUM_EVENTS] int32 histogram: int32 columns by event
     (``max_nodes`` rows from the fused scatters, ``node_rows`` from the
     plain ones), plus the ENTRY-row reduction."""
-    hist = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=device)
+    hist = torch.zeros((_local_rows(cfg), W.NUM_EVENTS), dtype=I32, device=device)
     for ev, col in cols.items():
         hist[: col.shape[0], ev] = col
-    hist[cfg.entry_node_row] += entry_deltas
+    erow = _entry_local(cfg)
+    if erow is not None:
+        hist[erow] += entry_deltas
     return hist
 
 
@@ -1080,13 +1210,13 @@ def _completion_scatters_fused(
         cfg.max_nodes,
     )
     jobs = [
-        FU.Job(
+        _rows_job(cfg, FU.Job(
             "rowmin",
             cfg.max_nodes,
             mh_rows.reshape(RMIN, b),
             mh_vals.T.reshape(3, RMIN, b).permute(1, 0, 2),
             (2, 2, 1),
-        )
+        ))
     ]
     if cfg.sketch_stats:
         jobs += sketch_jobs(cfg, comp.res, valid, vals3, digits3)
@@ -1176,13 +1306,17 @@ def _completion_scatters_plain(
     succ_w = torch.where(valid, comp.success, 0).to(I32)
     err_w = torch.where(valid, comp.error, 0).to(I32)
     rt1 = torch.where(valid, comp.rt, 0.0)
-    counts = T.histogram(rows, torch.stack([succ_w, err_w], dim=1).repeat(fan, 1), n)
+    counts = T.histogram(rows, torch.stack([succ_w, err_w], dim=1).repeat(fan, 1), n, sharded=True)
     if cfg.use_mxu_tables:
         rt_q = torch.round(torch.clamp_max(rt1, float(cfg.statistic_max_rt)) * 8.0).to(I32)
-        rt = T.histogram(rows, rt_q.repeat(fan), n).to(F32) / 8.0
+        rt = T.histogram(rows, rt_q.repeat(fan), n, sharded=True).to(F32) / 8.0
     else:
-        rt = T.histogram(rows, rt1.repeat(fan), n)
+        rt = T.histogram(rows, rt1.repeat(fan), n, sharded=True)
     rt_for_min = torch.where(rt1 > 0, rt1, W.RT_MIN_INIT).repeat(fan)
+    ctx = CL.current()
+    if ctx is not None:
+        rows = CL.local_ids(ctx, rows, n)
+        n = _local_rows(cfg)
     mins = T.small_scatter_max(
         torch.full((n,), -W.RT_MIN_INIT, dtype=F32, device=rt1.device), rows, -rt_for_min
     )
@@ -1192,7 +1326,7 @@ def _completion_scatters_plain(
         rt_q = torch.round(torch.clamp_max(comp.rt, float(cfg.statistic_max_rt)) * GS.RT_SCALE).to(I32)
         vals = torch.stack([comp.success.to(I32), comp.error.to(I32), rt_q], dim=1)
         cols = PM.cms_cell(comp.res, cfg.sketch_depth, cfg.sketch_width)
-        sketch = GS.depth_histogram(cols, vals, valid, cfg.sketch_depth, cfg.sketch_width)
+        sketch = GS.depth_histogram(cols, vals, valid, cfg.sketch_depth, cfg.sketch_width, sharded=True)
     if "param" in features:
         rel, prows_c, rel_cnt = _param_release_ctx(cfg, rules, comp, valid)
         prel = torch.stack([
@@ -1238,16 +1372,18 @@ def _land_completions(
     valid = comp.res != cfg.trash_row
     sec_cfg, min_cfg = _sec_cfg(cfg), _min_cfg(cfg)
     erow = cfg.entry_node_row
-    n = cfg.node_rows
+    n = _local_rows(cfg)
     inb, entry_deltas, entry_rt, entry_rt_min = _completion_entry_stats(cfg, comp, valid)
     if d.prel is not None:
         state = state._replace(pconc=torch.clamp_min(state.pconc - d.prel, 0))
 
     hist = _node_hist(cfg, {W.EV_SUCCESS: d.succ, W.EV_EXCEPTION: d.err}, entry_deltas, dev)
     rt_hist = _to_rows(d.rt, n, 0.0)
-    if rt_hist is d.rt:
-        rt_hist = rt_hist.clone()  # written below: never the branch's own delta
-    rt_hist[erow] += entry_rt
+    e_loc = _entry_local(cfg)
+    if e_loc is not None:
+        if rt_hist is d.rt:
+            rt_hist = rt_hist.clone()  # written below: never the branch's own delta
+        rt_hist[e_loc] += entry_rt
     mins_m, present_m = d.row_min
     row_min = (_to_rows(mins_m, n, W.RT_MIN_INIT), _to_rows(present_m, n, False))
     # the tick's ONE refresh per window: every later landing at this
@@ -1298,7 +1434,7 @@ def _fold_occupied(cfg: EngineConfig, state: EngineState, now_ms: int) -> Engine
     due = ((cur_wid - state.occ_epoch) >= 0) & (state.occ_tokens > 0)
     chargeable = due & ((cur_wid - state.occ_epoch) < cfg.second_sample_count)
     tok = torch.round(torch.where(chargeable, state.occ_tokens, 0.0)).to(I32)
-    delta = torch.zeros((cfg.node_rows, W.NUM_EVENTS), dtype=I32, device=tok.device)
+    delta = torch.zeros((_local_rows(cfg), W.NUM_EVENTS), dtype=I32, device=tok.device)
     delta[:, W.EV_PASS] = tok
     win_sec = W.add_dense(state.win_sec, now_ms, delta, None, _sec_cfg(cfg), refreshed=True)
     win_min = state.win_min
@@ -1362,19 +1498,19 @@ def _check_system(
 ):
     """SystemSlot: global inbound-only adaptive gate incl. the BBR check
     (SystemRuleManager.checkSystem / checkBbr)."""
-    erow = cfg.entry_node_row
-    ec = state.win_sec.run[erow]
+    win = state.win_sec
+    ec, ert, conc_e, counts_e, min_rt = _entry_row(
+        cfg, (win.run, win.run_rt, state.concurrency, win.counts, win.run_rt_min)
+    )
     e_pass = ec[W.EV_PASS].to(F32)
     e_succ = ec[W.EV_SUCCESS].to(F32)
-    ert = state.win_sec.run_rt[erow]
     e_rt_avg = torch.where(e_succ > 0, ert / torch.clamp_min(e_succ, 1.0), 0.0)
-    e_conc = state.concurrency[erow].to(F32)
+    e_conc = conc_e.to(F32)
     mask = W.valid_mask(state.win_sec, now_ms, _sec_cfg(cfg))
-    bucket_succ = state.win_sec.counts[erow, :, W.EV_SUCCESS]
+    bucket_succ = counts_e[:, W.EV_SUCCESS]
     max_succ_qps = (
         torch.amax(torch.where(mask, bucket_succ, 0)).to(F32) * cfg.second_sample_count
     )
-    min_rt = state.win_sec.run_rt_min[erow]
 
     inbound = (acq.inbound > 0) & eligible
     cnt = acq.count.to(F32)
@@ -1614,8 +1750,11 @@ def _check_flow(
     # 2^24 - 1), plain uncapped gathers on the plain path (the borrow pool
     # rounded under use_mxu_tables, as the reference's int table holds it)
     cur_wid = W.wid_of(now_ms, cfg.second_window_ms)
+    sharded = CL.current() is not None
     if _use_fused(cfg):
-        (both,) = FU.gather_many([flow_read_job(state, node_safe, cur_wid)])
+        (both,) = FU.gather_many([FU.gather_on_shard(flow_read_job(state, node_safe, cur_wid), cfg.node_rows)])
+        if sharded:
+            both = CL.all_reduce(both)
         wp = both[:, 0]
         conc = both[:, 1]
         pool = both[:, 2]
@@ -1627,9 +1766,14 @@ def _check_flow(
         pool_dense = torch.where(state.occ_epoch == W.i32(cur_wid + 1), state.occ_tokens, 0.0)
         if cfg.use_mxu_tables:
             pool_dense = torch.round(pool_dense)
-        wp = W.gather_window_event_run(state.win_sec, node_l, W.EV_PASS).to(F32)
-        conc = state.concurrency[node_l].to(F32)
-        pool = pool_dense[node_l]
+        if sharded:
+            wp, conc, pool = _read_node_rows(
+                cfg, (W.window_event_run(state.win_sec, W.EV_PASS), state.concurrency, pool_dense), node_l
+            )
+        else:
+            wp = W.gather_window_event_run(state.win_sec, node_l, W.EV_PASS).to(F32)
+            conc = state.concurrency[node_l].to(F32)
+            pool = pool_dense[node_l]
 
     # DefaultController.canPass:31-49
     thr_eff = torch.where(is_warm, warm_qps, rcount)
@@ -1929,13 +2073,13 @@ def _acquire_scatters_fused(
         occ_rows = torch.where(commit & (onodes < cfg.max_nodes), onodes, -1)
         occ_vals = torch.where(commit, torch.round(ocnt).to(I32), 0)
         jobs.append(
-            FU.Job(
+            _rows_job(cfg, FU.Job(
                 "occ",
                 cfg.max_nodes,
                 occ_rows.reshape(b, K).T,
                 occ_vals.reshape(b, K).T[:, None, :],
                 (cd,),
-            )
+            ))
         )
         occ_idx = oi
         oi += 1
@@ -1993,12 +2137,12 @@ def _acquire_scatters_plain(
     n = cfg.node_rows
     pass_c, block_c, occ_c, _entry_deltas = _acquire_entry_stats(cfg, acq, valid, passed, occupying)
     rows = _stat_rows(cfg, acq.res, acq.ctx_node, acq.origin_node, with_nodes)
-    stat = T.histogram(rows, torch.stack([pass_c, block_c, occ_c], dim=1).to(I32).repeat(fan, 1), n)
+    stat = T.histogram(rows, torch.stack([pass_c, block_c, occ_c], dim=1).to(I32).repeat(fan, 1), n, sharded=True)
     sketch = warm = latest = occ_add = param = None
     if cfg.sketch_stats:
         vals = torch.stack([torch.where(passed, acq.count, 0), block_c], dim=1).to(I32)
         cols = PM.cms_cell(acq.res, cfg.sketch_depth, cfg.sketch_width)
-        sketch = GS.depth_histogram(cols, vals, valid, cfg.sketch_depth, cfg.sketch_width)
+        sketch = GS.depth_histogram(cols, vals, valid, cfg.sketch_depth, cfg.sketch_width, sharded=True)
     if fslots is not None:
         K = cfg.flow_rules_per_resource
         F = cfg.max_flow_rules
@@ -2020,7 +2164,7 @@ def _acquire_scatters_plain(
         grant_lane, onodes, ocnt = occ_grant
         commit = grant_lane & _fan(occupying, K)
         occ_add = T.histogram(
-            torch.where(commit, onodes, -1), torch.where(commit, torch.round(ocnt).to(I32), 0), n
+            torch.where(commit, onodes, -1), torch.where(commit, torch.round(ocnt).to(I32), 0), n, sharded=True
         ).to(F32)
     if param_ctx is not None:
         _pcms, _epochs, _idx, prows, q_add, thread_add = param_ctx
@@ -2079,7 +2223,7 @@ def _land_acquire(
             latest_passed_ms=_apply_latest(state.latest_passed_ms, T_s, n_s, now_ms)
         )
     if d.occ_add is not None:
-        add = _to_rows(d.occ_add, cfg.node_rows, 0.0)
+        add = _to_rows(d.occ_add, _local_rows(cfg), 0.0)
         nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)  # wraps as the reference's int32
         pool_vec = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
         state = state._replace(

@@ -39,6 +39,13 @@ counts them) — unless ``seg_fallback`` is on, when the tick takes the
 per-item branch for that side instead (ops/engine.py).  The effects
 phases here stop at their deltas (``engine.CompletionDeltas``,
 ``engine.AcquireDeltas``): the tick lands whichever branch it picked.
+
+Row-sharded (parallel/spmd.py): the segment structure, the ranks and the
+expansion are batch work, replicated on every rank; the scatter jobs on
+the node-row and sketch-width axes land the rank's own rows
+(``engine._rows_job`` / ``_width_job``), and the single-lane flow check
+builds its dense [rows, 3] table over the rank's rows only and reads it
+with one all-reduce.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from sentinel_tpu_torch.ops import segscan as SC
 from sentinel_tpu_torch.ops import tables as T
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops.rank import grouped_exclusive_cumsum
+from sentinel_tpu_torch.parallel import collectives as CL
 
 I32, F32 = torch.int32, torch.float32
 
@@ -424,7 +432,9 @@ def run_checks_seg(
         # wraps at 2^31), as flow_read_job keys the fused path's read
         nxt = W.i32(W.wid_of(now_ms, cfg.second_window_ms) + 1)
         pool_dense = torch.where(state.occ_epoch == nxt, state.occ_tokens, 0.0)
-        # running sums are exact here: completions refreshed this now_ms
+        # running sums are exact here: completions refreshed this now_ms;
+        # on a shard the table holds the rank's rows, read at the rebased
+        # rows (zeros where another rank holds one) and all-reduced
         tab = torch.stack(
             [
                 W.window_event_run(state.win_sec, W.EV_PASS),
@@ -433,7 +443,11 @@ def run_checks_seg(
             ],
             dim=1,
         )
-        g = tab[node_safe_u.to(torch.int64)]
+        sh = CL.current()
+        if sh is None:
+            g = tab[node_safe_u.to(torch.int64)]
+        else:
+            g = T.big_gather(tab, node_safe_u, cfg.node_rows, sharded=True)
         wp = g[:, 0].to(F32)
         conc = g[:, 1].to(F32)
         pool = g[:, 2].to(F32)
@@ -718,7 +732,7 @@ def completion_scatters_seg(
 
     vals3_u, digits3, spec3 = _chunks_to_planes(SG.sums_from_ce(ctx, carry.ce, carry.split))
     stat_rows = _stat_rows_u(cfg, ctx, carry, with_nodes)
-    jobs = [FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3)]
+    jobs = [E._rows_job(cfg, FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3))]
 
     # exact per-row windowed minRt over the compacted per-segment minima;
     # jnp.tile is Tensor.repeat (row-vector after row-vector)
@@ -731,13 +745,13 @@ def completion_scatters_seg(
         cfg.max_nodes,
     )
     jobs.append(
-        FU.Job(
+        E._rows_job(cfg, FU.Job(
             "rowmin",
             cfg.max_nodes,
             mh_rows.reshape(RMIN, U),
             mh_vals.T.reshape(3, RMIN, U).permute(1, 0, 2),
             (2, 2, 1),
-        )
+        ))
     )
     if cfg.sketch_stats:
         jobs += E.sketch_jobs(cfg, carry.res, _live_res(cfg, ctx, carry), vals3_u, digits3)
@@ -886,7 +900,7 @@ def acquire_scatters_seg(
     vals3_u, digits3, spec3 = _chunks_to_planes(chunks[pi : pi + 3])
     pi += 3
     stat_rows = _stat_rows_u(cfg, ctx, carry, with_nodes)
-    jobs = [FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3)]
+    jobs = [E._rows_job(cfg, FU.Job("stat", cfg.max_nodes, stat_rows, vals3_u, digits3))]
     if cfg.sketch_stats:
         # (admitted count, block) per segment
         sk_vals, sk_digits, sk_spec = _chunks_to_planes([chunks[pi], chunks[1]])
@@ -918,10 +932,10 @@ def acquire_scatters_seg(
         pi += K
         P2o = o_vals.shape[0] // K
         jobs.append(
-            FU.Job(
+            E._rows_job(cfg, FU.Job(
                 "occ", cfg.max_nodes, torch.stack(crows[ri : ri + K]),
                 o_vals.reshape(K, P2o, U), o_digits[:P2o],
-            )
+            ))
         )
         ri += K
         occ_idx = len(jobs) - 1

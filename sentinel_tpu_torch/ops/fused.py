@@ -26,6 +26,12 @@ Dispatch: a wrapper takes its plain PyTorch version ONLY when the tensors
 it was given lie on the CPU (the tests).  A CUDA tensor launches the
 kernel or raises — there is no fallback.  Each wrapper adds one to
 ``LAUNCHES[name]`` per kernel launch, and nowhere else.
+
+A row-sharded tick (parallel/spmd.py) runs both kernels on the rank's
+rows through these same contracts: ``on_shard`` rebases a scatter job to
+the rank's span (ids outside ``[0, n)`` drop, so the other ranks' rows
+drop), and ``gather_on_shard`` a gather job (out-of-range ids read 0, so
+one all-reduce SUM of the ranks' reads is the whole read).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from sentinel_tpu_torch.parallel import collectives as CL
 
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"scatter_many": 0, "gather_many": 0}
@@ -104,6 +112,30 @@ class GatherJob(NamedTuple):
     ids: torch.Tensor
     table: Union[torch.Tensor, Sequence[GatherColumn]]
     digits: tuple
+
+
+def on_shard(job: Job, total: int) -> Job:
+    """``job`` as one rank of a row-sharded table lands it (under a shard
+    context, parallel/collectives.scope; the job itself off one): its rows
+    rebased to the rank's span of an axis of ``total`` rows and ``n`` cut
+    to the rank's part of ``[0, n)``.  The job contract drops every id
+    outside ``[0, n)``, so the other ranks' rows drop by themselves."""
+    ctx = CL.current()
+    if ctx is None:
+        return job
+    lo, _hi = ctx.span(total)
+    return job._replace(n=ctx.clip(job.n, total), rows=job.rows - lo)
+
+
+def gather_on_shard(job: GatherJob, total: int) -> GatherJob:
+    """``job`` reading a rank's slice of a row-sharded table: its ids
+    rebased to the rank's span (ids another rank holds read 0, so an
+    all-reduce SUM of every rank's result is the single-device read)."""
+    ctx = CL.current()
+    if ctx is None:
+        return job
+    lo, _hi = ctx.span(total)
+    return job._replace(ids=job.ids - lo)
 
 
 def _mask(d: int) -> int:

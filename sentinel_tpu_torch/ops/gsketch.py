@@ -26,6 +26,12 @@ gathers here; the name is kept so readers find it.
 
 Plane layout: [EV_PASS, EV_BLOCK, EV_EXCEPTION, EV_SUCCESS, EV_OCCUPIED,
 RT_Q] — the window event enum plus quantized RT (1/8 ms units).
+
+Width-sharded (parallel/spmd.py, under a shard context): ``counts`` is the
+rank's slice of the width axis; columns stay global.  The refresh and the
+landing are local, a histogram lands the rank's own columns, and a read
+gathers the rank's own columns and all-reduces the SUM (one rank holds
+each column; the min over depth comes after).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from sentinel_tpu_torch.obs import profile as PROF
 from sentinel_tpu_torch.ops import tables as T
 from sentinel_tpu_torch.ops import window as W
 from sentinel_tpu_torch.ops.param import cms_cell
+from sentinel_tpu_torch.parallel import collectives as CL
 
 PLANES = W.NUM_EVENTS + 1  # + quantized RT sum
 RT_PLANE = W.NUM_EVENTS
@@ -127,10 +134,16 @@ def depth_histogram(
     valid: torch.Tensor,  # bool [N]
     depth: int,
     width: int,
+    sharded: bool = False,
 ) -> torch.Tensor:
     """Dense int32 [depth, width, P] histogram of a CMS batch: every valid
     event lands its value row at one column per depth (the reference's
-    ``tables.depth_histogram``, its native branch)."""
+    ``tables.depth_histogram``, its native branch).  ``sharded``: the
+    rank's [depth, width / world, P] slice, from its own columns only."""
+    ctx = CL.current() if sharded else None
+    if ctx is not None:
+        lo, hi = ctx.span(width)
+        cols, width = cols - lo, hi - lo
     n, p = values.shape
     ok = valid[:, None] & (cols >= 0) & (cols < width)
     off = torch.arange(depth, dtype=I32, device=cols.device)[None, :] * width
@@ -157,7 +170,7 @@ def add(
     if not pre_refreshed:
         state = refresh(state, now_ms, cfg)
     cols = cms_cell(res, cfg.depth, cfg.width)
-    upd = depth_histogram(cols, values, valid, cfg.depth, cfg.width)
+    upd = depth_histogram(cols, values, valid, cfg.depth, cfg.width, sharded=True)
     return add_dense(state, now_ms, upd, plane_idx, cfg, pre_refreshed=True)
 
 
@@ -193,7 +206,9 @@ def estimate_plane_mxu(
     )  # [depth, width]
     if cols is None:
         cols = cms_cell(res, cfg.depth, cfg.width)
-    g = T.depth_gather_1col(torch.clamp_max(windowed, EST_CAP), cols, cfg.width, max_int=EST_CAP)
+    g = T.depth_gather_1col(
+        torch.clamp_max(windowed, EST_CAP), cols, cfg.width, max_int=EST_CAP, sharded=True
+    )
     return torch.amin(g, dim=0)
 
 
@@ -203,6 +218,25 @@ def estimate(state: SketchState, now_ms: int, res: torch.Tensor, cfg: SketchConf
     windowed = torch.sum(
         state.counts * valid.to(I32)[:, None, None, None], dim=0, dtype=I32
     )  # [depth, width, PLANES]
-    cols = cms_cell(res, cfg.depth, cfg.width).to(torch.int64)
+    cols = cms_cell(res, cfg.depth, cfg.width)
+    if CL.current() is not None:
+        return torch.amin(sharded_depth_read(windowed, cols, cfg.width, col_axis=1), dim=0)
+    cols = cols.to(torch.int64)
     per_depth = torch.stack([windowed[d][cols[:, d]] for d in range(cfg.depth)])
     return torch.amin(per_depth, dim=0)
+
+
+def sharded_depth_read(tab: torch.Tensor, cols: torch.Tensor, width: int, col_axis: int) -> torch.Tensor:
+    """[depth, N, ...]: each depth's cell of the rank's width slice ``tab``
+    (its column axis at ``col_axis``, counting the depth axis) at the
+    global ``cols`` [N, depth], zeros where another rank holds the
+    column, then one all-reduce SUM."""
+    lo, hi = CL.current().span(width)
+    loc = cols - lo
+    held = (loc >= 0) & (loc < hi - lo)
+    c = torch.clamp(loc, 0, hi - lo - 1).to(torch.int64)
+    out = torch.stack([
+        tab[d].index_select(col_axis - 1, c[:, d]).movedim(col_axis - 1, 0) for d in range(tab.shape[0])
+    ])
+    mask = held.T.reshape(held.shape[1], held.shape[0], *([1] * (out.dim() - 2)))
+    return CL.all_reduce(torch.where(mask, out, 0))

@@ -16,9 +16,23 @@ from typing import Optional, Sequence
 
 import torch
 
+from sentinel_tpu_torch.parallel import collectives as CL
+
+
+def _local_span(table_rows: int, n: int):
+    """(shard ctx, lo) of a sharded call on a table of ``table_rows`` local
+    rows over a global axis of ``n`` — (None, 0) off a shard."""
+    ctx = CL.current()
+    if ctx is None:
+        return None, 0
+    if table_rows * ctx.world != n:
+        raise ValueError(f"a sharded table of {table_rows} rows a rank is not an axis of {n} over {ctx.world}")
+    return ctx, table_rows * ctx.rank
+
 
 def big_gather(
-    table: torch.Tensor, idx: torch.Tensor, n: int, max_int: Optional[int] = None
+    table: torch.Tensor, idx: torch.Tensor, n: int, max_int: Optional[int] = None,
+    sharded: bool = False,
 ) -> torch.Tensor:
     """table[idx] with zeros for ids outside [0, n).
 
@@ -27,6 +41,10 @@ def big_gather(
     many as ``max_int`` needs, so a larger cell reads modulo 256**digits;
     kept here so a caller that saturates first and one that does not both
     get what the reference gives."""
+    if sharded:
+        ctx, lo = _local_span(table.shape[0], n)
+        if ctx is not None:
+            return CL.all_reduce(big_gather(table, idx - lo, table.shape[0], max_int))
     safe = torch.clamp(idx, 0, n - 1).to(torch.int64)
     out = table[safe]
     if max_int is not None and not table.dtype.is_floating_point and table.dtype != torch.bool:
@@ -42,13 +60,32 @@ def depth_gather_1col(
     cols: torch.Tensor,  # int32 [N, depth]
     width: int,
     max_int: Optional[int] = None,
+    sharded: bool = False,
 ) -> torch.Tensor:
     """float32 [depth, N] = tab[d, cols[:, d]] for every depth at once,
     zeros for columns outside [0, width): ONE gather on the flat
     [depth * width] id space (column + d * width).  The sketch tier's read
     (the reference's ``depth_gather_1col``; its MXU branch is a one-hot
     contraction, this is the indexed gather).  ``max_int`` as in
-    ``big_gather``: an int cell reads modulo the digit planes it needs."""
+    ``big_gather``: an int cell reads modulo the digit planes it needs.
+    ``sharded``: ``tab`` is the rank's width slice — the shard-local read
+    plus one all-reduce of the [depth, N] result."""
+    if sharded:
+        ctx, lo = _local_span(tab.shape[1], width)
+        if ctx is not None:
+            # The flat [depth * width] read below would destroy the width
+            # sharding: under the reference's mesh XLA all-gathers the full
+            # [depth, width] slice of the salsa running sums before it
+            # (sentinel_tpu/ops/tables.py:245-252, pinned there as 2 x
+            # s32[2,512] a tick at the CI config, 2 x 512 KiB a device a tick
+            # at the 1M tier, under an implicit-reshard rationale).  The port
+            # takes the shard-local fix that comment names: each rank reads
+            # its own width slice at the rebased columns (0 where another
+            # rank holds the column) and ONE all-reduce sums the [depth, N]
+            # result (pinned in analysis/spmd/collectives.json as f32[2, N]);
+            # no all-gather passes through here, and a NEW one anywhere
+            # fails the collective-ledger pass.
+            return CL.all_reduce(depth_gather_1col(tab, cols - lo, tab.shape[1], max_int))
     depth = tab.shape[0]
     n = cols.shape[0]
     ok = (cols >= 0) & (cols < width)
@@ -132,21 +169,30 @@ def _with_drop_row(table: torch.Tensor, idx: torch.Tensor, n: int):
 
 
 def big_scatter_add(
-    table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, n: int
+    table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, n: int,
+    sharded: bool = False,
 ) -> torch.Tensor:
     """``table.at[idx].add(values)`` dropping ids outside [0, n): a fresh
-    tensor, the caller's table is left as it was."""
+    tensor, the caller's table is left as it was.  ``sharded``: ``table``
+    is the rank's slice; only its own ids land."""
+    if sharded:
+        ctx, lo = _local_span(table.shape[0], n)
+        if ctx is not None:
+            idx, n = idx - lo, table.shape[0]
     out, rows = _with_drop_row(table, idx, n)
     out.index_add_(0, rows, values.to(table.dtype))
     return out[: table.shape[0]]
 
 
-def histogram(idx: torch.Tensor, values: torch.Tensor, n: int) -> torch.Tensor:
+def histogram(idx: torch.Tensor, values: torch.Tensor, n: int, sharded: bool = False) -> torch.Tensor:
     """Dense [n, ...planes] sum of ``values`` grouped by id (ids outside
-    [0, n) drop): float32 for float values, int32 otherwise."""
+    [0, n) drop): float32 for float values, int32 otherwise.  ``sharded``:
+    the rank's [n / world, ...] part of it, from its own ids only."""
     dt = torch.float32 if values.dtype.is_floating_point else torch.int32
-    zeros = torch.zeros((n,) + tuple(values.shape[1:]), dtype=dt, device=values.device)
-    return big_scatter_add(zeros, idx, values, n)
+    ctx = CL.current() if sharded else None
+    rows = n if ctx is None else n // ctx.world
+    zeros = torch.zeros((rows,) + tuple(values.shape[1:]), dtype=dt, device=values.device)
+    return big_scatter_add(zeros, idx, values, n, sharded=sharded)
 
 
 def small_scatter_add(

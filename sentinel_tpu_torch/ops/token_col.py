@@ -37,6 +37,12 @@ everywhere in the port).  The prefix is
 an int32 ``cumsum`` (``dtype=torch.int32``: torch's default for an int32
 input is int64) over asks clipped at 2^20, so it cannot overflow at the
 frame ceiling of 2,048 entries.
+
+Slot-sharded (parallel/spmd.token_col_partition_specs, under a shard
+context): the rank holds a slice of the slots' windows and limits; the
+ledger and limit reads are the rank's own slots plus ONE all-reduce SUM of
+both (float32 [2, B]: the other ranks add zeros, so the values are the
+single-device ones), and the landing writes the rank's own slots.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from sentinel_tpu_torch.ops import window as W
+from sentinel_tpu_torch.parallel import collectives as CL
 
 #: decision window: DEFAULT_SAMPLE_COUNT buckets over one
 #: DEFAULT_INTERVAL_MS accounting interval (cluster/constants.py values,
@@ -87,13 +94,19 @@ def decide_batch(
     # rotate once up front so the running sums are exact at this now_ms;
     # the ledger read is then a single [B] gather
     win = W.refresh(state.win, now_ms, cfg)
-    used = W.gather_window_event_run(win, slots, W.EV_PASS)
+    if CL.current() is None:
+        used = W.gather_window_event_run(win, slots, W.EV_PASS).to(torch.float32)
+        limit = state.limits[slots.to(torch.int64)]
+    else:
+        r, held = W.shard_rows(win, slots)
+        both = torch.stack([win.run[r, W.EV_PASS].to(torch.float32), state.limits[r]])
+        used, limit = CL.all_reduce(torch.where(held, both, 0.0))
     units = torch.clamp_max(units, UNIT_CLIP)
     # exclusive prefix of requested units, rebased per slot run
     ex = torch.cumsum(units, 0, dtype=torch.int32) - units
     prefix = ex - ex[heads.to(torch.int64)]
-    observed = used.to(torch.float32) + prefix.to(torch.float32)
-    avail = state.limits[slots.to(torch.int64)] - observed
+    observed = used + prefix.to(torch.float32)
+    avail = limit - observed
     units_f = units.to(torch.float32)
     grant_partial = torch.minimum(torch.clamp_min(torch.floor(avail), 0.0), units_f)
     grant_strict = torch.where(avail >= units_f, units_f, 0.0)

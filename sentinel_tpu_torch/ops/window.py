@@ -25,6 +25,13 @@ host sync.  The big bucket tensors are updated IN PLACE (one column per
 write): this is the counterpart of the JAX tick's donated state and saves
 a copy of the whole ring per tick.  The O(rows) running sums are replaced
 by new tensors.
+
+Row-sharded (parallel/spmd.py, under a shard context): the state is the
+rank's slice of the rows and row ids stay global.  ``refresh`` is local;
+``add_batch``, ``add_dense`` and ``min_into_row`` land the rank's own rows
+only; the ``gather_window_*`` reads read the rank's own rows and
+all-reduce — a SUM for counts and sums (the other ranks add zeros), a MIN
+with a ``+inf`` pad for ``rt_min``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from sentinel_tpu_torch.parallel import collectives as CL
 
 # Event enum — mirrors MetricEvent.java:21
 EV_PASS = 0
@@ -201,6 +210,7 @@ def add_batch(
     if not refreshed:
         state = refresh(state, now_ms, cfg)
     idx = current_index(now_ms, cfg)
+    rows = _local_rows(state, rows)
     keep = (rows >= 0) & (rows < state.run.shape[0])
     r = torch.where(keep, rows, 0).to(torch.int64)
     d = torch.where(keep[:, None], deltas.to(state.counts.dtype), 0)
@@ -244,7 +254,14 @@ def add_dense(
 def min_into_row(
     state: WindowState, now_ms: int, row: int, value: torch.Tensor, cfg: WindowConfig
 ) -> WindowState:
-    """Scatter-min a scalar into ONE fixed row's current bucket (in place)."""
+    """Scatter-min a scalar into ONE fixed row's current bucket (in place);
+    on a shard, only the rank that holds the row writes."""
+    ctx = CL.current()
+    if ctx is not None:
+        lo = ctx.rank * state.run.shape[0]
+        if not lo <= row < lo + state.run.shape[0]:
+            return state
+        row -= lo
     idx = current_index(now_ms, cfg)
     state.rt_min[row, idx] = torch.minimum(state.rt_min[row, idx], value)
     run_rt_min = state.run_rt_min.clone()
@@ -272,22 +289,47 @@ def window_rt(state: WindowState, now_ms: int, cfg: WindowConfig):
     return rt_total, rt_min
 
 
+def _local_rows(state: WindowState, rows: torch.Tensor) -> torch.Tensor:
+    """Global row ids rebased to the rank's slice on a shard (as they are
+    off one): ids the rank does not hold fall outside [0, local rows)."""
+    ctx = CL.current()
+    return rows if ctx is None else rows - ctx.rank * state.run.shape[0]
+
+
+def shard_rows(state: WindowState, rows: torch.Tensor):
+    """(int64 row index, bool held) of a read at global ``rows``: every
+    row off a shard; on one, the rank's own rows (clamped index, False
+    elsewhere)."""
+    ctx = CL.current()
+    if ctx is None:
+        return rows.to(torch.int64), None
+    loc = _local_rows(state, rows)
+    n = state.run.shape[0]
+    return torch.clamp(loc, 0, n - 1).to(torch.int64), (loc >= 0) & (loc < n)
+
+
 def gather_window_counts(
     state: WindowState, now_ms: int, rows: torch.Tensor, cfg: WindowConfig
 ) -> torch.Tensor:
     """int32 [B, NUM_EVENTS] — the exact masked windowed totals of the
     selected rows only (a [B, nbp, NE] gather + reduction)."""
     mask = valid_mask(state, now_ms, cfg).to(torch.int32)
-    vals = state.counts[rows.to(torch.int64)]  # [B, nbp, NE]
-    return torch.sum(vals * mask[None, :, None], dim=1, dtype=torch.int32)
+    r, held = shard_rows(state, rows)
+    vals = state.counts[r]  # [B, nbp, NE]
+    out = torch.sum(vals * mask[None, :, None], dim=1, dtype=torch.int32)
+    return out if held is None else CL.all_reduce(torch.where(held[:, None], out, 0))
 
 
 def gather_window_rt(state: WindowState, now_ms: int, rows: torch.Tensor, cfg: WindowConfig):
     """(rt_total f32 [B], rt_min f32 [B]) for the selected rows."""
     mask = valid_mask(state, now_ms, cfg)
-    r = rows.to(torch.int64)
+    r, held = shard_rows(state, rows)
     rt_total = torch.sum(state.rt_sum[r] * mask.to(torch.float32)[None, :], dim=1)
     rt_min = torch.amin(torch.where(mask[None, :], state.rt_min[r], RT_MIN_INIT), dim=1)
+    if held is None:
+        return rt_total, rt_min
+    rt_total = CL.all_reduce(torch.where(held, rt_total, 0.0))
+    rt_min = CL.all_reduce(torch.where(held, rt_min, float("inf")), op="min")
     return rt_total, rt_min
 
 
@@ -305,4 +347,6 @@ def window_event_run(state: WindowState, event: int) -> torch.Tensor:
 def gather_window_event_run(state: WindowState, rows: torch.Tensor, event: int) -> torch.Tensor:
     """int32 [B] — one event's windowed totals at ``rows``: a single gather
     from the running sums."""
-    return state.run[rows.to(torch.int64), event]
+    r, held = shard_rows(state, rows)
+    out = state.run[r, event]
+    return out if held is None else CL.all_reduce(torch.where(held, out, 0))

@@ -33,6 +33,16 @@ index read back from the card.  The ring tensors (``words``, ``lvlmap``)
 are updated in place, like the engine's window rings: a refresh consumes
 the state it is given.
 
+Width-sharded (parallel/spmd.py, under a shard context): ``words``,
+``lvlmap``, ``run`` and ``cur`` are the rank's slices of their width axes
+(each word's four cells and each bitmap int32's sixteen words stay on one
+rank), so the refresh, the packing and the landing are local.  The read
+(``estimate_plane_mxu``) is the shard-local fix the reference's own
+comment names for its one implicit reshard (``sentinel_tpu/ops/
+tables.py:245-252``): a partial gather of the rank's own columns plus an
+all-reduce of the [depth, N] result, instead of an all-gather of the
+[depth, width] running sums before the gather.
+
 Integer arithmetic is int32 and wraps as the reference's: shifts of packed
 words are arithmetic on int32 in both frameworks, and every lane read is
 masked (``& 0xFF``, ``& 0xFFFF``) in the reference's order.  ``now_ms``
@@ -58,6 +68,7 @@ from sentinel_tpu_torch.ops.gsketch import (
     depth_histogram,
 )
 from sentinel_tpu_torch.ops.param import cms_cell
+from sentinel_tpu_torch.parallel import collectives as CL
 
 I32 = torch.int32
 
@@ -216,7 +227,7 @@ def refresh(state: SalsaState, now_ms: int, cfg: SketchConfig) -> SalsaState:
     packs ``cur`` into an empty column when the bucket id moved.  Both are
     computed every call and selected on the device; the landing column is
     written in place at its device index."""
-    wp = _wp(cfg)
+    wp = state.words.shape[-1]  # the rank's words on a shard
     nb = cfg.sample_count
     nbp = cfg.phys_buckets
     g = cfg.slack_buckets
@@ -267,7 +278,7 @@ def refresh(state: SalsaState, now_ms: int, cfg: SketchConfig) -> SalsaState:
 def sweep_expired(state: SalsaState, now_ms: int, cfg: SketchConfig) -> SalsaState:
     """Eagerly purge EVERY expired bucket from the running sums and zero
     their storage (for callers after a known idle gap, and tests)."""
-    wp = _wp(cfg)
+    wp = state.words.shape[-1]
     wid = _wid(now_ms, cfg)
     age = wid - state.epochs
     live = (age >= 0) & (age < cfg.sample_count) & (state.epochs != W.PURGED)
@@ -309,7 +320,7 @@ def add_dense(
         state = refresh(state, now_ms, cfg)
     # the named planes' columns, zeros elsewhere: one stack (an index list
     # would be uploaded, a synchronizing copy)
-    zero = torch.zeros((cfg.depth, cfg.width), dtype=I32, device=state.cur.device)
+    zero = torch.zeros((cfg.depth, state.cur.shape[-1]), dtype=I32, device=state.cur.device)
     cols = dict(zip(plane_idx, upd.to(I32).unbind(dim=2)))
     u_full = torch.stack([cols.get(p, zero) for p in range(PLANES)], dim=1)
     new_cur = torch.clamp_max(state.cur + u_full, _cap2(cfg))
@@ -331,7 +342,7 @@ def add(
     if not pre_refreshed:
         state = refresh(state, now_ms, cfg)
     cols = cms_cell(res, cfg.depth, cfg.width)
-    upd = depth_histogram(cols, values, valid, cfg.depth, cfg.width)
+    upd = depth_histogram(cols, values, valid, cfg.depth, cfg.width, sharded=True)
     return add_dense(state, now_ms, upd, plane_idx, cfg, pre_refreshed=True)
 
 
@@ -348,8 +359,13 @@ def estimate_plane_mxu(
     ``cols``: ``res``'s hashed columns, where the caller has them."""
     if cols is None:
         cols = cms_cell(res, cfg.depth, cfg.width)
+    # on a shard: the rank's own columns, then ONE all-reduce of the
+    # [depth, N] cells, where the reference's partitioner all-gathers the
+    # [depth, width] running sums (sentinel_tpu/ops/tables.py:245-252, its
+    # ``implicit-reshard`` rationale; the port's copy of that comment is at
+    # ops/tables.depth_gather_1col's sharded read)
     g = T.depth_gather_1col(
-        torch.clamp_max(state.run[:, plane, :], EST_CAP), cols, cfg.width, max_int=EST_CAP
+        torch.clamp_max(state.run[:, plane, :], EST_CAP), cols, cfg.width, max_int=EST_CAP, sharded=True
     )  # [depth, N]
     return torch.amin(g, dim=0)
 
@@ -357,7 +373,12 @@ def estimate_plane_mxu(
 def estimate(state: SalsaState, now_ms: int, res: torch.Tensor, cfg: SketchConfig) -> torch.Tensor:
     """int32 [N, PLANES]: min-over-depth windowed estimates per resource
     (plain gathers from the running sums)."""
-    cols = cms_cell(res, cfg.depth, cfg.width).to(torch.int64)
+    cols = cms_cell(res, cfg.depth, cfg.width)
+    if CL.current() is not None:
+        from sentinel_tpu_torch.ops.gsketch import sharded_depth_read
+
+        return torch.amin(sharded_depth_read(state.run, cols, cfg.width, col_axis=2), dim=0)
+    cols = cols.to(torch.int64)
     per_depth = torch.stack([state.run[d][:, cols[:, d]].T for d in range(cfg.depth)])
     return torch.amin(per_depth, dim=0)
 
@@ -369,8 +390,9 @@ def level_histogram(state: SalsaState, cfg: SketchConfig) -> torch.Tensor:
     """int32 [3]: how many counter words sit at each width level across the
     whole sketch (the hot-set manager's merged-word gauge).  The unpacked
     current bucket reports the levels it WILL land at, in place of its
-    (stale until landing) ring column."""
-    wp = _wp(cfg)
+    (stale until landing) ring column.  On a shard: the rank's words,
+    all-reduced."""
+    wp = state.words.shape[-1]
     lvl = unpack_levels(state.lvlmap, wp)
     u = state.cur.reshape(cfg.depth, PLANES, wp, 4)
     u1 = u[..., 0::2] + u[..., 1::2]
@@ -378,7 +400,8 @@ def level_histogram(state: SalsaState, cfg: SketchConfig) -> torch.Tensor:
     fit1 = ~fit0 & torch.all(u1 <= 65535, dim=-1)
     vlvl = torch.where(fit0, 0, torch.where(fit1, 1, 2)).to(I32)
     lvl.index_copy_(0, _index_of(state.cur_wid, cfg).reshape(1), vlvl[None])
-    return torch.stack([torch.sum(lvl == k) for k in range(3)]).to(I32)
+    out = torch.stack([torch.sum(lvl == k) for k in range(3)]).to(I32)
+    return out if CL.current() is None else CL.all_reduce(out)
 
 
 def hbm_bytes(cfg: SketchConfig) -> int:

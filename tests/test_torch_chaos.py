@@ -252,3 +252,34 @@ def test_the_system_column_upload_never_waits_for_the_card():
     st._events = [_Event(False)] * n
     assert st._free_slot() == n and len(st._bufs) == n + 1 and st._events[n] is None
     assert np.array_equal(st.upload([1, 2, 3, 4, 5]).numpy(), np.arange(1, 6, dtype=np.float32))
+
+
+def test_rpc_error_burst_stays_green_when_the_lost_servers_port_is_taken(monkeypatch):
+    """On a loaded host another process's next listener may take the port
+    a stopped token server freed: a token server there answers NO_RULE,
+    the decision client never degrades, and no flight bundle is captured
+    (the scenario went red in a parallel suite that way).  The scenario's
+    lost server is a port it holds and never listens on, so a live token
+    server on the stopped server's port changes nothing."""
+    from sentinel_tpu_torch.chaos.runner import report, run_scenario
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+
+    stop = ClusterTokenServer.stop
+    taken = []
+
+    def stop_and_reuse(self):
+        port = self.port
+        stop(self)
+        if not taken:  # the first stop: the scenario's server, mid-run
+            other = ClusterTokenServer(self.service, host="127.0.0.1", port=port)
+            other.start()
+            taken.append(other)
+
+    monkeypatch.setattr(ClusterTokenServer, "stop", stop_and_reuse)
+    try:
+        r = run_scenario("rpc_error_burst", seed=7, device="cpu")
+    finally:
+        for other in taken:
+            stop(other)
+    assert taken, "the scenario stopped no token server"
+    assert r.ok, report([r])

@@ -569,3 +569,55 @@ def test_the_scan_covers_the_chaos_plane_the_analyzer_and_the_trace_cli():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_the_scan_covers_the_sharded_engine_and_the_spmd_analyzer():
+    """The mesh spec, the sharded engine, its collectives and launcher and
+    the tier-4 analyzer are walked by the checks above; each imports on
+    the CPU with neither jax nor the JAX package (the meshspec module with
+    the stdlib alone), and the sharded entry points default to the card."""
+    import importlib
+    import pkgutil
+
+    import sentinel_tpu_torch as st
+
+    mods = [
+        "parallel.meshspec", "parallel.spmd", "parallel.collectives", "parallel.launch",
+        "analysis.spmd", "analysis.spmd.framework", "analysis.spmd.entrypoints",
+        "analysis.spmd.passes", "analysis.spmd.runner", "analysis.spmd.worker",
+    ]
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*") if p.is_file()}
+    assert {m.replace(".", "/") + ".py" for m in mods if m != "analysis.spmd"} <= files
+    assert {"analysis/spmd/__init__.py", "analysis/spmd/collectives.json"} <= files
+    walked = {m.name for m in pkgutil.walk_packages(st.__path__, "sentinel_tpu_torch.")}
+    for mod in mods:
+        assert f"sentinel_tpu_torch.{mod}" in walked
+        m = importlib.import_module(f"sentinel_tpu_torch.{mod}")
+        assert "sentinel_tpu." not in getattr(m, "__file__", "")
+    # the mesh spec is stdlib only, as the reference's is
+    assert {mod.split(".")[0] for mod in _imports(PKG / "parallel" / "meshspec.py")} <= {
+        "__future__", "socket", "dataclasses", "typing",
+    }
+    code = (
+        "import sys\n"
+        "import " + ", ".join(f"sentinel_tpu_torch.{m}" for m in mods) + "\n"
+        "from sentinel_tpu_torch.parallel import spmd\n"
+        "from sentinel_tpu_torch.analysis.spmd import runner\n"
+        "for call in (lambda: spmd.make_mesh(), lambda: runner._run_worker(2, 'cuda')):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('a sharded entry point ran without CUDA')\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'sentinel_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

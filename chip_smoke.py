@@ -472,6 +472,23 @@ Phases (the first failure stops the script with a nonzero exit):
    findings; the card's total_memory (``[spmd]`` lines).  Every rank
    group has a deadline and dies with the script (``parallel/launch.py``).
 
+17. The analyzer's tiers 1 and 2 (``analysis_phase``; ``analysis/``).
+   (a) ``python -m sentinel_tpu_torch.analysis`` in child processes on the
+   CPU: ``--tier ast --json``, ``--tier metrics`` and ``--tier
+   concurrency``, each exit 0 with no new finding, and its seconds.
+   (b) The jaxpr tier's 13 entries recorded on the card in this process
+   (``analysis/jaxpr/entrypoints.build_entries``; the tick entries' calls
+   under ``set_sync_debug_mode("error")``): no transfer-guard,
+   dtype-overflow or const-hoist finding, every launch and byte ceiling
+   of ``analysis/jaxpr/budgets.json`` held (the CPU's block and the
+   card's), every op stream equal to ``fingerprints.json``'s card block
+   when that was recorded under this torch (else the drift is printed), B1, B2
+   and B4 launched by ``tick/fused-seg`` and B1 / B3 / B4 by the kernel
+   entries, and each kernel-bearing entry's outputs exactly equal to the
+   same entry's with the plain versions installed; per entry the ATen ops,
+   launches and bytes recorded on the card against the CPU's (the
+   goldens' recording) and B1-B4 launches (``[analysis]`` lines).
+
 Phases 2-5 run the segment paths with ``seg_fallback=False``, as PRs 1-9
 measured them (``configs``; ``sketch_cfg`` is bench.py's ``build``, which
 turns the fallback off).
@@ -490,7 +507,9 @@ chip_smoke.py --doors`` the build and phase 12 (``doors_main``), ``python3
 chip_smoke.py --operator`` the build and phase 13 (``operator_main``),
 ``python3 chip_smoke.py --shards`` the build and phase 14 (``shards_main``),
 ``python3 chip_smoke.py --chaos`` the build and phase 15 (``chaos_main``),
-``python3 chip_smoke.py --spmd`` the build and phase 16 (``spmd_main``).
+``python3 chip_smoke.py --spmd`` the build and phase 16 (``spmd_main``),
+``python3 chip_smoke.py --analysis`` the build and phase 17
+(``analysis_main``).
 ``python3 chip_smoke.py --profile-probe [N]`` counts the device records
 that profiler sessions over one replayed tick lose, with and without the
 wait each session here starts with (``profile_probe_main``).
@@ -7554,7 +7573,7 @@ def chaos_scenarios(np, st, FU, SC, torch) -> dict:
         rep["cpu"] = dict(wall_s=got["wall_s"], wait_s=time.perf_counter() - t)
         for name in CR.SCENARIOS:
             mine, cpu_r = first[name], got["scenarios"][name]
-            check(cpu_r["ok"], f"15a: {name} is red on the CPU")
+            check(cpu_r["ok"], f"15a: {name} is red on the CPU: {[v for v in cpu_r['invariants'] if not v[1]]}")
             check(mine["injected"] == cpu_r["injected"], ("15a: injected differs from the CPU's", name,
                                                           mine["injected"], cpu_r["injected"]))
             rows[name]["details_unlike_cpu"] = [a[0] for a, b in zip(mine["invariants"], cpu_r["invariants"]) if a != b]
@@ -8718,6 +8737,202 @@ def spmd_measured(groups, smi) -> dict:
     return rep
 
 
+# -- phase 17: the analyzer's tiers 1 and 2 on the card -----------------------------------------
+
+#: the CLI runs of phase 17a: (label, arguments), each in a child process on the CPU
+ANALYSIS_CLI = (
+    ("ast", ("--tier", "ast", "--json")),
+    ("metrics", ("--tier", "metrics")),
+    ("concurrency", ("--tier", "concurrency")),
+)
+
+def analysis_phase(FU, SC, torch, smi) -> dict:
+    """Phase 17: the port's analyzer.  (a) The CLI in child processes
+    (``--tier ast --json``, ``--tier metrics``, ``--tier concurrency``):
+    each exits 0 with no new finding.  (b) The jaxpr tier in this process
+    on the card, its 13 entries recorded (the tick entries' calls under
+    ``set_sync_debug_mode("error")``): no transfer-guard, dtype-overflow or
+    const-hoist finding, every budget ceiling (the CPU's and the card's)
+    held, the op streams equal to the card's fingerprints (when recorded
+    under this torch),
+    each kernel-bearing entry launching its kernels and its outputs equal,
+    exactly, to the same entry's with the kernels' plain versions
+    installed; per entry the ATen ops, launches and bytes recorded on the
+    card against the CPU's recording in the committed goldens
+    (``analysis/jaxpr/fingerprints.json`` and ``budgets.json``), and
+    B1-B4 launches."""
+    import contextlib
+    import subprocess
+
+    from torch.utils._pytree import tree_flatten
+
+    from sentinel_tpu_torch.analysis import REPO_ROOT
+    from sentinel_tpu_torch.analysis.jaxpr import BUDGETS_PATH, FINGERPRINTS_PATH, load_golden
+    from sentinel_tpu_torch.analysis.jaxpr import entrypoints as JE
+    from sentinel_tpu_torch.analysis.jaxpr.framework import KERNEL_COUNTERS, run_jaxpr_passes
+    from sentinel_tpu_torch.analysis.jaxpr.passes import (
+        ConstHoistPass,
+        CostBudgetPass,
+        DtypeOverflowPass,
+        FingerprintPass,
+        TransferGuardPass,
+    )
+
+    @contextlib.contextmanager
+    def no_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    t0 = time.perf_counter()
+    rep = {}
+    procs, done = {}, {}
+
+    def start(label, cmd):
+        """A child on the CPU, read to its end by a thread that notes when
+        it ended: (stdout, stderr, seconds) in ``done[label]``."""
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+        def reap():
+            out, err = proc.communicate()
+            done[label] = (out, err, time.perf_counter() - t)
+
+        th = threading.Thread(target=reap, daemon=True, name=f"analysis-{label}")
+        th.start()
+        procs[label] = (proc, th)
+
+    for label, args in ANALYSIS_CLI:
+        start(label, [sys.executable, "-m", "sentinel_tpu_torch.analysis", *args])
+
+    try:
+        # -- (b) the 13 entries on the card --
+        t = time.perf_counter()
+        entries = JE.build_entries("cuda", tick_context=no_sync)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        by_name = {e.name: e for e in entries}
+        found = run_jaxpr_passes(entries, [TransferGuardPass(), DtypeOverflowPass(), ConstHoistPass()], REPO_ROOT)
+        check(found == [], "17b: jaxpr-tier findings on the card:\n" + "\n".join(
+            f"{f.path}:{f.line} [{f.rule}] {f.message}" for f in found))
+        # the CPU's ceilings and the card's own (budgets.json's "card" block)
+        over = run_jaxpr_passes(entries, [CostBudgetPass()], REPO_ROOT)
+        check(over == [], "17b: budget ceilings broken on the card:\n" + "\n".join(f.message for f in over))
+        # the op streams against fingerprints.json's "card" block, held when
+        # it was recorded under this torch (a stream follows torch's
+        # decompositions); under another the drift is printed, not held
+        fp_card = load_golden(FINGERPRINTS_PATH).get("card", {})
+        check(set(fp_card.get("entries", {})) == set(by_name), "17b: fingerprints.json's card block does not "
+              f"cover the entries: {sorted(fp_card.get('entries', {}))}")
+        drift = run_jaxpr_passes(entries, [FingerprintPass()], REPO_ROOT)
+        fp_held = fp_card["torch_version"] == torch.__version__
+        if fp_held:
+            check(drift == [], "17b: op streams differ from the card's goldens:\n" + "\n".join(f.message for f in drift))
+        else:
+            log(f"[analysis] 17b {smi}: fingerprints NOT held: the card block was recorded under torch "
+                f"{fp_card['torch_version']}, this is {torch.__version__}; {len(drift)} of {len(entries)} entries drift")
+        for name, kernels in JE.KERNEL_ENTRIES.items():
+            for k in kernels:
+                check(by_name[name].kernel_launches[k] > 0, f"17b: {name} launched no {k}: {by_name[name].kernel_launches}")
+        for e in entries:
+            if e.name not in JE.KERNEL_ENTRIES:
+                check(sum(e.kernel_launches.values()) == 0, f"17b: {e.name} launched a kernel: {e.kernel_launches}")
+        # the kernel-bearing entries again with the plain versions installed
+        real, plain, install = kernel_sets(FU, SC)
+        t = time.perf_counter()
+        install(plain)
+        try:
+            plain_entries = JE.build_entries("cuda", list(JE.KERNEL_ENTRIES), tick_context=no_sync)
+        finally:
+            install(real)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        equal = {}
+        for p in plain_entries:
+            k = by_name[p.name]
+            check(sum(p.kernel_launches.values()) == 0, f"17b: {p.name} with the plain versions launched {p.kernel_launches}")
+            got, want = tree_flatten(k.outputs)[0], tree_flatten(p.outputs)[0]
+            check(len(got) == len(want), f"17b: {p.name}: {len(got)} outputs with the kernels, {len(want)} plain")
+            for i, (a, b) in enumerate(zip(got, want)):
+                same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                check(same, f"17b: {p.name} output {i} with the kernels differs from the plain versions'")
+            equal[p.name] = len(got)
+
+        # -- (a) the CLI children --
+        for label, (proc, th) in procs.items():
+            th.join(timeout=120)
+            check(label in done, f"17a: {label} did not end in 120 s")
+            out, err, secs = done[label]
+            check(proc.returncode == 0, f"17a: {label} exited {proc.returncode}:\n{out[-2000:]}\n{err[-2000:]}")
+            if label == "ast":
+                report = json.loads(out)
+                check(report["new"] == 0, f"17a: the ast tier reports {report['new']} new findings")
+                n = report["new"]
+            else:
+                tail = out.strip().splitlines()[-1]
+                check(tail.startswith("-- 0 ") or tail == "-- metric catalog: 0 problem(s)", f"17a: {label}: {tail}")
+                n = 0
+            rep[f"cli_{label}"] = dict(seconds=secs, new=n)
+            log(f"[analysis] 17a {smi}: python -m sentinel_tpu_torch.analysis {' '.join(dict(ANALYSIS_CLI)[label])}: "
+                f"exit 0, {n} new findings, {secs:.2f} s")
+    finally:
+        for proc, th in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            th.join()
+    fp, bud = load_golden(FINGERPRINTS_PATH), load_golden(BUDGETS_PATH)
+    rows = {}
+    for e in entries:
+        f, b = fp["entries"][e.name], bud["entries"][e.name]
+        bc = bud["card"]["entries"][e.name]
+        rows[e.name] = row = dict(
+            ops_card=len(e.ops), ops_cpu=f["ops"], launches_card=e.launches, launches_cpu=b["measured_launches"],
+            launches_card_golden=bc["measured_launches"], launches_card_ceiling=bc["launches"],
+            bytes_card=e.bytes, bytes_cpu=b["measured_bytes"],
+            kernels={b: e.kernel_launches[k] for _m, k, b in KERNEL_COUNTERS},
+            equal_plain=equal.get(e.name),
+        )
+        log(f"[analysis] 17b {smi}: {e.name}: ATen ops {row['ops_card']} on the card, {row['ops_cpu']} on the CPU; "
+            f"launches {row['launches_card']} (CPU {row['launches_cpu']}; the card's golden "
+            f"{row['launches_card_golden']}, ceiling {row['launches_card_ceiling']}); B1-B4 {json.dumps(row['kernels'])}; "
+            f"bytes {row['bytes_card']} (CPU {row['bytes_cpu']})"
+            + (f"; {row['equal_plain']} outputs equal to the plain versions'" if row["equal_plain"] else ""))
+    rep.update(entries=rows, card_s=card_s, plain_s=plain_s, fingerprints_held=fp_held,
+               seconds=time.perf_counter() - t0)
+    log(f"[analysis] 17b {smi}: 13 entries on the card in {card_s:.2f} s (each run warm, primary and, with a clock, "
+        f"shadow), the {len(equal)} kernel-bearing ones again with the plain versions in {plain_s:.2f} s (the CPU "
+        f"side: the goldens, recorded under torch {fp['torch_version']}); zero transfer-guard / dtype-overflow / "
+        f"const-hoist findings, every budget ceiling held (the CPU's and the card's, recorded under torch "
+        f"{bud['card']['torch_version']}), "
+        + ("every op stream equal to the card's golden" if fp_held else "op streams not held (torch differs)")
+        + f"; phase 17 took {rep['seconds']:.1f} s")
+    return rep
+
+
+def analysis_main() -> int:
+    """``python3 chip_smoke.py --analysis``: the kernels' build and phase 17
+    alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import fused as FU
+    from sentinel_tpu_torch.ops import segscan as SC
+
+    _build.load_library()
+    rep = analysis_phase(FU, SC, torch, nvidia_smi())
+    left = live_children()
+    check(not left, f"processes this script started still run at its end: {left}")
+    log("[report]", json.dumps(rep, sort_keys=True, default=str))
+    return 0
+
+
 def spmd_main() -> int:
     """``python3 chip_smoke.py --spmd``: the kernels' build and phase 16
     alone, on the card."""
@@ -9327,6 +9542,9 @@ def main() -> int:
     # -- 16. the sharded engine: world 1 over NCCL, 2 and 4 ranks over gloo, the tier-4 ranks ------
     report["spmd"] = spmd_phase(np, st, S, FU, SC, torch, smi)
     end_phase("16")
+    # -- 17. the analyzer: the CLI's tiers in children, the jaxpr tier's 13 entries on the card ------
+    report["analysis"] = analysis_phase(FU, SC, torch, smi)
+    end_phase("17")
     left = live_children()
     check(not left, f"processes this script started still run at its end: {left}")
 
@@ -9515,6 +9733,7 @@ if __name__ == "__main__":
              else chaos_main() if mode == ["--chaos"]
              else chaos_cpu_main() if mode == ["--chaos-cpu"]
              else spmd_main() if mode == ["--spmd"]
+             else analysis_main() if mode == ["--analysis"]
              else profile_probe_main(*map(int, mode[1:])) if mode[:1] == ["--profile-probe"] and len(mode) <= 2
              else operator_cpu_main(mode[1]) if mode[:1] == ["--operator-cpu"] and len(mode) == 2
              else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4

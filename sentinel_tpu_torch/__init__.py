@@ -25,12 +25,12 @@ The facade mirrors the reference's (SphU / SphO / Tracer / ContextUtil):
     except st.BlockException:
         handle_rejection()
 
-Ported so far: the admission path with flow (default, rate limiter,
-warm-up, occupy-ahead), degrade, authority, system and hot-parameter
-(param-flow) rules, the observability planes, the sketch tier for
-resources past the exact row space (``sentinel_tpu_torch.sketch``: tail
-flow rules, hot-set promotion), the client's host surface (the span
-tracer ``sentinel_tpu_torch.obs``, the native host library
+Ported: the admission path with flow (default, rate limiter, warm-up,
+occupy-ahead), degrade, authority, system and hot-parameter (param-flow)
+rules, the observability planes, the sketch tier for resources past the
+exact row space (``sentinel_tpu_torch.sketch``: tail flow rules, hot-set
+promotion), the client's host surface (the span tracer
+``sentinel_tpu_torch.obs``, the native host library
 ``sentinel_tpu_torch.native``, the entry hooks, custom slots and metric
 extensions), cluster flow control (``sentinel_tpu_torch.cluster``: the
 token service with its device token column, the TCP token server and
@@ -43,9 +43,21 @@ discovery, the metric fetcher and repository, rule CRUD and cluster
 assignment over each machine's command center; and the HTTP, callback,
 Redis, ZooKeeper, Nacos, Consul, Apollo, Eureka, etcd and Spring Cloud
 Config rule datasources under ``sentinel_tpu_torch.datasource``), the
-unpacked-wire client (``packed_wire=False``), and the card's measurement
-probes (``sentinel_tpu_torch.probes``).  What is not ported raises
-``NotImplementedError`` (see ROADMAP.md).
+unpacked-wire client (``packed_wire=False``), the sharded cluster (the
+hash ring, the sharded token fleet with bounded-slack leases and
+failover, ``set_to_sharded_client``, ``api/shards``, and the host-layer
+shard router, ``sentinel_tpu_torch.parallel.router``), the chaos plane
+(``sentinel_tpu_torch.chaos``: the scenario runner and its invariant
+monitors) with the trace CLI (``python -m sentinel_tpu_torch.obs``), the
+sharded engine (``sentinel_tpu_torch.parallel``: the mesh spec, the
+row-sharded tick, window and token column over ``torch.distributed``),
+the four-tier hazard analyzer (``sentinel_tpu_torch.analysis``, ``python
+-m sentinel_tpu_torch.analysis``: the AST passes with the metric-catalog
+lint, the ``jaxpr`` tier over the dispatched ATen stream, the
+concurrency tier with its lock witness, the SPMD tier), and the card's
+measurement probes (``sentinel_tpu_torch.probes``).  The port does what
+the JAX package does; ``ops/mxu_table.py`` is left out by design (see
+ROADMAP.md).
 """
 
 __version__ = "0.1.0"

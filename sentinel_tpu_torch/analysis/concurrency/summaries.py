@@ -846,7 +846,7 @@ def invalidate_cache() -> None:
 
 # -- tier-1 consumption: locks held at function entry ------------------------
 
-_MOD_ENTRY_CACHE: Dict[int, Dict[str, FrozenSet[str]]] = {}
+_MOD_ENTRY_CACHE: Dict[int, Tuple[ast.Module, Dict[str, FrozenSet[str]]]] = {}
 
 
 def module_entry_locks(mod: ParsedModule) -> Dict[str, FrozenSet[str]]:
@@ -864,8 +864,11 @@ def module_entry_locks(mod: ParsedModule) -> Dict[str, FrozenSet[str]]:
     """
     cid = id(mod.tree)
     with _CACHE_LOCK:
-        if cid in _MOD_ENTRY_CACHE:
-            return _MOD_ENTRY_CACHE[cid]
+        hit = _MOD_ENTRY_CACHE.get(cid)
+        # the entry holds its tree: an id is reused once a tree is freed,
+        # and a freed tree's answer must not serve the next one
+        if hit is not None and hit[0] is mod.tree:
+            return hit[1]
     # build a throwaway single-module DB in SOURCE-name space: identity
     # canonicalizer keeps `self._lock` / `_LOCK` spelled as written, so
     # the result intersects directly with tier-1 site locksets
@@ -915,5 +918,5 @@ def module_entry_locks(mod: ParsedModule) -> Dict[str, FrozenSet[str]]:
             )
     out = {n: ls for n, ls in out.items() if ls}
     with _CACHE_LOCK:
-        _MOD_ENTRY_CACHE[cid] = out
+        _MOD_ENTRY_CACHE[cid] = (mod.tree, out)
     return out

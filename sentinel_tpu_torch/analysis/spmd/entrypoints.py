@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Tuple
 
+from sentinel_tpu_torch.analysis.jaxpr.entrypoints import _mk_tick_inputs
 from sentinel_tpu_torch.analysis.spmd.framework import LeafPlacement
 from sentinel_tpu_torch.parallel.meshspec import mesh_spec
 
@@ -181,48 +182,6 @@ def config_cases() -> List[Tuple[str, List[LeafPlacement]]]:
 
 
 # -- sharded jobs (rank-side: needs the live mesh) ----------------------------
-
-
-def _mk_tick_inputs(cfg, device, n_resources: int = 8):
-    """Canonical (state, rules, acq, comp, now, load, cpu) for a config —
-    the port's copy of the reference's jaxpr-tier helper
-    (``sentinel_tpu/analysis/jaxpr/entrypoints.py:74``), kept here until
-    that tier's intent lands.
-
-    The rule set touches every stage class (flow incl. rate-limiter and
-    warm-up controllers, degrade both grades, param, authority, system)
-    so the sharded run reaches every check the features enable."""
-    from sentinel_tpu_torch.core import rules as R
-    from sentinel_tpu_torch.ops import engine as E
-    from sentinel_tpu_torch.runtime.registry import Registry
-
-    reg = Registry(cfg)
-    for i in range(1, n_resources + 1):
-        reg.resource_id(f"r{i}")
-    reg.origin_id("caller-a")
-    ruleset = E.compile_ruleset(
-        cfg,
-        reg,
-        flow_rules=[
-            R.FlowRule(resource="r1", count=5),
-            R.FlowRule(resource="r2", count=3, control_behavior=R.CONTROL_RATE_LIMITER),
-            R.FlowRule(resource="r3", count=8, control_behavior=R.CONTROL_WARM_UP),
-            R.FlowRule(resource="r4", count=100, grade=R.GRADE_THREAD),
-        ],
-        degrade_rules=[
-            R.DegradeRule(resource="r5", grade=R.CB_STRATEGY_ERROR_COUNT, count=2, time_window=3),
-            R.DegradeRule(
-                resource="r6", grade=R.CB_STRATEGY_SLOW_REQUEST_RATIO, count=50,
-                slow_ratio_threshold=0.5, time_window=2,
-            ),
-        ],
-        param_rules=[R.ParamFlowRule(resource="r7", count=2, param_idx=0)],
-        authority_rules=[R.AuthorityRule(resource="r8", limit_app="caller-a", strategy=R.AUTHORITY_BLACK)],
-        system_rules=[R.SystemRule(qps=1000)],
-        device=device,
-    )
-    state = E.init_state(cfg, device)
-    return (state, ruleset, E.empty_acquire(cfg, device), E.empty_complete(cfg, device), 1_000, 0.1, 0.1)
 
 
 def sharded_jobs(mesh, device) -> List[Tuple[str, Callable, Tuple[Any, ...]]]:

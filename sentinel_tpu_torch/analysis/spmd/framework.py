@@ -80,9 +80,11 @@ class Collective:
 
 @dataclass(frozen=True)
 class ConstInfo:
-    """One constant closed over by an entry (replicated by construction).
-    The port records none: eager PyTorch has no jaxpr consts (the const
-    half of ``replication-hazard`` waits for the jaxpr tier's intent)."""
+    """One constant an entry carries on every rank (replicated by
+    construction).  Eager PyTorch closes over no jaxpr consts; the port's
+    are the tensors a call makes from host data (an upload each call, on
+    the card), which the ranks record with the jaxpr tier's op recorder
+    (``worker.rank_main``)."""
 
     dtype: str
     shape: Tuple[int, ...]

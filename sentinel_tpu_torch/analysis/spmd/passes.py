@@ -226,19 +226,21 @@ class ImplicitReshardPass(SpmdPass):
 class ReplicationHazardPass(SpmdPass):
     """Big arrays silently riding every rank instead of sharding.
 
-    Ported: the state-leaf half (replicated leaves past 8 MiB at a blessed
-    config's real scale).  The const half — jaxpr consts closed over an
-    executable — has no torch counterpart: eager PyTorch closes over no
-    traced constants, so the ledger reports none and the check below sees
-    an empty list.  Its intent (large host constants uploaded every call)
-    goes to the jaxpr tier's slice."""
+    Both halves: the state-leaf half (replicated leaves past 8 MiB at a
+    blessed config's real scale), and the const half.  The reference's
+    consts are jaxpr consts closed over an executable; eager PyTorch
+    closes over none, so the port's are what the jaxpr tier's
+    ``const-hoist`` sees: tensors a call makes from host data, uploaded
+    on every call and so carried by every rank.  The ranks record them
+    with that tier's op recorder (``worker.rank_main``); one of 256 KiB or
+    more is a finding."""
 
     name = "replication-hazard"
     description = (
         "state leaves declared replicated that exceed 8 MiB at a blessed "
-        "config's real scale (and closed-over consts >=256 KiB, which the "
-        "port's eager entries do not have) — the SALSA planes and window "
-        "tables must stay sharded for capacity to scale with ranks"
+        "config's real scale, and host constants >=256 KiB every call "
+        "uploads on every rank — the SALSA planes and window tables must "
+        "stay sharded for capacity to scale with ranks"
     )
     severity = ERROR
 
@@ -252,10 +254,10 @@ class ReplicationHazardPass(SpmdPass):
                     yield self.finding(
                         e.pseudo_path,
                         f"jaxpr const {c.dtype}[{shape}] "
-                        f"({_fmt_bytes(c.nbytes)}) is closed over the "
-                        "entry and replicated on every rank — shard "
-                        "it as an input or shrink it (consts can never "
-                        "be sharded)",
+                        f"({_fmt_bytes(c.nbytes)}): host data the entry "
+                        "makes into a tensor on every call, replicated on "
+                        "every rank — shard it as an input or shrink it "
+                        "(a constant made per call is never sharded)",
                     )
         for case in program.configs:
             for p in case.placements:

@@ -8,7 +8,10 @@ to n CPU devices, and reads the optimized HLO.  Here each of the
 launch.run_ranks``) joins the mesh, runs every sharded job once while
 ``parallel/collectives.recording()`` is on, and returns its ledger; rank
 0's report is the analyzer's input (the ranks send the same collectives,
-and ``build_report`` checks that they did).
+and ``build_report`` checks that they did).  Each job runs under the
+jaxpr tier's op recorder too (``analysis/jaxpr/framework.record_call``):
+the tensors a call makes from host data are its ``consts`` — one copy on
+every rank, the const half of ``replication-hazard``.
 
 Protocol: the report is plain JSON-able data (``rank_main``'s return
 value, pickled back by the launcher); a rank that fails surfaces in the
@@ -25,6 +28,7 @@ def rank_main(rank: int, n: int, device: str) -> dict:
     ledger records; the report (every rank builds it)."""
     import torch
 
+    from sentinel_tpu_torch.analysis.jaxpr.framework import HOST_MADE, record_call
     from sentinel_tpu_torch.analysis.spmd.entrypoints import sharded_jobs
     from sentinel_tpu_torch.parallel import collectives as CL
     from sentinel_tpu_torch.parallel import spmd
@@ -33,10 +37,11 @@ def rank_main(rank: int, n: int, device: str) -> dict:
     entries = []
     for name, fn, args in sharded_jobs(mesh, mesh.device):
         with CL.recording() as ledger:
-            fn(*args)
+            ops = record_call(fn, args, mesh.device.type)[0]
+        made = [op.outputs[0] for op in ops if op.base in HOST_MADE and op.outputs and op.outputs[0].shape != ()]
         entries.append({
             "name": name,
-            "consts": [],
+            "consts": [{"dtype": t.dtype, "shape": list(t.shape), "nbytes": t.nbytes} for t in made],
             "collectives": [
                 {"kind": r.kind, "dtype": r.dtype, "shape": list(r.shape), "source": r.source, "line": r.line}
                 for r in ledger

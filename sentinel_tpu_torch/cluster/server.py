@@ -141,7 +141,10 @@ class ClusterTokenServer:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
-        self._pool.shutdown(wait=False)
+        # drop the queued work and wait out the running: a census refresh
+        # left behind would reproject this server's rules onto the decision
+        # client after stop() returned, over whatever the caller loads next
+        self._pool.shutdown(wait=True, cancel_futures=True)
 
     def _run_loop(self) -> None:
         loop = asyncio.new_event_loop()

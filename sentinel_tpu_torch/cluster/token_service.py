@@ -451,7 +451,7 @@ class TokenColumnBatcher:
                 with self._s_lock:
                     for i in range(0, len(batch), self.CAPACITY):
                         self._decide_chunk(batch[i : i + self.CAPACITY], now)
-            except Exception as e:  # a failed future is STATUS_FAIL at every caller: degrade, never PASS
+            except Exception as e:  # stlint: disable=fail-open — a failed future is STATUS_FAIL at every caller: degrade, never PASS
                 for *_, f in batch:
                     if not f.done():
                         f.set_exception(e)

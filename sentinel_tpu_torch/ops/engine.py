@@ -1541,7 +1541,7 @@ def fold_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 keeping the low 32 bits (two's-complement wrap, as
     the reference's int32 arithmetic wraps)."""
     lo = x & 0xFFFFFFFF
-    return torch.where(lo >= (1 << 31), lo - (1 << 32), lo).to(I32)
+    return torch.where(lo >= (1 << 31), lo - (1 << 32), lo).to(I32)  # stlint: disable=dtype-overflow — the deliberate two's-complement wrap of the reference's int32 arithmetic
 
 
 def param_verdicts(

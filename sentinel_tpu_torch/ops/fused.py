@@ -64,8 +64,9 @@ _DESC_SLOTS = 11
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:  # the counts move under the launch lock (_scatter_cuda, _gather_cuda)
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 class Job(NamedTuple):
@@ -285,7 +286,7 @@ def _scratch(dev: torch.device, stream: int, cells: int):
     """(acc, touched): the int32 accumulator and its one-bit-a-cell bitmap
     for launches on ``stream``, at least ``cells`` cells.  Both are all zero
     between calls — the conversion launch zeroes what the scatter touched —
-    so they are zeroed only when made."""
+    so they are zeroed only when made.  Called under ``_lock``."""
     s = _SCRATCH.get((dev, stream))
     if s is None or s[0].numel() < cells:
         n = -(-max(cells, 2 * s[0].numel() if s is not None else 0) // 32) * 32  # whole bitmap words
@@ -299,12 +300,13 @@ def _plan_for(jobs: Sequence[Job]) -> ScatterPlan:
     """The cached plan of the jobs' signature (made, and the jobs checked,
     on its first call)."""
     key = _signature(jobs)
-    plan = _PLANS.get(key)
-    if plan is None:
-        plan = _plan(jobs)
-        if len(_PLANS) >= _MAX_PLANS:
-            _PLANS.clear()
-        _PLANS[key] = plan
+    with _lock:  # launching threads share the cache: one makes a missing plan
+        plan = _PLANS.get(key)
+        if plan is None:
+            plan = _plan(jobs)
+            if len(_PLANS) >= _MAX_PLANS:
+                _PLANS.clear()
+            _PLANS[key] = plan
     return plan
 
 
@@ -317,17 +319,21 @@ def _scatter_cuda(plan: ScatterPlan, jobs: Sequence[Job]) -> List[torch.Tensor]:
     if plan.total:
         lib = _build.load_library()
         stream = torch._C._cuda_getCurrentRawStream(dev.index)  # the handle, without a Stream object
-        acc, touched = _scratch(dev, stream, plan.total)
-        with _lock:  # the descriptors are the plan's: one call fills them at a time
+        # the descriptors are the plan's and the scratch the stream's: one
+        # call fills them at a time, and counts its launches
+        with _lock:
+            acc, touched = _scratch(dev, stream, plan.total)
             keep = _bind(plan, jobs)
             err = lib.sentinel_scatter_many(
                 plan.desc_ptr, len(jobs), plan.N, out.data_ptr(), plan.total,
                 acc.data_ptr(), touched.data_ptr(), dev.index, stream,
             )
+            if err != 0:
+                _SCRATCH.pop((dev, stream), None)  # a failed launch may leave it dirty
+            else:
+                LAUNCHES["scatter_many"] += plan.launches
         if err != 0:
-            _SCRATCH.pop((dev, stream), None)  # a failed launch may leave it dirty
             raise RuntimeError(f"scatter_many kernel launch failed (CUDA error {err})")
-        LAUNCHES["scatter_many"] += plan.launches
     return [out.as_strided(shape, (shape[1], 1), off) for shape, off in zip(plan.shapes, plan.offsets)]
 
 
@@ -512,12 +518,13 @@ def _gather_plan_for(jobs: Sequence[GatherJob]) -> GatherPlan:
     """The cached plan of the jobs' signature (made, and the jobs checked,
     on its first call)."""
     key = _gather_signature(jobs)
-    plan = _GATHER_PLANS.get(key)
-    if plan is None:
-        plan = _gather_plan(jobs)
-        if len(_GATHER_PLANS) >= _MAX_PLANS:
-            _GATHER_PLANS.clear()
-        _GATHER_PLANS[key] = plan
+    with _lock:  # launching threads share the cache: one makes a missing plan
+        plan = _GATHER_PLANS.get(key)
+        if plan is None:
+            plan = _gather_plan(jobs)
+            if len(_GATHER_PLANS) >= _MAX_PLANS:
+                _GATHER_PLANS.clear()
+            _GATHER_PLANS[key] = plan
     return plan
 
 
@@ -532,9 +539,10 @@ def _gather_cuda(plan: GatherPlan, jobs: Sequence[GatherJob]) -> List[torch.Tens
         with _lock:  # the descriptors are the plan's: one call fills them at a time
             keep = _gather_bind(plan, jobs, out)
             err = lib.sentinel_gather_many(plan.desc_ptr, len(jobs), plan.N, dev.index, stream)
+            if err == 0:
+                LAUNCHES["gather_many"] += plan.launches
         if err != 0:
             raise RuntimeError(f"gather_many kernel launch failed (CUDA error {err})")
-        LAUNCHES["gather_many"] += plan.launches
     return [out.as_strided(shape, (shape[1], 1), off) for shape, off in zip(plan.shapes, plan.offsets)]
 
 

@@ -32,6 +32,7 @@ nowhere else.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -39,14 +40,17 @@ from sentinel_tpu_torch.ops import segment as SG
 
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"seg_excl_cumsum": 0, "seg_incl_min": 0}
+#: guards LAUNCHES: every launching thread counts
+_lock = threading.Lock()
 
 #: the min identity (the TPU kernel's carry and the engine's RT-absent value)
 BIG = 3.0e38
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _dispatch(name: str, *ts: torch.Tensor) -> bool:
@@ -88,7 +92,8 @@ def _launch(name: str, fn_name: str, head, N: int, V: int, *args) -> None:
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 # -- B3: segmented exclusive prefix sum -----------------------------------------

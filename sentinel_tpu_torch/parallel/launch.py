@@ -31,11 +31,11 @@ ranks; the launcher leaves it alone.
 from __future__ import annotations
 
 import os
-import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
 from sentinel_tpu_torch.parallel import meshspec as MS
+from sentinel_tpu_torch.utils.time_source import mono_s
 
 
 class RanksError(RuntimeError):
@@ -117,7 +117,7 @@ class Ranks:
             ctx.Process(target=_child, args=(r, n, recipe, os.getpid(), target, tuple(args), pipes[r][1]), daemon=True)
             for r in range(n)
         ]
-        self._deadline = time.monotonic() + timeout_s
+        self._deadline = mono_s() + timeout_s
         self._ready: set = set()
         self._results: dict = {}
         try:
@@ -141,7 +141,7 @@ class Ranks:
                 }
                 if not pending:
                     return
-                left = self._deadline - time.monotonic()
+                left = self._deadline - mono_s()
                 if left <= 0:
                     raise RanksError(f"{len(pending)} of {self.n} ranks missed the {self.timeout_s:.0f} s deadline")
                 for conn in wait(list(pending), timeout=left):
@@ -180,7 +180,7 @@ class Ranks:
         """Every rank's result, in rank order."""
         self._pump(until_done=True)
         for p in self._procs:
-            p.join(timeout=max(1.0, self._deadline - time.monotonic()))
+            p.join(timeout=max(1.0, self._deadline - mono_s()))
         self.kill()
         return [self._results[r] for r in range(self.n)]
 

@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -67,6 +68,8 @@ import torch
 
 #: kernel launches per wrapper since the last reset (plain integers)
 LAUNCHES = {"probe_copy": 0, "probe_hist_count": 0, "probe_hist_planes": 0, "probe_hist_stat5": 0}
+#: guards LAUNCHES and _CARD: every launching thread counts
+_lock = threading.Lock()
 
 #: items a thread of probe_copy takes a grid-stride step (csrc/probes.cu
 #: COPY_ITEMS: two 16-byte accesses)
@@ -93,8 +96,9 @@ H100_SMS = 132
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def padded_shape(n: int, n_lo: int) -> tuple:
@@ -159,26 +163,32 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+#: what the plan asks of each card, asked once: SMs by device, concurrent
+#: clusters by (device, cluster, threads)
 _CARD = {}
 
 
 def _sms(dev: torch.device) -> int:
-    if dev not in _CARD:
-        _CARD[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _CARD[dev]
+    with _lock:
+        if dev not in _CARD:
+            _CARD[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        return _CARD[dev]
 
 
 def _max_clusters(dev: torch.device, cluster: int, threads: int) -> int:
     """The clusters of this shape the card runs at once (asked once)."""
     key = (dev, cluster, threads)
-    if key not in _CARD:
+    with _lock:
+        n = _CARD.get(key)
+    if n is None:  # asked outside the lock (the first ask builds the library); a racing ask gets the same answer
         got = ctypes.c_int(0)
         with torch.cuda.device(dev):
             err = _lib().sentinel_probe_hist_max_clusters(cluster, threads, ctypes.byref(got))
         if err != 0 or got.value < 1:
             raise RuntimeError(f"no {cluster}-block cluster of {threads} threads fits the card (CUDA error {err})")
-        _CARD[key] = got.value
-    return _CARD[key]
+        with _lock:
+            n = _CARD.setdefault(key, got.value)
+    return n
 
 
 def card_plan(dev: torch.device, n: int, planes: int, n_lo: Optional[int] = None) -> HistPlan:
@@ -217,7 +227,8 @@ def _launch(name: str, fn, dev, *args) -> None:
         err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:

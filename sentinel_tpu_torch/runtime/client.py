@@ -459,6 +459,7 @@ def _mask_min_rt(v: float) -> float:
 def _np_dtypes(wire_dtypes: dict) -> dict:
     """ops/wire.py's narrow torch dtypes as the numpy dtypes the host
     stages the columns in."""
+    # stlint: disable-next-line=host-sync — an empty CPU tensor: only its dtype is read, nothing waits for the card
     return {f: torch.empty(0, dtype=dt).numpy().dtype for f, dt in wire_dtypes.items()}
 
 
@@ -1214,7 +1215,7 @@ class SentinelClient:
             return None
         try:
             FP.hit(_FP_ADMIT)  # chaos: a raise sheds this admission CLOSED
-        except Exception:  # sheds CLOSED (BLOCK_SYSTEM): nothing is admitted
+        except Exception:  # stlint: disable=fail-open — sheds CLOSED (BLOCK_SYSTEM): nothing is admitted
             return "chaos"
         ad = self._adaptive
         level = ad.ladder.level if ad is not None else DG.NORMAL
@@ -1280,7 +1281,7 @@ class SentinelClient:
         while not stop_evt.wait(period):
             try:
                 self._watchdog_scan()
-            except Exception:  # a dead watchdog must not take serving down; the next scan retries
+            except Exception:  # stlint: disable=fail-open — a dead watchdog must not take serving down; the next scan retries
                 _log.warning("watchdog scan failed", exc_info=True)
 
     def _watchdog_scan(self) -> None:
@@ -1624,7 +1625,7 @@ class SentinelClient:
         if frule is not None:
             try:
                 r = svc.request_token(frule.cluster_flow_id, count, prioritized)
-            except Exception:  # degrade to LOCAL: the fallback rules recompile into the engine
+            except Exception:  # stlint: disable=fail-open — degrade to LOCAL: the fallback rules recompile into the engine, enforcement continues
                 if frule.cluster_fallback_to_local:
                     self._enter_cluster_degraded()
                 return 0, 0
@@ -1649,7 +1650,7 @@ class SentinelClient:
         if prule is not None and param_value is not None:
             try:
                 r = svc.request_param_token(prule.cluster_flow_id, count, [param_value])
-            except Exception:  # degrade to LOCAL: the fallback rules recompile into the engine
+            except Exception:  # stlint: disable=fail-open — degrade to LOCAL: the fallback rules recompile into the engine, enforcement continues
                 self._enter_cluster_degraded()
                 return 0, wait_total
             if r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
@@ -1713,7 +1714,7 @@ class SentinelClient:
             total = sum(item_counts)
             try:
                 r = svc.request_token_batch(frule.cluster_flow_id, total)
-            except Exception:  # r=None takes the degrade-to-LOCAL branch below
+            except Exception:  # stlint: disable=fail-open — r=None takes the degrade-to-LOCAL branch below
                 r = None
             if r is None or r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
                 if frule.cluster_fallback_to_local:
@@ -1742,7 +1743,7 @@ class SentinelClient:
                 total = sum(item_counts[i] for i in live)
                 try:
                     r = svc.request_param_token(prule.cluster_flow_id, total, [param_value])
-                except Exception:  # r=None takes the degrade-to-LOCAL branch below
+                except Exception:  # stlint: disable=fail-open — r=None takes the degrade-to-LOCAL branch below
                     r = None
                 if r is None or r.status in (CC.STATUS_FAIL, CC.STATUS_TOO_MANY_REQUEST):
                     self._enter_cluster_degraded()
@@ -2401,7 +2402,7 @@ class SentinelClient:
             t0 = mono_s()
             try:
                 self.tick_once()
-            except Exception:  # pragma: no cover - keep the loop alive
+            except Exception:  # pragma: no cover - keep the loop alive  # stlint: disable=fail-open — a dead tick loop strands EVERY pending future; the failure is printed, the next tick retries
                 import traceback
 
                 traceback.print_exc()
@@ -2643,7 +2644,7 @@ class SentinelClient:
                 f.result(timeout=max(0.0, deadline - mono_s()))  # stlint: disable=blocking-under-lock — the deadline above bounds the whole drain; a wedged readback is abandoned
             except _FutTimeout:
                 _log.warning("resolve drain abandoned a wedged tick")
-            except Exception as exc:
+            except Exception as exc:  # stlint: disable=fail-open — the failed resolution already failed its tick CLOSED (_resolve_tick); the drain logs it and goes on to the rest
                 _log.error("tick resolution failed: %r", exc, exc_info=exc)
         _G_OCCUPANCY.set(0)
         _G_RESOLVER_Q.set(0)
@@ -2720,7 +2721,7 @@ class SentinelClient:
                 with PROF.expected_retrace("segment-resize"):
                     self._tick = E.make_tick(cfg, features=self._features)
                 self._seg_over_ticks = 0
-        except Exception:
+        except Exception:  # stlint: disable=fail-open — background resize: on failure serving continues on the old capacity, logged
             # serving continues on the old capacity (exact through the
             # per-item branch under seg_fallback, counted drops without);
             # the next overflow tries again
@@ -2909,7 +2910,7 @@ class SentinelClient:
         if not self._pinned:
             return np.empty(shape, dt)
         tdt = torch.from_numpy(np.empty(0, dt)).dtype
-        return torch.empty(shape, dtype=tdt, pin_memory=True).numpy()
+        return torch.empty(shape, dtype=tdt, pin_memory=True).numpy()  # stlint: disable=host-sync — pinned HOST memory: a numpy view of it, nothing waits for the card
 
     def _flip_stage(self) -> None:
         """Flip the staging parity, then wait until the uploads that last
@@ -2918,7 +2919,7 @@ class SentinelClient:
         self._stage_parity ^= 1
         ev = self._stage_events[self._stage_parity]
         if ev is not None:
-            ev.synchronize()
+            ev.synchronize()  # stlint: disable=host-sync — waits only for the uploads recorded a tick ago to have read this parity's staging slots (almost always done); reusing the slots without it would race the copy engine
             self._stage_events[self._stage_parity] = None
 
     def _h2d(self, x: np.ndarray) -> torch.Tensor:
@@ -3277,7 +3278,7 @@ class SentinelClient:
         with self._engine_lock:
             est = impl_for(self.cfg).estimate(self._state.gs, int(now_ms), ids_dev, self._audit_scfg)
             att = est[:k, W.EV_PASS] + est[:k, W.EV_BLOCK]
-        return att.cpu().numpy()
+        return att.cpu().numpy()  # stlint: disable=host-sync — the sketch audit's one read per audit period (obs/profile.SketchAudit), its whole serving-path cost, as the reference's
 
     def _wire_layout(self, b: int) -> WIRE.WireLayout:
         lo = self._wire_layouts.get(b)
@@ -3293,7 +3294,7 @@ class SentinelClient:
         over is not fanned out again (``_claim_tick``)."""
         try:
             self._resolve_tick_inner(p)
-        except Exception as exc:
+        except Exception as exc:  # stlint: disable=fail-open — items fail CLOSED (BLOCK_SYSTEM) below; nothing is admitted or stranded
             if not self._claim_tick(p, "failed"):
                 with p.state_lock:
                     if p.state == "failed":
@@ -3520,7 +3521,7 @@ class SentinelClient:
                     k = len(cols[0])
                     try:
                         door.respond(cols[3], np.full(k, ERR.BLOCK_SYSTEM, np.int32), np.zeros(k, np.int32))
-                    except Exception:
+                    except Exception:  # stlint: disable=fail-open — the door transport itself is broken; its clients time out while every OTHER consumer still fails closed
                         _log.error("front-door respond failed during the fail-closed fan-out; its clients "
                                    "will time out", exc_info=True)
 

@@ -130,5 +130,5 @@ def run_exit(entered: List[ProcessorSlot], ctx: SlotContext) -> None:
     for s in reversed(entered):
         try:
             s.on_exit(ctx)
-        except BaseException as e:  # noqa: BLE001 — exit-side isolation of USER slot code; the verdict was already decided at entry
+        except BaseException as e:  # noqa: BLE001  # stlint: disable=fail-open — exit-side isolation of USER slot code; the verdict was already decided at entry
             _log.warning("custom slot %r on_exit failed: %s", s, e)

@@ -135,8 +135,16 @@ def _shifts(step: int, n: int, device) -> torch.Tensor:
     key = (step, n, device)
     s = _SHIFTS.get(key)
     if s is None:
+        # stlint: disable-next-line=unguarded-global — an idempotent cache read in the tick: a racing miss makes an equal arange on the device, either one stays, and a dict store is atomic
         s = _SHIFTS[key] = torch.arange(0, step * n, step, dtype=I32, device=device)
     return s
+
+
+def _shifted(x: torch.Tensor, step: int, n: int, left: bool = False) -> torch.Tensor:
+    """``x`` shifted by each of the ``n`` amounts ``0, step, …`` (the last
+    axis broadcasts against them)."""
+    s = _shifts(step, n, x.device)
+    return x << s if left else x >> s  # stlint: disable=const-hoist — the shift amounts are a read-only arange made on the device once per (step, lanes, device): no upload, no state
 
 
 # -- width bitmap ------------------------------------------------------------
@@ -148,12 +156,12 @@ def pack_levels(lvl: torch.Tensor) -> torch.Tensor:
     their int32 sum (wrapping into the sign bit for word 15) is the
     reference's OR-fold."""
     g = lvl.reshape(lvl.shape[:-1] + (-1, _BMP)).to(I32)
-    return torch.sum(g << _shifts(2, _BMP, lvl.device), dim=-1, dtype=I32)
+    return torch.sum(_shifted(g, 2, _BMP, left=True), dim=-1, dtype=I32)
 
 
 def unpack_levels(packed: torch.Tensor, wp: int) -> torch.Tensor:
     """Packed bitmap [..., Wp//16] -> int32 levels [..., Wp]."""
-    lanes = (packed[..., None] >> _shifts(2, _BMP, packed.device)) & 3
+    lanes = _shifted(packed[..., None], 2, _BMP) & 3
     return lanes.reshape(packed.shape[:-1] + (wp,))
 
 
@@ -161,11 +169,11 @@ def unpack_levels(packed: torch.Tensor, wp: int) -> torch.Tensor:
 
 
 def _lanes8(words: torch.Tensor) -> torch.Tensor:
-    return (words[..., None] >> _shifts(8, 4, words.device)) & 0xFF
+    return _shifted(words[..., None], 8, 4) & 0xFF
 
 
 def _lanes16(words: torch.Tensor) -> torch.Tensor:
-    return (words[..., None] >> _shifts(16, 2, words.device)) & 0xFFFF
+    return _shifted(words[..., None], 16, 2) & 0xFFFF
 
 
 def _decode(words: torch.Tensor, lvl: torch.Tensor) -> torch.Tensor:

@@ -283,3 +283,44 @@ def test_rpc_error_burst_stays_green_when_the_lost_servers_port_is_taken(monkeyp
             stop(other)
     assert taken, "the scenario stopped no token server"
     assert r.ok, report([r])
+
+
+def test_token_server_stop_leaves_no_census_refresh_running():
+    """A census change submits the token service's ``refresh_connected_count``
+    to the server's pool, and that reprojects the service's rules onto its
+    decision client.  One still running after ``stop()`` returned reprojected
+    over the rules the caller loaded next: ``rpc_error_burst`` lost its
+    black-box phase's cluster rule so on a loaded host (no degrade, no
+    flight bundle).  ``stop()`` now waits out the running refresh and drops
+    the queued ones."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from sentinel_tpu_torch.cluster.rules import ClusterServerConfigManager
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+
+    running, ran = threading.Event(), []
+
+    def refresh():
+        running.set()
+        time.sleep(0.3)
+        ran.append(1)
+
+    svc = SimpleNamespace(
+        config=ClusterServerConfigManager(),
+        connected_count_fn=None,
+        refresh_connected_count=refresh,
+        concurrent=SimpleNamespace(expire=lambda now_ms: None),
+        client=SimpleNamespace(time=SimpleNamespace(now_ms=lambda: 0)),
+    )
+    server = ClusterTokenServer(svc, host="127.0.0.1", port=0)
+    server.start()
+    try:
+        server.connections.register(1, "default")  # a census change
+        assert running.wait(5.0)
+    finally:
+        server.stop()
+    at_stop = len(ran)
+    time.sleep(0.5)
+    assert at_stop == len(ran) == 1, "a census refresh ran on after stop() returned"

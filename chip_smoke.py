@@ -14,9 +14,15 @@ bench.py's 1M-resource configuration:
   path — kernels scatter_many (B1) and gather_many (B2);
 - ``seg4``: ``platform_config()``, the segment-compacted path at the
   default 4 rule lanes — per-item checks (B2), segment effects (B1) and
-  the segment RT minimum seg_incl_min (B4);
+  the segment build seg_build (B4's route: heads, compaction, digit
+  cumsums and the segment RT minimum, one launch a side);
 - ``seg1``: ``platform_config()`` with single-lane rules — the segment
-  check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4;
+  check phase, whose ranks are seg_excl_cumsum (B3), plus B1 and B4.
+
+B4 on a tick below means seg_build: the standalone seg_incl_min (the
+counterpart of seg_incl_min_pl) runs in phase 2 only, on the RT-minimum
+input of seg4's completion-side build, and in phase 17's
+``segscan/incl-min`` entry.
 - ``sketch``: bench.py's ``build`` (bench.py:140-170) through
   ``platform_config``: 16,368 resources, 16,376 nodes, single lanes, the
   minute window, the sketch tier at its defaults (SALSA, depth 2 x width
@@ -62,7 +68,11 @@ Phases (the first failure stops the script with a nonzero exit):
    B3/B4: N = 1, 255, 2,049 and 131,072, heads all true
    and only the first, B3 row totals just under 2^31, the wide form with
    segment totals past 2^31, narrow and wide rows in one launch with wide
-   values of both signs, B4 with absent items); exact equality.  B1's
+   values of both signs, B4 with absent items; seg_build on both sides at
+   N = 1, 4, 255, 256, 257, 2,048, 2,049 and 131,072 with keys that
+   change at a 256 boundary, trash rows, an overflowing capacity and one
+   past N, unsorted batches, RTs that are NaN, infinite, negative, huge or
+   denormal — every output and every slot); exact equality.  B1's
    calls launch twice each (three times for 20 jobs) and leave its
    scratch at zero.  Each captured B1 call's device time launch by
    launch (``torch.profiler``) and its host time function by function
@@ -74,7 +84,8 @@ Phases (the first failure stops the script with a nonzero exit):
    Time kernel, plain version and a PyTorch call on the same inputs
    (B1 ``index_add_``, B2 ``index_select``; no PyTorch call computes a
    segmented scan, so for B3/B4 ``torch.cumsum`` over the same values is
-   timed as an unsegmented-scan floor), beside the least time the card
+   timed as an unsegmented-scan floor; none computes a segment build),
+   beside the least time the card
    could take (bytes over 3.35 TB/s, or operations over 67 T/s).  The
    tick's three plane functions alone (``_device_stats``,
    ``_device_res_stats``, ``_device_explain``), called again on the
@@ -145,7 +156,8 @@ Phases (the first failure stops the script with a nonzero exit):
    wall time, host CPU time, device launches and the card's idle share —
    and what the planes add to each — with the profile's top rows, B1's
    launches a tick, the profile's launches of the port's kernels and
-   memsets, and the device launches a tick beside commit 71b3c5a's.
+   memsets, and the device launches a tick beside commit 5fb4f43's (the
+   segment build as ~110 PyTorch launches and B4) and 71b3c5a's.
    The ``sketch`` configuration (``sketch_tick_phase``): at B = 2,048 the
    same equality (the sketch's state leaves included), the planes checked,
    hot rows with sketch ids counted; tick time with the sketch tier on and
@@ -165,9 +177,11 @@ Phases (the first failure stops the script with a nonzero exit):
    id equal; ``n`` not a multiple of ``n_lo``; for the two valued
    histograms' cluster plan also ids on every block's first and last row,
    n = 1, a table past one cluster's shared memory, and an ``out=`` filled
-   with NaN), exact equality.  Each valued histogram's call at each of its
-   probe shapes, split into its device launches at the end of phase 2
-   (``[probe] split`` lines), must be exactly one launch, no memset.  Timed
+   with NaN; the count at its five shapes also replayed from a CUDA graph
+   into an ``out=`` filled with NaN), exact equality.  Each histogram's
+   call at each of its probe shapes (the count's five among them), split
+   into its device launches at the end of phase 2 (``[probe] split``
+   lines), must be exactly one launch, no memset.  Timed
    like the other kernels, beside ``index_add_`` / ``torch.add``, the bound
    and the time of the kernels' earlier design (``EARLIER_MS``).
    Then the probe run itself — ``probes.floor`` (what a launch costs,
@@ -510,6 +524,11 @@ chip_smoke.py --operator`` the build and phase 13 (``operator_main``),
 ``python3 chip_smoke.py --spmd`` the build and phase 16 (``spmd_main``),
 ``python3 chip_smoke.py --analysis`` the build and phase 17
 (``analysis_main``).
+``python3 chip_smoke.py --builds`` measures the tick and the segment
+builds with the package beside the script (``builds_main``; copied into
+an older checkout it measures that one), and ``python3 chip_smoke.py
+--count-plans`` sweeps probe_hist_count's launch plans
+(``count_plans_main``).
 ``python3 chip_smoke.py --profile-probe [N]`` counts the device records
 that profiler sessions over one replayed tick lose, with and without the
 wait each session here starts with (``profile_probe_main``).
@@ -544,12 +563,12 @@ N_VALUES = 10_000
 #: kernels each configuration's tick must launch
 PATH_KERNELS = {
     "fused": ("scatter_many", "gather_many"),
-    "seg4": ("scatter_many", "gather_many", "seg_incl_min"),
-    "seg1": ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
+    "seg4": ("scatter_many", "gather_many", "seg_build"),
+    "seg1": ("scatter_many", "seg_excl_cumsum", "seg_build"),
     "fused1": ("scatter_many", "gather_many"),
     # bench.py's build: the segment check phase and the sketch tier (B1's
     # sketch{d} jobs, B3's tail rank), single lanes
-    "sketch": ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
+    "sketch": ("scatter_many", "seg_excl_cumsum", "seg_build"),
 }
 #: (source, Pallas function it replaces) per kernel
 KERNEL_SRC = {
@@ -557,6 +576,8 @@ KERNEL_SRC = {
     "gather_many": ("sentinel_tpu_torch/csrc/fused.cu", "sentinel_tpu/ops/fused.py:374"),
     "seg_excl_cumsum": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:81"),
     "seg_incl_min": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:165"),
+    # B4's route on the tick: the segment build, the RT minimum inside it
+    "seg_build": ("sentinel_tpu_torch/csrc/segscan.cu", "sentinel_tpu/ops/segscan.py:165"),
     "probe_copy": ("sentinel_tpu_torch/csrc/probes.cu",
                    "benchmarks/probe_pallas_floor.py:49, benchmarks/probe_pallas_floor2.py:45"),
     "probe_hist_count": ("sentinel_tpu_torch/csrc/probes.cu",
@@ -576,17 +597,27 @@ PROBE_KERNELS = ("probe_copy", "probe_hist_count", "probe_hist_planes", "probe_h
 #: by the tick, one thread an (item, plane); its ``table alone`` call on
 #: seg4) and probe_copy (4-byte accesses) at 3441415: ``--b2`` from a copy
 #: of this file in that commit's checkout, two runs in one call (B2 0.0065
-#: and 0.0064; probe_copy 0.0062 in both turns of the first run).  All on
-#: an NVIDIA H100 80GB HBM3 at 700 W.
+#: and 0.0064; probe_copy 0.0062 in both turns of the first run).  The
+#: count (a memset, then float atomics in L2) and the two segment builds a
+#: seg4 tick (~98 PyTorch launches, B4 among them) at 5fb4f43: ``--builds``
+#: from a copy of this file in that commit's checkout, in turns with this
+#: tree's in one call, the mean of its two turns (count 0.00999 and 0.01028
+#: at [129, 128]; builds 0.3206 and 0.3204).  All on an NVIDIA H100 80GB
+#: HBM3 at 700 W.
 EARLIER_MS = {"gather_many": ("3441415", 0.0065), "probe_copy": ("3441415", 0.0062),
-              "probe_hist_count": ("923866b", 0.0100), "probe_hist_planes": ("923866b", 0.0169),
-              "probe_hist_stat5": ("923866b", 0.0277)}
+              "probe_hist_count": ("5fb4f43", 0.0101), "probe_hist_planes": ("923866b", 0.0169),
+              "probe_hist_stat5": ("923866b", 0.0277), "seg_build": ("5fb4f43", 0.3205)}
 #: device launches a B = 2,048 tick in phase 4's profile at commit 71b3c5a
 #: (NVIDIA H100 80GB HBM3, 700 W), before B2 read the state's columns
 EARLIER_LAUNCHES = {"fused": 1454, "seg4": 1706, "seg1": 1560.75}
 #: the configuration whose main-path run and B = 2,048 shapes each kernel's
 #: JSON record reports (the default platform_config() where it runs)
-RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": "seg1", "seg_incl_min": "seg4"}
+RECORD_CFG = {"scatter_many": "seg4", "gather_many": "seg4", "seg_excl_cumsum": "seg1", "seg_incl_min": "seg4",
+              "seg_build": "seg4"}
+#: device launches a B = 2,048 tick in phase 4's profile on the parent of
+#: the segment-build kernel (5fb4f43's whole-script run, NVIDIA H100 80GB
+#: HBM3, 700 W), before the build's ~110 launches a tick became 2
+PRE_BUILD_LAUNCHES = {"fused": 1618, "seg4": 1872, "seg1": 1734, "sketch": 2106.75}
 
 
 def log(*a):
@@ -928,6 +959,21 @@ def kernel_ops(FU, SC, torch):
     def listed(out):
         return [t for t in (out if isinstance(out, tuple) else (out,)) if t is not None]
 
+    def build_outputs(b):
+        """Every output of a segment build, every slot (SegBuild)."""
+        return [t for t in list(b.ctx) + b.keys + b.ce + [b.min_rt, b.res_sorted] if t is not None]
+
+    def build_work(args):
+        """Keys (and the three stat planes) read once; head, sid and the
+        scalars, and every [U] output written once; a compare a key and an
+        add a scanned column an item."""
+        keys, U, stats = (list(args) + [None])[:3]
+        N, nk = keys[0].numel(), len(keys)
+        ncols = 0 if stats is None else SC._digit_columns(tuple(SC._stat_maxes(stats)))[2]
+        nbytes = 4 * N * nk + (0 if stats is None else 12 * N) + 5 * N + 5 + 5 * U + 4 * U * nk
+        nbytes += 1 if stats is None else 4 * U * (ncols + 1)
+        return nbytes, N * (nk + 1 + ncols)
+
     return {
         "scatter_many": (lambda a: FU.scatter_many(a[0]), lambda a: FU.scatter_many_plain(a[0]),
                          lambda a: scatter_work(a[0]), lambda a: scatter_library_call(a[0]), None),
@@ -939,6 +985,8 @@ def kernel_ops(FU, SC, torch):
                                  lambda a: listed(SC.seg_excl_cumsum_many_plain(*a)), scan_work, None, cumsum_floor),
         "seg_incl_min": (lambda a: [SC.seg_incl_min(*a)], lambda a: [SC.seg_incl_min_plain(*a)],
                          scan_work, None, cumsum_floor),
+        "seg_build": (lambda a: build_outputs(SC.seg_build(*a)), lambda a: build_outputs(SC.seg_build_plain(*a)),
+                      build_work, None, None),
     }
 
 
@@ -1084,6 +1132,64 @@ def scan_edge_cases(SC, SG, np, torch):
             e4 = max(e4, check_equal(f"seg_incl_min N={n} {kind}", [SC.seg_incl_min(head, f)],
                                      [SC.seg_incl_min_plain(head, f)]))
     return {"seg_excl_cumsum": e3, "seg_incl_min": e4}
+
+
+def b4_args(SC, SG, torch, build_args):
+    """(head, values) of B4 in a completion-side segment build (its plain
+    version's steps): the heads of the keys, and each item's RT where the
+    item is valid and its RT positive, else the absent value."""
+    keys, _U, stats = build_args
+    valid = keys[0] != stats.trash_row
+    rt1 = torch.where(valid, stats.rt, 0.0)
+    return SG.heads_from_keys(*keys), torch.where(valid & (rt1 > 0), rt1, SC.BIG)
+
+
+def build_edge_cases(SC, SG, np, torch, cfg) -> float:
+    """seg_build on edge inputs, both sides, against its plain version on
+    every output and every slot: N of 1, 4, 255, 256, 257, 2,048, 2,049 (a
+    first pass) and 131,072; keys that change exactly at item 256 and a run
+    across item 512; trash rows; the automatic capacity, one that overflows
+    (half the segments) and one past N; sorted and unsorted batches; RTs on
+    the 1/8 ms grid and NaN, +-inf, negative, huge, denormal and half-way
+    RTs.  One launch counted a call.  Returns the largest |err| (0)."""
+    from sentinel_tpu_torch.ops import engine_seg as ES
+
+    rng = np.random.default_rng(SEED + 11)
+    odd = np.array([np.nan, np.inf, -np.inf, -3.5, 0.0, -0.0, 3.4e38, 2.9e38, 1e30, 0.0625, 0.1875, 5000.0,
+                    5000.0625, 7.0, 1e-40], np.float32)
+    trash = cfg.trash_row
+    err = 0.0
+    for n in (1, 4, 255, 256, 257, 2048, 2049, 131_072):
+        res = np.sort(rng.integers(0, max(2, n // 6), n)).astype(np.int32)
+        if n > 256:
+            res[256:] += 1  # a key change exactly at the 256 boundary
+        if n > 700:
+            res[400:700] = res[400]  # one run across 512
+        res[n - n // 8:] = trash
+        cols = dict(res=res, ctx_node=np.where(rng.random(n) < 0.1, rng.integers(0, 5, n), res % 3),
+                    origin_node=np.where(rng.random(n) < 0.2, rng.integers(0, 4, n), trash),
+                    origin_id=rng.integers(-1, 3, n), ctx_name=rng.integers(-1, 2, n),
+                    success=rng.integers(0, 3, n), error=rng.integers(0, 2, n))
+        t = {k: torch.as_tensor(v.astype(np.int32)).cuda() for k, v in cols.items()}
+        for unsorted, rt in ((False, rng.integers(0, 48_000, n) / 8.0), (True, np.resize(odd, n))):
+            t["rt"] = torch.as_tensor(rt.astype(np.float32)).cuda()
+            res_t = t["res"].flip(0) if unsorted else t["res"]
+            stats = SC.SegStats(t["success"], t["error"], t["rt"], trash, cfg.max_batch_count, cfg.statistic_max_rt)
+            for keys, st in (([res_t, t["ctx_node"], t["origin_node"]], stats),
+                             ([res_t, t["ctx_node"], t["origin_node"], t["origin_id"], t["ctx_name"]], None)):
+                n_seg = int(SG.heads_from_keys(*keys).sum().item())
+                for U in (ES.seg_capacity(cfg, n), max(1, n_seg // 2), n + 7):
+                    SC.reset_launches()
+                    got = SC.seg_build(keys, U, st)
+                    check(SC.LAUNCHES["seg_build"] == 1, f"seg_build N={n}: {SC.LAUNCHES} launches")
+                    want = SC.seg_build_plain(keys, U, st)
+                    check(got.split == want.split, "seg_build: the digit split differs")
+                    err = max(err, check_equal(
+                        f"seg_build N={n} U={U} {'completions' if st else 'acquire'}{' unsorted' if unsorted else ''}",
+                        [x for x in list(got.ctx) + got.keys + got.ce + [got.min_rt, got.res_sorted] if x is not None],
+                        [x for x in list(want.ctx) + want.keys + want.ce + [want.min_rt, want.res_sorted]
+                         if x is not None]))
+    return err
 
 
 # -- configurations, rules, traffic --------------------------------------------------
@@ -1768,7 +1874,7 @@ def profile_ticks(E, torch, variants, stream, t0_ms) -> dict:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
         ours = {k: n for k, (n, _us) in by_name.items() if any(x in k for x in (
-            "scatter_many", "seg_sum", "seg_min", "gather_many", "Memset"))}
+            "scatter_many", "seg_sum", "seg_min", "seg_build", "gather_many", "Memset"))}
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         out[label] = (sum(e.time_range.elapsed_us() for e in dev), walls[label], cpu_us, len(dev), ours, top)
     return out
@@ -2102,6 +2208,8 @@ def sketch_tick_phase(np, E, WIRE, TX, S, FU, SC, SA, torch, install, real, plai
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
     for kname in PATH_KERNELS["sketch"]:
         check(launches[kname] > 0, ("sketch", "tick", kname, launches))
+    check(launches["seg_build"] == 2 * len(ticks) and launches["seg_incl_min"] == 0,
+          ("sketch", "tick: seg_build not twice a tick, or seg_incl_min launched", launches))
     install(plain)
     try:
         st_b, wires_b, waits_b, _ = run_stream(E, torch, st_b, rules, cfg, ticks, 1_250)
@@ -2145,7 +2253,8 @@ def sketch_tick_phase(np, E, WIRE, TX, S, FU, SC, SA, torch, install, real, plai
         f"(sketch tier off {off['ms_median']:.3f} ms -> {off['decisions_per_s']:.0f}; off / on / on / off); "
         f"profile of 4 ticks: device busy {on['device_us'] / 1e3:.3f} ms of {on['wall_us'] / 1e3:.3f} ms wall "
         f"(idle share {on['idle_share']:.3f}), host CPU {on['host_cpu_us'] / 1e3:.3f} ms, "
-        f"{on['device_launches']} device launches ({on['device_launches'] / 4:g} a tick); the sketch tier adds "
+        f"{on['device_launches']} device launches ({on['device_launches'] / 4:g} a tick; 5fb4f43: "
+        f"{PRE_BUILD_LAUNCHES['sketch']:g}); the sketch tier adds "
         f"{(on['device_launches'] - off['device_launches']) / 4:g} device launches, "
         f"{(on['device_us'] - off['device_us']) / 4e3:.4f} ms device busy, "
         f"{(on['host_cpu_us'] - off['host_cpu_us']) / 4e3:.4f} ms host CPU and "
@@ -2357,7 +2466,7 @@ def fallback_phase(np, st, E, WIRE, S, FU, SC, torch, install, real, plain, setu
     for name, ref in (("seg4", "fused"), ("seg1", "fused1")):
         cfg = dataclasses.replace(cf[name], seg_u=seg_u, seg_static_ranks=name == "seg1")
         stream = to_batches(E, torch, cfg, cols)
-        kernels = ("scatter_many", "gather_many", "seg_incl_min") + (("seg_excl_cumsum",) if name == "seg1" else ())
+        kernels = ("scatter_many", "gather_many", "seg_build") + (("seg_excl_cumsum",) if name == "seg1" else ())
         out[name] = fallback_run(np, E, WIRE, S, FU, SC, torch, install, real, plain, name, cfg, cf[ref],
                                  setups[name][1], stream, fits, kernels)
         del stream
@@ -2375,7 +2484,7 @@ def fallback_phase(np, st, E, WIRE, S, FU, SC, torch, install, real, plain, setu
 
     out["sketch"] = fallback_run(np, E, WIRE, S, FU, SC, torch, install, real, plain, "sketch", cfg,
                                  sketch_cfg(pc, seg_effects=False), sk["rules"], sketch_batches(E, torch, cfg, cols),
-                                 fits, ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"))
+                                 fits, ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_build"))
     torch.cuda.empty_cache()
     return out
 
@@ -2505,7 +2614,7 @@ def client_bench_phase(np, st, FU, SC, torch, B, smi) -> dict:
     out.update({k: off[k] for k in ("dps", "effective_tick_ms", "req_p50_ms", "req_p99_ms", "verdict_mix",
                                       "launches", "fallback_ticks")})
     for run in (off, on):
-        for kname in ("scatter_many", "seg_excl_cumsum", "seg_incl_min"):
+        for kname in ("scatter_many", "seg_excl_cumsum", "seg_build"):
             check(run["launches"][kname] > 0, ("client_bench", B, kname, run["launches"]))
         mix = run["verdict_mix"]
         check(mix[0] > 0 and sum(mix[1:6]) > 0, ("client_bench", B, mix))
@@ -2978,7 +3087,7 @@ def cluster_serving_run(np, st, FU, SC, torch, cfg, use_col, device="cuda", n_en
         check(outcomes.get("pass", 0) > 0 and outcomes.get("FlowException", 0) + bulk_mix[ERR.BLOCK_FLOW] > 0,
               ("cluster: the traffic met no cluster flow deny", outcomes, bulk_mix.tolist()))
         if device == "cuda":
-            for kname in ("scatter_many", "gather_many", "seg_incl_min"):
+            for kname in ("scatter_many", "gather_many", "seg_build"):
                 check(launches[kname] > 0, ("cluster: a kernel of the path was not launched", kname, launches))
             out["decision_client"] = decision_client_profile(FU, SC, torch, svc, dec, flow, param)
         out["degrade"], srv = degrade_and_recover(SRV, ERR, app, svc, srv, tok, flow)
@@ -3437,7 +3546,7 @@ def control_phase(np, st, S, FU, SC, torch, smi) -> dict:
     check(blocked_after, "control: the pushed rule did not block on the next tick")
     stop_traffic(threads)
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
-    check(all(launches[k] > 0 for k in ("scatter_many", "gather_many", "seg_incl_min")),
+    check(all(launches[k] > 0 for k in ("scatter_many", "gather_many", "seg_build")),
           f"control: the serving ticks did not launch B1, B2 and B4: {launches}")
     lost = {k: v for k, v in outcomes.items() if k.startswith("lost")}
     check(not lost, f"control: entries lost under the control plane: {lost}")
@@ -3918,7 +4027,7 @@ def adaptive_serving_run(np, st, FU, SC, torch) -> dict:
     launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
     check(not errors, f"phase 10c: request errors {errors[:3]}")
     check(counter("sentinel_resolve_failures_total") == failed0, "phase 10c: a tick resolution failed (a sync?)")
-    for k in ("scatter_many", "gather_many", "seg_incl_min"):
+    for k in ("scatter_many", "gather_many", "seg_build"):
         check(launches.get(k, 0) > 0, f"phase 10c: the serving ticks launched no {k}: {launches}")
     armed_ = [c for _s, _t, c, _l in trajectory if c > 0]
     check(client._sys_stage.uploads > uploads0 and armed_, "phase 10c: the controller never published a ceiling")
@@ -4077,12 +4186,12 @@ def kernel_sets(FU, SC):
     and a function that installs either set where the engine calls them."""
     real = {"scatter_many": FU.scatter_many, "gather_many": FU.gather_many,
             "seg_excl_cumsum": SC.seg_excl_cumsum, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many,
-            "seg_incl_min": SC.seg_incl_min}
+            "seg_incl_min": SC.seg_incl_min, "seg_build": SC.seg_build}
     plain = {"scatter_many": FU.scatter_many_plain, "gather_many": FU.gather_many_plain,
              "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many_plain,
-             "seg_incl_min": SC.seg_incl_min_plain}
+             "seg_incl_min": SC.seg_incl_min_plain, "seg_build": SC.seg_build_plain}
     mods = {"scatter_many": FU, "gather_many": FU, "seg_excl_cumsum": SC, "seg_excl_cumsum_many": SC,
-            "seg_incl_min": SC}
+            "seg_incl_min": SC, "seg_build": SC}
 
     def install(fns):
         for k, fn in fns.items():
@@ -4130,7 +4239,19 @@ def settle_profiler(torch) -> None:
     time.sleep(PROFILE_SETTLE_S)
 
 
-def device_profile(torch, fn, cpu=True) -> tuple:
+#: spin kernels (``torch.cuda._sleep``, ~10 us each) that ``device_profile``
+#: queues ahead of a replayed tick (``lead=True``), and leaves out of its
+#: counts: a replayed tick's device work begins with its state copies and
+#: its two segment builds, and after the settle a session still held
+#: neither build and 20 of ~34 copies (phase 11a, 3 sessions of 3, on an
+#: NVIDIA H100 80GB HBM3 at 700 W), so that session's first records are
+#: spins now.  A session beside a client's tick thread takes no lead: one
+#: such session with it died in the profiler's stop (``free(): invalid
+#: pointer``, phase 12a), and the many ticks it records need none
+LEAD_SPINS, LEAD_SPIN_CYCLES = 128, 20_000
+
+
+def device_profile(torch, fn, cpu=True, lead=False) -> tuple:
     """(device busy us, kernel launches by name) of one call, from
     torch.profiler (``cpu=False``: the card's activity alone, which slows
     the host's threads less; a short call that another thread's ticks
@@ -4139,7 +4260,8 @@ def device_profile(torch, fn, cpu=True) -> tuple:
     Python thread, and a 10 s session of ~45,500 device events that a tick
     thread launched did so too, so no long call of that kind is profiled);
     a session that records no device activity is taken again (twice at
-    most)."""
+    most).  ``lead``: the call's work queues behind ``LEAD_SPINS`` spin
+    kernels, which the counts leave out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4148,10 +4270,12 @@ def device_profile(torch, fn, cpu=True) -> tuple:
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             settle_profiler(torch)
+            for _spin in range(LEAD_SPINS if lead else 0):
+                torch.cuda._sleep(LEAD_SPIN_CYCLES)
             fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+               and not getattr(e, "is_user_annotation", False) and "spin" not in e.name.lower()]
         if dev:
             break
     check(dev, "the profiler recorded no device activity in 3 sessions")
@@ -4161,9 +4285,10 @@ def device_profile(torch, fn, cpu=True) -> tuple:
     return sum(e.time_range.elapsed_us() for e in dev), names
 
 
-#: profiler kernel-name fragments of B1-B4 (csrc/fused.cu, csrc/segscan.cu)
+#: profiler kernel-name fragments of B1-B4 and seg_build (csrc/fused.cu,
+#: csrc/segscan.cu)
 PROFILE_NAMES = {"scatter_many": "scatter_many", "gather_many": "gather_many", "seg_excl_cumsum": "seg_sum",
-                 "seg_incl_min": "seg_min"}
+                 "seg_incl_min": "seg_min", "seg_build": "seg_build"}
 
 
 def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
@@ -4186,7 +4311,7 @@ def replay_against_plain(np, E, S, FU, SC, torch, box, want, label) -> dict:
     # kernels): a session that shows a wanted kernel by none of its records
     # is taken again, three sessions at most, each a run of the same tick
     for sessions in range(1, 4):
-        busy, names = device_profile(torch, lambda: got.update(k=run()))
+        busy, names = device_profile(torch, lambda: got.update(k=run()), lead=True)
         seen = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm) for k in want}
         if all(seen.values()):
             break
@@ -4500,9 +4625,9 @@ def audit_run(np, st, torch, FU, SC, E, S, PS) -> tuple:
     check(d["audit_checks_total"] > 0, "phase 11d: the audit made no check")
     check(d["underestimates_total"] == 0 and d["eps_violations_total"] == 0 and d["audit_failures_total"] == 0,
           f"phase 11d: the audit found {d}")
-    for k in ("scatter_many", "seg_excl_cumsum", "seg_incl_min"):
+    for k in ("scatter_many", "seg_excl_cumsum", "seg_build"):
         check(launches.get(k, 0) > 0, f"phase 11d: the audit run launched no {k}: {launches}")
-    replay = replay_against_plain(np, E, S, FU, SC, torch, box, ("scatter_many", "seg_excl_cumsum", "seg_incl_min"),
+    replay = replay_against_plain(np, E, S, FU, SC, torch, box, ("scatter_many", "seg_excl_cumsum", "seg_build"),
                                   "11d")
     check(set(dev) == {"audit", "plain"}, f"phase 11d: no audit iteration and no other was profiled: {dev}")
     return dict(counters=d, launches=launches, tracked=sorted(au._tracked), last_audit=dict(au._last_audit),
@@ -4555,7 +4680,7 @@ def workload_phase(np, st, S, FU, SC, torch, smi) -> dict:
             unwatch[0]()
         launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
         loop_log(smi, WORKLOAD_STEPS, runs)
-        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+        for k in ("scatter_many", "gather_many", "seg_build"):
             check(launches.get(k, 0) > 0, f"phase 11a: the closed loop launched no {k}: {launches}")
         static, tuned = runs["static"], runs["tuned0"]
         for label, r in runs.items():
@@ -4570,7 +4695,7 @@ def workload_phase(np, st, S, FU, SC, torch, smi) -> dict:
         rep["loop"] = {k: {f: v for f, v in r.items() if f != "latencies"} for k, r in runs.items()}
         rep["loop_launches"] = launches
         rep["loop_replay"] = replay_against_plain(np, E, S, FU, SC, torch, boxes.pop("tuned0"),
-                                                  ("scatter_many", "gather_many", "seg_incl_min"), "11a")
+                                                  ("scatter_many", "gather_many", "seg_build"), "11a")
         torch.cuda.empty_cache()  # the captured full-width state goes
 
         # -- (b) a live swap under traffic; (c) its ledger; (e) its command plane -----
@@ -5053,7 +5178,7 @@ def door_load(np, st, torch, FU, SC) -> dict:
     check(REGISTRY.get("sentinel_resolve_failures_total").value == fail0 and dec.wire_decode_failures == 0,
           "phase 12a: a door tick failed closed under load")
     seen = {k: sum(n for nm, n in names.items() if PROFILE_NAMES[k] in nm)
-            for k in ("scatter_many", "gather_many", "seg_incl_min")}
+            for k in ("scatter_many", "gather_many", "seg_build")}
     for k, n in seen.items():
         check(n > 0 and launches.get(k, 0) > 0, f"phase 12a: the threaded doors launched no {k}: {names}")
     return dict(tokens_per_s=frames / wall, frames=frames, entries=entries[0], wall_s=wall,
@@ -5300,7 +5425,7 @@ def adapters_run(np, st, torch, FU, SC) -> dict:
                   f"{res.blocked} blocked)")
         rep["drivers"] = drivers
         rep["launches"] = dict(FU.LAUNCHES, **SC.LAUNCHES)
-        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+        for k in ("scatter_many", "gather_many", "seg_build"):
             check(rep["launches"].get(k, 0) > 0 and rep["wsgi_launches"].get(k, 0) > 0,
                   f"phase 12c: the adapters' run launched no {k}: {rep['launches']}, the WSGI requests "
                   f"{rep['wsgi_launches']}")
@@ -5364,10 +5489,10 @@ def doors_phase(np, st, S, FU, SC, torch, smi) -> dict:
             unwatch()
         rep["replay_s"] = time.perf_counter() - t
         rep["replay_launches"] = dict(FU.LAUNCHES, **SC.LAUNCHES)
-        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+        for k in ("scatter_many", "gather_many", "seg_build"):
             check(rep["replay_launches"].get(k, 0) > 0, f"phase 12a: the door replay launched no {k}")
         rep["tick_replay"] = replay_against_plain(np, E, S, FU, SC, torch, box,
-                                                  ("scatter_many", "gather_many", "seg_incl_min"), "12a")
+                                                  ("scatter_many", "gather_many", "seg_build"), "12a")
         install(plain)
         try:
             pl = door_replay(np, st, "cuda")
@@ -5513,8 +5638,8 @@ OP_POLL_MS = 100
 OP_TICKS = 16
 #: the ten datasources, in the order 13b drives them
 DATASOURCES = ("http", "callback", "redis", "zookeeper", "nacos", "consul", "apollo", "eureka", "etcd", "spring")
-#: the B1-B4 wrappers' names in the launch counters
-B_KERNELS = ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min")
+#: the B1-B4 and seg_build wrappers' names in the launch counters
+B_KERNELS = ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min", "seg_build")
 
 
 class StoreState:
@@ -6265,7 +6390,7 @@ def operator_serving(np, st, torch, FU, SC, work, device="cuda", cfg=None, n_nam
         check(not any(t.is_alive() for t in traffic), "13a: request threads still running after 120 s")
         launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
         rep["launches"] = launches
-        for k in ("scatter_many", "gather_many", "seg_incl_min"):
+        for k in ("scatter_many", "gather_many", "seg_build"):
             check(launches.get(k, 0) > 0, f"13a: the serving client launched no {k}: {launches}")
         lost = {k: v for k, v in outcomes.items() if k.startswith("lost")}
         check(not lost and outcomes.get("pass", 0) > 0, f"13a: outcomes {outcomes}")
@@ -6415,8 +6540,8 @@ def operator_phase(np, st, S, FU, SC, torch, smi) -> dict:
             for label in ("packed", "unpacked", "packed_noexpl", "packed_noexpl", "unpacked", "packed"):
                 turns[label].append(unpacked_replay(np, st, "cuda", dataclasses.replace(cfg, **variants[label])))
                 torch.cuda.empty_cache()
-            want = ("scatter_many", "gather_many", "seg_incl_min") if name == "default" else (
-                "scatter_many", "seg_excl_cumsum", "seg_incl_min")
+            want = ("scatter_many", "gather_many", "seg_build") if name == "default" else (
+                "scatter_many", "seg_excl_cumsum", "seg_build")
             first = turns["packed"][0]
             runs = {}
             for label, (a, b) in turns.items():
@@ -6550,7 +6675,7 @@ ROUTER_DOWN_AT = 2
 ROUTER_THREADED_BATCHES = 8
 ROUTER_BLOCK_EVERY = 3
 #: the kernels a platform_config() tick launches
-SHARD_KERNELS = ("scatter_many", "gather_many", "seg_incl_min")
+SHARD_KERNELS = ("scatter_many", "gather_many", "seg_build")
 
 
 class ShardDown:
@@ -7554,7 +7679,7 @@ def chaos_scenarios(np, st, FU, SC, torch) -> dict:
         check(len(k["answers"]) == 2 and k["answers"] == p["answers"],
               "15a: seg_overflow_storm's verdicts with the kernels differ from those with the plain versions")
         check(k["seg_drops"] == p["seg_drops"] > 0, ("15a: seg drops differ", k["seg_drops"], p["seg_drops"]))
-        check(all(k["launches"][x] > 0 for x in ("scatter_many", "seg_incl_min")),
+        check(all(k["launches"][x] > 0 for x in ("scatter_many", "seg_build")),
               ("15a: the storm launched no B1 / B4", k["launches"]))
         check(not any(p["launches"].values()), ("15a: the plain-version storm launched a kernel", p["launches"]))
         t = time.perf_counter()
@@ -7750,7 +7875,7 @@ def chaos_witness(np, st, FU, SC, torch) -> dict:
         r = rep[label]
         check(all(ok for _n, ok, _d in r["verdicts"]), (f"15b: an invariant is red ({label})", r["verdicts"]))
         check(not any(k.startswith("lost") for k in r["counts"]), (f"15b: entries lost ({label})", r["counts"]))
-        check(all(r["launches"][k] > 0 for k in ("scatter_many", "gather_many", "seg_incl_min")),
+        check(all(r["launches"][k] > 0 for k in ("scatter_many", "gather_many", "seg_build")),
               (f"15b: B1 / B2 / B4 not all launched ({label})", r["launches"]))
     check(not w["violations"] and not w["unknown_edges"], ("15b: the witness", w["violations"], w["unknown_edges"]))
     check(w["dynamic_edges"] > 0 and w["contend_fires"] > 0 and w["lock_waits"] > 0,
@@ -7798,7 +7923,7 @@ def chaos_trace_cli(np, st, FU, SC, torch) -> dict:
         rep["summary"] = dict(stages=stages, s=s, launches=dict(FU.LAUNCHES, **SC.LAUNCHES), text=out)
         # the fast-path config's single lanes: the segment check phase (B1,
         # B3, B4), no per-item read (B2)
-        check(all(rep["summary"]["launches"][k] > 0 for k in ("scatter_many", "seg_excl_cumsum", "seg_incl_min")),
+        check(all(rep["summary"]["launches"][k] > 0 for k in ("scatter_many", "seg_excl_cumsum", "seg_build")),
               ("15c: the self-capture launched no B1 / B3 / B4", rep["summary"]["launches"]))
         obs.TRACER.reset()
         out, s = run(["explain"])
@@ -7944,13 +8069,18 @@ def chaos_main() -> int:
 # -- phase 5: the probes ----------------------------------------------------------------
 
 
-def valued_hist_shapes(torch, PK, FL, HI):
-    """The two valued-histogram probes at the shapes the probes run them:
+def hist_shapes(torch, PK, FL, HI):
+    """The three histogram probes at the shapes the probes run them:
     [(kernel, shape, kernel call, zero_ + index_add_ call, bytes it must
-    move)] — P1, P2's ``sc5_call`` and the stat landing at each n_lo; the
-    bytes: ids and value planes read once (int32 or float32, 4 B each), the
-    padded float32 output written once."""
+    move)] — the count at the five ``COUNT_SHAPES``, P1, P2's ``sc5_call``
+    and the stat landing at each n_lo; the bytes: ids and value planes read
+    once (int32 or float32, 4 B each), the padded float32 output written
+    once."""
     ids, vals5 = FL.data()
+    ones = torch.ones((ids.numel(), 1), device="cuda")
+    counts = [("probe_hist_count", f"{ids.numel()} ids into [{-(-n // n_lo)}, {n_lo}] (n = {n})",
+               lambda n=n, n_lo=n_lo: PK.probe_hist_count(ids, n, n_lo), HI.index_add_call(ids, ones, n)[0],
+               4 * (ids.numel() + -(-n // n_lo) * n_lo)) for n, n_lo in FL.COUNT_SHAPES]
     idx, valsf = HI.planes_data()
     sids, cnts, rt = HI.stat_data()
     valss = torch.cat([cnts, (rt & 0xFF)[:, None], ((rt >> 8) & 0xFF)[:, None]], dim=1)
@@ -7969,16 +8099,16 @@ def valued_hist_shapes(torch, PK, FL, HI):
         shapes.append(("probe_hist_stat5", f"{sids.numel()} items into [5, {n_hi}, {n_lo}]",
                        lambda n_lo=n_lo: PK.probe_hist_stat5(sids, cnts, rt, HI.N_ROWS, n_lo), lib,
                        4 * (sids.numel() + cnts.numel() + rt.numel() + 5 * n_hi * n_lo)))
-    return shapes
+    return counts + shapes
 
 
 def probe_split(torch, PK, FL, HI) -> list:
-    """One call of each valued-histogram probe at each of its shapes, split
+    """One call of each histogram probe at each of its shapes, split
     into its device launches (``launch_breakdown``: memsets and kernels, µs
     a call) beside the call's bracketed time and ``zero_ + index_add_``'s
     (``time_ms``), printed on ``[probe] split`` lines."""
     rows = []
-    for kname, shape, run, lib, nbytes in valued_hist_shapes(torch, PK, FL, HI):
+    for kname, shape, run, lib, nbytes in hist_shapes(torch, PK, FL, HI):
         per_launch = launch_breakdown(run)
         ms = time_ms(run)[0]
         lib_ms = time_ms(lib)[0]
@@ -8032,8 +8162,9 @@ def probe_calls(torch, PK, FL, HI) -> dict:
 
 def probe_phase(np, torch, tick_report, split):
     """Hold the four probe kernels against their plain versions (published
-    shapes and edge cases, exact equality), check that each valued
-    histogram's call in ``split`` (``probe_split``) is one device launch,
+    shapes and edge cases, exact equality; the count also replayed from a
+    CUDA graph at its five shapes), check that each histogram's call in
+    ``split`` (``probe_split``) is one device launch,
     time the kernels like the others, then run the probe tables with the
     launch counts reset just before and read just after.  Returns (kernel
     records, probe report)."""
@@ -8065,8 +8196,19 @@ def probe_phase(np, torch, tick_report, split):
         hold("probe_copy", PK.probe_copy(ids, blocks), PK.probe_copy_plain(ids))
         hold("probe_copy", PK.probe_copy(x3, blocks), PK.probe_copy_plain(x3))
     for n, n_lo in FL.COUNT_SHAPES:
+        want = PK.probe_hist_count_plain(ids, n, n_lo)
         for ipb in (256, 4096, 8192):
-            hold("probe_hist_count", PK.probe_hist_count(ids, n, n_lo, ipb), PK.probe_hist_count_plain(ids, n, n_lo))
+            hold("probe_hist_count", PK.probe_hist_count(ids, n, n_lo, ipb), want)
+        # graphed: one launch captured into a CUDA graph, replayed into an
+        # out filled with NaN
+        out = torch.empty(PK.padded_shape(n, n_lo), device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            PK.probe_hist_count(ids, n, n_lo, out=out)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        hold("probe_hist_count", out, want)
     hold("probe_hist_planes", PK.probe_hist_planes(ids, vals5, FL.PLANES_N, FL.PLANES_N_LO),
          PK.probe_hist_planes_plain(ids, vals5, FL.PLANES_N, FL.PLANES_N_LO))
     for n_lo in HI.N_LO:
@@ -8144,7 +8286,7 @@ def probe_phase(np, torch, tick_report, split):
     torch.cuda.synchronize()
     log(f"[probe] kernels equal to plain at the probes' shapes and on edge cases (max |err| {json.dumps(err)})")
 
-    # -- each call of a valued histogram is ONE device launch (no memset) ---------
+    # -- each call of a histogram is ONE device launch (no memset) -----------------
     for row in split:
         check(sum(c for _n, c, _ms in row["launches"]) == 1 and "memset" not in str(row["launches"]).lower(),
               f"{row['kernel']} at {row['shape']}: {row['launches']} device launches a call")
@@ -8161,6 +8303,7 @@ def probe_phase(np, torch, tick_report, split):
         log(f"[probe] {kname} at {c['shape']}: kernel {ms:.4f} ms ({EARLIER_MS[kname][0]}: {EARLIER_MS[kname][1]:.4f} ms), plain "
             f"{plain_ms:.4f} ms, library ({'torch.add' if kname == 'probe_copy' else 'zero_ + index_add_'}) "
             f"{lib_ms:.4f} ms, bound {bnd:.6f} ms ({by}, {c['bytes']} B); wrapper host enqueue {host_ms:.4f} ms")
+    records["probe_hist_count"]["split"] = [r for r in split if r["kernel"] == "probe_hist_count"]
     records["probe_hist_planes"]["split"] = [r for r in split if r["kernel"] == "probe_hist_planes"]
     records["probe_hist_stat5"]["split"] = [r for r in split if r["kernel"] == "probe_hist_stat5"]
 
@@ -8386,6 +8529,124 @@ def b2_main() -> int:
             log(f"[b2] {name} flow read, {k}: host {wall:.4f} ms a call, own time "
                 + ", ".join(f"{f} {t:.4f}" for f, t in host[:6]) + " ms")
     print(TM.card_line(), flush=True)
+    return 0
+
+
+def builds_main() -> int:
+    """``python3 chip_smoke.py --builds``: the segment builds and the tick
+    with whatever package lies beside this file (so a copy of it in an
+    older checkout measures that checkout; run parent and change in turns
+    in one call).  At B = 2,048 on seg4, seg1 and sketch: ms a tick (median
+    of two runs of the stream's steady ticks) and, from a 4-tick profile,
+    device launches, busy, wall and host CPU ms a tick; on seg4 and sketch
+    the two segment builds alone on one tick's batches (engine_seg's
+    ``prepare_completions`` and ``prepare_acquire``: device ms, host
+    enqueue ms and device launches a tick, fills left out); then
+    probe_hist_count at the five count shapes (device ms, its launches).
+    Prints one ``[builds] {...}`` JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+
+    import sentinel_tpu_torch as st
+    from sentinel_tpu_torch.ops import _build
+    from sentinel_tpu_torch.ops import engine as E
+    from sentinel_tpu_torch.ops import engine_seg as ES
+    from sentinel_tpu_torch.ops import wire as WIRE
+    from sentinel_tpu_torch.probes import floor as FL
+    from sentinel_tpu_torch.probes import kernels as PK
+
+    out = dict(package=os.path.dirname(os.path.abspath(st.__file__)), card=nvidia_smi())
+    _build.load_library()
+    c0, _cfgs, setups, cols, _light, _seg = prepare(np, st, E)
+    sk = prepare_sketch(np, st, E, torch)
+    setups["sketch"] = (sk["cfg"], sk["rules"])
+    streams = {"seg4": to_batches(E, torch, c0, cols), "sketch": sk["stream"]}
+    streams["seg1"] = streams["seg4"]
+    torch.cuda.synchronize()
+    for name in ("seg4", "seg1", "sketch"):
+        cfg, rules = setups[name]
+        state = E.init_state(cfg, "cuda")
+        state, _ = E.tick(state, rules, *streams[name][0], 1_000, 0.3, 0.2, cfg, E.ALL_FEATURES)
+        ticks = streams[name][1:]
+        ms = []
+        for _ in range(2):
+            _s, _w, _wt, ts = run_stream(E, torch, E.clone_state(state), rules, cfg, ticks, 1_250, forbid_sync=True)
+            ms += ts[2:]
+            del _s
+        busy, wall, cpu, n_launch, _ours, _top = profile_ticks(E, torch, [("on", state, rules, cfg)], ticks, 9_000)["on"]
+        out[name] = dict(ms_median=1e3 * sorted(ms)[len(ms) // 2], tick_ms=[1e3 * x for x in ms],
+                         device_launches_a_tick=n_launch / 4, device_busy_ms_a_tick=busy / 4e3,
+                         wall_ms_a_tick=wall / 4e3, host_cpu_ms_a_tick=cpu / 4e3)
+        if name != "seg1":
+            acq, comp = (WIRE.widen_acquire(ticks[0][0]), WIRE.widen_complete(ticks[0][1]))
+            both = lambda: (ES.prepare_completions(cfg, comp, E.ALL_FEATURES), ES.prepare_acquire(cfg, acq))
+            dev_ms, host_ms = time_ms(both)
+            out[name]["segment_builds"] = dict(device_ms=dev_ms, host_ms=host_ms,
+                                               device_launches=sum(c for _n, c, _m in launch_breakdown(both)))
+        log(f"[builds] {name}: {json.dumps(out[name])}")
+        del state
+    ids, _vals = FL.data()
+    out["count"] = {}
+    for n, n_lo in FL.COUNT_SHAPES:
+        run = lambda n=n, n_lo=n_lo: PK.probe_hist_count(ids, n, n_lo)
+        out["count"][f"{n}/{n_lo}"] = dict(ms=time_ms(run)[0], launches=[
+            (a.split("(")[0], c, m) for a, c, m in launch_breakdown(run)])
+    log("[builds]", json.dumps(out))
+    return 0
+
+
+def count_plans_main() -> int:
+    """``python3 chip_smoke.py --count-plans``: probe_hist_count's launch
+    plans on the card — clusters of 16 / 8 / 4 / 2 / 1 blocks, 1-66 of
+    them, 256 / 512 / 1,024 threads — at the five count shapes, each held
+    equal to the plain version and timed like phase 5 (``time_ms``), beside
+    the wrapper's own plan and ``zero_ + index_add_``.  Prints each shape's
+    eight fastest."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from sentinel_tpu_torch.probes import floor as FL
+    from sentinel_tpu_torch.probes import hist as HI
+    from sentinel_tpu_torch.probes import kernels as PK
+
+    ids, _vals = FL.data()
+    lib = PK._lib()
+    ones = torch.ones((ids.numel(), 1), device="cuda")
+    log(f"[count-plans] {nvidia_smi()}: concurrent 16 x 1,024-thread clusters "
+        f"{PK._max_clusters(ids.device, PK.CLUSTER, PK.HIST_THREADS)}")
+    for n, n_lo in FL.COUNT_SHAPES:
+        n_hi = -(-n // n_lo)
+        rows = n_hi * n_lo
+        want = PK.probe_hist_count_plain(ids, n, n_lo)
+        own = PK.card_plan(ids.device, n, 1, n_lo, counts=True)
+        got = {f"wrapper (C{own.cluster} K{own.clusters} T{own.threads})":
+               time_ms(lambda: PK.probe_hist_count(ids, n, n_lo))[0],
+               "zero_ + index_add_": time_ms(HI.index_add_call(ids, ones, n)[0])[0]}
+        for C in (16, 8, 4, 2, 1):
+            for K in (1, 2, 4, 8, 16, 33, 66):
+                for T in (256, 512, 1024):
+                    rpb = 4 * -(-(-(-rows // (K * C))) // 4)
+                    if K * C > 264 or 4 * C * rpb > PK.MAX_SMEM_BYTES:
+                        continue
+                    plan = PK.HistPlan(rows, 1, C, -(-rows // (C * rpb)), rpb, 4 * C * rpb, T)
+                    o = torch.empty((n_hi, n_lo), device="cuda")
+                    run = lambda plan=plan, o=o: PK._hist_launch(
+                        "probe_hist_count", lib.sentinel_probe_hist_count, ids, plan, PK.ITEMS_PER_BLOCK,
+                        PK._ptr(ids), ids.shape[0], int(n), PK._ptr(o), rows)
+                    run()
+                    check(torch.equal(o, want), f"count plan C{C} K{plan.clusters} T{T} differs from plain")
+                    got[f"C{C} K{plan.clusters} T{T}"] = time_ms(run)[0]
+        top = sorted(got.items(), key=lambda kv: kv[1])[:8]
+        log(f"[count-plans] n={n} n_lo={n_lo}: " + ", ".join(f"{k} {v:.5f}" for k, v in top)
+            + f" ms; the wrapper's {next(v for k, v in got.items() if k.startswith('wrapper')):.5f} ms")
     return 0
 
 
@@ -9010,7 +9271,7 @@ def profile_probe_main(n: int = 40) -> int:
     c.stop()
     check(box, "profile probe: no tick was captured")
     tick = E.make_tick(box["cfg"], box["feats"])
-    want = ("scatter_many", "seg_excl_cumsum", "seg_incl_min")
+    want = ("scatter_many", "seg_excl_cumsum", "seg_build")
 
     def run():
         tick(E.clone_state(box["state"]), box["rules"], box["acq"], box["comp"], box["now"], box["load"],
@@ -9120,9 +9381,9 @@ def main() -> int:
     # narrow + wide launch, the segment check's ranks)
     real = {"scatter_many": FU.scatter_many, "gather_many": FU.gather_many,
             "seg_excl_cumsum": SC.seg_excl_cumsum, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many,
-            "seg_incl_min": SC.seg_incl_min}
+            "seg_incl_min": SC.seg_incl_min, "seg_build": SC.seg_build}
     mods = {"scatter_many": FU, "gather_many": FU, "seg_excl_cumsum": SC, "seg_excl_cumsum_many": SC,
-            "seg_incl_min": SC}
+            "seg_incl_min": SC, "seg_build": SC}
     kernel_of = dict({k: k for k in real}, seg_excl_cumsum_many="seg_excl_cumsum")
 
     def install(fns):
@@ -9141,9 +9402,14 @@ def main() -> int:
                                         if isinstance(getattr(j, f), torch.Tensor)}) for j in args[0]],)
                 elif k == "gather_many":
                     a = ([gather_job_copy(FU, torch, j) for j in args[0]],)
+                elif k == "seg_build":
+                    stats = args[2] if len(args) > 2 else None
+                    a = ([x.clone() for x in args[0]], args[1],
+                         None if stats is None else stats._replace(success=stats.success.clone(),
+                                                                   error=stats.error.clone(), rt=stats.rt.clone()))
                 else:
                     a = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in args)
-                calls[kernel_of[k]].append((k, a))
+                calls.setdefault(kernel_of[k], []).append((k, a))
                 return real[k](*args)
             return rec
 
@@ -9212,13 +9478,26 @@ def main() -> int:
                 k = measure(kname, cap[kname])
                 kern.setdefault(kname, {})[f"{name} {shape}"] = k
                 extra = (f", library {k['library_ms']:.4f} ms" if k["library_ms"] is not None
-                         else f", torch.cumsum floor (unsegmented) {k['cumsum_floor_ms']:.4f} ms")
+                         else f", torch.cumsum floor (unsegmented) {k['cumsum_floor_ms']:.4f} ms"
+                         if k["cumsum_floor_ms"] is not None else ", no single library call")
                 was = (f" ({EARLIER_MS[kname][0]}: {EARLIER_MS[kname][1]:.4f} ms)"
                        if kname in EARLIER_MS and name == RECORD_CFG[kname] and shape == f"B={c0.batch_size}" else "")
                 log(f"[kernel] {kname} on {name} at {shape}: equal to plain (max |err| {k['max_abs_err']}); "
                     f"per tick ({k['calls_per_tick']} call(s)), device time: kernel {k['ms']:.4f} ms{was}, plain "
                     f"{k['plain_ms']:.4f} ms{extra}, bound {k['bound_ms']:.6f} ms ({k['bound_by']}, "
                     f"{k['bytes']} B); wrapper host enqueue {k['wrapper_host_ms']:.4f} ms")
+            # the standalone B4 (seg_incl_min_pl's counterpart, off the tick)
+            # on the RT-minimum input of seg4's completion-side build
+            b4 = ([("seg_incl_min", b4_args(SC, SG, torch, a)) for _f, a in cap["seg_build"] if len(a) > 2 and a[2]]
+                  if name == RECORD_CFG["seg_incl_min"] else [])
+            if b4:
+                k = measure("seg_incl_min", b4)
+                kern.setdefault("seg_incl_min", {})[f"{name} {shape}"] = k
+                log(f"[kernel] seg_incl_min (standalone; the tick runs it inside seg_build) on {name}'s "
+                    f"completion-side RT-minimum input at {shape}: equal to plain (max |err| {k['max_abs_err']}); "
+                    f"device time: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, torch.cumsum floor "
+                    f"(unsegmented) {k['cumsum_floor_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']}, "
+                    f"{k['bytes']} B)")
             # B2 against the dense build it replaced, at the full batch
             if shape == f"B={c0.batch_size}" and cap["gather_many"]:
                 ids = cap["gather_many"][0][1][0][0].ids
@@ -9239,6 +9518,12 @@ def main() -> int:
                     "device ms a call by kernel " + ", ".join(f"{n.split('(')[0]} x{c:g} {ms:.4f}" for n, c, ms in per_launch)
                     + f" ms; host {wall:.4f} ms a call, own time "
                     + ", ".join(f"{n} {ms:.4f}" for n, ms in host) + " ms")
+            # seg_build's calls, launch by launch
+            for i, (f, args) in enumerate(cap.get("seg_build", [])):
+                per_launch = launch_breakdown(lambda: ops[f][0](args))
+                log(f"[seg_build] {name} {shape} call {i} ({'completions' if len(args) > 2 and args[2] else 'acquire'}"
+                    f", N = {args[0][0].numel()}, U = {args[1]}): device ms a call by kernel "
+                    + ", ".join(f"{n.split('(')[0]} x{c:g} {ms:.4f}" for n, c, ms in per_launch) + " ms")
             # B3's calls, launch by launch (a cast of a non-int32 row is the
             # wrapper's, inside the call)
             for i, (f, args) in enumerate(cap.get("seg_excl_cumsum", [])):
@@ -9250,7 +9535,7 @@ def main() -> int:
     report["b2_flow_read"] = flow_reads
     report["b1_breakdown"] = b1_detail
     report["b3_breakdown"] = b3_detail
-    # the valued-histogram probes' calls, launch by launch, checked in phase 5
+    # the histogram probes' calls, launch by launch, checked in phase 5
     # (taken here: after phase 4's profiles of ticks, torch.profiler recorded
     # no device activity in this process on the H100)
     from sentinel_tpu_torch.probes import floor as FL
@@ -9260,6 +9545,7 @@ def main() -> int:
     probe_splits = probe_split(torch, PK, FL, HI)
     edge = edge_cases(FU, np, torch)
     edge.update(scan_edge_cases(SC, SG, np, torch))
+    edge["seg_build"] = build_edge_cases(SC, SG, np, torch, c0)
     log(f"[kernel] edge cases equal to plain (max |err| {json.dumps(edge)})")
     for kname, per_shape in kern.items():
         for k in per_shape.values():
@@ -9384,7 +9670,7 @@ def main() -> int:
     ticks = stream[1:]
     plain = {"scatter_many": FU.scatter_many_plain, "gather_many": FU.gather_many_plain,
              "seg_excl_cumsum": SC.seg_excl_cumsum_plain, "seg_excl_cumsum_many": SC.seg_excl_cumsum_many_plain,
-             "seg_incl_min": SC.seg_incl_min_plain}
+             "seg_incl_min": SC.seg_incl_min_plain, "seg_build": SC.seg_build_plain}
     report["tick"] = {}
     for name, (cfg, rules) in setups.items():
         if name == "sketch":
@@ -9400,6 +9686,9 @@ def main() -> int:
         launches = dict(FU.LAUNCHES, **SC.LAUNCHES)
         for kname in PATH_KERNELS[name]:
             check(launches[kname] > 0, (name, "tick", kname, launches))
+        if "seg_build" in PATH_KERNELS[name]:  # one build a side a tick, B4 inside it
+            check(launches["seg_build"] == 2 * len(ticks) and launches["seg_incl_min"] == 0,
+                  (name, "tick: seg_build not twice a tick, or seg_incl_min launched", launches))
         install(plain)
         try:
             st_b, wires_b, waits_b, _ = run_stream(E, torch, st_b, rules, cfg, ticks, 1_250)
@@ -9462,8 +9751,9 @@ def main() -> int:
             f"off / on / on / off, {len(turns['on'])} steady ticks each); "
             f"profile of 4 ticks: device busy {dev_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
             f"(idle share {idle:.3f}), host CPU {cpu_us / 1e3:.3f} ms, {n_launch} device launches "
-            f"({n_launch / 4:g} a tick; 71b3c5a: {EARLIER_LAUNCHES[name]:g}); "
-            f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}; the profile's launches of "
+            f"({n_launch / 4:g} a tick; 5fb4f43: {PRE_BUILD_LAUNCHES[name]:g}; 71b3c5a: {EARLIER_LAUNCHES[name]:g}); "
+            f"scatter_many launches a tick {launches['scatter_many'] / len(ticks):g}, seg_build "
+            f"{launches['seg_build'] / len(ticks):g}, seg_incl_min {launches['seg_incl_min']}; the profile's launches of "
             f"the port's kernels and memsets, 4 ticks: {json.dumps(ours, sort_keys=True)}")
         log(f"[tick] {name}: the planes add, a tick: {(n_launch - n_off) / 4:g} device launches "
             f"({n_off / 4:g} -> {n_launch / 4:g}), {(dev_us - dev_off) / 4e3:.4f} ms device busy "
@@ -9549,7 +9839,7 @@ def main() -> int:
     check(not left, f"processes this script started still run at its end: {left}")
 
     kernels = []
-    for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min"):
+    for kname in ("scatter_many", "gather_many", "seg_excl_cumsum", "seg_incl_min", "seg_build"):
         name = RECORD_CFG[kname]
         k = kern[kname][f"{name} B={c0.batch_size}"]
         src, replaces = KERNEL_SRC[kname]
@@ -9734,6 +10024,8 @@ if __name__ == "__main__":
              else chaos_cpu_main() if mode == ["--chaos-cpu"]
              else spmd_main() if mode == ["--spmd"]
              else analysis_main() if mode == ["--analysis"]
+             else builds_main() if mode == ["--builds"]
+             else count_plans_main() if mode == ["--count-plans"]
              else profile_probe_main(*map(int, mode[1:])) if mode[:1] == ["--profile-probe"] and len(mode) <= 2
              else operator_cpu_main(mode[1]) if mode[:1] == ["--operator-cpu"] and len(mode) == 2
              else workload_loop_main(*mode[1:]) if mode[:1] == ["--workload-loop"] and len(mode) == 4

@@ -50,7 +50,7 @@ _ENTRY_MODULES = {
 #: salsa tick's config is the reference's (no one-hot tables), so it runs
 #: the plain path and reaches none
 KERNEL_ENTRIES = {
-    "tick/fused-seg": ("scatter_many", "gather_many", "seg_incl_min"),
+    "tick/fused-seg": ("scatter_many", "gather_many", "seg_build"),
     "segscan/excl-cumsum": ("seg_excl_cumsum",),
     "segscan/incl-min": ("seg_incl_min",),
     "fused/scatter-many": ("scatter_many",),

@@ -12,9 +12,9 @@ reference's path, tier name and five rule ids.
 
 What the dispatcher cannot see, the entry records beside the stream:
 
-* the kernels.  B1–B4 are reached through ``ctypes`` (``ops/_build.py``),
-  so each entry reads the port's launch counters (``fused.LAUNCHES``,
-  ``segscan.LAUNCHES``) around its call;
+* the kernels.  B1–B4 and ``seg_build`` are reached through ``ctypes``
+  (``ops/_build.py``), so each entry reads the port's launch counters
+  (``fused.LAUNCHES``, ``segscan.LAUNCHES``) around its call;
 * the host reads.  ``Tensor.cpu()``, ``.numpy()``, ``.tolist()`` and
   ``np.asarray(t)`` of a tensor on the CPU dispatch no ATen op (only
   ``.item()`` does: ``_local_scalar_dense``), so a
@@ -78,6 +78,7 @@ KERNEL_COUNTERS = (
     ("sentinel_tpu_torch.ops.fused", "gather_many", "B2"),
     ("sentinel_tpu_torch.ops.segscan", "seg_excl_cumsum", "B3"),
     ("sentinel_tpu_torch.ops.segscan", "seg_incl_min", "B4"),
+    ("sentinel_tpu_torch.ops.segscan", "seg_build", "B4 seg_build"),
 )
 
 #: ops that queue no work: allocation without initialization, the host's

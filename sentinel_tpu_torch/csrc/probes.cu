@@ -36,13 +36,13 @@
 // items; where x is not aligned as y is (x[1:] into a fresh y), x is read
 // by 4-byte loads and y still written 16 bytes at a time.  `blocks` is the
 // grid (a grid-stride over exactly that many blocks), 0 as many as one
-// step of every thread covers.  probe_hist_count is simple on purpose: one
-// float atomicAdd an id into an output a memset zeroes first (two launches
-// a call).
+// step of every thread covers.
 //
-// probe_hist_planes and probe_hist_stat5 are one template, the Hopper
-// counterpart of the TPU kernels' resident output: ONE launch a call, no
-// memset, no global atomic.  The output's rows are cut into slices, one a
+// probe_hist_count, probe_hist_planes and probe_hist_stat5 are one
+// template, the Hopper counterpart of the TPU kernels' resident output: ONE
+// launch a call, no memset, no global atomic.  (probe_hist_count's first
+// version was a memset, then one float atomicAdd an id into L2: two
+// launches a call.)  The output's rows are cut into slices, one a
 // thread-block cluster; every block of the cluster keeps its own copy of
 // the slice (all P planes) in shared memory.  The blocks of a cluster share
 // the item range (interleaved chunks of items_per_block ids, 16-byte id
@@ -57,7 +57,11 @@
 // with 16-byte stores, the padding rows [n, n_hi * n_lo) included, so what
 // out held before the call does not matter.  The host plans the launch
 // (kernels.py hist_plan): as many clusters as the card runs at once, more
-// when the table does not fit their shared memory.
+// when the table does not fit their shared memory.  The count is the
+// template specialised (CountValues): no value loads, no queue, no float
+// copy — a warp's ids that fall in the slice add 1 to their int32 cell at
+// once, and the row is written as the float of the cluster's int sum, exact
+// below 2^24 — so a block's copy takes 4 bytes a cell.
 //
 // What was hard (measured on an H100, PERF.md): a float atomicAdd into
 // shared memory compiles to a compare-and-swap loop (ATOMS.CAST.SPIN), and
@@ -118,19 +122,6 @@ __global__ void __launch_bounds__(BLOCK) probe_copy_kernel(const unsigned int* _
   }
 }
 
-// Every histogram block takes the items [blockIdx.x * ipb, + ipb).
-
-__global__ void probe_hist_count_kernel(const int* __restrict__ ids, long long N,
-                                        int n, float* __restrict__ out, int ipb) {
-  const long long lo = (long long)blockIdx.x * ipb;
-  const long long hi = lo + ipb < N ? lo + ipb : N;
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const int k = ids[i];
-    if (k < 0 || k >= n) continue;
-    atomicAdd(&out[k], 1.0f);
-  }
-}
-
 // -- the valued histograms: one cluster launch --------------------------------
 
 #define HIST_UNROLL 4              // 16-byte id loads a thread has in flight
@@ -186,6 +177,7 @@ template <> struct Vec4<int> { using type = int4; };
 // float32 it converts to, as in the plain version).
 template <typename T>
 struct PlaneValues {
+  static constexpr bool kCount = false;
   const T* vals;
   int P;
   bool vec4;  // P % 4 == 0 and vals 16-byte aligned: a row in 16-byte loads
@@ -212,6 +204,7 @@ struct PlaneValues {
 
 // Five planes: cnts[:, 0..2], rt & 0xFF, (rt >> 8) & 0xFF.
 struct Stat5Values {
+  static constexpr bool kCount = false;
   const int* cnts;
   const int* rt;
   __device__ __forceinline__ void add(int i, const CellAdd& add) const {
@@ -224,6 +217,13 @@ struct Stat5Values {
     add(3, (float)(r & 0xFF));
     add(4, (float)((r >> 8) & 0xFF));
   }
+};
+
+// One plane of counts: an item adds 1 to its id's int cell, and nothing
+// is loaded beside the ids.
+struct CountValues {
+  static constexpr bool kCount = true;
+  __device__ __forceinline__ void add(int, const CellAdd&) const {}
 };
 
 // The 4-id group gi of ids; ids past N read as -1 (they drop).
@@ -302,9 +302,12 @@ __device__ __forceinline__ void hist_flush(const Values& vals, int* ints, float*
 // the items of its ids that fall in the cluster's slice (ballot) and adds
 // its queue once it holds HIST_FLUSH; every add is to the block's own
 // copy.  Then each block sums its rows of the C copies and writes them.
+// The count (Values::kCount) keeps the int cells alone and adds each hit
+// at once.
 template <class Values>
 __global__ void __launch_bounds__(HIST_MAX_THREADS, 1)
 probe_hist_cluster_kernel(const HistGeom g, const Values vals) {
+  constexpr bool kCount = Values::kCount;
   extern __shared__ int4 hist_smem[];
   __shared__ int floats_used;       // this block's float copy took a value
   __shared__ unsigned float_ranks;  // the cluster's blocks whose float copy did
@@ -317,9 +320,9 @@ probe_hist_cluster_kernel(const HistGeom g, const Values vals) {
   const int rpb = g.rows_per_block;
   const int S = C * rpb;        // rows of the cluster's slice
   const int ncell = S * g.P;    // a multiple of 4
-  float* floats = reinterpret_cast<float*>(ints + ncell);
+  float* floats = reinterpret_cast<float*>(ints + ncell);  // none for the count
   const int lane = threadIdx.x & 31;
-  int* q_item = ints + 2 * ncell + (threadIdx.x >> 5) * 2 * HIST_QUEUE;
+  int* q_item = ints + 2 * ncell + (threadIdx.x >> 5) * 2 * HIST_QUEUE;  // none for the count
   int* q_cell = q_item + HIST_QUEUE;
   const int groups = (g.N + 3) / 4;
   // cluster c starts c / K of the way into the ids, so the clusters do not
@@ -329,7 +332,9 @@ probe_hist_cluster_kernel(const HistGeom g, const Values vals) {
     floats_used = 0;
     float_ranks = 0;
   }
-  for (int c = threadIdx.x; c < ncell / 2; c += blockDim.x) hist_smem[c] = make_int4(0, 0, 0, 0);
+  for (int c = threadIdx.x; c < (kCount ? ncell / 4 : ncell / 2); c += blockDim.x) {
+    hist_smem[c] = make_int4(0, 0, 0, 0);
+  }
   __syncthreads();
 
   const int lo = cid * S;  // the cluster's first row
@@ -367,21 +372,25 @@ probe_hist_cluster_kernel(const HistGeom g, const Values vals) {
         for (int e = 0; e < 4; ++e) {
           const unsigned d = (unsigned)k[e] - (unsigned)lo;
           const bool hit = d < (unsigned)span;  // else another cluster's row, or dropped
-          const unsigned m = __ballot_sync(0xffffffffu, hit);
-          if (hit) {
-            const int at = queued + __popc(m & below);
-            q_item[at] = 4 * gi[u] + e;
-            q_cell[at] = (int)d;
+          if constexpr (kCount) {
+            if (hit) atomicAdd(ints + d, 1);  // one plane: the row's cell
+          } else {
+            const unsigned m = __ballot_sync(0xffffffffu, hit);
+            if (hit) {
+              const int at = queued + __popc(m & below);
+              q_item[at] = 4 * gi[u] + e;
+              q_cell[at] = (int)d;
+            }
+            queued += __popc(m);
           }
-          queued += __popc(m);
         }
-        if (queued >= HIST_FLUSH) {  // < HIST_FLUSH + 128 <= HIST_QUEUE
+        if (!kCount && queued >= HIST_FLUSH) {  // < HIST_FLUSH + 128 <= HIST_QUEUE
           hist_flush(vals, ints, floats, &floats_used, q_item, q_cell, queued, lane, row_cells, step);
           queued = 0;
         }
       }
     }
-    hist_flush(vals, ints, floats, &floats_used, q_item, q_cell, queued, lane, row_cells, step);
+    if (!kCount) hist_flush(vals, ints, floats, &floats_used, q_item, q_cell, queued, lane, row_cells, step);
   }
   cluster.sync();  // every block's copy is complete
   if (threadIdx.x < C && *cluster.map_shared_rank(&floats_used, threadIdx.x)) {
@@ -397,15 +406,16 @@ probe_hist_cluster_kernel(const HistGeom g, const Values vals) {
 }
 
 // Check the plan against the geometry; fill the rest of g.  Returns 0 or a
-// CUDA error code.
+// CUDA error code.  counts: the count's layout (4-byte cells, no queue).
 static int hist_geom(HistGeom& g, long long N, int n, int P, long long plane_stride,
                      int items_per_block, int cluster, int clusters, int rows_per_block,
-                     int smem_bytes, int threads) {
+                     int smem_bytes, int threads, bool counts = false) {
   if (N < 0 || n < 0 || P < 1 || items_per_block < 1 || plane_stride < 0 ||
       (plane_stride && plane_stride < n) || cluster < 1 || cluster > HIST_MAX_CLUSTER ||
       clusters < 1 || threads < 32 || threads > HIST_MAX_THREADS || threads % 32 ||
       rows_per_block < 4 || rows_per_block % 4 || smem_bytes > HIST_MAX_SMEM ||
-      (long long)smem_bytes != 8LL * cluster * rows_per_block * P + threads / 32 * 8 * HIST_QUEUE ||
+      (long long)smem_bytes != (counts ? 4LL * cluster * rows_per_block * P
+                                       : 8LL * cluster * rows_per_block * P + threads / 32 * 8 * HIST_QUEUE) ||
       N > 2147483647LL ||
       (long long)clusters * cluster > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
@@ -473,39 +483,6 @@ extern "C" int sentinel_probe_copy(const void* x, void* y, long long n, int bloc
   return (int)cudaGetLastError();
 }
 
-// Zero out[out_len]; the grid for N items at ipb items a block (0 blocks
-// when N == 0), or -1 for arguments no launch can take.
-static long long zero_and_grid(float* out, long long out_len, long long N, int ipb,
-                               cudaStream_t s, cudaError_t* e) {
-  if (N < 0 || ipb < 1 || out_len < 0) {
-    *e = cudaErrorInvalidValue;
-    return -1;
-  }
-  *e = cudaMemsetAsync(out, 0, (size_t)out_len * 4, s);
-  if (*e != cudaSuccess) return -1;
-  const long long g = (N + ipb - 1) / ipb;
-  if (g > 2147483647LL) {
-    *e = cudaErrorInvalidValue;
-    return -1;
-  }
-  return g;
-}
-
-// out: out_len >= n float32 cells ([n_hi, n_lo] flat).
-extern "C" int sentinel_probe_hist_count(const void* ids, long long N, int n,
-                                         void* out, long long out_len,
-                                         int items_per_block, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (out_len < n) return (int)cudaErrorInvalidValue;
-  const long long g = zero_and_grid((float*)out, out_len, N, items_per_block, s, &e);
-  if (g < 0) return (int)e;
-  if (g == 0) return (int)cudaSuccess;
-  probe_hist_count_kernel<<<(unsigned int)g, BLOCK, 0, s>>>(
-      (const int*)ids, N, n, (float*)out, items_per_block);
-  return (int)cudaGetLastError();
-}
-
 // The valued histograms take the launch plan of kernels.py hist_plan:
 // `clusters` clusters of `cluster` blocks of `threads` threads, each block
 // owning `rows_per_block` rows (smem_bytes = 8 * cluster * rows_per_block * P
@@ -535,6 +512,21 @@ extern "C" int sentinel_probe_hist_planes(const void* ids, const void* vals, int
   return hist_launch(g, PlaneValues<int>{(const int*)vals, P, vec4}, clusters, smem_bytes, threads, s);
 }
 
+// out: [out_len] float32 ([n_hi, n_lo] flat), out_len >= n; the plan's
+// smem_bytes = 4 * cluster * rows_per_block (int cells alone, no queue).
+extern "C" int sentinel_probe_hist_count(const void* ids, long long N, int n, void* out, long long out_len,
+                                         int items_per_block, int cluster, int clusters, int rows_per_block,
+                                         int smem_bytes, int threads, void* stream) {
+  if (out_len < 1) return (int)cudaErrorInvalidValue;
+  HistGeom g;
+  const int e = hist_geom(g, N, n, 1, out_len, items_per_block, cluster, clusters, rows_per_block,
+                          smem_bytes, threads, true);
+  if (e) return e;
+  g.ids = (const int*)ids;
+  g.out = (float*)out;
+  return hist_launch(g, CountValues{}, clusters, smem_bytes, threads, (cudaStream_t)stream);
+}
+
 // cnts: [N, 3] int32; rt: [N] int32; out: [5, plane_stride], plane_stride >= n.
 extern "C" int sentinel_probe_hist_stat5(const void* ids, const void* cnts, const void* rt,
                                          long long N, int n, void* out, long long plane_stride,
@@ -554,7 +546,7 @@ extern "C" int sentinel_probe_hist_stat5(const void* ids, const void* cnts, cons
 
 // The clusters of `cluster` blocks of `threads` threads the device runs at
 // once (cudaOccupancyMaxActiveClusters at the most shared memory a block may
-// take), the least over the three kernels.  It also sets the kernels'
+// take), the least over the four kernels.  It also sets the kernels'
 // attributes on the current device (dynamic shared memory up to
 // HIST_MAX_SMEM, clusters past the portable 8): call it once a device
 // before the first launch.
@@ -562,9 +554,10 @@ extern "C" int sentinel_probe_hist_max_clusters(int cluster, int threads, int* o
   if (cluster < 1 || cluster > HIST_MAX_CLUSTER || threads < 32 || threads > HIST_MAX_THREADS) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* kerns[3] = {(const void*)probe_hist_cluster_kernel<Stat5Values>,
+  const void* kerns[4] = {(const void*)probe_hist_cluster_kernel<Stat5Values>,
                           (const void*)probe_hist_cluster_kernel<PlaneValues<int>>,
-                          (const void*)probe_hist_cluster_kernel<PlaneValues<float>>};
+                          (const void*)probe_hist_cluster_kernel<PlaneValues<float>>,
+                          (const void*)probe_hist_cluster_kernel<CountValues>};
   int least = 1 << 30;
   for (const void* k : kerns) {
     cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, HIST_MAX_SMEM);

@@ -62,13 +62,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sentinel_gather_many.argtypes = [vp, i32, i32, i32, vp]
     lib.sentinel_seg_excl_cumsum.argtypes = [vp, vp, vp, i32, vp, vp, i32, vp, vp, i32, vp]
     lib.sentinel_seg_incl_min.argtypes = [vp, vp, vp, vp, vp, i32, vp]
+    lib.sentinel_seg_build.argtypes = [ctypes.POINTER(vp), i32, vp, vp, vp, i32, ctypes.c_float,
+                                       ctypes.POINTER(i32), ctypes.POINTER(i32), i32, i32, i32, *[vp] * 12]
     lib.sentinel_seg_scan_tile.argtypes = []
     for fn in (lib.sentinel_scatter_many, lib.sentinel_gather_many, lib.sentinel_seg_excl_cumsum,
-               lib.sentinel_seg_incl_min, lib.sentinel_seg_scan_tile):
+               lib.sentinel_seg_incl_min, lib.sentinel_seg_build, lib.sentinel_seg_scan_tile):
         fn.restype = i32
     lib.sentinel_probe_copy.argtypes = [vp, vp, i64, i32, vp]
-    lib.sentinel_probe_hist_count.argtypes = [vp, i64, i32, vp, i64, i32, vp]
     plan = [i32] * 5  # cluster, clusters, rows_per_block, smem_bytes, threads
+    lib.sentinel_probe_hist_count.argtypes = [vp, i64, i32, vp, i64, i32, *plan, vp]
     lib.sentinel_probe_hist_planes.argtypes = [vp, vp, i32, i64, i32, i32, vp, i64, i32, *plan, vp]
     lib.sentinel_probe_hist_stat5.argtypes = [vp, vp, vp, i64, i32, vp, i64, i32, *plan, vp]
     lib.sentinel_probe_hist_max_clusters.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]

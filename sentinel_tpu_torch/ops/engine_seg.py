@@ -9,8 +9,9 @@ through ONE shared gather.
 
 Dataflow per side:
   1. prepare_*: everything known at batch arrival (stat digit cumsums,
-     row columns, the RT running minimum — kernel B4, ops/segscan.py) is
-     compacted at each segment's last item.
+     row columns, the RT running minimum) is compacted at each segment's
+     last item, one ``seg_build`` launch a side (B4's route,
+     ops/segscan.py).
   2. values that exist only after the checks (pass/block masks, breaker
      event masks) pack into ONE [N, cols] matrix and take one row gather
      at the segment ends.
@@ -79,9 +80,6 @@ from sentinel_tpu_torch.parallel import collectives as CL
 
 I32, F32 = torch.int32, torch.float32
 
-#: rowmin sentinel (> any valid rt; replaced by a drop row before scatter)
-_RT_ABSENT = 3.0e38
-
 
 def seg_capacity(cfg: EngineConfig, b: int) -> int:
     """Static compacted-axis capacity: explicit cfg.seg_u, else sized for
@@ -110,7 +108,7 @@ class CompCarry(NamedTuple):
 
     ce: list  # cumsum-at-tail cols for (success, error, rt_q)
     split: list
-    min_rt: torch.Tensor  # per-segment min rt (or _RT_ABSENT)
+    min_rt: torch.Tensor  # per-segment min rt (or segscan.BIG: no RT)
     res: torch.Tensor
     ctx_node: torch.Tensor
     origin_node: torch.Tensor
@@ -127,47 +125,25 @@ class AcqCarry(NamedTuple):
 
 def prepare_completions(cfg: EngineConfig, comp, features: frozenset):
     """The completion-side SegCtx, with every batch-known payload compacted
-    at the segment ends."""
-    valid = comp.res != cfg.trash_row
-    succ_w = torch.where(valid, comp.success, 0)
-    err_w = torch.where(valid, comp.error, 0)
-    rt1 = torch.where(valid, comp.rt, 0.0)
-    rt_q = torch.round(torch.clamp_max(rt1, float(cfg.statistic_max_rt)) * 8.0).to(I32)
-    cm = cfg.max_batch_count
-    rtm = int(cfg.statistic_max_rt) * 8
-    C_rows, split = SG.cum_cols([succ_w, err_w, rt_q], [cm, cm, rtm])
-    head = SG.heads_from_keys(comp.res, comp.ctx_node, comp.origin_node)
-    inc_min = SC.seg_incl_min(head, torch.where(valid & (rt1 > 0), rt1, _RT_ABSENT))
-    U = seg_capacity(cfg, comp.res.shape[0])
-    ctx, carried = SG.build_from_head(
-        head, U, payloads=list(C_rows) + [inc_min, comp.res, comp.ctx_node, comp.origin_node]
-    )
-    nC = len(C_rows)
-    carry = CompCarry(
-        ce=carried[:nC],
-        split=split,
-        min_rt=torch.where(ctx.live, carried[nC], _RT_ABSENT),
-        res=carried[nC + 1],
-        ctx_node=carried[nC + 2],
-        origin_node=carried[nC + 3],
-    )
-    return ctx, carry
+    at the segment ends: ONE ``segscan.seg_build`` launch (the stat digit
+    cumsums and the RT minimum among them)."""
+    stats = SC.SegStats(comp.success, comp.error, comp.rt, cfg.trash_row, cfg.max_batch_count,
+                        cfg.statistic_max_rt)
+    b = SC.seg_build([comp.res, comp.ctx_node, comp.origin_node], seg_capacity(cfg, comp.res.shape[0]), stats)
+    res, ctx_node, origin_node = b.keys
+    return b.ctx, CompCarry(ce=b.ce, split=b.split, min_rt=b.min_rt, res=res, ctx_node=ctx_node,
+                            origin_node=origin_node)
 
 
 def prepare_acquire(cfg: EngineConfig, acq):
     """Acquire-side SegCtx; only row sources are batch-known (values come
-    after the checks via one packed gather)."""
-    U = seg_capacity(cfg, acq.res.shape[0])
+    after the checks via one packed gather).  ONE ``segscan.seg_build``
+    launch."""
     keys = [acq.res, acq.ctx_node, acq.origin_node, acq.origin_id, acq.ctx_name]
-    ctx, carried = SG.build(keys, U, payloads=keys)
-    return ctx, AcqCarry(
-        res=carried[0],
-        ctx_node=carried[1],
-        origin_node=carried[2],
-        origin_id=carried[3],
-        ctx_name=carried[4],
-        res_sorted=torch.all(acq.res[1:] >= acq.res[:-1]),
-    )
+    b = SC.seg_build(keys, seg_capacity(cfg, acq.res.shape[0]))
+    res, ctx_node, origin_node, origin_id, ctx_name = b.keys
+    return b.ctx, AcqCarry(res=res, ctx_node=ctx_node, origin_node=origin_node, origin_id=origin_id,
+                           ctx_name=ctx_name, res_sorted=b.res_sorted)
 
 
 def _chunks_to_planes(chunk_lists):

@@ -18,8 +18,15 @@ Hopper (``csrc/segscan.cu``, built at first use by ``ops/_build.py``):
   in ONE launch (the segment check's ranks).
 - ``seg_incl_min`` (replaces ``seg_incl_min_pl``, ``segscan.py:165``):
   segmented INCLUSIVE running minimum of float32 ``[N]``; heads reset it;
-  results never exceed the identity 3.0e38.  The completion phase's
-  per-segment RT minimum.
+  results never exceed the identity 3.0e38.  The counterpart of the
+  Pallas function; the tick reaches B4's work through ``seg_build``.
+- ``seg_build`` (B4's route on the main path): one side of the tick's
+  segment build (``engine_seg.prepare_completions`` /
+  ``prepare_acquire``) in one launch — heads, sid, the live count, the
+  slots of each segment's last item, every key at it and, on the
+  completion side, the stat digit cumsums and the per-segment RT minimum
+  (B4's work, inside the same tile) — where the plain version dispatches
+  ~50-80 PyTorch operations.
 
 Dispatch: a wrapper takes its plain PyTorch version ONLY when the tensors
 it was given lie on the CPU (the tests).  A CUDA tensor launches the
@@ -32,14 +39,16 @@ nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from sentinel_tpu_torch.ops import segment as SG
 
 #: kernel launches per wrapper since the last reset (plain integers)
-LAUNCHES = {"seg_excl_cumsum": 0, "seg_incl_min": 0}
+LAUNCHES = {"seg_excl_cumsum": 0, "seg_incl_min": 0, "seg_build": 0}
 #: guards LAUNCHES: every launching thread counts
 _lock = threading.Lock()
 
@@ -212,3 +221,143 @@ def seg_incl_min(head: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N,), dtype=torch.float32, device=v.device)
     _launch("seg_incl_min", "sentinel_seg_incl_min", head.contiguous(), N, 1, _ptr(v), _ptr(out))
     return out
+
+
+# -- seg_build: one side of the tick's segment build ----------------------------------
+
+
+class SegStats(NamedTuple):
+    """The completion side's batch-known stat planes ([N] each) and the
+    engine's limits on them."""
+
+    success: torch.Tensor  # int32
+    error: torch.Tensor  # int32
+    rt: torch.Tensor  # float32 ms
+    trash_row: int  # padding items: no stats, no RT
+    max_count: int  # cfg.max_batch_count
+    max_rt: int  # cfg.statistic_max_rt
+
+
+class SegBuild(NamedTuple):
+    """One side's segment build: the structure and each live segment's
+    values at its last item ([U] each; dead slots as the plain version's
+    gathers at ``seg_end`` 0 leave them)."""
+
+    ctx: SG.SegCtx
+    keys: list  # int32 [U] each: every key column
+    ce: list  # completion side: int32 [U] digit cumsums of (success, error, rt_q)
+    split: list  # completion side: (plane, weight) of each ce column (host)
+    min_rt: Optional[torch.Tensor]  # completion side: float32 [U], BIG on dead slots
+    res_sorted: Optional[torch.Tensor]  # acquire side: bool scalar, key 0 nondecreasing
+
+
+def _stat_maxes(stats: SegStats) -> list:
+    return [stats.max_count, stats.max_count, int(stats.max_rt) * 8]
+
+
+def seg_build_plain(keys: Sequence[torch.Tensor], U: int, stats: Optional[SegStats] = None) -> SegBuild:
+    """The plain version: the engine's segment build as the JAX package's
+    ``prepare_completions`` (``stats`` given) and ``prepare_acquire``
+    (``stats`` None) do it, operation for operation."""
+    if stats is None:
+        ctx, carried = SG.build(keys, U, payloads=keys)
+        return SegBuild(ctx, carried, [], [], None, torch.all(keys[0][1:] >= keys[0][:-1]))
+    valid = keys[0] != stats.trash_row
+    succ_w = torch.where(valid, stats.success, 0)
+    err_w = torch.where(valid, stats.error, 0)
+    rt1 = torch.where(valid, stats.rt, 0.0)
+    rt_q = torch.round(torch.clamp_max(rt1, float(stats.max_rt)) * 8.0).to(torch.int32)
+    C_rows, split = SG.cum_cols([succ_w, err_w, rt_q], _stat_maxes(stats))
+    head = SG.heads_from_keys(*keys)
+    inc_min = seg_incl_min_plain(head, torch.where(valid & (rt1 > 0), rt1, BIG))
+    ctx, carried = SG.build_from_head(head, U, payloads=list(C_rows) + [inc_min] + list(keys))
+    nC = len(C_rows)
+    return SegBuild(ctx, carried[nC + 1:], carried[:nC], split, torch.where(ctx.live, carried[nC], BIG), None)
+
+
+@functools.lru_cache(maxsize=64)
+def _digit_columns(maxes: tuple):
+    """(ctypes plane array, ctypes shift array, count, split) of the digit
+    columns ``segment.cum_cols`` makes for planes with these maxima: a plane
+    up to 255 as it is (shift -1), a wider one as its base-256 digits."""
+    planes, shifts, split = [], [], []
+    for p, m in enumerate(maxes):
+        if m <= 255:
+            planes.append(p)
+            shifts.append(-1)
+            split.append((p, 1))
+        else:
+            for k in range(max(1, (int(m).bit_length() + 7) // 8)):
+                planes.append(p)
+                shifts.append(8 * k)
+                split.append((p, 1 << (8 * k)))
+    n = len(planes)
+    return (ctypes.c_int * n)(*planes), (ctypes.c_int * n)(*shifts), n, split
+
+
+def seg_build(keys: Sequence[torch.Tensor], U: int, stats: Optional[SegStats] = None) -> SegBuild:
+    """One side of the tick's segment build over a batch sorted by ``keys``
+    (1-5 int32 [N] columns, resource first): with ``stats`` the completion
+    side (digit cumsums and RT minima), without it the acquire side
+    (``res_sorted``).  One kernel launch for N up to a tile (2,048 items),
+    two for a longer batch; the outputs equal ``seg_build_plain``'s, bit for
+    bit, every slot included."""
+    keys = list(keys)
+    if not 1 <= len(keys) <= 5 or keys[0].dim() != 1 or keys[0].shape[0] < 1:
+        raise ValueError("seg_build: 1-5 key columns of shape [N], N >= 1")
+    N = keys[0].shape[0]
+    given = keys + ([] if stats is None else [stats.success, stats.error, stats.rt])
+    if any(t.shape != (N,) for t in given):
+        raise ValueError(f"seg_build: every column must be [N] with N = {N}")
+    if not _dispatch("seg_build", *given):
+        return seg_build_plain(keys, U, stats)
+    return _build_cuda(keys, int(U), stats)
+
+
+def _build_cuda(keys, U: int, stats):
+    """seg_build's launch (checked arguments on one CUDA device)."""
+    from sentinel_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    N = keys[0].shape[0]
+    dev = keys[0].device
+    I32 = torch.int32
+    ks = [k.to(I32).contiguous() for k in keys]
+    head = torch.empty((N,), dtype=torch.bool, device=dev)
+    sid = torch.empty((N,), dtype=I32, device=dev)
+    n_seg = torch.empty((), dtype=I32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    seg_end = torch.empty((U,), dtype=I32, device=dev)
+    live = torch.empty((U,), dtype=torch.bool, device=dev)
+    key_u = torch.empty((len(ks), U), dtype=I32, device=dev)
+    ce = min_rt = res_sorted = None
+    if stats is None:
+        planes = shifts = None
+        ncols, split, st = 0, [], (None, None, None)
+        res_sorted = torch.empty((), dtype=torch.bool, device=dev)
+    else:
+        planes, shifts, ncols, split = _digit_columns(tuple(_stat_maxes(stats)))
+        if ncols > 12:
+            raise ValueError(f"seg_build: {ncols} digit columns, the kernel takes up to 12")
+        st = (stats.success.to(I32).contiguous(), stats.error.to(I32).contiguous(),
+              stats.rt.to(torch.float32).contiguous())
+        ce = torch.empty((ncols, U), dtype=I32, device=dev)
+        min_rt = torch.empty((U,), dtype=torch.float32, device=dev)
+    n_tiles = -(-N // lib.sentinel_seg_scan_tile())
+    agg = torch.empty((n_tiles, ncols + 2), dtype=I32, device=dev) if n_tiles > 1 else None
+    key_ptrs = (ctypes.c_void_p * len(ks))(*[k.data_ptr() for k in ks])
+    trash = 0 if stats is None else int(stats.trash_row)
+    rt_max = 0.0 if stats is None else float(stats.max_rt)
+    with torch.cuda.device(dev):
+        err = lib.sentinel_seg_build(
+            key_ptrs, len(ks), *(_ptr(t) for t in st), trash, ctypes.c_float(rt_max), planes, shifts, ncols,
+            int(N), U, _ptr(head), _ptr(sid), _ptr(n_seg), _ptr(ok), _ptr(seg_end), _ptr(live), _ptr(key_u),
+            _ptr(ce), _ptr(min_rt), _ptr(res_sorted), _ptr(agg),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"seg_build kernel launch failed (CUDA error {err})")
+    with _lock:
+        LAUNCHES["seg_build"] += 1
+    ctx = SG.SegCtx(head=head, sid=sid, n_seg=n_seg, ok=ok, seg_end=seg_end, live=live)
+    return SegBuild(ctx, list(key_u), [] if ce is None else list(ce), split, min_rt, res_sorted)

@@ -13,8 +13,11 @@ are CUDA C++ kernels for Hopper (``csrc/probes.cu``, built at first use by
   its "parallel" flag.
 - ``probe_hist_count`` (replaces ``probe_pallas_floor.py:68`` ``sc_call``
   and ``:151`` ``sc_call2``): a count histogram of ids into the padded
-  shape ``[n_hi, n_lo]``, row ``k`` at ``[k // n_lo, k % n_lo]``.  Simple
-  on purpose: a memset, then one float ``atomicAdd`` an id.
+  shape ``[n_hi, n_lo]``, row ``k`` at ``[k // n_lo, k % n_lo]``.  The
+  valued histograms' cluster template specialised for a count: no value
+  loads, int32 cells alone in shared memory, each cell written once as
+  float32 (its first version was a memset, then one float ``atomicAdd``
+  an id into L2: two launches).
 - ``probe_hist_planes`` (replaces ``benchmarks/pallas_histogram.py:44``
   ``pallas_histogram`` and ``probe_pallas_floor.py:106`` ``sc5_call``):
   ``hist[k, p] = sum of values[i, p] over items with ids[i] == k``, as an
@@ -25,7 +28,7 @@ are CUDA C++ kernels for Hopper (``csrc/probes.cu``, built at first use by
   three count planes, then the low and the high byte of ``rt``; the byte
   split happens in the kernel.
 
-The two valued histograms are bound by bytes (4 B an id and 4 B a value
+The histograms are bound by bytes (4 B an id and 4 B a value
 plane read, the table written once: 8.2 MB at the stat-landing shape) and
 were bound by atomics in their first version (a memset, then one float
 ``atomicAdd`` into L2 per nonzero value).  They are now one template, the
@@ -38,8 +41,9 @@ shared-memory integer atomics; after a cluster barrier each block sums
 its rows over the cluster's copies (distributed shared memory) and
 writes them once (padding rows included, so ``out=`` may hold anything).
 An integer value below 2^24 adds to an int32 cell, any other value to a
-float32 cell beside it.  ``hist_plan`` cuts the table (pure Python; the
-tests hold it);
+float32 cell beside it; the count keeps the int32 cells alone
+(``hist_plan(..., counts=True)``).  ``hist_plan`` cuts the table (pure
+Python; the tests hold it);
 ``items_per_block`` sets how many ids a block takes at a time from its
 cluster's items (interleaved chunks, rounded up to a power of two times
 4), not the work a thread does.
@@ -88,6 +92,17 @@ MAX_CLUSTER = 16
 MAX_SMEM_BYTES = 232_448 - 256
 #: shared memory a cell of the valued histograms takes: an int32 and a float32
 CELL_BYTES = 8
+#: shared memory a cell of the count takes: an int32
+COUNT_CELL_BYTES = 4
+#: threads a block of the count, and the most clusters it launches: every
+#: cluster reads all the ids, so past a few clusters the extra reads cost
+#: more than spreading the rows saves (``python3 chip_smoke.py
+#: --count-plans``, 16 / 8 / 4 / 2 / 1-block clusters, 1-66 of them and 256 /
+#: 512 / 1,024 threads at the five count shapes, put 4 clusters of 16 x 512
+#: threads first or within 2 % of the first on an NVIDIA H100 80GB HBM3 at
+#: 700 W)
+COUNT_THREADS = 512
+COUNT_MAX_CLUSTERS = 4
 #: shared memory a warp of the valued histograms keeps for its queue of
 #: matched items (256 (item, cell) pairs; csrc/probes.cu HIST_QUEUE)
 QUEUE_BYTES_A_WARP = 8 * 256
@@ -135,28 +150,33 @@ class HistPlan:
 
 @functools.lru_cache(maxsize=256)
 def hist_plan(n: int, planes: int, n_lo: Optional[int] = None, sms: int = H100_SMS,
-              max_clusters: Optional[int] = None) -> HistPlan:
-    """Cut a valued histogram's table for one launch of ``CLUSTER``-block
+              max_clusters: Optional[int] = None, counts: bool = False) -> HistPlan:
+    """Cut a histogram's table for one launch of ``CLUSTER``-block
     clusters: as many clusters as the card runs at once (``max_clusters``;
     at most one block an SM of its ``sms``), more only when the table does
     not fit their shared memory.  Each block owns a multiple of 4 rows
     (16-byte stores), as many as its copy of the cluster's slice in
-    ``MAX_SMEM_BYTES`` beside its warps' queues allows.  No clusters for an
-    empty table."""
+    ``MAX_SMEM_BYTES`` beside its warps' queues allows (``counts``: the
+    count's copy, ``COUNT_CELL_BYTES`` a cell and no queue, in at most
+    ``COUNT_MAX_CLUSTERS`` clusters of ``COUNT_THREADS`` threads).  No
+    clusters for an empty table."""
     if n < 0 or planes < 1 or sms < 1 or (max_clusters is not None and max_clusters < 1):
         raise ValueError(f"no plan for n={n}, planes={planes}, sms={sms}, max_clusters={max_clusters}")
-    cluster, threads = CLUSTER, HIST_THREADS
+    cluster, threads = CLUSTER, COUNT_THREADS if counts else HIST_THREADS
+    if counts:
+        max_clusters = min(max_clusters or COUNT_MAX_CLUSTERS, COUNT_MAX_CLUSTERS)
     rows = n if n_lo is None else n_lo * padded_shape(n, n_lo)[0]
-    queue = threads // 32 * QUEUE_BYTES_A_WARP
-    cap = (MAX_SMEM_BYTES - queue) // (CELL_BYTES * cluster * planes) // 4 * 4
+    cell = COUNT_CELL_BYTES if counts else CELL_BYTES
+    queue = 0 if counts else threads // 32 * QUEUE_BYTES_A_WARP
+    cap = (MAX_SMEM_BYTES - queue) // (cell * cluster * planes) // 4 * 4
     if cap < 4:
         raise ValueError(f"{planes} planes do not fit 4 rows a block in shared memory")
     if rows == 0:
-        return HistPlan(0, planes, cluster, 0, 4, 4 * CELL_BYTES * cluster * planes + queue, threads)
+        return HistPlan(0, planes, cluster, 0, 4, 4 * cell * cluster * planes + queue, threads)
     blocks = max(1, min(sms // cluster, max_clusters or sms)) * cluster
     rpb = min(cap, 4 * _ceil(_ceil(rows, blocks), 4))
     clusters = _ceil(rows, cluster * rpb)
-    return HistPlan(rows, planes, cluster, clusters, rpb, CELL_BYTES * cluster * rpb * planes + queue, threads)
+    return HistPlan(rows, planes, cluster, clusters, rpb, cell * cluster * rpb * planes + queue, threads)
 
 
 def _ceil(a: int, b: int) -> int:
@@ -191,9 +211,9 @@ def _max_clusters(dev: torch.device, cluster: int, threads: int) -> int:
     return n
 
 
-def card_plan(dev: torch.device, n: int, planes: int, n_lo: Optional[int] = None) -> HistPlan:
+def card_plan(dev: torch.device, n: int, planes: int, n_lo: Optional[int] = None, counts: bool = False) -> HistPlan:
     """The plan the wrappers launch on the card ``dev``."""
-    return hist_plan(n, planes, n_lo, _sms(dev), _max_clusters(dev, CLUSTER, HIST_THREADS))
+    return hist_plan(n, planes, n_lo, _sms(dev), _max_clusters(dev, CLUSTER, HIST_THREADS), counts)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -284,14 +304,17 @@ def probe_hist_count(
     ids: torch.Tensor, n: int, n_lo: int, items_per_block: int = ITEMS_PER_BLOCK,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """float32 ``[n_hi, n_lo]``: how many items carry each id."""
+    """float32 ``[n_hi, n_lo]``: how many items carry each id (exact below
+    2^24 a cell).  One launch (none for an empty table); the padding cells
+    are written 0, so ``out=`` may hold anything."""
     _check_ids(ids)
     n_hi, n_lo = padded_shape(n, n_lo)
     if _on_cpu(ids):
         return probe_hist_count_plain(ids, n, n_lo)
     o = _out(out, (n_hi, n_lo), torch.float32, ids)
-    _launch("probe_hist_count", _lib().sentinel_probe_hist_count, ids.device,
-            _ptr(ids), ids.shape[0], int(n), _ptr(o), o.numel(), int(items_per_block))
+    plan = card_plan(ids.device, int(n), 1, n_lo, counts=True)
+    _hist_launch("probe_hist_count", _lib().sentinel_probe_hist_count, ids, plan, items_per_block,
+                 _ptr(ids), ids.shape[0], int(n), _ptr(o), n_hi * n_lo)
     return o
 
 

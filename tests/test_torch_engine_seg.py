@@ -193,9 +193,11 @@ def test_param_segment_tick_on_the_card_matches_jax():
 @pytest.mark.cuda
 def test_segment_tick_on_the_card_matches_jax():
     """The single-lane segment tick with the CUDA kernels against the JAX
-    reference; B3 and B4 both launch."""
+    reference; B3 launches, and B4's work rides seg_build, one launch a
+    side a tick."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     SC.reset_launches()
     _run(96, dict(H.SINGLE_LANE), device="cuda")
-    assert SC.LAUNCHES["seg_excl_cumsum"] > 0 and SC.LAUNCHES["seg_incl_min"] == 4
+    assert SC.LAUNCHES["seg_excl_cumsum"] > 0 and SC.LAUNCHES["seg_build"] == 2 * 4
+    assert SC.LAUNCHES["seg_incl_min"] == 0

@@ -404,8 +404,8 @@ def test_the_plain_config_calls_no_kernel_wrapper():
     """The plain and MXU ticks reach no kernel wrapper (its config gating
     would be broken): none of their ops comes from the wrappers' modules,
     where the plain versions run on the CPU, while fused-seg's do — B1 and
-    B2's in ops/fused.py, B4's in ops/segscan.py — and no launch counter
-    moved on the CPU."""
+    B2's in ops/fused.py, seg_build's (B4's route) in ops/segscan.py — and
+    no launch counter moved on the CPU."""
     from sentinel_tpu_torch.analysis.jaxpr.entrypoints import KERNEL_ENTRIES, trace_entries
 
     kernel_modules = ("sentinel_tpu_torch/ops/fused.py", "sentinel_tpu_torch/ops/segscan.py")
@@ -418,7 +418,7 @@ def test_the_plain_config_calls_no_kernel_wrapper():
         if name not in KERNEL_ENTRIES:
             assert modules(name) == set(), name
     assert modules("tick/fused-seg") == set(kernel_modules)
-    assert set(KERNEL_ENTRIES["tick/fused-seg"]) == {"scatter_many", "gather_many", "seg_incl_min"}
+    assert set(KERNEL_ENTRIES["tick/fused-seg"]) == {"scatter_many", "gather_many", "seg_build"}
     assert all(v == 0 for e in by_name.values() for v in e.kernel_launches.values())
 
 

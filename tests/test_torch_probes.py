@@ -428,3 +428,48 @@ def test_cluster_histograms_overwrite_a_nan_filled_out_in_one_launch():
         assert PK.LAUNCHES["probe_hist_planes"] == 1
         assert torch.equal(got, PK.probe_hist_planes_plain(ids, vf, 8192))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,n_lo", [(16392, 512), (16392, 128), (16384, 128), (16384, 512), (32777, 128),
+                                    (5, 8), (100_000, 128)])
+@pytest.mark.parametrize("sms,max_clusters", [(132, None), (132, 2), (1, None)])
+def test_count_plan_owns_every_row_once_in_int_cells(n, n_lo, sms, max_clusters):
+    """The count's plan: one plane of 4-byte int cells and no queue in a
+    block's shared memory, every row (padding included) owned once."""
+    plan = PK.hist_plan(n, 1, n_lo, sms, max_clusters, counts=True)
+    rows = -(-n // n_lo) * n_lo
+    assert plan.rows == rows and plan.planes == 1 and plan.rows_per_block % 4 == 0
+    assert plan.threads == PK.COUNT_THREADS
+    cap = PK.MAX_SMEM_BYTES // (PK.COUNT_CELL_BYTES * plan.cluster) // 4 * 4
+    if rows <= PK.COUNT_MAX_CLUSTERS * plan.cluster * cap:  # every id read by at most 4 clusters
+        assert plan.clusters <= PK.COUNT_MAX_CLUSTERS
+    assert plan.smem_bytes == PK.COUNT_CELL_BYTES * plan.cluster * plan.rows_per_block <= PK.MAX_SMEM_BYTES
+    owned = np.zeros(rows, np.int64)
+    for c in range(plan.clusters):
+        for b in range(plan.cluster):
+            lo, hi = plan.block_rows(c, b)
+            owned[lo:hi] += 1
+    np.testing.assert_array_equal(owned, np.ones(rows, np.int64))
+    assert plan.clusters == -(-rows // (plan.cluster * plan.rows_per_block))
+
+
+@pytest.mark.cuda
+def test_probe_hist_count_is_one_cluster_launch_at_the_count_shapes():
+    """At the five COUNT_SHAPES (131,072 ids, as probes/floor.py draws them
+    and with ids outside [0, n)): one launch a call, no memset — an out
+    filled with NaN comes back whole, the padding cells 0."""
+    _card()
+    from sentinel_tpu_torch.probes import floor as FL
+
+    ids, _vals = FL.data("cuda")
+    edge = torch.as_tensor(_edge_ids(16392, ids.shape[0], np.random.default_rng(8))).cuda()
+    for n, n_lo in FL.COUNT_SHAPES:
+        for x in (ids, edge):
+            out = torch.full(PK.padded_shape(n, n_lo), float("nan"), device="cuda")
+            PK.reset_launches()
+            got = PK.probe_hist_count(x, n, n_lo, out=out)
+            assert got.data_ptr() == out.data_ptr() and PK.LAUNCHES["probe_hist_count"] == 1
+            want = PK.probe_hist_count_plain(x, n, n_lo)
+            assert torch.equal(got, want) and not got.reshape(-1)[n:].any()
+            assert int(got.sum()) == int(((x >= 0) & (x < n)).sum())
+    torch.cuda.synchronize()

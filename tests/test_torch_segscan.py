@@ -152,7 +152,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     SC.seg_excl_cumsum(head, torch.tensor([1, 2, 3], dtype=torch.int32))
     SC.seg_excl_cumsum_wide(head, torch.tensor([1, 2, 3], dtype=torch.int32))
     SC.seg_incl_min(head, torch.tensor([1.0, 2.0, 3.0]))
-    assert SC.LAUNCHES == {"seg_excl_cumsum": 0, "seg_incl_min": 0}
+    SC.seg_build([torch.tensor([1, 1, 2], dtype=torch.int32)], 2)
+    assert SC.LAUNCHES == {"seg_excl_cumsum": 0, "seg_incl_min": 0, "seg_build": 0}
     with pytest.raises(ValueError):  # not all on the CPU, not on one CUDA device
         SC.seg_excl_cumsum(head, torch.zeros(3, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
